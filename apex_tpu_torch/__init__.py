@@ -8,9 +8,13 @@ for the H100 (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first
 use), beside a plain PyTorch version of the same function. Entry points
 run on the card unless the caller asks for the CPU.
 
-Ported so far: serving on one device — ``serving.ServingEngine`` over
+Ported so far, on one device: serving — ``serving.ServingEngine`` over
 ``serving.decode_model`` with the ``ops.flash_decode`` and
-``ops.layer_norm`` (forward) kernels.
+``ops.layer_norm`` (forward) kernels; the unfused train step —
+``transformer.testing.gpt_loss`` with the ``ops.layer_norm`` (forward
+and backward) and ``ops.flash_attention`` (forward and backward)
+kernels, and ``optimizers.FusedAdam`` over the ``ops.packed_optimizer``
+packed Adam kernel.
 """
 from ._device import (  # noqa: F401
     kernel_route,

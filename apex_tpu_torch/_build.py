@@ -25,7 +25,8 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libapex_tpu_torch_kernels.so"
-SOURCES = ("flash_decode.cu", "layer_norm.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "layer_norm.cu",
+           "packed_adam.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -35,6 +36,8 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
+_L = ctypes.c_longlong
 _ARGTYPES = {
     # q, k_pages, v_pages, page_table, kv_lens, out,
     # n_slots, n_heads, head_dim, page_size, pages_per_seq,
@@ -44,6 +47,24 @@ _ARGTYPES = {
     # x, w, b, y, mu, rstd, rows, hidden, eps, x_is_bf16, device, stream
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                             _P],
+    # rows -> number of [hidden] partial rows of the backward
+    "apex_layer_norm_bwd_blocks": [_I],
+    # dy, x, mu, rstd, w, dx, dw_part, db_part, dw, db, rows, hidden,
+    # dy_is_bf16, x_is_bf16, device, stream
+    "apex_layer_norm_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    # q, k, v, kv_mask, o, lse, b, n, s_q, s_k, d, scale, causal, dropout,
+    # seed, threshold, drop_scale, is_bf16, device, stream
+    "apex_flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
+                                                  _I, _I, _P],
+    # q, k, v, o, do, lse, kv_mask, delta, dq, dk, dv, b, n, s_q, s_k, d,
+    # scale, causal, dropout, seed, threshold, drop_scale, is_bf16,
+    # device, stream
+    "apex_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
+                                                   _I, _I, _P],
+    # g, m, v, src, p_out, lr, bc1, bc2, inv_scale, noop, n, beta1,
+    # 1 - beta1, beta2, 1 - beta2, eps, wd, adam_w_mode, write_mv,
+    # write_master, g_is_bf16, p_is_bf16, device, stream
+    "apex_packed_adam": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 6 + [_P],
 }
 
 

@@ -24,7 +24,10 @@ from typing import Dict, Optional, Union
 import torch
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"flash_decode": 0, "layer_norm_fwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_decode": 0, "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+    "flash_attn_fwd": 0, "flash_attn_bwd": 0, "packed_adam": 0,
+}
 
 
 def reset_launch_counts() -> None:

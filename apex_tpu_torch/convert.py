@@ -9,10 +9,15 @@ Layouts are kept as they are: weights are ``[out, in]``, which is
 already ``F.linear``'s convention; ``qkv_w`` is ``[L, 3h, h]`` whose
 output is laid out per head as ``[n, 3d]`` and then split into thirds
 (q, k, v) — not ``[3, n, d]``. Layer weights stay stacked ``[L, ...]``.
+
+``packed_state_from_jax`` carries a JAX ``PackedState`` (its leaves
+turned into numpy arrays by the caller) into the port's
+``optimizers.PackedState``, so that both optimizers can start from the
+same non-zero moments.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,3 +41,34 @@ def params_from_jax(tree: Any, device="cpu",
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return _leaf(tree, device, dtype)
+
+
+def packed_state_from_jax(state: Mapping[str, Any], spec, device="cpu"):
+    """A JAX ``PackedState`` as the port's ``PackedState`` over ``spec``
+    (the port's ``PackSpec`` of the same parameter tree).
+
+    ``state`` holds numpy arrays under ``step``, ``exp_avg``,
+    ``exp_avg_sq`` and ``master_params`` (None when the JAX state has no
+    masters) and the JAX spec's layout under ``offsets``, ``shapes`` and
+    ``total``. The layouts must be equal — the same leaf order and
+    offsets — or the flat buffers would not line up, and this raises."""
+    from .optimizers._packed import PackedState
+
+    jax_layout = (tuple(int(o) for o in state["offsets"]),
+                  tuple(tuple(int(d) for d in s) for s in state["shapes"]),
+                  int(state["total"]))
+    port_layout = (spec.offsets, spec.shapes, spec.total)
+    if jax_layout != port_layout:
+        raise ValueError(
+            "the JAX PackedState's layout differs from the port's PackSpec "
+            f"(offsets/shapes/total {jax_layout[2]} vs {port_layout[2]})")
+
+    def flat(name):
+        a = state[name]
+        return None if a is None else _leaf(a, device, torch.float32)
+
+    return PackedState(
+        step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                          device=device),
+        exp_avg=flat("exp_avg"), exp_avg_sq=flat("exp_avg_sq"),
+        master_params=flat("master_params"), spec=spec)

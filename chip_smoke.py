@@ -9,10 +9,13 @@ any failure exits non-zero and prints no result line:
 1. device and build: print the card's name and power limit, build the
    CUDA kernels from ``apex_tpu_torch/csrc`` with nvcc;
 2. kernel checks: each kernel against its plain PyTorch version on the
-   card at the GPT-2 345M serving shapes, plus edge cases (ragged last
-   page, ``kv_len == 0``, garbage-page entries, poisoned stale pages,
-   mixed dtypes); times of kernel, plain version, one PyTorch library
-   call as yardstick, and the least time the card could take;
+   card at the GPT-2 345M serving and training shapes, plus edge cases
+   (ragged last page, ``kv_len == 0``, garbage-page entries, poisoned
+   stale pages, mixed dtypes; a fully masked attention row, hash
+   dropout, a length that is not a whole number of tiles; the optimizer's
+   noop and no-update-m/v modes); times of kernel, plain version, one
+   PyTorch library call as yardstick, and the least time the card could
+   take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
    vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine(n_slots=8, prefill_chunk=8)`` on 16 staggered
@@ -20,7 +23,13 @@ any failure exits non-zero and prints no result line:
    counts zeroed before and read after;
 4. token identity: the same width in fp32 (position table x40) against
    the port's dense ``reference_decode``;
-5. a ``{"kernels": [...]}`` line, the card line, and last
+5. the 345M train step (seq 1024, batch 8, bf16 O2, packed FusedAdam):
+   2 warm-up and 10 timed steps, launches per step, loss falling, a
+   profiled step;
+6. training parity: a 2-layer full-width fp32 model, loss, gradients and
+   3 packed-Adam steps on the card (kernels) against the CPU (plain
+   versions);
+7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present.
@@ -37,11 +46,29 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _build, _device
+from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
+from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
+from apex_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    flash_attention_fwd_reference,
+)
 from apex_tpu_torch.ops.flash_decode import (
     flash_decode,
     paged_decode_reference,
 )
-from apex_tpu_torch.ops.layer_norm import layer_norm_fwd, layer_norm_reference
+from apex_tpu_torch.ops.layer_norm import (
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_reference,
+)
+from apex_tpu_torch.ops.packed_optimizer import (
+    packed_adam_apply,
+    packed_adam_reference,
+)
+from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.serving import (
     Request,
     ServingEngine,
@@ -50,13 +77,17 @@ from apex_tpu_torch.serving import (
 from apex_tpu_torch.transformer.testing import (
     GPTConfig,
     gpt_forward,
+    gpt_loss,
     init_gpt_params,
 )
 
-#: H100 SXM data-sheet peaks (dense): HBM bytes/s and fp32 (non-tensor-core)
-#: flop/s — the kernels here do their arithmetic in fp32 on CUDA cores
+#: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 (non-tensor-core)
+#: flop/s — the kernels here do their arithmetic in fp32 on CUDA cores —
+#: and the bf16 tensor-core rate, the least time any attention kernel
+#: could take for its products
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 # the 345M serving geometry: 16 heads x 64 dims, page 8, 8 slots, 32 pages
 # per sequence (max 256 positions), 8 * 32 + 1 pool pages
@@ -115,8 +146,8 @@ def device_ms(fn, match: str, iters: int = 50):
     return total_us / 1e3 / iters if total_us else None
 
 
-def check_close(name, got, want, dtype) -> float:
-    atol, rtol = TOL[dtype]
+def check_close(name, got, want, dtype, tol=None) -> float:
+    atol, rtol = TOL[dtype] if tol is None else tol
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
@@ -264,8 +295,11 @@ def layer_norm_checks(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     errs = []
     timing = None
+    # the decode step's 8 rows, the chunk step's 64, the train step's
+    # 8 * 1024
     for rows, dt in ((8, torch.float32), (64, torch.float32),
-                     (64, torch.bfloat16)):
+                     (64, torch.bfloat16), (8192, torch.float32),
+                     (8192, torch.bfloat16)):
         x = (torch.randn(rows, HIDDEN, generator=g, device=dev) * 3
              + 1).to(dt)
         w = torch.randn(HIDDEN, generator=g, device=dev)
@@ -280,7 +314,6 @@ def layer_norm_checks(dev):
         errs.append(err)
         log(f"  layer_norm [{rows},{HIDDEN}] {dt}: max abs err {err:.3e}")
         if rows == 8 and dt == torch.float32:
-            # the decode step's shape (8 slots); the chunk step's is 64
             ms = time_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5))
             dev_ms = device_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5),
                                "ln_fwd_kernel")
@@ -304,10 +337,338 @@ def layer_norm_checks(dev):
             log(f"  layer_norm [64,1024] f32: kernel "
                 f"{time_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5)):.4f}"
                 f" ms")
+        if rows == 8192 and dt == torch.float32:
+            # the train step's shape (the model normalises an fp32 copy)
+            t_ms = time_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5))
+            t_dev = device_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5),
+                              "ln_fwd_kernel")
+            t_plain = time_ms(lambda: layer_norm_reference(x, w, b, 1e-5),
+                              iters=20)
+            t_lib = time_ms(lambda: F.layer_norm(x, (HIDDEN,), w, b, 1e-5))
+            t_bound, t_by = bound(
+                2 * x.numel() * 4 + 2 * HIDDEN * 4 + 2 * rows * 4,
+                8 * x.numel())
+            log(f"  layer_norm [8192,1024] f32: kernel {t_ms:.4f} ms, plain "
+                f"{t_plain:.4f} ms, F.layer_norm {t_lib:.4f} ms, bound "
+                f"{t_bound:.4f} ms ({t_by}); kernel device time {t_dev} ms")
     return {"name": "layer_norm_fwd", "route": "cuda",
             "source": "apex_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_tpu/ops/layer_norm.py:187",
             "max_abs_err": max(errs), **timing}
+
+
+def bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / peak_flops * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+#: a column sum over 8192 rows: summation order moves it by ~1e-6
+#: relative; the absolute floor covers columns that nearly cancel
+SUM_TOL = (1e-3, 1e-4)
+
+
+def layer_norm_bwd_checks(dev):
+    """The backward kernel at the train step's shape ([8 * 1024, 1024],
+    fp32 x as the model normalises an fp32 copy), with fp32 and bf16
+    gradients, against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = 8 * 1024
+    errs = []
+    timing = None
+    for x_dt, dy_dt in ((torch.float32, torch.float32),
+                        (torch.float32, torch.bfloat16),
+                        (torch.bfloat16, torch.bfloat16)):
+        x = (torch.randn(rows, HIDDEN, generator=g, device=dev) * 3
+             + 1).to(x_dt)
+        w = torch.randn(HIDDEN, generator=g, device=dev)
+        b = torch.randn(HIDDEN, generator=g, device=dev)
+        dy = torch.randn(rows, HIDDEN, generator=g, device=dev).to(dy_dt)
+        # the kernel backward takes the kernel forward's statistics, the
+        # plain backward the plain forward's
+        _, mu, rstd = layer_norm_fwd(x, w, b, eps=1e-5)
+        _, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+        dx, dw, db = layer_norm_bwd(dy, x, mu, rstd, w)
+        rdx, rdw, rdb = layer_norm_bwd_reference(dy, x, rmu, rrstd, w)
+        if dx.dtype != dy_dt:
+            raise AssertionError(f"layer_norm_bwd dx dtype {dx.dtype}")
+        err = max(check_close("layer_norm_bwd mu", mu, rmu, torch.float32),
+                  check_close("layer_norm_bwd rstd", rstd, rrstd,
+                              torch.float32),
+                  check_close(f"layer_norm_bwd dx {x_dt}/{dy_dt}", dx, rdx,
+                              dy_dt),
+                  check_close("layer_norm_bwd dgamma", dw, rdw, None,
+                              SUM_TOL),
+                  check_close("layer_norm_bwd dbeta", db, rdb, None,
+                              SUM_TOL))
+        errs.append(err)
+        log(f"  layer_norm_bwd [{rows},{HIDDEN}] x {x_dt} dy {dy_dt}: max "
+            f"abs err {err:.3e}")
+        if timing is None:
+            def run():
+                return layer_norm_bwd(dy, x, mu, rstd, w)
+            ms = time_ms(run)
+            dev_ms = device_ms(run, "ln_bwd_")
+            plain_ms = time_ms(
+                lambda: layer_norm_bwd_reference(dy, x, mu, rstd, w),
+                iters=20)
+            xl, wl, bl = (t.clone().requires_grad_(True) for t in (x, w, b))
+            yl = F.layer_norm(xl, (HIDDEN,), wl, bl, 1e-5)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl, bl), dy, retain_graph=True), iters=20)
+            nbytes = 3 * x.numel() * 4 + 2 * rows * 4 + 3 * HIDDEN * 4
+            b_ms, by = bound(nbytes, 12 * x.numel())
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": by}
+            log(f"  layer_norm_bwd [{rows},{HIDDEN}] f32: kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, F.layer_norm backward "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); kernel "
+                f"device time {dev_ms} ms")
+    return {"name": "layer_norm_bwd", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/layer_norm.cu",
+            "replaces": "apex_tpu/ops/layer_norm.py:210",
+            "max_abs_err": max(errs), **timing}
+
+
+def _attn_case(g, dev, b, n, s_q, s_k, d, dtype):
+    q = torch.randn(b, n, s_q, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, n, s_k, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, n, s_k, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, n, s_q, d, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _attn_flops(b, n, s_q, s_k, d, causal):
+    """Products of q.k and p.v for the (q, k) pairs this run computes."""
+    if causal:
+        pairs = sum(min(i + 1, s_k) for i in range(s_q))
+    else:
+        pairs = s_q * s_k
+    return 4 * b * n * pairs * d
+
+
+def flash_attention_checks(dev):
+    """Forward and backward kernels against their plain versions: the
+    345M training shape in bf16 and fp32, a key-padding mask with a
+    fully masked batch row, hash dropout 0.1, a length that is not a
+    whole number of tiles, and a non-causal cross shape."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S = 8, 1024
+    cases = [
+        ("345M bf16 causal", B, N_HEADS, S, S, torch.bfloat16, True, False,
+         0.0),
+        ("345M f32 causal", B, N_HEADS, S, S, torch.float32, True, False,
+         0.0),
+        ("kv_mask, dead row, bf16", 2, 4, 256, 256, torch.bfloat16, False,
+         True, 0.0),
+        ("kv_mask causal f32", 2, 4, 256, 256, torch.float32, True, True,
+         0.0),
+        ("dropout 0.1 bf16 causal", 2, N_HEADS, S, S, torch.bfloat16, True,
+         False, 0.1),
+        ("s 1000 f32 causal", 2, 4, 1000, 1000, torch.float32, True, False,
+         0.0),
+        ("cross 320x1000 bf16", 2, 4, 320, 1000, torch.bfloat16, False,
+         False, 0.0),
+    ]
+    fwd_errs, bwd_errs = [], []
+    timing = {}
+    for name, b, n, s_q, s_k, dt, causal, masked, p in cases:
+        q, k, v, do = _attn_case(g, dev, b, n, s_q, s_k, HEAD_DIM, dt)
+        kv_mask = None
+        if masked:
+            kv_mask = torch.ones(b, s_k, dtype=torch.bool, device=dev)
+            kv_mask[0, s_k // 2:] = False
+            kv_mask[1, :] = False  # batch row 1: every key masked
+        kw = dict(causal=causal, kv_mask=kv_mask, dropout_p=p,
+                  dropout_seed=1234 if p else None)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        rdq, rdk, rdv = flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                                      **kw)
+        if o.dtype != dt or lse.dtype != torch.float32:
+            raise AssertionError(f"flash {name}: dtypes {o.dtype} {lse.dtype}")
+        fe = max(check_close(f"flash_fwd {name} o", o, ro, dt),
+                 check_close(f"flash_fwd {name} lse", lse, rlse,
+                             torch.float32))
+        be = max(check_close(f"flash_bwd {name} {gname}", got, want, dt)
+                 for gname, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                                          ("dv", dv, rdv)))
+        if masked:
+            dead = (o[1].abs().max(), dq[1].abs().max(), dk[1].abs().max(),
+                    dv[1].abs().max())
+            if any(float(x) != 0.0 for x in dead) or \
+                    not bool((lse[1] == -1e30).all()):
+                raise AssertionError(
+                    f"flash {name}: the fully masked row is not zero "
+                    f"(o, dq, dk, dv max {[float(x) for x in dead]})")
+        fwd_errs.append(fe)
+        bwd_errs.append(be)
+        log(f"  flash {name} [{b},{n},{s_q}x{s_k},{HEAD_DIM}]: fwd max abs "
+            f"err {fe:.3e}, bwd {be:.3e}")
+        if name == "345M bf16 causal":
+            timing = _flash_timing(q, k, v, do, o, lse, causal)
+    return ({"name": "flash_attn_fwd", "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "apex_tpu/ops/flash_attention.py:390",
+             "max_abs_err": max(fwd_errs), **timing["fwd"]},
+            {"name": "flash_attn_bwd", "route": "cuda",
+             "source": "apex_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "apex_tpu/ops/flash_attention.py:673",
+             "max_abs_err": max(bwd_errs), **timing["bwd"]})
+
+
+def _flash_timing(q, k, v, do, o, lse, causal):
+    b, n, s, d = q.shape
+    elem = q.element_size()
+    flops = _attn_flops(b, n, s, s, d, causal)
+    kw = dict(causal=causal)
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters=20)
+    fwd_dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                        "flash_fwd_kernel", iters=10)
+    fwd_plain = time_ms(
+        lambda: flash_attention_fwd_reference(q, k, v, **kw), iters=5)
+    fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), iters=20)
+    fb, fby = bound(4 * q.numel() * elem + b * n * s * 4, flops,
+                    BF16_TC_FLOPS)
+
+    def bwd():
+        return flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    bwd_ms = time_ms(bwd, iters=10)
+    bwd_dev = device_ms(bwd, "flash_bwd_", iters=5)
+    bwd_plain = time_ms(lambda: flash_attention_bwd_reference(
+        q, k, v, o, lse, do, **kw), iters=3)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        return torch.autograd.grad(out, (ql, kl, vl), do)
+    sdpa_fb = time_ms(sdpa_fwd_bwd, iters=10)
+    # backward: 5 products per pair (s, dp, dv, dk, dq) against the
+    # forward's 2; reads q, k, v, o, do, lse, writes dq, dk, dv
+    bb, bby = bound(8 * q.numel() * elem + b * n * s * 4, flops * 5 / 2,
+                    BF16_TC_FLOPS)
+    log(f"  flash [8,16,1024,64] bf16 causal: fwd kernel {fwd_ms:.4f} ms "
+        f"(device {fwd_dev} ms), plain {fwd_plain:.4f} ms, sdpa fwd "
+        f"{fwd_lib:.4f} ms, bound {fb:.4f} ms ({fby}); bwd kernel "
+        f"{bwd_ms:.4f} ms (device {bwd_dev} ms), plain {bwd_plain:.4f} ms, "
+        f"sdpa fwd+bwd {sdpa_fb:.4f} ms, bound {bb:.4f} ms ({bby})")
+    return {"fwd": {"ms": fwd_ms, "device_ms": fwd_dev,
+                    "plain_ms": fwd_plain, "library_ms": fwd_lib,
+                    "bound_ms": fb, "bound_by": fby},
+            "bwd": {"ms": bwd_ms, "device_ms": bwd_dev,
+                    "plain_ms": bwd_plain, "library_ms": sdpa_fb,
+                    "bound_ms": bb, "bound_by": bby}}
+
+
+def gpt345m_param_shapes(dtype=torch.bfloat16):
+    """The 345M parameter tree as meta tensors (shapes and dtypes, no
+    memory): the layout the packed optimizer sweeps."""
+    cfg = gpt345m(dtype, max_pos=1024)
+    h, L, v, f = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, \
+        cfg.ffn_size
+
+    def m(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return {"embedding": {"word": m(v, h), "position": m(1024, h)},
+            "layers": {"input_ln_w": m(L, h), "input_ln_b": m(L, h),
+                       "qkv_w": m(L, 3 * h, h), "qkv_b": m(L, 3 * h),
+                       "proj_w": m(L, h, h), "proj_b": m(L, h),
+                       "post_ln_w": m(L, h), "post_ln_b": m(L, h),
+                       "fc1_w": m(L, f, h), "fc1_b": m(L, f),
+                       "fc2_w": m(L, h, f), "fc2_b": m(L, h)},
+            "final_ln_w": m(h), "final_ln_b": m(h)}
+
+
+#: packed Adam against its plain version: both round every operation
+#: once in the same order, so fp32 state agrees to within an fp32 ulp
+#: and the bf16 output to within one bf16 rounding
+ADAM_TOL = {torch.float32: (1e-9, 1e-6), torch.bfloat16: (1e-9, 8e-3)}
+
+
+def packed_adam_checks(dev):
+    """The packed Adam sweep over a flat buffer of the 345M PackSpec's
+    size: Adam, AdamW with weight decay, noop (outputs equal inputs
+    bitwise) and write_mv=False (m and v untouched)."""
+    spec = PackSpec(gpt345m_param_shapes())
+    n = spec.total
+    g = torch.Generator(device=dev).manual_seed(6)
+    grad = (torch.randn(n, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    m0 = torch.randn(n, generator=g, device=dev) * 1e-3
+    v0 = torch.rand(n, generator=g, device=dev) * 1e-6
+    src0 = torch.randn(n, generator=g, device=dev) * 0.02
+    hyper = dict(param_dtype=torch.bfloat16,
+                 lr=torch.tensor(1e-4, device=dev),
+                 bc1=torch.tensor(0.1, device=dev),
+                 bc2=torch.tensor(0.001, device=dev),
+                 inv_scale=torch.tensor(0.5, device=dev))
+    errs = []
+    for name, kw in (("adam", {}),
+                     ("adamw wd 0.1", dict(wd=0.1)),
+                     ("adam l2 wd 0.1", dict(wd=0.1, adam_w_mode=False)),
+                     ("noop", dict(noop=torch.tensor(True, device=dev))),
+                     ("write_mv=False", dict(write_mv=False,
+                                             write_master=False))):
+        m, v, src = m0.clone(), v0.clone(), src0.clone()
+        ref = packed_adam_reference(grad, m0, v0, src0, **hyper, **{
+            k: x for k, x in kw.items() if k not in ("write_mv",
+                                                     "write_master")})
+        p_out, nm, nv, master = packed_adam_apply(grad, m, v, src, **hyper,
+                                                  **kw)
+        err = check_close(f"packed_adam {name} p_out", p_out, ref[0],
+                          None, ADAM_TOL[torch.bfloat16])
+        if name == "noop":
+            if not (torch.equal(m, m0) and torch.equal(v, v0)
+                    and torch.equal(src, src0)
+                    and torch.equal(p_out, src0.to(torch.bfloat16))):
+                raise AssertionError("packed_adam noop changed its inputs")
+        elif name == "write_mv=False":
+            if nm is not None or not (torch.equal(m, m0)
+                                      and torch.equal(v, v0)
+                                      and torch.equal(src, src0)):
+                raise AssertionError("packed_adam write_mv=False wrote m/v")
+        else:
+            err = max(err, *(check_close(f"packed_adam {name} {sn}", got,
+                                         want, None,
+                                         ADAM_TOL[torch.float32])
+                             for sn, got, want in (("m", m, ref[1]),
+                                                   ("v", v, ref[2]),
+                                                   ("master", src,
+                                                    ref[3]))))
+        errs.append(err)
+        log(f"  packed_adam {name} over {n} elements: max abs err "
+            f"{err:.3e}")
+        del ref
+    m, v, src = m0.clone(), v0.clone(), src0.clone()
+
+    def run():
+        return packed_adam_apply(grad, m, v, src, **hyper)
+    ms = time_ms(run, iters=20)
+    dev_ms = device_ms(run, "packed_adam_kernel", iters=10)
+    plain_ms = time_ms(lambda: packed_adam_reference(grad, m0, v0, src0,
+                                                     **hyper), iters=3)
+    del m, v, src
+    p = torch.nn.Parameter(src0.clone())
+    p.grad = grad.float()
+    lib_opt = torch.optim.AdamW([p], lr=1e-4, weight_decay=0.0, fused=True)
+    lib_ms = time_ms(lib_opt.step, iters=20)
+    del p, lib_opt
+    # bf16 grad read + bf16 param write + m, v, master read and written
+    b_ms, by = bound(n * (2 + 2 + 3 * 8), 16 * n)
+    log(f"  packed_adam 345M flat buffer ({n} elements, bf16 grads and "
+        f"params): kernel {ms:.4f} ms (device {dev_ms} ms), plain "
+        f"{plain_ms:.4f} ms, AdamW(fused=True) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by})")
+    return {"name": "packed_adam", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/packed_adam.cu",
+            "replaces": "apex_tpu/ops/packed_optimizer.py:152",
+            "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": by}
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +679,11 @@ def gpt345m(dtype, max_pos=256):
     return GPTConfig(num_layers=24, hidden_size=HIDDEN,
                      num_attention_heads=N_HEADS, vocab_size=50304,
                      max_position_embeddings=max_pos, compute_dtype=dtype)
+
+
+SERVING_KERNELS = ("flash_decode", "layer_norm_fwd")
+TRAIN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
+                 "flash_attn_bwd", "packed_adam")
 
 
 def serve_345m(dev):
@@ -361,9 +727,15 @@ def serve_345m(dev):
     log(f"  launches on the serving run: {launches} (per step: "
         f"flash_decode {launches['flash_decode'] / steps:.2f}, "
         f"layer_norm_fwd {launches['layer_norm_fwd'] / steps:.2f})")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
+    trained = {k: c for k, c in launches.items()
+               if k not in SERVING_KERNELS and c}
+    if trained:
+        # serving runs under no_grad: the forward kernels alone
+        raise AssertionError(f"training kernels launched while serving: "
+                             f"{trained}")
     log("  serving_json " + json.dumps(
         {k: st[k] for k in ("tokens_per_sec", "step_ms", "ttft_ms",
                             "latency_ms", "occupancy", "steps",
@@ -374,32 +746,38 @@ def serve_345m(dev):
     return launches
 
 
-def profile_steps(eng, rng, cfg) -> None:
-    """Where a serving step's time goes: device time by kernel over a
-    short trace (8 requests, 128 prompt + 16 new tokens) against the
-    run's wall time; the remainder is device idle (host-bound)."""
+def profiled(run, label: str, top: int) -> None:
+    """Print where ``run``'s time goes: device time by kernel from a
+    ``torch.profiler`` trace against the run's wall time; the remainder
+    is device idle."""
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [Request(prompt=[int(t) for t in
-                            rng.integers(0, cfg.vocab_size, size=128)],
-                    max_new_tokens=16) for _ in range(SLOTS)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(reqs)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_time_total > 0 and e.device_type.name == "CUDA"),
-                  reverse=True)
+                   if e.device_time_total > 0
+                   and e.device_type.name == "CUDA"), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"  profiled trace: {eng.last_stats['steps']} steps, wall "
-        f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle share {1 - busy / wall_ms:.3f}, profiler on)")
-    for dev_ms, count, key in rows[:10]:
+    log(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}, profiler on)")
+    for dev_ms, count, key in rows[:top]:
         log(f"    {dev_ms:9.3f} ms  x{count:6d}  {key[:90]}")
+
+
+def profile_steps(eng, rng, cfg) -> None:
+    """Where a serving step's time goes, over a short trace (8 requests,
+    128 prompt + 16 new tokens)."""
+    reqs = [Request(prompt=[int(t) for t in
+                            rng.integers(0, cfg.vocab_size, size=128)],
+                    max_new_tokens=16) for _ in range(SLOTS)]
+    profiled(lambda: eng.generate(reqs), "serving trace", 10)
+    log(f"  (the profiled trace ran {eng.last_stats['steps']} steps)")
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +821,164 @@ def token_identity(dev):
     return near_ties
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the GPT-2 345M train step
+# ---------------------------------------------------------------------------
+
+def train_step_fn(cfg, opt, tokens, labels):
+    """One step as ``bench.py``'s ``bench_gpt`` runs it: loss and
+    gradients of ``gpt_loss``, then ``FusedAdam.step``."""
+    def step(params, state):
+        loss, grads = value_and_grad(
+            lambda p: gpt_loss(cfg, p, tokens, labels), params)
+        params, state = opt.step(grads, state, params)
+        return params, state, loss
+    return step
+
+
+def train_345m(dev):
+    """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
+    compute over bf16 params with fp32 masters (O2), the unfused block
+    without recompute, saved bf16 CE logits, packed FusedAdam(lr=1e-4):
+    2 warm-up steps, then 10 timed steps on the same batch."""
+    cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=50304,
+                    max_position_embeddings=1024, hidden_dropout=0.0,
+                    attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                    ce_save_logits=True)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = tree_map(lambda p: p.to(torch.bfloat16), params)
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    state = opt.init(params)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    labels = torch.roll(tokens, -1, dims=1)
+    step = train_step_fn(cfg, opt, tokens, labels)
+    losses = []
+    for _ in range(2):
+        params, state, loss = step(params, state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _device.reset_launch_counts()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = _device.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    per_step = {k: launches[k] / 10 for k in TRAIN_KERNELS}
+    p50 = float(np.percentile(times, 50))
+    p99 = float(np.percentile(times, 99))
+    log(f"  345M train step (b 8, s 1024, bf16 O2, unfused, no remat): "
+        f"step p50 {p50:.2f} ms p99 {p99:.2f} ms, "
+        f"{8 * 1024 / (p50 / 1e3):.0f} tokens/s at p50; loss first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f}; peak memory "
+        f"{peak_gb:.2f} GiB")
+    log(f"  launches per step: {per_step}")
+    log("  train_json " + json.dumps(
+        {"step_ms": times, "losses": losses, "peak_gib": peak_gb,
+         "launches_per_step": per_step}))
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 f"train step")
+    if launches["flash_decode"]:
+        raise AssertionError("flash_decode launched in the train step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    profiled(lambda: step(params, state), "train step", 12)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training parity, card against CPU
+# ---------------------------------------------------------------------------
+
+#: card (kernels) against CPU (plain versions), fp32 with TF32 off: the
+#: loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+#: largest entry; after 3 packed-Adam steps the losses within 1e-5
+#: relative and the master updates (masters minus their start) within
+#: 1e-3 of their norm (Adam moves an element whose gradient sits at the
+#: rounding level by up to lr either way, so no elementwise bound)
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_TOL = 1e-4
+PARITY_UPDATE_TOL = 1e-3
+
+
+def train_parity(dev):
+    cfg = GPTConfig(num_layers=2, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=50304,
+                    max_position_embeddings=256, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+    labels = torch.roll(tokens, -1, dims=1)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        state = opt.init(params)
+        master0 = state.master_params.clone()
+        step = train_step_fn(cfg, opt, tokens.to(d), labels.to(d))
+        _device.reset_launch_counts()
+        loss0, grads = value_and_grad(
+            lambda p: gpt_loss(cfg, p, tokens.to(d), labels.to(d)), params)
+        counts = _device.launch_counts()
+        losses = []
+        for _ in range(3):
+            params, state, loss = step(params, state)
+            losses.append(float(loss))
+        losses.append(float(gpt_loss(cfg, params, tokens.to(d),
+                                     labels.to(d))))
+        runs[where] = dict(loss=float(loss0), losses=losses,
+                           grads=tree_map(lambda g: g.cpu(), grads),
+                           update=(state.master_params - master0).cpu(),
+                           counts=counts)
+    c, g = runs["cpu"], runs["cuda"]
+    if any(c["counts"].values()):
+        raise AssertionError(f"kernels launched on the CPU run: "
+                             f"{c['counts']}")
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
+                 "flash_attn_bwd"):
+        if g["counts"][name] <= 0:
+            raise AssertionError(f"{name} did not launch on the card run")
+    rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    worst = 0.0
+    for (name, gc), gg in zip(zip(PackSpec(cpu_params).leaf_names(),
+                                  tree_leaves(c["grads"])),
+                              tree_leaves(g["grads"])):
+        err = float((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30))
+        worst = max(worst, err)
+        if err > PARITY_GRAD_TOL:
+            raise AssertionError(f"gradient {name}: {err:.3e} of its "
+                                 f"largest entry")
+    curve = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                    c["losses"]))
+    upd = float((g["update"] - c["update"]).norm() / c["update"].norm())
+    upd_max = float((g["update"] - c["update"]).abs().max())
+    log(f"  2-layer full-width fp32, seq 256, batch 2: loss card "
+        f"{g['loss']:.7f} cpu {c['loss']:.7f} (rel {rel:.2e}); worst "
+        f"gradient leaf {worst:.2e} of its largest entry; 3 Adam steps: "
+        f"losses card {g['losses']} cpu {c['losses']} (max rel "
+        f"{curve:.2e}); master update rel {upd:.2e}, max abs {upd_max:.2e}")
+    if rel > PARITY_LOSS_RTOL or curve > PARITY_LOSS_RTOL:
+        raise AssertionError("loss on the card differs from the CPU's")
+    if upd > PARITY_UPDATE_TOL:
+        raise AssertionError("master updates on the card differ from the "
+                             "CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -459,23 +995,38 @@ def main() -> int:
     tb = time.perf_counter()
     _build.kernels()
     log(f"  kernels built and loaded in {time.perf_counter() - tb:.1f} s")
-    log("phase 2: kernels against their plain versions")
-    fd = flash_decode_checks(dev)
-    ln = layer_norm_checks(dev)
-    log("phase 3: GPT-2 345M bf16 serving")
-    launches = serve_345m(dev)
-    torch.cuda.empty_cache()
-    log("phase 4: fp32 token identity")
-    near = token_identity(dev)
+
+    def phase(title, fn, *args):
+        tp = time.perf_counter()
+        log(title)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"  ({time.perf_counter() - tp:.1f} s)")
+        return out
+
+    fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam = phase(
+        "phase 2: kernels against their plain versions",
+        lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
+                 layer_norm_bwd_checks(dev), flash_attention_checks(dev),
+                 packed_adam_checks(dev)))
+    serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
+    near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")
-    fd["launches"] = launches["flash_decode"]
-    ln["launches"] = launches["layer_norm_fwd"]
+    train = phase("phase 5: GPT-2 345M bf16 train step", train_345m, dev)
+    phase("phase 6: training parity, card against CPU", train_parity, dev)
+    fd["launches"] = serving["flash_decode"]
+    # on both main paths: the serving run's launches plus the train run's
+    ln["launches"] = serving["layer_norm_fwd"] + train["layer_norm_fwd"]
+    for kr in (ln_bwd, fa_fwd, fa_bwd, adam):
+        kr["launches"] = train[kr["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
-                                  for kr in (fd, ln)]}))
+                                  for kr in (fd, ln, ln_bwd, fa_fwd, fa_bwd,
+                                             adam)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
