@@ -6,7 +6,8 @@ source, all started together, then one link into
 ``apex_tpu_torch/build/libapex_tpu_torch_kernels.so``, which is loaded
 with ``ctypes``. The build happens at the first kernel launch in a
 process (never at import: the CPU tests import every module on a host
-with no ``nvcc``) and is reused while it is newer than every source.
+with no ``nvcc``) and is reused while it is newer than every file under
+``csrc/`` (the shared headers ``*.cuh`` included).
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libapex_tpu_torch_kernels.so"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "layer_norm.cu",
-           "packed_adam.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "fused_block.cu",
+           "layer_norm.cu", "packed_adam.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -61,6 +62,24 @@ _ARGTYPES = {
     # device, stream
     "apex_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
                                                    _I, _I, _P],
+    # rows -> number of partial rows of the fused-block column sums
+    "apex_fused_block_partials": [_I],
+    # x, b, y, rows, n, is_bf16, device, stream
+    "apex_bias_gelu_fwd": [_P] * 3 + [_I] * 4 + [_P],
+    # dy, x, b, dx, part, db, rows, n, is_bf16, device, stream
+    "apex_bias_gelu_bwd": [_P] * 6 + [_I] * 4 + [_P],
+    # x, b, res, out, rows, n, dropout, seed, threshold, drop_scale,
+    # is_bf16, device, stream
+    "apex_bdr_fwd": [_P] * 4 + [_I] * 3 + [_U, _U, _F, _I, _I, _P],
+    # dy, dx, part, db, rows, n, dropout, seed, threshold, drop_scale,
+    # is_bf16, device, stream
+    "apex_bdr_bwd": [_P] * 4 + [_I] * 3 + [_U, _U, _F, _I, _I, _P],
+    # x, b, res, w, lb, sum, y, mu, rstd, rows, n, eps, dropout, seed,
+    # threshold, drop_scale, is_bf16, device, stream
+    "apex_raln_fwd": [_P] * 9 + [_I, _I, _F, _I, _U, _U, _F, _I, _I, _P],
+    # dsum_out, dy, sum, mu, rstd, w, dres, dx, part, grads, rows, n,
+    # dropout, seed, threshold, drop_scale, is_bf16, device, stream
+    "apex_raln_bwd": [_P] * 10 + [_I] * 3 + [_U, _U, _F, _I, _I, _P],
     # g, m, v, src, p_out, lr, bc1, bc2, inv_scale, noop, n, beta1,
     # 1 - beta1, beta2, 1 - beta2, eps, wd, adam_w_mode, write_mv,
     # write_master, g_is_bf16, p_is_bf16, device, stream
@@ -77,18 +96,21 @@ def find_nvcc() -> str:
         "CUDA kernels are built on the machine that has the card")
 
 
-def _stale(lib: Path) -> bool:
+def _stale(lib: Path, csrc: Path = CSRC_DIR) -> bool:
+    """True when ``lib`` is missing or older than any source or header
+    under ``csrc`` (an edited header rebuilds every source)."""
     if not lib.exists():
         return True
     built = lib.stat().st_mtime
-    return any((CSRC_DIR / s).stat().st_mtime > built for s in SOURCES)
+    return any(f.stat().st_mtime > built
+               for pat in ("*.cu", "*.cuh") for f in csrc.glob(pat))
 
 
 def build(extra_flags: List[str] = ()) -> Path:
     """Compile every source in parallel and link the shared library;
-    a no-op when the library is newer than every source. Returns the
-    library's path. ``extra_flags`` go to each compile (for example
-    ``["-Xptxas", "-v"]`` to print registers and spills)."""
+    a no-op when the library is newer than every file under ``csrc/``.
+    Returns the library's path. ``extra_flags`` go to each compile (for
+    example ``["-Xptxas", "-v"]`` to print registers and spills)."""
     lib = BUILD_DIR / LIB_NAME
     if not extra_flags and not _stale(lib):
         return lib

@@ -15,7 +15,12 @@ TPU and interpreter branches. There is no environment switch and no
 Every wrapper adds one to its entry in :data:`LAUNCHES` right where it
 launches its kernel, so a run can show that its main path went through
 the kernels (``chip_smoke.py`` zeroes the counts before the path and
-reads them after).
+reads them after). The keys: ``flash_decode`` (serving),
+``layer_norm_fwd``/``_bwd``, ``flash_attn_fwd``/``_bwd``, ``packed_adam``
+and the fused block tails ``bias_gelu_fwd``/``_bwd``,
+``bias_dropout_residual_fwd``/``_bwd``, ``residual_ln_fwd``/``_bwd``. A
+forward output that a selective recompute policy hands back from its
+cache launches nothing and counts nothing.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ import torch
 LAUNCHES: Dict[str, int] = {
     "flash_decode": 0, "layer_norm_fwd": 0, "layer_norm_bwd": 0,
     "flash_attn_fwd": 0, "flash_attn_bwd": 0, "packed_adam": 0,
+    "bias_gelu_fwd": 0, "bias_gelu_bwd": 0,
+    "bias_dropout_residual_fwd": 0, "bias_dropout_residual_bwd": 0,
+    "residual_ln_fwd": 0, "residual_ln_bwd": 0,
 }
 
 

@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_dropout.cuh"  // keep_bit, the dropout hash
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
@@ -72,22 +74,6 @@ __device__ __forceinline__ float round_to<float>(float x) {
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// The keep bit of _keep_mask: unsigned compare of the hash against the
-// threshold (the TPU code's sign-flip compare is the same order).
-__device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t bh,
-                                         uint32_t qi, uint32_t ki,
-                                         uint32_t threshold) {
-  uint32_t x = qi * 0x9E3779B1u;
-  x ^= ki * 0x85EBCA77u;
-  x ^= seed + bh * 0x27D4EB2Fu;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x >= threshold;
 }
 
 struct Args {

@@ -32,7 +32,9 @@ overflow int64, so :func:`_mul32` splits the constant into 16-bit halves
 with the same hash.
 
 Route (``_device.kernel_route``): CUDA tensors go through the kernels,
-CPU tensors through the plain versions.
+CPU tensors through the plain versions. The forward is the custom op
+:data:`FLASH_ATTN_FWD`, so a selective recompute policy can keep
+``(o, lse)`` instead of replaying the kernel.
 """
 from __future__ import annotations
 
@@ -334,14 +336,26 @@ def _resolve(q, scale, dropout_p, dropout_seed):
     return scale, _resolve_seed(dropout_p, dropout_seed)
 
 
-def _fwd(q, k, v, kv_mask, causal, scale, dropout_p, seed):
-    """The forward on resolved arguments: the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+#: the forward as a named op, which the selective recompute policies of
+#: ``standalone_transformer_lm`` save (the JAX policy's
+#: ``apex_tpu_flash_fwd``)
+FLASH_ATTN_FWD = "apex_tpu_torch::flash_attn_fwd"
+
+
+def _fwd_impl(q, k, v, kv_mask, causal, scale, dropout_p, seed):
     if _route(q, k, v, kv_mask):
         return _launch_fwd(q, k, v, kv_mask, causal, scale, dropout_p, seed)
     return flash_attention_fwd_reference(
         q, k, v, causal=causal, kv_mask=kv_mask, scale=scale,
         dropout_p=dropout_p, dropout_seed=seed)
+
+
+#: the forward on resolved arguments: the kernel on CUDA tensors, the
+#: plain version on CPU tensors
+_fwd = torch.library.custom_op(
+    FLASH_ATTN_FWD, _fwd_impl, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal, "
+           "float scale, float dropout_p, int? seed) -> (Tensor, Tensor)")
 
 
 def _bwd(q, k, v, o, lse, do, kv_mask, causal, scale, dropout_p, seed):

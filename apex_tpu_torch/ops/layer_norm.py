@@ -13,6 +13,8 @@ the plain versions.
 rstd)`` as the JAX custom VJP does. Route (``_device.kernel_route``): a
 CUDA tensor goes through the kernels, a CPU tensor through the plain
 versions. Under ``torch.no_grad`` (serving) only the forward kernel runs.
+The forward is the custom op :data:`LAYER_NORM_FWD`, so a selective
+recompute policy can keep its outputs instead of replaying it.
 ``memory_efficient`` (re-deriving x from y) and RMSNorm are not ported
 yet (ROADMAP.md, queue A2/B) and raise.
 """
@@ -129,16 +131,31 @@ def _launch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mu: torch.Tensor,
     return dx, grads[0], grads[1]
 
 
+#: the forward as a named op, which the selective recompute policies of
+#: ``standalone_transformer_lm`` save (the JAX policy's
+#: ``apex_tpu_layer_norm_fwd``)
+LAYER_NORM_FWD = "apex_tpu_torch::layer_norm_fwd"
+
+
+def _fwd_impl(x2d: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float):
+    if _device.kernel_route(x2d, weight, bias):
+        return _launch(x2d.contiguous(), weight.float().contiguous(),
+                       bias.float().contiguous(), eps)
+    return layer_norm_reference(x2d, weight, bias, eps)
+
+
+_fwd_op = torch.library.custom_op(
+    LAYER_NORM_FWD, _fwd_impl, mutates_args=(),
+    schema="(Tensor x, Tensor weight, Tensor bias, float eps) "
+           "-> (Tensor, Tensor, Tensor)")
+
+
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor, eps: float = 1e-5):
     """``(y, mu [rows, 1], rstd [rows, 1])`` over the last dim, rows
     being every leading index of ``x``."""
-    x2d = x.reshape(-1, x.shape[-1])
-    if _device.kernel_route(x2d, weight, bias):
-        y, mu, rstd = _launch(x2d.contiguous(), weight.float().contiguous(),
-                              bias.float().contiguous(), eps)
-    else:
-        y, mu, rstd = layer_norm_reference(x2d, weight, bias, eps)
+    y, mu, rstd = _fwd_op(x.reshape(-1, x.shape[-1]), weight, bias, eps)
     return y.reshape(x.shape), mu, rstd
 
 

@@ -15,34 +15,51 @@ as far as serving and the single-device train step use it.
   back, GEMMs in ``compute_dtype``, tanh GeLU, fp32 logits.
 - the training path, in the Megatron ``[s, b, h]`` layout:
   :func:`parallel_attention` (flash attention only), :func:`parallel_mlp`,
-  :func:`transformer_layer` (the unfused branch), :func:`transformer_block`
-  (a loop over the stacked layers, ``recompute_granularity`` None or
-  ``"full"``), :func:`gpt_embed`, :func:`gpt_hidden` and
-  :func:`gpt_loss` (the single-device branch: chunked LM-head cross
-  entropy). The kernels on it are the LayerNorm forward and backward
-  and the flash-attention forward and backward; GEMMs are
-  ``F.linear`` / ``torch.mm``, as the JAX package left them to XLA.
+  :func:`transformer_layer` (the unfused branch, and with
+  ``GPTConfig.fused_block`` the fused block tails of
+  ``ops/fused_block.py``), :func:`transformer_block` (a loop over the
+  stacked layers, ``recompute_granularity`` None, ``"full"``,
+  ``"selective"`` or ``"selective_elementwise"``), :func:`gpt_embed`,
+  :func:`gpt_hidden` and :func:`gpt_loss` (the single-device branch:
+  chunked LM-head cross entropy). The kernels on it are the LayerNorm
+  forward and backward, the flash-attention forward and backward and,
+  in the fused block, bias-GeLU, bias-dropout-residual and
+  residual-add-LayerNorm forward and backward; GEMMs are ``F.linear`` /
+  ``torch.mm``, as the JAX package left them to XLA.
 
 Not ported yet (ROADMAP.md): tensor, sequence and context parallelism,
-fp8, the fused block tails (``fused_block``), the ``selective``
-recompute policies, the non-flash attention path (fused softmax
-kernels) and fp16 query-key layer scaling; each raises
-``NotImplementedError``. Hidden dropout draws from an explicit
-``torch.Generator`` (JAX's ``bernoulli`` stream cannot be matched);
-attention dropout is the kernels' hash, seeded from the same generator.
+fp8, the non-flash attention path (fused softmax kernels) and fp16
+query-key layer scaling; each raises ``NotImplementedError``. Hidden
+dropout of the unfused branch draws from an explicit ``torch.Generator``
+(JAX's ``bernoulli`` stream cannot be matched); attention dropout and
+the fused tails' hidden dropout are the kernels' hash, seeded from the
+same generator.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ...contrib.xentropy import lm_head_cross_entropy, logits_f32
-from ...ops.flash_attention import flash_attention_sbhd
-from ...ops.layer_norm import layer_norm
+from ...ops.flash_attention import FLASH_ATTN_FWD, flash_attention_sbhd
+from ...ops.fused_block import (
+    BIAS_DROPOUT_RESIDUAL_FWD,
+    BIAS_GELU_FWD,
+    RESIDUAL_LN_FWD,
+    bias_dropout_residual,
+    bias_gelu,
+    residual_add_layer_norm,
+)
+from ...ops.layer_norm import LAYER_NORM_FWD, layer_norm
 from ..enums import AttnMaskType
 
 Params = Dict[str, Any]
@@ -50,8 +67,8 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass
 class GPTConfig:
-    """Model config (the JAX ``GPTConfig``'s fields for one device and
-    the unfused step, with its defaults)."""
+    """Model config (the JAX ``GPTConfig``'s fields for one device, with
+    its defaults)."""
 
     num_layers: int = 4
     hidden_size: int = 64
@@ -66,7 +83,9 @@ class GPTConfig:
     compute_dtype: torch.dtype = torch.float32  # bf16 for mixed precision
     apply_query_key_layer_scaling: bool = True
     attn_mask_type: AttnMaskType = AttnMaskType.causal
-    # None | "full" ("selective*" come with the fused-block slice)
+    # None | "full" | "selective" | "selective_elementwise" (see
+    # transformer_block); "selective_elementwise" also keeps the fused
+    # tails' outputs and pairs with fused_block=True
     recompute_granularity: Optional[str] = None
     # None = flash attention (the only attention path ported); False
     # raises (the non-flash path runs the fused-softmax kernels)
@@ -75,6 +94,12 @@ class GPTConfig:
     # recomputing the chunk GEMM in backward (changes the forward loss:
     # the CE of the rounded logits)
     ce_save_logits: bool = False
+    # fused block tails (ops/fused_block.py): the projection GEMMs run
+    # bias-free and each tail is one sweep (bias + GeLU after fc1; proj
+    # bias + hash dropout + residual + the MLP's pre-LN after attention;
+    # fc2 bias + hash dropout + residual after the MLP). Hidden dropout is
+    # then the counter hash seeded per tail, not the generator's mask.
+    fused_block: bool = False
 
     @property
     def ffn_size(self) -> int:
@@ -138,10 +163,13 @@ def ln_fp32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return layer_norm(x.float(), w.float(), b.float(), eps=eps)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor]) -> torch.Tensor:
     """``x @ w^T + b`` with the GEMM and the bias add rounded separately
-    in ``x``'s dtype, as the JAX einsum-then-add does."""
-    return F.linear(x, w.to(x.dtype)) + b.to(x.dtype)
+    in ``x``'s dtype, as the JAX einsum-then-add does; ``b`` None is the
+    bias-free GEMM of a fused tail."""
+    out = F.linear(x, w.to(x.dtype))
+    return out if b is None else out + b.to(x.dtype)
 
 
 def lm_head(h: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
@@ -223,9 +251,11 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                        hidden: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
                        dropout_seed: Optional[int], deterministic: bool,
-                       layer_number: Optional[int] = None) -> torch.Tensor:
+                       layer_number: Optional[int] = None,
+                       fuse_tail: bool = False) -> torch.Tensor:
     """Self-attention on one device: fused QKV GEMM, flash attention,
-    output projection (the JAX ``parallel_attention``'s flash path)."""
+    output projection (the JAX ``parallel_attention``'s flash path);
+    ``fuse_tail`` leaves ``proj_b`` to the caller's fused tail."""
     s, b, _ = hidden.shape
     n, hn = cfg.num_attention_heads, cfg.kv_channels
     qkv = linear(hidden, lp["qkv_w"], lp["qkv_b"]).reshape(s, b, n, 3 * hn)
@@ -259,19 +289,28 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     ctx = flash_attention_sbhd(q, k, v, causal=causal, kv_mask=kv_mask,
                                scale=1.0 / (hn ** 0.5), **flash_kw)
     ctx = ctx.to(hidden.dtype).reshape(s, b, n * hn)
-    return _attn_out_proj(cfg, lp, ctx)
+    return _attn_out_proj(cfg, lp, ctx, fuse_tail)
 
 
 def _attn_out_proj(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
-                   ctx: torch.Tensor) -> torch.Tensor:
-    """Attention output projection (dense, with its bias)."""
-    return linear(ctx, lp["proj_w"], lp["proj_b"])
+                   ctx: torch.Tensor, fuse_tail: bool = False
+                   ) -> torch.Tensor:
+    """Attention output projection (dense); ``fuse_tail`` omits
+    ``proj_b``, which rides the caller's fused tail."""
+    return linear(ctx, lp["proj_w"], None if fuse_tail else lp["proj_b"])
 
 
 def parallel_mlp(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
-                 hidden: torch.Tensor) -> torch.Tensor:
+                 hidden: torch.Tensor, fuse_tail: bool = False
+                 ) -> torch.Tensor:
     """h -> 4h GEMM + bias, tanh GeLU, 4h -> h GEMM + bias (the JAX
-    ``parallel_mlp`` with ``fuse_tail=False``)."""
+    ``parallel_mlp``). ``fuse_tail`` is the fused-block MLP: fc1 runs
+    bias-free and :func:`bias_gelu` adds its bias, fc2 runs bias-free
+    and the caller fuses ``fc2_b`` into its tail."""
+    if fuse_tail:
+        inter = linear(hidden, lp["fc1_w"], None)
+        inter = bias_gelu(inter, lp["fc1_b"].to(inter.dtype))
+        return linear(inter, lp["fc2_w"], None)
     inter = F.gelu(linear(hidden, lp["fc1_w"], lp["fc1_b"]),
                    approximate="tanh")
     return linear(inter, lp["fc2_w"], lp["fc2_b"])
@@ -282,22 +321,87 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                       attention_mask: Optional[torch.Tensor],
                       seeds: Optional[tuple], deterministic: bool,
                       layer_number: Optional[int] = None) -> torch.Tensor:
-    """Pre-LN transformer layer, the unfused branch: LayerNorm on an fp32
-    copy, attention, dropout + residual, LayerNorm, MLP, dropout +
-    residual. ``seeds`` = (attention, attention-residual, MLP-residual)
-    dropout seeds, or None."""
+    """Pre-LN transformer layer: LayerNorm on an fp32 copy, attention,
+    dropout + residual, LayerNorm, MLP, dropout + residual. ``seeds`` =
+    (attention, attention-residual, MLP-residual) dropout seeds, or None.
+
+    With ``cfg.fused_block`` the two tails are the single-sweep ops of
+    ``ops/fused_block.py``: the attention tail is
+    :func:`residual_add_layer_norm` (proj bias + hash dropout + residual
+    + the MLP's pre-LN), the MLP tail :func:`bias_dropout_residual`; the
+    tails' seeds come from ``seeds``, so a recomputed layer regenerates
+    the same masks."""
     dt = hidden.dtype
     eps = cfg.layernorm_epsilon
     s_attn, s_res1, s_res2 = seeds if seeds is not None else (None,) * 3
     ln1 = ln_fp32(hidden, lp["input_ln_w"], lp["input_ln_b"], eps).to(dt)
     attn = parallel_attention(cfg, lp, ln1, attention_mask, s_attn,
-                              deterministic, layer_number)
+                              deterministic, layer_number,
+                              fuse_tail=cfg.fused_block)
+    if cfg.fused_block:
+        p = 0.0 if deterministic or s_res1 is None else cfg.hidden_dropout
+        hidden, ln2 = residual_add_layer_norm(
+            attn, lp["proj_b"].to(dt), hidden, lp["post_ln_w"],
+            lp["post_ln_b"], eps=eps, dropout_p=p,
+            seed=_hash_dropout_seed(s_res1, p))
+        mlp_out = parallel_mlp(cfg, lp, ln2, fuse_tail=True)
+        p = 0.0 if deterministic or s_res2 is None else cfg.hidden_dropout
+        return bias_dropout_residual(
+            mlp_out, lp["fc2_b"].to(dt), hidden, dropout_p=p,
+            seed=_hash_dropout_seed(s_res2, p))
     hidden = (hidden + _dropout(attn, cfg.hidden_dropout, s_res1,
                                 deterministic)).to(dt)
     ln2 = ln_fp32(hidden, lp["post_ln_w"], lp["post_ln_b"], eps).to(dt)
     mlp_out = parallel_mlp(cfg, lp, ln2)
     return (hidden + _dropout(mlp_out, cfg.hidden_dropout, s_res2,
                               deterministic)).to(dt)
+
+
+def _hash_dropout_seed(seed: Optional[int], p: float) -> Optional[int]:
+    """The int32 seed of a fused tail's hash dropout (drawn per layer and
+    tail from the step's generator by :func:`_draw_seed`, in
+    :func:`gpt_hidden`), or None when dropout is off."""
+    return None if p <= 0.0 or seed is None else seed
+
+
+#: forward ops whose outputs "selective" recompute keeps, besides the
+#: weight GEMMs: flash attention's (o, lse), from which its backward
+#: recomputes the scores, and the LayerNorm's O(s)-size outputs (the JAX
+#: policy's flash and norm kernels; RMSNorm is not ported). Not a blanket
+#: match: replaying the cheap elementwise work is the point.
+_SELECTIVE_SAVEABLE_OPS = frozenset({FLASH_ATTN_FWD, LAYER_NORM_FWD})
+
+#: "selective_elementwise" also keeps the fused tails' forward outputs, so
+#: the backward replays only the unfused remainder (casts, copies)
+_FUSED_BLOCK_SAVEABLE_OPS = frozenset({
+    BIAS_GELU_FWD, BIAS_DROPOUT_RESIDUAL_FWD, RESIDUAL_LN_FWD,
+})
+
+#: the weight GEMMs: ``F.linear`` on an ``[s, b, h]`` activation reaches
+#: ``aten::mm`` on the flattened rows, a product with no batch dims (JAX's
+#: ``dots_with_no_batch_dims_saveable``); ``bmm`` has batch dims and is
+#: replayed
+_NO_BATCH_DIM_GEMMS = frozenset({"aten::mm", "aten::addmm"})
+
+
+def _policy_with_saveable_ops(ops: frozenset, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of the weight GEMMs
+    and of the named forward ops in ``ops``; replay everything else.
+    ``op`` is the dispatcher op (``torch.library`` custom ops carry the
+    kernels' names)."""
+    name = op.name()
+    if name in _NO_BATCH_DIM_GEMMS or name in ops:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_selective_policy = functools.partial(_policy_with_saveable_ops,
+                                      _SELECTIVE_SAVEABLE_OPS)
+_selective_elementwise_policy = functools.partial(
+    _policy_with_saveable_ops,
+    _SELECTIVE_SAVEABLE_OPS | _FUSED_BLOCK_SAVEABLE_OPS)
+_POLICIES = {"selective": _selective_policy,
+             "selective_elementwise": _selective_elementwise_policy}
 
 
 def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
@@ -309,13 +413,15 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
     ``lax.scan``). The stacks are unbound once, so the backward stacks
     the per-layer gradients in one copy. ``recompute_granularity="full"``
     recomputes each layer in the backward (``torch.utils.checkpoint``);
-    dropout seeds are fixed per layer beforehand, so the recomputed
-    layer draws the same masks."""
+    ``"selective"`` keeps the weight-GEMM, flash-attention and LayerNorm
+    outputs and replays the rest (a selective-checkpoint context whose
+    policy matches dispatcher ops by name); ``"selective_elementwise"``
+    also keeps the fused tails' outputs (pairs with ``fused_block``; the
+    backward then launches no forward kernel again). Dropout seeds are
+    fixed per layer beforehand, so a recomputed layer draws the same
+    masks."""
     rg = cfg.recompute_granularity
-    if rg in ("selective", "selective_elementwise"):
-        raise _not_ported(f"recompute_granularity={rg!r} (it comes with "
-                          "the fused-block slice)")
-    if rg not in (None, "full"):
+    if rg not in (None, "full", "selective", "selective_elementwise"):
         raise ValueError(
             f"unknown recompute_granularity {rg!r}: use None, 'full', "
             "'selective' or 'selective_elementwise'")
@@ -331,11 +437,13 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
                                      l + 1)
 
         vals = [st[l] for st in stacks]
-        if rg == "full":
-            hidden = checkpoint(run, hidden, *vals, use_reentrant=False,
-                                preserve_rng_state=False)
-        else:
+        if rg is None:
             hidden = run(hidden, *vals)
+        else:
+            kw = {} if rg == "full" else dict(context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _POLICIES[rg]))
+            hidden = checkpoint(run, hidden, *vals, use_reentrant=False,
+                                preserve_rng_state=False, **kw)
     return hidden
 
 

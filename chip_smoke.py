@@ -13,7 +13,9 @@ any failure exits non-zero and prints no result line:
    (ragged last page, ``kv_len == 0``, garbage-page entries, poisoned
    stale pages, mixed dtypes; a fully masked attention row, hash
    dropout, a length that is not a whole number of tiles; the optimizer's
-   noop and no-update-m/v modes); times of kernel, plain version, one
+   noop and no-update-m/v modes; the six fused block tails in fp32 and
+   bf16, hash dropout with a negative seed, 1000 rows); times of kernel,
+   plain version, one
    PyTorch library call as yardstick, and the least time the card could
    take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
@@ -24,11 +26,14 @@ any failure exits non-zero and prints no result line:
 4. token identity: the same width in fp32 (position table x40) against
    the port's dense ``reference_decode``;
 5. the 345M train step (seq 1024, batch 8, bf16 O2, packed FusedAdam):
-   2 warm-up and 10 timed steps, launches per step, loss falling, a
-   profiled step;
-6. training parity: a 2-layer full-width fp32 model, loss, gradients and
-   3 packed-Adam steps on the card (kernels) against the CPU (plain
-   versions);
+   the headline step (``fused_block=True``, ``selective_elementwise``
+   recompute), 2 warm-up and 10 timed steps, then the unfused step
+   without recompute and the fused step without recompute as further
+   legs (2 + 6 steps each); for each, launches per step asserted
+   exactly, loss falling, peak memory, a profiled step;
+6. training parity: a 2-layer full-width fp32 model, unfused and fused
+   under ``selective_elementwise``, loss, gradients and 3 packed-Adam
+   steps on the card (kernels) against the CPU (plain versions);
 7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +53,7 @@ import torch.nn.functional as F
 from apex_tpu_torch import _build, _device
 from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
+from apex_tpu_torch.ops import fused_block as fb
 from apex_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -129,12 +135,14 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match: str, iters: int = 50):
-    """Device time of the kernels whose name contains ``match``, per
-    call of ``fn``, from a ``torch.profiler`` trace (host overhead
-    excluded); None when the trace shows no such kernel."""
+def device_ms(fn, match, iters: int = 50):
+    """Device time of the kernels whose name contains ``match`` (a
+    string, or a tuple of strings for a call that issues several
+    kernels), per call of ``fn``, from a ``torch.profiler`` trace (host
+    overhead excluded); None when the trace shows no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    matches = (match,) if isinstance(match, str) else tuple(match)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -142,7 +150,7 @@ def device_ms(fn, match: str, iters: int = 50):
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if match in e.key)
+                   if any(m in e.key for m in matches))
     return total_us / 1e3 / iters if total_us else None
 
 
@@ -564,6 +572,201 @@ def _flash_timing(q, k, v, do, o, lse, causal):
                     "bound_ms": bb, "bound_by": bby}}
 
 
+def _rotating(sets):
+    """A function returning the next of ``sets`` on every call: timing
+    loops cycle through input sets larger than the 50 MB L2 together, so
+    each call reads device memory as the train step's fresh activations
+    do."""
+    it = {"i": -1}
+
+    def nxt():
+        it["i"] = (it["i"] + 1) % len(sets)
+        return sets[it["i"]]
+    return nxt
+
+
+#: fused-tail forward kernels against their plain versions: each output
+#: is one rounding of the same fp32 math (FMA contraction and tanh's ulps
+#: aside), so the kernels' general tolerance; the column sums over 8192
+#: rows of the backward kernels SUM_TOL
+FUSED_CASES = (
+    # name, rows, dtype, dropout p, seed
+    ("345M bf16", 8192, torch.bfloat16, 0.0, None),
+    ("345M f32", 8192, torch.float32, 0.0, None),
+    ("345M bf16 dropout 0.1, negative seed", 8192, torch.bfloat16, 0.1,
+     -1234567),
+    ("1000 rows f32 dropout 0.1", 1000, torch.float32, 0.1, 99),
+)
+
+
+def fused_block_checks(dev):
+    """The six fused-tail kernels (#8-#13) against their plain versions
+    at the 345M train shapes: bias-GeLU at ``[8192, 4096]`` (the fc1
+    output), bias-dropout-residual and residual-add-LayerNorm at
+    ``[8192, 1024]``; fp32 and bf16, dropout 0 and 0.1 with a negative
+    seed, a row count no block size divides; then each kernel timed at
+    the bf16 headline shape (dropout 0)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    errs = {k: [] for k in ("bias_gelu_fwd", "bias_gelu_bwd",
+                            "bias_dropout_residual_fwd",
+                            "bias_dropout_residual_bwd", "residual_ln_fwd",
+                            "residual_ln_bwd")}
+
+    def t(rows, n, dt, scale=1.0):
+        return (torch.randn(rows, n, generator=g, device=dev)
+                * scale).to(dt)
+
+    def vec(n, scale, shift=0.0):
+        return torch.randn(n, generator=g, device=dev) * scale + shift
+
+    for name, rows, dt, p, seed in FUSED_CASES:
+        # bias-GeLU at the fc1 width
+        x, dy = t(rows, 4 * HIDDEN, dt), t(rows, 4 * HIDDEN, dt)
+        b = vec(4 * HIDDEN, 0.1)
+        y = fb._bias_gelu_fwd_impl(x, b)
+        dx, db = fb._bias_gelu_bwd(dy, x, b)
+        ry = fb.bias_gelu_reference(x, b)
+        rdx, rdb = fb.bias_gelu_bwd_reference(dy, x, b)
+        errs["bias_gelu_fwd"].append(check_close(
+            f"bias_gelu_fwd {name}", y, ry, dt))
+        errs["bias_gelu_bwd"].append(max(
+            check_close(f"bias_gelu_bwd {name} dx", dx, rdx, dt),
+            check_close(f"bias_gelu_bwd {name} db", db, rdb, None,
+                        SUM_TOL)))
+        del x, dy, y, dx, ry, rdx
+        # the two tails at the hidden width
+        x, r, dy, ds = (t(rows, HIDDEN, dt) for _ in range(4))
+        b, lb, w = vec(HIDDEN, 0.1), vec(HIDDEN, 0.1), vec(HIDDEN, 0.2, 1.0)
+        out = fb._bdr_fwd_impl(x, b, r, seed, p)
+        dx, db = fb._bdr_bwd(dy, seed, p, dt)
+        rout = fb.bias_dropout_residual_reference(x, b, r, seed, p)
+        rdx, rdb = fb.bias_dropout_residual_bwd_reference(dy, seed, p, dt)
+        errs["bias_dropout_residual_fwd"].append(check_close(
+            f"bias_dropout_residual_fwd {name}", out, rout, dt))
+        errs["bias_dropout_residual_bwd"].append(max(
+            check_close(f"bias_dropout_residual_bwd {name} dx", dx, rdx, dt),
+            check_close(f"bias_dropout_residual_bwd {name} db", db, rdb,
+                        None, SUM_TOL)))
+        if p and not torch.equal(dx == 0, rdx == 0):
+            raise AssertionError(f"{name}: the kernel's dropout mask differs "
+                                 f"from dropout_mask_reference")
+        s_, y_, mu, rstd = fb._raln_fwd_impl(x, b, r, w, lb, seed, 1e-5, p)
+        ref = fb.residual_ln_reference(x, b, r, w, lb, seed, 1e-5, p)
+        errs["residual_ln_fwd"].append(max(
+            check_close(f"residual_ln_fwd {name} {k}", a, e,
+                        torch.float32 if k in ("mu", "rstd") else dt)
+            for k, a, e in zip(("sum", "y", "mu", "rstd"),
+                               (s_, y_, mu, rstd), ref)))
+        got = fb._raln_bwd(ds, dy, s_, mu, rstd, w, seed, p)
+        want = fb.residual_ln_bwd_reference(ds, dy, s_, mu, rstd, w, seed, p)
+        errs["residual_ln_bwd"].append(max(
+            check_close(f"residual_ln_bwd {name} {k}", a, e,
+                        dt if k in ("dres", "dx") else None,
+                        None if k in ("dres", "dx") else SUM_TOL)
+            for k, a, e in zip(("dres", "dx", "dw", "dlb", "db"), got, want)))
+        log(f"  fused block {name} [{rows},{HIDDEN}] / [{rows},"
+            f"{4 * HIDDEN}]: max abs err " + ", ".join(
+                f"{k} {v[-1]:.3e}" for k, v in errs.items()))
+        del x, r, dy, ds, out, dx, rout, rdx, s_, y_, ref, got, want
+    rows_out = []
+    for rec in _fused_timing(dev, g):
+        rec["max_abs_err"] = max(errs[rec["name"]])
+        rows_out.append(rec)
+    return rows_out
+
+
+def _fused_timing(dev, g, R: int = 8192):
+    """Call, device, plain and (for the LayerNorm tail) library times of
+    the six kernels at the bf16 headline shapes (``R`` rows), each beside
+    its byte bound: every input read once, every output written once."""
+    H, F4, bf = HIDDEN, 4 * HIDDEN, torch.bfloat16
+    e = 2  # bf16 bytes
+
+    def sets(k, n, count):
+        return [tuple((torch.randn(R, n, generator=g, device=dev)).to(bf)
+                      for _ in range(k)) for _ in range(count)]
+    b4 = torch.randn(F4, generator=g, device=dev).to(bf)
+    b1 = torch.randn(H, generator=g, device=dev).to(bf)
+    w1 = torch.randn(H, generator=g, device=dev).to(bf)
+    lb1 = torch.randn(H, generator=g, device=dev).to(bf)
+    ge = _rotating(sets(2, F4, 2))          # (x, dy) at [8192, 4096]
+    hs = _rotating(sets(4, H, 4))           # (x, r, dy, dsum) at [8192, 1024]
+    st = []
+    for x, r, _, _ in [hs() for _ in range(4)]:
+        st.append(fb._raln_fwd_impl(x, b1, r, w1, lb1, None, 1e-5, 0.0))
+    stn = _rotating(st)
+
+    def raln_bwd_args():
+        _, _, dy, ds = hs()
+        s_, _, mu, rstd = stn()
+        return ds, dy, s_, mu, rstd, w1, None, 0.0
+
+    # a partial yardstick for the LayerNorm tail: F.layer_norm of a sum
+    # added beforehand (the add and the dropout are not timed)
+    sums = _rotating([x + r for x, r, _, _ in [hs() for _ in range(4)]])
+    xl = (hs()[0] + hs()[1]).requires_grad_(True)
+    wl, bl = (v.clone().requires_grad_(True) for v in (w1, lb1))
+    yl = F.layer_norm(xl, (H,), wl, bl, 1e-5)
+    dyl = hs()[2]
+    table = [
+        ("bias_gelu_fwd", lambda: fb._bias_gelu_fwd_impl(ge()[0], b4),
+         lambda: fb.bias_gelu_reference(ge()[0], b4),
+         "bias_gelu_fwd_kernel", None, 2 * R * F4 * e + F4 * e,
+         20 * R * F4, "ops/fused_block.py:193"),
+        ("bias_gelu_bwd", lambda: fb._bias_gelu_bwd(*ge()[::-1], b4),
+         lambda: fb.bias_gelu_bwd_reference(*ge()[::-1], b4),
+         ("bias_gelu_bwd_kernel", "col_sum_kernel"), None,
+         3 * R * F4 * e + F4 * e + F4 * 4, 30 * R * F4,
+         "ops/fused_block.py:212"),
+        ("bias_dropout_residual_fwd",
+         lambda: fb._bdr_fwd_impl(hs()[0], b1, hs()[1], None, 0.0),
+         lambda: fb.bias_dropout_residual_reference(hs()[0], b1, hs()[1],
+                                                    None, 0.0),
+         "bdr_fwd_kernel", None, 3 * R * H * e + H * e, 2 * R * H,
+         "ops/fused_block.py:306"),
+        ("bias_dropout_residual_bwd",
+         lambda: fb._bdr_bwd(hs()[2], None, 0.0, bf),
+         lambda: fb.bias_dropout_residual_bwd_reference(hs()[2], None, 0.0,
+                                                        bf),
+         ("bdr_bwd_kernel", "col_sum_kernel"), None,
+         2 * R * H * e + H * 4, R * H, "ops/fused_block.py:335"),
+        ("residual_ln_fwd",
+         lambda: fb._raln_fwd_impl(hs()[0], b1, hs()[1], w1, lb1, None, 1e-5,
+                                   0.0),
+         lambda: fb.residual_ln_reference(hs()[0], b1, hs()[1], w1, lb1,
+                                          None, 1e-5, 0.0),
+         "raln_fwd_kernel",
+         lambda: F.layer_norm(sums(), (H,), w1, lb1, 1e-5),
+         4 * R * H * e + 3 * H * e + 2 * R * 4, 10 * R * H,
+         "ops/fused_block.py:477"),
+        ("residual_ln_bwd", lambda: fb._raln_bwd(*raln_bwd_args()),
+         lambda: fb.residual_ln_bwd_reference(*raln_bwd_args()),
+         ("raln_bwd_kernel", "col_sum_kernel"),
+         lambda: torch.autograd.grad(yl, (xl, wl, bl), dyl,
+                                     retain_graph=True),
+         5 * R * H * e + 2 * R * 4 + H * e + 3 * H * 4, 16 * R * H,
+         "ops/fused_block.py:512"),
+    ]
+    out = []
+    for name, run, plain, match, lib, nbytes, flops, replaces in table:
+        ms = time_ms(run, iters=50)
+        dev_ms = device_ms(run, match, iters=20)
+        plain_ms = time_ms(plain, iters=10)
+        lib_ms = time_ms(lib, iters=50) if lib is not None else None
+        b_ms, by = bound(nbytes, flops)
+        log(f"  {name} bf16 {'[8192,4096]' if 'gelu' in name else '[8192,1024]'}"
+            f": kernel {ms:.4f} ms (device {dev_ms} ms), plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms ({by})")
+        out.append({"name": name, "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/fused_block.cu",
+                    "replaces": "apex_tpu/" + replaces, "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by})
+    return out
+
+
 def gpt345m_param_shapes(dtype=torch.bfloat16):
     """The 345M parameter tree as meta tensors (shapes and dtypes, no
     memory): the layout the packed optimizer sweeps."""
@@ -684,6 +887,9 @@ def gpt345m(dtype, max_pos=256):
 SERVING_KERNELS = ("flash_decode", "layer_norm_fwd")
 TRAIN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
                  "flash_attn_bwd", "packed_adam")
+FUSED_KERNELS = ("bias_gelu_fwd", "bias_gelu_bwd",
+                 "bias_dropout_residual_fwd", "bias_dropout_residual_bwd",
+                 "residual_ln_fwd", "residual_ln_bwd")
 
 
 def serve_345m(dev):
@@ -836,16 +1042,32 @@ def train_step_fn(cfg, opt, tokens, labels):
     return step
 
 
-def train_345m(dev):
+#: launches per step of each leg, asserted exactly: the headline fused
+#: step (25 LayerNorms: 24 input norms and the final one; the post-attention
+#: norm is inside the residual_ln tail) and the unfused step
+HEADLINE_LAUNCHES = {
+    "layer_norm_fwd": 25, "layer_norm_bwd": 25, "flash_attn_fwd": 24,
+    "flash_attn_bwd": 24, "bias_gelu_fwd": 24, "bias_gelu_bwd": 24,
+    "bias_dropout_residual_fwd": 24, "bias_dropout_residual_bwd": 24,
+    "residual_ln_fwd": 24, "residual_ln_bwd": 24, "packed_adam": 1,
+}
+UNFUSED_LAUNCHES = {
+    "layer_norm_fwd": 49, "layer_norm_bwd": 49, "flash_attn_fwd": 24,
+    "flash_attn_bwd": 24, "packed_adam": 1,
+}
+
+
+def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
     """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
-    compute over bf16 params with fp32 masters (O2), the unfused block
-    without recompute, saved bf16 CE logits, packed FusedAdam(lr=1e-4):
-    2 warm-up steps, then 10 timed steps on the same batch."""
+    compute over bf16 params with fp32 masters (O2), packed
+    FusedAdam(lr=1e-4), random weights (seed 0) and tokens (seed 1), the
+    same batch every step: 2 warm-up steps, then ``timed`` timed steps
+    with the launch counts zeroed before and read after."""
     cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=50304,
                     max_position_embeddings=1024, hidden_dropout=0.0,
                     attention_dropout=0.0, compute_dtype=torch.bfloat16,
-                    ce_save_logits=True)
+                    **cfg_kw)
     params = init_gpt_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     params = tree_map(lambda p: p.to(torch.bfloat16), params)
@@ -864,7 +1086,7 @@ def train_345m(dev):
     torch.cuda.reset_peak_memory_stats()
     _device.reset_launch_counts()
     times = []
-    for _ in range(10):
+    for _ in range(timed):
         t0 = time.perf_counter()
         params, state, loss = step(params, state)
         torch.cuda.synchronize()
@@ -873,30 +1095,52 @@ def train_345m(dev):
     launches = _device.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
-    per_step = {k: launches[k] / 10 for k in TRAIN_KERNELS}
+    per_step = {k: c / timed for k, c in launches.items() if c}
     p50 = float(np.percentile(times, 50))
     p99 = float(np.percentile(times, 99))
-    log(f"  345M train step (b 8, s 1024, bf16 O2, unfused, no remat): "
-        f"step p50 {p50:.2f} ms p99 {p99:.2f} ms, "
+    log(f"  {label}: step p50 {p50:.2f} ms p99 {p99:.2f} ms, "
         f"{8 * 1024 / (p50 / 1e3):.0f} tokens/s at p50; loss first "
         f"{losses[0]:.4f} last {losses[-1]:.4f}; peak memory "
         f"{peak_gb:.2f} GiB")
     log(f"  launches per step: {per_step}")
     log("  train_json " + json.dumps(
-        {"step_ms": times, "losses": losses, "peak_gib": peak_gb,
-         "launches_per_step": per_step}))
-    for name in TRAIN_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched in the "
-                                 f"train step")
-    if launches["flash_decode"]:
-        raise AssertionError("flash_decode launched in the train step")
+        {"leg": label, "step_ms": times, "losses": losses,
+         "peak_gib": peak_gb, "launches_per_step": per_step}))
+    if per_step != {k: float(v) for k, v in expected.items()}:
+        raise AssertionError(f"{label}: launches per step {per_step}, "
+                             f"expected {expected}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    profiled(lambda: step(params, state), "train step", 12)
-    return launches
+    profiled(lambda: step(params, state), f"{label} step", 14)
+    return {"launches": launches, "p50": p50, "p99": p99, "peak": peak_gb}
+
+
+def train_345m(dev):
+    """The headline step (``bench.py``'s default: ``fused_block=True``,
+    ``selective_elementwise`` recompute, chunked CE recomputing the chunk
+    GEMM), then the unfused step without recompute (saved bf16 CE
+    logits) as the second leg, and the fused step without recompute as a
+    third, which separates the recompute's cost from the fused tails',
+    all in this one call."""
+    legs = {}
+    for key, label, expected, timed, kw in (
+            ("headline", "345M headline (fused block, "
+             "selective_elementwise)", HEADLINE_LAUNCHES, 10,
+             dict(fused_block=True,
+                  recompute_granularity="selective_elementwise")),
+            ("unfused", "345M unfused, no remat", UNFUSED_LAUNCHES, 6,
+             dict(ce_save_logits=True)),
+            ("fused", "345M fused block, no remat", HEADLINE_LAUNCHES, 6,
+             dict(fused_block=True))):
+        legs[key] = train_leg(dev, label, expected, timed, **kw)
+        torch.cuda.empty_cache()
+    log("  legs: " + "; ".join(
+        f"{k} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms peak "
+        f"{v['peak']:.2f} GiB" for k, v in legs.items()))
+    return {k: sum(v["launches"][k] for v in legs.values())
+            for k in legs["headline"]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -914,11 +1158,14 @@ PARITY_GRAD_TOL = 1e-4
 PARITY_UPDATE_TOL = 1e-3
 
 
-def train_parity(dev):
+def train_parity(dev, label: str, kernels, **cfg_kw):
+    """A 2-layer full-width fp32 model (seq 256, batch 2): loss,
+    gradients and 3 packed-Adam steps on the card (kernels) against the
+    CPU (plain versions); ``kernels`` must each launch on the card run."""
     cfg = GPTConfig(num_layers=2, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=50304,
                     max_position_embeddings=256, hidden_dropout=0.0,
-                    attention_dropout=0.0)
+                    attention_dropout=0.0, **cfg_kw)
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
@@ -949,8 +1196,7 @@ def train_parity(dev):
     if any(c["counts"].values()):
         raise AssertionError(f"kernels launched on the CPU run: "
                              f"{c['counts']}")
-    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
-                 "flash_attn_bwd"):
+    for name in kernels:
         if g["counts"][name] <= 0:
             raise AssertionError(f"{name} did not launch on the card run")
     rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
@@ -967,7 +1213,7 @@ def train_parity(dev):
                                                     c["losses"]))
     upd = float((g["update"] - c["update"]).norm() / c["update"].norm())
     upd_max = float((g["update"] - c["update"]).abs().max())
-    log(f"  2-layer full-width fp32, seq 256, batch 2: loss card "
+    log(f"  {label} 2-layer full-width fp32, seq 256, batch 2: loss card "
         f"{g['loss']:.7f} cpu {c['loss']:.7f} (rel {rel:.2e}); worst "
         f"gradient leaf {worst:.2e} of its largest entry; 3 Adam steps: "
         f"losses card {g['losses']} cpu {c['losses']} (max rel "
@@ -1005,20 +1251,26 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam = phase(
+    fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam, fused = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), flash_attention_checks(dev),
-                 packed_adam_checks(dev)))
+                 packed_adam_checks(dev), fused_block_checks(dev)))
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")
-    train = phase("phase 5: GPT-2 345M bf16 train step", train_345m, dev)
-    phase("phase 6: training parity, card against CPU", train_parity, dev)
+    train = phase("phase 5: GPT-2 345M bf16 train step, headline and "
+                  "unfused legs", train_345m, dev)
+    phase("phase 6: training parity, card against CPU",
+          lambda: (train_parity(dev, "unfused", TRAIN_KERNELS[:4]),
+                   train_parity(dev, "fused, selective_elementwise",
+                                TRAIN_KERNELS[:4] + FUSED_KERNELS,
+                                fused_block=True,
+                                recompute_granularity="selective_elementwise")))
     fd["launches"] = serving["flash_decode"]
-    # on both main paths: the serving run's launches plus the train run's
+    # launches on the main paths: the serving run plus both train legs
     ln["launches"] = serving["layer_norm_fwd"] + train["layer_norm_fwd"]
-    for kr in (ln_bwd, fa_fwd, fa_bwd, adam):
+    for kr in (ln_bwd, fa_fwd, fa_bwd, adam, *fused):
         kr["launches"] = train[kr["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1026,7 +1278,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in (fd, ln, ln_bwd, fa_fwd, fa_bwd,
-                                             adam)]}))
+                                             adam, *fused)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

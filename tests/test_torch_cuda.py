@@ -12,9 +12,12 @@ Tolerances: fp32 atol 2e-5, rtol 1e-5 (summation order only); bf16 atol
 2e-2, rtol 1e-2 (one bf16 rounding of values of order 1); LayerNorm
 parameter gradients, column sums over the rows, atol 1e-3 rtol 1e-4;
 packed Adam, which rounds every operation as its plain version does,
-rtol 1e-6 on fp32 state and one bf16 rounding on the params; the
-2-layer train step on the card against the CPU, loss rtol 1e-5 and each
-gradient leaf within 1e-4 of its largest entry.
+rtol 1e-6 on fp32 state and one bf16 rounding on the params; the fused
+block tails as the other kernels, their fp32 column sums (bias and
+LayerNorm-parameter gradients) atol 1e-3 rtol 1e-4; the 2-layer train
+step on the card against the CPU (unfused, and fused under
+``selective_elementwise`` recompute), loss rtol 1e-5 and each gradient
+leaf within 1e-4 of its largest entry.
 """
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from apex_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from apex_tpu_torch.ops import fused_block as fb
 from apex_tpu_torch.ops.flash_decode import flash_decode, paged_decode_reference
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm,
@@ -226,6 +230,77 @@ def test_packed_adam_kernel_matches_plain(cuda_device, mode):
             torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-9)
 
 
+SUM_TOL = dict(atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("rows,n", [(1000, 1024), (40, 4096), (7, 64)])
+def test_fused_block_kernels_match_plain(cuda_device, dtype, p, rows, n):
+    """The six fused-tail kernels against their plain versions on the
+    same CUDA tensors, forward and backward, with and without hash
+    dropout (a negative seed), at a row count no block size divides."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + n)
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                * scale).to(dt)
+    x, r, dy, ds = (t(rows, n) for _ in range(4))
+    b, lb = t(n, scale=0.1, dt=torch.float32), t(n, scale=0.1,
+                                                   dt=torch.float32)
+    w = t(n, scale=0.2, dt=torch.float32) + 1.0
+    seed = -987654 if p else None
+    _device.reset_launch_counts()
+    got = {
+        "bias_gelu_fwd": (fb._bias_gelu_fwd_impl(x, b),),
+        "bias_gelu_bwd": fb._bias_gelu_bwd(dy, x, b),
+        "bias_dropout_residual_fwd": (fb._bdr_fwd_impl(x, b, r, seed, p),),
+        "bias_dropout_residual_bwd": fb._bdr_bwd(dy, seed, p, dtype),
+        "residual_ln_fwd": fb._raln_fwd_impl(x, b, r, w, lb, seed, 1e-5, p),
+    }
+    s, _, mu, rstd = got["residual_ln_fwd"]
+    got["residual_ln_bwd"] = fb._raln_bwd(ds, dy, s, mu, rstd, w, seed, p)
+    counts = _device.launch_counts()
+    want = {
+        "bias_gelu_fwd": (fb.bias_gelu_reference(x, b),),
+        "bias_gelu_bwd": fb.bias_gelu_bwd_reference(dy, x, b),
+        "bias_dropout_residual_fwd": (fb.bias_dropout_residual_reference(
+            x, b, r, seed, p),),
+        "bias_dropout_residual_bwd": fb.bias_dropout_residual_bwd_reference(
+            dy, seed, p, dtype),
+        "residual_ln_fwd": fb.residual_ln_reference(x, b, r, w, lb, seed,
+                                                    1e-5, p),
+        # the plain backward on the kernel forward's sum and statistics
+        "residual_ln_bwd": fb.residual_ln_bwd_reference(ds, dy, s, mu, rstd,
+                                                        w, seed, p),
+    }
+    torch.cuda.synchronize()
+    for name in got:
+        assert counts[name] == 1, name
+        for k, (a, e) in enumerate(zip(got[name], want[name])):
+            assert a.dtype == e.dtype and a.shape == e.shape, (name, k)
+            tol = SUM_TOL if a.dim() == 1 else (
+                TOL[torch.float32] if a.dtype == torch.float32 or
+                a.shape[-1] == 1 else TOL[dtype])
+            torch.testing.assert_close(a.float(), e.float(), **tol,
+                                       msg=f"{name} output {k}")
+
+
+def test_fused_block_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = torch.zeros(8, 60, device=cuda_device)
+    b = torch.zeros(60, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fb.bias_gelu(x, b)
+    x = torch.zeros(8, 8192, device=cuda_device)
+    b = torch.zeros(8192, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 4096"):
+        fb.residual_add_layer_norm(x, b, x, b, b)
+    with pytest.raises(ValueError, match="one dtype"):
+        fb.bias_dropout_residual(x, b, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="one dtype"):
+        fb.bias_gelu(x.half(), b)
+
+
 def test_train_step_on_card_matches_cpu(cuda_device):
     """A 2-layer fp32 GPT: loss and every gradient of gpt_loss on the
     card (kernels) against the CPU (plain versions), then one packed
@@ -260,6 +335,47 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
                  "flash_attn_bwd", "packed_adam"):
         assert cg[name] > 0, name
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gc, gg):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+def test_fused_train_step_on_card_matches_cpu(cuda_device):
+    """The same 2-layer fp32 GPT with ``fused_block=True`` and
+    ``selective_elementwise`` recompute: card against CPU, through the
+    fused-tail kernels, with no forward kernel replayed in backward."""
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig,
+        gpt_loss,
+        init_gpt_params,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(num_layers=2, hidden_size=256, num_attention_heads=4,
+                    vocab_size=512, max_position_embeddings=128,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    fused_block=True,
+                    recompute_granularity="selective_elementwise")
+    cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 128)))
+    labels = torch.roll(tokens, -1, dims=1)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = tree_map(lambda x: x.to(dev, copy=True), cpu_params)
+        _device.reset_launch_counts()
+        loss, grads = value_and_grad(lambda p: gpt_loss(
+            cfg, p, tokens.to(dev), labels.to(dev)), params)
+        out[str(dev)] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                         _device.launch_counts())
+    (lc, gc, cc), (lg, gg, cg) = out["cpu"], out[str(cuda_device)]
+    assert not any(cc.values())
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "bias_gelu_fwd",
+                 "bias_gelu_bwd", "bias_dropout_residual_fwd",
+                 "bias_dropout_residual_bwd", "residual_ln_fwd",
+                 "residual_ln_bwd"):
+        assert cg[name] == 2, (name, cg)
+    assert cg["layer_norm_fwd"] == cg["layer_norm_bwd"] == 3, cg
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, b in zip(gc, gg):
         assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())

@@ -52,6 +52,7 @@ def test_port_imports_without_jax_or_apex_tpu():
         apex_tpu_torch.__path__, "apex_tpu_torch.")}
     assert expected <= set(res["modules"])
     assert "apex_tpu_torch.serving.engine" in res["modules"]
+    assert "apex_tpu_torch.ops.fused_block" in res["modules"]
 
 
 def test_port_sources_name_no_jax():

@@ -6,14 +6,18 @@ tokens: ``gpt_loss`` and every gradient against
 ``jax.value_and_grad(gpt_loss)`` with ``use_flash_attention=True`` (the
 Pallas kernels in interpret mode), the chunked LM-head cross entropy in
 both variants, 5 packed-Adam steps along the JAX loss curve, a bf16 O2
-run, and the ``"full"`` recompute.
+run, the ``"full"`` recompute, and the fused block (``fused_block=True``)
+against the unfused one and under every recompute setting.
 
 Tolerances: fp32 loss rtol 1e-5, each gradient leaf within 1e-5 of its
 largest entry, the 5-step loss curve rtol 1e-5 and the masters atol
 1e-4 (Adam moves an element whose gradient sits at the rounding level
 by up to lr either way); bf16 O2: loss rtol 1e-3 and each gradient leaf
 within 5e-2 of its largest entry (bf16 rounds at other places in the
-two frameworks); recompute "full" equals no recompute exactly.
+two frameworks); recompute "full" equals no recompute exactly; the
+fused block against the unfused one in fp32, loss rtol 1e-6 and each
+gradient leaf within 1e-5 of its largest entry (the fused tails add
+the bias in fp32 before rounding, as the TPU kernels do).
 """
 import dataclasses
 
@@ -211,8 +215,6 @@ def test_paths_not_ported_are_refused():
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     t, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
     for bad, err in ((dict(use_flash_attention=False), NotImplementedError),
-                     (dict(recompute_granularity="selective"),
-                      NotImplementedError),
                      (dict(attn_mask_type=AttnMaskType.padding),
                       NotImplementedError),
                      (dict(recompute_granularity="bogus"), ValueError)):
@@ -221,3 +223,40 @@ def test_paths_not_ported_are_refused():
     with pytest.raises(ValueError, match="max_position_embeddings"):
         gpt_loss(tcfg, tp, torch.zeros(1, 64, dtype=torch.long),
                  torch.zeros(1, 64, dtype=torch.long))
+
+
+def test_fused_block_matches_unfused_f32():
+    """The JAX package's ``test_model_fused_matches_unfused_f32`` in the
+    port: the fused tails compute the unfused chain's math."""
+    _, tcfg, jp, tokens, labels = _setup(8)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    l0, g0 = _torch_vg(tcfg, tp, tokens, labels)
+    l1, g1 = _torch_vg(dataclasses.replace(tcfg, fused_block=True), tp,
+                       tokens, labels)
+    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("rg", ["full", "selective", "selective_elementwise"])
+def test_fused_dropout_is_seeded_and_survives_recompute(rg):
+    """Hash dropout in the fused tails (hidden 0.1) and in attention: the
+    same generator seed gives the same loss and gradients with and
+    without recompute (the recomputed layer regenerates the masks from
+    its seeds); another seed differs."""
+    _, tcfg, jp, tokens, labels = _setup(9)
+    tcfg = dataclasses.replace(tcfg, fused_block=True, hidden_dropout=0.1,
+                               attention_dropout=0.1)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+
+    def run(cfg, seed):
+        return _torch_vg(cfg, tp, tokens, labels, deterministic=False,
+                         generator=torch.Generator().manual_seed(seed))
+    l0, g0 = run(tcfg, 1)
+    l1, g1 = run(dataclasses.replace(tcfg, recompute_granularity=rg), 1)
+    l2, _ = run(tcfg, 2)
+    l3, _ = _torch_vg(tcfg, tp, tokens, labels)  # deterministic: none
+    assert float(l0) == float(l1) and float(l0) != float(l2)
+    assert float(l3) != float(l0)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(a, b)
