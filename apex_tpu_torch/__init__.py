@@ -14,7 +14,11 @@ Ported so far, on one device: serving — ``serving.ServingEngine`` over
 ``transformer.testing.gpt_loss`` with the ``ops.layer_norm`` (forward
 and backward) and ``ops.flash_attention`` (forward and backward)
 kernels, and ``optimizers.FusedAdam`` over the ``ops.packed_optimizer``
-packed Adam kernel.
+packed Adam kernel; the fused block tails (``ops.fused_block``);
+attention without flash through ``transformer.functional.fused_softmax``
+(forward and backward kernels); BERT (``bert_forward``,
+``standalone_bert``) with ``contrib.xentropy.softmax_cross_entropy_loss``
+and the pytree ``optimizers.FusedLAMB``.
 """
 from ._device import (  # noqa: F401
     kernel_route,

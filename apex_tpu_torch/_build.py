@@ -27,7 +27,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libapex_tpu_torch_kernels.so"
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "fused_block.cu",
-           "layer_norm.cu", "packed_adam.cu")
+           "fused_softmax.cu", "layer_norm.cu", "packed_adam.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -84,6 +84,14 @@ _ARGTYPES = {
     # 1 - beta1, beta2, 1 - beta2, eps, wd, adam_w_mode, write_mv,
     # write_master, g_is_bf16, p_is_bf16, device, stream
     "apex_packed_adam": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 6 + [_P],
+    # x, y, rows, sk, sq, scale, causal, dtype, vec, device, stream
+    "apex_softmax_fwd": [_P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _P],
+    # x, mask, y, rows, sk, sq, heads, mask strides (b, h, q), scale,
+    # dtype, vec, device, stream
+    "apex_softmax_masked_fwd": [_P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _F,
+                                _I, _I, _I, _P],
+    # dy, y, dx, rows, sk, scale, dtype, vec, device, stream
+    "apex_softmax_bwd": [_P, _P, _P, _L, _I, _F, _I, _I, _I, _P],
 }
 
 

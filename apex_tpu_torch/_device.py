@@ -17,8 +17,10 @@ launches its kernel, so a run can show that its main path went through
 the kernels (``chip_smoke.py`` zeroes the counts before the path and
 reads them after). The keys: ``flash_decode`` (serving),
 ``layer_norm_fwd``/``_bwd``, ``flash_attn_fwd``/``_bwd``, ``packed_adam``
-and the fused block tails ``bias_gelu_fwd``/``_bwd``,
-``bias_dropout_residual_fwd``/``_bwd``, ``residual_ln_fwd``/``_bwd``. A
+the fused block tails ``bias_gelu_fwd``/``_bwd``,
+``bias_dropout_residual_fwd``/``_bwd``, ``residual_ln_fwd``/``_bwd``, and
+the fused softmax ``softmax_fwd`` (causal or unmasked),
+``softmax_masked_fwd`` and ``softmax_bwd``. A
 forward output that a selective recompute policy hands back from its
 cache launches nothing and counts nothing.
 """
@@ -35,6 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "bias_gelu_fwd": 0, "bias_gelu_bwd": 0,
     "bias_dropout_residual_fwd": 0, "bias_dropout_residual_bwd": 0,
     "residual_ln_fwd": 0, "residual_ln_bwd": 0,
+    "softmax_fwd": 0, "softmax_masked_fwd": 0, "softmax_bwd": 0,
 }
 
 

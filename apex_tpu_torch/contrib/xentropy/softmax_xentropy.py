@@ -1,6 +1,13 @@
-"""Chunk-fused LM-head GEMM + cross entropy (counterpart of
-``apex_tpu/contrib/xentropy/softmax_xentropy.py``'s
+"""Softmax cross entropy and the chunk-fused LM-head GEMM + cross
+entropy (counterpart of ``apex_tpu/contrib/xentropy/softmax_xentropy.py``:
+``softmax_cross_entropy_loss``, ``SoftmaxCrossEntropyLoss``,
 ``lm_head_cross_entropy`` and ``_lm_head_ce_saved``).
+
+:func:`softmax_cross_entropy_loss` is the label-smoothed cross entropy
+of the reference's xentropy kernel, in plain PyTorch as the JAX package
+has it in plain XLA. :func:`lm_logits` is the tied head's fp32 logits
+(:func:`logits_f32`) as a differentiable function, for a loss over
+whole logits (BERT's MLM loss).
 
 Per-row losses ``logsumexp(h @ W^T) - (h @ W^T)[label]`` without the
 ``[N, vocab]`` fp32 logits ever being whole in memory: rows go through
@@ -46,6 +53,61 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+class _LmLogits(torch.autograd.Function):
+    """:func:`logits_f32` with the backward of the chunked CE: the fp32
+    cotangent is cast to h's dtype for both GEMMs, d weight accumulates
+    in fp32 and is cast to the weight's dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return logits_f32(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        return torch.mm(g, w.to(h.dtype)), _mm_f32(g.t(), h).to(w.dtype)
+
+
+def lm_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``h [c, k] @ w [v, k]^T`` with fp32 accumulation
+    and fp32 output (:func:`logits_f32`)."""
+    return _LmLogits.apply(h, w)
+
+
+def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                               smoothing: float = 0.0, padding_idx: int = 0,
+                               half_to_float: bool = False) -> torch.Tensor:
+    """Per-example smoothed cross entropy: ``(N, K)`` logits and ``(N,)``
+    integer labels -> ``(N,)`` fp32 losses ``smoothing * (lse - mean(x))
+    + (1 - smoothing) * (lse - x[label])``, zero (and zero gradient)
+    where ``labels == padding_idx``. A negative label indexes from the
+    end, as ``take_along_axis`` does, before the padding zeroes it.
+    ``half_to_float`` is accepted for parity: the losses are always
+    fp32."""
+    del half_to_float
+    x = logits.float()
+    labels = labels.long()
+    lse = torch.logsumexp(x, dim=-1)
+    idx = torch.where(labels < 0, labels + x.shape[-1], labels)
+    loss = lse - x.gather(-1, idx[:, None])[:, 0]
+    if smoothing:
+        loss = smoothing * (lse - x.mean(dim=-1)) + (1.0 - smoothing) * loss
+    return torch.where(labels == padding_idx, 0.0, loss)
+
+
+class SoftmaxCrossEntropyLoss:
+    """The reference's ``SoftmaxCrossEntropyLoss.apply(logits, labels,
+    ...)`` spelling of :func:`softmax_cross_entropy_loss`."""
+
+    @staticmethod
+    def apply(logits, labels, smoothing=0.0, padding_idx=0,
+              half_to_float=False):
+        return softmax_cross_entropy_loss(logits, labels, smoothing,
+                                          padding_idx, half_to_float)
 
 
 def _chunks(n: int, chunk_size: int):

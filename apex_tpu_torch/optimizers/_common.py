@@ -82,3 +82,11 @@ def resolve_scale(grad_scale, device) -> torch.Tensor:
         return 1.0 / grad_scale.to(device=device, dtype=torch.float32)
     return torch.full((), 1.0 / float(grad_scale), dtype=torch.float32,
                       device=device)
+
+
+def lr_tensor(lr, device) -> torch.Tensor:
+    """A learning rate (a float or a tensor) as an fp32 0-dim tensor on
+    ``device``."""
+    if isinstance(lr, torch.Tensor):
+        return lr.to(device=device, dtype=torch.float32)
+    return torch.full((), float(lr), dtype=torch.float32, device=device)

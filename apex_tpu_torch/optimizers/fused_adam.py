@@ -32,6 +32,7 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..ops.packed_optimizer import packed_adam_apply
 from ._common import (
+    lr_tensor,
     multi_tree_update,
     resolve_scale,
     skip_on_overflow,
@@ -48,12 +49,6 @@ class FusedAdamState(NamedTuple):
     exp_avg: Tree  # fp32
     exp_avg_sq: Tree  # fp32
     master_params: Optional[Tree]  # fp32 when master_weights else None
-
-
-def _lr_tensor(lr, device) -> torch.Tensor:
-    if isinstance(lr, torch.Tensor):
-        return lr.to(device=device, dtype=torch.float32)
-    return torch.full((), float(lr), dtype=torch.float32, device=device)
 
 
 class FusedAdam:
@@ -110,7 +105,7 @@ class FusedAdam:
                  inv_scale):
         new_step = state.step + 1
         bc1, bc2 = self._bias_corrections(new_step)
-        lr = _lr_tensor(lr, new_step.device)
+        lr = lr_tensor(lr, new_step.device)
         src = state.master_params if self.master_weights else params
 
         def leaf(g, p, m, v):
@@ -143,7 +138,7 @@ class FusedAdam:
             flat_g, state.exp_avg, state.exp_avg_sq,
             packed_src(state, params, self.master_weights),
             param_dtype=spec.common_dtype(),
-            lr=_lr_tensor(lr, flat_g.device), bc1=bc1, bc2=bc2,
+            lr=lr_tensor(lr, flat_g.device), bc1=bc1, bc2=bc2,
             inv_scale=inv_scale, noop=found_inf, beta1=beta1, beta2=beta2,
             eps=self.eps, wd=wd, adam_w_mode=self.adam_w_mode,
             write_mv=write_mv,

@@ -1,5 +1,7 @@
+from .standalone_bert import bert_model_provider  # noqa: F401
 from .standalone_transformer_lm import (  # noqa: F401
     GPTConfig,
+    bert_forward,
     gpt_embed,
     gpt_forward,
     gpt_hidden,

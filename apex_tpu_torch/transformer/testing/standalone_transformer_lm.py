@@ -14,22 +14,27 @@ as far as serving and the single-device train step use it.
   Numerics follow the training path: LayerNorm on an fp32 copy cast
   back, GEMMs in ``compute_dtype``, tanh GeLU, fp32 logits.
 - the training path, in the Megatron ``[s, b, h]`` layout:
-  :func:`parallel_attention` (flash attention only), :func:`parallel_mlp`,
+  :func:`parallel_attention` (flash attention, or the scores through
+  ``transformer.functional.FusedScaleMaskSoftmax`` with
+  ``use_flash_attention=False`` or where flash does not apply),
+  :func:`parallel_mlp`,
   :func:`transformer_layer` (the unfused branch, and with
   ``GPTConfig.fused_block`` the fused block tails of
   ``ops/fused_block.py``), :func:`transformer_block` (a loop over the
   stacked layers, ``recompute_granularity`` None, ``"full"``,
   ``"selective"`` or ``"selective_elementwise"``), :func:`gpt_embed`,
   :func:`gpt_hidden` and :func:`gpt_loss` (the single-device branch:
-  chunked LM-head cross entropy). The kernels on it are the LayerNorm
-  forward and backward, the flash-attention forward and backward and,
-  in the fused block, bias-GeLU, bias-dropout-residual and
-  residual-add-LayerNorm forward and backward; GEMMs are ``F.linear`` /
-  ``torch.mm``, as the JAX package left them to XLA.
+  chunked LM-head cross entropy), and the BERT encoder
+  :func:`bert_forward` (padding mask, tied MLM head, pooler and binary
+  head). The kernels on it are the LayerNorm forward and backward, the
+  flash-attention forward and backward or the fused scale-mask-softmax
+  forward and backward, and, in the fused block, bias-GeLU,
+  bias-dropout-residual and residual-add-LayerNorm forward and backward;
+  GEMMs (the attention products included) are ``F.linear`` /
+  ``torch.bmm`` / ``torch.mm``, as the JAX package left them to XLA.
 
-Not ported yet (ROADMAP.md): tensor, sequence and context parallelism,
-fp8, the non-flash attention path (fused softmax kernels) and fp16
-query-key layer scaling; each raises ``NotImplementedError``. Hidden
+Not ported yet (ROADMAP.md): tensor, sequence and context parallelism
+and fp8. Hidden
 dropout of the unfused branch draws from an explicit ``torch.Generator``
 (JAX's ``bernoulli`` stream cannot be matched); attention dropout and
 the fused tails' hidden dropout are the kernels' hash, seeded from the
@@ -49,7 +54,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from ...contrib.xentropy import lm_head_cross_entropy, logits_f32
+from ...contrib.xentropy import lm_head_cross_entropy, lm_logits
 from ...ops.flash_attention import FLASH_ATTN_FWD, flash_attention_sbhd
 from ...ops.fused_block import (
     BIAS_DROPOUT_RESIDUAL_FWD,
@@ -61,6 +66,7 @@ from ...ops.fused_block import (
 )
 from ...ops.layer_norm import LAYER_NORM_FWD, layer_norm
 from ..enums import AttnMaskType
+from ..functional.fused_softmax import FusedScaleMaskSoftmax
 
 Params = Dict[str, Any]
 
@@ -87,8 +93,10 @@ class GPTConfig:
     # transformer_block); "selective_elementwise" also keeps the fused
     # tails' outputs and pairs with fused_block=True
     recompute_granularity: Optional[str] = None
-    # None = flash attention (the only attention path ported); False
-    # raises (the non-flash path runs the fused-softmax kernels)
+    # None = flash attention where it applies (no fp16 query-key layer
+    # scaling, a causal or [b, 1, 1, sk] padding mask), else the scores
+    # through FusedScaleMaskSoftmax; True forces flash (raises where it
+    # does not apply); False forces the softmax path
     use_flash_attention: Optional[bool] = None
     # save each CE chunk's logits in compute_dtype instead of
     # recomputing the chunk GEMM in backward (changes the forward loss:
@@ -100,6 +108,8 @@ class GPTConfig:
     # fc2 bias + hash dropout + residual after the MLP). Hidden dropout is
     # then the counter hash seeded per tail, not the generator's mask.
     fused_block: bool = False
+    # BERT: the pooler and binary (sentence-order) head
+    add_binary_head: bool = False
 
     @property
     def ffn_size(self) -> int:
@@ -114,8 +124,9 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
                     device: Optional[torch.device] = None) -> Params:
     """Global parameter tree, Megatron init: normal(0, 0.02) weights,
     output projections scaled by ``1/sqrt(2 * num_layers)``, zero
-    biases, unit LN weights. Draws happen on ``generator``'s device and
-    land on ``device`` (default: the generator's)."""
+    biases, unit LN weights; with ``cfg.add_binary_head`` the BERT
+    pooler and binary head too. Draws happen on ``generator``'s device
+    and land on ``device`` (default: the generator's)."""
     h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
     ffn = cfg.ffn_size
     std = 0.02
@@ -132,7 +143,7 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
     def full(shape, val):
         return torch.full(shape, val, device=dev, dtype=dt)
 
-    return {
+    params = {
         "embedding": {
             "word": n((v, h)),
             "position": n((cfg.max_position_embeddings, h)),
@@ -154,6 +165,14 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
         "final_ln_w": full((h,), 1.0),
         "final_ln_b": full((h,), 0.0),
     }
+    if cfg.add_binary_head:
+        params["binary_head"] = {
+            "pooler_w": n((h, h)),
+            "pooler_b": full((h,), 0.0),
+            "head_w": n((2, h)),
+            "head_b": full((2,), 0.0),
+        }
+    return params
 
 
 def ln_fp32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -174,11 +193,12 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 def lm_head(h: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     """Tied-embedding head with fp32 logits from fp32 accumulation
-    (``contrib.xentropy.logits_f32``: on the card one bf16 GEMM that
+    (``contrib.xentropy.lm_logits``: on the card one bf16 GEMM that
     writes fp32, reading the bf16 embedding as it is; a plain bf16
-    matmul would round the logits to bf16 and create argmax ties)."""
+    matmul would round the logits to bf16 and create argmax ties);
+    differentiable."""
     lead = h.shape[:-1]
-    out = logits_f32(h.reshape(-1, h.shape[-1]), word)
+    out = lm_logits(h.reshape(-1, h.shape[-1]), word)
     return out.reshape(*lead, word.shape[0])
 
 
@@ -243,18 +263,16 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
     return torch.where(keep, x / (1.0 - rate), 0).to(x.dtype)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
-
-
 def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                        hidden: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
                        dropout_seed: Optional[int], deterministic: bool,
                        layer_number: Optional[int] = None,
                        fuse_tail: bool = False) -> torch.Tensor:
-    """Self-attention on one device: fused QKV GEMM, flash attention,
-    output projection (the JAX ``parallel_attention``'s flash path);
+    """Self-attention on one device (the JAX ``parallel_attention``):
+    fused QKV GEMM, then flash attention or, with
+    ``use_flash_attention=False`` or where flash does not apply, the
+    scores through :func:`_softmax_attention`; output projection.
     ``fuse_tail`` leaves ``proj_b`` to the caller's fused tail."""
     s, b, _ = hidden.shape
     n, hn = cfg.num_attention_heads, cfg.kv_channels
@@ -278,10 +296,10 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
             "flash-compatible (fp16 qk layer scaling or a non-causal/"
             "non-padding mask)")
     if cfg.use_flash_attention is False or not flash_compatible:
-        raise _not_ported(
-            "attention without flash (the fused scale-mask-softmax "
-            "kernels, TPU kernels #14-#16) and fp16 query-key layer "
-            "scaling")
+        ctx = _softmax_attention(cfg, q, k, v, attention_mask, causal,
+                                 layer_number if qk_scaling else None,
+                                 dropout_seed, deterministic)
+        return _attn_out_proj(cfg, lp, ctx.to(hidden.dtype), fuse_tail)
     p = 0.0 if deterministic or dropout_seed is None \
         else float(cfg.attention_dropout)
     flash_kw = dict(dropout_p=p, dropout_seed=dropout_seed) if p > 0.0 \
@@ -290,6 +308,58 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                                scale=1.0 / (hn ** 0.5), **flash_kw)
     ctx = ctx.to(hidden.dtype).reshape(s, b, n * hn)
     return _attn_out_proj(cfg, lp, ctx, fuse_tail)
+
+
+def _softmax_attention(cfg: GPTConfig, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor,
+                       attention_mask: Optional[torch.Tensor], causal: bool,
+                       qk_layer: Optional[int], dropout_seed: Optional[int],
+                       deterministic: bool) -> torch.Tensor:
+    """Attention with materialised ``[b, n, s, s]`` scores (the JAX
+    branch without flash): ``q k^T`` in the compute dtype divided by
+    ``sqrt(hn)`` in that dtype, :class:`FusedScaleMaskSoftmax` (causal,
+    or the ``attention_mask`` with nonzero = masked out), dropout on the
+    probabilities from a generator seeded with ``dropout_seed`` (so a
+    recomputed layer redraws the same mask), and ``probs @ v`` with fp32
+    accumulation -> context ``[s, b, n * hn]``.
+
+    ``qk_layer`` (fp16 with query-key layer scaling) is the 1-based layer
+    number: the scores are taken in fp32, divided by ``sqrt(hn) * coeff``
+    and multiplied back by ``coeff = max(qk_layer, 1)`` inside an inline
+    fp32 softmax with the ``-10000`` fill, and no kernel runs (the JAX
+    package's traced scale has no kernel either). The two products are
+    ``torch.bmm`` over ``b * n`` contiguous batches, as the JAX package
+    left its einsums to XLA."""
+    s, b, n, hn = q.shape
+    sk = k.shape[0]
+    dt = cfg.compute_dtype
+    qb = q.permute(1, 2, 0, 3).reshape(b * n, s, hn)
+    kb = k.permute(1, 2, 3, 0).reshape(b * n, hn, sk)
+    vb = v.permute(1, 2, 0, 3).reshape(b * n, sk, hn)
+    norm_factor = hn ** 0.5
+    if qk_layer is not None:
+        coeff = float(max(qk_layer, 1))
+        x = torch.bmm(qb.float(), kb.float()).view(b, n, s, sk) \
+            / (norm_factor * coeff) * coeff
+        if causal:
+            x = torch.where(torch.ones(s, sk, dtype=torch.bool,
+                                       device=x.device).triu(1),
+                            -10000.0, x)
+        elif attention_mask is not None:
+            x = x.masked_fill(attention_mask != 0, -10000.0)
+        probs = torch.softmax(x, dim=-1).to(dt)
+    else:
+        softmax = FusedScaleMaskSoftmax(
+            input_in_fp16=dt == torch.float16,
+            input_in_bf16=dt == torch.bfloat16,
+            attn_mask_type=cfg.attn_mask_type, mask_func=None,
+            softmax_in_fp32=True, scale=None)
+        scores = torch.bmm(qb, kb).view(b, n, s, sk) / norm_factor
+        probs = softmax(scores, None if causal else attention_mask)
+    probs = _dropout(probs, cfg.attention_dropout, dropout_seed,
+                     deterministic)
+    ctx = torch.bmm(probs.reshape(b * n, s, sk).to(v.dtype), vb)
+    return ctx.view(b, n, s, hn).permute(2, 0, 1, 3).reshape(s, b, n * hn)
 
 
 def _attn_out_proj(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
@@ -368,7 +438,11 @@ def _hash_dropout_seed(seed: Optional[int], p: float) -> Optional[int]:
 #: weight GEMMs: flash attention's (o, lse), from which its backward
 #: recomputes the scores, and the LayerNorm's O(s)-size outputs (the JAX
 #: policy's flash and norm kernels; RMSNorm is not ported). Not a blanket
-#: match: replaying the cheap elementwise work is the point.
+#: match: replaying the cheap elementwise work is the point. The fused
+#: softmax forwards (SOFTMAX_FWD, SOFTMAX_MASKED_FWD) are deliberately
+#: absent, as in the JAX policy: they emit the [b, n, s, s] probabilities,
+#: the activation selective recompute exists not to keep, so the backward
+#: replays them.
 _SELECTIVE_SAVEABLE_OPS = frozenset({FLASH_ATTN_FWD, LAYER_NORM_FWD})
 
 #: "selective_elementwise" also keeps the fused tails' forward outputs, so
@@ -479,14 +553,24 @@ def gpt_hidden(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
     compute_dtype: embeddings, the layer stack, the final LayerNorm.
     Dropout (when not ``deterministic``) draws its seeds from
     ``generator``."""
+    return _trunk(cfg, params, tokens, None, generator, deterministic)
+
+
+def _trunk(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
+           attention_mask: Optional[torch.Tensor],
+           generator: Optional[torch.Generator],
+           deterministic: bool) -> torch.Tensor:
+    """Embeddings, the layer stack under ``attention_mask``, the final
+    LayerNorm -> ``[s, b, h]`` in compute_dtype; dropout seeds (one for
+    the embeddings, three per layer) drawn from ``generator``."""
     embed_seed = layer_seeds = None
     if generator is not None and not deterministic:
         embed_seed = _draw_seed(generator)
         layer_seeds = [tuple(_draw_seed(generator) for _ in range(3))
                        for _ in range(cfg.num_layers)]
     hidden = gpt_embed(cfg, params, tokens, None, embed_seed, deterministic)
-    hidden = transformer_block(cfg, params["layers"], hidden, None,
-                               layer_seeds, deterministic)
+    hidden = transformer_block(cfg, params["layers"], hidden,
+                               attention_mask, layer_seeds, deterministic)
     return ln_fp32(hidden, params["final_ln_w"], params["final_ln_b"],
                    cfg.layernorm_epsilon).to(cfg.compute_dtype)
 
@@ -512,3 +596,40 @@ def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
         return losses.mean()
     m = loss_mask.to(torch.float32)
     return (losses * m).sum() / m.sum().clamp_min(1.0)
+
+
+# --------------------------------------------------------------------------
+# BERT
+# --------------------------------------------------------------------------
+
+def bert_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
+                 padding_mask: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = True):
+    """BERT-style bidirectional encoder (the JAX ``bert_forward``):
+    ``tokens [b, s]`` and ``padding_mask [b, s]`` (1 = real token,
+    default all real) -> ``(lm_logits [b, s, vocab] fp32, binary_logits
+    [b, 2] or None)``. The layers run with ``attn_mask_type=padding``
+    under the int8 ``[b, 1, 1, s]`` mask (nonzero = masked out), which
+    flash attention takes as its key mask and the softmax path as its
+    mask; then the final LayerNorm, the tied head with fp32 logits and,
+    with ``cfg.add_binary_head``, the tanh pooler over the first token
+    and the binary head."""
+    b, s = tokens.shape
+    if padding_mask is None:
+        padding_mask = torch.ones((b, s), dtype=torch.int32,
+                                  device=tokens.device)
+    attn_mask = (padding_mask[:, None, None, :] == 0).to(torch.int8)
+    cfg_pad = dataclasses.replace(cfg, attn_mask_type=AttnMaskType.padding)
+    hidden = _trunk(cfg_pad, params, tokens, attn_mask, generator,
+                    deterministic)
+    # the head reads [b, s, h] rows, so the logits come out [b, s, v]
+    lm_logits = lm_head(hidden.transpose(0, 1), params["embedding"]["word"])
+    binary_logits = None
+    if cfg.add_binary_head and "binary_head" in params:
+        bh = params["binary_head"]
+        dt = hidden.dtype
+        pooled = torch.tanh(hidden[0] @ bh["pooler_w"].to(dt)
+                            + bh["pooler_b"].to(dt))
+        binary_logits = pooled @ bh["head_w"].t().to(dt) + bh["head_b"].to(dt)
+    return lm_logits, binary_logits

@@ -14,10 +14,12 @@ any failure exits non-zero and prints no result line:
    stale pages, mixed dtypes; a fully masked attention row, hash
    dropout, a length that is not a whole number of tiles; the optimizer's
    noop and no-update-m/v modes; the six fused block tails in fp32 and
-   bf16, hash dropout with a negative seed, 1000 rows); times of kernel,
-   plain version, one
-   PyTorch library call as yardstick, and the least time the card could
-   take;
+   bf16, hash dropout with a negative seed, 1000 rows; the three fused
+   softmax kernels in fp32, bf16 and fp16, causal and unmasked at the
+   345M shape, masked at the BERT-large shape with a padding mask and a
+   general mask holding a fully masked row, sk 1000, 999 and 16384);
+   times of kernel, plain version, one PyTorch library call as
+   yardstick, and the least time the card could take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
    vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine(n_slots=8, prefill_chunk=8)`` on 16 staggered
@@ -27,14 +29,23 @@ any failure exits non-zero and prints no result line:
    the port's dense ``reference_decode``;
 5. the 345M train step (seq 1024, batch 8, bf16 O2, packed FusedAdam):
    the headline step (``fused_block=True``, ``selective_elementwise``
-   recompute), 2 warm-up and 10 timed steps, then the unfused step
-   without recompute and the fused step without recompute as further
-   legs (2 + 6 steps each); for each, launches per step asserted
-   exactly, loss falling, peak memory, a profiled step;
-6. training parity: a 2-layer full-width fp32 model, unfused and fused
-   under ``selective_elementwise``, loss, gradients and 3 packed-Adam
-   steps on the card (kernels) against the CPU (plain versions);
-7. a ``{"kernels": [...]}`` line, the card line, and last
+   recompute), 2 warm-up and 6 timed steps, then the unfused step
+   without recompute, the fused step without recompute and the step
+   without flash attention (``bench.py``'s xla-attention leg: the fused
+   softmax kernels under ``selective`` recompute) as further legs
+   (2 + 6 steps each); for each, launches per step asserted exactly,
+   loss falling, peak memory, a profiled step;
+6. the BERT-large step with pytree FusedLAMB (``bench.py``'s
+   ``bench_bert_lamb``: 24 x 1024 x 16, vocab 30592, seq 512, batch 16,
+   bf16 over fp32 params, ``selective``), with a padding mask, without
+   flash (the masked fused softmax) and with flash (2 + 5 steps each),
+   checked as the GPT legs;
+7. training parity, card (kernels) against CPU (plain versions), on
+   2-layer full-width models: fp32 unfused and fused under
+   ``selective_elementwise`` (3 packed-Adam steps), bf16 GPT without
+   flash (3 packed-Adam steps) and bf16 BERT without flash under a
+   padding mask (3 LAMB steps): loss, every gradient, the steps;
+8. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present.
@@ -52,6 +63,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch import _build, _device
 from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
+from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
 from apex_tpu_torch.ops import fused_block as fb
 from apex_tpu_torch.ops.flash_attention import (
@@ -74,14 +86,16 @@ from apex_tpu_torch.ops.packed_optimizer import (
     packed_adam_apply,
     packed_adam_reference,
 )
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from apex_tpu_torch.serving import (
     Request,
     ServingEngine,
     reference_decode,
 )
+from apex_tpu_torch.transformer.functional import fused_softmax as fs
 from apex_tpu_torch.transformer.testing import (
     GPTConfig,
+    bert_forward,
     gpt_forward,
     gpt_loss,
     init_gpt_params,
@@ -102,9 +116,12 @@ POOL_PAGES = SLOTS * MP + 1
 HIDDEN = 1024
 
 # tolerances of a kernel against its plain version on the same inputs:
-# fp32 results differ only in summation order; a bf16 result may differ
-# by one bf16 rounding (2^-8 relative) of values of order 1
-TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+# fp32 results differ only in summation order (and the fused softmax's
+# __expf, a few fp32 ulps); a bf16 result may differ by one bf16 rounding
+# (2^-8 relative) of values of order 1, an fp16 one by one fp16 rounding
+# (2^-11) of values up to 1
+TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2),
+       torch.float16: (1e-3, 1e-3)}
 
 
 def log(msg: str) -> None:
@@ -767,6 +784,154 @@ def _fused_timing(dev, g, R: int = 8192):
     return out
 
 
+#: the attention scores of the two paths: GPT-2 345M [b 8, 16 heads, 1024,
+#: 1024] causal, BERT-large [16, 16, 512, 512] under a padding mask
+GPT_SCORES = (8, N_HEADS, 1024, 1024)
+BERT_SCORES = (16, N_HEADS, 512, 512)
+
+
+def fused_softmax_checks(dev):
+    """The fused softmax kernels (#14-#16) against their plain versions
+    in fp32, bf16 and fp16: causal (scale 1 and 0.125) and unmasked at the
+    345M scores, masked at the BERT-large scores with a [b, 1, 1, sk]
+    padding mask and a general [b, 1, sq, sk] mask holding a fully masked
+    row (uniform 1/sk), sk 1000 and 999 (not a multiple of 128, and not
+    of 8: the scalar path), and sk 16384 on a few rows; then each kernel
+    timed at the bf16 shapes of the paths."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    errs = {"softmax_fwd": [], "softmax_masked_fwd": [], "softmax_bwd": []}
+
+    def pad_mask(b, sk):
+        """[b, 1, 1, sk], True past a length drawn in [sk / 2, sk]."""
+        lens = torch.randint(sk // 2, sk + 1, (b,), generator=g, device=dev)
+        return (torch.arange(sk, device=dev) >= lens[:, None])[:, None, None]
+
+    cases = []  # (dtype, name, shape, variant, scale)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        cases += [(dt, "345M causal", GPT_SCORES, "causal", 1.0),
+                  (dt, "345M causal", GPT_SCORES, "causal", 0.125),
+                  (dt, "345M unmasked", GPT_SCORES, "plain", 0.125),
+                  (dt, "BERT padding mask", BERT_SCORES, "padding", 1.0),
+                  (dt, "general mask, dead row", (4, N_HEADS, 512, 512),
+                   "general", 0.125),
+                  (dt, "sk 1000 causal", (2, 4, 1000, 1000), "causal", 1.0),
+                  (dt, "sk 999 masked", (2, 4, 64, 999), "general", 1.0),
+                  (dt, "sk 16384 masked", (1, 2, 3, 16384), "padding", 1.0),
+                  (dt, "sk 16384 unmasked", (1, 1, 4, 16384), "plain",
+                   0.5)]
+    for dt, name, shape, variant, scale in cases:
+        b, n, sq, sk = shape
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(dt)
+        dy = torch.randn(shape, generator=g, device=dev).to(dt)
+        mask = None
+        if variant == "padding":
+            mask = pad_mask(b, sk)
+        elif variant == "general":
+            mask = torch.rand(b, 1, sq, sk, generator=g, device=dev) > 0.7
+            mask[-1, 0, sq // 2] = True  # one row fully masked
+        if mask is None:
+            key = "softmax_fwd"
+            y = fs.softmax_fwd(x, scale, variant == "causal")
+            want = fs.softmax_fwd_reference(x, scale, variant == "causal")
+        else:
+            key = "softmax_masked_fwd"
+            y = fs.softmax_masked_fwd(x, mask, scale)
+            want = fs.softmax_masked_fwd_reference(x, mask, scale)
+        if y.dtype != dt:
+            raise AssertionError(f"softmax {name}: output dtype {y.dtype}")
+        fe = check_close(f"{key} {name} {dt} scale {scale}", y, want, dt)
+        del want
+        dx = fs.softmax_bwd(dy, y, scale)
+        be = check_close(f"softmax_bwd {name} {dt}", dx,
+                         fs.softmax_bwd_reference(dy, y, scale), dt)
+        if variant == "general":
+            dead = y[-1, :, sq // 2].float()
+            if (dead - 1.0 / sk).abs().max() > TOL[dt][0] + TOL[dt][1] / sk:
+                raise AssertionError(
+                    f"softmax {name}: the fully masked row is not 1/sk")
+        if variant == "causal" and bool((y.float().triu(1) != 0).any()):
+            raise AssertionError(f"softmax {name}: a causal-masked "
+                                 f"probability is not 0")
+        errs[key].append(fe)
+        errs["softmax_bwd"].append(be)
+        log(f"  {key} {name} {list(shape)} {dt} scale {scale}: max abs err "
+            f"fwd {fe:.3e}, bwd {be:.3e}")
+        del x, dy, y, dx, mask
+    out = []
+    for rec in _softmax_timing(dev, g, pad_mask):
+        rec["max_abs_err"] = max(errs[rec["name"]])
+        out.append(rec)
+    return out
+
+
+def _softmax_timing(dev, g, pad_mask):
+    """Call, device, plain and library times of the three kernels at the
+    bf16 scores of the paths, each beside its byte bound: the causal
+    forward reads only the scores on and below the diagonal (the others
+    do not depend on x) and writes every probability; the masked forward
+    reads x and the [b, 1, 1, sk] mask and writes y; the backward reads dy
+    and y and writes dx. The library yardsticks are ``F.softmax`` over the
+    same bf16 rows (partial: no scale, no mask) for the forwards and
+    ``torch._softmax_backward_data`` (scale 1) for the backward."""
+    bf = torch.bfloat16
+    e = 2
+    xg, dyg = (torch.randn(GPT_SCORES, generator=g, device=dev).to(bf)
+               for _ in range(2))
+    xb, dyb = (torch.randn(BERT_SCORES, generator=g, device=dev).to(bf)
+               for _ in range(2))
+    mb = pad_mask(BERT_SCORES[0], BERT_SCORES[-1])
+    yg = fs.softmax_fwd(xg, 0.125, True)
+    yb = fs.softmax_masked_fwd(xb, mb, 0.125)
+    b, n, s, _ = GPT_SCORES
+    tri = b * n * s * (s + 1) // 2  # scores on and below the diagonal
+    table = [
+        ("softmax_fwd", "345M causal [8,16,1024,1024]",
+         lambda: fs.softmax_fwd(xg, 0.125, True),
+         lambda: fs.softmax_fwd_reference(xg, 0.125, True),
+         "softmax_fwd_kernel", lambda: F.softmax(xg, dim=-1),
+         tri * e + xg.numel() * e, 5 * xg.numel(),
+         "transformer/functional/fused_softmax.py:90"),
+        ("softmax_masked_fwd", "BERT padding [16,16,512,512]",
+         lambda: fs.softmax_masked_fwd(xb, mb, 0.125),
+         lambda: fs.softmax_masked_fwd_reference(xb, mb, 0.125),
+         "softmax_masked_fwd_kernel", lambda: F.softmax(xb, dim=-1),
+         2 * xb.numel() * e + mb.numel(), 5 * xb.numel(),
+         "transformer/functional/fused_softmax.py:105"),
+        ("softmax_bwd", "345M [8,16,1024,1024]",
+         lambda: fs.softmax_bwd(dyg, yg, 0.125),
+         lambda: fs.softmax_bwd_reference(dyg, yg, 0.125),
+         "softmax_bwd_kernel",
+         lambda: torch._softmax_backward_data(dyg, yg, -1, bf),
+         3 * yg.numel() * e, 4 * yg.numel(),
+         "transformer/functional/fused_softmax.py:121"),
+        ("softmax_bwd", "BERT [16,16,512,512]",
+         lambda: fs.softmax_bwd(dyb, yb, 0.125),
+         lambda: fs.softmax_bwd_reference(dyb, yb, 0.125),
+         "softmax_bwd_kernel",
+         lambda: torch._softmax_backward_data(dyb, yb, -1, bf),
+         3 * yb.numel() * e, 4 * yb.numel(),
+         "transformer/functional/fused_softmax.py:121"),
+    ]
+    out = {}
+    for name, where, run, plain, match, lib, nbytes, flops, replaces in table:
+        ms = time_ms(run, iters=50)
+        dev_ms = device_ms(run, match, iters=20)
+        plain_ms = time_ms(plain, iters=5)
+        lib_ms = time_ms(lib, iters=50)
+        b_ms, by = bound(nbytes, flops)
+        log(f"  {name} bf16 {where}: kernel {ms:.4f} ms (device {dev_ms} "
+            f"ms), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by})")
+        if name in out:  # the backward's second shape is logged only
+            continue
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "apex_tpu_torch/csrc/fused_softmax.cu",
+                     "replaces": "apex_tpu/" + replaces, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
+    return list(out.values())
+
+
 def gpt345m_param_shapes(dtype=torch.bfloat16):
     """The 345M parameter tree as meta tensors (shapes and dtypes, no
     memory): the layout the packed optimizer sweeps."""
@@ -1031,12 +1196,11 @@ def token_identity(dev):
 # phase 5: the GPT-2 345M train step
 # ---------------------------------------------------------------------------
 
-def train_step_fn(cfg, opt, tokens, labels):
-    """One step as ``bench.py``'s ``bench_gpt`` runs it: loss and
-    gradients of ``gpt_loss``, then ``FusedAdam.step``."""
+def train_step_fn(loss_fn, opt):
+    """One step as ``bench.py`` runs it: loss and gradients of
+    ``loss_fn(params)``, then the optimizer's step."""
     def step(params, state):
-        loss, grads = value_and_grad(
-            lambda p: gpt_loss(cfg, p, tokens, labels), params)
+        loss, grads = value_and_grad(loss_fn, params)
         params, state = opt.step(grads, state, params)
         return params, state, loss
     return step
@@ -1044,7 +1208,10 @@ def train_step_fn(cfg, opt, tokens, labels):
 
 #: launches per step of each leg, asserted exactly: the headline fused
 #: step (25 LayerNorms: 24 input norms and the final one; the post-attention
-#: norm is inside the residual_ln tail) and the unfused step
+#: norm is inside the residual_ln tail), the unfused step, and the step
+#: without flash under "selective" recompute (the policy keeps the
+#: LayerNorm outputs but not the softmax's probabilities, so the backward
+#: replays each layer's softmax forward once: 24 + 24)
 HEADLINE_LAUNCHES = {
     "layer_norm_fwd": 25, "layer_norm_bwd": 25, "flash_attn_fwd": 24,
     "flash_attn_bwd": 24, "bias_gelu_fwd": 24, "bias_gelu_bwd": 24,
@@ -1055,29 +1222,18 @@ UNFUSED_LAUNCHES = {
     "layer_norm_fwd": 49, "layer_norm_bwd": 49, "flash_attn_fwd": 24,
     "flash_attn_bwd": 24, "packed_adam": 1,
 }
+NONFLASH_LAUNCHES = {
+    "layer_norm_fwd": 49, "layer_norm_bwd": 49, "softmax_fwd": 48,
+    "softmax_bwd": 24, "packed_adam": 1,
+}
 
 
-def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
-    """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
-    compute over bf16 params with fp32 masters (O2), packed
-    FusedAdam(lr=1e-4), random weights (seed 0) and tokens (seed 1), the
-    same batch every step: 2 warm-up steps, then ``timed`` timed steps
-    with the launch counts zeroed before and read after."""
-    cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
-                    num_attention_heads=N_HEADS, vocab_size=50304,
-                    max_position_embeddings=1024, hidden_dropout=0.0,
-                    attention_dropout=0.0, compute_dtype=torch.bfloat16,
-                    **cfg_kw)
-    params = init_gpt_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    params = tree_map(lambda p: p.to(torch.bfloat16), params)
-    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
-    state = opt.init(params)
-    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
-                           generator=torch.Generator(
-                               device=dev).manual_seed(1))
-    labels = torch.roll(tokens, -1, dims=1)
-    step = train_step_fn(cfg, opt, tokens, labels)
+def drive_leg(label: str, expected: dict, timed: int, step, params, state,
+              tokens: int):
+    """2 warm-up steps, then ``timed`` timed steps of ``step`` with the
+    launch counts zeroed before and read after: launches per step
+    asserted exactly, every loss finite and the last below the first,
+    peak memory, and one profiled step."""
     losses = []
     for _ in range(2):
         params, state, loss = step(params, state)
@@ -1099,7 +1255,7 @@ def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
     p50 = float(np.percentile(times, 50))
     p99 = float(np.percentile(times, 99))
     log(f"  {label}: step p50 {p50:.2f} ms p99 {p99:.2f} ms, "
-        f"{8 * 1024 / (p50 / 1e3):.0f} tokens/s at p50; loss first "
+        f"{tokens / (p50 / 1e3):.0f} tokens/s at p50; loss first "
         f"{losses[0]:.4f} last {losses[-1]:.4f}; peak memory "
         f"{peak_gb:.2f} GiB")
     log(f"  launches per step: {per_step}")
@@ -1117,23 +1273,54 @@ def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
     return {"launches": launches, "p50": p50, "p99": p99, "peak": peak_gb}
 
 
+def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
+    """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
+    compute over bf16 params with fp32 masters (O2), packed
+    FusedAdam(lr=1e-4), random weights (seed 0) and tokens (seed 1), the
+    same batch every step (:func:`drive_leg`)."""
+    cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=50304,
+                    max_position_embeddings=1024, hidden_dropout=0.0,
+                    attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                    **cfg_kw)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = tree_map(lambda p: p.to(torch.bfloat16), params)
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    labels = torch.roll(tokens, -1, dims=1)
+    step = train_step_fn(lambda p: gpt_loss(cfg, p, tokens, labels), opt)
+    return drive_leg(label, expected, timed, step, params, opt.init(params),
+                     tokens.numel())
+
+
 def train_345m(dev):
     """The headline step (``bench.py``'s default: ``fused_block=True``,
     ``selective_elementwise`` recompute, chunked CE recomputing the chunk
     GEMM), then the unfused step without recompute (saved bf16 CE
-    logits) as the second leg, and the fused step without recompute as a
+    logits) as the second leg, the fused step without recompute as a
     third, which separates the recompute's cost from the fused tails',
-    all in this one call."""
+    and the step without flash attention as a fourth (``bench.py``'s
+    xla-attention leg: ``bench_gpt(..., "selective")`` with flash off,
+    the unfused block, the CE recomputing its chunk GEMM), all in this
+    one call."""
     legs = {}
     for key, label, expected, timed, kw in (
             ("headline", "345M headline (fused block, "
-             "selective_elementwise)", HEADLINE_LAUNCHES, 10,
+             "selective_elementwise)", HEADLINE_LAUNCHES, 6,
              dict(fused_block=True,
                   recompute_granularity="selective_elementwise")),
             ("unfused", "345M unfused, no remat", UNFUSED_LAUNCHES, 6,
              dict(ce_save_logits=True)),
             ("fused", "345M fused block, no remat", HEADLINE_LAUNCHES, 6,
-             dict(fused_block=True))):
+             dict(fused_block=True)),
+            ("nonflash", "345M non-flash (bench's xla-attention leg)",
+             NONFLASH_LAUNCHES, 6,
+             dict(use_flash_attention=False,
+                  recompute_granularity="selective", fused_block=False,
+                  ce_save_logits=False))):
         legs[key] = train_leg(dev, label, expected, timed, **kw)
         torch.cuda.empty_cache()
     log("  legs: " + "; ".join(
@@ -1144,53 +1331,203 @@ def train_345m(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: training parity, card against CPU
+# phase 6: BERT-large with FusedLAMB
 # ---------------------------------------------------------------------------
 
-#: card (kernels) against CPU (plain versions), fp32 with TF32 off: the
-#: loss within 1e-5 relative, each gradient leaf within 1e-4 of its
-#: largest entry; after 3 packed-Adam steps the losses within 1e-5
-#: relative and the master updates (masters minus their start) within
-#: 1e-3 of their norm (Adam moves an element whose gradient sits at the
-#: rounding level by up to lr either way, so no elementwise bound)
-PARITY_LOSS_RTOL = 1e-5
-PARITY_GRAD_TOL = 1e-4
-PARITY_UPDATE_TOL = 1e-3
+BERT_VOCAB = 30592
+BERT_NONFLASH_LAUNCHES = {
+    "layer_norm_fwd": 49, "layer_norm_bwd": 49, "softmax_masked_fwd": 48,
+    "softmax_bwd": 24,
+}
+BERT_FLASH_LAUNCHES = {
+    "layer_norm_fwd": 49, "layer_norm_bwd": 49, "flash_attn_fwd": 24,
+    "flash_attn_bwd": 24,
+}
 
 
-def train_parity(dev, label: str, kernels, **cfg_kw):
-    """A 2-layer full-width fp32 model (seq 256, batch 2): loss,
-    gradients and 3 packed-Adam steps on the card (kernels) against the
-    CPU (plain versions); ``kernels`` must each launch on the card run."""
+def bert_mlm_loss(cfg, params, tokens, labels, padding):
+    """``bench_bert_lamb``'s loss: the mean over every position of the
+    cross entropy of the fp32 MLM logits, 0 where the label is -1."""
+    logits, _ = bert_forward(cfg, params, tokens, padding)
+    return softmax_cross_entropy_loss(
+        logits.reshape(-1, cfg.vocab_size).float(), labels.reshape(-1),
+        padding_idx=-1).mean()
+
+
+def bert_batch(gens, b: int, s: int, vocab: int, dev):
+    """Tokens, labels and a [b, s] padding mask (1 = real token) with
+    lengths uniform in [s / 2, s]; the labels of pad positions are -1.
+    ``gens`` are the generators of tokens, labels and lengths."""
+    tokens = torch.randint(0, vocab, (b, s), generator=gens[0], device=dev)
+    labels = torch.randint(0, vocab, (b, s), generator=gens[1], device=dev)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=gens[2], device=dev)
+    padding = (torch.arange(s, device=dev)[None] < lens[:, None]).to(
+        torch.int32)
+    return tokens, torch.where(padding == 0, -1, labels), padding
+
+
+def bert_large_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
+    """BERT-large as ``bench_bert_lamb`` runs it: 24 layers, hidden 1024,
+    16 heads, vocab 30592, seq 512, batch 16, bf16 compute over fp32
+    params, dropout 0, ``selective`` recompute, pytree FusedLAMB(lr=1e-3),
+    random weights (seed 0), tokens (seed 1) and labels (seed 2); unlike
+    the bench, a padding mask with lengths from seed 3 (the labels of its
+    pad positions -1). The same batch every step (:func:`drive_leg`)."""
+    cfg_kw.setdefault("recompute_granularity", "selective")
+    cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=BERT_VOCAB,
+                    max_position_embeddings=512, hidden_dropout=0.0,
+                    attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                    **cfg_kw)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = FusedLAMB(lr=1e-3)
+    tokens, labels, padding = bert_batch(
+        [torch.Generator(device=dev).manual_seed(i) for i in (1, 2, 3)],
+        16, 512, cfg.vocab_size, dev)
+    log(f"  real tokens: {int(padding.sum())} of {padding.numel()}")
+    step = train_step_fn(
+        lambda p: bert_mlm_loss(cfg, p, tokens, labels, padding), opt)
+    return drive_leg(label, expected, timed, step, params, opt.init(params),
+                     tokens.numel())
+
+
+def train_bert_large(dev):
+    legs = {}
+    for key, label, expected, kw in (
+            ("nonflash", "BERT-large non-flash (masked fused softmax)",
+             BERT_NONFLASH_LAUNCHES, dict(use_flash_attention=False)),
+            ("flash", "BERT-large flash", BERT_FLASH_LAUNCHES, {})):
+        legs[key] = bert_large_leg(dev, label, expected, 5, **kw)
+        torch.cuda.empty_cache()
+    log("  legs: " + "; ".join(
+        f"{k} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms peak "
+        f"{v['peak']:.2f} GiB" for k, v in legs.items()))
+    counts = {}
+    for v in legs.values():
+        for k, c in v["launches"].items():
+            counts[k] = counts.get(k, 0) + c
+    return counts
+
+
+def attention_paths(dev):
+    """Not run by :func:`main`: the two attention paths under selective
+    recompute and without recompute, in one call, to separate the
+    attention kernels' device time from the recompute's host time:
+
+        python3 -c "import chip_smoke as c, torch;
+            c.attention_paths(torch.device('cuda'))"
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(card_line())
+    _build.kernels()
+    no_remat = {"layer_norm_fwd": 49, "layer_norm_bwd": 49,
+                "softmax_fwd": 24, "softmax_bwd": 24, "packed_adam": 1}
+    for label, expected, kw in (
+            ("345M non-flash, selective", NONFLASH_LAUNCHES,
+             dict(use_flash_attention=False,
+                  recompute_granularity="selective")),
+            ("345M non-flash, no remat", no_remat,
+             dict(use_flash_attention=False)),
+            ("345M flash, selective", UNFUSED_LAUNCHES,
+             dict(recompute_granularity="selective")),
+            ("345M flash, no remat", UNFUSED_LAUNCHES, {})):
+        train_leg(dev, label, expected, 6, **kw)
+        torch.cuda.empty_cache()
+    masked = {"layer_norm_fwd": 49, "layer_norm_bwd": 49,
+              "softmax_masked_fwd": 24, "softmax_bwd": 24}
+    for label, expected, kw in (
+            ("BERT-large non-flash, no remat", masked,
+             dict(use_flash_attention=False, recompute_granularity=None)),
+            ("BERT-large flash, no remat", BERT_FLASH_LAUNCHES,
+             dict(recompute_granularity=None))):
+        bert_large_leg(dev, label, expected, 5, **kw)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training parity, card against CPU
+# ---------------------------------------------------------------------------
+
+#: card (kernels) against CPU (plain versions), TF32 off, as (loss rtol
+#: at the start and along 3 optimizer steps, each gradient leaf's max
+#: error over its largest entry, the parameter updates' error norm over
+#: their norm). fp32: summation order only. Adam moves an element whose
+#: gradient sits at the rounding level by up to lr either way, so the
+#: updates get a norm bound, not an elementwise one. bf16: the GEMMs
+#: round at other places in cuBLAS and on the CPU (one bf16 rounding,
+#: 2^-8, per activation), so the loss within 2e-3 and each leaf within
+#: 5e-2 of its largest entry; Adam's and LAMB's first steps move each
+#: element by about lr times the sign of its gradient, and the gradients
+#: near zero that change sign under those roundings move by 2 lr, so the
+#: updates are held only to half their norm (a wrong update is off by
+#: about its whole norm).
+PARITY_TOL = {torch.float32: (1e-5, 1e-4, 1e-3),
+              torch.bfloat16: (2e-3, 5e-2, 0.5)}
+
+
+def _flat(params) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1)
+                      for p in tree_leaves(params)])
+
+
+def train_parity(dev, label: str, kernels, model: str = "gpt", **cfg_kw):
+    """A 2-layer full-width model (seq 256, batch 2): loss, gradients and
+    3 optimizer steps on the card (kernels) against the CPU (plain
+    versions); ``kernels`` must each launch on the card run and nothing
+    on the CPU run. ``model`` "gpt": ``gpt_loss`` with packed
+    FusedAdam(lr=1e-4, masters); "bert": ``bench_bert_lamb``'s loss under
+    a padding mask (lengths 256 and 180) with pytree FusedLAMB(lr=1e-3).
+    Params are fp32; ``compute_dtype`` comes from ``cfg_kw``."""
+    dt = cfg_kw.get("compute_dtype", torch.float32)
+    loss_tol, grad_tol, upd_tol = PARITY_TOL[dt]
     cfg = GPTConfig(num_layers=2, hidden_size=HIDDEN,
-                    num_attention_heads=N_HEADS, vocab_size=50304,
+                    num_attention_heads=N_HEADS,
+                    vocab_size=50304 if model == "gpt" else BERT_VOCAB,
                     max_position_embeddings=256, hidden_dropout=0.0,
                     attention_dropout=0.0, **cfg_kw)
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
-    labels = torch.roll(tokens, -1, dims=1)
+    if model == "gpt":
+        labels = torch.roll(tokens, -1, dims=1)
+
+        def loss_of(p, d):
+            return gpt_loss(cfg, p, tokens.to(d), labels.to(d))
+
+        def make_opt():
+            return FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    else:
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)))
+        padding = torch.ones(2, 256, dtype=torch.int32)
+        padding[1, 180:] = 0
+        labels = torch.where(padding == 0, -1, labels)
+
+        def loss_of(p, d):
+            return bert_mlm_loss(cfg, p, tokens.to(d), labels.to(d),
+                                 padding.to(d))
+
+        def make_opt():
+            return FusedLAMB(lr=1e-3)
     runs = {}
     for where in ("cpu", "cuda"):
         d = torch.device("cpu") if where == "cpu" else dev
         params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
-        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        opt = make_opt()
         state = opt.init(params)
-        master0 = state.master_params.clone()
-        step = train_step_fn(cfg, opt, tokens.to(d), labels.to(d))
+        start = _flat(params)
+        step = train_step_fn(lambda p: loss_of(p, d), opt)
         _device.reset_launch_counts()
-        loss0, grads = value_and_grad(
-            lambda p: gpt_loss(cfg, p, tokens.to(d), labels.to(d)), params)
+        loss0, grads = value_and_grad(lambda p: loss_of(p, d), params)
         counts = _device.launch_counts()
         losses = []
         for _ in range(3):
             params, state, loss = step(params, state)
             losses.append(float(loss))
-        losses.append(float(gpt_loss(cfg, params, tokens.to(d),
-                                     labels.to(d))))
+        losses.append(float(loss_of(params, d)))
         runs[where] = dict(loss=float(loss0), losses=losses,
-                           grads=tree_map(lambda g: g.cpu(), grads),
-                           update=(state.master_params - master0).cpu(),
+                           grads=tree_map(lambda g: g.float().cpu(), grads),
+                           update=(_flat(params) - start).cpu(),
                            counts=counts)
     c, g = runs["cpu"], runs["cuda"]
     if any(c["counts"].values()):
@@ -1206,23 +1543,24 @@ def train_parity(dev, label: str, kernels, **cfg_kw):
                               tree_leaves(g["grads"])):
         err = float((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30))
         worst = max(worst, err)
-        if err > PARITY_GRAD_TOL:
+        if err > grad_tol:
             raise AssertionError(f"gradient {name}: {err:.3e} of its "
                                  f"largest entry")
     curve = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
                                                     c["losses"]))
     upd = float((g["update"] - c["update"]).norm() / c["update"].norm())
     upd_max = float((g["update"] - c["update"]).abs().max())
-    log(f"  {label} 2-layer full-width fp32, seq 256, batch 2: loss card "
-        f"{g['loss']:.7f} cpu {c['loss']:.7f} (rel {rel:.2e}); worst "
-        f"gradient leaf {worst:.2e} of its largest entry; 3 Adam steps: "
+    log(f"  {label} 2-layer full-width {str(dt)[6:]}, seq 256, batch 2: "
+        f"loss card {g['loss']:.7f} cpu {c['loss']:.7f} (rel {rel:.2e}); "
+        f"worst gradient leaf {worst:.2e} of its largest entry; 3 steps: "
         f"losses card {g['losses']} cpu {c['losses']} (max rel "
-        f"{curve:.2e}); master update rel {upd:.2e}, max abs {upd_max:.2e}")
-    if rel > PARITY_LOSS_RTOL or curve > PARITY_LOSS_RTOL:
+        f"{curve:.2e}); update rel {upd:.2e}, max abs {upd_max:.2e}; "
+        f"card launches {({k: v for k, v in g['counts'].items() if v})}")
+    if rel > loss_tol or curve > loss_tol:
         raise AssertionError("loss on the card differs from the CPU's")
-    if upd > PARITY_UPDATE_TOL:
-        raise AssertionError("master updates on the card differ from the "
-                             "CPU's")
+    if upd > upd_tol:
+        raise AssertionError("parameter updates on the card differ from "
+                             "the CPU's")
 
 
 def main() -> int:
@@ -1251,34 +1589,49 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam, fused = phase(
+    fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam, fused, softmax = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), flash_attention_checks(dev),
-                 packed_adam_checks(dev), fused_block_checks(dev)))
+                 packed_adam_checks(dev), fused_block_checks(dev),
+                 fused_softmax_checks(dev)))
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")
-    train = phase("phase 5: GPT-2 345M bf16 train step, headline and "
-                  "unfused legs", train_345m, dev)
-    phase("phase 6: training parity, card against CPU",
+    train = phase("phase 5: GPT-2 345M bf16 train step: headline, unfused, "
+                  "fused and non-flash legs", train_345m, dev)
+    bert = phase("phase 6: BERT-large bf16 with FusedLAMB: non-flash and "
+                 "flash legs", train_bert_large, dev)
+    phase("phase 7: training parity, card against CPU",
           lambda: (train_parity(dev, "unfused", TRAIN_KERNELS[:4]),
                    train_parity(dev, "fused, selective_elementwise",
                                 TRAIN_KERNELS[:4] + FUSED_KERNELS,
                                 fused_block=True,
-                                recompute_granularity="selective_elementwise")))
+                                recompute_granularity="selective_elementwise"),
+                   train_parity(dev, "GPT non-flash, causal",
+                                ("softmax_fwd", "softmax_bwd",
+                                 "layer_norm_fwd", "layer_norm_bwd"),
+                                compute_dtype=torch.bfloat16,
+                                use_flash_attention=False),
+                   train_parity(dev, "BERT non-flash, padding mask",
+                                ("softmax_masked_fwd", "softmax_bwd",
+                                 "layer_norm_fwd", "layer_norm_bwd"),
+                                model="bert", compute_dtype=torch.bfloat16,
+                                use_flash_attention=False)))
     fd["launches"] = serving["flash_decode"]
-    # launches on the main paths: the serving run plus both train legs
-    ln["launches"] = serving["layer_norm_fwd"] + train["layer_norm_fwd"]
-    for kr in (ln_bwd, fa_fwd, fa_bwd, adam, *fused):
-        kr["launches"] = train[kr["name"]]
+    # launches on the main paths: the serving run, the four GPT legs and
+    # the two BERT legs
+    ln["launches"] = (serving["layer_norm_fwd"] + train["layer_norm_fwd"]
+                      + bert["layer_norm_fwd"])
+    for kr in (ln_bwd, fa_fwd, fa_bwd, adam, *fused, *softmax):
+        kr["launches"] = train[kr["name"]] + bert.get(kr["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in (fd, ln, ln_bwd, fa_fwd, fa_bwd,
-                                             adam, *fused)]}))
+                                             adam, *fused, *softmax)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@
 turn true when any source or shared header under ``csrc/`` is newer than
 the library, so an edited header never leaves a stale library in place.
 """
+import ctypes
 import os
 import re
 import shutil
@@ -54,3 +55,29 @@ def test_every_source_is_built_and_every_include_resolves():
         assert name in _build._ARGTYPES
         assert f'extern "C" int {name}(' in (
             _build.CSRC_DIR / "fused_block.cu").read_text()
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong, "uint32_t": ctypes.c_uint32}
+
+
+def test_argtypes_match_the_c_declarations():
+    """Every ``_ARGTYPES`` entry has the C entry point's parameters in
+    order (a pointer as ``c_void_p``; an int, float, long long or
+    uint32_t as its ctypes twin), and every entry point has an entry:
+    ctypes converts by these lists alone, so a mismatch passes a wrong
+    value without an error."""
+    decls = {}
+    for src in _build.SOURCES:
+        text = (_build.CSRC_DIR / src).read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            decls[name] = [p.strip() for p in params.split(",")
+                           if p.strip()]
+    assert set(decls) == set(_build._ARGTYPES)
+    for name, params in decls.items():
+        want = []
+        for p in params:
+            ctype = p.rsplit(" ", 1)[0].replace("const ", "").strip()
+            want.append(ctypes.c_void_p if "*" in p else _C_TYPES[ctype])
+        assert _build._ARGTYPES[name] == want, name

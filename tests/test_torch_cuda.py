@@ -17,7 +17,12 @@ block tails as the other kernels, their fp32 column sums (bias and
 LayerNorm-parameter gradients) atol 1e-3 rtol 1e-4; the 2-layer train
 step on the card against the CPU (unfused, and fused under
 ``selective_elementwise`` recompute), loss rtol 1e-5 and each gradient
-leaf within 1e-4 of its largest entry.
+leaf within 1e-4 of its largest entry; the fused softmax kernels as the
+other kernels in fp32 and bf16, fp16 atol 1e-3 rtol 1e-3 (one fp16
+rounding, 2^-11, of values up to 1); the bf16 2-layer non-flash GPT and
+BERT steps on the card against the CPU, loss rtol 2e-3 and each
+gradient leaf within 5e-2 of its largest entry (bf16 GEMMs round at
+other places in cuBLAS and on the CPU).
 """
 import numpy as np
 import pytest
@@ -47,7 +52,8 @@ from apex_tpu_torch.ops.packed_optimizer import (
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
-       torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+       torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
+       torch.float16: dict(atol=1e-3, rtol=1e-3)}
 
 
 @pytest.fixture
@@ -407,3 +413,149 @@ def test_engine_on_card_matches_cpu(cuda_device):
     counts = _device.launch_counts()
     assert got == want
     assert counts["flash_decode"] > 0 and counts["layer_norm_fwd"] > 0
+
+
+SOFTMAX_CASES = {
+    # name: (shape [b, np, sq, sk], variant, scale)
+    "causal": ((2, 4, 256, 256), "causal", 0.125),
+    "unmasked sk 1000": ((2, 2, 16, 1000), "plain", 1.0),
+    "padding mask": ((2, 4, 64, 512), "padding", 1.0),
+    "general mask, dead row": ((2, 4, 64, 512), "general", 0.5),
+    "sk 16384": ((1, 1, 3, 16384), "padding", 1.0),
+    "causal sk 2048": ((1, 2, 64, 2048), "causal", 1.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", list(SOFTMAX_CASES))
+def test_fused_softmax_kernels_match_plain(cuda_device, dtype, case):
+    """Kernels #14-#16 against their plain versions on the same CUDA
+    tensors; a fully masked row is the uniform 1/sk."""
+    from apex_tpu_torch.transformer.functional import fused_softmax as fs
+
+    shape, variant, scale = SOFTMAX_CASES[case]
+    b, n, sq, sk = shape
+    g = torch.Generator(device=cuda_device).manual_seed(sk + sq)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 3).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    mask = None
+    if variant == "padding":
+        mask = torch.zeros(b, 1, 1, sk, dtype=torch.bool, device=cuda_device)
+        mask[0, ..., sk // 3:] = True
+    elif variant == "general":
+        mask = torch.rand(b, 1, sq, sk, generator=g,
+                          device=cuda_device) > 0.7
+        mask[1, 0, 5] = True
+    _device.reset_launch_counts()
+    if mask is None:
+        y = fs.softmax_fwd(x, scale, variant == "causal")
+        want = fs.softmax_fwd_reference(x, scale, variant == "causal")
+        key = "softmax_fwd"
+    else:
+        y = fs.softmax_masked_fwd(x, mask, scale)
+        want = fs.softmax_masked_fwd_reference(x, mask, scale)
+        key = "softmax_masked_fwd"
+    dx = fs.softmax_bwd(dy, y, scale)
+    counts = _device.launch_counts()
+    torch.cuda.synchronize()
+    assert counts[key] == 1 and counts["softmax_bwd"] == 1
+    assert y.dtype == dtype and dx.dtype == dtype
+    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(
+        dx.float(), fs.softmax_bwd_reference(dy, y, scale).float(),
+        **TOL[dtype])
+    if variant == "general":
+        torch.testing.assert_close(
+            y[1, :, 5].float(), torch.full_like(y[1, :, 5].float(), 1 / sk),
+            **TOL[dtype])
+
+
+def test_fused_softmax_kernels_refuse_what_they_do_not_take(cuda_device):
+    from apex_tpu_torch.transformer.functional import fused_softmax as fs
+
+    x = torch.zeros(1, 1, 2, 16385, device=cuda_device)
+    with pytest.raises(ValueError, match="16384"):
+        fs.softmax_fwd(x)
+    with pytest.raises(TypeError, match="fp32/bf16/fp16"):
+        fs.softmax_fwd(torch.zeros(2, 8, dtype=torch.float64,
+                                   device=cuda_device))
+    y = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype and shape"):
+        fs.softmax_bwd(y.to(torch.bfloat16), y)
+
+
+def _card_against_cpu(cuda_device, loss_of, params, kernels):
+    """Loss and gradients on the CPU (plain versions) and on the card
+    (kernels), compared; ``kernels`` must launch on the card only."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda x: x.to(dev, copy=True), params)
+        _device.reset_launch_counts()
+        loss, grads = value_and_grad(lambda q: loss_of(q, dev), p)
+        out[str(dev)] = (float(loss), [g.float().cpu()
+                                       for g in tree_leaves(grads)],
+                         _device.launch_counts())
+    (lc, gc, cc), (lg, gg, cg) = out["cpu"], out[str(cuda_device)]
+    assert not any(cc.values())
+    for name in kernels:
+        assert cg[name] > 0, (name, cg)
+    assert abs(lg - lc) <= 2e-3 * abs(lc)
+    for a, b in zip(gc, gg):
+        assert float((a - b).abs().max()) <= 5e-2 * float(a.abs().max())
+
+
+def test_no_flash_bf16_train_step_on_card_matches_cpu(cuda_device):
+    """A 2-layer bf16 GPT without flash under ``selective`` recompute:
+    the causal fused softmax forward (replayed) and backward."""
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig,
+        gpt_loss,
+        init_gpt_params,
+    )
+
+    cfg = GPTConfig(num_layers=2, hidden_size=256, num_attention_heads=4,
+                    vocab_size=512, max_position_embeddings=128,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    compute_dtype=torch.bfloat16, use_flash_attention=False,
+                    recompute_granularity="selective")
+    params = tree_map(lambda x: x.to(torch.bfloat16), init_gpt_params(
+        cfg, torch.Generator().manual_seed(2)))
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 128)))
+    labels = torch.roll(tokens, -1, dims=1)
+    _card_against_cpu(
+        cuda_device, lambda p, d: gpt_loss(cfg, p, tokens.to(d),
+                                           labels.to(d)),
+        params, ("softmax_fwd", "softmax_bwd", "layer_norm_fwd"))
+
+
+def test_bert_bf16_step_on_card_matches_cpu(cuda_device):
+    """A 2-layer bf16 BERT without flash under a padding mask: the
+    masked fused softmax and its backward."""
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig,
+        bert_forward,
+        init_gpt_params,
+    )
+
+    cfg = GPTConfig(num_layers=2, hidden_size=256, num_attention_heads=4,
+                    vocab_size=512, max_position_embeddings=128,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    compute_dtype=torch.bfloat16, use_flash_attention=False)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 128)))
+    labels = torch.from_numpy(rng.integers(0, 512, (2, 128)))
+    pad = torch.ones(2, 128, dtype=torch.int32)
+    pad[0, 90:] = 0
+    labels[pad == 0] = -1
+
+    def loss_of(p, d):
+        logits, _ = bert_forward(cfg, p, tokens.to(d), pad.to(d))
+        return softmax_cross_entropy_loss(
+            logits.reshape(-1, 512).float(), labels.to(d).reshape(-1),
+            padding_idx=-1).mean()
+    _card_against_cpu(cuda_device, loss_of, params,
+                      ("softmax_masked_fwd", "softmax_bwd"))

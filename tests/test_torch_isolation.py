@@ -52,7 +52,11 @@ def test_port_imports_without_jax_or_apex_tpu():
         apex_tpu_torch.__path__, "apex_tpu_torch.")}
     assert expected <= set(res["modules"])
     assert "apex_tpu_torch.serving.engine" in res["modules"]
-    assert "apex_tpu_torch.ops.fused_block" in res["modules"]
+    for name in ("ops.fused_block", "ops.multi_tensor",
+                 "transformer.functional.fused_softmax",
+                 "transformer.testing.standalone_bert",
+                 "optimizers.fused_lamb"):
+        assert "apex_tpu_torch." + name in res["modules"], name
 
 
 def test_port_sources_name_no_jax():

@@ -6,8 +6,12 @@ tokens: ``gpt_loss`` and every gradient against
 ``jax.value_and_grad(gpt_loss)`` with ``use_flash_attention=True`` (the
 Pallas kernels in interpret mode), the chunked LM-head cross entropy in
 both variants, 5 packed-Adam steps along the JAX loss curve, a bf16 O2
-run, the ``"full"`` recompute, and the fused block (``fused_block=True``)
-against the unfused one and under every recompute setting.
+run, the ``"full"`` recompute, the fused block (``fused_block=True``)
+against the unfused one and under every recompute setting, and the
+attention path without flash (``use_flash_attention=False``: the scores
+through the fused scale-mask-softmax; and fp16 with query-key layer
+scaling, which both packages run without flash) against JAX's, with
+and without recompute.
 
 Tolerances: fp32 loss rtol 1e-5, each gradient leaf within 1e-5 of its
 largest entry, the 5-step loss curve rtol 1e-5 and the masters atol
@@ -17,7 +21,12 @@ within 5e-2 of its largest entry (bf16 rounds at other places in the
 two frameworks); recompute "full" equals no recompute exactly; the
 fused block against the unfused one in fp32, loss rtol 1e-6 and each
 gradient leaf within 1e-5 of its largest entry (the fused tails add
-the bias in fp32 before rounding, as the TPU kernels do).
+the bias in fp32 before rounding, as the TPU kernels do); the non-flash
+path as the flash path in fp32 and bf16; fp16 with query-key layer
+scaling, loss rtol 1e-3 and each gradient leaf within 1e-2 of its
+largest entry (fp16 keeps 11 significant bits, and the two frameworks
+round at other places); recompute on the non-flash path equals no
+recompute exactly.
 """
 import dataclasses
 
@@ -53,9 +62,12 @@ SHAPE = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
 
 
 def _setup(seed=0, **kw):
-    jcfg = JaxGPTConfig(**SHAPE, use_flash_attention=True, **{
+    kw.setdefault("use_flash_attention", True)
+    jcfg = JaxGPTConfig(**SHAPE, **{
         k: (getattr(jnp, v) if k == "compute_dtype" else v)
         for k, v in kw.items()})
+    if kw["use_flash_attention"]:  # the port's default takes flash
+        kw["use_flash_attention"] = None
     tcfg = GPTConfig(**SHAPE, **{
         k: (getattr(torch, v) if k == "compute_dtype" else v)
         for k, v in kw.items()})
@@ -214,15 +226,89 @@ def test_paths_not_ported_are_refused():
     _, tcfg, jp, tokens, labels = _setup(7)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     t, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
-    for bad, err in ((dict(use_flash_attention=False), NotImplementedError),
-                     (dict(attn_mask_type=AttnMaskType.padding),
-                      NotImplementedError),
+    for bad, err in ((dict(use_flash_attention=True,
+                           attn_mask_type=AttnMaskType.padding), ValueError),
                      (dict(recompute_granularity="bogus"), ValueError)):
         with pytest.raises(err):
             gpt_loss(dataclasses.replace(tcfg, **bad), tp, t, lab)
     with pytest.raises(ValueError, match="max_position_embeddings"):
         gpt_loss(tcfg, tp, torch.zeros(1, 64, dtype=torch.long),
                  torch.zeros(1, 64, dtype=torch.long))
+
+
+@pytest.mark.parametrize("change", [
+    dict(use_flash_attention=False),
+    dict(attn_mask_type="padding")], ids=["no_flash", "padding_no_mask"])
+def test_formerly_refused_paths_match_jax(change):
+    """The two configurations the port refused before the non-flash path
+    existed: ``use_flash_attention=False``, and a padding mask type with
+    no mask (flash has no mask to take, so both packages run the
+    unmasked softmax)."""
+    jkw = {k: (getattr(JaxMask, v) if k == "attn_mask_type" else v)
+           for k, v in change.items()}
+    tkw = {k: (getattr(AttnMaskType, v) if k == "attn_mask_type" else v)
+           for k, v in change.items()}
+    jcfg, tcfg, jp, tokens, labels = _setup(7)
+    jcfg = dataclasses.replace(jcfg, **{"use_flash_attention": None, **jkw})
+    tcfg = dataclasses.replace(tcfg, **tkw)
+    jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    _close_leaves(jg, tg, 1e-5)
+
+
+def test_no_flash_loss_and_every_grad_match_jax():
+    jcfg, tcfg, jp, tokens, labels = _setup(10, use_flash_attention=False)
+    jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    _close_leaves(jg, tg, 1e-5)
+
+
+def test_no_flash_bf16_loss_and_grads_match_jax():
+    """bf16 over bf16 params: the scores are bf16, so the dispatcher
+    takes the causal fused softmax (kernel #14's plain version here; JAX
+    its XLA fallback on the CPU)."""
+    jcfg, tcfg, jp, tokens, labels = _setup(
+        11, compute_dtype="bfloat16", use_flash_attention=False)
+    jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         dtype=torch.bfloat16)
+    jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
+    _close_leaves(jg, tg, 5e-2)
+
+
+def test_fp16_query_key_layer_scaling_matches_jax():
+    """fp16 with ``apply_query_key_layer_scaling`` (the default): both
+    packages leave flash for the inline fp32 softmax with the per-layer
+    coefficient (``use_flash_attention=None``)."""
+    jcfg, tcfg, jp, tokens, labels = _setup(12, compute_dtype="float16",
+                                            use_flash_attention=None)
+    assert tcfg.apply_query_key_layer_scaling
+    jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
+    _close_leaves(jg, tg, 1e-2)
+
+
+@pytest.mark.parametrize("rg", ["full", "selective"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_no_flash_recompute_gives_the_same_gradients(rg, dtype):
+    _, tcfg, jp, tokens, labels = _setup(13, compute_dtype=dtype,
+                                         use_flash_attention=False)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         dtype=getattr(torch, dtype))
+    l0, g0 = _torch_vg(tcfg, tp, tokens, labels)
+    l1, g1 = _torch_vg(dataclasses.replace(tcfg, recompute_granularity=rg),
+                       tp, tokens, labels)
+    assert float(l0) == float(l1)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(a, b)
 
 
 def test_fused_block_matches_unfused_f32():
