@@ -9,6 +9,10 @@ tokens, padding and labels:
   flash (the masked fused softmax) and with flash (the key mask);
 - tokens in the padded positions do not reach the real ones;
 - ``bert_model_provider``'s loss and every gradient;
+- the same in bf16 at seq 128, where both dispatchers take the masked
+  fused softmax (the port's autograd Function over the plain versions
+  of kernels #15 and #16, counted), with and without ``selective``
+  recompute;
 - ``softmax_cross_entropy_loss`` with label smoothing and a padding
   index, losses and logit gradients;
 - ``multi_tensor_l2norm``, global and per tensor;
@@ -20,7 +24,9 @@ order 1); every gradient leaf within 1e-5 of its largest entry; the
 cross entropy rtol/atol 1e-6; norms rtol 1e-6; LAMB params and moments
 over 5 steps rtol 1e-5, atol 1e-6 (per-leaf norms and the trust ratio
 are summed in another order); bf16 params of the master-weights case
-within one bf16 rounding (rtol 8e-3).
+within one bf16 rounding (rtol 8e-3); the bf16 BERT loss rtol 1e-3 and
+each gradient leaf within 5e-2 of its largest entry (bf16 rounds at
+other places in the two frameworks).
 """
 import dataclasses
 
@@ -52,6 +58,7 @@ from apex_tpu_torch.transformer.testing import (
     bert_forward,
     bert_model_provider,
 )
+from test_torch_training import _count_softmax_route, _sharpen_attention
 
 SHAPE = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
              vocab_size=128, max_position_embeddings=16, hidden_dropout=0.0,
@@ -120,6 +127,47 @@ def test_bert_loss_and_every_grad_match_jax():
     for a, b in zip(jleaves, tree_leaves(tg)):
         a = np.asarray(a)
         assert np.abs(a - b.numpy()).max() <= 1e-5 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("rg", [None, "selective"])
+def test_bert_bf16_masked_fused_softmax_matches_jax(rg, monkeypatch):
+    """bf16 compute over fp32 params at seq 128 under a padding mask: the
+    int8 ``[b, 1, 1, s]`` mask reaches the masked fused softmax in both
+    packages; ``selective`` replays its forward once per layer. The MLM
+    loss alone, as the bench trains BERT: the binary head's gradients sum
+    two bf16 rows, too few for the 5e-2 bound (its fp32 gradients are
+    held above)."""
+    shape = dict(SHAPE, max_position_embeddings=128)
+    jcfg = JaxGPTConfig(**shape, compute_dtype=jnp.bfloat16,
+                        use_flash_attention=False, recompute_granularity=rg)
+    tcfg = GPTConfig(**shape, compute_dtype=torch.bfloat16,
+                     use_flash_attention=False, recompute_granularity=rg)
+    jp, _, jloss = jax_bert_provider(jcfg, jax.random.PRNGKey(7))
+    jp = _sharpen_attention(jp)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    rng = np.random.default_rng(7)
+    tokens, labels = (rng.integers(0, 128, size=(B, 128)).astype(np.int32)
+                      for _ in range(2))
+    padding = np.ones((B, 128), np.int32)
+    padding[0, 90:] = 0
+    padding[1, 40:] = 0
+    jl, jg = jax.value_and_grad(lambda p: jloss(
+        p, jnp.asarray(tokens), jnp.asarray(labels), jnp.asarray(padding),
+        padding_mask=jnp.asarray(padding)))(jp)
+    _, _, tloss = bert_model_provider(tcfg, torch.Generator().manual_seed(0))
+    counts = _count_softmax_route(monkeypatch)
+    tl, tg = value_and_grad(lambda p: tloss(
+        p, _t(tokens), _t(labels), _t(padding), padding_mask=_t(padding)),
+        tp)
+    layers = SHAPE["num_layers"]
+    assert counts == {
+        "softmax_fwd_reference": 0,
+        "softmax_masked_fwd_reference": layers * (2 if rg else 1),
+        "softmax_bwd_reference": layers, "forward_softmax": 0}
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
+    for a, b in zip(jax.tree_util.tree_leaves(jg), tree_leaves(tg)):
+        a = np.asarray(a, np.float32)
+        assert np.abs(a - b.float().numpy()).max() <= 5e-2 * np.abs(a).max()
 
 
 @pytest.mark.parametrize("smoothing,padding_idx", [(0.0, -1), (0.1, 0),

@@ -17,10 +17,13 @@ block tails as the other kernels, their fp32 column sums (bias and
 LayerNorm-parameter gradients) atol 1e-3 rtol 1e-4; the 2-layer train
 step on the card against the CPU (unfused, and fused under
 ``selective_elementwise`` recompute), loss rtol 1e-5 and each gradient
-leaf within 1e-4 of its largest entry; the fused softmax kernels as the
-other kernels in fp32 and bf16, fp16 atol 1e-3 rtol 1e-3 (one fp16
-rounding, 2^-11, of values up to 1); the bf16 2-layer non-flash GPT and
-BERT steps on the card against the CPU, loss rtol 2e-3 and each
+leaf within 1e-4 of its largest entry; the fused softmax kernels, whose
+probabilities are about 1/sk and gradients smaller, on their relative
+term with a floor well under the values: fp32 atol 1e-6 rtol 1e-5
+(``__expf``, and the backward's sum order where it cancels), bf16 atol
+1e-4 rtol 1e-2 and fp16 atol 1e-5 rtol 1e-3 (one rounding of the
+output); the bf16 2-layer non-flash
+GPT and BERT steps on the card against the CPU, loss rtol 2e-3 and each
 gradient leaf within 5e-2 of its largest entry (bf16 GEMMs round at
 other places in cuBLAS and on the CPU).
 """
@@ -54,6 +57,9 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
        torch.float16: dict(atol=1e-3, rtol=1e-3)}
+SOFTMAX_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-5),
+               torch.bfloat16: dict(atol=1e-4, rtol=1e-2),
+               torch.float16: dict(atol=1e-5, rtol=1e-3)}
 
 
 @pytest.fixture
@@ -461,14 +467,14 @@ def test_fused_softmax_kernels_match_plain(cuda_device, dtype, case):
     torch.cuda.synchronize()
     assert counts[key] == 1 and counts["softmax_bwd"] == 1
     assert y.dtype == dtype and dx.dtype == dtype
-    torch.testing.assert_close(y.float(), want.float(), **TOL[dtype])
+    tol = SOFTMAX_TOL[dtype]
+    torch.testing.assert_close(y.float(), want.float(), **tol)
     torch.testing.assert_close(
-        dx.float(), fs.softmax_bwd_reference(dy, y, scale).float(),
-        **TOL[dtype])
+        dx.float(), fs.softmax_bwd_reference(dy, y, scale).float(), **tol)
     if variant == "general":
         torch.testing.assert_close(
             y[1, :, 5].float(), torch.full_like(y[1, :, 5].float(), 1 / sk),
-            **TOL[dtype])
+            **tol)
 
 
 def test_fused_softmax_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -11,7 +11,11 @@ against the unfused one and under every recompute setting, and the
 attention path without flash (``use_flash_attention=False``: the scores
 through the fused scale-mask-softmax; and fp16 with query-key layer
 scaling, which both packages run without flash) against JAX's, with
-and without recompute.
+and without recompute. The fused softmax's kernel route needs
+``sk % 128 == 0``: at seq 32 both dispatchers take ``forward_softmax``,
+at seq 128 in bf16 both take the causal fused softmax (the port's
+autograd Function over the plain versions of kernels #14 and #16, which
+the tests count).
 
 Tolerances: fp32 loss rtol 1e-5, each gradient leaf within 1e-5 of its
 largest entry, the 5-step loss curve rtol 1e-5 and the masters atol
@@ -50,6 +54,7 @@ from apex_tpu_torch.contrib.xentropy import lm_head_cross_entropy
 from apex_tpu_torch.convert import params_from_jax
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.transformer.enums import AttnMaskType
+from apex_tpu_torch.transformer.functional import fused_softmax as fs
 from apex_tpu_torch.transformer.testing import (
     GPTConfig,
     gpt_loss,
@@ -61,19 +66,20 @@ SHAPE = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
              attention_dropout=0.0)
 
 
-def _setup(seed=0, **kw):
+def _setup(seed=0, seq=32, **kw):
     kw.setdefault("use_flash_attention", True)
-    jcfg = JaxGPTConfig(**SHAPE, **{
+    shape = dict(SHAPE, max_position_embeddings=seq)
+    jcfg = JaxGPTConfig(**shape, **{
         k: (getattr(jnp, v) if k == "compute_dtype" else v)
         for k, v in kw.items()})
     if kw["use_flash_attention"]:  # the port's default takes flash
         kw["use_flash_attention"] = None
-    tcfg = GPTConfig(**SHAPE, **{
+    tcfg = GPTConfig(**shape, **{
         k: (getattr(torch, v) if k == "compute_dtype" else v)
         for k, v in kw.items()})
     jp = jax_init(jcfg, jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, 128, size=(2, 32)).astype(np.int32)
+    tokens = rng.integers(0, 128, size=(2, seq)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
     return jcfg, tcfg, jp, tokens, labels
 
@@ -87,6 +93,40 @@ def _torch_vg(cfg, params, tokens, labels, **kw):
     return value_and_grad(lambda p: gpt_loss(
         cfg, p, torch.from_numpy(tokens), torch.from_numpy(labels), **kw),
         params)
+
+
+def _sharpen_attention(jp):
+    """The JAX params with the query-key-value weights 8 times their
+    initial scale, so that the scores spread over several units and the
+    softmax's backward carries a share of the q and k gradients that a
+    wrong backward would show (at the initial scale the probabilities
+    are nearly uniform)."""
+    layers = dict(jp["layers"], qkv_w=jp["layers"]["qkv_w"] * 8)
+    return dict(jp, layers=layers)
+
+
+def _count_softmax_route(monkeypatch):
+    """Calls of the fused softmax's plain versions (the port's kernel
+    route on the CPU) and of the dispatcher's ``forward_softmax``, counted
+    as the port's forward and backward run."""
+    counts = {}
+    for name in ("softmax_fwd_reference", "softmax_masked_fwd_reference",
+                 "softmax_bwd_reference"):
+        counts[name] = 0
+
+        def spy(*a, _fn=getattr(fs, name), _name=name):
+            counts[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(fs, name, spy)
+    counts["forward_softmax"] = 0
+    plain = fs.FusedScaleMaskSoftmax.forward_softmax
+
+    def spy_plain(self, *a):
+        counts["forward_softmax"] += 1
+        return plain(self, *a)
+    monkeypatch.setattr(fs.FusedScaleMaskSoftmax, "forward_softmax",
+                        spy_plain)
+    return counts
 
 
 def _close_leaves(jtree, ttree, tol):
@@ -267,17 +307,47 @@ def test_no_flash_loss_and_every_grad_match_jax():
     _close_leaves(jg, tg, 1e-5)
 
 
-def test_no_flash_bf16_loss_and_grads_match_jax():
-    """bf16 over bf16 params: the scores are bf16, so the dispatcher
-    takes the causal fused softmax (kernel #14's plain version here; JAX
-    its XLA fallback on the CPU)."""
+def test_no_flash_bf16_loss_and_grads_match_jax(monkeypatch):
+    """bf16 over bf16 params at seq 32: sk is no multiple of 128, so both
+    dispatchers take ``forward_softmax`` (the fp32 softmax of the bf16
+    scores) and no fused softmax runs."""
     jcfg, tcfg, jp, tokens, labels = _setup(
         11, compute_dtype="bfloat16", use_flash_attention=False)
     jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
                          dtype=torch.bfloat16)
     jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    counts = _count_softmax_route(monkeypatch)
     tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    assert counts == {"softmax_fwd_reference": 0,
+                      "softmax_masked_fwd_reference": 0,
+                      "softmax_bwd_reference": 0, "forward_softmax": 2}
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
+    _close_leaves(jg, tg, 5e-2)
+
+
+@pytest.mark.parametrize("rg", [None, "selective"])
+def test_no_flash_bf16_fused_softmax_route_matches_jax(rg, monkeypatch):
+    """bf16 over bf16 params at seq 128: both dispatchers take the causal
+    fused softmax (JAX its custom VJP, the port its autograd Function over
+    the plain versions of kernels #14 and #16), with and without
+    ``selective`` recompute, which replays the softmax forward of each
+    layer and keeps no probabilities. Tolerances as the bf16 O2 test."""
+    jcfg, tcfg, jp, tokens, labels = _setup(
+        14, seq=128, compute_dtype="bfloat16", use_flash_attention=False,
+        recompute_granularity=rg)
+    jp = _sharpen_attention(jp)
+    jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                         dtype=torch.bfloat16)
+    jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    counts = _count_softmax_route(monkeypatch)
+    tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    layers = SHAPE["num_layers"]
+    assert counts == {
+        "softmax_fwd_reference": layers * (2 if rg else 1),
+        "softmax_masked_fwd_reference": 0,
+        "softmax_bwd_reference": layers, "forward_softmax": 0}
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
     _close_leaves(jg, tg, 5e-2)
 
