@@ -18,7 +18,9 @@ packed Adam kernel; the fused block tails (``ops.fused_block``);
 attention without flash through ``transformer.functional.fused_softmax``
 (forward and backward kernels); BERT (``bert_forward``,
 ``standalone_bert``) with ``contrib.xentropy.softmax_cross_entropy_loss``
-and the pytree ``optimizers.FusedLAMB``.
+and ``optimizers.FusedLAMB``, pytree or packed (the ``ops.packed_optimizer``
+row reduce, LAMB stage 1 and trust-ratio apply kernels); and
+``optimizers.FusedSGD``, pytree or packed (the packed SGD kernel).
 """
 from ._device import (  # noqa: F401
     kernel_route,

@@ -27,7 +27,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libapex_tpu_torch_kernels.so"
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "fused_block.cu",
-           "fused_softmax.cu", "layer_norm.cu", "packed_adam.cu")
+           "fused_softmax.cu", "layer_norm.cu", "packed_adam.cu",
+           "packed_lamb.cu", "packed_sgd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -84,6 +85,20 @@ _ARGTYPES = {
     # 1 - beta1, beta2, 1 - beta2, eps, wd, adam_w_mode, write_mv,
     # write_master, g_is_bf16, p_is_bf16, device, stream
     "apex_packed_adam": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 6 + [_P],
+    # x, out, inv_scale, rows, op_max, x_is_bf16, device, stream
+    "apex_packed_row_reduce": [_P] * 3 + [_L] + [_I] * 3 + [_P],
+    # g, m, v, src, u, row_u, row_p, inv_scale, clip, bc1, bc2, noop, rows,
+    # beta1, beta2, beta3, 1 - beta2, eps, wd, adam_w_mode, g_is_bf16,
+    # device, stream
+    "apex_packed_lamb_stage1": [_P] * 12 + [_L] + [_F] * 6 + [_I] * 3
+    + [_P],
+    # u, src, coef, p_out, lr, noop, rows, write_master, p_is_bf16, device,
+    # stream
+    "apex_packed_scale_update": [_P] * 6 + [_L] + [_I] * 3 + [_P],
+    # g, buf, src, p_out, lr, first_run, inv_scale, noop, n, momentum,
+    # 1 - dampening, wd, nesterov, wd_after_momentum, write_master,
+    # g_is_bf16, p_is_bf16, device, stream
+    "apex_packed_sgd": [_P] * 8 + [_L] + [_F] * 3 + [_I] * 6 + [_P],
     # x, y, rows, sk, sq, scale, causal, dtype, vec, device, stream
     "apex_softmax_fwd": [_P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _P],
     # x, mask, y, rows, sk, sq, heads, mask strides (b, h, q), scale,

@@ -16,11 +16,12 @@ Every wrapper adds one to its entry in :data:`LAUNCHES` right where it
 launches its kernel, so a run can show that its main path went through
 the kernels (``chip_smoke.py`` zeroes the counts before the path and
 reads them after). The keys: ``flash_decode`` (serving),
-``layer_norm_fwd``/``_bwd``, ``flash_attn_fwd``/``_bwd``, ``packed_adam``
-the fused block tails ``bias_gelu_fwd``/``_bwd``,
-``bias_dropout_residual_fwd``/``_bwd``, ``residual_ln_fwd``/``_bwd``, and
-the fused softmax ``softmax_fwd`` (causal or unmasked),
-``softmax_masked_fwd`` and ``softmax_bwd``. A
+``layer_norm_fwd``/``_bwd``, ``flash_attn_fwd``/``_bwd``, the packed
+optimizer sweeps ``packed_adam``, ``packed_sgd``, ``packed_row_reduce``,
+``packed_lamb_stage1`` and ``packed_scale_update``, the fused block tails
+``bias_gelu_fwd``/``_bwd``, ``bias_dropout_residual_fwd``/``_bwd``,
+``residual_ln_fwd``/``_bwd``, and the fused softmax ``softmax_fwd``
+(causal or unmasked), ``softmax_masked_fwd`` and ``softmax_bwd``. A
 forward output that a selective recompute policy hands back from its
 cache launches nothing and counts nothing.
 """
@@ -34,6 +35,8 @@ import torch
 LAUNCHES: Dict[str, int] = {
     "flash_decode": 0, "layer_norm_fwd": 0, "layer_norm_bwd": 0,
     "flash_attn_fwd": 0, "flash_attn_bwd": 0, "packed_adam": 0,
+    "packed_sgd": 0, "packed_row_reduce": 0, "packed_lamb_stage1": 0,
+    "packed_scale_update": 0,
     "bias_gelu_fwd": 0, "bias_gelu_bwd": 0,
     "bias_dropout_residual_fwd": 0, "bias_dropout_residual_bwd": 0,
     "residual_ln_fwd": 0, "residual_ln_bwd": 0,

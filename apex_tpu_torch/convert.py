@@ -12,8 +12,9 @@ output is laid out per head as ``[n, 3d]`` and then split into thirds
 
 ``packed_state_from_jax`` carries a JAX ``PackedState`` (its leaves
 turned into numpy arrays by the caller) into the port's
-``optimizers.PackedState``, so that both optimizers can start from the
-same non-zero moments.
+``optimizers.PackedState`` — Adam's and LAMB's with both moments, SGD's
+with the momentum buffer alone — so that both optimizers can start from
+the same non-zero state.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ def packed_state_from_jax(state: Mapping[str, Any], spec, device="cpu"):
     (the port's ``PackSpec`` of the same parameter tree).
 
     ``state`` holds numpy arrays under ``step``, ``exp_avg``,
-    ``exp_avg_sq`` and ``master_params`` (None when the JAX state has no
-    masters) and the JAX spec's layout under ``offsets``, ``shapes`` and
+    ``exp_avg_sq`` and ``master_params`` (either of the last two None or
+    absent when the JAX state has none: SGD keeps no ``exp_avg_sq``) and the JAX spec's layout under ``offsets``, ``shapes`` and
     ``total``. The layouts must be equal — the same leaf order and
     offsets — or the flat buffers would not line up, and this raises."""
     from .optimizers._packed import PackedState
@@ -64,7 +65,7 @@ def packed_state_from_jax(state: Mapping[str, Any], spec, device="cpu"):
             f"(offsets/shapes/total {jax_layout[2]} vs {port_layout[2]})")
 
     def flat(name):
-        a = state[name]
+        a = state.get(name)
         return None if a is None else _leaf(a, device, torch.float32)
 
     return PackedState(

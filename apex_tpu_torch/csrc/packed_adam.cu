@@ -27,11 +27,12 @@
 // about 15 flops. Design: a grid-stride loop over groups of four elements
 // (the flat buffers are padded to whole 1024-element rows), 16-byte loads
 // and stores of the fp32 buffers, 8-byte ones of bf16, no shared memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "packed_sweep.cuh"
 
 namespace {
+
+using packed_sweep::load4;
+using packed_sweep::store4;
 
 constexpr int kThreads = 256;
 
@@ -39,38 +40,6 @@ struct Hyper {
   float beta1, one_minus_beta1, beta2, one_minus_beta2, eps, wd;
   int adam_w_mode, write_mv, write_master;
 };
-
-__device__ __forceinline__ void load4(const float* p, long long i,
-                                      float (&x)[4]) {
-  const float4 v = reinterpret_cast<const float4*>(p)[i];
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, long long i,
-                                      float (&x)[4]) {
-  const uint2 raw = reinterpret_cast<const uint2*>(p)[i];
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  x[0] = __low2float(lo);
-  x[1] = __high2float(lo);
-  x[2] = __low2float(hi);
-  x[3] = __high2float(hi);
-}
-__device__ __forceinline__ void store4(float* p, long long i,
-                                       const float (&x)[4]) {
-  reinterpret_cast<float4*>(p)[i] = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, long long i,
-                                       const float (&x)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  reinterpret_cast<uint2*>(p)[i] = raw;
-}
 
 template <typename TG, typename TP>
 __global__ void __launch_bounds__(kThreads)
@@ -130,9 +99,7 @@ cudaError_t launch(const void* g, void* m, void* v, void* src, void* p_out,
                    const float* lr, const float* bc1, const float* bc2,
                    const float* inv, const float* noop, long long n4,
                    const Hyper& hp, int sms, cudaStream_t s) {
-  long long want = (n4 + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * 8;
-  const int blocks = static_cast<int>(want < cap ? want : cap);
+  const int blocks = packed_sweep::stride_blocks(n4, kThreads, sms);
   packed_adam_kernel<TG, TP><<<blocks, kThreads, 0, s>>>(
       static_cast<const TG*>(g), static_cast<float*>(m),
       static_cast<float*>(v), static_cast<float*>(src),

@@ -66,6 +66,7 @@ class PackSpec:
         self.offsets: Tuple[int, ...] = tuple(offsets)
         self.padded_sizes: Tuple[int, ...] = tuple(padded)
         self.n_rows = self.total // ROW
+        self._row_segments = {}  # device -> row_segments() tensors
 
     def __repr__(self):
         return (f"PackSpec(n_leaves={self.n_leaves}, total={self.total}, "
@@ -132,6 +133,30 @@ class PackSpec:
             r1 = (self.offsets[i] + self.sizes[i] + ROW - 1) // ROW
             ids[r0:r1] = i
         return ids
+
+    def row_segment_lengths(self) -> np.ndarray:
+        """int64 ``(n_leaves + 1,)``: the number of ROW-sized rows of each
+        leaf in flatten order, then the trailing padding rows. Leaves
+        occupy contiguous row ranges in this order, so these lengths are
+        the segments of :meth:`row_leaf_ids` (a per-leaf sum over rows
+        needs no scatter)."""
+        lengths = np.array([p // ROW for p in self.padded_sizes] + [0],
+                           np.int64)
+        lengths[-1] = self.n_rows - lengths[:-1].sum()
+        return lengths
+
+    def row_segments(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(row_segment_lengths, row_leaf_ids)`` as int64 tensors on
+        ``device``, copied there once per spec and device and reused by
+        every later step (the step itself copies nothing from the
+        host)."""
+        device = torch.device(device)
+        if device not in self._row_segments:
+            self._row_segments[device] = (
+                torch.from_numpy(self.row_segment_lengths()).to(device),
+                torch.from_numpy(self.row_leaf_ids().astype(np.int64)).to(
+                    device))
+        return self._row_segments[device]
 
     def valid_mask(self) -> np.ndarray:
         """bool ``(total,)``: True at real positions, False at padding."""

@@ -1,24 +1,38 @@
-"""Packed Adam / AdamW: one sweep over flat buffers per step — a CUDA
-kernel for Hopper and its plain PyTorch version (counterpart of
-``apex_tpu/ops/packed_optimizer.py``'s ``packed_adam_apply``).
+"""The packed optimizer sweeps: CUDA kernels for Hopper, each beside its
+plain PyTorch version (counterpart of ``apex_tpu/ops/packed_optimizer.py``).
 
 The optimizer state lives in contiguous 1-D fp32 buffers laid out by
-``multi_tensor_apply.packing.PackSpec``. One launch reads the gradient,
-m, v and the fp32 source (masters) once, and writes the parameter
-output, m, v and the masters once: unscale (``inv_scale``), the
-``noop`` overflow flag, Adam or AdamW, and the master -> parameter-dtype
-recast in one pass. The kernel is ``csrc/packed_adam.cu`` (it replaces
-the TPU kernel of ``packed_adam_apply``); :func:`packed_adam_reference`
-is the plain version (the JAX module's XLA-fallback math).
+``multi_tensor_apply.packing.PackSpec`` (whole ``ROW``-element rows).
+Each sweep reads every buffer once and writes every output once:
 
-In place: where the JAX kernel aliased m, v and the masters to its
-outputs, this wrapper updates the given buffers where they lie (on both
-routes) and returns them. ``lr``, ``bc1``, ``bc2``, ``inv_scale`` and
-``noop`` may be device scalars: the kernel reads them on the card, so a
-step never waits on the host to pass them.
+- :func:`packed_adam_apply` — unscale (``inv_scale``), the ``noop``
+  overflow flag, Adam or AdamW and the master -> parameter-dtype recast
+  in one pass (``csrc/packed_adam.cu``);
+- :func:`packed_sgd_apply` — momentum SGD with dampening, nesterov and
+  weight decay before or after the momentum (``csrc/packed_sgd.cu``);
+- :func:`packed_row_reduce` — per-row sum of squares or max |x| of
+  ``x * inv_scale`` (``csrc/packed_lamb.cu``), under
+  :func:`multi_tensor_l2norm_flat`;
+- :func:`packed_lamb_stage1` / :func:`packed_scale_update` — LAMB's
+  moments and unratioed update with per-row norm partials, then the
+  per-row trust-ratio apply and recast (``csrc/packed_lamb.cu``).
 
-The other packed sweeps (SGD, LAMB, NovoGrad, row statistics, scale,
-axpby) are not ported yet (ROADMAP.md, queue B).
+Each kernel replaces the TPU kernel of the function of the same name;
+``*_reference`` is its plain version, written op by op in the order of
+the JAX module's XLA fallback. On CUDA tensors a wrapper launches its
+kernel (or raises), on CPU tensors it runs the plain version.
+
+In place: where the JAX kernels aliased the moments and the masters to
+their outputs, these wrappers update the given buffers where they lie
+(on both routes) and return them. Every scalar that a step computes on
+the device (``lr``, bias corrections, ``inv_scale``, ``clip``,
+``first_run``, ``noop``) may be a device tensor: the kernels read it on
+the card, so a step never waits on the host to pass it. With ``noop``
+set, a sweep leaves its state buffers as they were and its parameter
+output is the recast source.
+
+The other packed sweeps (NovoGrad, row statistics, scale, axpby) are
+not ported yet (ROADMAP.md, queue B).
 """
 from __future__ import annotations
 
@@ -37,6 +51,43 @@ def _scalar(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32).reshape(())
     return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _rows(kernel: str, n: int) -> int:
+    if n % ROW:
+        raise ValueError(f"{kernel}: flat buffers must be whole {ROW}-element "
+                         f"rows (PackSpec layout), got {n}")
+    return n // ROW
+
+
+def _check_flat(kernel: str, n: int, io=(), f32=()) -> None:
+    """``io``: tensors that may be fp32 or bf16 (gradients, parameter
+    outputs); ``f32``: ``(name, tensor)`` fp32 state. Each must be a
+    contiguous 1-D buffer of ``n`` elements on a 16-byte boundary."""
+    for t in io:
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{kernel} kernel takes f32/bf16 gradients and "
+                            f"parameters, got {t.dtype}")
+    for name, t in f32:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{kernel}: {name} must be fp32, got {t.dtype}")
+    for t in (*io, *(t for _, t in f32)):
+        if t.shape != (n,) or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel needs contiguous 1-D 16-byte "
+                             f"aligned buffers of {n} elements, got "
+                             f"{tuple(t.shape)}")
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _noop_ptr(noop: Optional[torch.Tensor]):
+    return None if noop is None else noop.data_ptr()
+
+
+def _skip(noop, dev) -> Optional[torch.Tensor]:
+    return None if noop is None else _scalar(noop, dev) >= 0.5
 
 
 def packed_adam_reference(flat_g, flat_m, flat_v, flat_src, *, param_dtype,
@@ -58,8 +109,8 @@ def packed_adam_reference(flat_g, flat_m, flat_v, flat_src, *, param_dtype,
     if adam_w_mode and wd != 0.0:
         u = u + wd * p32
     new_p = p32 - _scalar(lr, dev) * u
-    if noop is not None:
-        skip = _scalar(noop, dev) >= 0.5
+    skip = _skip(noop, dev)
+    if skip is not None:
         new_p = torch.where(skip, p32, new_p)
         new_m = torch.where(skip, flat_m, new_m)
         new_v = torch.where(skip, flat_v, new_v)
@@ -70,31 +121,18 @@ def _launch(flat_g, flat_m, flat_v, flat_src, p_out, lr, bc1, bc2, inv,
             noop, beta1, beta2, eps, wd, adam_w_mode, write_mv,
             write_master):
     n = flat_g.numel()
-    if n % ROW:
-        raise ValueError(f"flat buffers must be whole {ROW}-element rows "
-                         f"(PackSpec layout), got {n}")
-    if flat_g.dtype not in (torch.float32, torch.bfloat16) or \
-            p_out.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"packed_adam kernel takes f32/bf16 grads and "
-                        f"params, got {flat_g.dtype} / {p_out.dtype}")
-    for name, t in (("m", flat_m), ("v", flat_v), ("src", flat_src)):
-        if t.dtype != torch.float32 or t.shape != (n,):
-            raise ValueError(f"{name} must be fp32 ({n},), got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    for t in (flat_g, flat_m, flat_v, flat_src, p_out):
-        if t.dim() != 1 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("packed_adam kernel needs contiguous 1-D "
-                             "16-byte aligned buffers")
+    _rows("packed_adam", n)
+    _check_flat("packed_adam", n, io=(flat_g, p_out),
+                f32=(("m", flat_m), ("v", flat_v), ("src", flat_src)))
     dev = flat_g.device
     lib = _build.kernels()
     rc = lib.apex_packed_adam(
         flat_g.data_ptr(), flat_m.data_ptr(), flat_v.data_ptr(),
         flat_src.data_ptr(), p_out.data_ptr(), lr.data_ptr(),
-        bc1.data_ptr(), bc2.data_ptr(), inv.data_ptr(),
-        None if noop is None else noop.data_ptr(), n, beta1, 1.0 - beta1,
-        beta2, 1.0 - beta2, eps, wd, int(adam_w_mode), int(write_mv),
-        int(write_master), int(flat_g.dtype == torch.bfloat16),
-        int(p_out.dtype == torch.bfloat16), dev.index,
+        bc1.data_ptr(), bc2.data_ptr(), inv.data_ptr(), _noop_ptr(noop), n,
+        beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, wd, int(adam_w_mode),
+        int(write_mv), int(write_master), _is_bf16(flat_g),
+        _is_bf16(p_out), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "packed_adam")
     _device.LAUNCHES["packed_adam"] += 1
@@ -140,3 +178,257 @@ def packed_adam_apply(flat_g: torch.Tensor, flat_m: torch.Tensor,
     return (p_out, flat_m if write_mv else None,
             flat_v if write_mv else None,
             flat_src if write_master else None)
+
+
+# ---------------------------------------------------------------------------
+# momentum SGD
+# ---------------------------------------------------------------------------
+
+def packed_sgd_reference(flat_g, flat_buf, flat_src, *, param_dtype, lr,
+                         first_run, inv_scale=1.0, noop=None,
+                         momentum=0.0, dampening=0.0, nesterov=False,
+                         wd=0.0, wd_after_momentum=False):
+    """Plain version: ``(p_out, new_buf, new_master)`` as new tensors, in
+    the JAX module's XLA-fallback order."""
+    dev = flat_g.device
+    g = flat_g.float() * _scalar(inv_scale, dev)
+    p32 = flat_src.float()
+    d_p = g
+    if wd != 0.0 and not wd_after_momentum:
+        d_p = d_p + wd * p32
+    if momentum != 0.0:
+        new_buf = torch.where(_scalar(first_run, dev) >= 0.5, d_p,
+                              momentum * flat_buf + (1.0 - dampening) * d_p)
+        d_p = d_p + momentum * new_buf if nesterov else new_buf
+    else:
+        new_buf = flat_buf
+    if wd != 0.0 and wd_after_momentum:
+        d_p = d_p + wd * p32
+    new_p = p32 - _scalar(lr, dev) * d_p
+    skip = _skip(noop, dev)
+    if skip is not None:
+        new_p = torch.where(skip, p32, new_p)
+        new_buf = torch.where(skip, flat_buf, new_buf)
+    return new_p.to(param_dtype), new_buf, new_p
+
+
+def packed_sgd_apply(flat_g: torch.Tensor, flat_buf: torch.Tensor,
+                     flat_src: torch.Tensor, *, param_dtype: torch.dtype, lr,
+                     first_run, inv_scale=1.0, noop=None,
+                     momentum: float = 0.0, dampening: float = 0.0,
+                     nesterov: bool = False, wd: float = 0.0,
+                     wd_after_momentum: bool = False,
+                     write_master: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor]]:
+    """One fused pass of momentum SGD (``multi_tensor_sgd_kernel.cu``'s
+    4-list variant). Returns ``(p_out, buf, master | None)``: the
+    momentum buffer (when ``momentum != 0``) and the fp32 source (when
+    ``write_master``) are the given buffers, updated in place.
+    ``first_run`` (the step count is 0) materialises the buffer as the
+    gradient; it and ``noop`` are read on the device."""
+    dev = flat_g.device
+    if _device.kernel_route(flat_g, flat_buf, flat_src):
+        n = flat_g.numel()
+        _rows("packed_sgd", n)
+        flat_g = flat_g.contiguous()
+        p_out = torch.empty(n, dtype=param_dtype, device=dev)
+        _check_flat("packed_sgd", n, io=(flat_g, p_out),
+                    f32=(("buf", flat_buf), ("src", flat_src)))
+        lr, first, inv = (_scalar(x, dev) for x in (lr, first_run,
+                                                    inv_scale))
+        noop = None if noop is None else _scalar(noop, dev)
+        rc = _build.kernels().apex_packed_sgd(
+            flat_g.data_ptr(), flat_buf.data_ptr(), flat_src.data_ptr(),
+            p_out.data_ptr(), lr.data_ptr(), first.data_ptr(),
+            inv.data_ptr(), _noop_ptr(noop), n, momentum, 1.0 - dampening,
+            wd, int(nesterov), int(wd_after_momentum), int(write_master),
+            _is_bf16(flat_g), _is_bf16(p_out), dev.index,
+            _build.current_stream(dev))
+        _build.check(rc, "packed_sgd")
+        _device.LAUNCHES["packed_sgd"] += 1
+    else:
+        p_out, new_buf, new_p = packed_sgd_reference(
+            flat_g, flat_buf, flat_src, param_dtype=param_dtype, lr=lr,
+            first_run=first_run, inv_scale=inv_scale, noop=noop,
+            momentum=momentum, dampening=dampening, nesterov=nesterov,
+            wd=wd, wd_after_momentum=wd_after_momentum)
+        if momentum != 0.0:
+            flat_buf.copy_(new_buf)
+        if write_master:
+            flat_src.copy_(new_p)
+    return p_out, flat_buf, flat_src if write_master else None
+
+
+# ---------------------------------------------------------------------------
+# LAMB: the row reduce and the two stages
+# ---------------------------------------------------------------------------
+
+def packed_row_reduce_reference(flat, *, op="sqsum", inv_scale=1.0):
+    """Plain version of :func:`packed_row_reduce`."""
+    x = flat.reshape(-1, ROW).float() * _scalar(inv_scale, flat.device)
+    return (x * x).sum(dim=1) if op == "sqsum" else x.abs().amax(dim=1)
+
+
+def packed_row_reduce(flat: torch.Tensor, *, op: str = "sqsum",
+                      inv_scale=1.0) -> torch.Tensor:
+    """Per-ROW reduction of ``flat * inv_scale`` in one sweep
+    (``multi_tensor_l2norm_kernel.cu``'s per-chunk stage): ``sqsum``
+    (sum of squares, the partials of L2 norms) or ``maxabs`` (max |x|; a
+    NaN row gives NaN). Returns fp32 ``(rows,)``. The kernel's row sums
+    take one fixed order, so they are the same from run to run."""
+    if op not in ("sqsum", "maxabs"):
+        raise ValueError(f"unknown row reduction {op!r}")
+    if not _device.kernel_route(flat):
+        return packed_row_reduce_reference(flat, op=op, inv_scale=inv_scale)
+    dev = flat.device
+    rows = _rows("packed_row_reduce", flat.numel())
+    flat = flat.contiguous()
+    _check_flat("packed_row_reduce", flat.numel(), io=(flat,))
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    inv = _scalar(inv_scale, dev)
+    rc = _build.kernels().apex_packed_row_reduce(
+        flat.data_ptr(), out.data_ptr(), inv.data_ptr(), rows,
+        int(op == "maxabs"), _is_bf16(flat), dev.index,
+        _build.current_stream(dev))
+    _build.check(rc, "packed_row_reduce")
+    _device.LAUNCHES["packed_row_reduce"] += 1
+    return out
+
+
+def multi_tensor_l2norm_flat(flat: torch.Tensor, *, inv_scale=1.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global L2 norm of ``flat * inv_scale`` (any length, zero-padded to
+    whole rows) in one sweep. Returns ``(norm, row_sq)``: the per-ROW
+    partials of the input's rows, which a segmented sum over
+    ``PackSpec.row_segments`` turns into per-tensor norms."""
+    n = flat.numel()
+    rows = -(-n // ROW)
+    if rows * ROW != n:
+        flat = torch.cat([flat, flat.new_zeros(rows * ROW - n)])
+    row_sq = packed_row_reduce(flat, op="sqsum", inv_scale=inv_scale)
+    return torch.sqrt(row_sq.sum()), row_sq
+
+
+def packed_lamb_stage1_reference(flat_g, flat_m, flat_v, flat_src, *, clip,
+                                 bc1, bc2, inv_scale=1.0, noop=None,
+                                 beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                                 wd=0.01, adam_w_mode=True):
+    """Plain version: ``(u, new_m, new_v, row_u_sq, row_p_sq)`` as new
+    tensors, in the JAX module's XLA-fallback order."""
+    dev = flat_g.device
+    g = flat_g.float() * _scalar(inv_scale, dev) / _scalar(clip, dev)
+    p32 = flat_src.float()
+    if not adam_w_mode and wd != 0.0:
+        g = g + wd * p32
+    new_m = beta1 * flat_m + beta3 * g
+    new_v = beta2 * flat_v + (1.0 - beta2) * g * g
+    u = (new_m / _scalar(bc1, dev)) / (
+        torch.sqrt(new_v / _scalar(bc2, dev)) + eps)
+    if adam_w_mode and wd != 0.0:
+        u = u + wd * p32
+    skip = _skip(noop, dev)
+    if skip is not None:
+        new_m = torch.where(skip, flat_m, new_m)
+        new_v = torch.where(skip, flat_v, new_v)
+    u2 = (u.reshape(-1, ROW) ** 2).sum(dim=1)
+    p2 = (p32.reshape(-1, ROW) ** 2).sum(dim=1)
+    return u, new_m, new_v, u2, p2
+
+
+def packed_lamb_stage1(flat_g: torch.Tensor, flat_m: torch.Tensor,
+                       flat_v: torch.Tensor, flat_src: torch.Tensor, *,
+                       clip, bc1, bc2, inv_scale=1.0, noop=None,
+                       beta1: float = 0.9, beta2: float = 0.999,
+                       beta3: float = 0.1, eps: float = 1e-6,
+                       wd: float = 0.01, adam_w_mode: bool = True):
+    """LAMB stage 1 (``multi_tensor_lamb.cu`` stage 1 and the per-tensor
+    norm kernel, fused): moments and the unratioed update in one sweep,
+    with per-ROW sums of squares of the update and of the fp32 source —
+    a segmented sum over ``PackSpec.row_segments`` turns those into the
+    trust ratios' norms. Returns ``(u, m, v, row_u_sq, row_p_sq)``: u a
+    new buffer, m and v the given ones, updated in place unless
+    ``noop``."""
+    dev = flat_g.device
+    if not _device.kernel_route(flat_g, flat_m, flat_v, flat_src):
+        u, new_m, new_v, u2, p2 = packed_lamb_stage1_reference(
+            flat_g, flat_m, flat_v, flat_src, clip=clip, bc1=bc1, bc2=bc2,
+            inv_scale=inv_scale, noop=noop, beta1=beta1, beta2=beta2,
+            beta3=beta3, eps=eps, wd=wd, adam_w_mode=adam_w_mode)
+        flat_m.copy_(new_m)
+        flat_v.copy_(new_v)
+        return u, flat_m, flat_v, u2, p2
+    n = flat_g.numel()
+    rows = _rows("packed_lamb_stage1", n)
+    flat_g = flat_g.contiguous()
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    _check_flat("packed_lamb_stage1", n, io=(flat_g,),
+                f32=(("m", flat_m), ("v", flat_v), ("src", flat_src),
+                     ("u", u)))
+    row_u = torch.empty(rows, dtype=torch.float32, device=dev)
+    row_p = torch.empty(rows, dtype=torch.float32, device=dev)
+    inv, clip, bc1, bc2 = (_scalar(x, dev) for x in (inv_scale, clip, bc1,
+                                                     bc2))
+    noop = None if noop is None else _scalar(noop, dev)
+    rc = _build.kernels().apex_packed_lamb_stage1(
+        flat_g.data_ptr(), flat_m.data_ptr(), flat_v.data_ptr(),
+        flat_src.data_ptr(), u.data_ptr(), row_u.data_ptr(),
+        row_p.data_ptr(), inv.data_ptr(), clip.data_ptr(), bc1.data_ptr(),
+        bc2.data_ptr(), _noop_ptr(noop), rows, beta1, beta2, beta3,
+        1.0 - beta2, eps, wd, int(adam_w_mode), _is_bf16(flat_g),
+        dev.index, _build.current_stream(dev))
+    _build.check(rc, "packed_lamb_stage1")
+    _device.LAUNCHES["packed_lamb_stage1"] += 1
+    return u, flat_m, flat_v, row_u, row_p
+
+
+def packed_scale_update_reference(flat_u, flat_src, row_coef, *,
+                                  param_dtype, lr, noop=None):
+    """Plain version: ``(p_out, new_master)`` as new tensors."""
+    dev = flat_u.device
+    coef = torch.repeat_interleave(row_coef, ROW)
+    p32 = flat_src.float()
+    new_p = p32 - _scalar(lr, dev) * coef * flat_u
+    skip = _skip(noop, dev)
+    if skip is not None:
+        new_p = torch.where(skip, p32, new_p)
+    return new_p.to(param_dtype), new_p
+
+
+def packed_scale_update(flat_u: torch.Tensor, flat_src: torch.Tensor,
+                        row_coef: torch.Tensor, *, param_dtype: torch.dtype,
+                        lr, noop=None, write_master: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """LAMB stage 2 (``multi_tensor_lamb.cu`` stage 2): ``p32 - (lr *
+    coef[row]) * u`` with one coefficient per ROW (the trust ratios),
+    recast to ``param_dtype`` in the same sweep. Returns ``(p_out,
+    master | None)``: the fp32 source, updated in place when
+    ``write_master`` (and not ``noop``)."""
+    dev = flat_u.device
+    if not _device.kernel_route(flat_u, flat_src, row_coef):
+        p_out, new_p = packed_scale_update_reference(
+            flat_u, flat_src, row_coef, param_dtype=param_dtype, lr=lr,
+            noop=noop)
+        if write_master:
+            flat_src.copy_(new_p)
+        return p_out, flat_src if write_master else None
+    n = flat_u.numel()
+    rows = _rows("packed_scale_update", n)
+    p_out = torch.empty(n, dtype=param_dtype, device=dev)
+    _check_flat("packed_scale_update", n, io=(p_out,),
+                f32=(("u", flat_u), ("src", flat_src)))
+    if row_coef.dtype != torch.float32 or row_coef.shape != (rows,) or \
+            not row_coef.is_contiguous():
+        raise ValueError(f"packed_scale_update: row_coef must be contiguous "
+                         f"fp32 ({rows},), got {row_coef.dtype} "
+                         f"{tuple(row_coef.shape)}")
+    lr = _scalar(lr, dev)
+    noop = None if noop is None else _scalar(noop, dev)
+    rc = _build.kernels().apex_packed_scale_update(
+        flat_u.data_ptr(), flat_src.data_ptr(), row_coef.data_ptr(),
+        p_out.data_ptr(), lr.data_ptr(), _noop_ptr(noop), rows,
+        int(write_master), _is_bf16(p_out), dev.index,
+        _build.current_stream(dev))
+    _build.check(rc, "packed_scale_update")
+    _device.LAUNCHES["packed_scale_update"] += 1
+    return p_out, flat_src if write_master else None

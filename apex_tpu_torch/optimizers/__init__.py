@@ -1,7 +1,7 @@
-"""Fused optimizers (counterpart of ``apex_tpu/optimizers``): FusedAdam
-with the packed flat-buffer path, and FusedLAMB's pytree path. The other
-optimizers and packed LAMB are not ported yet (ROADMAP.md, queues A3
-and B)."""
+"""Fused optimizers (counterpart of ``apex_tpu/optimizers``): FusedAdam,
+FusedLAMB and FusedSGD, each with its pytree path and its packed
+flat-buffer path. The other optimizers are not ported yet (ROADMAP.md,
+queues A3 and B)."""
 from ._packed import PackedState  # noqa: F401
 from .fused_adam import FusedAdam, FusedAdamState, FusedAdamW  # noqa: F401
 from .fused_lamb import (  # noqa: F401
@@ -9,3 +9,4 @@ from .fused_lamb import (  # noqa: F401
     FusedLAMBState,
     FusedMixedPrecisionLamb,
 )
+from .fused_sgd import FusedSGD, FusedSGDState  # noqa: F401

@@ -4,26 +4,27 @@
 With ``packed=True`` an optimizer's ``init`` returns a
 :class:`PackedState` whose moments and masters are contiguous 1-D fp32
 buffers, and ``step`` runs one packed kernel sweep over them
-(``ops.packed_optimizer``). The kernel updates m, v and the masters in
-place: a state handed to ``step`` is consumed by it (the JAX package
-donated it to the same effect).
+(``ops.packed_optimizer``). The kernels update the moments and the
+masters in place: a state handed to ``step`` is consumed by it (the JAX
+package donated it to the same effect).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from .._tree import tree_leaves
-from ..multi_tensor_apply.packing import PackSpec
+from ..multi_tensor_apply.packing import DEFAULT_CHUNK, PackSpec
 
 Tree = Any
 
 
 class PackedState:
     """``step`` int32 device scalar; ``exp_avg`` / ``exp_avg_sq`` fp32
-    flat buffers; ``master_params`` fp32 flat buffer or None; ``spec``
-    the layout."""
+    flat buffers (``exp_avg`` doubles as SGD's momentum buffer, and SGD
+    keeps no ``exp_avg_sq``: None); ``master_params`` fp32 flat buffer or
+    None; ``spec`` the layout."""
 
     def __init__(self, step, exp_avg, exp_avg_sq, master_params,
                  spec: PackSpec):
@@ -33,19 +34,43 @@ class PackedState:
         self.master_params = master_params
         self.spec = spec
 
+    @property
+    def momentum_buffer(self) -> torch.Tensor:
+        """SGD's name for ``exp_avg``."""
+        return self.exp_avg
+
+    def sweep_bytes(self) -> int:
+        """The least device-memory traffic of one packed step, in bytes:
+        the gradient read and the parameters written (in the packed
+        parameter dtype), each present fp32 state buffer read and
+        written, over the whole padded buffer (``spec.total``); the
+        packing copies are not counted."""
+        spec = self.spec
+        item = spec.common_dtype().itemsize
+        total = 2 * item * spec.total + 2 * 4 * spec.total  # g, p; exp_avg
+        if self.exp_avg_sq is not None:
+            total += 2 * 4 * self.exp_avg_sq.numel()
+        if self.master_params is not None:
+            total += 2 * 4 * spec.total
+        return int(total)
+
     def __repr__(self):
         return f"PackedState(step={self.step}, spec={self.spec})"
 
 
-def packed_init(params: Tree, *, master_weights: bool = False
-                ) -> PackedState:
-    """Build the flat-buffer state for ``params`` on their device."""
-    spec = PackSpec(params)
+def packed_init(params: Tree, *, chunk_size: Optional[int] = None,
+                with_exp_avg_sq: bool = True,
+                master_weights: bool = False) -> PackedState:
+    """Build the flat-buffer state for ``params`` on their device, laid
+    out by a ``PackSpec`` of ``chunk_size`` (default ``DEFAULT_CHUNK``).
+    ``with_exp_avg_sq=False`` keeps no second moment (SGD)."""
+    spec = PackSpec(params, chunk_size=chunk_size or DEFAULT_CHUNK)
     dev = tree_leaves(params)[0].device
     return PackedState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         exp_avg=spec.zeros(torch.float32, dev),
-        exp_avg_sq=spec.zeros(torch.float32, dev),
+        exp_avg_sq=spec.zeros(torch.float32, dev) if with_exp_avg_sq
+        else None,
         master_params=spec.pack(params, torch.float32) if master_weights
         else None,
         spec=spec)

@@ -17,7 +17,11 @@ any failure exits non-zero and prints no result line:
    bf16, hash dropout with a negative seed, 1000 rows; the three fused
    softmax kernels in fp32, bf16 and fp16, causal and unmasked at the
    345M shape, masked at the BERT-large shape with a padding mask and a
-   general mask holding a fully masked row, sk 1000, 999 and 16384);
+   general mask holding a fully masked row, sk 1000, 999 and 16384; the
+   three packed LAMB kernels over BERT-large's flat buffer, fp32 as on
+   the path and bf16, with and without decay, L2 mode and noop; the
+   packed SGD kernel over the 345M buffer: momentum 0 and 0.9, nesterov,
+   decay after the momentum, the first run and noop);
    times of kernel, plain version, one PyTorch library call as
    yardstick, and the least time the card could take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
@@ -30,22 +34,27 @@ any failure exits non-zero and prints no result line:
 5. the 345M train step (seq 1024, batch 8, bf16 O2, packed FusedAdam):
    the headline step (``fused_block=True``, ``selective_elementwise``
    recompute), 2 warm-up and 6 timed steps, then the unfused step
-   without recompute, the fused step without recompute and the step
+   without recompute, the fused step without recompute, the step
    without flash attention (``bench.py``'s xla-attention leg: the fused
-   softmax kernels under ``selective`` recompute) as further legs
-   (2 + 6 steps each); for each, launches per step asserted exactly,
-   loss falling, peak memory, a profiled step;
-6. the BERT-large step with pytree FusedLAMB (``bench.py``'s
+   softmax kernels under ``selective`` recompute) and the unfused step
+   with packed FusedSGD (momentum 0.9, weight decay 1e-4, fp32 masters)
+   as further legs (2 + 6 steps each); for each, launches per step
+   asserted exactly, loss falling, peak memory, a profiled step;
+6. the BERT-large step with FusedLAMB (``bench.py``'s
    ``bench_bert_lamb``: 24 x 1024 x 16, vocab 30592, seq 512, batch 16,
-   bf16 over fp32 params, ``selective``), with a padding mask, without
-   flash (the masked fused softmax) and with flash (2 + 5 steps each),
-   checked as the GPT legs;
+   bf16 over fp32 params), with a padding mask: pytree LAMB under
+   ``selective`` without flash (the masked fused softmax) and with
+   flash, then without recompute or flash, with pytree and with packed
+   LAMB (2 + 5 steps each), checked as the GPT legs, and the
+   optimizer's step alone timed in each;
 7. training parity, card (kernels) against CPU (plain versions), on
    2-layer full-width models: fp32 unfused and fused under
    ``selective_elementwise`` (3 packed-Adam steps), bf16 GPT without
-   flash (3 packed-Adam steps) and bf16 BERT without flash under a
-   padding mask (3 LAMB steps): loss, every gradient, the steps;
-8. a ``{"kernels": [...]}`` line, the card line, and last
+   flash (3 packed-Adam steps), bf16 BERT without flash under a
+   padding mask (3 pytree LAMB steps), fp32 GPT with packed SGD, and
+   BERT without flash with packed LAMB in fp32 and bf16: loss, every
+   gradient, the steps; then packed against pytree LAMB on the card;
+8. a ``{"kernels": [...]}`` line (19 kernels), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present.
@@ -85,8 +94,16 @@ from apex_tpu_torch.ops.layer_norm import (
 from apex_tpu_torch.ops.packed_optimizer import (
     packed_adam_apply,
     packed_adam_reference,
+    packed_lamb_stage1,
+    packed_lamb_stage1_reference,
+    packed_row_reduce,
+    packed_row_reduce_reference,
+    packed_scale_update,
+    packed_scale_update_reference,
+    packed_sgd_apply,
+    packed_sgd_reference,
 )
-from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
 from apex_tpu_torch.serving import (
     Request,
     ServingEngine,
@@ -961,16 +978,18 @@ def _softmax_timing(dev, g, pad_mask):
     return list(out.values())
 
 
-def gpt345m_param_shapes(dtype=torch.bfloat16):
-    """The 345M parameter tree as meta tensors (shapes and dtypes, no
-    memory): the layout the packed optimizer sweeps."""
-    cfg = gpt345m(dtype, max_pos=1024)
+def param_shapes(vocab: int, max_pos: int, dtype):
+    """The 24 x 1024 parameter tree (16 leaves) as meta tensors (shapes
+    and dtypes, no memory): the layout the packed optimizers sweep."""
+    cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=vocab,
+                    max_position_embeddings=max_pos)
     h, L, v, f = cfg.hidden_size, cfg.num_layers, cfg.vocab_size, \
         cfg.ffn_size
 
     def m(*shape):
         return torch.empty(shape, dtype=dtype, device="meta")
-    return {"embedding": {"word": m(v, h), "position": m(1024, h)},
+    return {"embedding": {"word": m(v, h), "position": m(max_pos, h)},
             "layers": {"input_ln_w": m(L, h), "input_ln_b": m(L, h),
                        "qkv_w": m(L, 3 * h, h), "qkv_b": m(L, 3 * h),
                        "proj_w": m(L, h, h), "proj_b": m(L, h),
@@ -978,6 +997,17 @@ def gpt345m_param_shapes(dtype=torch.bfloat16):
                        "fc1_w": m(L, f, h), "fc1_b": m(L, f),
                        "fc2_w": m(L, h, f), "fc2_b": m(L, h)},
             "final_ln_w": m(h), "final_ln_b": m(h)}
+
+
+def gpt345m_param_shapes(dtype=torch.bfloat16):
+    """GPT-2 345M's tree: what the packed Adam and SGD sweeps update."""
+    return param_shapes(50304, 1024, dtype)
+
+
+def bert_large_param_shapes(dtype=torch.float32):
+    """BERT-large's tree as the BERT legs train it (no binary head):
+    what the packed LAMB sweeps update."""
+    return param_shapes(BERT_VOCAB, 512, dtype)
 
 
 #: packed Adam against its plain version: both round every operation
@@ -1066,6 +1096,238 @@ def packed_adam_checks(dev):
             "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": by}
+
+
+#: the row sums of the packed LAMB kernels against their plain versions:
+#: 1024 terms summed in another order move a sum by ~1e-7 relative; one
+#: term missing moves it by ~1e-3, a wrong row by far more. Their
+#: elementwise results are held to ``ADAM_TOL``: products and sums round
+#: as the plain versions' do, bit for bit, but PyTorch's CUDA division
+#: may put LAMB's quotients an ulp apart (H100 80GB HBM3, 700 W: up to
+#: 1e-6 relative where beta1 * m + beta3 * g cancels)
+ROW_SUM_TOL = (0.0, 1e-5)
+
+
+def _kernel_timing(run, plain, library, match, nbytes, flops):
+    """Call ms (CUDA events), device ms (profiler), plain ms, library ms
+    (or None) and the bound of one sweep."""
+    b_ms, by = bound(nbytes, flops)
+    return {"ms": time_ms(run, iters=20), "device_ms": device_ms(
+        run, match, iters=10), "plain_ms": time_ms(plain, iters=3),
+        "library_ms": None if library is None else time_ms(library,
+                                                           iters=20),
+        "bound_ms": b_ms, "bound_by": by}
+
+
+def packed_lamb_checks(dev):
+    """The three packed LAMB kernels over a flat buffer of BERT-large's
+    PackSpec, fp32 gradients and params as on the path (no masters):
+    the row reduce in ``sqsum`` and ``maxabs`` over fp32 and bf16; stage
+    1 with AdamW decay (the path), without decay, in L2 mode, over bf16
+    gradients and under ``noop`` (m and v bitwise unchanged); the scale
+    update as on the path, into bf16 params with an fp32 master, and
+    under ``noop``. Then each timed as on the path."""
+    spec = PackSpec(bert_large_param_shapes())
+    n, rows = spec.total, spec.n_rows
+    g = torch.Generator(device=dev).manual_seed(8)
+    grad = torch.randn(n, generator=g, device=dev) * 1e-3
+    m0 = torch.randn(n, generator=g, device=dev) * 1e-4
+    v0 = torch.rand(n, generator=g, device=dev) * 1e-8
+    src0 = torch.randn(n, generator=g, device=dev) * 0.02
+    coef = torch.rand(rows, generator=g, device=dev) * 2
+    inv = torch.tensor(0.5, device=dev)
+    lr = torch.tensor(1e-3, device=dev)
+    noop = torch.tensor(True, device=dev)
+    errs = {"packed_row_reduce": [], "packed_lamb_stage1": [],
+            "packed_scale_update": []}
+    for op in ("sqsum", "maxabs"):
+        for dt in (torch.float32, torch.bfloat16):
+            x = grad.to(dt)
+            got = packed_row_reduce(x, op=op, inv_scale=inv)
+            want = packed_row_reduce_reference(x, op=op, inv_scale=inv)
+            if op == "maxabs":
+                if not torch.equal(got, want):
+                    raise AssertionError(f"packed_row_reduce maxabs {dt}: "
+                                         f"not the plain version's bits")
+                err = 0.0
+            else:
+                err = check_close(f"packed_row_reduce {op} {dt}", got, want,
+                                  None, ROW_SUM_TOL)
+            errs["packed_row_reduce"].append(err)
+            log(f"  packed_row_reduce {op} {dt} over {n} elements: max abs "
+                f"err {err:.3e}")
+    hyper = dict(clip=torch.tensor(1.3, device=dev),
+                 bc1=torch.tensor(0.19, device=dev),
+                 bc2=torch.tensor(0.002, device=dev), inv_scale=inv,
+                 beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6)
+    path = dict(wd=0.01)
+    for name, kw, dt in (("adamw wd 0.01 (the path)", path, torch.float32),
+                         ("no weight decay", dict(wd=0.0), torch.float32),
+                         ("adam l2 wd 0.01", dict(wd=0.01,
+                                                  adam_w_mode=False),
+                          torch.float32),
+                         ("bf16 grads", path, torch.bfloat16),
+                         ("noop", dict(wd=0.01, noop=noop), torch.float32)):
+        m, v = m0.clone(), v0.clone()
+        x = grad.to(dt)
+        u, _, _, ru, rp = packed_lamb_stage1(x, m, v, src0, **hyper, **kw)
+        ref = packed_lamb_stage1_reference(x, m0, v0, src0, **hyper, **kw)
+        f32 = ADAM_TOL[torch.float32]
+        err = check_close(f"packed_lamb_stage1 {name} u", u, ref[0], None,
+                          f32)
+        if name == "noop":
+            if not (torch.equal(m, m0) and torch.equal(v, v0)):
+                raise AssertionError("packed_lamb_stage1 noop wrote m/v")
+        else:
+            err = max(err, check_close(f"packed_lamb_stage1 {name} m", m,
+                                       ref[1], None, f32),
+                      check_close(f"packed_lamb_stage1 {name} v", v, ref[2],
+                                  None, f32))
+        err = max(err, check_close(f"packed_lamb_stage1 {name} row u^2", ru,
+                                   ref[3], None, ROW_SUM_TOL),
+                  check_close(f"packed_lamb_stage1 {name} row p^2", rp,
+                              ref[4], None, ROW_SUM_TOL))
+        errs["packed_lamb_stage1"].append(err)
+        log(f"  packed_lamb_stage1 {name} over {n} elements: max abs err "
+            f"{err:.3e}")
+        del ref, m, v
+    u = packed_lamb_stage1_reference(grad, m0, v0, src0, **hyper,
+                                     **path)[0]
+    for name, dt, master, nf in (
+            ("fp32 params, no master (the path)", torch.float32, False,
+             None),
+            ("bf16 params, fp32 master", torch.bfloat16, True, None),
+            ("noop", torch.bfloat16, True, noop)):
+        src = src0.clone()
+        p_out, _ = packed_scale_update(u, src, coef, param_dtype=dt, lr=lr,
+                                       noop=nf, write_master=master)
+        want_p, want_m = packed_scale_update_reference(
+            u, src0, coef, param_dtype=dt, lr=lr, noop=nf)
+        err = check_close(f"packed_scale_update {name} p_out", p_out,
+                          want_p, None, ADAM_TOL[dt])
+        if master and nf is None:
+            err = max(err, check_close(f"packed_scale_update {name} master",
+                                       src, want_m, None,
+                                       ADAM_TOL[torch.float32]))
+        elif not torch.equal(src, src0):
+            raise AssertionError(f"packed_scale_update {name} wrote the "
+                                 f"master")
+        if nf is not None and not torch.equal(p_out, src0.to(dt)):
+            raise AssertionError("packed_scale_update noop: p_out is not "
+                                 "the recast source")
+        errs["packed_scale_update"].append(err)
+        log(f"  packed_scale_update {name} over {n} elements: max abs err "
+            f"{err:.3e}")
+        del src, p_out, want_p, want_m
+    m, v = m0.clone(), v0.clone()
+    timings = {
+        # fp32 gradient read, one fp32 partial a row written
+        "packed_row_reduce": _kernel_timing(
+            lambda: packed_row_reduce(grad, inv_scale=inv),
+            lambda: packed_row_reduce_reference(grad, inv_scale=inv),
+            lambda: torch.linalg.vector_norm(grad.view(-1, 1024), dim=1),
+            "row_reduce_kernel", 4 * n + 4 * rows, 3 * n),
+        # g, m, v, src read; u, m, v written; two partials a row
+        "packed_lamb_stage1": _kernel_timing(
+            lambda: packed_lamb_stage1(grad, m, v, src0, **hyper, **path),
+            lambda: packed_lamb_stage1_reference(grad, m0, v0, src0,
+                                                 **hyper, **path),
+            None, "lamb_stage1_kernel", 28 * n + 8 * rows, 20 * n),
+        # u, src and a coefficient a row read; fp32 params written
+        "packed_scale_update": _kernel_timing(
+            lambda: packed_scale_update(u, src0, coef,
+                                        param_dtype=torch.float32, lr=lr,
+                                        write_master=False),
+            lambda: packed_scale_update_reference(
+                u, src0, coef, param_dtype=torch.float32, lr=lr),
+            # one call of the same product and order: src + (-lr * c) * u
+            lambda: torch.addcmul(src0.view(-1, 1024), coef[:, None],
+                                  u.view(-1, 1024), value=-1e-3),
+            "scale_update_kernel", 12 * n + 4 * rows, 2 * n)}
+    out = []
+    for name, line in (("packed_row_reduce", 611), ("packed_lamb_stage1", 395),
+                       ("packed_scale_update", 479)):
+        t = timings[name]
+        log(f"  {name} BERT-large flat buffer ({n} elements, fp32): kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        out.append({"name": name, "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/packed_lamb.cu",
+                    "replaces": f"apex_tpu/ops/packed_optimizer.py:{line}",
+                    "max_abs_err": max(errs[name]), **t})
+    log(f"  sum of the three kernels' bounds: "
+        f"{sum(t['bound_ms'] for t in timings.values()):.4f} ms; of their "
+        f"device times: {sum(t['device_ms'] or 0 for t in timings.values())}"
+        f" ms")
+    return out
+
+
+def packed_sgd_checks(dev):
+    """The packed SGD sweep over a flat buffer of the 345M PackSpec's
+    size, bf16 gradients and params over fp32 masters as on the path:
+    momentum 0 and 0.9 with weight decay (the path), nesterov, decay
+    after the momentum with dampening, the first run (the buffer becomes
+    the gradient) and noop (every state buffer bitwise unchanged)."""
+    spec = PackSpec(gpt345m_param_shapes())
+    n = spec.total
+    g = torch.Generator(device=dev).manual_seed(9)
+    grad = (torch.randn(n, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    buf0 = torch.randn(n, generator=g, device=dev) * 1e-3
+    src0 = torch.randn(n, generator=g, device=dev) * 0.02
+    hyper = dict(param_dtype=torch.bfloat16,
+                 lr=torch.tensor(SGD_LR, device=dev),
+                 inv_scale=torch.tensor(0.5, device=dev))
+    no, yes = (torch.tensor(b, device=dev) for b in (False, True))
+    path = dict(momentum=0.9, wd=1e-4, first_run=no)
+    errs = []
+    for name, kw in (("momentum 0", dict(first_run=no)),
+                     ("momentum 0.9, wd 1e-4 (the path)", path),
+                     ("nesterov", dict(path, nesterov=True)),
+                     ("wd after momentum, dampening 0.1",
+                      dict(path, dampening=0.1, wd_after_momentum=True)),
+                     ("first run", dict(path, first_run=yes)),
+                     ("noop", dict(path, noop=yes))):
+        buf, src = buf0.clone(), src0.clone()
+        p_out, _, _ = packed_sgd_apply(grad, buf, src, **hyper, **kw)
+        want_p, want_b, want_m = packed_sgd_reference(grad, buf0, src0,
+                                                      **hyper, **kw)
+        err = check_close(f"packed_sgd {name} p_out", p_out, want_p, None,
+                          ADAM_TOL[torch.bfloat16])
+        if name == "noop":
+            if not (torch.equal(buf, buf0) and torch.equal(src, src0)
+                    and torch.equal(p_out, src0.to(torch.bfloat16))):
+                raise AssertionError("packed_sgd noop changed its inputs")
+        else:
+            err = max(err, *(check_close(f"packed_sgd {name} {sn}", got,
+                                         want, None, ADAM_TOL[torch.float32])
+                             for sn, got, want in (("buf", buf, want_b),
+                                                   ("master", src, want_m))))
+        errs.append(err)
+        log(f"  packed_sgd {name} over {n} elements: max abs err {err:.3e}")
+        del buf, src, p_out, want_p, want_b, want_m
+    buf, src = buf0.clone(), src0.clone()
+    p = torch.nn.Parameter(src0.clone())
+    p.grad = grad.float()
+    lib_opt = torch.optim.SGD([p], lr=SGD_LR, momentum=0.9,
+                              weight_decay=1e-4, fused=True)
+    # bf16 grad read + bf16 param write + buffer and master read and
+    # written
+    t = _kernel_timing(
+        lambda: packed_sgd_apply(grad, buf, src, **hyper, **path),
+        lambda: packed_sgd_reference(grad, buf0, src0, **hyper, **path),
+        lib_opt.step, "packed_sgd_kernel", n * (2 + 2 + 2 * 8), 8 * n)
+    del p, lib_opt, buf, src
+    log(f"  packed_sgd 345M flat buffer ({n} elements, bf16 grads and "
+        f"params): kernel {t['ms']:.4f} ms (device {t['device_ms']} ms), "
+        f"plain {t['plain_ms']:.4f} ms, SGD(fused=True) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+    return {"name": "packed_sgd", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/packed_sgd.cu",
+            "replaces": "apex_tpu/ops/packed_optimizer.py:292",
+            "max_abs_err": max(errs), **t}
 
 
 # ---------------------------------------------------------------------------
@@ -1255,6 +1517,21 @@ NONFLASH_LAUNCHES = {
     "layer_norm_fwd": 49, "layer_norm_bwd": 49, "softmax_fwd": 48,
     "softmax_bwd": 24, "packed_adam": 1,
 }
+#: the unfused step with packed FusedSGD in place of packed FusedAdam
+SGD_LAUNCHES = {**{k: c for k, c in UNFUSED_LAUNCHES.items()
+                   if k != "packed_adam"}, "packed_sgd": 1}
+
+#: FusedSGD of the SGD leg: momentum and weight decay of ``bench.py``'s
+#: ``bench_resnet_o2`` (:533), bf16 params over fp32 masters. Its lr 0.1
+#: is ResNet's; the GPT's tied word embedding takes large gradients, and
+#: with momentum 0.9 the loss of the leg's fixed batch falls from the
+#: first step at 0.01 (the leg asserts that it falls)
+SGD_LR = 0.01
+
+
+def packed_sgd():
+    return FusedSGD(lr=SGD_LR, momentum=0.9, weight_decay=1e-4,
+                    packed=True, master_weights=True)
 
 
 def drive_leg(label: str, expected: dict, timed: int, step, params, state,
@@ -1298,15 +1575,21 @@ def drive_leg(label: str, expected: dict, timed: int, step, params, state,
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    profiled(lambda: step(params, state), f"{label} step", 14)
-    return {"launches": launches, "p50": p50, "p99": p99, "peak": peak_gb}
+    out = {}
+
+    def run():  # a packed step consumes the state: keep what it returns
+        out["params"], out["state"], _ = step(params, state)
+    profiled(run, f"{label} step", 14)
+    return {"launches": launches, "p50": p50, "p99": p99, "peak": peak_gb,
+            **out}
 
 
-def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
+def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
+              **cfg_kw):
     """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
     compute over bf16 params with fp32 masters (O2), packed
-    FusedAdam(lr=1e-4), random weights (seed 0) and tokens (seed 1), the
-    same batch every step (:func:`drive_leg`)."""
+    FusedAdam(lr=1e-4) or ``make_opt()``, random weights (seed 0) and
+    tokens (seed 1), the same batch every step (:func:`drive_leg`)."""
     cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=50304,
                     max_position_embeddings=1024, hidden_dropout=0.0,
@@ -1315,14 +1598,17 @@ def train_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
     params = init_gpt_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     params = tree_map(lambda p: p.to(torch.bfloat16), params)
-    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    opt = (make_opt() if make_opt else
+           FusedAdam(lr=1e-4, master_weights=True, packed=True))
     tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
                            generator=torch.Generator(
                                device=dev).manual_seed(1))
     labels = torch.roll(tokens, -1, dims=1)
     step = train_step_fn(lambda p: gpt_loss(cfg, p, tokens, labels), opt)
-    return drive_leg(label, expected, timed, step, params, opt.init(params),
-                     tokens.numel())
+    leg = drive_leg(label, expected, timed, step, params, opt.init(params),
+                    tokens.numel())
+    del leg["params"], leg["state"]
+    return leg
 
 
 def train_345m(dev):
@@ -1331,10 +1617,11 @@ def train_345m(dev):
     GEMM), then the unfused step without recompute (saved bf16 CE
     logits) as the second leg, the fused step without recompute as a
     third, which separates the recompute's cost from the fused tails',
-    and the step without flash attention as a fourth (``bench.py``'s
+    the step without flash attention as a fourth (``bench.py``'s
     xla-attention leg: ``bench_gpt(..., "selective")`` with flash off,
-    the unfused block, the CE recomputing its chunk GEMM), all in this
-    one call."""
+    the unfused block, the CE recomputing its chunk GEMM), and the
+    unfused step with packed FusedSGD as a fifth, all in this one
+    call."""
     legs = {}
     for key, label, expected, timed, kw in (
             ("headline", "345M headline (fused block, "
@@ -1349,7 +1636,10 @@ def train_345m(dev):
              NONFLASH_LAUNCHES, 6,
              dict(use_flash_attention=False,
                   recompute_granularity="selective", fused_block=False,
-                  ce_save_logits=False))):
+                  ce_save_logits=False)),
+            ("sgd", "345M unfused, no remat, packed FusedSGD",
+             SGD_LAUNCHES, 6, dict(ce_save_logits=True,
+                                   make_opt=packed_sgd))):
         legs[key] = train_leg(dev, label, expected, timed, **kw)
         torch.cuda.empty_cache()
     log("  legs: " + "; ".join(
@@ -1372,6 +1662,19 @@ BERT_FLASH_LAUNCHES = {
     "layer_norm_fwd": 49, "layer_norm_bwd": 49, "flash_attn_fwd": 24,
     "flash_attn_bwd": 24,
 }
+#: without recompute the masked softmax forward runs once a layer
+BERT_NOREMAT_LAUNCHES = {
+    "layer_norm_fwd": 49, "layer_norm_bwd": 49, "softmax_masked_fwd": 24,
+    "softmax_bwd": 24,
+}
+#: a packed FusedLAMB step: the gradient's row sums, stage 1, stage 2
+LAMB_LAUNCHES = {"packed_row_reduce": 1, "packed_lamb_stage1": 1,
+                 "packed_scale_update": 1}
+LAMB_KERNELS = tuple(LAMB_LAUNCHES)
+
+
+def packed_lamb():
+    return FusedLAMB(lr=1e-3, packed=True)
 
 
 def bert_mlm_loss(cfg, params, tokens, labels, padding):
@@ -1395,13 +1698,54 @@ def bert_batch(gens, b: int, s: int, vocab: int, dev):
     return tokens, torch.where(padding == 0, -1, labels), padding
 
 
-def bert_large_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
+def _ms_list(times):
+    return "[" + ", ".join(f"{t:.3f}" for t in times) + "]"
+
+
+def optimizer_time(opt, loss_fn, params, state, iters: int = 5):
+    """The optimizer step alone, on one set of gradients, over ``iters``
+    chained steps after a warm-up step: (call ms per step from CUDA
+    events over the chain, the host's ms to enqueue each step as a list,
+    so that one slow enqueue shows, device ms per step from a
+    ``torch.profiler`` trace, and for a packed state the bound of one
+    step from ``PackedState.sweep_bytes`` or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, grads = value_and_grad(loss_fn, params)
+    params, state = opt.step(grads, state, params)  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_ms = []
+    start.record()
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        params, state = opt.step(grads, state, params)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    end.synchronize()
+    bound_ms = (bound(state.sweep_bytes(), 0)[0]
+                if hasattr(state, "sweep_bytes") else None)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            params, state = opt.step(grads, state, params)
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_time_total > 0 and e.device_type.name == "CUDA")
+    return (start.elapsed_time(end) / iters, host_ms, busy / 1e3 / iters,
+            bound_ms)
+
+
+def bert_large_leg(dev, label: str, expected: dict, timed: int,
+                   make_opt=None, **cfg_kw):
     """BERT-large as ``bench_bert_lamb`` runs it: 24 layers, hidden 1024,
     16 heads, vocab 30592, seq 512, batch 16, bf16 compute over fp32
-    params, dropout 0, ``selective`` recompute, pytree FusedLAMB(lr=1e-3),
-    random weights (seed 0), tokens (seed 1) and labels (seed 2); unlike
-    the bench, a padding mask with lengths from seed 3 (the labels of its
-    pad positions -1). The same batch every step (:func:`drive_leg`)."""
+    params, dropout 0, ``selective`` recompute (unless ``cfg_kw`` says
+    otherwise), pytree FusedLAMB(lr=1e-3) or ``make_opt()``, random
+    weights (seed 0), tokens (seed 1) and labels (seed 2); unlike the
+    bench, a padding mask with lengths from seed 3 (the labels of its
+    pad positions -1). The same batch every step (:func:`drive_leg`),
+    then the optimizer's step alone timed (:func:`optimizer_time`)."""
     cfg_kw.setdefault("recompute_granularity", "selective")
     cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=BERT_VOCAB,
@@ -1410,28 +1754,55 @@ def bert_large_leg(dev, label: str, expected: dict, timed: int, **cfg_kw):
                     **cfg_kw)
     params = init_gpt_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    opt = FusedLAMB(lr=1e-3)
+    opt = make_opt() if make_opt else FusedLAMB(lr=1e-3)
     tokens, labels, padding = bert_batch(
         [torch.Generator(device=dev).manual_seed(i) for i in (1, 2, 3)],
         16, 512, cfg.vocab_size, dev)
     log(f"  real tokens: {int(padding.sum())} of {padding.numel()}")
-    step = train_step_fn(
-        lambda p: bert_mlm_loss(cfg, p, tokens, labels, padding), opt)
-    return drive_leg(label, expected, timed, step, params, opt.init(params),
-                     tokens.numel())
+
+    def loss_fn(p):
+        return bert_mlm_loss(cfg, p, tokens, labels, padding)
+    leg = drive_leg(label, expected, timed, train_step_fn(loss_fn, opt),
+                    params, opt.init(params), tokens.numel())
+    (leg["opt_ms"], leg["opt_host_ms"], leg["opt_device_ms"],
+     leg["opt_bound_ms"]) = optimizer_time(opt, loss_fn, leg.pop("params"),
+                                           leg.pop("state"))
+    log(f"  the optimizer's step alone: call {leg['opt_ms']:.3f} ms, host "
+        f"{_ms_list(leg['opt_host_ms'])} ms a step, device "
+        f"{leg['opt_device_ms']:.3f} ms, bound {leg['opt_bound_ms']} ms")
+    return leg
 
 
 def train_bert_large(dev):
+    """The two ``selective`` legs with pytree FusedLAMB (non-flash and
+    flash), then the non-flash step without recompute (the configuration
+    that is not host-bound) with pytree and with packed FusedLAMB, which
+    compares the two optimizers on one card."""
     legs = {}
+    noremat = dict(use_flash_attention=False, recompute_granularity=None)
     for key, label, expected, kw in (
             ("nonflash", "BERT-large non-flash (masked fused softmax)",
              BERT_NONFLASH_LAUNCHES, dict(use_flash_attention=False)),
-            ("flash", "BERT-large flash", BERT_FLASH_LAUNCHES, {})):
+            ("flash", "BERT-large flash", BERT_FLASH_LAUNCHES, {}),
+            ("pytree", "BERT-large non-flash, no remat, pytree LAMB",
+             BERT_NOREMAT_LAUNCHES, noremat),
+            ("packed", "BERT-large non-flash, no remat, packed LAMB",
+             {**BERT_NOREMAT_LAUNCHES, **LAMB_LAUNCHES},
+             dict(noremat, make_opt=packed_lamb))):
         legs[key] = bert_large_leg(dev, label, expected, 5, **kw)
         torch.cuda.empty_cache()
     log("  legs: " + "; ".join(
         f"{k} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms peak "
         f"{v['peak']:.2f} GiB" for k, v in legs.items()))
+    pt, pk = legs["pytree"], legs["packed"]
+    log(f"  LAMB on BERT-large, the step alone: pytree call "
+        f"{pt['opt_ms']:.3f} ms host {_ms_list(pt['opt_host_ms'])} ms "
+        f"device {pt['opt_device_ms']:.3f} ms; packed call "
+        f"{pk['opt_ms']:.3f} ms host {_ms_list(pk['opt_host_ms'])} ms "
+        f"device {pk['opt_device_ms']:.3f} ms bound {pk['opt_bound_ms']} "
+        f"ms; "
+        f"train step p50 {pt['p50']:.2f} -> {pk['p50']:.2f} ms, peak "
+        f"{pt['peak']:.2f} -> {pk['peak']:.2f} GiB")
     counts = {}
     for v in legs.values():
         for k, c in v["launches"].items():
@@ -1511,9 +1882,9 @@ def parity_cfg(vocab: int, **cfg_kw) -> GPTConfig:
                      attention_dropout=0.0, **cfg_kw)
 
 
-def gpt_parity(dev, label: str, kernels, **cfg_kw):
+def gpt_parity(dev, label: str, kernels, make_opt=None, **cfg_kw):
     """``gpt_loss`` of the 2-layer 345M-width GPT with packed
-    FusedAdam(lr=1e-4, masters), card against CPU."""
+    FusedAdam(lr=1e-4, masters) or ``make_opt()``, card against CPU."""
     cfg = parity_cfg(50304, **cfg_kw)
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -1521,13 +1892,14 @@ def gpt_parity(dev, label: str, kernels, **cfg_kw):
     labels = torch.roll(tokens, -1, dims=1)
     train_parity(dev, label, kernels, cfg,
                  lambda p, d: gpt_loss(cfg, p, tokens.to(d), labels.to(d)),
-                 lambda: FusedAdam(lr=1e-4, master_weights=True, packed=True))
+                 make_opt or (lambda: FusedAdam(lr=1e-4, master_weights=True,
+                                                packed=True)))
 
 
-def bert_parity(dev, label: str, kernels, **cfg_kw):
+def bert_parity(dev, label: str, kernels, make_opt=None, **cfg_kw):
     """``bench_bert_lamb``'s loss of the 2-layer BERT-large-width model
     under a padding mask (lengths 256 and 180) with pytree
-    FusedLAMB(lr=1e-3), card against CPU."""
+    FusedLAMB(lr=1e-3) or ``make_opt()``, card against CPU."""
     cfg = parity_cfg(BERT_VOCAB, **cfg_kw)
     rng = np.random.default_rng(7)
     tokens, labels = (torch.from_numpy(rng.integers(
@@ -1538,15 +1910,15 @@ def bert_parity(dev, label: str, kernels, **cfg_kw):
     train_parity(dev, label, kernels, cfg,
                  lambda p, d: bert_mlm_loss(cfg, p, tokens.to(d),
                                             labels.to(d), padding.to(d)),
-                 lambda: FusedLAMB(lr=1e-3))
+                 make_opt or (lambda: FusedLAMB(lr=1e-3)))
 
 
 def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
     """Loss, gradients and 3 optimizer steps of ``loss_of(params,
     device)`` on the card (kernels) against the CPU (plain versions), from
     the same fp32 params of ``cfg``; ``make_opt()`` builds each run's
-    optimizer. ``kernels`` must each launch on the card run and nothing
-    on the CPU run."""
+    optimizer. ``kernels`` must each launch on the card run (the loss,
+    gradients and steps) and nothing on the CPU run."""
     dt = cfg.compute_dtype
     loss_tol, grad_tol, upd_tol = PARITY_TOL[dt]
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
@@ -1560,12 +1932,12 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
         step = train_step_fn(lambda p: loss_of(p, d), opt)
         _device.reset_launch_counts()
         loss0, grads = value_and_grad(lambda p: loss_of(p, d), params)
-        counts = _device.launch_counts()
         losses = []
         for _ in range(3):
             params, state, loss = step(params, state)
             losses.append(float(loss))
         losses.append(float(loss_of(params, d)))
+        counts = _device.launch_counts()
         runs[where] = dict(loss=float(loss0), losses=losses,
                            grads=tree_map(lambda g: g.float().cpu(), grads),
                            update=(_flat(params) - start).cpu(),
@@ -1605,6 +1977,49 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
                              "the CPU's")
 
 
+#: packed against pytree LAMB on the card: the two compute u, m and v
+#: with the same rounded operations and differ only in the order of the
+#: trust ratios' sums (~1e-6 of a ratio), so each leaf's 3-step update
+#: agrees with the other's to ~1e-4 of its largest entry (an fp32 ulp of
+#: the params against steps of lr * ratio * |u|); a wrong trust ratio
+#: moves a leaf by a factor, a wrong segment several leaves
+PACKED_LAMB_TOL = 1e-3
+
+
+def lamb_packed_against_pytree(dev):
+    """3 FusedLAMB(lr=1e-3) steps, packed and pytree, on the card from the
+    same fp32 params of the 2-layer BERT-large-width model and the same
+    3 sets of gradients (seeded): each leaf's update, packed against
+    pytree, within ``PACKED_LAMB_TOL`` of its largest entry."""
+    cfg = parity_cfg(BERT_VOCAB)
+    params = init_gpt_params(cfg, torch.Generator(device=dev).manual_seed(9),
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    grads = [tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                            device=dev) * 1e-3, params)
+             for _ in range(3)]
+    updates = {}
+    for name, opt in (("pytree", FusedLAMB(lr=1e-3)),
+                      ("packed", packed_lamb())):
+        p = tree_map(lambda x: x.clone(), params)
+        state = opt.init(p)
+        for g in grads:
+            p, state = opt.step(g, state, p)
+        updates[name] = [a - b for a, b in zip(tree_leaves(p),
+                                               tree_leaves(params))]
+    worst = 0.0
+    for leaf, a, b in zip(PackSpec(params).leaf_names(), updates["pytree"],
+                          updates["packed"]):
+        rel = float((b - a).abs().max() / a.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if rel > PACKED_LAMB_TOL:
+            raise AssertionError(f"packed LAMB update of {leaf}: {rel:.3e} "
+                                 f"of the pytree update's largest entry")
+    log(f"  packed against pytree LAMB, 2-layer BERT-large width, 3 steps: "
+        f"worst leaf update {worst:.3e} of its largest entry (limit "
+        f"{PACKED_LAMB_TOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1631,19 +2046,22 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam, fused, softmax = phase(
+    (fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam, fused, softmax, lamb,
+     sgd) = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), flash_attention_checks(dev),
                  packed_adam_checks(dev), fused_block_checks(dev),
-                 fused_softmax_checks(dev)))
+                 fused_softmax_checks(dev), packed_lamb_checks(dev),
+                 packed_sgd_checks(dev)))
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")
     train = phase("phase 5: GPT-2 345M bf16 train step: headline, unfused, "
-                  "fused and non-flash legs", train_345m, dev)
+                  "fused, non-flash and packed-SGD legs", train_345m, dev)
     bert = phase("phase 6: BERT-large bf16 with FusedLAMB: non-flash and "
-                 "flash legs", train_bert_large, dev)
+                 "flash legs, then pytree and packed LAMB without "
+                 "recompute", train_bert_large, dev)
     phase("phase 7: training parity, card against CPU",
           lambda: (gpt_parity(dev, "unfused", TRAIN_KERNELS[:4]),
                    gpt_parity(dev, "fused, selective_elementwise",
@@ -1659,21 +2077,41 @@ def main() -> int:
                                ("softmax_masked_fwd", "softmax_bwd",
                                 "layer_norm_fwd", "layer_norm_bwd"),
                                compute_dtype=torch.bfloat16,
-                               use_flash_attention=False)))
+                               use_flash_attention=False),
+                   gpt_parity(dev, "unfused, packed FusedSGD",
+                              TRAIN_KERNELS[:4] + ("packed_sgd",),
+                              make_opt=packed_sgd),
+                   bert_parity(dev, "BERT non-flash fp32, packed LAMB",
+                               ("layer_norm_fwd", "layer_norm_bwd")
+                               + LAMB_KERNELS, make_opt=packed_lamb,
+                               use_flash_attention=False),
+                   bert_parity(dev, "BERT non-flash, padding mask, packed "
+                               "LAMB",
+                               ("softmax_masked_fwd", "softmax_bwd",
+                                "layer_norm_fwd", "layer_norm_bwd")
+                               + LAMB_KERNELS, make_opt=packed_lamb,
+                               compute_dtype=torch.bfloat16,
+                               use_flash_attention=False),
+                   lamb_packed_against_pytree(dev)))
     fd["launches"] = serving["flash_decode"]
-    # launches on the main paths: the serving run, the four GPT legs and
-    # the two BERT legs
+    # launches on the main paths: the serving run, the five GPT legs and
+    # the four BERT legs
     ln["launches"] = (serving["layer_norm_fwd"] + train["layer_norm_fwd"]
                       + bert["layer_norm_fwd"])
-    for kr in (ln_bwd, fa_fwd, fa_bwd, adam, *fused, *softmax):
-        kr["launches"] = train[kr["name"]] + bert.get(kr["name"], 0)
+    kernels = (fd, ln, ln_bwd, fa_fwd, fa_bwd, adam, *fused, *softmax,
+               *lamb, sgd)
+    for kr in kernels[2:]:
+        kr["launches"] = train.get(kr["name"], 0) + bert.get(kr["name"], 0)
+    idle = [kr["name"] for kr in kernels if kr["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on a main path: "
+                             f"{idle}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
-                                  for kr in (fd, ln, ln_bwd, fa_fwd, fa_bwd,
-                                             adam, *fused, *softmax)]}))
+                                  for kr in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

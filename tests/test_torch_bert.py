@@ -17,7 +17,8 @@ tokens, padding and labels:
   index, losses and logit gradients;
 - ``multi_tensor_l2norm``, global and per tensor;
 - 5 ``FusedLAMB`` steps on the same gradients under each option set,
-  ``found_inf`` skipping a step, and ``packed=True`` refused.
+  ``found_inf`` skipping a step, and what is not ported refused (the
+  packed path is held by ``test_torch_packed_lamb.py``).
 
 Tolerances: fp32 logits and loss rtol 1e-5 (atol 1e-5 on logits of
 order 1); every gradient leaf within 1e-5 of its largest entry; the
@@ -52,7 +53,11 @@ from apex_tpu_torch.contrib.xentropy import (
 )
 from apex_tpu_torch.convert import params_from_jax
 from apex_tpu_torch.ops.multi_tensor import l2norm, multi_tensor_l2norm
-from apex_tpu_torch.optimizers import FusedLAMB, FusedMixedPrecisionLamb
+from apex_tpu_torch.optimizers import (
+    FusedLAMB,
+    FusedMixedPrecisionLamb,
+    FusedSGD,
+)
 from apex_tpu_torch.transformer.testing import (
     GPTConfig,
     bert_forward,
@@ -289,8 +294,8 @@ def test_lamb_found_inf_skips_the_step():
 
 
 def test_lamb_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="#19"):
-        FusedLAMB(packed=True)
+    with pytest.raises(NotImplementedError, match="GradBuckets"):
+        FusedSGD(lr=0.1, packed=True, packed_spec=object())
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLAMB(amsgrad=True)
 

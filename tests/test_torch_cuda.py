@@ -25,7 +25,14 @@ term with a floor well under the values: fp32 atol 1e-6 rtol 1e-5
 output); the bf16 2-layer non-flash
 GPT and BERT steps on the card against the CPU, loss rtol 2e-3 and each
 gradient leaf within 5e-2 of its largest entry (bf16 GEMMs round at
-other places in cuBLAS and on the CPU).
+other places in cuBLAS and on the CPU); the packed LAMB and SGD sweeps,
+which round every elementwise operation once in their plain versions'
+order (PyTorch's CUDA division may round LAMB's quotients an ulp
+apart), rtol 1e-6 on fp32 results and one bf16 rounding on bf16 ones,
+their row
+sums rtol 1e-5 (summation order; one term of 1024 missing moves a sum by
+~1e-3), max |x| exactly; 3 packed LAMB and SGD steps on the card against
+the CPU rtol 1e-5 atol 1e-7.
 """
 import numpy as np
 import pytest
@@ -50,6 +57,14 @@ from apex_tpu_torch.ops.layer_norm import (
 from apex_tpu_torch.ops.packed_optimizer import (
     packed_adam_apply,
     packed_adam_reference,
+    packed_lamb_stage1,
+    packed_lamb_stage1_reference,
+    packed_row_reduce,
+    packed_row_reduce_reference,
+    packed_scale_update,
+    packed_scale_update_reference,
+    packed_sgd_apply,
+    packed_sgd_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -565,3 +580,221 @@ def test_bert_bf16_step_on_card_matches_cpu(cuda_device):
             padding_idx=-1).mean()
     _card_against_cpu(cuda_device, loss_of, params,
                       ("softmax_masked_fwd", "softmax_bwd"))
+
+
+PACKED_F32 = dict(rtol=1e-6, atol=1e-9)
+PACKED_BF16 = dict(rtol=8e-3, atol=1e-9)
+ROW_SUM = dict(rtol=1e-5, atol=0.0)
+
+
+def _flat(dev, rows, scale, seed, positive=False):
+    a = np.random.default_rng(seed).normal(size=rows * 1024) * scale
+    return torch.from_numpy(np.abs(a) if positive else a).to(dev,
+                                                             torch.float32)
+
+
+@pytest.mark.parametrize("rows", [8, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sqsum", "maxabs"])
+def test_packed_row_reduce_kernel_matches_plain(cuda_device, op, dtype,
+                                                rows):
+    x = _flat(cuda_device, rows, 1.0, 5).to(dtype)
+    inv = torch.tensor(0.5, device=cuda_device)
+    _device.reset_launch_counts()
+    got = packed_row_reduce(x, op=op, inv_scale=inv)
+    assert _device.launch_counts()["packed_row_reduce"] == 1
+    want = packed_row_reduce_reference(x, op=op, inv_scale=inv)
+    assert got.shape == (rows,)
+    if op == "maxabs":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **ROW_SUM)
+    # the same inputs give the same bits: a fixed summation order
+    assert torch.equal(packed_row_reduce(x, op=op, inv_scale=inv), got)
+
+
+@pytest.mark.parametrize("rows", [8, 37])
+@pytest.mark.parametrize("case", ["adamw", "adam_l2", "no_wd", "bf16",
+                                  "noop"])
+def test_packed_lamb_stage1_kernel_matches_plain(cuda_device, case, rows):
+    dev = cuda_device
+    g = _flat(dev, rows, 1e-2, 6)
+    if case == "bf16":
+        g = g.to(torch.bfloat16)
+    m0, v0, src = (_flat(dev, rows, 1e-3, 7), _flat(dev, rows, 1e-5, 8,
+                                                    True),
+                   _flat(dev, rows, 0.05, 9))
+    hyper = dict(clip=torch.tensor(1.7, device=dev),
+                 bc1=torch.tensor(0.19, device=dev),
+                 bc2=torch.tensor(0.002, device=dev),
+                 inv_scale=torch.tensor(0.25, device=dev), wd=0.01,
+                 noop=torch.tensor(True, device=dev) if case == "noop"
+                 else None)
+    hyper.update({"adam_l2": dict(adam_w_mode=False),
+                  "no_wd": dict(wd=0.0)}.get(case, {}))
+    m, v = m0.clone(), v0.clone()
+    _device.reset_launch_counts()
+    u, gm, gv, ru, rp = packed_lamb_stage1(g, m, v, src, **hyper)
+    assert _device.launch_counts()["packed_lamb_stage1"] == 1
+    assert gm is m and gv is v
+    wu, wm, wv, wru, wrp = packed_lamb_stage1_reference(g, m0, v0, src,
+                                                        **hyper)
+    torch.testing.assert_close(u, wu, **PACKED_F32)
+    if case == "noop":
+        assert torch.equal(m, m0) and torch.equal(v, v0)
+    else:
+        torch.testing.assert_close(m, wm, **PACKED_F32)
+        torch.testing.assert_close(v, wv, **PACKED_F32)
+    torch.testing.assert_close(ru, wru, **ROW_SUM)
+    torch.testing.assert_close(rp, wrp, **ROW_SUM)
+
+
+@pytest.mark.parametrize("rows", [8, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["master", "no_master", "noop"])
+def test_packed_scale_update_kernel_matches_plain(cuda_device, mode, dtype,
+                                                  rows):
+    dev = cuda_device
+    u, src0 = _flat(dev, rows, 1.0, 10), _flat(dev, rows, 0.05, 11)
+    coef = torch.linspace(0.0, 3.0, rows, device=dev)
+    noop = torch.tensor(True, device=dev) if mode == "noop" else None
+    src = src0.clone()
+    _device.reset_launch_counts()
+    p_out, master = packed_scale_update(
+        u, src, coef, param_dtype=dtype, lr=torch.tensor(1e-2, device=dev),
+        noop=noop, write_master=mode != "no_master")
+    assert _device.launch_counts()["packed_scale_update"] == 1
+    wp, wm = packed_scale_update_reference(u, src0, coef, param_dtype=dtype,
+                                           lr=1e-2, noop=noop)
+    assert p_out.dtype == dtype
+    torch.testing.assert_close(p_out.float(), wp.float(),
+                               **(PACKED_BF16 if dtype == torch.bfloat16
+                                  else PACKED_F32))
+    if mode == "master":
+        assert master is src
+        torch.testing.assert_close(src, wm, **PACKED_F32)
+    else:
+        assert torch.equal(src, src0)
+    if mode == "noop":
+        assert torch.equal(p_out, src0.to(dtype))
+
+
+@pytest.mark.parametrize("case", [
+    dict(), dict(momentum=0.9), dict(momentum=0.9, nesterov=True),
+    dict(momentum=0.9, dampening=0.3, wd=1e-4, wd_after_momentum=True),
+    dict(momentum=0.9, wd=1e-4, first_run=True),
+    dict(momentum=0.9, wd=1e-4, noop=True)],
+    ids=["plain", "momentum", "nesterov", "wd_after", "first_run", "noop"])
+@pytest.mark.parametrize("rows", [8, 37])
+def test_packed_sgd_kernel_matches_plain(cuda_device, case, rows):
+    dev = cuda_device
+    kw = dict(case)
+    first = torch.tensor(kw.pop("first_run", False), device=dev)
+    noop = torch.tensor(True, device=dev) if kw.pop("noop", False) else None
+    g = _flat(dev, rows, 1e-2, 12).to(torch.bfloat16)
+    buf0, src0 = _flat(dev, rows, 1e-2, 13), _flat(dev, rows, 0.05, 14)
+    buf, src = buf0.clone(), src0.clone()
+    hyper = dict(param_dtype=torch.bfloat16,
+                 lr=torch.tensor(0.1, device=dev), first_run=first,
+                 inv_scale=torch.tensor(0.5, device=dev), noop=noop, **kw)
+    _device.reset_launch_counts()
+    p_out, gb, gm = packed_sgd_apply(g, buf, src, **hyper)
+    assert _device.launch_counts()["packed_sgd"] == 1
+    wp, wb, wm = packed_sgd_reference(g, buf0, src0, **hyper)
+    torch.testing.assert_close(p_out.float(), wp.float(), **PACKED_BF16)
+    if noop is not None:
+        assert torch.equal(buf, buf0) and torch.equal(src, src0)
+        assert torch.equal(p_out, src0.to(torch.bfloat16))
+    else:
+        torch.testing.assert_close(buf, wb, **PACKED_F32)
+        torch.testing.assert_close(src, wm, **PACKED_F32)
+
+
+def _packed_case(dev, seed=15):
+    rng = np.random.default_rng(seed)
+
+    def tree(scale):
+        return {"w": torch.from_numpy(rng.normal(size=(96, 64)) * scale),
+                "b": torch.from_numpy(rng.normal(size=64) * scale),
+                "layers": {"k": torch.from_numpy(
+                    rng.normal(size=(3, 40, 33)) * scale)}}
+    params = tree_map(lambda x: x.to(dev, torch.float32), tree(0.05))
+    grads = [tree_map(lambda x: x.to(dev, torch.float32), tree(1e-2))
+             for _ in range(3)]
+    return params, grads
+
+
+def _packed_opts():
+    from apex_tpu_torch.optimizers import FusedLAMB, FusedSGD
+
+    return {"lamb": lambda: FusedLAMB(lr=1e-3, packed=True),
+            "sgd": lambda: FusedSGD(lr=0.1, momentum=0.9,
+                                    weight_decay=1e-4, packed=True,
+                                    master_weights=True)}
+
+
+@pytest.mark.parametrize("name", ["lamb", "sgd"])
+def test_packed_steps_on_card_match_cpu(cuda_device, name):
+    """3 packed steps (the kernels) against the same steps on the CPU
+    (the plain versions), on a 3-leaf tree."""
+    params, grads = _packed_case("cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        opt = _packed_opts()[name]()
+        p = tree_map(lambda x: x.to(dev, copy=True), params)
+        state = opt.init(p)
+        _device.reset_launch_counts()
+        for g in grads:
+            p, state = opt.step(tree_map(lambda x: x.to(dev), g), state, p)
+        out[str(dev)] = ([x.cpu() for x in tree_leaves(p)],
+                         _device.launch_counts())
+    (pc, cc), (pg, cg) = out["cpu"], out[str(cuda_device)]
+    assert not any(cc.values())
+    kernels = (("packed_row_reduce", "packed_lamb_stage1",
+                "packed_scale_update") if name == "lamb" else ("packed_sgd",))
+    for k in kernels:
+        assert cg[k] == 3, cg
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["lamb", "sgd"])
+def test_packed_step_makes_no_host_sync(cuda_device, name):
+    """One packed step with an overflow flag and a grad scale on the
+    device, after one warm-up step, under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing of the step
+    (global norm, clip, first-run flag, noop) is read on the host."""
+    params, grads = _packed_case(cuda_device)
+    opt = _packed_opts()[name]()
+    state = opt.init(params)
+    params, state = opt.step(grads[0], state, params)
+    found_inf = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    scale = torch.full((), 2.0, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state = opt.step(grads[1], state, params,
+                                 found_inf=found_inf, grad_scale=scale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(state.step) == 2
+
+
+def test_packed_lamb_is_deterministic(cuda_device):
+    """Two identical packed LAMB steps on the card give the same bits:
+    the row sums and the per-leaf segmented sums take a fixed order."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    params, grads = _packed_case(cuda_device)
+    runs = []
+    for _ in range(2):
+        opt = FusedLAMB(lr=1e-3, packed=True)
+        p = tree_map(lambda x: x.clone(), params)
+        state = opt.init(p)
+        for g in grads:
+            p, state = opt.step(g, state, p)
+        runs.append((tree_leaves(p), state.exp_avg, state.exp_avg_sq))
+    for a, b in zip(runs[0][0] + list(runs[0][1:]),
+                    runs[1][0] + list(runs[1][1:])):
+        assert torch.equal(a, b)
