@@ -28,7 +28,8 @@ BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libapex_tpu_torch_kernels.so"
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "fused_block.cu",
            "fused_softmax.cu", "layer_norm.cu", "packed_adam.cu",
-           "packed_lamb.cu", "packed_sgd.cu")
+           "packed_flat.cu", "packed_lamb.cu", "packed_novograd.cu",
+           "packed_sgd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -99,6 +100,15 @@ _ARGTYPES = {
     # 1 - dampening, wd, nesterov, wd_after_momentum, write_master,
     # g_is_bf16, p_is_bf16, device, stream
     "apex_packed_sgd": [_P] * 8 + [_L] + [_F] * 3 + [_I] * 6 + [_P],
+    # x, out, scale, row_bad, found, n, x_is_bf16, out_is_bf16, device,
+    # stream
+    "apex_scale_flat": [_P] * 5 + [_L] + [_I] * 3 + [_P],
+    # x, y, out, a, b, found, n, x_is_bf16, y_is_bf16, out_is_bf16, device,
+    # stream
+    "apex_axpby_flat": [_P] * 6 + [_L] + [_I] * 4 + [_P],
+    # g, m, src, denom, p_out, lr, bc1, inv_scale, noop, n, beta1, beta3,
+    # wd, reg_inside_moment, g_is_bf16, p_is_bf16, device, stream
+    "apex_packed_novograd": [_P] * 9 + [_L] + [_F] * 3 + [_I] * 4 + [_P],
     # x, y, rows, sk, sq, scale, causal, dtype, vec, device, stream
     "apex_softmax_fwd": [_P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _P],
     # x, mask, y, rows, sk, sq, heads, mask strides (b, h, q), scale,

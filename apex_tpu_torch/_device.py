@@ -18,7 +18,9 @@ the kernels (``chip_smoke.py`` zeroes the counts before the path and
 reads them after). The keys: ``flash_decode`` (serving),
 ``layer_norm_fwd``/``_bwd``, ``flash_attn_fwd``/``_bwd``, the packed
 optimizer sweeps ``packed_adam``, ``packed_sgd``, ``packed_row_reduce``,
-``packed_lamb_stage1`` and ``packed_scale_update``, the fused block tails
+``packed_lamb_stage1``, ``packed_scale_update`` and ``packed_novograd``,
+the flat utility sweeps ``scale_flat`` and ``axpby_flat``, the fused block
+tails
 ``bias_gelu_fwd``/``_bwd``, ``bias_dropout_residual_fwd``/``_bwd``,
 ``residual_ln_fwd``/``_bwd``, and the fused softmax ``softmax_fwd``
 (causal or unmasked), ``softmax_masked_fwd`` and ``softmax_bwd``. A
@@ -36,7 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode": 0, "layer_norm_fwd": 0, "layer_norm_bwd": 0,
     "flash_attn_fwd": 0, "flash_attn_bwd": 0, "packed_adam": 0,
     "packed_sgd": 0, "packed_row_reduce": 0, "packed_lamb_stage1": 0,
-    "packed_scale_update": 0,
+    "packed_scale_update": 0, "packed_novograd": 0, "scale_flat": 0,
+    "axpby_flat": 0,
     "bias_gelu_fwd": 0, "bias_gelu_bwd": 0,
     "bias_dropout_residual_fwd": 0, "bias_dropout_residual_bwd": 0,
     "residual_ln_fwd": 0, "residual_ln_bwd": 0,

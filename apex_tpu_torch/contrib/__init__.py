@@ -1,2 +1,3 @@
-"""Contrib pack (counterpart of ``apex_tpu/contrib``): only
-``contrib.xentropy``'s chunked LM-head cross entropy is ported so far."""
+"""Contrib pack (counterpart of ``apex_tpu/contrib``): ``contrib.xentropy``'s
+chunked LM-head cross entropy and ``contrib.clip_grad`` are ported so
+far."""

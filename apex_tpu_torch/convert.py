@@ -13,8 +13,11 @@ output is laid out per head as ``[n, 3d]`` and then split into thirds
 ``packed_state_from_jax`` carries a JAX ``PackedState`` (its leaves
 turned into numpy arrays by the caller) into the port's
 ``optimizers.PackedState`` — Adam's and LAMB's with both moments, SGD's
-with the momentum buffer alone — so that both optimizers can start from
-the same non-zero state.
+with the momentum buffer alone, NovoGrad's with its per-leaf second
+moment — so that both optimizers can start from the same non-zero
+state. ``novograd_state_from_jax`` does the same for the pytree
+``FusedNovoGradState`` and ``loss_scale_state_from_jax`` for the loss
+scaler's ``LossScaleState``: a test can start both packages mid-run.
 """
 from __future__ import annotations
 
@@ -50,8 +53,9 @@ def packed_state_from_jax(state: Mapping[str, Any], spec, device="cpu"):
 
     ``state`` holds numpy arrays under ``step``, ``exp_avg``,
     ``exp_avg_sq`` and ``master_params`` (either of the last two None or
-    absent when the JAX state has none: SGD keeps no ``exp_avg_sq``) and the JAX spec's layout under ``offsets``, ``shapes`` and
-    ``total``. The layouts must be equal — the same leaf order and
+    absent when the JAX state has none: SGD keeps no ``exp_avg_sq``;
+    NovoGrad's is ``(n_leaves,)``) and the JAX spec's layout under
+    ``offsets``, ``shapes`` and ``total``. The layouts must be equal — the same leaf order and
     offsets — or the flat buffers would not line up, and this raises."""
     from .optimizers._packed import PackedState
 
@@ -73,3 +77,33 @@ def packed_state_from_jax(state: Mapping[str, Any], spec, device="cpu"):
                           device=device),
         exp_avg=flat("exp_avg"), exp_avg_sq=flat("exp_avg_sq"),
         master_params=flat("master_params"), spec=spec)
+
+
+def novograd_state_from_jax(state: Mapping[str, Any], device="cpu"):
+    """A JAX pytree ``FusedNovoGradState`` (``step``; ``exp_avg`` and
+    ``exp_avg_sq`` nested dicts of numpy arrays, the latter 0-dim) as the
+    port's ``FusedNovoGradState``."""
+    from .optimizers.fused_novograd import FusedNovoGradState
+
+    return FusedNovoGradState(
+        step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                          device=device),
+        exp_avg=params_from_jax(state["exp_avg"], device, torch.float32),
+        exp_avg_sq=params_from_jax(state["exp_avg_sq"], device,
+                                   torch.float32))
+
+
+def loss_scale_state_from_jax(state: Mapping[str, Any], device="cpu"):
+    """A JAX ``LossScaleState`` (its fields as numpy scalars under their
+    names) as the port's ``LossScaleState`` on ``device``."""
+    from .amp.scaler import LossScaleState
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(state[name]).item(), dtype=dtype,
+                            device=device)
+    return LossScaleState(
+        loss_scale=t("loss_scale", torch.float32),
+        unskipped=t("unskipped", torch.int32),
+        hysteresis=t("hysteresis", torch.int32),
+        found_inf=t("found_inf", torch.bool),
+        consecutive_skips=t("consecutive_skips", torch.int32))

@@ -30,18 +30,28 @@
 // online-softmax state and the dk/dv sums in VMEM across the last grid axis.
 // GPU blocks run in no order, so each block owns its rows and loops over the
 // other axis itself, with nothing carried between blocks and no atomics:
-// - forward: one block per (b, h, 64 query rows); two threads per row, each
-//   holding half of the scaled q row and of the output accumulator in
-//   registers; key/value tiles of 32 rows are staged in shared memory as
+// - forward: one block per (b, h, R query rows); P threads per row, each
+//   holding a D/P slice of the scaled q row and of the output accumulator
+//   in registers; key/value tiles of KT rows are staged in shared memory as
 //   fp32 and read as broadcasts; the running max and sum live per row, and
-//   the tile's 32 scores sit in registers between the max and the sum pass;
-// - backward, dq: one block per (b, h, 64 query rows), the same layout over
+//   the tile's KT scores sit in registers between the max and the sum pass;
+// - backward, dq: one block per (b, h, R query rows), the same layout over
 //   key tiles; it also computes delta (written for the next launch);
-// - backward, dk/dv: one block per (b, h, 64 key rows); two threads per key
-//   row hold half of k, v, dk, dv in registers and loop over query tiles
+// - backward, dk/dv: one block per (b, h, R key rows); P threads per key
+//   row hold a slice of k, v, dk, dv in registers and loop over query tiles
 //   staged in shared memory with their lse and delta.
-// The two halves of a row combine their partial dot products with one warp
-// shuffle. Causal blocks skip the tiles that lie wholly above the diagonal.
+// The P slices of a row combine their partial dot products with a butterfly
+// of warp shuffles. Causal blocks skip the tiles that lie wholly above the
+// diagonal.
+//
+// Head dims. The geometry (P, R, KT) is chosen per head dim D (Geo below)
+// so that a thread's slice stays at most 32 floats: the dk/dv kernel keeps
+// four slices (k, v, dk, dv) in registers, 128 floats, within the 255
+// registers a thread may hold; and two staged tiles stay under the 48 KB
+// of static shared memory. D = 32, 64: 2 threads a row, 64 rows a block;
+// D = 96, 128: 4 threads a row, 64 rows; D = 256: 8 threads a row, 32 rows
+// and tiles of 16 rows (36,864 bytes of tiles). Other head dims are refused
+// before the launch (flash_attention_available in the wrapper).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,9 +62,21 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
 constexpr float kDead = -5e29f;    // _NEG_INF / 2: at or below counts masked
-constexpr int kRows = 64;          // rows a block owns
-constexpr int kThreads = 2 * kRows;
-constexpr int kTile = 32;          // rows of the other operand per stage
+
+// Threads per row P (a power of two, so a row's threads share a warp), rows
+// a block owns R, rows of the other operand per staged tile KT.
+template <int D>
+struct Geo;
+template <>
+struct Geo<32> { static constexpr int P = 2, R = 64, KT = 32; };
+template <>
+struct Geo<64> { static constexpr int P = 2, R = 64, KT = 32; };
+template <>
+struct Geo<96> { static constexpr int P = 4, R = 64, KT = 32; };
+template <>
+struct Geo<128> { static constexpr int P = 4, R = 64, KT = 32; };
+template <>
+struct Geo<256> { static constexpr int P = 8, R = 32, KT = 16; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -99,16 +121,25 @@ struct Args {
   float drop_scale;  // 1 / (1 - p_drop)
 };
 
-// A row split in two halves of H floats, each half padded by 4 floats so
-// the two halves of one row start in different banks (the two threads of a
-// row read them in the same instruction) and stay 16-byte aligned.
-template <int H>
+// A row split in P slices of H floats, each slice padded by 4 floats so
+// the P slices of one row start in different banks (the P threads of a row
+// read them in the same instruction) and stay 16-byte aligned.
+template <int KT, int P, int H>
 struct Tile {
-  float x[kTile][2][H + 4];
+  float x[KT][P][H + 4];
 };
 
+// The sum of a partial over the P threads of a row (neighbouring lanes).
+template <int P>
+__device__ __forceinline__ float row_sum(float part) {
+#pragma unroll
+  for (int o = 1; o < P; o <<= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, o);
+  return part;
+}
+
 template <int H>
-__device__ __forceinline__ float half_dot(const float* a, const float* b) {
+__device__ __forceinline__ float slice_dot(const float* a, const float* b) {
   float acc = 0.f;
 #pragma unroll
   for (int d = 0; d < H; d += 4) {
@@ -122,7 +153,7 @@ __device__ __forceinline__ float half_dot(const float* a, const float* b) {
 }
 
 template <int H>
-__device__ __forceinline__ void half_axpy(float* acc, float a,
+__device__ __forceinline__ void slice_axpy(float* acc, float a,
                                           const float* b) {
 #pragma unroll
   for (int d = 0; d < H; d += 4) {
@@ -134,14 +165,15 @@ __device__ __forceinline__ void half_axpy(float* acc, float a,
   }
 }
 
-// Stage rows [r0, r0 + kTile) of a [rows, D] matrix into a Tile as fp32
+// Stage rows [r0, r0 + KT) of a [rows, D] matrix into a Tile as fp32
 // (times mul, then rounded to T when round_q: the scaled q); rows past the
 // end are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(Tile<D / 2>& dst, const T* src, int r0,
-                                      int rows, float mul, bool round_q) {
-  constexpr int H = D / 2;
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+template <typename T, int D, typename G = Geo<D>>
+__device__ __forceinline__ void stage(Tile<G::KT, G::P, D / G::P>& dst,
+                                      const T* src, int r0, int rows,
+                                      float mul, bool round_q) {
+  constexpr int H = D / G::P;
+  for (int e = threadIdx.x; e < G::KT * D; e += G::R * G::P) {
     const int j = e / D;
     const int d = e % D;
     float val = 0.f;
@@ -153,17 +185,17 @@ __device__ __forceinline__ void stage(Tile<D / 2>& dst, const T* src, int r0,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int H = D / 2;
-  __shared__ __align__(16) Tile<H> ks;
-  __shared__ __align__(16) Tile<H> vs;
+template <typename T, int D, typename G = Geo<D>>
+__global__ void __launch_bounds__(G::R * G::P) flash_fwd_kernel(Args a) {
+  constexpr int P = G::P, H = D / P, kRows = G::R, kTile = G::KT;
+  __shared__ __align__(16) Tile<kTile, P, H> ks;
+  __shared__ __align__(16) Tile<kTile, P, H> vs;
   __shared__ uint8_t live_k[kTile];
   const int iq = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int bh = blockIdx.y;
   const int ib = bh / a.n;
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
+  const int row = threadIdx.x / P;
+  const int slice = threadIdx.x % P;
   const int qi = iq * kRows + row;
   const bool qvalid = qi < a.s_q;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
@@ -176,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
   for (int d = 0; d < H; ++d) {
     qr[d] = qvalid ? round_to<T>(to_f32(q[static_cast<long long>(qi) * D +
-                                           half * H + d]) * a.scale)
+                                           slice * H + d]) * a.scale)
                    : 0.f;
     acc[d] = 0.f;
   }
@@ -198,8 +230,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     float tmax = kNegInf;
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
-      float part = half_dot<H>(qr, ks.x[j][half]);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      float part = slice_dot<H>(qr, ks.x[j][slice]);
+      part = row_sum<P>(part);
       const int kj = k0 + j;
       const bool live = live_k[j] && !(a.causal && kj > qi);
       s[j] = live ? part : kNegInf;
@@ -219,40 +251,40 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
         pd = keep_bit(a.seed, bh, qi, k0 + j, a.threshold) ? p * a.drop_scale
                                                             : 0.f;
       }
-      half_axpy<H>(acc, round_to<T>(pd), vs.x[j][half]);
+      slice_axpy<H>(acc, round_to<T>(pd), vs.x[j][slice]);
     }
     m = m_new;
   }
   if (qvalid) {
     T* o = static_cast<T*>(a.out) + qbase + static_cast<long long>(qi) * D +
-           half * H;
+           slice * H;
     const bool dead = l == 0.f;
     const float safe_l = dead ? 1.f : l;
 #pragma unroll
     for (int d = 0; d < H; ++d) store(o + d, acc[d] / safe_l);
-    if (half == 0) {
+    if (slice == 0) {
       a.lse[static_cast<long long>(bh) * a.s_q + qi] =
           dead ? kNegInf : m + logf(safe_l);
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
-  constexpr int H = D / 2;
-  __shared__ __align__(16) Tile<H> ks;
-  __shared__ __align__(16) Tile<H> vs;
+template <typename T, int D, typename G = Geo<D>>
+__global__ void __launch_bounds__(G::R * G::P) flash_bwd_dq_kernel(Args a) {
+  constexpr int P = G::P, H = D / P, kRows = G::R, kTile = G::KT;
+  __shared__ __align__(16) Tile<kTile, P, H> ks;
+  __shared__ __align__(16) Tile<kTile, P, H> vs;
   __shared__ uint8_t live_k[kTile];
   const int iq = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int ib = bh / a.n;
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
+  const int row = threadIdx.x / P;
+  const int slice = threadIdx.x % P;
   const int qi = iq * kRows + row;
   const bool qvalid = qi < a.s_q;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
-  const long long qoff = qbase + static_cast<long long>(qi) * D + half * H;
+  const long long qoff = qbase + static_cast<long long>(qi) * D + slice * H;
   const T* k = static_cast<const T*>(a.k) + kbase;
   const T* v = static_cast<const T*>(a.v) + kbase;
 
@@ -271,9 +303,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     dpart += dov * ov;
     acc[d] = 0.f;
   }
-  const float delta = dpart + __shfl_xor_sync(0xffffffffu, dpart, 1);
+  const float delta = row_sum<P>(dpart);
   const long long srow = static_cast<long long>(bh) * a.s_q + qi;
-  if (qvalid && half == 0) a.delta[srow] = delta;
+  if (qvalid && slice == 0) a.delta[srow] = delta;
   const float lse = qvalid ? a.lse_in[srow] : 0.f;
   const int k_end = a.causal ? min(a.s_k, (iq + 1) * kRows) : a.s_k;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
@@ -290,10 +322,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
-      float sp = half_dot<H>(qr, ks.x[j][half]);
-      float dp = half_dot<H>(dor, vs.x[j][half]);
-      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      float sp = slice_dot<H>(qr, ks.x[j][slice]);
+      float dp = slice_dot<H>(dor, vs.x[j][slice]);
+      sp = row_sum<P>(sp);
+      dp = row_sum<P>(dp);
       const int kj = k0 + j;
       const bool live = qvalid && live_k[j] && !(a.causal && kj > qi);
       const float s = live ? sp : kNegInf;
@@ -303,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
                                                         : 0.f;
       }
       const float ds = p * (dp - delta);
-      half_axpy<H>(acc, round_to<T>(ds), ks.x[j][half]);
+      slice_axpy<H>(acc, round_to<T>(ds), ks.x[j][slice]);
     }
   }
   if (qvalid) {
@@ -313,18 +345,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
-  constexpr int H = D / 2;
-  __shared__ __align__(16) Tile<H> qs;   // round(q * scale)
-  __shared__ __align__(16) Tile<H> dos;  // do
+template <typename T, int D, typename G = Geo<D>>
+__global__ void __launch_bounds__(G::R * G::P) flash_bwd_dkv_kernel(Args a) {
+  constexpr int P = G::P, H = D / P, kRows = G::R, kTile = G::KT;
+  __shared__ __align__(16) Tile<kTile, P, H> qs;   // round(q * scale)
+  __shared__ __align__(16) Tile<kTile, P, H> dos;  // do
   __shared__ float lse_s[kTile];
   __shared__ float delta_s[kTile];
   const int ik = blockIdx.x;  // low key tiles see the most queries: first
   const int bh = blockIdx.y;
   const int ib = bh / a.n;
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
+  const int row = threadIdx.x / P;
+  const int slice = threadIdx.x % P;
   const int kj = ik * kRows + row;
   const bool kvalid = kj < a.s_k;
   const bool klive =
@@ -332,7 +364,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
                  a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0);
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
-  const long long koff = kbase + static_cast<long long>(kj) * D + half * H;
+  const long long koff = kbase + static_cast<long long>(kj) * D + slice * H;
   const T* q = static_cast<const T*>(a.q) + qbase;
   const T* dout = static_cast<const T*>(a.dout) + qbase;
 
@@ -361,10 +393,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     const int n_i = min(kTile, a.s_q - q0);
 #pragma unroll 4
     for (int i = 0; i < n_i; ++i) {
-      float sp = half_dot<H>(kr, qs.x[i][half]);
-      float dp = half_dot<H>(vr, dos.x[i][half]);
-      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      float sp = slice_dot<H>(kr, qs.x[i][slice]);
+      float dp = slice_dot<H>(vr, dos.x[i][slice]);
+      sp = row_sum<P>(sp);
+      dp = row_sum<P>(dp);
       const int qi = q0 + i;
       const bool live = klive && !(a.causal && kj > qi);
       const float s = live ? sp : kNegInf;
@@ -375,9 +407,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
         pd = kp ? p * a.drop_scale : 0.f;
         dp = kp ? dp * a.drop_scale : 0.f;
       }
-      half_axpy<H>(dv, round_to<T>(pd), dos.x[i][half]);
+      slice_axpy<H>(dv, round_to<T>(pd), dos.x[i][slice]);
       const float ds = p * (dp - delta_s[i]);
-      half_axpy<H>(dk, round_to<T>(ds), qs.x[i][half]);
+      slice_axpy<H>(dk, round_to<T>(ds), qs.x[i][slice]);
     }
   }
   if (kvalid) {
@@ -393,28 +425,42 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
 
 template <typename T, int D>
 cudaError_t launch_fwd(const Args& a, int bn, cudaStream_t s) {
-  const dim3 grid((a.s_q + kRows - 1) / kRows, bn);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, s>>>(a);
+  using G = Geo<D>;
+  const dim3 grid((a.s_q + G::R - 1) / G::R, bn);
+  flash_fwd_kernel<T, D><<<grid, G::R * G::P, 0, s>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_bwd(const Args& a, int bn, cudaStream_t s) {
+  using G = Geo<D>;
   // dq first: it writes delta, which the dk/dv launch reads
-  const dim3 gq((a.s_q + kRows - 1) / kRows, bn);
-  flash_bwd_dq_kernel<T, D><<<gq, kThreads, 0, s>>>(a);
+  const dim3 gq((a.s_q + G::R - 1) / G::R, bn);
+  flash_bwd_dq_kernel<T, D><<<gq, G::R * G::P, 0, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 gk((a.s_k + kRows - 1) / kRows, bn);
-  flash_bwd_dkv_kernel<T, D><<<gk, kThreads, 0, s>>>(a);
+  const dim3 gk((a.s_k + G::R - 1) / G::R, bn);
+  flash_bwd_dkv_kernel<T, D><<<gk, G::R * G::P, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(bool fwd, const Args& a, int bn, cudaStream_t s) {
+  return fwd ? launch_fwd<T, D>(a, bn, s) : launch_bwd<T, D>(a, bn, s);
 }
 
 template <typename T>
 cudaError_t dispatch(bool fwd, const Args& a, int d, int bn, cudaStream_t s) {
-  // GPT-2's head dim; another d is refused before the launch
-  if (d != 64) return cudaErrorInvalidValue;
-  return fwd ? launch_fwd<T, 64>(a, bn, s) : launch_bwd<T, 64>(a, bn, s);
+  // the instantiated head dims (KERNEL_HEAD_DIMS of the wrapper); another d
+  // is refused before the launch
+  switch (d) {
+    case 32: return launch<T, 32>(fwd, a, bn, s);
+    case 64: return launch<T, 64>(fwd, a, bn, s);
+    case 96: return launch<T, 96>(fwd, a, bn, s);
+    case 128: return launch<T, 128>(fwd, a, bn, s);
+    case 256: return launch<T, 256>(fwd, a, bn, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 int run(bool fwd, const Args& a, int b, int d, int is_bf16, int device,
@@ -431,8 +477,8 @@ int run(bool fwd, const Args& a, int b, int d, int is_bf16, int device,
 
 }  // namespace
 
-// Forward: o [b, n, s_q, d] and lse [b, n, s_q] fp32. head dim d = 64;
-// kv_mask may be null. Returns the cudaError_t of the launch.
+// Forward: o [b, n, s_q, d] and lse [b, n, s_q] fp32. head dim d one of 32,
+// 64, 96, 128, 256; kv_mask may be null. Returns the cudaError_t of the launch.
 extern "C" int apex_flash_attn_fwd(const void* q, const void* k,
                                    const void* v, const void* kv_mask,
                                    void* o, void* lse, int b, int n, int s_q,

@@ -243,8 +243,23 @@ def mha_reference(q, k, v, *, causal=False, kv_mask=None, bias=None,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-#: the head dim the CUDA kernels are instantiated for (GPT-2's 64)
-KERNEL_HEAD_DIM = 64
+#: the head dims the CUDA kernels are instantiated for
+#: (``csrc/flash_attention.cu``, ``dispatch``)
+KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
+
+
+def flash_attention_available(s_q: int, s_k: int, d: int,
+                              device=None) -> bool:
+    """Whether flash attention runs at these shapes on ``device`` (the
+    counterpart of the JAX module's ``flash_attention_available``, which
+    takes flash for head dims up to 256 where its kernel tiles and leaves
+    the rest to the path without flash). On a CUDA device: exactly the
+    head dims the kernels are instantiated for (any sequence length);
+    elsewhere the plain version, which takes every shape."""
+    del s_q, s_k  # the kernels mask ragged tiles themselves
+    if device is not None and torch.device(device).type == "cuda":
+        return d in KERNEL_HEAD_DIMS
+    return True
 
 
 def _kernel_args(q, k, v, kv_mask):
@@ -256,10 +271,10 @@ def _kernel_args(q, k, v, kv_mask):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
             f"flash attention kernels take f32/bf16, got {q.dtype}")
-    if q.shape[3] != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash attention CUDA kernels take head dim "
-            f"{KERNEL_HEAD_DIM}, got {q.shape[3]}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"flash attention CUDA kernels take head dims "
+            f"{KERNEL_HEAD_DIMS}, got {q.shape[3]}")
     mask = None
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (k.shape[0], k.shape[2]):

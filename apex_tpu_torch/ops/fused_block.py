@@ -31,9 +31,8 @@ recompute policy of ``standalone_transformer_lm`` save their outputs
 backward is a plain call. The ``*_reference`` functions are the plain
 versions. Route (``_device.kernel_route``): CUDA tensors go through the
 kernels, CPU tensors through the plain versions. On the card the kernels
-take x, residual and gradients of one dtype (fp32 or bf16) and a trailing
-dim that is a multiple of 8 (at most 4096 for the LayerNorm tail); other
-inputs raise ``ValueError`` before any launch.
+take x, residual and gradients of one dtype (fp32 or bf16) and any
+trailing dim; other inputs raise ``ValueError`` before any launch.
 """
 from typing import Optional, Tuple
 
@@ -56,9 +55,6 @@ RESIDUAL_LN_FWD = "apex_tpu_torch::residual_ln_fwd"
 
 _SQRT_2_OVER_PI = 0.7978845608028654  # sqrt(2/pi)
 _GELU_C = 0.044715
-#: the kernels' limits on the trailing dim (csrc/fused_block.cu)
-_VEC = 8
-_MAX_LN_COLS = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +184,14 @@ def residual_ln_bwd_reference(dsum2d, dy2d, s2d, mu, rstd, w, seed,
 
 def fused_block_available(n: int) -> bool:
     """Whether the kernels of all three ops take trailing dim ``n`` on
-    the card: a multiple of 8 (one 16-byte vector per thread), at most
-    4096 (one block spans a LayerNorm row)."""
-    return 0 < n <= _MAX_LN_COLS and n % _VEC == 0
+    the card: any ``n >= 1`` (rows wider than 4096, or not a multiple of
+    8, take the kernels' column-walking and element-by-element
+    instances), as the JAX package runs the tails at any width."""
+    return n >= 1
 
 
 def _kernel_args(name: str, rows_: Tuple[torch.Tensor, ...],
-                 params: Tuple[torch.Tensor, ...], layer_norm: bool = False):
+                 params: Tuple[torch.Tensor, ...]):
     """Check what the kernel takes; return the row tensors contiguous and
     the parameter vectors as contiguous fp32 (widening is exact)."""
     n = rows_[0].shape[-1]
@@ -204,10 +201,9 @@ def _kernel_args(name: str, rows_: Tuple[torch.Tensor, ...],
         raise ValueError(
             f"{name} kernel takes row tensors of one dtype, fp32 or bf16; "
             f"got {[t.dtype for t in rows_]}")
-    if n % _VEC or n == 0 or (layer_norm and n > _MAX_LN_COLS):
-        limit = f" and at most {_MAX_LN_COLS}" if layer_norm else ""
-        raise ValueError(f"{name} kernel takes a trailing dim that is a "
-                         f"multiple of {_VEC}{limit}, got {n}")
+    if not fused_block_available(n):
+        raise ValueError(f"{name} kernel takes a trailing dim of at least "
+                         f"1, got {n}")
     if any(t.shape != rows_[0].shape for t in rows_):
         raise ValueError(f"{name}: row tensors differ in shape "
                          f"{[tuple(t.shape) for t in rows_]}")
@@ -298,7 +294,7 @@ def _launch_bdr_bwd(dy2d, seed, dropout_p, dx_dtype):
 
 def _launch_raln_fwd(x2d, bias, r2d, w, lb, seed, eps, dropout_p):
     (x2d, r2d), (b, w, lb) = _kernel_args(
-        "residual_ln_fwd", (x2d, r2d), (bias, w, lb), layer_norm=True)
+        "residual_ln_fwd", (x2d, r2d), (bias, w, lb))
     rows, n = x2d.shape
     lib = _build.kernels()
     dev = x2d.device
@@ -319,7 +315,7 @@ def _launch_raln_fwd(x2d, bias, r2d, w, lb, seed, eps, dropout_p):
 
 def _launch_raln_bwd(dsum2d, dy2d, s2d, mu, rstd, w, seed, dropout_p):
     (dsum2d, dy2d, s2d), (w,) = _kernel_args(
-        "residual_ln_bwd", (dsum2d, dy2d, s2d), (w,), layer_norm=True)
+        "residual_ln_bwd", (dsum2d, dy2d, s2d), (w,))
     rows, n = s2d.shape
     for name, t in (("mu", mu), ("rstd", rstd)):
         if t.dtype != torch.float32 or t.numel() != rows:

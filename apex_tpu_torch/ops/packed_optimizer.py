@@ -15,7 +15,14 @@ Each sweep reads every buffer once and writes every output once:
   :func:`multi_tensor_l2norm_flat`;
 - :func:`packed_lamb_stage1` / :func:`packed_scale_update` — LAMB's
   moments and unratioed update with per-row norm partials, then the
-  per-row trust-ratio apply and recast (``csrc/packed_lamb.cu``).
+  per-row trust-ratio apply and recast (``csrc/packed_lamb.cu``);
+- :func:`packed_novograd_apply` — NovoGrad's elementwise stage with the
+  layer-wise denominator given per row (``csrc/packed_novograd.cu``);
+- :func:`multi_tensor_scale_flat` / :func:`multi_tensor_axpby_flat` —
+  the ``amp_C`` utility sweeps over a flat buffer of any length, with
+  non-finite flags per row or for the whole buffer
+  (``csrc/packed_flat.cu``): the loss scaler's unscale and the clip's
+  scale.
 
 Each kernel replaces the TPU kernel of the function of the same name;
 ``*_reference`` is its plain version, written op by op in the order of
@@ -31,8 +38,8 @@ the card, so a step never waits on the host to pass it. With ``noop``
 set, a sweep leaves its state buffers as they were and its parameter
 output is the recast source.
 
-The other packed sweeps (NovoGrad, row statistics, scale, axpby) are
-not ported yet (ROADMAP.md, queue B).
+The row statistics sweep (``packed_row_stats``, the numerics monitor's)
+is not ported yet (ROADMAP.md, queue B).
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build, _device
-from ..multi_tensor_apply.packing import ROW
+from ..multi_tensor_apply.packing import DEFAULT_CHUNK, ROW, _round_up
 
 
 def _scalar(x, device) -> torch.Tensor:
@@ -432,3 +439,198 @@ def packed_scale_update(flat_u: torch.Tensor, flat_src: torch.Tensor,
     _build.check(rc, "packed_scale_update")
     _device.LAUNCHES["packed_scale_update"] += 1
     return p_out, flat_src if write_master else None
+
+
+# ---------------------------------------------------------------------------
+# NovoGrad
+# ---------------------------------------------------------------------------
+
+def packed_novograd_reference(flat_g, flat_m, flat_src, row_denom, *,
+                              param_dtype, lr, bc1, inv_scale=1.0, noop=None,
+                              beta1=0.95, beta3=0.05, wd=0.0,
+                              reg_inside_moment=False):
+    """Plain version: ``(p_out, new_m)`` as new tensors, in the JAX
+    module's XLA-fallback order."""
+    dev = flat_g.device
+    g = flat_g.float() * _scalar(inv_scale, dev)
+    p32 = flat_src.float()
+    moment_in = g / torch.repeat_interleave(row_denom, ROW)
+    if wd != 0.0 and reg_inside_moment:
+        moment_in = moment_in + wd * p32
+    new_m = beta1 * flat_m + beta3 * moment_in
+    u = new_m / _scalar(bc1, dev)
+    if wd != 0.0 and not reg_inside_moment:
+        u = u + wd * p32
+    new_p = p32 - _scalar(lr, dev) * u
+    skip = _skip(noop, dev)
+    if skip is not None:
+        new_p = torch.where(skip, p32, new_p)
+        new_m = torch.where(skip, flat_m, new_m)
+    return new_p.to(param_dtype), new_m
+
+
+def packed_novograd_apply(flat_g: torch.Tensor, flat_m: torch.Tensor,
+                          flat_src: torch.Tensor, row_denom: torch.Tensor, *,
+                          param_dtype: torch.dtype, lr, bc1, inv_scale=1.0,
+                          noop=None, beta1: float = 0.95, beta3: float = 0.05,
+                          wd: float = 0.0, reg_inside_moment: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NovoGrad's elementwise stage (``multi_tensor_novograd.cu``) with the
+    layer-wise denominator ``row_denom`` (fp32 ``(rows,)``: sqrt of the
+    leaf's second moment plus eps) given per ROW. Returns ``(p_out, m)``:
+    ``p_out`` a new buffer in ``param_dtype``, ``m`` the given buffer,
+    updated in place unless ``noop``; ``flat_src`` is read only. ``lr``,
+    ``bc1``, ``inv_scale`` and ``noop`` are read on the device."""
+    dev = flat_g.device
+    if not _device.kernel_route(flat_g, flat_m, flat_src, row_denom):
+        p_out, new_m = packed_novograd_reference(
+            flat_g, flat_m, flat_src, row_denom, param_dtype=param_dtype,
+            lr=lr, bc1=bc1, inv_scale=inv_scale, noop=noop, beta1=beta1,
+            beta3=beta3, wd=wd, reg_inside_moment=reg_inside_moment)
+        flat_m.copy_(new_m)
+        return p_out, flat_m
+    n = flat_g.numel()
+    rows = _rows("packed_novograd", n)
+    flat_g = flat_g.contiguous()
+    p_out = torch.empty(n, dtype=param_dtype, device=dev)
+    _check_flat("packed_novograd", n, io=(flat_g, p_out),
+                f32=(("m", flat_m), ("src", flat_src)))
+    if row_denom.dtype != torch.float32 or row_denom.shape != (rows,) or \
+            not row_denom.is_contiguous():
+        raise ValueError(f"packed_novograd: row_denom must be contiguous "
+                         f"fp32 ({rows},), got {row_denom.dtype} "
+                         f"{tuple(row_denom.shape)}")
+    lr, bc1, inv = (_scalar(x, dev) for x in (lr, bc1, inv_scale))
+    noop = None if noop is None else _scalar(noop, dev)
+    rc = _build.kernels().apex_packed_novograd(
+        flat_g.data_ptr(), flat_m.data_ptr(), flat_src.data_ptr(),
+        row_denom.data_ptr(), p_out.data_ptr(), lr.data_ptr(),
+        bc1.data_ptr(), inv.data_ptr(), _noop_ptr(noop), n, beta1, beta3,
+        wd, int(reg_inside_moment), _is_bf16(flat_g), _is_bf16(p_out),
+        dev.index, _build.current_stream(dev))
+    _build.check(rc, "packed_novograd")
+    _device.LAUNCHES["packed_novograd"] += 1
+    return p_out, flat_m
+
+
+# ---------------------------------------------------------------------------
+# the amp_C utility sweeps over flat buffers: scale and axpby
+# ---------------------------------------------------------------------------
+
+def _pad_to_rows(flat: torch.Tensor, chunk_size: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, int]:
+    """Zero-pad a 1-D buffer to a ROW multiple, and further to a chunk
+    multiple with ``chunk_size`` (the JAX module's helper: zeros are
+    neutral for every op here, finite and scaled to 0). Returns
+    ``(padded, n)``."""
+    n = flat.shape[0]
+    total = _round_up(max(n, 1), ROW)
+    if chunk_size:
+        total = _round_up(total, _round_up(int(chunk_size), ROW))
+    if total != n:
+        flat = torch.cat([flat, flat.new_zeros(total - n)])
+    return flat, n
+
+
+def _flat_dtype(kernel: str, dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel} kernel takes f32/bf16 buffers, got "
+                        f"{dtype}")
+
+
+def multi_tensor_scale_flat_reference(flat, scale, out_dtype=None, *,
+                                      per_row_flags=False):
+    """Plain version of :func:`multi_tensor_scale_flat`, the JAX module's
+    XLA fallback (the flags of a buffer padded to whole chunks, cut back
+    to the input's rows)."""
+    out_dtype = out_dtype or flat.dtype
+    scale = _scalar(scale, flat.device)
+    if not per_row_flags:
+        out32 = flat.float() * scale
+        return out32.to(out_dtype), ~torch.isfinite(out32).all()
+    padded, n = _pad_to_rows(flat, DEFAULT_CHUNK)
+    pad32 = padded.float() * scale
+    row_bad = ~torch.isfinite(pad32).reshape(-1, ROW).all(dim=1)
+    row_bad = row_bad[:-(-n // ROW)]
+    return pad32[:n].to(out_dtype), row_bad.any(), row_bad
+
+
+def multi_tensor_scale_flat(flat: torch.Tensor, scale, out_dtype=None, *,
+                            per_row_flags: bool = False):
+    """``out = flat * scale`` with non-finite flagging, one sweep over a
+    1-D buffer of any length (``csrc/multi_tensor_scale_kernel.cu``).
+    Returns ``(out, found_inf)``, or with ``per_row_flags`` ``(out,
+    found_inf, row_bad)``: ``row_bad`` bool ``(rows,)`` over the input's
+    ROW-sized rows (the last one cut at the input's end), which a
+    ``PackSpec``'s row-aligned leaves turn into the non-finite leaves.
+    The test is made on the fp32 product, before the cast to
+    ``out_dtype`` (default: the input's). ``scale`` is read on the
+    device; ``found_inf`` is a 0-dim bool tensor there."""
+    if not _device.kernel_route(flat):
+        return multi_tensor_scale_flat_reference(
+            flat, scale, out_dtype, per_row_flags=per_row_flags)
+    out_dtype = out_dtype or flat.dtype
+    _flat_dtype("scale_flat", flat.dtype)
+    _flat_dtype("scale_flat", out_dtype)
+    dev = flat.device
+    n = flat.numel()
+    flat = flat.contiguous()
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    _check_flat("scale_flat", n, io=(flat, out))
+    found = torch.zeros(1, dtype=torch.uint8, device=dev)
+    row_bad = (torch.empty(-(-n // ROW), dtype=torch.uint8, device=dev)
+               if per_row_flags else None)
+    scale = _scalar(scale, dev)
+    rc = _build.kernels().apex_scale_flat(
+        flat.data_ptr(), out.data_ptr(), scale.data_ptr(),
+        None if row_bad is None else row_bad.data_ptr(), found.data_ptr(),
+        n, _is_bf16(flat), _is_bf16(out), dev.index,
+        _build.current_stream(dev))
+    _build.check(rc, "scale_flat")
+    _device.LAUNCHES["scale_flat"] += 1
+    found_inf = found.view(torch.bool).reshape(())
+    if not per_row_flags:
+        return out, found_inf
+    return out, found_inf, row_bad.view(torch.bool)
+
+
+def multi_tensor_axpby_flat_reference(a, b, flat_x, flat_y, out_dtype=None):
+    """Plain version of :func:`multi_tensor_axpby_flat`."""
+    dev = flat_x.device
+    out32 = (_scalar(a, dev) * flat_x.float()
+             + _scalar(b, dev) * flat_y.float())
+    return out32.to(out_dtype or flat_x.dtype), ~torch.isfinite(out32).all()
+
+
+def multi_tensor_axpby_flat(a, b, flat_x: torch.Tensor,
+                            flat_y: torch.Tensor, out_dtype=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = a * x + b * y`` with non-finite flagging, one sweep over
+    two 1-D buffers of any (equal) length
+    (``csrc/multi_tensor_axpby_kernel.cu``). Returns ``(out,
+    found_inf)``; ``out`` in ``out_dtype`` (default: x's), ``a`` and
+    ``b`` read on the device."""
+    if flat_x.shape != flat_y.shape:
+        raise ValueError(f"axpby buffers must match: {tuple(flat_x.shape)} "
+                         f"vs {tuple(flat_y.shape)}")
+    if not _device.kernel_route(flat_x, flat_y):
+        return multi_tensor_axpby_flat_reference(a, b, flat_x, flat_y,
+                                                 out_dtype)
+    out_dtype = out_dtype or flat_x.dtype
+    for dt in (flat_x.dtype, flat_y.dtype, out_dtype):
+        _flat_dtype("axpby_flat", dt)
+    dev = flat_x.device
+    n = flat_x.numel()
+    flat_x, flat_y = flat_x.contiguous(), flat_y.contiguous()
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    _check_flat("axpby_flat", n, io=(flat_x, flat_y, out))
+    found = torch.zeros(1, dtype=torch.uint8, device=dev)
+    a, b = _scalar(a, dev), _scalar(b, dev)
+    rc = _build.kernels().apex_axpby_flat(
+        flat_x.data_ptr(), flat_y.data_ptr(), out.data_ptr(), a.data_ptr(),
+        b.data_ptr(), found.data_ptr(), n, _is_bf16(flat_x),
+        _is_bf16(flat_y), _is_bf16(out), dev.index,
+        _build.current_stream(dev))
+    _build.check(rc, "axpby_flat")
+    _device.LAUNCHES["axpby_flat"] += 1
+    return out, found.view(torch.bool).reshape(())

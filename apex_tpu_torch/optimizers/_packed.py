@@ -23,7 +23,8 @@ Tree = Any
 class PackedState:
     """``step`` int32 device scalar; ``exp_avg`` / ``exp_avg_sq`` fp32
     flat buffers (``exp_avg`` doubles as SGD's momentum buffer, and SGD
-    keeps no ``exp_avg_sq``: None); ``master_params`` fp32 flat buffer or
+    keeps no ``exp_avg_sq``: None; NovoGrad's ``exp_avg_sq`` is one value
+    per leaf, ``(n_leaves,)``); ``master_params`` fp32 flat buffer or
     None; ``spec`` the layout."""
 
     def __init__(self, step, exp_avg, exp_avg_sq, master_params,
@@ -43,8 +44,9 @@ class PackedState:
         """The least device-memory traffic of one packed step, in bytes:
         the gradient read and the parameters written (in the packed
         parameter dtype), each present fp32 state buffer read and
-        written, over the whole padded buffer (``spec.total``); the
-        packing copies are not counted."""
+        written, over the whole padded buffer (``spec.total``; a per-leaf
+        ``exp_avg_sq`` counts its ``n_leaves`` values); the packing
+        copies are not counted."""
         spec = self.spec
         item = spec.common_dtype().itemsize
         total = 2 * item * spec.total + 2 * 4 * spec.total  # g, p; exp_avg
@@ -60,17 +62,26 @@ class PackedState:
 
 def packed_init(params: Tree, *, chunk_size: Optional[int] = None,
                 with_exp_avg_sq: bool = True,
+                per_leaf_exp_avg_sq: bool = False,
                 master_weights: bool = False) -> PackedState:
     """Build the flat-buffer state for ``params`` on their device, laid
     out by a ``PackSpec`` of ``chunk_size`` (default ``DEFAULT_CHUNK``).
-    ``with_exp_avg_sq=False`` keeps no second moment (SGD)."""
+    ``with_exp_avg_sq=False`` keeps no second moment (SGD);
+    ``per_leaf_exp_avg_sq=True`` keeps one fp32 value per leaf
+    (NovoGrad's layer-wise moment)."""
     spec = PackSpec(params, chunk_size=chunk_size or DEFAULT_CHUNK)
     dev = tree_leaves(params)[0].device
+    if not with_exp_avg_sq:
+        exp_avg_sq = None
+    elif per_leaf_exp_avg_sq:
+        exp_avg_sq = torch.zeros(spec.n_leaves, dtype=torch.float32,
+                                 device=dev)
+    else:
+        exp_avg_sq = spec.zeros(torch.float32, dev)
     return PackedState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         exp_avg=spec.zeros(torch.float32, dev),
-        exp_avg_sq=spec.zeros(torch.float32, dev) if with_exp_avg_sq
-        else None,
+        exp_avg_sq=exp_avg_sq,
         master_params=spec.pack(params, torch.float32) if master_weights
         else None,
         spec=spec)

@@ -55,7 +55,12 @@ from torch.utils.checkpoint import (
 )
 
 from ...contrib.xentropy import lm_head_cross_entropy, lm_logits
-from ...ops.flash_attention import FLASH_ATTN_FWD, flash_attention_sbhd
+from ...ops.flash_attention import (
+    FLASH_ATTN_FWD,
+    KERNEL_HEAD_DIMS,
+    flash_attention_available,
+    flash_attention_sbhd,
+)
 from ...ops.fused_block import (
     BIAS_DROPOUT_RESIDUAL_FWD,
     BIAS_GELU_FWD,
@@ -271,8 +276,11 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                        fuse_tail: bool = False) -> torch.Tensor:
     """Self-attention on one device (the JAX ``parallel_attention``):
     fused QKV GEMM, then flash attention or, with
-    ``use_flash_attention=False`` or where flash does not apply, the
-    scores through :func:`_softmax_attention`; output projection.
+    ``use_flash_attention=False`` or where flash does not apply (the
+    configuration, or with ``None`` a head dim the device's flash kernels
+    do not take: ``flash_attention_available``), the scores through
+    :func:`_softmax_attention`; output projection. ``True`` where flash
+    cannot run raises ``ValueError``.
     ``fuse_tail`` leaves ``proj_b`` to the caller's fused tail."""
     s, b, _ = hidden.shape
     n, hn = cfg.num_attention_heads, cfg.kv_channels
@@ -290,12 +298,24 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
         kv_mask = attention_mask[:, 0, 0, :] == 0  # True = attend
         mask_ok = True
     flash_compatible = not qk_scaling and mask_ok
+    # the JAX package's decision: flash where the configuration allows it
+    # and the device's kernels take the shape, else the path without flash
+    available = flash_attention_available(s, s, hn, hidden.device)
+    if cfg.use_flash_attention is None:
+        use_flash = flash_compatible and available
+    else:
+        use_flash = bool(cfg.use_flash_attention)
     if cfg.use_flash_attention and not flash_compatible:
         raise ValueError(
             "use_flash_attention=True but the configuration is not "
             "flash-compatible (fp16 qk layer scaling or a non-causal/"
             "non-padding mask)")
-    if cfg.use_flash_attention is False or not flash_compatible:
+    if cfg.use_flash_attention and not available:
+        raise ValueError(
+            f"use_flash_attention=True but the flash kernels on "
+            f"{hidden.device} do not take head dim {hn} (they take "
+            f"{KERNEL_HEAD_DIMS})")
+    if not use_flash:
         ctx = _softmax_attention(cfg, q, k, v, attention_mask, causal,
                                  layer_number if qk_scaling else None,
                                  dropout_seed, deterministic)

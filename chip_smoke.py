@@ -21,7 +21,13 @@ any failure exits non-zero and prints no result line:
    three packed LAMB kernels over BERT-large's flat buffer, fp32 as on
    the path and bf16, with and without decay, L2 mode and noop; the
    packed SGD kernel over the 345M buffer: momentum 0 and 0.9, nesterov,
-   decay after the momentum, the first run and noop);
+   decay after the momentum, the first run and noop; flash attention at
+   head dims 32, 96, 128 and 256; the fused tails at widths 5120, 8192,
+   16384 and 1000; the flat scale (bf16 -> fp32, fp32 -> fp32, fp32 ->
+   bf16, per-row flags naming planted inf, nan and overflow rows, a
+   ragged length) and axpby over the 345M buffer; packed NovoGrad over
+   BERT-large's buffer with L2 and inf-norm denominators, decay inside
+   and outside the moment, and noop);
    times of kernel, plain version, one PyTorch library call as
    yardstick, and the least time the card could take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
@@ -36,17 +42,20 @@ any failure exits non-zero and prints no result line:
    recompute), 2 warm-up and 6 timed steps, then the unfused step
    without recompute, the fused step without recompute, the step
    without flash attention (``bench.py``'s xla-attention leg: the fused
-   softmax kernels under ``selective`` recompute) and the unfused step
+   softmax kernels under ``selective`` recompute), the unfused step
    with packed FusedSGD (momentum 0.9, weight decay 1e-4, fp32 masters)
-   as further legs (2 + 6 steps each); for each, launches per step
-   asserted exactly, loss falling, peak memory, a profiled step;
+   and the unfused step with dynamic loss scaling and clipping to norm 1
+   over the flat gradient buffer as further legs (2 + 6 steps each); for
+   each, launches per step asserted exactly, loss falling, peak memory,
+   a profiled step; then one step of the loss-scaled leg with an inf in
+   a gradient, which must be skipped bit for bit and halve the scale;
 6. the BERT-large step with FusedLAMB (``bench.py``'s
    ``bench_bert_lamb``: 24 x 1024 x 16, vocab 30592, seq 512, batch 16,
    bf16 over fp32 params), with a padding mask: pytree LAMB under
    ``selective`` without flash (the masked fused softmax) and with
    flash, then without recompute or flash, with pytree and with packed
-   LAMB (2 + 5 steps each), checked as the GPT legs, and the
-   optimizer's step alone timed in each;
+   LAMB and with packed NovoGrad (2 + 5 steps each), checked as the GPT
+   legs, and the optimizer's step alone timed in each;
 7. training parity, card (kernels) against CPU (plain versions), on
    2-layer full-width models: fp32 unfused and fused under
    ``selective_elementwise`` (3 packed-Adam steps), bf16 GPT without
@@ -54,13 +63,20 @@ any failure exits non-zero and prints no result line:
    padding mask (3 pytree LAMB steps), fp32 GPT with packed SGD, and
    BERT without flash with packed LAMB in fp32 and bf16: loss, every
    gradient, the steps; then packed against pytree LAMB on the card;
-8. a ``{"kernels": [...]}`` line (19 kernels), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   the fp32 GPT with the loss-scaled, clipped step (3 steps and a forced
+   overflow), BERT with packed NovoGrad (fp32 L2 and inf norm, bf16),
+   GPTs at head dim 128 (flash) and 80 (no flash kernel: the fused
+   softmax) with the default attention choice, and 1-layer fused-block
+   GPTs at hidden 5120 and 8192 (loss and gradients);
+8. a ``{"kernels": [...]}`` line (22 kernels; every one launched on a
+   main path except ``axpby_flat``, which no path of the JAX package
+   calls), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -72,6 +88,8 @@ import torch.nn.functional as F
 
 from apex_tpu_torch import _build, _device
 from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
+from apex_tpu_torch.amp import LossScaler
+from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
 from apex_tpu_torch.ops import fused_block as fb
@@ -92,10 +110,16 @@ from apex_tpu_torch.ops.layer_norm import (
     layer_norm_reference,
 )
 from apex_tpu_torch.ops.packed_optimizer import (
+    multi_tensor_axpby_flat,
+    multi_tensor_axpby_flat_reference,
+    multi_tensor_scale_flat,
+    multi_tensor_scale_flat_reference,
     packed_adam_apply,
     packed_adam_reference,
     packed_lamb_stage1,
     packed_lamb_stage1_reference,
+    packed_novograd_apply,
+    packed_novograd_reference,
     packed_row_reduce,
     packed_row_reduce_reference,
     packed_scale_update,
@@ -103,7 +127,16 @@ from apex_tpu_torch.ops.packed_optimizer import (
     packed_sgd_apply,
     packed_sgd_reference,
 )
-from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+from apex_tpu_torch.optimizers import (
+    FusedAdam,
+    FusedLAMB,
+    FusedNovoGrad,
+    FusedSGD,
+)
+from apex_tpu_torch.optimizers.fused_novograd import (
+    leaf_norms_sq,
+    row_denominators,
+)
 from apex_tpu_torch.serving import (
     Request,
     ServingEngine,
@@ -579,6 +612,68 @@ def flash_attention_checks(dev):
              "max_abs_err": max(bwd_errs), **timing["bwd"]})
 
 
+#: flash attention at the other instantiated head dims: (name, b, n, s_q,
+#: s_k, d, dtype, causal, masked). [8, 8, 1024, 128] is a GPT of hidden
+#: 1024 with 8 heads, [8, 32, 1024, 32] one with 32 heads
+FLASH_HEAD_DIM_CASES = (
+    ("d 128 bf16 causal", 8, 8, 1024, 1024, 128, torch.bfloat16, True,
+     False),
+    ("d 32 bf16 causal", 8, 32, 1024, 1024, 32, torch.bfloat16, True,
+     False),
+    ("d 128 bf16 kv_mask, dead row", 2, 8, 512, 512, 128, torch.bfloat16,
+     False, True),
+    ("d 32 bf16 causal kv_mask", 2, 32, 512, 512, 32, torch.bfloat16, True,
+     True),
+    ("d 96 f32 causal, s 1000", 2, 8, 1000, 1000, 96, torch.float32, True,
+     False),
+    ("d 256 bf16 causal", 4, 4, 1024, 1024, 256, torch.bfloat16, True,
+     False),
+    ("d 256 f32 kv_mask, dead row, s 300", 2, 4, 300, 300, 256,
+     torch.float32, False, True),
+)
+
+
+def flash_head_dim_checks(dev):
+    """Forward and backward kernels against their plain versions at head
+    dims 32, 96, 128 and 256 (``FLASH_HEAD_DIM_CASES``), with a fully
+    masked batch row under each key-padding mask; then both timed at
+    ``[8, 8, 1024, 128]`` bf16 causal. Returns the worst forward and
+    backward errors."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    fwd_errs, bwd_errs = [], []
+    for name, b, n, s_q, s_k, d, dt, causal, masked in FLASH_HEAD_DIM_CASES:
+        q, k, v, do = _attn_case(g, dev, b, n, s_q, s_k, d, dt)
+        kv_mask = None
+        if masked:
+            kv_mask = torch.ones(b, s_k, dtype=torch.bool, device=dev)
+            kv_mask[0, s_k // 2:] = False
+            kv_mask[1, :] = False
+        kw = dict(causal=causal, kv_mask=kv_mask)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+        rdq, rdk, rdv = flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                                      **kw)
+        fe = max(check_close(f"flash_fwd {name} o", o, ro, dt),
+                 check_close(f"flash_fwd {name} lse", lse, rlse,
+                             torch.float32))
+        be = max(check_close(f"flash_bwd {name} {gname}", got, want, dt)
+                 for gname, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                                          ("dv", dv, rdv)))
+        if masked and any(float(x[1].abs().max()) != 0.0
+                          for x in (o, dq, dk, dv)):
+            raise AssertionError(f"flash {name}: the fully masked row is "
+                                 f"not zero")
+        fwd_errs.append(fe)
+        bwd_errs.append(be)
+        log(f"  flash {name} [{b},{n},{s_q}x{s_k},{d}]: fwd max abs err "
+            f"{fe:.3e}, bwd {be:.3e}")
+        if name == "d 128 bf16 causal":
+            _flash_timing(q, k, v, do, o, lse, causal)
+        del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+    return max(fwd_errs), max(bwd_errs)
+
+
 def _flash_timing(q, k, v, do, o, lse, causal):
     b, n, s, d = q.shape
     elem = q.element_size()
@@ -610,7 +705,7 @@ def _flash_timing(q, k, v, do, o, lse, causal):
     # forward's 2; reads q, k, v, o, do, lse, writes dq, dk, dv
     bb, bby = bound(8 * q.numel() * elem + b * n * s * 4, flops * 5 / 2,
                     BF16_TC_FLOPS)
-    log(f"  flash [8,16,1024,64] bf16 causal: fwd kernel {fwd_ms:.4f} ms "
+    log(f"  flash [{b},{n},{s},{d}] bf16 causal: fwd kernel {fwd_ms:.4f} ms "
         f"(device {fwd_dev} ms), plain {fwd_plain:.4f} ms, sdpa fwd "
         f"{fwd_lib:.4f} ms, bound {fb:.4f} ms ({fby}); bwd kernel "
         f"{bwd_ms:.4f} ms (device {bwd_dev} ms), plain {bwd_plain:.4f} ms, "
@@ -641,12 +736,24 @@ def _rotating(sets):
 #: aside), so the kernels' general tolerance; the column sums over 8192
 #: rows of the backward kernels SUM_TOL
 FUSED_CASES = (
-    # name, rows, dtype, dropout p, seed
-    ("345M bf16", 8192, torch.bfloat16, 0.0, None),
-    ("345M f32", 8192, torch.float32, 0.0, None),
-    ("345M bf16 dropout 0.1, negative seed", 8192, torch.bfloat16, 0.1,
-     -1234567),
-    ("1000 rows f32 dropout 0.1", 1000, torch.float32, 0.1, 99),
+    # name, rows, hidden, fc1 width, dtype, dropout p, seed
+    ("345M bf16", 8192, HIDDEN, 4 * HIDDEN, torch.bfloat16, 0.0, None),
+    ("345M f32", 8192, HIDDEN, 4 * HIDDEN, torch.float32, 0.0, None),
+    ("345M bf16 dropout 0.1, negative seed", 8192, HIDDEN, 4 * HIDDEN,
+     torch.bfloat16, 0.1, -1234567),
+    ("1000 rows f32 dropout 0.1", 1000, HIDDEN, 4 * HIDDEN, torch.float32,
+     0.1, 99),
+    # widths past one block's span (the hidden sizes of 13B- and
+    # 70B-parameter decoders, 5120 and 8192, and 16384) and a width that is
+    # not a multiple of 8
+    ("width 5120 bf16", 2048, 5120, 5120, torch.bfloat16, 0.0, None),
+    ("width 8192 bf16 dropout 0.1", 1024, 8192, 8192, torch.bfloat16, 0.1,
+     77),
+    ("width 8192 f32", 1024, 8192, 8192, torch.float32, 0.0, None),
+    ("width 16384 f32", 256, 16384, 16384, torch.float32, 0.0, None),
+    ("width 1000 bf16", 512, 1000, 1000, torch.bfloat16, 0.0, None),
+    ("width 1000 f32 dropout 0.1, 999 rows", 999, 1000, 1000, torch.float32,
+     0.1, -5),
 )
 
 
@@ -655,8 +762,9 @@ def fused_block_checks(dev):
     at the 345M train shapes: bias-GeLU at ``[8192, 4096]`` (the fc1
     output), bias-dropout-residual and residual-add-LayerNorm at
     ``[8192, 1024]``; fp32 and bf16, dropout 0 and 0.1 with a negative
-    seed, a row count no block size divides; then each kernel timed at
-    the bf16 headline shape (dropout 0)."""
+    seed, a row count no block size divides; at widths 5120 to 16384 and
+    1000 (``FUSED_CASES``); then each kernel timed at the bf16 headline
+    shape (dropout 0)."""
     g = torch.Generator(device=dev).manual_seed(8)
     errs = {k: [] for k in ("bias_gelu_fwd", "bias_gelu_bwd",
                             "bias_dropout_residual_fwd",
@@ -670,10 +778,10 @@ def fused_block_checks(dev):
     def vec(n, scale, shift=0.0):
         return torch.randn(n, generator=g, device=dev) * scale + shift
 
-    for name, rows, dt, p, seed in FUSED_CASES:
+    for name, rows, H, F4, dt, p, seed in FUSED_CASES:
         # bias-GeLU at the fc1 width
-        x, dy = t(rows, 4 * HIDDEN, dt), t(rows, 4 * HIDDEN, dt)
-        b = vec(4 * HIDDEN, 0.1)
+        x, dy = t(rows, F4, dt), t(rows, F4, dt)
+        b = vec(F4, 0.1)
         y = fb._bias_gelu_fwd_impl(x, b)
         dx, db = fb._bias_gelu_bwd(dy, x, b)
         ry = fb.bias_gelu_reference(x, b)
@@ -686,8 +794,8 @@ def fused_block_checks(dev):
                         SUM_TOL)))
         del x, dy, y, dx, ry, rdx
         # the two tails at the hidden width
-        x, r, dy, ds = (t(rows, HIDDEN, dt) for _ in range(4))
-        b, lb, w = vec(HIDDEN, 0.1), vec(HIDDEN, 0.1), vec(HIDDEN, 0.2, 1.0)
+        x, r, dy, ds = (t(rows, H, dt) for _ in range(4))
+        b, lb, w = vec(H, 0.1), vec(H, 0.1), vec(H, 0.2, 1.0)
         out = fb._bdr_fwd_impl(x, b, r, seed, p)
         dx, db = fb._bdr_bwd(dy, seed, p, dt)
         rout = fb.bias_dropout_residual_reference(x, b, r, seed, p)
@@ -715,8 +823,8 @@ def fused_block_checks(dev):
                         dt if k in ("dres", "dx") else None,
                         None if k in ("dres", "dx") else SUM_TOL)
             for k, a, e in zip(("dres", "dx", "dw", "dlb", "db"), got, want)))
-        log(f"  fused block {name} [{rows},{HIDDEN}] / [{rows},"
-            f"{4 * HIDDEN}]: max abs err " + ", ".join(
+        log(f"  fused block {name} [{rows},{H}] / [{rows},{F4}]: max abs "
+            f"err " + ", ".join(
                 f"{k} {v[-1]:.3e}" for k, v in errs.items()))
         del x, r, dy, ds, out, dx, rout, rdx, s_, y_, ref, got, want
     rows_out = []
@@ -1330,6 +1438,207 @@ def packed_sgd_checks(dev):
             "max_abs_err": max(errs), **t}
 
 
+def packed_flat_checks(dev):
+    """``multi_tensor_scale_flat`` (#24) and ``multi_tensor_axpby_flat``
+    (#25) over a flat buffer of the 345M PackSpec's size: the scale
+    bf16 -> fp32 with per-row flags (the loss scaler's unscale on the
+    path), fp32 -> fp32 and fp32 -> bf16; per-row flags with an inf, a
+    nan and an overflow of the product planted in three known rows, which
+    the flags must name exactly; a length that is not a whole number of
+    rows; axpby in fp32 and bf16 with and without a planted inf. The
+    scale is one fp32 multiply and one cast in both versions, so it is
+    held bit for bit; axpby rounds its products and sum one by one
+    (``__fmul_rn``/``__fadd_rn`` against three PyTorch ops), held to
+    ``ADAM_TOL``. Then each timed, with its bound and one library
+    call."""
+    spec = PackSpec(gpt345m_param_shapes())
+    n, rows = spec.total, spec.n_rows
+    g = torch.Generator(device=dev).manual_seed(13)
+    x32 = torch.randn(n, generator=g, device=dev) * 1e3
+    inv = torch.tensor(1.0 / 1024, device=dev)
+    errs = {"scale_flat": [0.0], "axpby_flat": []}
+    for name, x, out_dt, rowf in (
+            ("bf16 -> fp32, row flags (the path)", x32.to(torch.bfloat16),
+             torch.float32, True),
+            ("fp32 -> fp32", x32, torch.float32, False),
+            ("fp32 -> bf16, row flags", x32, torch.bfloat16, True),
+            ("ragged length, bf16 -> fp32", x32[:n - 1000 - 3].to(
+                torch.bfloat16), torch.float32, True)):
+        got = multi_tensor_scale_flat(x, inv, out_dt, per_row_flags=rowf)
+        want = multi_tensor_scale_flat_reference(x, inv, out_dt,
+                                                 per_row_flags=rowf)
+        if not torch.equal(got[0], want[0]) or got[0].dtype != out_dt:
+            raise AssertionError(f"scale_flat {name}: not the plain "
+                                 f"version's bits")
+        if bool(got[1]) or bool(want[1]):
+            raise AssertionError(f"scale_flat {name}: a finite buffer "
+                                 f"flagged")
+        if rowf and not (torch.equal(got[2], want[2])
+                         and got[2].shape == (-(-x.numel() // 1024),)):
+            raise AssertionError(f"scale_flat {name}: row flags differ")
+        log(f"  scale_flat {name} over {x.numel()} elements: bit for bit")
+        del got, want, x
+    bad_rows = [7, rows // 2, rows - 1]
+    xp = x32.to(torch.bfloat16)
+    xp[bad_rows[0] * 1024 + 5] = float("inf")
+    xp[bad_rows[1] * 1024 + 1000] = float("nan")
+    xp[bad_rows[2] * 1024 + 3] = 3e38  # finite; 4 x 3e38 is not
+    out, found, row_bad = multi_tensor_scale_flat(xp, 4.0, torch.float32,
+                                                  per_row_flags=True)
+    named = torch.nonzero(row_bad).flatten().tolist()
+    if named != bad_rows or not bool(found):
+        raise AssertionError(f"scale_flat row flags name rows {named}, "
+                             f"planted {bad_rows}")
+    _, found = multi_tensor_scale_flat(xp, 4.0)
+    if not bool(found):
+        raise AssertionError("scale_flat: found_inf not set")
+    log(f"  scale_flat planted inf, nan, overflow: the flags name rows "
+        f"{named} exactly")
+    del xp, out, row_bad
+    y32 = torch.randn(n, generator=g, device=dev)
+    a = torch.tensor(0.5, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x, y = x32.to(dt), y32.to(dt, copy=True)  # y gets an inf below
+        out, found = multi_tensor_axpby_flat(a, -2.0, x, y)
+        want, wfound = multi_tensor_axpby_flat_reference(a, -2.0, x, y)
+        err = check_close(f"axpby_flat {dt}", out, want, None, ADAM_TOL[dt])
+        if bool(found) or bool(wfound):
+            raise AssertionError(f"axpby_flat {dt}: a finite sum flagged")
+        y[n - 1] = float("inf")
+        _, found = multi_tensor_axpby_flat(a, -2.0, x, y)
+        if not bool(found):
+            raise AssertionError(f"axpby_flat {dt}: the planted inf missed")
+        errs["axpby_flat"].append(err)
+        log(f"  axpby_flat {dt} over {n} elements: max abs err {err:.3e}, "
+            f"planted inf flagged")
+        del x, y, out, want
+    xb = x32.to(torch.bfloat16)
+    lib_buf = x32.clone()
+    lib_found = torch.zeros(1, device=dev)
+    one = torch.ones(1, device=dev)
+    timings = {
+        # bf16 read, fp32 written, a flag byte a row
+        "scale_flat": _kernel_timing(
+            lambda: multi_tensor_scale_flat(xb, inv, torch.float32,
+                                            per_row_flags=True),
+            lambda: multi_tensor_scale_flat_reference(
+                xb, inv, torch.float32, per_row_flags=True),
+            # in place on the fp32 buffer; scale 1 keeps its values over
+            # the repeated calls
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                [lib_buf], lib_found, one),
+            "flat_kernel", 6 * n + rows, 2 * n),
+        # x, y read and out written in fp32
+        "axpby_flat": _kernel_timing(
+            lambda: multi_tensor_axpby_flat(a, -2.0, x32, y32),
+            lambda: multi_tensor_axpby_flat_reference(a, -2.0, x32, y32),
+            lambda: torch.add(y32, x32, alpha=0.5),  # partial: no flag
+            "flat_kernel", 12 * n, 4 * n)}
+    f32 = time_ms(lambda: multi_tensor_scale_flat(x32, inv), iters=20)
+    f32_bound = bound(8 * n, 2 * n)[0]
+    bf = x32.to(torch.bfloat16), y32.to(torch.bfloat16)
+    axb = time_ms(lambda: multi_tensor_axpby_flat(a, -2.0, *bf), iters=20)
+    axb_bound = bound(6 * n, 4 * n)[0]
+    out = []
+    for name, line in (("scale_flat", 739), ("axpby_flat", 813)):
+        t = timings[name]
+        log(f"  {name} 345M flat buffer ({n} elements, "
+            f"{'bf16 -> fp32' if name == 'scale_flat' else 'fp32'}): kernel "
+            f"{t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+        out.append({"name": name, "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/packed_flat.cu",
+                    "replaces": f"apex_tpu/ops/packed_optimizer.py:{line}",
+                    "max_abs_err": max(errs[name]), **t})
+    log(f"  scale_flat fp32 -> fp32: kernel {f32:.4f} ms, bound "
+        f"{f32_bound:.4f} ms; axpby_flat bf16: kernel {axb:.4f} ms, bound "
+        f"{axb_bound:.4f} ms")
+    return out
+
+
+#: NovoGrad's lr on the BERT-large leg and in its parity runs. apex's
+#: default, 1e-3, moves each layer by lr times its unit-norm gradient
+#: direction, a step too small to show in 7 steps of a bf16 loss; at 1e-2
+#: the leg's loss falls from the first step (the leg asserts that it
+#: falls)
+NOVOGRAD_LR = 1e-2
+
+
+def packed_novograd():
+    return FusedNovoGrad(lr=NOVOGRAD_LR, packed=True)
+
+
+def packed_novograd_checks(dev):
+    """The packed NovoGrad sweep (#21) over a flat buffer of BERT-large's
+    PackSpec, fp32 gradients and params as on the path: the L2 and the
+    inf-norm denominators from the row reduce, weight decay outside and
+    inside the moment, bf16 gradients into bf16 params, and noop (the
+    moment and the recast source bitwise unchanged). Then timed."""
+    spec = PackSpec(bert_large_param_shapes())
+    n, rows = spec.total, spec.n_rows
+    g = torch.Generator(device=dev).manual_seed(14)
+    grad = torch.randn(n, generator=g, device=dev) * 1e-3
+    m0 = torch.randn(n, generator=g, device=dev) * 1e-4
+    src0 = torch.randn(n, generator=g, device=dev) * 0.02
+    # the denominators of a first step (v = the squared norm), L2 and inf
+    l2, inf = (row_denominators(leaf_norms_sq(grad, spec, nt), spec, 1e-8)
+               for nt in (2, 0))
+    hyper = dict(lr=torch.tensor(NOVOGRAD_LR, device=dev),
+                 bc1=torch.tensor(0.05, device=dev),
+                 inv_scale=torch.tensor(0.5, device=dev), beta1=0.95,
+                 beta3=0.05)
+    errs = []
+    for name, denom, kw, dt in (
+            ("L2 (the path)", l2, {}, torch.float32),
+            ("inf norm", inf, {}, torch.float32),
+            ("wd 0.01 outside the moment", l2, dict(wd=0.01),
+             torch.float32),
+            ("wd 0.01 inside the moment", l2,
+             dict(wd=0.01, reg_inside_moment=True), torch.float32),
+            ("bf16 grads and params", l2, {}, torch.bfloat16),
+            ("noop", l2, dict(noop=torch.tensor(True, device=dev)),
+             torch.float32)):
+        m = m0.clone()
+        x = grad.to(dt)
+        p_out, _ = packed_novograd_apply(x, m, src0, denom, param_dtype=dt,
+                                         **hyper, **kw)
+        want_p, want_m = packed_novograd_reference(x, m0, src0, denom,
+                                                   param_dtype=dt, **hyper,
+                                                   **kw)
+        err = check_close(f"packed_novograd {name} p_out", p_out, want_p,
+                          None, ADAM_TOL[dt])
+        if name == "noop":
+            if not (torch.equal(m, m0) and torch.equal(p_out, src0)):
+                raise AssertionError("packed_novograd noop changed its "
+                                     "inputs")
+        else:
+            err = max(err, check_close(f"packed_novograd {name} m", m,
+                                       want_m, None,
+                                       ADAM_TOL[torch.float32]))
+        errs.append(err)
+        log(f"  packed_novograd {name} over {n} elements: max abs err "
+            f"{err:.3e}")
+        del m, x, p_out, want_p, want_m
+    m = m0.clone()
+    t = _kernel_timing(
+        lambda: packed_novograd_apply(grad, m, src0, l2,
+                                      param_dtype=torch.float32, **hyper),
+        lambda: packed_novograd_reference(grad, m0, src0, l2,
+                                          param_dtype=torch.float32,
+                                          **hyper),
+        # g, m, src read; m, p written; a denominator a row
+        None, "packed_novograd_kernel", 20 * n + 4 * rows, 8 * n)
+    log(f"  packed_novograd BERT-large flat buffer ({n} elements, fp32): "
+        f"kernel {t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
+        f"{t['plain_ms']:.4f} ms, library {t['library_ms']}, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {"name": "packed_novograd", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/packed_novograd.cu",
+            "replaces": "apex_tpu/ops/packed_optimizer.py:537",
+            "max_abs_err": max(errs), **t}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width serving
 # ---------------------------------------------------------------------------
@@ -1534,6 +1843,68 @@ def packed_sgd():
                     packed=True, master_weights=True)
 
 
+#: the unfused step with the flat gradient lifecycle: the loss scaler's
+#: unscale and the clip's scale (#24, twice) and the clip's norm (#22)
+SCALED_LAUNCHES = {**UNFUSED_LAUNCHES, "scale_flat": 2,
+                   "packed_row_reduce": 1}
+
+
+def scaled_step_fn(loss_fn, opt, scaler, poison=None, max_norm=1.0):
+    """The JAX package's flat gradient lifecycle (``bench.py:1750-1900``)
+    with Megatron's GPT-2 recipe, dynamic loss scaling and ``--clip-grad
+    1.0``: the scaled loss's gradients, packed in their dtype, unscaled
+    into fp32 in one sweep that flags overflows per row
+    (``unscale_flat``), clipped by the global norm (``clip_grad_norm_flat``),
+    then the packed optimizer on the flat buffer with the scaler's
+    ``found_inf`` and the scale's update. The state is ``(optimizer
+    state, scaler state)``; the loss returned is the unscaled one. While
+    ``poison["on"]``, one gradient element is set to inf before the
+    packing."""
+    def step(params, state):
+        ostate, ss = state
+        loss, grads = value_and_grad(
+            lambda p: scaler.scale_loss(ss, loss_fn(p)), params)
+        if poison is not None and poison["on"]:
+            tree_leaves(grads)[0].view(-1)[0] = float("inf")
+        flat, ss = scaler.unscale_flat(ss, ostate.spec.pack(grads),
+                                       out_dtype=torch.float32)
+        flat, _ = clip_grad_norm_flat(flat, max_norm)
+        params, ostate = opt.step(flat, ostate, params,
+                                  found_inf=ss.found_inf)
+        return params, (ostate, scaler.update_scale(ss)), \
+            loss / ss.loss_scale
+    return step
+
+
+def check_overflow_skip(step, params, state, poison, label):
+    """One step with an inf in a gradient: the step is skipped (params and
+    fp32 masters bit for bit, the step count kept), the scale halves and
+    the run of skips is 1."""
+    ostate, ss = state
+    before = [p.clone() for p in tree_leaves(params)]
+    masters, count = ostate.master_params.clone(), int(ostate.step)
+    scale = float(ss.loss_scale)
+    poison["on"] = True
+    params, (ostate, ss2), _ = step(params, state)
+    poison["on"] = False
+    torch.cuda.synchronize()
+    if not (torch.equal(ostate.master_params, masters)
+            and all(torch.equal(a, b)
+                    for a, b in zip(before, tree_leaves(params)))):
+        raise AssertionError(f"{label}: the overflow step changed the "
+                             f"params or masters")
+    if int(ostate.step) != count:
+        raise AssertionError(f"{label}: the overflow step advanced the step "
+                             f"count")
+    if float(ss2.loss_scale) != scale / 2 or int(ss2.consecutive_skips) != 1:
+        raise AssertionError(
+            f"{label}: after the overflow scale {float(ss2.loss_scale)} "
+            f"(was {scale}), consecutive skips {int(ss2.consecutive_skips)}")
+    log(f"  {label}: an inf in one gradient skipped the step bit for bit, "
+        f"scale {scale:g} -> {float(ss2.loss_scale):g}, consecutive skips "
+        f"1")
+
+
 def drive_leg(label: str, expected: dict, timed: int, step, params, state,
               tokens: int):
     """2 warm-up steps, then ``timed`` timed steps of ``step`` with the
@@ -1585,11 +1956,14 @@ def drive_leg(label: str, expected: dict, timed: int, step, params, state,
 
 
 def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
-              **cfg_kw):
+              scaled: bool = False, **cfg_kw):
     """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
     compute over bf16 params with fp32 masters (O2), packed
     FusedAdam(lr=1e-4) or ``make_opt()``, random weights (seed 0) and
-    tokens (seed 1), the same batch every step (:func:`drive_leg`)."""
+    tokens (seed 1), the same batch every step (:func:`drive_leg`).
+    ``scaled``: the loss-scaled, clipped step (:func:`scaled_step_fn`,
+    ``LossScaler("dynamic")``), then the overflow check
+    (:func:`check_overflow_skip`)."""
     cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=50304,
                     max_position_embeddings=1024, hidden_dropout=0.0,
@@ -1604,9 +1978,18 @@ def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
                            generator=torch.Generator(
                                device=dev).manual_seed(1))
     labels = torch.roll(tokens, -1, dims=1)
-    step = train_step_fn(lambda p: gpt_loss(cfg, p, tokens, labels), opt)
-    leg = drive_leg(label, expected, timed, step, params, opt.init(params),
+    loss_fn = functools.partial(gpt_loss, cfg, tokens=tokens, labels=labels)
+    state = opt.init(params)
+    if scaled:
+        scaler, poison = LossScaler("dynamic"), {"on": False}
+        step = scaled_step_fn(loss_fn, opt, scaler, poison)
+        state = (state, scaler.init_state(dev))
+    else:
+        step = train_step_fn(loss_fn, opt)
+    leg = drive_leg(label, expected, timed, step, params, state,
                     tokens.numel())
+    if scaled:
+        check_overflow_skip(step, leg["params"], leg["state"], poison, label)
     del leg["params"], leg["state"]
     return leg
 
@@ -1620,8 +2003,10 @@ def train_345m(dev):
     the step without flash attention as a fourth (``bench.py``'s
     xla-attention leg: ``bench_gpt(..., "selective")`` with flash off,
     the unfused block, the CE recomputing its chunk GEMM), and the
-    unfused step with packed FusedSGD as a fifth, all in this one
-    call."""
+    unfused step with packed FusedSGD as a fifth, and the unfused step
+    with dynamic loss scaling and gradient clipping over the flat
+    gradient buffer as a sixth (then its forced overflow), all in this
+    one call."""
     legs = {}
     for key, label, expected, timed, kw in (
             ("headline", "345M headline (fused block, "
@@ -1639,7 +2024,9 @@ def train_345m(dev):
                   ce_save_logits=False)),
             ("sgd", "345M unfused, no remat, packed FusedSGD",
              SGD_LAUNCHES, 6, dict(ce_save_logits=True,
-                                   make_opt=packed_sgd))):
+                                   make_opt=packed_sgd)),
+            ("scaled", "345M unfused, no remat, loss-scaled, clipped",
+             SCALED_LAUNCHES, 6, dict(ce_save_logits=True, scaled=True))):
         legs[key] = train_leg(dev, label, expected, timed, **kw)
         torch.cuda.empty_cache()
     log("  legs: " + "; ".join(
@@ -1671,6 +2058,10 @@ BERT_NOREMAT_LAUNCHES = {
 LAMB_LAUNCHES = {"packed_row_reduce": 1, "packed_lamb_stage1": 1,
                  "packed_scale_update": 1}
 LAMB_KERNELS = tuple(LAMB_LAUNCHES)
+#: a packed FusedNovoGrad step: the gradient's row sums, the elementwise
+#: stage
+NOVOGRAD_LAUNCHES = {"packed_row_reduce": 1, "packed_novograd": 1}
+NOVOGRAD_KERNELS = tuple(NOVOGRAD_LAUNCHES)
 
 
 def packed_lamb():
@@ -1777,7 +2168,8 @@ def train_bert_large(dev):
     """The two ``selective`` legs with pytree FusedLAMB (non-flash and
     flash), then the non-flash step without recompute (the configuration
     that is not host-bound) with pytree and with packed FusedLAMB, which
-    compares the two optimizers on one card."""
+    compares the two optimizers on one card, and with packed
+    FusedNovoGrad."""
     legs = {}
     noremat = dict(use_flash_attention=False, recompute_granularity=None)
     for key, label, expected, kw in (
@@ -1788,13 +2180,20 @@ def train_bert_large(dev):
              BERT_NOREMAT_LAUNCHES, noremat),
             ("packed", "BERT-large non-flash, no remat, packed LAMB",
              {**BERT_NOREMAT_LAUNCHES, **LAMB_LAUNCHES},
-             dict(noremat, make_opt=packed_lamb))):
+             dict(noremat, make_opt=packed_lamb)),
+            ("novograd", "BERT-large non-flash, no remat, packed NovoGrad",
+             {**BERT_NOREMAT_LAUNCHES, **NOVOGRAD_LAUNCHES},
+             dict(noremat, make_opt=packed_novograd))):
         legs[key] = bert_large_leg(dev, label, expected, 5, **kw)
         torch.cuda.empty_cache()
     log("  legs: " + "; ".join(
         f"{k} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms peak "
         f"{v['peak']:.2f} GiB" for k, v in legs.items()))
-    pt, pk = legs["pytree"], legs["packed"]
+    pt, pk, nv = legs["pytree"], legs["packed"], legs["novograd"]
+    log(f"  NovoGrad on BERT-large, the step alone: call {nv['opt_ms']:.3f} "
+        f"ms host {_ms_list(nv['opt_host_ms'])} ms device "
+        f"{nv['opt_device_ms']:.3f} ms bound {nv['opt_bound_ms']} ms; "
+        f"train step p50 {nv['p50']:.2f} ms, peak {nv['peak']:.2f} GiB")
     log(f"  LAMB on BERT-large, the step alone: pytree call "
         f"{pt['opt_ms']:.3f} ms host {_ms_list(pt['opt_host_ms'])} ms "
         f"device {pt['opt_device_ms']:.3f} ms; packed call "
@@ -1876,15 +2275,18 @@ def _flat(params) -> torch.Tensor:
 
 
 def parity_cfg(vocab: int, **cfg_kw) -> GPTConfig:
-    return GPTConfig(num_layers=2, hidden_size=HIDDEN,
-                     num_attention_heads=N_HEADS, vocab_size=vocab,
-                     max_position_embeddings=PARITY_SEQ, hidden_dropout=0.0,
-                     attention_dropout=0.0, **cfg_kw)
+    kw = dict(num_layers=2, hidden_size=HIDDEN, num_attention_heads=N_HEADS,
+              vocab_size=vocab, max_position_embeddings=PARITY_SEQ,
+              hidden_dropout=0.0, attention_dropout=0.0)
+    return GPTConfig(**{**kw, **cfg_kw})
 
 
-def gpt_parity(dev, label: str, kernels, make_opt=None, **cfg_kw):
+def gpt_parity(dev, label: str, kernels, make_opt=None, absent=(),
+               scaled=False, **cfg_kw):
     """``gpt_loss`` of the 2-layer 345M-width GPT with packed
-    FusedAdam(lr=1e-4, masters) or ``make_opt()``, card against CPU."""
+    FusedAdam(lr=1e-4, masters) or ``make_opt()``, card against CPU;
+    ``scaled``: the loss-scaled, clipped step, then one forced
+    overflow."""
     cfg = parity_cfg(50304, **cfg_kw)
     rng = np.random.default_rng(7)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -1893,10 +2295,12 @@ def gpt_parity(dev, label: str, kernels, make_opt=None, **cfg_kw):
     train_parity(dev, label, kernels, cfg,
                  lambda p, d: gpt_loss(cfg, p, tokens.to(d), labels.to(d)),
                  make_opt or (lambda: FusedAdam(lr=1e-4, master_weights=True,
-                                                packed=True)))
+                                                packed=True)),
+                 absent=absent, scaled=scaled)
 
 
-def bert_parity(dev, label: str, kernels, make_opt=None, **cfg_kw):
+def bert_parity(dev, label: str, kernels, make_opt=None, absent=(),
+                **cfg_kw):
     """``bench_bert_lamb``'s loss of the 2-layer BERT-large-width model
     under a padding mask (lengths 256 and 180) with pytree
     FusedLAMB(lr=1e-3) or ``make_opt()``, card against CPU."""
@@ -1910,15 +2314,20 @@ def bert_parity(dev, label: str, kernels, make_opt=None, **cfg_kw):
     train_parity(dev, label, kernels, cfg,
                  lambda p, d: bert_mlm_loss(cfg, p, tokens.to(d),
                                             labels.to(d), padding.to(d)),
-                 make_opt or (lambda: FusedLAMB(lr=1e-3)))
+                 make_opt or (lambda: FusedLAMB(lr=1e-3)), absent=absent)
 
 
-def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
+def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
+                 absent=(), scaled=False):
     """Loss, gradients and 3 optimizer steps of ``loss_of(params,
     device)`` on the card (kernels) against the CPU (plain versions), from
     the same fp32 params of ``cfg``; ``make_opt()`` builds each run's
     optimizer. ``kernels`` must each launch on the card run (the loss,
-    gradients and steps) and nothing on the CPU run."""
+    gradients and steps), ``absent`` none, and nothing on the CPU run.
+    ``scaled``: each step is :func:`scaled_step_fn` (dynamic loss
+    scaling, the flat unscale, clipping to norm 1), and a fourth step
+    with an inf in a gradient must be skipped on both runs
+    (:func:`check_overflow_skip`)."""
     dt = cfg.compute_dtype
     loss_tol, grad_tol, upd_tol = PARITY_TOL[dt]
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
@@ -1929,7 +2338,13 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
         opt = make_opt()
         state = opt.init(params)
         start = _flat(params)
-        step = train_step_fn(lambda p: loss_of(p, d), opt)
+        if scaled:
+            scaler, poison = LossScaler("dynamic"), {"on": False}
+            step = scaled_step_fn(lambda p: loss_of(p, d), opt, scaler,
+                                  poison)
+            state = (state, scaler.init_state(d))
+        else:
+            step = train_step_fn(lambda p: loss_of(p, d), opt)
         _device.reset_launch_counts()
         loss0, grads = value_and_grad(lambda p: loss_of(p, d), params)
         losses = []
@@ -1938,6 +2353,9 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
             losses.append(float(loss))
         losses.append(float(loss_of(params, d)))
         counts = _device.launch_counts()
+        if scaled:
+            check_overflow_skip(step, params, state, poison,
+                                f"{label} ({where})")
         runs[where] = dict(loss=float(loss0), losses=losses,
                            grads=tree_map(lambda g: g.float().cpu(), grads),
                            update=(_flat(params) - start).cpu(),
@@ -1949,6 +2367,9 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
     for name in kernels:
         if g["counts"][name] <= 0:
             raise AssertionError(f"{name} did not launch on the card run")
+    for name in absent:
+        if g["counts"][name]:
+            raise AssertionError(f"{name} launched on the card run")
     rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
     worst = 0.0
     for (name, gc), gg in zip(zip(PackSpec(cpu_params).leaf_names(),
@@ -1975,6 +2396,50 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt):
     if upd > upd_tol:
         raise AssertionError("parameter updates on the card differ from "
                              "the CPU's")
+
+
+def fused_width_parity(dev):
+    """``fused_block=True`` at the widths the tails used to refuse: a
+    1-layer fp32 GPT at hidden 5120 (40 heads) and 8192 (64 heads), head
+    dim 128, seq 64, batch 2, vocab 512, loss and every gradient on the
+    card (the fused tails at those widths, flash at head dim 128)
+    against the CPU, within ``PARITY_TOL``'s fp32 loss and gradient
+    limits. No optimizer step: the point is the tails' path."""
+    loss_tol, grad_tol, _ = PARITY_TOL[torch.float32]
+    kernels = FUSED_KERNELS + ("flash_attn_fwd", "flash_attn_bwd")
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 64)))
+    labels = torch.roll(tokens, -1, dims=1)
+    for hidden in (5120, 8192):
+        cfg = GPTConfig(num_layers=1, hidden_size=hidden,
+                        num_attention_heads=hidden // 128, vocab_size=512,
+                        max_position_embeddings=64, hidden_dropout=0.0,
+                        attention_dropout=0.0, fused_block=True)
+        cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(11))
+        out = []
+        for d in (torch.device("cpu"), dev):
+            params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
+            _device.reset_launch_counts()
+            loss, grads = value_and_grad(lambda p: gpt_loss(
+                cfg, p, tokens.to(d), labels.to(d)), params)
+            out.append((float(loss), [g.cpu() for g in tree_leaves(grads)],
+                        _device.launch_counts()))
+            del params, grads
+        (lc, gc, cc), (lg, gg, cg) = out
+        if any(cc.values()) or any(cg[k] <= 0 for k in kernels):
+            raise AssertionError(f"hidden {hidden}: launches card {cg}, "
+                                 f"cpu {cc}")
+        rel = abs(lg - lc) / abs(lc)
+        worst = max(float((b - a).abs().max() / a.abs().max().clamp_min(
+            1e-30)) for a, b in zip(gc, gg))
+        log(f"  fused block, 1 layer, hidden {hidden} fp32: loss card "
+            f"{lg:.7f} cpu {lc:.7f} (rel {rel:.2e}); worst gradient leaf "
+            f"{worst:.2e} of its largest entry; card launches "
+            f"{({k: v for k, v in cg.items() if v})}")
+        if rel > loss_tol or worst > grad_tol:
+            raise AssertionError(f"hidden {hidden}: the card differs from "
+                                 f"the CPU")
+        del out, cpu_params
 
 
 #: packed against pytree LAMB on the card: the two compute u, m and v
@@ -2046,22 +2511,26 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    (fd, ln, ln_bwd, (fa_fwd, fa_bwd), adam, fused, softmax, lamb,
-     sgd) = phase(
+    (fd, ln, ln_bwd, (fa_fwd, fa_bwd), head_dim_errs, adam, fused, softmax,
+     lamb, sgd, flat, novograd) = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), flash_attention_checks(dev),
-                 packed_adam_checks(dev), fused_block_checks(dev),
-                 fused_softmax_checks(dev), packed_lamb_checks(dev),
-                 packed_sgd_checks(dev)))
+                 flash_head_dim_checks(dev), packed_adam_checks(dev),
+                 fused_block_checks(dev), fused_softmax_checks(dev),
+                 packed_lamb_checks(dev), packed_sgd_checks(dev),
+                 packed_flat_checks(dev), packed_novograd_checks(dev)))
+    fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], head_dim_errs[0])
+    fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], head_dim_errs[1])
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")
     train = phase("phase 5: GPT-2 345M bf16 train step: headline, unfused, "
-                  "fused, non-flash and packed-SGD legs", train_345m, dev)
-    bert = phase("phase 6: BERT-large bf16 with FusedLAMB: non-flash and "
-                 "flash legs, then pytree and packed LAMB without "
-                 "recompute", train_bert_large, dev)
+                  "fused, non-flash, packed-SGD and loss-scaled clipped "
+                  "legs", train_345m, dev)
+    bert = phase("phase 6: BERT-large bf16: non-flash and flash legs with "
+                 "FusedLAMB, then pytree and packed LAMB and packed "
+                 "NovoGrad without recompute", train_bert_large, dev)
     phase("phase 7: training parity, card against CPU",
           lambda: (gpt_parity(dev, "unfused", TRAIN_KERNELS[:4]),
                    gpt_parity(dev, "fused, selective_elementwise",
@@ -2092,17 +2561,56 @@ def main() -> int:
                                + LAMB_KERNELS, make_opt=packed_lamb,
                                compute_dtype=torch.bfloat16,
                                use_flash_attention=False),
-                   lamb_packed_against_pytree(dev)))
+                   lamb_packed_against_pytree(dev),
+                   gpt_parity(dev, "unfused, loss-scaled, clipped",
+                              TRAIN_KERNELS[:4] + ("packed_adam",
+                                                   "scale_flat",
+                                                   "packed_row_reduce"),
+                              scaled=True),
+                   bert_parity(dev, "BERT non-flash fp32, packed NovoGrad",
+                               ("layer_norm_fwd", "layer_norm_bwd")
+                               + NOVOGRAD_KERNELS,
+                               make_opt=packed_novograd,
+                               use_flash_attention=False),
+                   bert_parity(dev, "BERT non-flash fp32, packed NovoGrad "
+                               "inf norm",
+                               ("layer_norm_fwd", "layer_norm_bwd")
+                               + NOVOGRAD_KERNELS,
+                               make_opt=lambda: FusedNovoGrad(
+                                   lr=NOVOGRAD_LR, norm_type=0, packed=True),
+                               use_flash_attention=False),
+                   bert_parity(dev, "BERT non-flash, padding mask, packed "
+                               "NovoGrad",
+                               ("softmax_masked_fwd", "softmax_bwd",
+                                "layer_norm_fwd", "layer_norm_bwd")
+                               + NOVOGRAD_KERNELS,
+                               make_opt=packed_novograd,
+                               compute_dtype=torch.bfloat16,
+                               use_flash_attention=False),
+                   gpt_parity(dev, "head dim 128 (8 heads), flash by default",
+                              TRAIN_KERNELS[:4], num_attention_heads=8),
+                   fused_width_parity(dev),
+                   gpt_parity(dev, "head dim 80 (hidden 1280), no flash "
+                              "kernel: fused softmax",
+                              ("softmax_fwd", "softmax_bwd",
+                               "layer_norm_fwd", "layer_norm_bwd"),
+                              absent=("flash_attn_fwd", "flash_attn_bwd"),
+                              hidden_size=1280,
+                              compute_dtype=torch.bfloat16)))
     fd["launches"] = serving["flash_decode"]
-    # launches on the main paths: the serving run, the five GPT legs and
-    # the four BERT legs
+    # launches on the main paths: the serving run, the six GPT legs and
+    # the five BERT legs
     ln["launches"] = (serving["layer_norm_fwd"] + train["layer_norm_fwd"]
                       + bert["layer_norm_fwd"])
     kernels = (fd, ln, ln_bwd, fa_fwd, fa_bwd, adam, *fused, *softmax,
-               *lamb, sgd)
+               *lamb, sgd, *flat, novograd)
     for kr in kernels[2:]:
         kr["launches"] = train.get(kr["name"], 0) + bert.get(kr["name"], 0)
-    idle = [kr["name"] for kr in kernels if kr["launches"] <= 0]
+    # multi_tensor_axpby_flat has no caller in the JAX package outside its
+    # own module and tests, so no main path launches it: it is checked and
+    # timed in phase 2 only
+    idle = [kr["name"] for kr in kernels
+            if kr["launches"] <= 0 and kr["name"] != "axpby_flat"]
     if idle:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{idle}")

@@ -9,6 +9,8 @@ import os
 import re
 import shutil
 
+import pytest
+
 from apex_tpu_torch import _build
 
 
@@ -81,3 +83,20 @@ def test_argtypes_match_the_c_declarations():
             ctype = p.rsplit(" ", 1)[0].replace("const ", "").strip()
             want.append(ctypes.c_void_p if "*" in p else _C_TYPES[ctype])
         assert _build._ARGTYPES[name] == want, name
+
+
+@pytest.mark.parametrize("name,source", [
+    ("apex_scale_flat", "packed_flat.cu"),
+    ("apex_axpby_flat", "packed_flat.cu"),
+    ("apex_packed_novograd", "packed_novograd.cu"),
+    ("apex_flash_attn_fwd", "flash_attention.cu"),
+    ("apex_flash_attn_bwd", "flash_attention.cu"),
+    ("apex_raln_fwd", "fused_block.cu"),
+    ("apex_raln_bwd", "fused_block.cu")])
+def test_entry_point_is_declared_in_its_source(name, source):
+    """Each entry point the wrappers call is bound (``_ARGTYPES``) and
+    defined in the source that the build compiles."""
+    assert source in _build.SOURCES
+    assert name in _build._ARGTYPES
+    assert f'extern "C" int {name}(' in (_build.CSRC_DIR / source
+                                         ).read_text()

@@ -31,8 +31,15 @@ order (PyTorch's CUDA division may round LAMB's quotients an ulp
 apart), rtol 1e-6 on fp32 results and one bf16 rounding on bf16 ones,
 their row
 sums rtol 1e-5 (summation order; one term of 1024 missing moves a sum by
-~1e-3), max |x| exactly; 3 packed LAMB and SGD steps on the card against
-the CPU rtol 1e-5 atol 1e-7.
+~1e-3), max |x| exactly; 3 packed LAMB, SGD and NovoGrad steps on the
+card against the CPU rtol 1e-5 atol 1e-7. Flash attention at head dims
+32, 96, 128 and 256 and the fused tails at widths 1000 to 16384 as at
+64 and 1024; the flat scale bit for bit (one multiply and one cast on
+both sides, nan included), axpby bit for bit (its products and sum
+rounded one by one on both), the NovoGrad sweep as the other packed
+sweeps (rtol 1e-6 on fp32 results, one bf16 rounding on bf16 params);
+the 2-layer GPTs at head dims 128 and 80 as the other card-against-CPU
+steps.
 """
 import numpy as np
 import pytest
@@ -55,10 +62,16 @@ from apex_tpu_torch.ops.layer_norm import (
     layer_norm_reference,
 )
 from apex_tpu_torch.ops.packed_optimizer import (
+    multi_tensor_axpby_flat,
+    multi_tensor_axpby_flat_reference,
+    multi_tensor_scale_flat,
+    multi_tensor_scale_flat_reference,
     packed_adam_apply,
     packed_adam_reference,
     packed_lamb_stage1,
     packed_lamb_stage1_reference,
+    packed_novograd_apply,
+    packed_novograd_reference,
     packed_row_reduce,
     packed_row_reduce_reference,
     packed_scale_update,
@@ -262,11 +275,15 @@ SUM_TOL = dict(atol=1e-3, rtol=1e-4)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("rows,n", [(1000, 1024), (40, 4096), (7, 64)])
+@pytest.mark.parametrize("rows,n", [(1000, 1024), (40, 4096), (7, 64),
+                                    (40, 5120), (9, 8192), (3, 16384),
+                                    (37, 1000), (5, 60)])
 def test_fused_block_kernels_match_plain(cuda_device, dtype, p, rows, n):
     """The six fused-tail kernels against their plain versions on the
     same CUDA tensors, forward and backward, with and without hash
-    dropout (a negative seed), at a row count no block size divides."""
+    dropout (a negative seed), at a row count no block size divides and
+    at widths past one block's span (5120 to 16384) or not a multiple
+    of 8 (1000, 60)."""
     g = torch.Generator(device=cuda_device).manual_seed(rows + n)
 
     def t(*shape, scale=1.0, dt=dtype):
@@ -314,14 +331,10 @@ def test_fused_block_kernels_match_plain(cuda_device, dtype, p, rows, n):
 
 
 def test_fused_block_kernels_refuse_what_they_do_not_take(cuda_device):
-    x = torch.zeros(8, 60, device=cuda_device)
-    b = torch.zeros(60, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fb.bias_gelu(x, b)
     x = torch.zeros(8, 8192, device=cuda_device)
     b = torch.zeros(8192, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 4096"):
-        fb.residual_add_layer_norm(x, b, x, b, b)
+    with pytest.raises(ValueError, match="at least 1"):
+        fb._launch_bias_gelu_fwd(x[:, :0], b[:0])
     with pytest.raises(ValueError, match="one dtype"):
         fb.bias_dropout_residual(x, b, x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="one dtype"):
@@ -725,15 +738,28 @@ def _packed_case(dev, seed=15):
 
 
 def _packed_opts():
-    from apex_tpu_torch.optimizers import FusedLAMB, FusedSGD
+    from apex_tpu_torch.optimizers import FusedLAMB, FusedNovoGrad, FusedSGD
 
     return {"lamb": lambda: FusedLAMB(lr=1e-3, packed=True),
             "sgd": lambda: FusedSGD(lr=0.1, momentum=0.9,
                                     weight_decay=1e-4, packed=True,
-                                    master_weights=True)}
+                                    master_weights=True),
+            "novograd": lambda: FusedNovoGrad(lr=1e-2, weight_decay=1e-3,
+                                              packed=True),
+            "novograd_inf": lambda: FusedNovoGrad(
+                lr=1e-2, norm_type=0, reg_inside_moment=True,
+                weight_decay=1e-3, packed=True)}
 
 
-@pytest.mark.parametrize("name", ["lamb", "sgd"])
+_PACKED_KERNELS = {
+    "lamb": ("packed_row_reduce", "packed_lamb_stage1",
+             "packed_scale_update"),
+    "sgd": ("packed_sgd",),
+    "novograd": ("packed_row_reduce", "packed_novograd"),
+    "novograd_inf": ("packed_row_reduce", "packed_novograd")}
+
+
+@pytest.mark.parametrize("name", ["lamb", "sgd", "novograd", "novograd_inf"])
 def test_packed_steps_on_card_match_cpu(cuda_device, name):
     """3 packed steps (the kernels) against the same steps on the CPU
     (the plain versions), on a 3-leaf tree."""
@@ -750,15 +776,13 @@ def test_packed_steps_on_card_match_cpu(cuda_device, name):
                          _device.launch_counts())
     (pc, cc), (pg, cg) = out["cpu"], out[str(cuda_device)]
     assert not any(cc.values())
-    kernels = (("packed_row_reduce", "packed_lamb_stage1",
-                "packed_scale_update") if name == "lamb" else ("packed_sgd",))
-    for k in kernels:
+    for k in _PACKED_KERNELS[name]:
         assert cg[k] == 3, cg
     for a, b in zip(pc, pg):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["lamb", "sgd"])
+@pytest.mark.parametrize("name", ["lamb", "sgd", "novograd", "novograd_inf"])
 def test_packed_step_makes_no_host_sync(cuda_device, name):
     """One packed step with an overflow flag and a grad scale on the
     device, after one warm-up step, under
@@ -798,3 +822,218 @@ def test_packed_lamb_is_deterministic(cuda_device):
     for a, b in zip(runs[0][0] + list(runs[0][1:]),
                     runs[1][0] + list(runs[1][1:])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 96, 128, 256])
+def test_flash_attention_head_dims_match_plain(cuda_device, dtype, d):
+    """Every instantiated head dim besides GPT-2's 64: forward and
+    backward, causal with a key-padding mask holding a fully masked
+    batch row, at a length that is not a whole number of tiles."""
+    from apex_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    assert d in KERNEL_HEAD_DIMS
+    rng = np.random.default_rng(d)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda_device, dtype)
+    q, k, v, do = (t(2, 4, 200, d) for _ in range(4))
+    kv_mask = torch.ones(2, 200, dtype=torch.bool, device=cuda_device)
+    kv_mask[0, 150:] = False
+    kv_mask[1] = False
+    kw = dict(causal=True, kv_mask=kv_mask)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+    grads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ro.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+    for got, want in zip((dq, dk, dv), grads):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(o[1], torch.zeros_like(o[1]))
+
+
+def test_flash_attention_refuses_other_head_dims(cuda_device):
+    from apex_tpu_torch.ops.flash_attention import flash_attention_available
+
+    assert flash_attention_available(1024, 1024, 128, cuda_device)
+    assert not flash_attention_available(1024, 1024, 80, cuda_device)
+    q = torch.zeros(1, 2, 16, 80, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("hidden,heads,dtype,kernels", [
+    (256, 2, torch.float32, ("flash_attn_fwd", "flash_attn_bwd")),
+    (160, 2, torch.bfloat16, ("softmax_fwd", "softmax_bwd"))],
+    ids=["head_dim_128_flash", "head_dim_80_softmax"])
+def test_step_at_other_head_dims_on_card_matches_cpu(cuda_device, hidden,
+                                                     heads, dtype, kernels):
+    """A 2-layer GPT with ``use_flash_attention=None`` at head dim 128
+    takes the flash kernels, at head dim 80 (no flash kernel) the fused
+    softmax kernels: loss and gradients on the card against the CPU."""
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig,
+        gpt_loss,
+        init_gpt_params,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(num_layers=2, hidden_size=hidden,
+                    num_attention_heads=heads, vocab_size=512,
+                    max_position_embeddings=128, hidden_dropout=0.0,
+                    attention_dropout=0.0, compute_dtype=dtype)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 128)))
+    labels = torch.roll(tokens, -1, dims=1)
+    _card_against_cpu(cuda_device, lambda p, d: gpt_loss(
+        cfg, p, tokens.to(d), labels.to(d)), params, kernels)
+
+
+FLAT_LENGTHS = [8 * 1024, 2 * 65536 + 1000 + 3]
+
+
+@pytest.mark.parametrize("n", FLAT_LENGTHS, ids=["rows", "ragged"])
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_scale_flat_kernel_matches_plain(cuda_device, n, x_dtype,
+                                         out_dtype):
+    """``multi_tensor_scale_flat`` with per-row flags: the output as the
+    plain version's (one rounding of the same product), the flags naming
+    exactly the rows where an inf, a nan or an overflow of the product
+    was planted, the found flag without per-row flags; all under
+    ``set_sync_debug_mode("error")``."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(n, generator=g, device=cuda_device).to(x_dtype)
+    rows = -(-n // 1024)
+    bad_rows = [0, rows // 2, rows - 1]
+    x[5] = float("inf")
+    x[(rows // 2) * 1024 + 17] = float("nan")
+    x[n - 1] = 3e38  # finite, but not times 4
+    scale = torch.tensor(4.0, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, found, row_bad = multi_tensor_scale_flat(
+            x, scale, out_dtype, per_row_flags=True)
+        out2, found2 = multi_tensor_scale_flat(x[:1024].clone(), 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, wfound, wrows = multi_tensor_scale_flat_reference(
+        x, scale, out_dtype, per_row_flags=True)
+    assert out.dtype == out_dtype and out.shape == (n,)
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(found) and bool(wfound)
+    assert torch.equal(row_bad, wrows)
+    assert torch.nonzero(row_bad).flatten().tolist() == bad_rows
+    assert bool(found2)
+    assert torch.equal(out2, multi_tensor_scale_flat_reference(
+        x[:1024], 0.5)[0])
+    clean, cfound = multi_tensor_scale_flat(x[1024:2048].clone(), scale)
+    assert not bool(cfound)
+
+
+@pytest.mark.parametrize("n", FLAT_LENGTHS, ids=["rows", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_axpby_flat_kernel_matches_plain(cuda_device, n, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    x = torch.randn(n, generator=g, device=cuda_device).to(dtype)
+    y = torch.randn(n, generator=g, device=cuda_device)
+    a = torch.tensor(0.25, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, found = multi_tensor_axpby_flat(a, 1.5, x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, wfound = multi_tensor_axpby_flat_reference(a, 1.5, x, y)
+    assert out.dtype == dtype and torch.equal(out, want)
+    assert not bool(found) and not bool(wfound)
+    y[n - 2] = float("inf")
+    out, found = multi_tensor_axpby_flat(a, 1.5, x, y, torch.float32)
+    assert bool(found) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rows", [8, 37])
+@pytest.mark.parametrize("case", ["l2", "wd_outside", "wd_inside", "bf16",
+                                  "noop"])
+def test_packed_novograd_kernel_matches_plain(cuda_device, case, rows):
+    n = rows * 1024
+    dev = cuda_device
+    grad = _flat(dev, rows, 1e-3, 30)
+    m0 = _flat(dev, rows, 1e-4, 31)
+    src0 = _flat(dev, rows, 0.02, 32)
+    denom = torch.rand(rows, device=dev) + 0.5
+    pdt = torch.bfloat16 if case == "bf16" else torch.float32
+    if case == "bf16":
+        grad = grad.to(torch.bfloat16)
+    kw = dict(param_dtype=pdt, lr=torch.tensor(1e-3, device=dev),
+              bc1=torch.tensor(0.05, device=dev),
+              inv_scale=torch.tensor(0.5, device=dev), beta1=0.95,
+              beta3=0.05,
+              wd=0.0 if case in ("l2", "bf16") else 1e-3,
+              reg_inside_moment=case == "wd_inside",
+              noop=torch.tensor(True, device=dev) if case == "noop"
+              else None)
+    m = m0.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p_out, _ = packed_novograd_apply(grad, m, src0, denom, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want_p, want_m = packed_novograd_reference(grad, m0, src0, denom, **kw)
+    assert p_out.shape == (n,)
+    if case == "noop":
+        assert torch.equal(m, m0) and torch.equal(p_out, src0)
+    else:
+        torch.testing.assert_close(m, want_m, **PACKED_F32)
+        torch.testing.assert_close(p_out.float(), want_p.float(),
+                                   **(PACKED_F32 if pdt == torch.float32
+                                      else TOL[torch.bfloat16]))
+
+
+def test_loss_scaled_clipped_packed_step_makes_no_host_sync(cuda_device):
+    """The flat gradient lifecycle under
+    ``set_sync_debug_mode("error")``: scale the loss, unscale the packed
+    gradients in one sweep, clip them in two, step packed FusedAdam with
+    the scaler's ``found_inf``, update the scale; then an inf in one
+    gradient skips the step bit for bit and halves the scale."""
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    params, grads = _packed_case(cuda_device)
+    opt = FusedAdam(lr=1e-3, packed=True, master_weights=True)
+    state = opt.init(params)
+    scaler = LossScaler("dynamic", init_scale=1024.0)
+    ss = scaler.init_state(cuda_device)
+
+    def step(params, state, ss, g):
+        flat = state.spec.pack(tree_map(lambda x: x * ss.loss_scale, g))
+        flat, ss = scaler.unscale_flat(ss, flat, out_dtype=torch.float32)
+        flat, _ = clip_grad_norm_flat(flat, 1.0)
+        params, state = opt.step(flat, state, params, found_inf=ss.found_inf)
+        return params, state, scaler.update_scale(ss)
+    params, state, ss = step(params, state, ss, grads[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, ss = step(params, state, ss, grads[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = [x.clone() for x in tree_leaves(params)]
+    masters = state.master_params.clone()
+    bad = tree_map(lambda x: x.clone(), grads[2])
+    bad["w"][3, 4] = float("inf")
+    params, state, ss2 = step(params, state, ss, bad)
+    assert int(state.step) == 2
+    assert torch.equal(state.master_params, masters)
+    for a, b in zip(before, tree_leaves(params)):
+        assert torch.equal(a, b)
+    assert float(ss2.loss_scale) == float(ss.loss_scale) / 2
+    assert int(ss2.consecutive_skips) == 1

@@ -172,3 +172,80 @@ def test_bias_and_varlen_are_refused():
                                  torch.tensor([0, 8]))
     with pytest.raises(ValueError, match="dropout_seed"):
         T.flash_attention(q, q, q, dropout_p=0.1)
+
+
+# ---------------------------------------------------------------------------
+# which attention path a model takes: flash where the device's kernels take
+# the head dim, the path without flash elsewhere (the JAX package's rule)
+# ---------------------------------------------------------------------------
+
+#: head dims that a GPT-2/BERT-style model runs: hidden / heads
+HEAD_DIMS = [16, 32, 64, 80, 96, 128, 160, 256]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_attention_available_per_head_dim(d):
+    on_card = T.flash_attention_available(1024, 1024, d,
+                                          torch.device("cuda"))
+    assert on_card == (d in (32, 64, 96, 128, 256))
+    assert T.flash_attention_available(1024, 1024, d, "cpu")
+    assert T.flash_attention_available(1000, 1000, d, None)
+
+
+def _route_spy(monkeypatch):
+    """Calls of each attention path in ``parallel_attention``, with the
+    availability rule of the CUDA kernels for the CPU run."""
+    from apex_tpu_torch.transformer.testing import (
+        standalone_transformer_lm as lm,
+    )
+
+    calls = {"flash": 0, "softmax": 0}
+    flash, soft = lm.flash_attention_sbhd, lm._softmax_attention
+
+    def spy_flash(*a, **kw):
+        calls["flash"] += 1
+        return flash(*a, **kw)
+
+    def spy_soft(*a, **kw):
+        calls["softmax"] += 1
+        return soft(*a, **kw)
+    monkeypatch.setattr(lm, "flash_attention_sbhd", spy_flash)
+    monkeypatch.setattr(lm, "_softmax_attention", spy_soft)
+    monkeypatch.setattr(
+        lm, "flash_attention_available",
+        lambda s_q, s_k, d, device: T.flash_attention_available(
+            s_q, s_k, d, torch.device("cuda")))
+    return calls
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("use_flash", [None, True, False])
+def test_model_takes_flash_only_at_a_head_dim_the_card_takes(
+        monkeypatch, d, use_flash):
+    """``use_flash_attention=None`` takes flash at an instantiated head dim
+    and the path without flash (the fused softmax) at any other; ``True``
+    at another head dim raises; ``False`` never takes flash."""
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig,
+        gpt_loss,
+        init_gpt_params,
+    )
+
+    calls = _route_spy(monkeypatch)
+    cfg = GPTConfig(num_layers=1, hidden_size=2 * d, num_attention_heads=2,
+                    vocab_size=64, max_position_embeddings=16,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    use_flash_attention=use_flash)
+    assert cfg.kv_channels == d
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.arange(32).reshape(2, 16) % 64
+    on_card = d in T.KERNEL_HEAD_DIMS
+    if use_flash and not on_card:
+        with pytest.raises(ValueError, match="head dim"):
+            gpt_loss(cfg, params, tokens, tokens)
+        return
+    loss = gpt_loss(cfg, params, tokens, tokens)
+    assert torch.isfinite(loss)
+    takes_flash = on_card and use_flash is not False
+    assert calls == {"flash": int(takes_flash),
+                     "softmax": int(not takes_flash)}

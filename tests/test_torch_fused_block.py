@@ -4,8 +4,10 @@ The same numpy-seeded inputs go through ``apex_tpu.ops.fused_block`` with
 ``interpret=True`` (the Pallas kernel bodies on the CPU, as
 ``tests/test_fused_block.py`` runs them) and through
 ``apex_tpu_torch.ops.fused_block`` (its plain versions on CPU tensors):
-each op's forward and backward, with and without hash dropout, the keep
-mask bit for bit, the argument errors; then a 2-layer GPT with
+each op's forward and backward, with and without hash dropout, at
+widths up to 5120 and at 1000 (not a multiple of 8: the kernels take any
+width), the keep mask bit for bit, the argument errors; then a 2-layer
+GPT with
 ``fused_block=True`` against JAX's, and the four recompute settings of
 the port against each other.
 
@@ -105,7 +107,8 @@ def test_keep_mask_equals_jax_bit_for_bit(seed, p):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,n", [(64, 128), (130, 256)])
+@pytest.mark.parametrize("rows,n", [(64, 128), (130, 256), (8, 1000),
+                                    (4, 5120)])
 def test_bias_gelu_matches_jax_kernel(dtype, rows, n):
     d = _data(rows, n, dtype, 1)
     jy, vjp = jax.vjp(lambda x, b: jfb.bias_gelu(x, b, interpret=True),
@@ -148,7 +151,8 @@ def test_bias_dropout_residual_matches_jax_kernel(dtype, p, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("p,seed", [(0.0, None)] + [(0.1, s) for s in SEEDS])
-@pytest.mark.parametrize("rows,n", [(64, 64), (130, 256)])
+@pytest.mark.parametrize("rows,n", [(64, 64), (130, 256), (8, 1000),
+                                    (4, 5120)])
 def test_residual_add_layer_norm_matches_jax_kernel(dtype, p, seed, rows, n):
     d = _data(rows, n, dtype, 3)
     kw = dict(eps=1e-5, dropout_p=p, seed=seed)
@@ -231,15 +235,17 @@ def test_fused_block_available_and_kernel_refusals():
     """What the kernels take; on CPU tensors every shape runs the plain
     version, so the refusals are checked on the kernel-argument check the
     wrappers run before any launch."""
-    assert tfb.fused_block_available(1024)
-    assert tfb.fused_block_available(4096)
-    assert not tfb.fused_block_available(1004)
-    assert not tfb.fused_block_available(8192)
+    # any width, as the JAX package's tails: wider than one block span
+    # (4096) and not a multiple of 8 included
+    for n in (1, 1000, 1004, 1024, 4096, 5120, 8192, 16384):
+        assert tfb.fused_block_available(n), n
+    assert not tfb.fused_block_available(0)
     x = torch.zeros(4, 64)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tfb._kernel_args("t", (torch.zeros(4, 60),), ())
-    with pytest.raises(ValueError, match="at most 4096"):
-        tfb._kernel_args("t", (torch.zeros(2, 8192),), (), layer_norm=True)
+    for n in (60, 1000, 8192):
+        rows, _ = tfb._kernel_args("t", (torch.zeros(2, n),), ())
+        assert rows[0].shape == (2, n)
+    with pytest.raises(ValueError, match="at least 1"):
+        tfb._kernel_args("t", (torch.zeros(2, 0),), ())
     with pytest.raises(ValueError, match="one dtype"):
         tfb._kernel_args("t", (x, x.to(torch.bfloat16)), ())
     with pytest.raises(ValueError, match="one dtype"):

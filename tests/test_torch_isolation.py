@@ -55,7 +55,10 @@ def test_port_imports_without_jax_or_apex_tpu():
     for name in ("ops.fused_block", "ops.multi_tensor",
                  "transformer.functional.fused_softmax",
                  "transformer.testing.standalone_bert",
-                 "optimizers.fused_lamb", "optimizers.fused_sgd"):
+                 "optimizers.fused_lamb", "optimizers.fused_sgd",
+                 "optimizers.fused_novograd", "optimizers.fused_adagrad",
+                 "amp.scaler", "contrib.clip_grad.clip_grad",
+                 "ops.packed_optimizer"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 

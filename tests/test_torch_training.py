@@ -416,3 +416,24 @@ def test_fused_dropout_is_seeded_and_survives_recompute(rg):
     assert float(l3) != float(l0)
     for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hidden,heads", [(256, 2), (160, 2)],
+                         ids=["head_dim_128", "head_dim_80"])
+def test_gpt_at_another_head_dim_matches_jax(hidden, heads):
+    """A 2-layer fp32 GPT at head dim 128 (a flash head dim of the card)
+    and 80 (none): the port's default attention path against JAX's
+    flash kernels in interpret mode, loss and every gradient."""
+    shape = dict(SHAPE, hidden_size=hidden, num_attention_heads=heads)
+    jcfg = JaxGPTConfig(**shape, use_flash_attention=True)
+    tcfg = GPTConfig(**shape)
+    assert tcfg.kv_channels == hidden // heads
+    jp = jax_init(jcfg, jax.random.PRNGKey(4))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 128, size=(2, 32)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    jl, jg = _jax_vg(jcfg, jp, tokens, labels)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tl, tg = _torch_vg(tcfg, tp, tokens, labels)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    _close_leaves(jg, tg, 1e-5)
