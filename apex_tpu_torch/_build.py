@@ -29,7 +29,7 @@ LIB_NAME = "libapex_tpu_torch_kernels.so"
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "fused_block.cu",
            "fused_softmax.cu", "layer_norm.cu", "packed_adam.cu",
            "packed_flat.cu", "packed_lamb.cu", "packed_novograd.cu",
-           "packed_sgd.cu")
+           "packed_row_stats.cu", "packed_sgd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -53,8 +53,13 @@ _ARGTYPES = {
     # rows -> number of [hidden] partial rows of the backward
     "apex_layer_norm_bwd_blocks": [_I],
     # dy, x, mu, rstd, w, dx, dw_part, db_part, dw, db, rows, hidden,
-    # dy_is_bf16, x_is_bf16, device, stream
-    "apex_layer_norm_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    # dy_is_bf16, x_is_bf16, x_is_xhat, device, stream
+    "apex_layer_norm_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    # x, w, y, rstd, rows, hidden, eps, x_is_bf16, device, stream
+    "apex_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
+    # dy, x, rstd, w, dx, dw_part, dw, rows, hidden, dy_is_bf16, x_is_bf16,
+    # x_is_xhat, device, stream
+    "apex_rms_norm_bwd": [_P] * 7 + [_I] * 6 + [_P],
     # q, k, v, kv_mask, o, lse, b, n, s_q, s_k, d, scale, causal, dropout,
     # seed, threshold, drop_scale, is_bf16, device, stream
     "apex_flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
@@ -88,6 +93,8 @@ _ARGTYPES = {
     "apex_packed_adam": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 6 + [_P],
     # x, out, inv_scale, rows, op_max, x_is_bf16, device, stream
     "apex_packed_row_reduce": [_P] * 3 + [_L] + [_I] * 3 + [_P],
+    # x, sq, ma, nf, inv_scale, n, x_is_bf16, device, stream
+    "apex_packed_row_stats": [_P] * 5 + [_L] + [_I] * 2 + [_P],
     # g, m, v, src, u, row_u, row_p, inv_scale, clip, bc1, bc2, noop, rows,
     # beta1, beta2, beta3, 1 - beta2, eps, wd, adam_w_mode, g_is_bf16,
     # device, stream

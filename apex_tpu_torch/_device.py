@@ -16,10 +16,12 @@ Every wrapper adds one to its entry in :data:`LAUNCHES` right where it
 launches its kernel, so a run can show that its main path went through
 the kernels (``chip_smoke.py`` zeroes the counts before the path and
 reads them after). The keys: ``flash_decode`` (serving),
-``layer_norm_fwd``/``_bwd``, ``flash_attn_fwd``/``_bwd``, the packed
+``layer_norm_fwd``/``_bwd``, ``rms_norm_fwd``/``_bwd``,
+``flash_attn_fwd``/``_bwd``, the packed
 optimizer sweeps ``packed_adam``, ``packed_sgd``, ``packed_row_reduce``,
 ``packed_lamb_stage1``, ``packed_scale_update`` and ``packed_novograd``,
-the flat utility sweeps ``scale_flat`` and ``axpby_flat``, the fused block
+the numerics monitor's row statistics ``packed_row_stats``, the flat
+utility sweeps ``scale_flat`` and ``axpby_flat``, the fused block
 tails
 ``bias_gelu_fwd``/``_bwd``, ``bias_dropout_residual_fwd``/``_bwd``,
 ``residual_ln_fwd``/``_bwd``, and the fused softmax ``softmax_fwd``
@@ -36,6 +38,7 @@ import torch
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
     "flash_decode": 0, "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+    "rms_norm_fwd": 0, "rms_norm_bwd": 0, "packed_row_stats": 0,
     "flash_attn_fwd": 0, "flash_attn_bwd": 0, "packed_adam": 0,
     "packed_sgd": 0, "packed_row_reduce": 0, "packed_lamb_stage1": 0,
     "packed_scale_update": 0, "packed_novograd": 0, "scale_flat": 0,

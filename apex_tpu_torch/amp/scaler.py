@@ -12,8 +12,12 @@ the state on the host (checkpointing).
 The flat-buffer methods run on kernels: :meth:`LossScaler.unscale_flat`
 is one ``multi_tensor_scale_flat`` sweep with per-row flags (the flat
 gradient lifecycle's one upcast), :meth:`LossScaler.found_inf_flat` one
-fused non-finite reduction. The ``numerics=`` and ``metrics=`` hooks of
-the JAX package belong to the telemetry slice and raise here.
+fused non-finite reduction. With ``numerics=`` (a ``(NumericsMonitor,
+NumericsState)`` pair of ``apex_tpu_torch.telemetry.numerics``) the
+unscales hand their per-leaf or per-row non-finite flags to the monitor
+(overflow provenance at no extra sweep), and :meth:`LossScaler.update_scale`
+folds the update into a ``metrics=`` or ``numerics=`` state, as the JAX
+package's scaler does.
 """
 from __future__ import annotations
 
@@ -32,12 +36,6 @@ from ..ops.packed_optimizer import multi_tensor_scale_flat
 Tree = Any
 
 _FP32_MAX = torch.finfo(torch.float32).max
-
-
-def _telemetry(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"LossScaler {name}= feeds the telemetry package, which is not "
-        f"ported yet (ROADMAP.md, queue A3: telemetry core)")
 
 
 class LossScaleState(NamedTuple):
@@ -99,28 +97,40 @@ class LossScaler:
         return loss * state.loss_scale.to(loss.dtype)
 
     def unscale(self, state: LossScaleState, grads: Tree, out_dtype=None,
-                numerics=None) -> Tuple[Tree, LossScaleState]:
+                numerics=None):
         """Gradients times 1 / scale, recording an overflow
-        (``multi_tensor_scale``). Returns ``(grads, state)``."""
-        if numerics is not None:
-            raise _telemetry("unscale(numerics")
-        out, found = multi_tensor_scale(grads, 1.0 / state.loss_scale,
-                                        out_dtype=out_dtype)
-        return out, state._replace(found_inf=state.found_inf | found)
+        (``multi_tensor_scale``). Returns ``(grads, state)``; with
+        ``numerics=(monitor, nstate)`` the per-leaf non-finite flags of
+        the same sweep go to ``monitor.observe`` and the result is
+        ``(grads, state, nstate)``."""
+        inv = 1.0 / state.loss_scale
+        if numerics is None:
+            out, found = multi_tensor_scale(grads, inv, out_dtype=out_dtype)
+            return out, state._replace(found_inf=state.found_inf | found)
+        monitor, nstate = numerics
+        out, found, leaf_flags = multi_tensor_scale(
+            grads, inv, out_dtype=out_dtype, per_tensor=True)
+        nstate = monitor.observe(nstate, leaf_nonfinite=leaf_flags)
+        return out, state._replace(found_inf=state.found_inf | found), nstate
 
     def unscale_flat(self, state: LossScaleState, flat_grads: torch.Tensor,
-                     out_dtype=None, numerics=None
-                     ) -> Tuple[torch.Tensor, LossScaleState]:
+                     out_dtype=None, numerics=None):
         """Unscale a packed flat gradient buffer in one
         ``multi_tensor_scale_flat(per_row_flags=True)`` sweep, recording
         an overflow; ``out_dtype=torch.float32`` makes this sweep the
-        gradients' one upcast. Returns ``(flat, state)``."""
-        if numerics is not None:
-            raise _telemetry("unscale_flat(numerics")
-        out, found, _ = multi_tensor_scale_flat(
+        gradients' one upcast. Returns ``(flat, state)``; with
+        ``numerics=(monitor, nstate)`` (the monitor built from the
+        buffer's ``PackSpec``) the sweep's per-row flags become per-leaf
+        provenance and the result is ``(flat, state, nstate)``."""
+        out, found, row_bad = multi_tensor_scale_flat(
             flat_grads, 1.0 / state.loss_scale, out_dtype,
             per_row_flags=True)
-        return out, state._replace(found_inf=state.found_inf | found)
+        new_state = state._replace(found_inf=state.found_inf | found)
+        if numerics is None:
+            return out, new_state
+        monitor, nstate = numerics
+        return out, new_state, monitor.observe(nstate,
+                                               row_nonfinite=row_bad)
 
     def found_inf_flat(self, state: LossScaleState,
                        flat_grads) -> LossScaleState:
@@ -149,15 +159,36 @@ class LossScaler:
         return out, state._replace(found_inf=state.found_inf | found)
 
     def update_scale(self, state: LossScaleState, metrics=None,
-                     numerics=None) -> LossScaleState:
+                     numerics=None):
         """The end-of-step scale adjustment (``apex/amp/scaler.py:197-216``):
         consumes ``found_inf`` and clears it. Static mode only clears the
-        flag and counts the skips."""
+        flag and counts the skips.
+
+        With ``metrics=`` (a telemetry ``MetricsState``) the update is
+        folded into its cumulative skip and growth counters; with
+        ``numerics=`` (a ``NumericsState``) the consumed flag, the old and
+        new scales and the skip run feed the anomaly rules. Device
+        arithmetic either way. Returns ``new_state`` alone, or
+        ``(new_state, metrics)``, ``(new_state, numerics)``, ``(new_state,
+        metrics, numerics)`` matching what was passed."""
+        new_state = self._update_scale(state)
+        out = (new_state,)
         if metrics is not None:
-            raise _telemetry("update_scale(metrics")
+            from ..telemetry.metrics import observe_scale_update
+
+            out += (observe_scale_update(metrics, state.found_inf,
+                                         state.loss_scale,
+                                         new_state.loss_scale),)
         if numerics is not None:
-            raise _telemetry("update_scale(numerics")
-        return self._update_scale(state)
+            from ..telemetry.numerics import (
+                observe_scale_update as numerics_scale_update,
+            )
+
+            out += (numerics_scale_update(
+                numerics, state.found_inf, state.loss_scale,
+                new_state.loss_scale,
+                consecutive_skips=new_state.consecutive_skips),)
+        return out if len(out) > 1 else new_state
 
     def _update_scale(self, state: LossScaleState) -> LossScaleState:
         found = state.found_inf

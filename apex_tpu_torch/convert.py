@@ -17,7 +17,9 @@ with the momentum buffer alone, NovoGrad's with its per-leaf second
 moment — so that both optimizers can start from the same non-zero
 state. ``novograd_state_from_jax`` does the same for the pytree
 ``FusedNovoGradState`` and ``loss_scale_state_from_jax`` for the loss
-scaler's ``LossScaleState``: a test can start both packages mid-run.
+scaler's ``LossScaleState``, ``numerics_state_from_jax`` and
+``metrics_state_from_jax`` for the telemetry states: a test can start
+both packages mid-run.
 """
 from __future__ import annotations
 
@@ -107,3 +109,40 @@ def loss_scale_state_from_jax(state: Mapping[str, Any], device="cpu"):
         hysteresis=t("hysteresis", torch.int32),
         found_inf=t("found_inf", torch.bool),
         consecutive_skips=t("consecutive_skips", torch.int32))
+
+
+def _tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(a))).to(device, dtype)
+
+
+def numerics_state_from_jax(state: Mapping[str, Any], device="cpu"):
+    """A JAX ``NumericsState`` (its fields as numpy arrays under their
+    names) as the port's ``NumericsState`` on ``device``: the per-leaf
+    statistics, the EWMA, a latched ``first_bad_step``; ``step`` becomes
+    the host integer the port keeps."""
+    from .telemetry.numerics import NumericsState
+
+    kinds = {"ewma_steps": torch.int32, "first_bad_step": torch.int32,
+             "consecutive_skips": torch.int32,
+             "prev_consecutive_skips": torch.int32,
+             "overflow": torch.bool, "spike": torch.bool}
+    fields = {name: _tensor(state[name], kinds.get(name, torch.float32),
+                            device)
+              for name in NumericsState._fields if name != "step"}
+    return NumericsState(step=int(np.asarray(state["step"])), **fields)
+
+
+def metrics_state_from_jax(state: Mapping[str, Any], device="cpu"):
+    """A JAX ``MetricsState`` (fields as numpy scalars) as the port's
+    ``MetricsState``: the two step counters as host integers, the rest
+    0-dim tensors on ``device``."""
+    from .telemetry.metrics import MetricsState
+
+    ints = ("overflow_skips", "scale_growths")
+    fields = {name: _tensor(state[name], torch.int32 if name in ints
+                            else torch.float32, device)
+              for name in MetricsState._fields
+              if name not in ("total_steps", "window_steps", "last_drain_t")}
+    return MetricsState(total_steps=int(np.asarray(state["total_steps"])),
+                        window_steps=int(np.asarray(state["window_steps"])),
+                        **fields)

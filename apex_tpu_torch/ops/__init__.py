@@ -14,4 +14,7 @@ from .layer_norm import (  # noqa: F401
     layer_norm,
     layer_norm_fwd,
     layer_norm_reference,
+    rms_norm,
+    rms_norm_fwd,
+    rms_norm_reference,
 )

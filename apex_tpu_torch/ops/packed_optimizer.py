@@ -23,6 +23,10 @@ Each sweep reads every buffer once and writes every output once:
   non-finite flags per row or for the whole buffer
   (``csrc/packed_flat.cu``): the loss scaler's unscale and the clip's
   scale.
+- :func:`packed_row_stats` — per row, the sum of squares, the largest
+  magnitude and the count of non-finite elements of ``x * inv_scale`` in
+  one read (``csrc/packed_row_stats.cu``): the numerics monitor's
+  observation of a flat gradient buffer.
 
 Each kernel replaces the TPU kernel of the function of the same name;
 ``*_reference`` is its plain version, written op by op in the order of
@@ -37,9 +41,6 @@ the device (``lr``, bias corrections, ``inv_scale``, ``clip``,
 the card, so a step never waits on the host to pass it. With ``noop``
 set, a sweep leaves its state buffers as they were and its parameter
 output is the recast source.
-
-The row statistics sweep (``packed_row_stats``, the numerics monitor's)
-is not ported yet (ROADMAP.md, queue B).
 """
 from __future__ import annotations
 
@@ -536,6 +537,44 @@ def _flat_dtype(kernel: str, dtype: torch.dtype) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel} kernel takes f32/bf16 buffers, got "
                         f"{dtype}")
+
+
+def packed_row_stats_reference(flat, *, inv_scale=1.0):
+    """Plain version of :func:`packed_row_stats`, the JAX module's XLA
+    fallback (zero padding to whole rows adds nothing to any of the
+    three)."""
+    padded, _ = _pad_to_rows(flat)
+    x = padded.reshape(-1, ROW).float() * _scalar(inv_scale, flat.device)
+    return ((x * x).sum(dim=1), x.abs().amax(dim=1),
+            (~torch.isfinite(x)).sum(dim=1, dtype=torch.float32))
+
+
+def packed_row_stats(flat: torch.Tensor, *, inv_scale=1.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(row_sq, row_maxabs, row_nonfinite)`` of ``flat * inv_scale`` in
+    ONE sweep over a 1-D buffer of any length: per ROW (the last one cut
+    at the buffer's end) the sum of squares, the largest magnitude and the
+    exact count of non-finite elements, each fp32 ``(rows,)`` — the
+    numerics monitor's observation pass. The reductions are raw: a
+    non-finite element makes its row's sum and max nan or inf. A segmented
+    sum or max over a ``PackSpec``'s row-aligned leaves turns the rows into
+    per-tensor statistics. ``inv_scale`` is read on the device."""
+    if not _device.kernel_route(flat):
+        return packed_row_stats_reference(flat, inv_scale=inv_scale)
+    _flat_dtype("packed_row_stats", flat.dtype)
+    dev = flat.device
+    n = flat.numel()
+    flat = flat.contiguous()
+    _check_flat("packed_row_stats", n, io=(flat,))
+    out = torch.empty((3, -(-n // ROW)), dtype=torch.float32, device=dev)
+    inv = _scalar(inv_scale, dev)
+    rc = _build.kernels().apex_packed_row_stats(
+        flat.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), inv.data_ptr(), n, _is_bf16(flat), dev.index,
+        _build.current_stream(dev))
+    _build.check(rc, "packed_row_stats")
+    _device.LAUNCHES["packed_row_stats"] += 1
+    return out[0], out[1], out[2]
 
 
 def multi_tensor_scale_flat_reference(flat, scale, out_dtype=None, *,

@@ -40,6 +40,7 @@ from ._common import (
     tree_zeros_like,
 )
 from ._packed import PackedState, as_flat_grads, packed_init, packed_src
+from ..telemetry.numerics import tap_flat
 
 Tree = Any
 
@@ -131,9 +132,11 @@ class FusedAdam:
         new_step = state.step + 1
         bc1, bc2 = self._bias_corrections(new_step)
         flat_g = as_flat_grads(grads, spec)
-        # the JAX package taps flat_g here for the numerics activation
-        # watch (telemetry.numerics.tap_flat), an identity unless a watch
-        # is active; it comes with the telemetry slice (ROADMAP.md, A5)
+        # the activation-watch tap on the flat gradients: identity unless
+        # a numerics.activation_watch is active, then one row-stats sweep
+        # names non-finite leaves through the spec's row-aligned offsets
+        flat_g = tap_flat("apex_tpu.packed_adam/grads", flat_g, spec=spec,
+                          inv_scale=inv_scale)
         p_out, _, _, _ = packed_adam_apply(
             flat_g, state.exp_avg, state.exp_avg_sq,
             packed_src(state, params, self.master_weights),

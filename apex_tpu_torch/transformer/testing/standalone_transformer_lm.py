@@ -69,7 +69,8 @@ from ...ops.fused_block import (
     bias_gelu,
     residual_add_layer_norm,
 )
-from ...ops.layer_norm import LAYER_NORM_FWD, layer_norm
+from ...ops.layer_norm import LAYER_NORM_FWD, RMS_NORM_FWD, layer_norm
+from ...telemetry.numerics import tap
 from ..enums import AttnMaskType
 from ..functional.fused_softmax import FusedScaleMaskSoftmax
 
@@ -428,13 +429,16 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     attn = parallel_attention(cfg, lp, ln1, attention_mask, s_attn,
                               deterministic, layer_number,
                               fuse_tail=cfg.fused_block)
+    attn = tap("apex_tpu.transformer_layer/attn", attn, layer=layer_number)
     if cfg.fused_block:
         p = 0.0 if deterministic or s_res1 is None else cfg.hidden_dropout
         hidden, ln2 = residual_add_layer_norm(
             attn, lp["proj_b"].to(dt), hidden, lp["post_ln_w"],
             lp["post_ln_b"], eps=eps, dropout_p=p,
             seed=_hash_dropout_seed(s_res1, p))
-        mlp_out = parallel_mlp(cfg, lp, ln2, fuse_tail=True)
+        mlp_out = tap("apex_tpu.transformer_layer/mlp",
+                      parallel_mlp(cfg, lp, ln2, fuse_tail=True),
+                      layer=layer_number)
         p = 0.0 if deterministic or s_res2 is None else cfg.hidden_dropout
         return bias_dropout_residual(
             mlp_out, lp["fc2_b"].to(dt), hidden, dropout_p=p,
@@ -442,7 +446,8 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     hidden = (hidden + _dropout(attn, cfg.hidden_dropout, s_res1,
                                 deterministic)).to(dt)
     ln2 = ln_fp32(hidden, lp["post_ln_w"], lp["post_ln_b"], eps).to(dt)
-    mlp_out = parallel_mlp(cfg, lp, ln2)
+    mlp_out = tap("apex_tpu.transformer_layer/mlp",
+                  parallel_mlp(cfg, lp, ln2), layer=layer_number)
     return (hidden + _dropout(mlp_out, cfg.hidden_dropout, s_res2,
                               deterministic)).to(dt)
 
@@ -456,14 +461,15 @@ def _hash_dropout_seed(seed: Optional[int], p: float) -> Optional[int]:
 
 #: forward ops whose outputs "selective" recompute keeps, besides the
 #: weight GEMMs: flash attention's (o, lse), from which its backward
-#: recomputes the scores, and the LayerNorm's O(s)-size outputs (the JAX
-#: policy's flash and norm kernels; RMSNorm is not ported). Not a blanket
+#: recomputes the scores, and the norms' O(s)-size outputs (the JAX
+#: policy's flash, LayerNorm and RMSNorm kernels). Not a blanket
 #: match: replaying the cheap elementwise work is the point. The fused
 #: softmax forwards (SOFTMAX_FWD, SOFTMAX_MASKED_FWD) are deliberately
 #: absent, as in the JAX policy: they emit the [b, n, s, s] probabilities,
 #: the activation selective recompute exists not to keep, so the backward
 #: replays them.
-_SELECTIVE_SAVEABLE_OPS = frozenset({FLASH_ATTN_FWD, LAYER_NORM_FWD})
+_SELECTIVE_SAVEABLE_OPS = frozenset({FLASH_ATTN_FWD, LAYER_NORM_FWD,
+                                     RMS_NORM_FWD})
 
 #: "selective_elementwise" also keeps the fused tails' forward outputs, so
 #: the backward replays only the unfused remainder (casts, copies)

@@ -27,7 +27,13 @@ any failure exits non-zero and prints no result line:
    bf16, per-row flags naming planted inf, nan and overflow rows, a
    ragged length) and axpby over the 345M buffer; packed NovoGrad over
    BERT-large's buffer with L2 and inf-norm denominators, decay inside
-   and outside the moment, and noop);
+   and outside the moment, and noop; the LayerNorm forward and backward
+   at hidden 32768 and 65536; the RMSNorm forward and backward at the
+   345M's rows [8192, 1024] in fp32 and bf16, affine and not, at [4096,
+   4096] and [2048, 8192] bf16, widths 1000 and 32768, and its
+   memory-efficient backward; the numerics monitor's row statistics over
+   the 345M buffer in bf16 and fp32 and at a ragged length, with inf and
+   nan planted in known rows);
    times of kernel, plain version, one PyTorch library call as
    yardstick, and the least time the card could take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
@@ -49,6 +55,15 @@ any failure exits non-zero and prints no result line:
    each, launches per step asserted exactly, loss falling, peak memory,
    a profiled step; then one step of the loss-scaled leg with an inf in
    a gradient, which must be skipped bit for bit and halve the scale;
+   then two monitored legs (2 + 4 steps): the headline step with the
+   numerics monitor over the gradient tree (``bench.py``'s
+   ``numerics_overhead`` leg, its p50 logged against the headline's), and
+   the loss-scaled leg with the monitor over the packed gradients
+   (``packed_row_stats``), the scaler's ``metrics=``/``numerics=`` hooks
+   and both drains into a JSONL file: one step under
+   ``set_sync_debug_mode("error")``, then an inf in one leaf's gradient,
+   which must be skipped and yield exactly one ``nonfinite_grads`` record
+   naming that leaf;
 6. the BERT-large step with FusedLAMB (``bench.py``'s
    ``bench_bert_lamb``: 24 x 1024 x 16, vocab 30592, seq 512, batch 16,
    bf16 over fp32 params), with a padding mask: pytree LAMB under
@@ -56,8 +71,12 @@ any failure exits non-zero and prints no result line:
    flash, then without recompute or flash, with pytree and with packed
    LAMB and with packed NovoGrad (2 + 5 steps each), checked as the GPT
    legs, and the optimizer's step alone timed in each;
-7. training parity, card (kernels) against CPU (plain versions), on
-   2-layer full-width models: fp32 unfused and fused under
+7. ``FusedRMSNorm`` and ``MixedFusedRMSNorm`` on ``[8, 1024, 4096]`` bf16
+   with and without ``memory_efficient``, and ``FusedLayerNorm(32768)``,
+   forward and backward; a 2-layer full-width GPT under
+   ``activation_watch`` (the layers' taps, packed Adam's ``tap_flat``, a
+   planted inf named alike); training parity, card (kernels) against CPU
+   (plain versions), on 2-layer full-width models: fp32 unfused and fused under
    ``selective_elementwise`` (3 packed-Adam steps), bf16 GPT without
    flash (3 packed-Adam steps), bf16 BERT without flash under a
    padding mask (3 pytree LAMB steps), fp32 GPT with packed SGD, and
@@ -68,9 +87,11 @@ any failure exits non-zero and prints no result line:
    GPTs at head dim 128 (flash) and 80 (no flash kernel: the fused
    softmax) with the default attention choice, and 1-layer fused-block
    GPTs at hidden 5120 and 8192 (loss and gradients);
-8. a ``{"kernels": [...]}`` line (22 kernels; every one launched on a
+8. a ``{"kernels": [...]}`` line (25 kernels; every one launched on a
    main path except ``axpby_flat``, which no path of the JAX package
-   calls), the card line, and last ``{"ok": true, "device": {...}}``.
+   calls, and the RMSNorm pair, which no model of it runs: their
+   launches are the norm modules' of phase 7), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero when no CUDA device is present.
 """
@@ -80,18 +101,24 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from apex_tpu_torch import _build, _device
+from apex_tpu_torch import _build, _device, telemetry
 from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
 from apex_tpu_torch.amp import LossScaler
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
+from apex_tpu_torch.normalization import (
+    FusedLayerNorm,
+    FusedRMSNorm,
+    MixedFusedRMSNorm,
+)
 from apex_tpu_torch.ops import fused_block as fb
 from apex_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
@@ -104,10 +131,16 @@ from apex_tpu_torch.ops.flash_decode import (
     paged_decode_reference,
 )
 from apex_tpu_torch.ops.layer_norm import (
+    layer_norm,
     layer_norm_bwd,
     layer_norm_bwd_reference,
     layer_norm_fwd,
     layer_norm_reference,
+    rms_norm,
+    rms_norm_bwd,
+    rms_norm_bwd_reference,
+    rms_norm_fwd,
+    rms_norm_reference,
 )
 from apex_tpu_torch.ops.packed_optimizer import (
     multi_tensor_axpby_flat,
@@ -122,6 +155,8 @@ from apex_tpu_torch.ops.packed_optimizer import (
     packed_novograd_reference,
     packed_row_reduce,
     packed_row_reduce_reference,
+    packed_row_stats,
+    packed_row_stats_reference,
     packed_scale_update,
     packed_scale_update_reference,
     packed_sgd_apply,
@@ -142,6 +177,7 @@ from apex_tpu_torch.serving import (
     ServingEngine,
     reference_decode,
 )
+from apex_tpu_torch.telemetry.numerics import NumericsMonitor
 from apex_tpu_torch.transformer.functional import fused_softmax as fs
 from apex_tpu_torch.transformer.testing import (
     GPTConfig,
@@ -502,7 +538,7 @@ def layer_norm_bwd_checks(dev):
             def run():
                 return layer_norm_bwd(dy, x, mu, rstd, w)
             ms = time_ms(run)
-            dev_ms = device_ms(run, "ln_bwd_")
+            dev_ms = device_ms(run, "norm_bwd_")
             plain_ms = time_ms(
                 lambda: layer_norm_bwd_reference(dy, x, mu, rstd, w),
                 iters=20)
@@ -522,6 +558,206 @@ def layer_norm_bwd_checks(dev):
             "source": "apex_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_tpu/ops/layer_norm.py:210",
             "max_abs_err": max(errs), **timing}
+
+
+def layer_norm_width_checks(dev):
+    """The LayerNorm forward and backward at rows wider than a block's
+    shared memory holds (hidden 32768 and 65536: the backward keeps its
+    column partials in device memory), against their plain versions with
+    fp32 x, fp32 and bf16 dy. Returns the largest forward and backward
+    errors."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    fwd, bwd = [], []
+    for hidden, rows, dy_dt in ((32768, 256, torch.bfloat16),
+                                (65536, 128, torch.float32)):
+        x = torch.randn(rows, hidden, generator=g, device=dev) * 3 + 1
+        w = torch.randn(hidden, generator=g, device=dev)
+        b = torch.randn(hidden, generator=g, device=dev)
+        dy = torch.randn(rows, hidden, generator=g, device=dev).to(dy_dt)
+        y, mu, rstd = layer_norm_fwd(x, w, b, eps=1e-5)
+        ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+        fwd.append(max(check_close(f"layer_norm y hidden {hidden}", y, ry,
+                                   torch.float32),
+                       check_close("layer_norm rstd", rstd, rrstd,
+                                   torch.float32)))
+        dx, dw, db = layer_norm_bwd(dy, x, mu, rstd, w)
+        rdx, rdw, rdb = layer_norm_bwd_reference(dy, x, mu, rstd, w)
+        bwd.append(max(check_close(f"layer_norm_bwd dx hidden {hidden}", dx,
+                                   rdx, dy_dt),
+                       check_close("layer_norm_bwd dgamma", dw, rdw, None,
+                                   SUM_TOL),
+                       check_close("layer_norm_bwd dbeta", db, rdb, None,
+                                   SUM_TOL)))
+        t = time_ms(lambda: layer_norm_bwd(dy, x, mu, rstd, w), iters=10)
+        log(f"  layer_norm [{rows},{hidden}] fwd/bwd (dy {dy_dt}): max abs "
+            f"err {fwd[-1]:.3e} / {bwd[-1]:.3e}; backward {t:.4f} ms")
+    return max(fwd), max(bwd)
+
+
+#: the memory-efficient backward (x-hat rebuilt in fp32 from y) against
+#: the plain backward given the same fp32 x-hat, norm-relative: dx within
+#: one rounding of its dtype (1e-5 fp32, 2^-8 bf16); the fp32 parameter
+#: gradients, column sums in another order, within 1e-5. An x-hat rounded
+#: to bf16 moves each product dy * x-hat by up to a bf16 half-ulp (2^-9),
+#: ~2e-3 of dgamma's norm: that planted fault must fail the 1e-5 limit
+XHAT_DX_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+XHAT_PARAM_TOL = 1e-5
+#: the memory-efficient backward against the plain one (which keeps x):
+#: x-hat from y carries y's rounding, an fp32 or a bf16 ulp of y an
+#: element over |w| >= 0.5; norm-relative
+ME_PLAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _rel(a, c):
+    return float((a.float() - c.float()).norm() / c.float().norm())
+
+
+def memory_efficient_checks(dev, g):
+    """Both norms' ``memory_efficient`` backward through the autograd
+    Functions at [8192, 1024] fp32 and bf16 (the kernels on the card):
+    against the plain backward given the fp32 x-hat rebuilt here from the
+    forward's y (``XHAT_*_TOL``), with an x-hat rounded to
+    bf16 planted to show the limit catches it, and against the plain
+    backward that keeps x (``ME_PLAIN_TOL``)."""
+    x0 = torch.randn(8, 1024, 1024, generator=g, device=dev)
+    w0 = torch.rand(1024, generator=g, device=dev) + 0.5
+    w0[3] = -0.75
+    b0 = torch.randn(1024, generator=g, device=dev)
+    dy0 = torch.randn(8, 1024, 1024, generator=g, device=dev)
+    for norm, dt in ((n, d) for n in ("layer_norm", "rms_norm")
+                     for d in (torch.float32, torch.bfloat16)):
+        x2, dy = x0.to(dt).reshape(-1, 1024), dy0.to(dt)
+        if norm == "layer_norm":
+            y, mu, rstd = layer_norm_fwd(x2, w0, b0)
+            xhat = (y.float() - b0) / w0  # |w0| >= 0.5: no clamp
+
+            def ref(xh):
+                return layer_norm_bwd_reference(dy.reshape(-1, 1024), xh, mu,
+                                                rstd, w0, x_is_xhat=True)
+        else:
+            y, rstd = rms_norm_fwd(x2, w0)
+            xhat = y.float() / w0
+
+            def ref(xh):
+                return rms_norm_bwd_reference(dy.reshape(-1, 1024), xh, rstd,
+                                              w0, x_is_xhat=True)
+        grads = []
+        for me in (True, False):
+            x = x0.to(dt, copy=True).requires_grad_(True)
+            w, b = (t.clone().requires_grad_(True) for t in (w0, b0))
+            if norm == "layer_norm":
+                layer_norm(x, w, b, memory_efficient=me).backward(dy)
+                grads.append((x.grad, w.grad, b.grad))
+            else:
+                rms_norm(x, w, memory_efficient=me).backward(dy)
+                grads.append((x.grad, w.grad))
+        want = ref(xhat)
+        bad = ref(xhat.to(torch.bfloat16).float())
+        dx_rel = _rel(grads[0][0].reshape(-1, 1024), want[0])
+        p_rel = max(_rel(a, c) for a, c in zip(grads[0][1:], want[1:]))
+        planted = max(_rel(a, c) for a, c in zip(bad[1:], want[1:]))
+        plain = max(_rel(a, c) for a, c in zip(*grads))
+        name = f"{norm} memory_efficient {str(dt)[6:]}"
+        if dx_rel > XHAT_DX_TOL[dt] or p_rel > XHAT_PARAM_TOL:
+            raise AssertionError(f"{name}: dx {dx_rel:.3e}, parameter "
+                                 f"gradients {p_rel:.3e} of their norm from "
+                                 f"the plain backward on the same x-hat")
+        if planted <= XHAT_PARAM_TOL:
+            raise AssertionError(f"{name}: an x-hat rounded to bf16 "
+                                 f"({planted:.3e}) passes the check")
+        if plain > ME_PLAIN_TOL[dt]:
+            raise AssertionError(f"{name}: gradients {plain:.3e} of their "
+                                 f"norm from the plain backward's")
+        log(f"  {name} [8192,1024]: against the same fp32 x-hat dx "
+            f"{dx_rel:.3e} (limit {XHAT_DX_TOL[dt]:.1e}), parameter "
+            f"gradients {p_rel:.3e} (limit {XHAT_PARAM_TOL:.0e}); x-hat "
+            f"rounded to bf16 {planted:.3e}; against the plain backward "
+            f"{plain:.3e} (limit {ME_PLAIN_TOL[dt]:.0e}), of their norms")
+
+
+def rms_norm_checks(dev):
+    """The RMSNorm forward (#4) and backward (#5) against their plain
+    versions: the 345M's rows [8192, 1024] in fp32 and bf16, affine and
+    not; the widths of RMSNorm's users, [4096, 4096] and [2048, 8192] in
+    bf16; an unaligned width (1000) and a wide one (32768, column partials
+    in device memory); the memory-efficient backward of both norms
+    (:func:`memory_efficient_checks`). Then each
+    timed at [8192, 1024] with its bound, the plain version and the
+    library call (``F.rms_norm``; for the backward ``F.rms_norm``'s
+    forward and autograd backward together)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    errs = {"rms_norm_fwd": [], "rms_norm_bwd": []}
+    for rows, hidden, dt, affine in (
+            (8192, 1024, torch.float32, True),
+            (8192, 1024, torch.bfloat16, True),
+            (8192, 1024, torch.float32, False),
+            (8192, 1024, torch.bfloat16, False),
+            (4096, 4096, torch.bfloat16, True),
+            (2048, 8192, torch.bfloat16, True),
+            (1000, 1000, torch.float32, True),
+            (64, 32768, torch.bfloat16, True)):
+        x = (torch.randn(rows, hidden, generator=g, device=dev) * 2
+             + 0.5).to(dt)
+        w = (torch.randn(hidden, generator=g, device=dev) if affine
+             else torch.ones(hidden, device=dev))
+        dy = torch.randn(rows, hidden, generator=g, device=dev).to(dt)
+        y, rstd = rms_norm_fwd(x, w)
+        ry, rrstd = rms_norm_reference(x, w, 1e-5)
+        errs["rms_norm_fwd"].append(max(
+            check_close(f"rms_norm y [{rows},{hidden}] {dt}", y, ry, dt),
+            check_close("rms_norm rstd", rstd, rrstd, torch.float32)))
+        dx, dw = rms_norm_bwd(dy, x, rstd, w)
+        rdx, rdw = rms_norm_bwd_reference(dy, x, rstd, w)
+        errs["rms_norm_bwd"].append(max(
+            check_close(f"rms_norm_bwd dx [{rows},{hidden}] {dt}", dx, rdx,
+                        dt),
+            check_close("rms_norm_bwd dgamma", dw, rdw, None, SUM_TOL)))
+        log(f"  rms_norm [{rows},{hidden}] {str(dt)[6:]} "
+            f"{'affine' if affine else 'non-affine'}: max abs err "
+            f"{errs['rms_norm_fwd'][-1]:.3e} / {errs['rms_norm_bwd'][-1]:.3e}")
+    memory_efficient_checks(dev, g)
+    rows, hidden = 8192, 1024
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(rows, hidden, generator=g, device=dev).to(dt)
+        w = torch.randn(hidden, generator=g, device=dev)
+        dy = torch.randn(rows, hidden, generator=g, device=dev).to(dt)
+        _, rstd = rms_norm_fwd(x, w)
+        es = x.element_size()
+        xl = x.clone().requires_grad_(True)
+        wl = w.to(dt).requires_grad_(True)
+
+        def lib_pair():
+            yl = F.rms_norm(xl, (hidden,), wl, 1e-5)
+            return torch.autograd.grad(yl, (xl, wl), dy)
+        fwd = _kernel_timing(
+            lambda: rms_norm_fwd(x, w), lambda: rms_norm_reference(x, w,
+                                                                   1e-5),
+            lambda: F.rms_norm(x, (hidden,), w.to(dt), 1e-5),
+            "rms_fwd_kernel", 2 * x.numel() * es + hidden * 4 + rows * 4,
+            4 * x.numel())
+        bwd = _kernel_timing(
+            lambda: rms_norm_bwd(dy, x, rstd, w),
+            lambda: rms_norm_bwd_reference(dy, x, rstd, w), lib_pair,
+            "norm_bwd_", 3 * x.numel() * es + rows * 4 + 2 * hidden * 4,
+            10 * x.numel())
+        for name, t in (("rms_norm_fwd", fwd), ("rms_norm_bwd", bwd)):
+            log(f"  {name} [{rows},{hidden}] {str(dt)[6:]}: kernel "
+                f"{t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
+                f"{t['plain_ms']:.4f} ms, F.rms_norm"
+                f"{'' if name == 'rms_norm_fwd' else ' fwd+bwd'} "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})")
+        if dt == torch.bfloat16:
+            out = [{"name": "rms_norm_fwd", "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/layer_norm.cu",
+                    "replaces": "apex_tpu/ops/layer_norm.py:240",
+                    "max_abs_err": max(errs["rms_norm_fwd"]), **fwd},
+                   {"name": "rms_norm_bwd", "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/layer_norm.cu",
+                    "replaces": "apex_tpu/ops/layer_norm.py:261",
+                    "max_abs_err": max(errs["rms_norm_bwd"]), **bwd}]
+    return out
 
 
 def _attn_case(g, dev, b, n, s_q, s_k, d, dtype):
@@ -835,9 +1071,10 @@ def fused_block_checks(dev):
 
 
 def _fused_timing(dev, g, R: int = 8192):
-    """Call, device, plain and (for the LayerNorm tail) library times of
-    the six kernels at the bf16 headline shapes (``R`` rows), each beside
-    its byte bound: every input read once, every output written once."""
+    """Call, device, plain and (for the GeLU and the LayerNorm tails,
+    partial) library times of the six kernels at the bf16 headline shapes
+    (``R`` rows), each beside its byte bound: every input read once, every
+    output written once."""
     H, F4, bf = HIDDEN, 4 * HIDDEN, torch.bfloat16
     e = 2  # bf16 bytes
 
@@ -860,8 +1097,11 @@ def _fused_timing(dev, g, R: int = 8192):
         s_, _, mu, rstd = stn()
         return ds, dy, s_, mu, rstd, w1, None, 0.0
 
-    # a partial yardstick for the LayerNorm tail: F.layer_norm of a sum
-    # added beforehand (the add and the dropout are not timed)
+    # partial yardsticks: the GeLU of a biased input and its backward
+    # without the bias gradient's column sum (the bias added beforehand);
+    # F.layer_norm of a sum added beforehand for the LayerNorm tail (the
+    # add and the dropout are not timed)
+    biased = _rotating([(x + b4, dy) for x, dy in [ge() for _ in range(2)]])
     sums = _rotating([x + r for x, r, _, _ in [hs() for _ in range(4)]])
     xl = (hs()[0] + hs()[1]).requires_grad_(True)
     wl, bl = (v.clone().requires_grad_(True) for v in (w1, lb1))
@@ -870,11 +1110,15 @@ def _fused_timing(dev, g, R: int = 8192):
     table = [
         ("bias_gelu_fwd", lambda: fb._bias_gelu_fwd_impl(ge()[0], b4),
          lambda: fb.bias_gelu_reference(ge()[0], b4),
-         "bias_gelu_fwd_kernel", None, 2 * R * F4 * e + F4 * e,
+         "bias_gelu_fwd_kernel",
+         lambda: F.gelu(biased()[0], approximate="tanh"),
+         2 * R * F4 * e + F4 * e,
          20 * R * F4, "ops/fused_block.py:193"),
         ("bias_gelu_bwd", lambda: fb._bias_gelu_bwd(*ge()[::-1], b4),
          lambda: fb.bias_gelu_bwd_reference(*ge()[::-1], b4),
-         ("bias_gelu_bwd_kernel", "col_sum_kernel"), None,
+         ("bias_gelu_bwd_kernel", "col_sum_kernel"),
+         lambda: torch.ops.aten.gelu_backward(*biased()[::-1],
+                                              approximate="tanh"),
          3 * R * F4 * e + F4 * e + F4 * 4, 30 * R * F4,
          "ops/fused_block.py:212"),
         ("bias_dropout_residual_fwd",
@@ -1557,6 +1801,78 @@ def packed_flat_checks(dev):
     return out
 
 
+def packed_row_stats_checks(dev):
+    """``packed_row_stats`` (#23) over a flat buffer of the 345M
+    PackSpec's size: bf16 with ``inv_scale`` a device scalar (the
+    monitored leg's observation of the packed gradients), fp32, and a
+    length that is not a whole number of rows; an inf, a nan and a -inf
+    planted in three known rows, where the counts must be exact (0
+    elsewhere) and the sums and maxima inf or nan. The maxima and counts
+    are held bit for bit, the sums (another order of the same fp32 adds)
+    rtol ``ROW_SUM_TOL``. Then timed, with its bound and one partial
+    library call (``torch.linalg.vector_norm`` of the rows, as for
+    #22)."""
+    spec = PackSpec(gpt345m_param_shapes())
+    n, rows = spec.total, spec.n_rows
+    g = torch.Generator(device=dev).manual_seed(23)
+    x32 = torch.randn(n, generator=g, device=dev) * 30
+    inv = torch.tensor(1.0 / 1024, device=dev)
+    planted = {7: float("inf"), rows // 2: float("nan"),
+               rows - 1: float("-inf")}
+    err = 0.0
+    for name, x in (("bf16 (the path)", x32.to(torch.bfloat16)),
+                    ("fp32", x32),
+                    ("ragged length, bf16", x32[:n - 1000 - 3].to(
+                        torch.bfloat16))):
+        x = x.clone()
+        r = -(-x.numel() // 1024)
+        bad = {row if row < r else r - 1: v for row, v in planted.items()}
+        for row, v in bad.items():
+            x[row * 1024 + 3] = v
+        sq, ma, nf = packed_row_stats(x, inv_scale=inv)
+        wsq, wma, wnf = packed_row_stats_reference(x, inv_scale=inv)
+        want_nf = torch.zeros(r, device=dev)
+        want_nf[list(bad)] = 1.0
+        if not (torch.equal(nf, want_nf) and torch.equal(wnf, want_nf)):
+            raise AssertionError(f"packed_row_stats {name}: counts at "
+                                 f"{torch.nonzero(nf).flatten().tolist()}, "
+                                 f"planted {sorted(bad)}")
+        for row, v in bad.items():
+            kind = torch.isnan if v != v else torch.isinf
+            if not (bool(kind(sq[row])) and bool(kind(ma[row]))):
+                raise AssertionError(f"packed_row_stats {name}: row {row} "
+                                     f"sum {float(sq[row])} max "
+                                     f"{float(ma[row])}")
+        if not torch.equal(ma.nan_to_num(), wma.nan_to_num()):
+            raise AssertionError(f"packed_row_stats {name}: maxima differ")
+        ok = torch.isfinite(wsq)
+        err = max(err, check_close(f"packed_row_stats {name} sums", sq[ok],
+                                   wsq[ok], None, ROW_SUM_TOL))
+        log(f"  packed_row_stats {name} over {x.numel()} elements: counts "
+            f"exact at rows {sorted(bad)}, nan/inf there; sums max abs err "
+            f"{err:.3e}")
+        del x, sq, ma, nf, wsq, wma, wnf
+    xb = x32.to(torch.bfloat16)
+    t = _kernel_timing(
+        lambda: packed_row_stats(xb, inv_scale=inv),
+        lambda: packed_row_stats_reference(xb, inv_scale=inv),
+        lambda: torch.linalg.vector_norm(xb.view(rows, 1024), dim=1,
+                                         dtype=torch.float32),
+        "row_stats_kernel", 2 * n + 12 * rows, 4 * n)
+    f32 = time_ms(lambda: packed_row_stats(x32, inv_scale=inv), iters=20)
+    f32_bound = bound(4 * n + 12 * rows, 4 * n)[0]
+    log(f"  packed_row_stats 345M flat buffer ({n} elements, bf16): kernel "
+        f"{t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
+        f"{t['plain_ms']:.4f} ms, vector_norm of the rows (partial) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}); fp32: kernel {f32:.4f} ms, bound "
+        f"{f32_bound:.4f} ms")
+    return {"name": "packed_row_stats", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/packed_row_stats.cu",
+            "replaces": "apex_tpu/ops/packed_optimizer.py:654",
+            "max_abs_err": err, **t}
+
+
 #: NovoGrad's lr on the BERT-large leg and in its parity runs. apex's
 #: default, 1e-3, moves each layer by lr times its unit-norm gradient
 #: direction, a step too small to show in 7 steps of a bf16 loss; at 1e-2
@@ -1847,9 +2163,14 @@ def packed_sgd():
 #: unscale and the clip's scale (#24, twice) and the clip's norm (#22)
 SCALED_LAUNCHES = {**UNFUSED_LAUNCHES, "scale_flat": 2,
                    "packed_row_reduce": 1}
+#: ... with the numerics monitor's observation of the packed gradients
+#: (#23); the headline step's monitor observes the gradient tree in plain
+#: PyTorch, so that leg launches HEADLINE_LAUNCHES
+MONITORED_LAUNCHES = {**SCALED_LAUNCHES, "packed_row_stats": 1}
 
 
-def scaled_step_fn(loss_fn, opt, scaler, poison=None, max_norm=1.0):
+def scaled_step_fn(loss_fn, opt, scaler, poison=None, max_norm=1.0,
+                   monitor=None):
     """The JAX package's flat gradient lifecycle (``bench.py:1750-1900``)
     with Megatron's GPT-2 recipe, dynamic loss scaling and ``--clip-grad
     1.0``: the scaled loss's gradients, packed in their dtype, unscaled
@@ -1858,36 +2179,55 @@ def scaled_step_fn(loss_fn, opt, scaler, poison=None, max_norm=1.0):
     then the packed optimizer on the flat buffer with the scaler's
     ``found_inf`` and the scale's update. The state is ``(optimizer
     state, scaler state)``; the loss returned is the unscaled one. While
-    ``poison["on"]``, one gradient element is set to inf before the
-    packing."""
+    ``poison["on"]``, one gradient element (of the first leaf) is set to
+    inf before the packing.
+
+    ``monitor=(NumericsMonitor over the optimizer's spec, sink, tokens)``
+    adds the telemetry of ``bench.py``'s numerics leg: the monitor observes
+    the packed gradients (``packed_row_stats``, ``inv_scale`` 1 / scale),
+    ``update_scale`` feeds the metrics and numerics states, the metrics
+    window takes the loss and the tokens and drains every 2 steps, and the
+    numerics state drains every step; the state is then ``(optimizer
+    state, scaler state, metrics state, numerics state)``."""
     def step(params, state):
-        ostate, ss = state
+        ostate, ss = state[:2]
         loss, grads = value_and_grad(
             lambda p: scaler.scale_loss(ss, loss_fn(p)), params)
         if poison is not None and poison["on"]:
             tree_leaves(grads)[0].view(-1)[0] = float("inf")
-        flat, ss = scaler.unscale_flat(ss, ostate.spec.pack(grads),
-                                       out_dtype=torch.float32)
+        flat = ostate.spec.pack(grads)
+        if monitor is not None:
+            mon, sink, tokens = monitor
+            ns = mon.observe(state[3], flat_grads=flat,
+                             inv_scale=1.0 / ss.loss_scale)
+        flat, ss = scaler.unscale_flat(ss, flat, out_dtype=torch.float32)
         flat, _ = clip_grad_norm_flat(flat, max_norm)
         params, ostate = opt.step(flat, ostate, params,
                                   found_inf=ss.found_inf)
-        return params, (ostate, scaler.update_scale(ss)), \
-            loss / ss.loss_scale
+        loss = loss / ss.loss_scale
+        if monitor is None:
+            return params, (ostate, scaler.update_scale(ss)), loss
+        ss, m, ns = scaler.update_scale(ss, metrics=state[2], numerics=ns)
+        m = telemetry.drain(telemetry.accumulate(m, loss=loss,
+                                                 tokens=tokens),
+                            sink, every_n=2)
+        return params, (ostate, ss, m, mon.drain(ns, sink)), loss
     return step
 
 
 def check_overflow_skip(step, params, state, poison, label):
     """One step with an inf in a gradient: the step is skipped (params and
     fp32 masters bit for bit, the step count kept), the scale halves and
-    the run of skips is 1."""
-    ostate, ss = state
+    the run of skips is 1. Returns the step's params and state."""
+    ostate, ss = state[:2]
     before = [p.clone() for p in tree_leaves(params)]
     masters, count = ostate.master_params.clone(), int(ostate.step)
     scale = float(ss.loss_scale)
     poison["on"] = True
-    params, (ostate, ss2), _ = step(params, state)
+    params, state, _ = step(params, state)
     poison["on"] = False
     torch.cuda.synchronize()
+    ostate, ss2 = state[:2]
     if not (torch.equal(ostate.master_params, masters)
             and all(torch.equal(a, b)
                     for a, b in zip(before, tree_leaves(params)))):
@@ -1903,6 +2243,7 @@ def check_overflow_skip(step, params, state, poison, label):
     log(f"  {label}: an inf in one gradient skipped the step bit for bit, "
         f"scale {scale:g} -> {float(ss2.loss_scale):g}, consecutive skips "
         f"1")
+    return params, state
 
 
 def drive_leg(label: str, expected: dict, timed: int, step, params, state,
@@ -1955,15 +2296,80 @@ def drive_leg(label: str, expected: dict, timed: int, step, params, state,
             **out}
 
 
+def numerics_step_fn(loss_fn, opt, mon, sink):
+    """``bench.py``'s numerics leg (``bench_gpt(numerics=True)``): the
+    step with the numerics monitor observing every step's gradient tree
+    (per-leaf sums of squares and maxima, plain PyTorch as they are XLA in
+    the JAX package) and the numerics drain. The state is ``(optimizer
+    state, numerics state)``."""
+    def step(params, state):
+        ostate, ns = state
+        loss, grads = value_and_grad(loss_fn, params)
+        ns = mon.observe(ns, grads=grads)
+        params, ostate = opt.step(grads, ostate, params)
+        return params, (ostate, mon.drain(ns, sink)), loss
+    return step
+
+
+def check_monitored_run(step, params, state, poison, label, path, sink):
+    """The monitored loss-scaled leg after its timed steps: one step under
+    ``set_sync_debug_mode("error")`` (the monitor and both drains add no
+    host sync), one step with an inf in the first leaf's gradient (skipped
+    bit for bit, the scale halved), one healthy step; then after
+    ``telemetry.flush()`` the JSONL must hold exactly one anomaly, a
+    ``nonfinite_grads`` naming that leaf alone with the poisoned step as
+    ``first_bad_step``, and metrics records with finite losses and the
+    window's tokens."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, _ = step(params, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"  {label}: a monitored step under set_sync_debug_mode('error') "
+        f"made no host sync")
+    bad_step = state[3].step + 1
+    leaf = PackSpec(params).leaf_names()[0]
+    params, state = check_overflow_skip(step, params, state, poison, label)
+    params, state, _ = step(params, state)
+    healthy = state[3].step - 1
+    telemetry.flush()
+    sink.close()
+    records = telemetry.read_jsonl(path)
+    anomalies = [r for r in records if r.get("event") == "anomaly"]
+    metrics = [r for r in records if r.get("event") == "metrics"]
+    if [(a["kind"], a["step"], a["first_bad_step"]) for a in anomalies] \
+            != [("nonfinite_grads", bad_step, bad_step)]:
+        raise AssertionError(f"{label}: anomalies {anomalies}, expected one "
+                             f"nonfinite_grads at step {bad_step}")
+    named = [entry["name"] for entry in anomalies[0]["leaves"]]
+    if named != [leaf]:
+        raise AssertionError(f"{label}: the anomaly names {named}, the inf "
+                             f"was in {leaf}")
+    if not metrics or not all(
+            np.isfinite(r["loss"]) and r["tokens"] == 2 * 8192
+            and r["step"] % 2 == 0 for r in metrics):
+        raise AssertionError(f"{label}: metrics records {metrics}")
+    log(f"  {label}: after flush() the JSONL holds one nonfinite_grads "
+        f"anomaly naming {leaf} at step {bad_step}, none for the "
+        f"{healthy} healthy steps around it, and "
+        f"{len(metrics)} metrics records (losses "
+        f"{[round(r['loss'], 4) for r in metrics]}, 16384 tokens each, "
+        f"overflow skips {metrics[-1]['overflow_skips']})")
+
+
 def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
-              scaled: bool = False, **cfg_kw):
+              scaled: bool = False, numerics: bool = False, **cfg_kw):
     """GPT-2 345M at full width and depth, seq 1024, batch 8, bf16
     compute over bf16 params with fp32 masters (O2), packed
     FusedAdam(lr=1e-4) or ``make_opt()``, random weights (seed 0) and
     tokens (seed 1), the same batch every step (:func:`drive_leg`).
     ``scaled``: the loss-scaled, clipped step (:func:`scaled_step_fn`,
     ``LossScaler("dynamic")``), then the overflow check
-    (:func:`check_overflow_skip`)."""
+    (:func:`check_overflow_skip`). ``numerics``: with ``scaled`` the
+    monitored flat lifecycle (``scaled_step_fn(monitor=...)``, then
+    :func:`check_monitored_run`), else ``bench.py``'s numerics leg
+    (:func:`numerics_step_fn`); records go to a JSONL file."""
     cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=50304,
                     max_position_embeddings=1024, hidden_dropout=0.0,
@@ -1980,16 +2386,38 @@ def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
     labels = torch.roll(tokens, -1, dims=1)
     loss_fn = functools.partial(gpt_loss, cfg, tokens=tokens, labels=labels)
     state = opt.init(params)
-    if scaled:
-        scaler, poison = LossScaler("dynamic"), {"on": False}
-        step = scaled_step_fn(loss_fn, opt, scaler, poison)
-        state = (state, scaler.init_state(dev))
-    else:
-        step = train_step_fn(loss_fn, opt)
-    leg = drive_leg(label, expected, timed, step, params, state,
-                    tokens.numel())
-    if scaled:
-        check_overflow_skip(step, leg["params"], leg["state"], poison, label)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/run.jsonl"
+        sink = telemetry.JsonlRecorder(path) if numerics else None
+        if scaled:
+            scaler, poison = LossScaler("dynamic"), {"on": False}
+            monitor = None
+            state = (state, scaler.init_state(dev))
+            if numerics:
+                mon = NumericsMonitor(spec=state[0].spec, tag="gpt_numerics")
+                monitor = (mon, sink, tokens.numel())
+                state += (telemetry.init_metrics(dev), mon.init(dev))
+            step = scaled_step_fn(loss_fn, opt, scaler, poison,
+                                  monitor=monitor)
+        elif numerics:
+            mon = NumericsMonitor(params, tag="gpt_numerics")
+            step = numerics_step_fn(loss_fn, opt, mon, sink)
+            state = (state, mon.init(dev))
+        else:
+            step = train_step_fn(loss_fn, opt)
+        leg = drive_leg(label, expected, timed, step, params, state,
+                        tokens.numel())
+        if scaled and numerics:
+            check_monitored_run(step, leg["params"], leg["state"], poison,
+                                label, path, sink)
+        elif scaled:
+            check_overflow_skip(step, leg["params"], leg["state"], poison,
+                                label)
+        elif numerics:
+            telemetry.flush()
+            sink.close()
+            if telemetry.read_jsonl(path):
+                raise AssertionError(f"{label}: healthy steps wrote records")
     del leg["params"], leg["state"]
     return leg
 
@@ -2026,9 +2454,22 @@ def train_345m(dev):
              SGD_LAUNCHES, 6, dict(ce_save_logits=True,
                                    make_opt=packed_sgd)),
             ("scaled", "345M unfused, no remat, loss-scaled, clipped",
-             SCALED_LAUNCHES, 6, dict(ce_save_logits=True, scaled=True))):
+             SCALED_LAUNCHES, 6, dict(ce_save_logits=True, scaled=True)),
+            ("numerics", "345M headline, numerics monitor",
+             HEADLINE_LAUNCHES, 4,
+             dict(fused_block=True, numerics=True,
+                  recompute_granularity="selective_elementwise")),
+            ("monitored", "345M unfused, loss-scaled, clipped, monitored",
+             MONITORED_LAUNCHES, 4, dict(ce_save_logits=True, scaled=True,
+                                         numerics=True))):
         legs[key] = train_leg(dev, label, expected, timed, **kw)
         torch.cuda.empty_cache()
+    log(f"  numerics monitor overhead on the headline step (p50, this "
+        f"call): {legs['numerics']['p50']:.2f} against "
+        f"{legs['headline']['p50']:.2f} ms, "
+        f"{(legs['numerics']['p50'] / legs['headline']['p50'] - 1) * 100:+.2f}"
+        f" %; the monitored loss-scaled leg {legs['monitored']['p50']:.2f} "
+        f"against {legs['scaled']['p50']:.2f} ms")
     log("  legs: " + "; ".join(
         f"{k} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms peak "
         f"{v['peak']:.2f} GiB" for k, v in legs.items()))
@@ -2442,6 +2883,128 @@ def fused_width_parity(dev):
         del out, cpu_params
 
 
+def watch_parity(dev):
+    """A 2-layer full-width fp32 GPT under ``activation_watch``, card
+    against CPU from the same params: the loss and gradients, then a
+    packed-Adam step whose flat gradients pass ``tap_flat`` (#23 on the
+    card). The per-layer ``attn`` and ``mlp`` records agree within
+    ``PARITY_TOL``'s fp32 gradient limit (maxima and norms), counts
+    exactly; then an inf planted in one leaf's gradient: the tap names
+    that leaf, and the same one, on both."""
+    cfg = parity_cfg(50304)
+    rng = np.random.default_rng(12)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (PARITY_BATCH, PARITY_SEQ)))
+    labels = torch.roll(tokens, -1, dims=1)
+    cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(12))
+    tol = PARITY_TOL[torch.float32][1]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        state = opt.init(params)
+        ring = telemetry.RingBufferRecorder()
+        _device.reset_launch_counts()
+        with telemetry.numerics.activation_watch(ring):
+            _, grads = value_and_grad(lambda p: gpt_loss(
+                cfg, p, tokens.to(d), labels.to(d)), params)
+            tree_leaves(grads)[3].view(-1)[17] = float("inf")
+            opt.step(grads, state, params)
+        telemetry.flush()
+        runs[where] = (list(ring.records), _device.launch_counts())
+    (crec, ccount), (grec, gcount) = runs["cpu"], runs["cuda"]
+    if any(ccount.values()) or gcount["packed_row_stats"] != 1:
+        raise AssertionError(f"watch launches: card {gcount}, cpu {ccount}")
+    if [(r["name"], r.get("layer")) for r in crec] != [
+            (r["name"], r.get("layer")) for r in grec] or len(crec) != 5:
+        raise AssertionError(f"tap records differ: {crec} vs {grec}")
+    worst = 0.0
+    for c, g in zip(crec[:4], grec[:4]):
+        if c["nonfinite"] != g["nonfinite"]:
+            raise AssertionError(f"tap {c['name']}: counts differ")
+        for k in ("maxabs", "norm"):
+            worst = max(worst, abs(g[k] - c[k]) / abs(c[k]))
+    if worst > tol:
+        raise AssertionError(f"tap statistics {worst:.3e} apart")
+    leaf = PackSpec(cpu_params).leaf_names()[3]
+    named = [[entry["name"] for entry in r["leaves"]] for r in (crec[4],
+                                                                 grec[4])]
+    if named != [[leaf], [leaf]]:
+        raise AssertionError(f"tap_flat names {named}, the inf was in "
+                             f"{leaf}")
+    log(f"  activation watch, 2-layer full-width GPT fp32: 4 layer taps "
+        f"within {worst:.2e} (maxima, norms), counts equal; packed Adam's "
+        f"tap_flat (packed_row_stats x{gcount['packed_row_stats']}) names "
+        f"{leaf} on both")
+
+
+#: the norm modules, card against CPU: bf16 outputs and dx within one
+#: bf16 rounding (TOL); the fp32 weight gradients, column sums over 8192
+#: rows of the same products in another order, within 1e-4 of their norm
+NORM_GRAD_TOL = 1e-4
+
+
+def norm_module_parity(dev):
+    """``FusedRMSNorm`` and ``MixedFusedRMSNorm`` on ``[8, 1024, 4096]``
+    bf16 (random fp32 weights), forward and backward, with and without
+    ``memory_efficient``, and ``FusedLayerNorm(32768)`` fp32 on ``[2, 64,
+    32768]`` forward and backward: the card (the kernels) against the CPU
+    (the plain versions). Returns the launch counts of the card runs
+    (the RMSNorm kernels' launches in the kernels line)."""
+    g = torch.Generator().manual_seed(13)
+    cases = []
+    for cls in (FusedRMSNorm, MixedFusedRMSNorm):
+        for me in (False, True):
+            cases.append((f"{cls.__name__}(4096, memory_efficient={me})",
+                          lambda d, cls=cls, me=me: cls(
+                              4096, memory_efficient=me, device=d),
+                          (8, 1024, 4096), torch.bfloat16))
+    cases.append(("FusedLayerNorm(32768)",
+                  lambda d: FusedLayerNorm(32768, device=d),
+                  (2, 64, 32768), torch.float32))
+    total = {k: 0 for k in _device.LAUNCHES}
+    for label, make, shape, dt in cases:
+        x0 = (torch.randn(*shape, generator=g) * 2 + 0.5).to(dt)
+        dy = torch.randn(*shape, generator=g).to(dt)
+        mod0 = make("cpu")
+        with torch.no_grad():
+            for p in mod0.parameters():
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+        out = []
+        for d in (torch.device("cpu"), dev):
+            # no device named: the modules build on the card by default
+            mod = make(d if d.type == "cpu" else None)
+            if {p.device for p in mod.parameters()} != {d}:
+                raise AssertionError(f"{label}: parameters not on {d}")
+            mod.load_state_dict(mod0.state_dict())
+            x = x0.to(d, copy=True).requires_grad_(True)
+            _device.reset_launch_counts()
+            y = mod(x)
+            y.backward(dy.to(d))
+            out.append((y.detach().cpu(), x.grad.cpu(),
+                        [p.grad.cpu() for p in mod.parameters()],
+                        _device.launch_counts()))
+        (yc, dxc, pc, cc), (yg, dxg, pg, cg) = out
+        kernels = (("rms_norm_fwd", "rms_norm_bwd") if "RMS" in label
+                   else ("layer_norm_fwd", "layer_norm_bwd"))
+        if any(cc.values()) or any(cg[k] != 1 for k in kernels):
+            raise AssertionError(f"{label}: launches card {cg}, cpu {cc}")
+        err = max(check_close(f"{label} y", yg, yc, dt),
+                  check_close(f"{label} dx", dxg, dxc, dt))
+        rel = max(float((a - b).norm() / b.norm()) for a, b in zip(pg, pc))
+        if rel > NORM_GRAD_TOL:
+            raise AssertionError(f"{label}: weight gradients {rel:.3e} of "
+                                 f"their norm apart")
+        for k, v in cg.items():
+            total[k] += v
+        log(f"  {label} on {list(shape)} {str(dt)[6:]}: card against cpu y, "
+            f"dx max abs err {err:.3e}, weight gradients {rel:.2e} of their "
+            f"norm")
+        del x0, dy, out
+    return total
+
+
 #: packed against pytree LAMB on the card: the two compute u, m and v
 #: with the same rounded operations and differ only in the order of the
 #: trust ratios' sums (~1e-6 of a ratio), so each leaf's 3-step update
@@ -2511,26 +3074,33 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    (fd, ln, ln_bwd, (fa_fwd, fa_bwd), head_dim_errs, adam, fused, softmax,
-     lamb, sgd, flat, novograd) = phase(
+    (fd, ln, ln_bwd, ln_wide_errs, rms, (fa_fwd, fa_bwd), head_dim_errs,
+     adam, fused, softmax, lamb, sgd, flat, row_stats, novograd) = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
-                 layer_norm_bwd_checks(dev), flash_attention_checks(dev),
+                 layer_norm_bwd_checks(dev), layer_norm_width_checks(dev),
+                 rms_norm_checks(dev), flash_attention_checks(dev),
                  flash_head_dim_checks(dev), packed_adam_checks(dev),
                  fused_block_checks(dev), fused_softmax_checks(dev),
                  packed_lamb_checks(dev), packed_sgd_checks(dev),
-                 packed_flat_checks(dev), packed_novograd_checks(dev)))
+                 packed_flat_checks(dev), packed_row_stats_checks(dev),
+                 packed_novograd_checks(dev)))
     fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], head_dim_errs[0])
     fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], head_dim_errs[1])
+    ln["max_abs_err"] = max(ln["max_abs_err"], ln_wide_errs[0])
+    ln_bwd["max_abs_err"] = max(ln_bwd["max_abs_err"], ln_wide_errs[1])
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")
     train = phase("phase 5: GPT-2 345M bf16 train step: headline, unfused, "
-                  "fused, non-flash, packed-SGD and loss-scaled clipped "
-                  "legs", train_345m, dev)
+                  "fused, non-flash, packed-SGD, loss-scaled clipped and "
+                  "two monitored legs", train_345m, dev)
     bert = phase("phase 6: BERT-large bf16: non-flash and flash legs with "
                  "FusedLAMB, then pytree and packed LAMB and packed "
                  "NovoGrad without recompute", train_bert_large, dev)
+    norms = phase("phase 7: the norm modules and the activation watch, card "
+                  "against CPU", lambda: (norm_module_parity(dev),
+                                          watch_parity(dev)))[0]
     phase("phase 7: training parity, card against CPU",
           lambda: (gpt_parity(dev, "unfused", TRAIN_KERNELS[:4]),
                    gpt_parity(dev, "fused, selective_elementwise",
@@ -2598,19 +3168,25 @@ def main() -> int:
                               hidden_size=1280,
                               compute_dtype=torch.bfloat16)))
     fd["launches"] = serving["flash_decode"]
-    # launches on the main paths: the serving run, the six GPT legs and
+    # launches on the main paths: the serving run, the eight GPT legs and
     # the five BERT legs
     ln["launches"] = (serving["layer_norm_fwd"] + train["layer_norm_fwd"]
                       + bert["layer_norm_fwd"])
-    kernels = (fd, ln, ln_bwd, fa_fwd, fa_bwd, adam, *fused, *softmax,
-               *lamb, sgd, *flat, novograd)
+    kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
+               *softmax, *lamb, sgd, *flat, row_stats, novograd)
     for kr in kernels[2:]:
         kr["launches"] = train.get(kr["name"], 0) + bert.get(kr["name"], 0)
+    # no model of the JAX package normalises with RMSNorm: its kernels'
+    # launches are those of the norm-module parity runs of phase 7
+    for kr in rms:
+        kr["launches"] = norms[kr["name"]]
     # multi_tensor_axpby_flat has no caller in the JAX package outside its
-    # own module and tests, so no main path launches it: it is checked and
-    # timed in phase 2 only
+    # own module and tests, and no model of it normalises with RMSNorm, so
+    # no main path launches these three: axpby_flat is checked and timed in
+    # phase 2 only, the RMSNorm kernels also through the modules (phase 7)
+    exempt = ("axpby_flat", "rms_norm_fwd", "rms_norm_bwd")
     idle = [kr["name"] for kr in kernels
-            if kr["launches"] <= 0 and kr["name"] != "axpby_flat"]
+            if kr["launches"] <= 0 and kr["name"] not in exempt]
     if idle:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{idle}")

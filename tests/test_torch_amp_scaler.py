@@ -9,7 +9,8 @@ field of every state is compared. Then ``unscale`` (trees, with an
 interpret mode and on its XLA route), ``found_inf_flat`` at scales above
 and below 1, ``unscale_with_stashed``, the ``state_dict`` round trip, a
 state carried from JAX (``convert.loss_scale_state_from_jax``), the
-refused telemetry hooks, and the ops of ``ops/multi_tensor.py``
+telemetry hooks (``numerics=``, ``metrics=``), and the ops of
+``ops/multi_tensor.py``
 (``has_inf_or_nan``, ``multi_tensor_scale`` per tensor,
 ``multi_tensor_axpby``, ``multi_tensor_unscale_l2norm``,
 ``update_scale_hysteresis``).
@@ -221,16 +222,50 @@ def test_scaler_continues_from_a_jax_state():
 
 
 def test_telemetry_hooks_are_refused():
-    scaler = LossScaler()
-    state = scaler.init_state("cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        scaler.unscale(state, {"w": torch.ones(2)}, numerics=(None, None))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        scaler.unscale_flat(state, torch.ones(2), numerics=(None, None))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        scaler.update_scale(state, metrics=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        scaler.update_scale(state, numerics=object())
+    """The telemetry hooks once raised here; they are ported now. The name
+    stays: it checks the hooks end to end against the JAX scaler's — the
+    tuples ``update_scale`` returns for ``metrics=`` and ``numerics=``, and
+    ``unscale`` / ``unscale_flat`` handing their non-finite flags to the
+    monitor (field by field, exactly)."""
+    from apex_tpu import telemetry as jtel
+    from apex_tpu.multi_tensor_apply.packing import PackSpec as JaxPackSpec
+    from apex_tpu.telemetry import numerics as jnum
+    from apex_tpu_torch import telemetry as ttel
+    from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
+    from apex_tpu_torch.telemetry import numerics as tnum
+
+    g = {"a": np.ones((3, 4), np.float32), "b": np.ones((1030,), np.float32)}
+    g["b"][1027] = np.inf
+    jsc, tsc = JaxLossScaler("dynamic", init_scale=8.0), LossScaler(
+        "dynamic", init_scale=8.0)
+    jg = {k: jnp.asarray(v) for k, v in g.items()}
+    tg = {k: torch.from_numpy(v) for k, v in g.items()}
+    jmon, tmon = (jnum.NumericsMonitor(spec=JaxPackSpec(jg)),
+                  tnum.NumericsMonitor(spec=PackSpec(tg)))
+    jflat, tflat = JaxPackSpec(jg).pack(jg), PackSpec(tg).pack(tg)
+    _, js, jn = jsc.unscale_flat(jsc.init_state(), jflat,
+                                 numerics=(jmon, jmon.init()))
+    _, ts, tn = tsc.unscale_flat(tsc.init_state("cpu"), tflat,
+                                 numerics=(tmon, tmon.init("cpu")))
+    np.testing.assert_array_equal(np.asarray(jn.grad_nonfinite),
+                                  tn.grad_nonfinite.numpy())
+    assert bool(ts.found_inf) and bool(js.found_inf)
+    _, ts2, tn2 = tsc.unscale(tsc.init_state("cpu"), tg,
+                              numerics=(tnum.NumericsMonitor(tg),
+                                        tnum.NumericsMonitor(tg).init("cpu")))
+    assert tn2.grad_nonfinite.tolist() == [0.0, 1.0] and bool(ts2.found_inf)
+    jout = jsc.update_scale(js, metrics=jtel.init_metrics(), numerics=jn)
+    tout = tsc.update_scale(ts, metrics=ttel.init_metrics("cpu"),
+                            numerics=tn)
+    assert len(jout) == len(tout) == 3
+    _fields_equal(jout[0], tout[0])
+    for jst, tst in zip(jout[1:], tout[1:]):
+        for f in jst._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(jst, f)),
+                                          np.asarray(getattr(tst, f)),
+                                          err_msg=f)
+    assert isinstance(tsc.update_scale(ts, numerics=tn), tuple)
+    assert isinstance(tsc.update_scale(ts), LossScaleState)
 
 
 # ---------------------------------------------------------------------------

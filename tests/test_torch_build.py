@@ -92,7 +92,11 @@ def test_argtypes_match_the_c_declarations():
     ("apex_flash_attn_fwd", "flash_attention.cu"),
     ("apex_flash_attn_bwd", "flash_attention.cu"),
     ("apex_raln_fwd", "fused_block.cu"),
-    ("apex_raln_bwd", "fused_block.cu")])
+    ("apex_raln_bwd", "fused_block.cu"),
+    ("apex_layer_norm_bwd", "layer_norm.cu"),
+    ("apex_rms_norm_fwd", "layer_norm.cu"),
+    ("apex_rms_norm_bwd", "layer_norm.cu"),
+    ("apex_packed_row_stats", "packed_row_stats.cu")])
 def test_entry_point_is_declared_in_its_source(name, source):
     """Each entry point the wrappers call is bound (``_ARGTYPES``) and
     defined in the source that the build compiles."""

@@ -39,7 +39,15 @@ both sides, nan included), axpby bit for bit (its products and sum
 rounded one by one on both), the NovoGrad sweep as the other packed
 sweeps (rtol 1e-6 on fp32 results, one bf16 rounding on bf16 params);
 the 2-layer GPTs at head dims 128 and 80 as the other card-against-CPU
-steps.
+steps; the RMSNorm kernels and the LayerNorm at hidden 32768 and 65536
+as the LayerNorm kernels; the memory-efficient norms against the plain
+backward given the same fp32 x-hat (dx within one rounding of its dtype,
+the fp32 parameter gradients within 1e-5 of their norm, which an x-hat
+rounded to bf16, ~2e-3, fails) and against the plain backward that
+keeps x (1e-4 fp32, 8e-3 bf16 of each norm: x-hat from y carries y's
+rounding); the row statistics' counts
+and maxima exactly, their sums rtol 1e-5; the monitored step's records
+exactly.
 """
 import numpy as np
 import pytest
@@ -57,9 +65,15 @@ from apex_tpu_torch.ops import fused_block as fb
 from apex_tpu_torch.ops.flash_decode import flash_decode, paged_decode_reference
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm,
+    layer_norm_bwd,
     layer_norm_bwd_reference,
     layer_norm_fwd,
     layer_norm_reference,
+    rms_norm,
+    rms_norm_bwd,
+    rms_norm_bwd_reference,
+    rms_norm_fwd,
+    rms_norm_reference,
 )
 from apex_tpu_torch.ops.packed_optimizer import (
     multi_tensor_axpby_flat,
@@ -74,6 +88,8 @@ from apex_tpu_torch.ops.packed_optimizer import (
     packed_novograd_reference,
     packed_row_reduce,
     packed_row_reduce_reference,
+    packed_row_stats,
+    packed_row_stats_reference,
     packed_scale_update,
     packed_scale_update_reference,
     packed_sgd_apply,
@@ -1037,3 +1053,268 @@ def test_loss_scaled_clipped_packed_step_makes_no_host_sync(cuda_device):
         assert torch.equal(a, b)
     assert float(ss2.loss_scale) == float(ss.loss_scale) / 2
     assert int(ss2.consecutive_skips) == 1
+
+
+@pytest.mark.parametrize("hidden", [32768, 65536])
+def test_layer_norm_kernels_take_wide_rows(cuda_device, hidden):
+    """Rows wider than a block's shared memory holds: the backward keeps
+    its column partials in device memory; forward and backward as the
+    plain versions, with fp32 x and bf16 dy at 32768."""
+    g = torch.Generator(device=cuda_device).manual_seed(hidden)
+    rows = 40
+    x = torch.randn(rows, hidden, generator=g, device=cuda_device) * 3 + 1
+    w = torch.randn(hidden, generator=g, device=cuda_device)
+    b = torch.randn(hidden, generator=g, device=cuda_device)
+    dy_dt = torch.bfloat16 if hidden == 32768 else torch.float32
+    dy = torch.randn(rows, hidden, generator=g, device=cuda_device).to(dy_dt)
+    _device.reset_launch_counts()
+    y, mu, rstd = layer_norm_fwd(x, w, b)
+    dx, dw, db = layer_norm_bwd(dy, x, mu, rstd, w)
+    counts = _device.launch_counts()
+    assert counts["layer_norm_fwd"] == 1 and counts["layer_norm_bwd"] == 1
+    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+    rdx, rdw, rdb = layer_norm_bwd_reference(dy, x, mu, rstd, w)
+    torch.testing.assert_close(y, ry, **TOL[torch.float32])
+    torch.testing.assert_close(rstd, rrstd, **TOL[torch.float32])
+    assert dx.dtype == dy_dt
+    torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dy_dt])
+    torch.testing.assert_close(dw, rdw, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(db, rdb, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows,hidden,dtype", [
+    (64, 1024, torch.float32), (64, 1024, torch.bfloat16),
+    (37, 1000, torch.float32), (8, 4096, torch.bfloat16),
+    (8, 65536, torch.float32)])
+def test_rms_norm_kernels_match_plain(cuda_device, rows, hidden, dtype):
+    """The RMSNorm forward and backward kernels against their plain
+    versions (the backward fed the same statistics), and the x-hat form of
+    the backward (fp32 x-hat beside a dy of the input's dtype)."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + hidden)
+    x = (torch.randn(rows, hidden, generator=g, device=cuda_device) * 2
+         + 0.5).to(dtype)
+    w = torch.randn(hidden, generator=g, device=cuda_device)
+    dy = torch.randn(rows, hidden, generator=g, device=cuda_device).to(dtype)
+    _device.reset_launch_counts()
+    y, rstd = rms_norm_fwd(x, w)
+    dx, dw = rms_norm_bwd(dy, x, rstd, w)
+    counts = _device.launch_counts()
+    assert counts["rms_norm_fwd"] == 1 and counts["rms_norm_bwd"] == 1
+    ry, rrstd = rms_norm_reference(x, w, 1e-5)
+    rdx, rdw = rms_norm_bwd_reference(dy, x, rstd, w)
+    assert y.dtype == dx.dtype == dtype and rstd.shape == (rows, 1)
+    torch.testing.assert_close(y.float(), ry.float(), **TOL[dtype])
+    torch.testing.assert_close(rstd, rrstd, **TOL[torch.float32])
+    torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+    torch.testing.assert_close(dw, rdw, atol=1e-3, rtol=1e-4)
+    xhat = x.float() * rstd
+    hdx, hdw = rms_norm_bwd(dy, xhat, rstd, w, x_is_xhat=True)
+    wdx, wdw = rms_norm_bwd_reference(dy, xhat, rstd, w, x_is_xhat=True)
+    torch.testing.assert_close(hdx.float(), wdx.float(), **TOL[dtype])
+    torch.testing.assert_close(hdw, wdw, atol=1e-3, rtol=1e-4)
+
+
+def _xhat(y, w, b, eps=1e-5):
+    """x-hat rebuilt in fp32 from a norm's output, written out here apart
+    from the port's: ``(y - b) / w``, |w| clamped to eps, its sign kept."""
+    mag = w.float().abs().clamp_min(eps)
+    yf = y.float() if b is None else y.float() - b.float()
+    return yf / torch.where(w < 0, -mag, mag)
+
+
+@pytest.mark.parametrize("norm", ["layer_norm", "rms_norm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_memory_efficient_norms_match_plain_on_card(cuda_device, norm,
+                                                    dtype):
+    """``memory_efficient`` rebuilds x-hat in fp32 from the output: the
+    gradients equal those of the plain backward given that x-hat (dx
+    within one rounding of its dtype, the fp32 parameter gradients within
+    1e-5 of their norm; an x-hat rounded to bf16 is ~2e-3 off and fails),
+    and those of the plain backward that keeps x within the output's
+    rounding, with a negative and a near-zero weight among the columns."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x0 = torch.randn(4, 64, 1024, generator=g, device=cuda_device).to(dtype)
+    w0 = torch.rand(1024, generator=g, device=cuda_device) + 0.5
+    w0[3], w0[5] = -0.75, 1e-7
+    b0 = torch.randn(1024, generator=g, device=cuda_device)
+    dy = torch.randn(4, 64, 1024, generator=g, device=cuda_device).to(dtype)
+    grads = []
+    for me in (False, True):
+        x, w, b = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+        if norm == "layer_norm":
+            layer_norm(x, w, b, memory_efficient=me).backward(dy)
+            grads.append((x.grad, w.grad, b.grad))
+        else:
+            rms_norm(x, w, memory_efficient=me).backward(dy)
+            grads.append((x.grad, w.grad))
+    def rel(a, c):
+        return float((a.float() - c.float()).norm() / c.float().norm())
+
+    x2, dy2 = x0.reshape(-1, 1024), dy.reshape(-1, 1024)
+    if norm == "layer_norm":
+        y, mu, rstd = layer_norm_fwd(x2, w0, b0)
+        xhat = _xhat(y, w0, b0)
+        want, bad = (layer_norm_bwd_reference(dy2, xh, mu, rstd, w0,
+                                              x_is_xhat=True)
+                     for xh in (xhat, xhat.bfloat16().float()))
+    else:
+        y, rstd = rms_norm_fwd(x2, w0)
+        xhat = _xhat(y, w0, None)
+        want, bad = (rms_norm_bwd_reference(dy2, xh, rstd, w0,
+                                            x_is_xhat=True)
+                     for xh in (xhat, xhat.bfloat16().float()))
+    assert rel(grads[1][0].reshape(-1, 1024), want[0]) < (
+        1e-5 if dtype == torch.float32 else 2.0 ** -8)
+    for a, c in zip(grads[1][1:], want[1:]):
+        assert rel(a, c) < 1e-5
+    assert rel(bad[1], want[1]) > 1e-5  # dgamma; dbeta takes no x-hat
+    # x-hat rebuilt from y carries y's rounding (an fp32 or a bf16 ulp of
+    # y over |w| >= 0.5 an element), and column 5's weight is clamped to
+    # eps, so its weight gradient differs by design: each gradient, column
+    # 5's excluded, within 1e-4 (fp32) or 8e-3 (bf16) of its norm
+    keep = torch.ones(1024, dtype=torch.bool, device=cuda_device)
+    keep[5] = False
+    lim = 1e-4 if dtype == torch.float32 else 8e-3
+    for a, c in zip(*grads):
+        assert rel(a[..., keep], c[..., keep]) < lim
+
+
+@pytest.mark.parametrize("n", FLAT_LENGTHS, ids=["rows", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_row_stats_kernel_matches_plain(cuda_device, n, dtype):
+    """Per-row sum of squares, max |x| and non-finite count against the
+    plain version: nan and inf planted in known rows show in those rows'
+    sums and maxima, the counts exact there and 0 elsewhere; under
+    ``set_sync_debug_mode("error")`` with a device ``inv_scale``."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + 3)
+    x = torch.randn(n, generator=g, device=cuda_device).to(dtype)
+    rows = -(-n // 1024)
+    x[3 * 1024 + 5] = float("nan")
+    x[3 * 1024 + 6] = float("inf")
+    x[(rows - 1) * 1024] = float("-inf")
+    inv = torch.tensor(0.5, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _device.reset_launch_counts()
+        sq, ma, nf = packed_row_stats(x, inv_scale=inv)
+        assert _device.launch_counts()["packed_row_stats"] == 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    wsq, wma, wnf = packed_row_stats_reference(x, inv_scale=inv)
+    assert sq.shape == ma.shape == nf.shape == (rows,)
+    want_nf = torch.zeros(rows, device=cuda_device)
+    want_nf[3], want_nf[rows - 1] = 2, 1
+    assert torch.equal(nf, want_nf) and torch.equal(wnf, want_nf)
+    assert torch.isnan(sq[3]) and torch.isnan(ma[3])
+    assert torch.isinf(sq[rows - 1]) and torch.isinf(ma[rows - 1])
+    torch.testing.assert_close(sq, wsq, rtol=1e-5, atol=0.0, equal_nan=True)
+    assert torch.equal(ma.nan_to_num(), wma.nan_to_num())
+    assert torch.equal(packed_row_stats(x, inv_scale=inv)[0].nan_to_num(),
+                       sq.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_observation_on_card_matches_cpu_and_keeps_nan(cuda_device,
+                                                            dtype):
+    """``observe(grads=)`` over a gradient tree on the card, under
+    ``set_sync_debug_mode("error")``: per-leaf sums of squares (rtol 1e-5:
+    another order) and maxima (equal) against the same observation on the
+    CPU; a nan leaf and an inf leaf flagged, and only those."""
+    from apex_tpu_torch.telemetry.numerics import NumericsMonitor
+
+    g = torch.Generator().manual_seed(3)
+    grads = {"a": torch.randn(64, 96, generator=g),
+             "b": torch.randn(4096, generator=g),
+             "c": torch.randn(7, 5, 3, generator=g),
+             "d": torch.randn(300, generator=g)}
+    grads = tree_map(lambda x: x.to(dtype), grads)
+    grads["b"][17] = float("nan")
+    grads["c"][1, 2, 0] = float("-inf")
+    mon = NumericsMonitor(grads)
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        ns0 = mon.init(dev)
+        tree = tree_map(lambda x: x.to(dev), grads)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ns = mon.observe(ns0, grads=tree)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out.append(ns)
+    cpu, card = out
+    assert card.grad_nonfinite.cpu().tolist() == [0.0, 1.0, 1.0, 0.0]
+    assert torch.equal(card.grad_nonfinite.cpu(), cpu.grad_nonfinite)
+    assert bool(card.overflow)
+    assert torch.isnan(card.grad_maxabs[1]) and torch.isnan(card.grad_sq[1])
+    assert torch.isinf(card.grad_maxabs[2]) and torch.isinf(card.grad_sq[2])
+    assert torch.equal(card.grad_maxabs.cpu().nan_to_num(),
+                       cpu.grad_maxabs.nan_to_num())
+    torch.testing.assert_close(card.grad_sq.cpu(), cpu.grad_sq, rtol=1e-5,
+                               atol=0.0, equal_nan=True)
+
+
+def test_monitored_step_makes_no_host_sync_and_names_the_leaf(
+        cuda_device, tmp_path):
+    """The loss-scaled, clipped packed step with the numerics monitor on
+    the flat gradients (``packed_row_stats``), ``update_scale(metrics=,
+    numerics=)``, the metrics window drained every 2 steps and the
+    numerics drain, under ``set_sync_debug_mode("error")``; then an inf in
+    one leaf's gradient: after ``flush()`` the JSONL holds exactly one
+    ``nonfinite_grads`` record, naming that leaf, and the metrics records
+    carry the losses."""
+    from apex_tpu_torch import telemetry
+    from apex_tpu_torch.amp import LossScaler
+    from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.telemetry.numerics import NumericsMonitor
+
+    params, grads = _packed_case(cuda_device)
+    opt = FusedAdam(lr=1e-3, packed=True, master_weights=True)
+    state = opt.init(params)
+    scaler = LossScaler("dynamic", init_scale=1024.0)
+    mon = NumericsMonitor(spec=state.spec)
+    path = tmp_path / "run.jsonl"
+    rec = telemetry.JsonlRecorder(path)
+    carry = [params, state, scaler.init_state(cuda_device),
+             telemetry.init_metrics(cuda_device), mon.init(cuda_device)]
+
+    def step(g, loss):
+        params, state, ss, m, ns = carry
+        flat = state.spec.pack(tree_map(lambda x: x * ss.loss_scale, g))
+        ns = mon.observe(ns, flat_grads=flat, inv_scale=1.0 / ss.loss_scale)
+        flat, ss = scaler.unscale_flat(ss, flat, out_dtype=torch.float32)
+        flat, _ = clip_grad_norm_flat(flat, 1.0)
+        params, state = opt.step(flat, state, params, found_inf=ss.found_inf)
+        ss, m, ns = scaler.update_scale(ss, metrics=m, numerics=ns)
+        m = telemetry.drain(telemetry.accumulate(m, loss=loss, tokens=16),
+                            rec, every_n=2)
+        carry[:] = [params, state, ss, m, mon.drain(ns, rec)]
+
+    losses = torch.tensor([3.0, 2.0, 1.0, 0.5], device=cuda_device)
+    step(grads[0], losses[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _device.reset_launch_counts()
+        step(grads[1], losses[1])
+        assert _device.launch_counts()["packed_row_stats"] == 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bad = tree_map(lambda x: x.clone(), grads[2])
+    bad["layers"]["k"][1, 2, 3] = float("inf")
+    step(bad, losses[2])
+    step(grads[0], losses[3])
+    telemetry.flush()
+    rec.close()
+    records = telemetry.read_jsonl(path)
+    anomalies = [r for r in records if r.get("event") == "anomaly"]
+    assert [(a["kind"], a["step"], a["first_bad_step"]) for a in anomalies] \
+        == [("nonfinite_grads", 3, 3)]
+    assert [l["name"] for l in anomalies[0]["leaves"]] == ["['layers']['k']"]
+    metrics = [r for r in records if r.get("event") == "metrics"]
+    assert [(r["step"], r["loss"], r["tokens"]) for r in metrics] == [
+        (2, 2.5, 32.0), (4, 0.75, 32.0)]
+    assert metrics[-1]["overflow_skips"] == 1

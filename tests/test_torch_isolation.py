@@ -58,7 +58,11 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "optimizers.fused_lamb", "optimizers.fused_sgd",
                  "optimizers.fused_novograd", "optimizers.fused_adagrad",
                  "amp.scaler", "contrib.clip_grad.clip_grad",
-                 "ops.packed_optimizer"):
+                 "ops.packed_optimizer", "telemetry.recorder",
+                 "telemetry.metrics", "telemetry.numerics",
+                 "normalization.fused_layer_norm",
+                 "transformer.layers.layer_norm",
+                 "contrib.layer_norm.layer_norm"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 
