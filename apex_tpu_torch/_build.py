@@ -26,10 +26,11 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libapex_tpu_torch_kernels.so"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "fused_block.cu",
-           "fused_softmax.cu", "layer_norm.cu", "packed_adam.cu",
-           "packed_flat.cu", "packed_lamb.cu", "packed_novograd.cu",
-           "packed_row_stats.cu", "packed_sgd.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bf16.cu",
+           "flash_decode.cu", "fused_block.cu", "fused_softmax.cu",
+           "layer_norm.cu", "packed_adam.cu", "packed_flat.cu",
+           "packed_lamb.cu", "packed_novograd.cu", "packed_row_stats.cu",
+           "packed_sgd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 

@@ -1,9 +1,13 @@
-// Flash attention forward and backward for Hopper (sm_90a).
+// Flash attention forward and backward for Hopper (sm_90a): the fp32 kernels
+// on the CUDA cores, and the entry points of both dtypes.
 //
 // Replaces: apex_tpu/ops/flash_attention.py, the TPU kernels _fwd_kernel
 // (launched by _fwd, :390) and _bwd_dq_kernel / _bwd_dkv_kernel (launched by
 // _bwd, :673). Layout [b, n, s, d], contiguous; q, k, v, o, do and the
 // gradients share one dtype (fp32 or bf16); the lse is [b, n, s_q] fp32.
+// bf16 inputs go to the tensor-core kernels of flash_attention_bf16.cu
+// (launch_bf16); fp32 inputs stay on the kernels below, since a tensor core
+// would round fp32 operands to TF32.
 //
 //   s   = (round(q * scale)) . k            fp32; masked to -1e30 (causal
 //                                           ki > qi, kv_mask[b, ki] == 0)
@@ -22,9 +26,9 @@
 // same bits in forward and backward.
 //
 // What bounds it on the H100: arithmetic. These kernels do their products in
-// fp32 on the CUDA cores (the tensor cores are for a later change), so at
-// the GPT-2 345M shape ([8, 16, 1024, 64], causal) the ~17 GFLOP forward and
-// ~43 GFLOP backward cost far more than the ~64 MB they move.
+// fp32 on the CUDA cores, so at the GPT-2 345M shape ([8, 16, 1024, 64],
+// causal) the ~17 GFLOP forward and ~43 GFLOP backward cost far more than
+// the ~64 MB they move.
 //
 // Design. The TPU grid ran (b, h, q-tile, k-tile) in order and carried the
 // online-softmax state and the dk/dv sums in VMEM across the last grid axis.
@@ -52,16 +56,17 @@
 // D = 96, 128: 4 threads a row, 64 rows; D = 256: 8 threads a row, 32 rows
 // and tiles of 16 rows (36,864 bytes of tiles). Other head dims are refused
 // before the launch (flash_attention_available in the wrapper).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hash_dropout.cuh"  // keep_bit, the dropout hash
+#include "flash_attention.cuh"  // Args, kNegInf, kDead, launch_bf16
+#include "hash_dropout.cuh"     // keep_bit, the dropout hash
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
-constexpr float kDead = -5e29f;    // _NEG_INF / 2: at or below counts masked
+using apex_flash::Args;
+using apex_flash::kDead;
+using apex_flash::kNegInf;
 
 // Threads per row P (a power of two, so a row's threads share a warp), rows
 // a block owns R, rows of the other operand per staged tile KT.
@@ -79,13 +84,7 @@ template <>
 struct Geo<256> { static constexpr int P = 8, R = 32, KT = 16; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 // x rounded to T and back: the TPU kernel's astype(dtype) before a dot
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
@@ -93,33 +92,6 @@ template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  const float* lse_in;
-  const uint8_t* kv_mask;  // [b, s_k], nonzero = attend; null = all
-  void* out;
-  float* lse;
-  float* delta;
-  void* dq;
-  void* dk;
-  void* dv;
-  int n, s_q, s_k;
-  float scale;
-  int causal;
-  int dropout;
-  uint32_t seed;
-  uint32_t threshold;
-  float drop_scale;  // 1 / (1 - p_drop)
-};
 
 // A row split in P slices of H floats, each slice padded by 4 floats so
 // the P slices of one row start in different banks (the P threads of a row
@@ -449,16 +421,16 @@ cudaError_t launch(bool fwd, const Args& a, int bn, cudaStream_t s) {
   return fwd ? launch_fwd<T, D>(a, bn, s) : launch_bwd<T, D>(a, bn, s);
 }
 
-template <typename T>
-cudaError_t dispatch(bool fwd, const Args& a, int d, int bn, cudaStream_t s) {
+cudaError_t dispatch_f32(bool fwd, const Args& a, int d, int bn,
+                         cudaStream_t s) {
   // the instantiated head dims (KERNEL_HEAD_DIMS of the wrapper); another d
   // is refused before the launch
   switch (d) {
-    case 32: return launch<T, 32>(fwd, a, bn, s);
-    case 64: return launch<T, 64>(fwd, a, bn, s);
-    case 96: return launch<T, 96>(fwd, a, bn, s);
-    case 128: return launch<T, 128>(fwd, a, bn, s);
-    case 256: return launch<T, 256>(fwd, a, bn, s);
+    case 32: return launch<float, 32>(fwd, a, bn, s);
+    case 64: return launch<float, 64>(fwd, a, bn, s);
+    case 96: return launch<float, 96>(fwd, a, bn, s);
+    case 128: return launch<float, 128>(fwd, a, bn, s);
+    case 256: return launch<float, 256>(fwd, a, bn, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -470,8 +442,8 @@ int run(bool fwd, const Args& a, int b, int d, int is_bf16, int device,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bn = b * a.n;
-  e = is_bf16 ? dispatch<__nv_bfloat16>(fwd, a, d, bn, s)
-              : dispatch<float>(fwd, a, d, bn, s);
+  e = is_bf16 ? apex_flash::launch_bf16(fwd, a, bn, d, device, s)
+              : dispatch_f32(fwd, a, d, bn, s);
   return static_cast<int>(e);
 }
 

@@ -4,8 +4,10 @@ and backward, beside their plain PyTorch versions (counterpart of
 
 Layout ``[b, n, s, d]`` (:func:`flash_attention`) and the Megatron
 ``[s, b, n, d]`` wrapper (:func:`flash_attention_sbhd`). The kernels are
-``csrc/flash_attention.cu``: the forward replaces the TPU kernel of
-``_fwd`` and returns ``o`` in q's dtype and ``lse [b, n, s_q]`` fp32; the
+``csrc/flash_attention_bf16.cu`` for bf16 (on the tensor cores) and
+``csrc/flash_attention.cu`` for fp32 (on the CUDA cores; it holds both
+dtypes' entry points): the forward replaces the TPU kernel of ``_fwd``
+and returns ``o`` in q's dtype and ``lse [b, n, s_q]`` fp32; the
 backward replaces ``_bwd``'s dq and dk/dv kernels and recomputes the
 scores from ``lse``. :func:`flash_attention_fwd_reference` and
 :func:`flash_attention_bwd_reference` are the plain versions: the same
@@ -244,7 +246,8 @@ def mha_reference(q, k, v, *, causal=False, kv_mask=None, bias=None,
 # ---------------------------------------------------------------------------
 
 #: the head dims the CUDA kernels are instantiated for
-#: (``csrc/flash_attention.cu``, ``dispatch``)
+#: (``dispatch_f32`` in ``csrc/flash_attention.cu``, ``launch_bf16`` in
+#: ``csrc/flash_attention_bf16.cu``)
 KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
@@ -284,6 +287,14 @@ def _kernel_args(q, k, v, kv_mask):
     return mask
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address: the bf16 kernels copy
+    rows into shared memory 16 bytes at a time (``cp.async``), which a
+    view at an odd element offset would fault."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _dropout_args(dropout_p: float, seed: Optional[int]):
     if seed is None:
         return 0, 0, 0, 1.0
@@ -292,7 +303,7 @@ def _dropout_args(dropout_p: float, seed: Optional[int]):
 
 def _launch_fwd(q, k, v, kv_mask, causal, scale, dropout_p, seed):
     mask = _kernel_args(q, k, v, kv_mask)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, n, s_q, d = q.shape
     s_k = k.shape[2]
     lib = _build.kernels()
@@ -317,8 +328,8 @@ def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, scale, dropout_p,
     if o.shape != q.shape or do.shape != q.shape \
             or tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError("o and do must be q's shape and lse [b, n, s_q]")
-    q, k, v, o = (t.contiguous() for t in (q, k, v, o))
-    do = do.to(q.dtype).contiguous()
+    q, k, v, o = (_aligned(t) for t in (q, k, v, o))
+    do = _aligned(do.to(q.dtype))
     lse = lse.float().contiguous()
     b, n, s_q, d = q.shape
     s_k = k.shape[2]

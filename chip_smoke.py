@@ -22,7 +22,10 @@ any failure exits non-zero and prints no result line:
    the path and bf16, with and without decay, L2 mode and noop; the
    packed SGD kernel over the 345M buffer: momentum 0 and 0.9, nesterov,
    decay after the momentum, the first run and noop; flash attention at
-   head dims 32, 96, 128 and 256; the fused tails at widths 5120, 8192,
+   head dims 32, 96, 128 and 256, and bf16 (the tensor-core kernels) at
+   every head dim with lengths 1000 and 17, causal 320x1000, a fully
+   masked row at d 256 and dropout at d 128, the bf16 backward twice
+   bitwise equal; the fused tails at widths 5120, 8192,
    16384 and 1000; the flat scale (bf16 -> fp32, fp32 -> fp32, fp32 ->
    bf16, per-row flags naming planted inf, nan and overflow rows, a
    ragged length) and axpby over the 345M buffer; packed NovoGrad over
@@ -188,9 +191,9 @@ from apex_tpu_torch.transformer.testing import (
 )
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 (non-tensor-core)
-#: flop/s — the kernels here do their arithmetic in fp32 on CUDA cores —
-#: and the bf16 tensor-core rate, the least time any attention kernel
-#: could take for its products
+#: flop/s — the kernels here but bf16 flash attention do their arithmetic
+#: in fp32 on CUDA cores — and the bf16 tensor-core rate, the least time
+#: any attention kernel could take for its products
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
@@ -249,23 +252,28 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, match, iters: int = 50):
+def device_ms(fn, match, iters: int = 50, tries: int = 3):
     """Device time of the kernels whose name contains ``match`` (a
     string, or a tuple of strings for a call that issues several
-    kernels), per call of ``fn``, from a ``torch.profiler`` trace (host
-    overhead excluded); None when the trace shows no such kernel."""
+    kernels; "" matches every kernel of the call), per call of ``fn``,
+    from a ``torch.profiler`` trace (host overhead excluded); None when
+    ``tries`` traces show no such kernel (a trace now and then records
+    no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     matches = (match,) if isinstance(match, str) else tuple(match)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if any(m in e.key for m in matches))
-    return total_us / 1e3 / iters if total_us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if any(m in e.key for m in matches))
+        if total_us:
+            return total_us / 1e3 / iters
+    return None
 
 
 def check_close(name, got, want, dtype, tol=None, margin=False):
@@ -779,9 +787,11 @@ def _attn_flops(b, n, s_q, s_k, d, causal):
 
 def flash_attention_checks(dev):
     """Forward and backward kernels against their plain versions: the
-    345M training shape in bf16 and fp32, a key-padding mask with a
-    fully masked batch row, hash dropout 0.1, a length that is not a
-    whole number of tiles, and a non-causal cross shape."""
+    345M training shape in bf16 (the tensor-core kernels) and fp32 (the
+    CUDA-core kernels), a key-padding mask with a fully masked batch row,
+    hash dropout 0.1, a length that is not a whole number of tiles, and a
+    non-causal cross shape; the bf16 backward run twice must give the same
+    bits (two launches, no atomics); both timed at the 345M shape."""
     g = torch.Generator(device=dev).manual_seed(5)
     B, S = 8, 1024
     cases = [
@@ -837,54 +847,75 @@ def flash_attention_checks(dev):
         log(f"  flash {name} [{b},{n},{s_q}x{s_k},{HEAD_DIM}]: fwd max abs "
             f"err {fe:.3e}, bwd {be:.3e}")
         if name == "345M bf16 causal":
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv),
+                                                          again)):
+                raise AssertionError("flash_bwd: two runs on the same "
+                                     "inputs differ")
+            log("  flash_bwd 345M bf16: two runs bitwise equal")
             timing = _flash_timing(q, k, v, do, o, lse, causal)
+    # the main path runs bf16: the tensor-core kernels
     return ({"name": "flash_attn_fwd", "route": "cuda",
-             "source": "apex_tpu_torch/csrc/flash_attention.cu",
+             "source": "apex_tpu_torch/csrc/flash_attention_bf16.cu",
              "replaces": "apex_tpu/ops/flash_attention.py:390",
              "max_abs_err": max(fwd_errs), **timing["fwd"]},
             {"name": "flash_attn_bwd", "route": "cuda",
-             "source": "apex_tpu_torch/csrc/flash_attention.cu",
+             "source": "apex_tpu_torch/csrc/flash_attention_bf16.cu",
              "replaces": "apex_tpu/ops/flash_attention.py:673",
              "max_abs_err": max(bwd_errs), **timing["bwd"]})
 
 
-#: flash attention at the other instantiated head dims: (name, b, n, s_q,
-#: s_k, d, dtype, causal, masked). [8, 8, 1024, 128] is a GPT of hidden
-#: 1024 with 8 heads, [8, 32, 1024, 32] one with 32 heads
+#: flash attention at the other instantiated head dims, and the bf16
+#: tensor-core kernels' ragged, cross, masked and dropout tiles at every
+#: head dim: (name, b, n, s_q, s_k, d, dtype, causal, masked, dropout p).
+#: [8, 8, 1024, 128] is a GPT of hidden 1024 with 8 heads, [8, 32, 1024,
+#: 32] one with 32 heads
 FLASH_HEAD_DIM_CASES = (
     ("d 128 bf16 causal", 8, 8, 1024, 1024, 128, torch.bfloat16, True,
-     False),
+     False, 0.0),
     ("d 32 bf16 causal", 8, 32, 1024, 1024, 32, torch.bfloat16, True,
-     False),
+     False, 0.0),
     ("d 128 bf16 kv_mask, dead row", 2, 8, 512, 512, 128, torch.bfloat16,
-     False, True),
+     False, True, 0.0),
     ("d 32 bf16 causal kv_mask", 2, 32, 512, 512, 32, torch.bfloat16, True,
-     True),
+     True, 0.0),
     ("d 96 f32 causal, s 1000", 2, 8, 1000, 1000, 96, torch.float32, True,
-     False),
+     False, 0.0),
     ("d 256 bf16 causal", 4, 4, 1024, 1024, 256, torch.bfloat16, True,
-     False),
+     False, 0.0),
     ("d 256 f32 kv_mask, dead row, s 300", 2, 4, 300, 300, 256,
-     torch.float32, False, True),
+     torch.float32, False, True, 0.0),
+    *((f"d {d} bf16 causal, s {s}", 2, 4, s, s, d, torch.bfloat16, True,
+       False, 0.0) for d in (32, 64, 96, 128, 256) for s in (1000, 17)),
+    ("d 64 bf16 causal cross 320x1000", 2, 4, 320, 1000, 64,
+     torch.bfloat16, True, False, 0.0),
+    ("d 128 bf16 causal cross 320x1000", 2, 4, 320, 1000, 128,
+     torch.bfloat16, True, False, 0.0),
+    ("d 256 bf16 kv_mask, dead row, s 300", 2, 4, 300, 300, 256,
+     torch.bfloat16, False, True, 0.0),
+    ("d 128 bf16 causal, dropout 0.1", 2, 8, 1024, 1024, 128,
+     torch.bfloat16, True, False, 0.1),
 )
 
 
 def flash_head_dim_checks(dev):
-    """Forward and backward kernels against their plain versions at head
-    dims 32, 96, 128 and 256 (``FLASH_HEAD_DIM_CASES``), with a fully
-    masked batch row under each key-padding mask; then both timed at
-    ``[8, 8, 1024, 128]`` bf16 causal. Returns the worst forward and
-    backward errors."""
+    """Forward and backward kernels against their plain versions at every
+    head dim (``FLASH_HEAD_DIM_CASES``), with a fully masked batch row
+    under each key-padding mask (o, dq, dk, dv exactly 0, lse exactly
+    -1e30); then both timed at ``[8, 8, 1024, 128]`` bf16 causal. Returns
+    the worst forward and backward errors."""
     g = torch.Generator(device=dev).manual_seed(12)
     fwd_errs, bwd_errs = [], []
-    for name, b, n, s_q, s_k, d, dt, causal, masked in FLASH_HEAD_DIM_CASES:
+    for name, b, n, s_q, s_k, d, dt, causal, masked, p in \
+            FLASH_HEAD_DIM_CASES:
         q, k, v, do = _attn_case(g, dev, b, n, s_q, s_k, d, dt)
         kv_mask = None
         if masked:
             kv_mask = torch.ones(b, s_k, dtype=torch.bool, device=dev)
             kv_mask[0, s_k // 2:] = False
             kv_mask[1, :] = False
-        kw = dict(causal=causal, kv_mask=kv_mask)
+        kw = dict(causal=causal, kv_mask=kv_mask, dropout_p=p,
+                  dropout_seed=-4321 if p else None)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
@@ -896,8 +927,9 @@ def flash_head_dim_checks(dev):
         be = max(check_close(f"flash_bwd {name} {gname}", got, want, dt)
                  for gname, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
                                           ("dv", dv, rdv)))
-        if masked and any(float(x[1].abs().max()) != 0.0
-                          for x in (o, dq, dk, dv)):
+        if masked and (any(float(x[1].abs().max()) != 0.0
+                           for x in (o, dq, dk, dv))
+                       or not bool((lse[1] == -1e30).all())):
             raise AssertionError(f"flash {name}: the fully masked row is "
                                  f"not zero")
         fwd_errs.append(fe)
@@ -911,24 +943,39 @@ def flash_head_dim_checks(dev):
 
 
 def _flash_timing(q, k, v, do, o, lse, causal):
+    """Forward and backward at the given inputs: call and device time of
+    the kernels, call time of their plain versions, call and device time
+    of SDPA's forward and of its backward alone (a retained graph,
+    ``torch.autograd.grad`` only inside the timed call; its forward and
+    backward together are printed beside it), the bound and the share of
+    it reached. The library time is SDPA's device time: the host's
+    autograd call around its backward takes longer than the card does,
+    so the call time measures the host."""
     b, n, s, d = q.shape
     elem = q.element_size()
     flops = _attn_flops(b, n, s, s, d, causal)
     kw = dict(causal=causal)
+    tc = q.dtype == torch.bfloat16  # the tensor-core kernels' names
+    fwd_match = "flash_fwd_tc_kernel" if tc else "flash_fwd_kernel"
+    bwd_match = (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel") if tc
+                 else ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
     fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters=20)
     fwd_dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw),
-                        "flash_fwd_kernel", iters=10)
+                        fwd_match, iters=10)
     fwd_plain = time_ms(
         lambda: flash_attention_fwd_reference(q, k, v, **kw), iters=5)
-    fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal), iters=20)
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    fwd_lib = time_ms(sdpa_fwd, iters=20)
+    fwd_lib_dev = device_ms(sdpa_fwd, "", iters=10)
     fb, fby = bound(4 * q.numel() * elem + b * n * s * 4, flops,
                     BF16_TC_FLOPS)
 
     def bwd():
         return flash_attention_bwd(q, k, v, o, lse, do, **kw)
     bwd_ms = time_ms(bwd, iters=10)
-    bwd_dev = device_ms(bwd, "flash_bwd_", iters=5)
+    bwd_dev = device_ms(bwd, bwd_match, iters=5)
+    split = [device_ms(bwd, m, iters=5) for m in bwd_match]
     bwd_plain = time_ms(lambda: flash_attention_bwd_reference(
         q, k, v, o, lse, do, **kw), iters=3)
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -937,20 +984,33 @@ def _flash_timing(q, k, v, do, o, lse, causal):
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
         return torch.autograd.grad(out, (ql, kl, vl), do)
     sdpa_fb = time_ms(sdpa_fwd_bwd, iters=10)
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+    sdpa_b = time_ms(sdpa_bwd, iters=10)
+    sdpa_b_dev = device_ms(sdpa_bwd, "", iters=10)
+    del out
     # backward: 5 products per pair (s, dp, dv, dk, dq) against the
     # forward's 2; reads q, k, v, o, do, lse, writes dq, dk, dv
     bb, bby = bound(8 * q.numel() * elem + b * n * s * 4, flops * 5 / 2,
                     BF16_TC_FLOPS)
-    log(f"  flash [{b},{n},{s},{d}] bf16 causal: fwd kernel {fwd_ms:.4f} ms "
-        f"(device {fwd_dev} ms), plain {fwd_plain:.4f} ms, sdpa fwd "
-        f"{fwd_lib:.4f} ms, bound {fb:.4f} ms ({fby}); bwd kernel "
-        f"{bwd_ms:.4f} ms (device {bwd_dev} ms), plain {bwd_plain:.4f} ms, "
-        f"sdpa fwd+bwd {sdpa_fb:.4f} ms, bound {bb:.4f} ms ({bby})")
+    fshare = fb / fwd_dev if fwd_dev else None
+    bshare = bb / bwd_dev if bwd_dev else None
+    log(f"  flash [{b},{n},{s},{d}] {str(q.dtype)[6:]} causal={causal}: fwd "
+        f"kernel {fwd_ms:.4f} ms (device {fwd_dev} ms), plain "
+        f"{fwd_plain:.4f} ms, sdpa fwd {fwd_lib:.4f} ms (device "
+        f"{fwd_lib_dev} ms), bound {fb:.4f} ms "
+        f"({fby}), share of bound {fshare}; bwd kernel {bwd_ms:.4f} ms "
+        f"(device {bwd_dev} ms: dq {split[0]}, dk/dv {split[1]}), plain "
+        f"{bwd_plain:.4f} ms, sdpa bwd {sdpa_b:.4f} ms (device "
+        f"{sdpa_b_dev} ms; fwd+bwd {sdpa_fb:.4f} ms), bound {bb:.4f} ms "
+        f"({bby}), share of bound {bshare}")
     return {"fwd": {"ms": fwd_ms, "device_ms": fwd_dev,
-                    "plain_ms": fwd_plain, "library_ms": fwd_lib,
+                    "plain_ms": fwd_plain, "library_ms": fwd_lib_dev,
                     "bound_ms": fb, "bound_by": fby},
             "bwd": {"ms": bwd_ms, "device_ms": bwd_dev,
-                    "plain_ms": bwd_plain, "library_ms": sdpa_fb,
+                    "plain_ms": bwd_plain, "library_ms": sdpa_b_dev,
                     "bound_ms": bb, "bound_by": bby}}
 
 

@@ -104,3 +104,29 @@ def test_entry_point_is_declared_in_its_source(name, source):
     assert name in _build._ARGTYPES
     assert f'extern "C" int {name}(' in (_build.CSRC_DIR / source
                                          ).read_text()
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu",
+                                    "flash_attention_bf16.cu"])
+def test_flash_attention_sources_use_no_atomics(source):
+    """Every flash-attention gradient element is summed by one thread in
+    a fixed order (two launches, dq then dk/dv), so the backward gives
+    the same bits on every run: no atomic intrinsic (``atomicAdd``...)
+    and no PTX ``atom``/``red``."""
+    text = (_build.CSRC_DIR / source).read_text()
+    assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", text)
+
+
+def test_bf16_flash_attention_runs_on_the_tensor_cores():
+    """The entry points send bf16 to the tensor-core kernels (the bf16
+    instantiations of the CUDA-core templates are gone) and those issue
+    their products as ``mma.sync`` with bf16 operands and fp32 sums, with
+    no per-element dot loop over the head dim."""
+    cuda_cores = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    assert "apex_flash::launch_bf16(" in cuda_cores
+    assert "__nv_bfloat16" not in cuda_cores
+    tensor_cores = (_build.CSRC_DIR / "flash_attention_bf16.cu").read_text()
+    assert '#include "mma_bf16.cuh"' in tensor_cores
+    assert "slice_dot" not in tensor_cores
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in (
+        _build.CSRC_DIR / "mma_bf16.cuh").read_text()

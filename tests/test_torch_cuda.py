@@ -32,9 +32,11 @@ apart), rtol 1e-6 on fp32 results and one bf16 rounding on bf16 ones,
 their row
 sums rtol 1e-5 (summation order; one term of 1024 missing moves a sum by
 ~1e-3), max |x| exactly; 3 packed LAMB, SGD and NovoGrad steps on the
-card against the CPU rtol 1e-5 atol 1e-7. Flash attention at head dims
-32, 96, 128 and 256 and the fused tails at widths 1000 to 16384 as at
-64 and 1024; the flat scale bit for bit (one multiply and one cast on
+card against the CPU rtol 1e-5 atol 1e-7. Flash attention at every head
+dim (bf16 on the tensor cores, fp32 on the CUDA cores; ragged and causal
+cross lengths, a fully masked row, dropout) and the fused tails at widths
+1000 to 16384 as at 64 and 1024, the bf16 flash backward twice bit for
+bit; the flat scale bit for bit (one multiply and one cast on
 both sides, nan included), axpby bit for bit (its products and sum
 rounded one by one on both), the NovoGrad sweep as the other packed
 sweeps (rtol 1e-6 on fp32 results, one bf16 rounding on bf16 params);
@@ -216,10 +218,19 @@ def test_layer_norm_grad_kernel_matches_plain(cuda_device, x_dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,masked,p,s_q,s_k", [
     (True, False, 0.0, 256, 256), (False, True, 0.0, 200, 200),
-    (True, True, 0.1, 200, 200), (False, False, 0.0, 96, 300)],
-    ids=["causal", "kv_mask", "causal_mask_dropout", "cross"])
+    (True, True, 0.1, 200, 200), (False, False, 0.0, 96, 300),
+    (True, False, 0.0, 1000, 1000), (True, True, 0.0, 17, 17),
+    (True, False, 0.0, 320, 1000), (True, False, 0.0, 1000, 320),
+    (False, True, 0.1, 300, 300)],
+    ids=["causal", "kv_mask", "causal_mask_dropout", "cross", "ragged_1000",
+         "ragged_17_mask", "causal_cross", "causal_cross_short_keys",
+         "kv_mask_dropout_300"])
 def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
                                              masked, p, s_q, s_k):
+    """Forward and backward at head dim 64 (bf16 on the tensor cores, fp32
+    on the CUDA cores) against the plain versions: lengths that are not a
+    whole number of tiles, causal with s_q != s_k both ways, a
+    key-padding mask with a fully masked batch row, hash dropout."""
     rng = np.random.default_rng(3)
 
     def t(*shape):
@@ -248,6 +259,7 @@ def test_flash_attention_kernels_match_plain(cuda_device, dtype, causal,
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     if masked:
         assert torch.equal(o[1], torch.zeros_like(o[1]))
+        assert bool((lse[1] == -1e30).all())
         for g in (dq, dk, dv):
             assert torch.equal(g[1], torch.zeros_like(g[1]))
 
@@ -840,25 +852,46 @@ def test_packed_lamb_is_deterministic(cuda_device):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 96, 128, 256])
-def test_flash_attention_head_dims_match_plain(cuda_device, dtype, d):
-    """Every instantiated head dim besides GPT-2's 64: forward and
-    backward, causal with a key-padding mask holding a fully masked
-    batch row, at a length that is not a whole number of tiles."""
+#: head-dim cases: (dtype, causal, masked, dropout p, s_q, s_k); the first
+#: runs in fp32 (the CUDA-core kernels) and bf16, the rest are the bf16
+#: tensor-core kernels' ragged, cross, masked and dropout tiles
+HEAD_DIM_CASES = {
+    "f32_causal_kv_mask": (torch.float32, True, True, 0.0, 200, 200),
+    "causal_kv_mask": (torch.bfloat16, True, True, 0.0, 200, 200),
+    "ragged_1000": (torch.bfloat16, True, False, 0.0, 1000, 1000),
+    "ragged_17": (torch.bfloat16, True, False, 0.0, 17, 17),
+    "causal_cross_320x1000": (torch.bfloat16, True, False, 0.0, 320, 1000),
+    "kv_mask_dead_row_300": (torch.bfloat16, False, True, 0.0, 300, 300),
+    "dropout_0.1": (torch.bfloat16, True, False, 0.1, 256, 256),
+}
+
+
+@pytest.mark.parametrize("case", list(HEAD_DIM_CASES))
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_flash_attention_head_dims_match_plain(cuda_device, case, d):
+    """Every instantiated head dim: forward and backward against the plain
+    versions at lengths that are not a whole number of tiles, causal with
+    s_q != s_k, a key-padding mask holding a fully masked batch row (o,
+    dq, dk, dv exactly 0, lse exactly -1e30) and hash dropout (the same
+    keep bits)."""
     from apex_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
 
     assert d in KERNEL_HEAD_DIMS
+    dtype, causal, masked, p, s_q, s_k = HEAD_DIM_CASES[case]
     rng = np.random.default_rng(d)
 
     def t(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(
             np.float32)).to(cuda_device, dtype)
-    q, k, v, do = (t(2, 4, 200, d) for _ in range(4))
-    kv_mask = torch.ones(2, 200, dtype=torch.bool, device=cuda_device)
-    kv_mask[0, 150:] = False
-    kv_mask[1] = False
-    kw = dict(causal=True, kv_mask=kv_mask)
+    q, do = t(2, 4, s_q, d), t(2, 4, s_q, d)
+    k, v = t(2, 4, s_k, d), t(2, 4, s_k, d)
+    kv_mask = None
+    if masked:
+        kv_mask = torch.ones(2, s_k, dtype=torch.bool, device=cuda_device)
+        kv_mask[0, (3 * s_k) // 4:] = False
+        kv_mask[1] = False
+    kw = dict(causal=causal, kv_mask=kv_mask, dropout_p=p,
+              dropout_seed=-77 if p else None)
     o, lse = flash_attention_fwd(q, k, v, **kw)
     dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
@@ -868,7 +901,50 @@ def test_flash_attention_head_dims_match_plain(cuda_device, dtype, d):
     torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
     for got, want in zip((dq, dk, dv), grads):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    assert torch.equal(o[1], torch.zeros_like(o[1]))
+    if masked:
+        assert bool((lse[1] == -1e30).all())
+        for x in (o, dq, dk, dv):
+            assert torch.equal(x[1], torch.zeros_like(x[1]))
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_flash_backward_is_deterministic(cuda_device, d):
+    """The backward twice on the same inputs gives the same bits: each
+    gradient element is summed by one thread in a fixed order (two
+    launches, no atomics), with dropout and a ragged causal length."""
+    rng = np.random.default_rng(40 + d)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, 4, 333, d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, dropout_p=0.1, dropout_seed=5)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    first = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_takes_misaligned_views(cuda_device):
+    """q, k, v viewed at an odd element offset of one buffer, which the
+    kernels' 16-byte copies would fault on, give the bits of aligned
+    copies of themselves."""
+    rng = np.random.default_rng(9)
+    n = 2 * 4 * 100 * 64
+    flat = torch.from_numpy(rng.normal(size=3 * n + 1).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(2, 4, 100, 64)
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    do = torch.ones_like(q)
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    qa, ka, va = (t.clone() for t in (q, k, v))
+    ro, rlse = flash_attention_fwd(qa, ka, va, causal=True)
+    rgrads = flash_attention_bwd(qa, ka, va, ro, rlse, do, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    for got, want in zip(grads, rgrads):
+        assert torch.equal(got, want)
 
 
 def test_flash_attention_refuses_other_head_dims(cuda_device):

@@ -9,8 +9,12 @@ CUDA kernels are held against the plain versions on the card by
 
 Tolerances: fp32 atol/rtol 1e-5 on o, lse, dq, dk, dv (summation order
 only); bf16 2e-2 (one bf16 rounding of values of order 1, taken at
-other points: the TPU kernel rounds p against the running max). The
-hash dropout mask is compared bit for bit.
+other points: the TPU kernel rounds p against the running max), the
+same at head dims 128 and 256, where the bf16 kernels on the card run
+their products on the tensor cores with these plain versions as their
+judge, and for causal cross shapes (s_q != s_k, multiples of 8 as the
+JAX kernels require; the mask is ``k > q``, aligned at the top left).
+The hash dropout mask is compared bit for bit.
 """
 import importlib
 
@@ -28,14 +32,14 @@ B, N, S, D = 2, 2, 48, 16
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def _inputs(seed=0, s_q=S, s_k=S):
+def _inputs(seed=0, s_q=S, s_k=S, d=D):
     rng = np.random.default_rng(seed)
-    q, do = (rng.normal(size=(B, N, s_q, D)).astype(np.float32)
+    q, do = (rng.normal(size=(B, N, s_q, d)).astype(np.float32)
              for _ in range(2))
-    k, v = (rng.normal(size=(B, N, s_k, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, N, s_k, d)).astype(np.float32)
             for _ in range(2))
     mask = np.ones((B, s_k), bool)
-    mask[0, 40:] = False
+    mask[0, (5 * s_k) // 6:] = False
     mask[1, :] = False  # batch row 1: every key masked
     return q, k, v, do, mask
 
@@ -56,12 +60,11 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,masked,p", CASES,
-                         ids=["causal", "kv_mask", "causal_kv_mask",
-                              "dropout", "kv_mask_dropout"])
-def test_flash_attention_matches_jax_interpret(causal, masked, p, dtype):
-    q, k, v, do, mask = _inputs()
+def _check_against_jax(causal, masked, p, dtype, d=D, s_q=S, s_k=S):
+    """o, lse, dq, dk, dv of the port (its plain versions on the CPU)
+    against the JAX package's Pallas kernels in interpret mode, 16-row
+    tiles, on the same numpy inputs."""
+    q, k, v, do, mask = _inputs(s_q=s_q, s_k=s_k, d=d)
     seed = 7 if p else None
     jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v, do)]
     jmask = jnp.asarray(mask) if masked else None
@@ -72,7 +75,7 @@ def test_flash_attention_matches_jax_interpret(causal, masked, p, dtype):
     jdq, jdk, jdv = vjp(jx[3])
     _, jlse = J._fwd(*jx[:3], None,
                      None if jmask is None else jmask.astype(jnp.int8),
-                     None, None, seed, D ** -0.5, causal, p, 16, 16, True)
+                     None, None, seed, d ** -0.5, causal, p, 16, 16, True)
 
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in
           (q, k, v, do)]
@@ -85,11 +88,38 @@ def test_flash_attention_matches_jax_interpret(causal, masked, p, dtype):
     _, tlse = T.flash_attention_fwd(*(t.detach() for t in tx[:3]), **tkw)
 
     assert to.dtype == getattr(torch, dtype)
-    assert tlse.dtype == torch.float32 and tuple(tlse.shape) == (B, N, S)
+    assert tlse.dtype == torch.float32 and tuple(tlse.shape) == (B, N, s_q)
     tol = TOL[dtype]
     for want, got in ((jo, to), (jlse, tlse), (jdq, tx[0].grad),
                       (jdk, tx[1].grad), (jdv, tx[2].grad)):
         np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,masked,p", CASES,
+                         ids=["causal", "kv_mask", "causal_kv_mask",
+                              "dropout", "kv_mask_dropout"])
+def test_flash_attention_matches_jax_interpret(causal, masked, p, dtype):
+    _check_against_jax(causal, masked, p, dtype)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("causal,masked,p", CASES,
+                         ids=["causal", "kv_mask", "causal_kv_mask",
+                              "dropout", "kv_mask_dropout"])
+def test_flash_attention_wide_heads_match_jax_interpret(causal, masked, p,
+                                                        d):
+    """bf16 at the head dims whose tensor-core kernels keep the widest
+    accumulators (128; 256, whose dk/dv kernel walks the queries twice)."""
+    _check_against_jax(causal, masked, p, "bfloat16", d=d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_q,s_k", [(32, 48), (48, 32), (24, 64)])
+def test_flash_attention_causal_cross_matches_jax_interpret(s_q, s_k, dtype):
+    """Causal with s_q != s_k: the kernels stop each query tile at the
+    diagonal and start each key tile's query walk at it."""
+    _check_against_jax(True, False, 0.0, dtype, s_q=s_q, s_k=s_k)
 
 
 def test_fully_masked_row_gives_zeros_and_zero_grads():
@@ -161,6 +191,18 @@ def test_sbhd_and_cross_lengths_match_jax():
     for t, g in zip(tx, jgrads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+def test_kernel_operands_are_16_byte_aligned(offset):
+    """The bf16 kernels copy 16-byte chunks: a contiguous view at an odd
+    element offset reaches them as an aligned copy, an aligned one as
+    itself."""
+    base = torch.arange(2 * 64 + 16, dtype=torch.float32).to(torch.bfloat16)
+    view = base[offset:offset + 2 * 64].view(1, 1, 2, 64)
+    got = T._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    assert (got.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
 
 
 def test_bias_and_varlen_are_refused():

@@ -14,6 +14,12 @@ lacks.
     python3 tools/torch_leg_ab.py --base _tree/parent --head . \
         --legs headline --head-legs fused,fused_monitor
 
+``fused_nonflash`` is the fused leg with ``use_flash_attention=False``
+(the fused softmax kernels in place of flash attention): beside
+``fused`` in the same processes it answers which attention path a step
+without recompute should take. Each ``ab_json`` line also carries the leg's
+peak memory in GiB.
+
 Prints one ``ab_json`` line per leg run (checkout, round, p50 and p99 ms,
 the profiled step's wall and device-busy ms and its host-side operator
 count) and a summary of the p50s per checkout; each process's whole
@@ -27,8 +33,9 @@ import os
 import subprocess
 import sys
 
-#: ``chip_smoke.train_leg`` keywords of each leg; every one launches
-#: ``chip_smoke.HEADLINE_LAUNCHES`` a step
+#: ``chip_smoke.train_leg`` keywords of each leg; each launches
+#: ``chip_smoke.HEADLINE_LAUNCHES`` a step but where ``LAUNCHES`` says
+#: otherwise
 LEGS = {
     "headline": dict(fused_block=True,
                      recompute_granularity="selective_elementwise"),
@@ -36,6 +43,18 @@ LEGS = {
                              recompute_granularity="selective_elementwise"),
     "fused": dict(fused_block=True),
     "fused_monitor": dict(fused_block=True, numerics=True),
+    "fused_nonflash": dict(fused_block=True, use_flash_attention=False),
+}
+#: launches a step of the legs that do not launch HEADLINE_LAUNCHES: the
+#: fused softmax's forward and backward in place of flash attention's
+LAUNCHES = {
+    "fused_nonflash": {"layer_norm_fwd": 25, "layer_norm_bwd": 25,
+                       "softmax_fwd": 24, "softmax_bwd": 24,
+                       "bias_gelu_fwd": 24, "bias_gelu_bwd": 24,
+                       "bias_dropout_residual_fwd": 24,
+                       "bias_dropout_residual_bwd": 24,
+                       "residual_ln_fwd": 24, "residual_ln_bwd": 24,
+                       "packed_adam": 1},
 }
 
 CHILD = r'''
@@ -76,17 +95,20 @@ def profiled(run, label, top):
 
 
 c.profiled = profiled
-for name, kw in legs:
+for name, kw, launches in legs:
     seen.clear()
-    leg = c.train_leg(dev, name, c.HEADLINE_LAUNCHES, timed, **kw)
+    leg = c.train_leg(dev, name, launches or c.HEADLINE_LAUNCHES, timed,
+                      **kw)
     print("leg_json " + json.dumps({"leg": name, "p50": leg["p50"],
-                                    "p99": leg["p99"], **seen}), flush=True)
+                                    "p99": leg["p99"], "peak": leg["peak"],
+                                    **seen}), flush=True)
     torch.cuda.empty_cache()
 '''
 
 
 def run_checkout(path: str, legs, timed: int, log_path: str):
-    arg = json.dumps([(name, LEGS[name]) for name in legs])
+    arg = json.dumps([(name, LEGS[name], LAUNCHES.get(name))
+                      for name in legs])
     env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
     out = subprocess.run([sys.executable, "-c", CHILD, arg, str(timed)],
                          cwd=path, env=env, capture_output=True, text=True,
