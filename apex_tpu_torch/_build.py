@@ -12,6 +12,7 @@ with no ``nvcc``) and is reused while it is newer than every file under
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -44,23 +45,21 @@ _U = ctypes.c_uint32
 _L = ctypes.c_longlong
 _ARGTYPES = {
     # q, k_pages, v_pages, page_table, kv_lens, out,
-    # n_slots, n_heads, head_dim, page_size, pages_per_seq,
-    # scale, q_is_bf16, kv_is_bf16, device, stream
-    "apex_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _F, _I, _I, _I, _P],
+    # n_slots, n_heads, head_dim, page_size, pages_per_seq, n_splits,
+    # split_len, scale, q_is_bf16, kv_is_bf16, device, stream
+    "apex_flash_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _I, _P],
     # x, w, b, y, mu, rstd, rows, hidden, eps, x_is_bf16, device, stream
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                             _P],
-    # rows -> number of [hidden] partial rows of the backward
-    "apex_layer_norm_bwd_blocks": [_I],
     # dy, x, mu, rstd, w, dx, dw_part, db_part, dw, db, rows, hidden,
-    # dy_is_bf16, x_is_bf16, x_is_xhat, device, stream
-    "apex_layer_norm_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    # dy_is_bf16, x_is_bf16, x_is_xhat, n_part, rows_per_block,
+    # warps_per_row, quads, device, stream
+    "apex_layer_norm_bwd": [_P] * 10 + [_I] * 10 + [_P],
     # x, w, y, rstd, rows, hidden, eps, x_is_bf16, device, stream
     "apex_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
     # dy, x, rstd, w, dx, dw_part, dw, rows, hidden, dy_is_bf16, x_is_bf16,
-    # x_is_xhat, device, stream
-    "apex_rms_norm_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    # x_is_xhat, n_part, rows_per_block, warps_per_row, quads, device, stream
+    "apex_rms_norm_bwd": [_P] * 7 + [_I] * 10 + [_P],
     # q, k, v, kv_mask, o, lse, b, n, s_q, s_k, d, scale, causal, dropout,
     # seed, threshold, drop_scale, is_bf16, device, stream
     "apex_flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
@@ -204,6 +203,13 @@ def current_stream(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on
     ``device`` (the stream every kernel launches on)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once): the
+    backward norm and decode kernels size their grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

@@ -27,7 +27,7 @@ rebuilds x-hat from it in fp32 (``(y - b) / w``, ``w`` clamped away from
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -90,6 +90,114 @@ def rms_norm_bwd_reference(dy2d: torch.Tensor, x2d: torch.Tensor,
     return dx, (dy * xhat).sum(dim=0)
 
 
+#: the backward kernels' register tier: rows up to this width are walked by
+#: teams of warps that hold the row in registers (``csrc/layer_norm.cu``,
+#: ``kTier``); wider rows by a block a row
+BWD_TIER = 8192
+#: warps of a block of the team kernel, and of the column pass
+_BWD_WARPS = 8
+#: columns of a column-pass block, and the row groups of its warps
+_BWD_COLS = 8
+#: quads of 4 columns a lane holds at most where wider teams can take the
+#: row: at [8192, 1024] fp32 teams of 4 warps at 2 quads ran the fastest of
+#: 1-4 warps (H100 80GB HBM3, 700 W), their registers letting 3 blocks an SM
+_BWD_LANE_QUADS = 2
+#: team-kernel blocks an SM holds at once, by quads a lane: its registers
+#: on sm_90a (ptxas: 47-63 at 1 quad, 64-77 at 2, 113-127 at 4, 184-226
+#: at 8) against 65,536 an SM at 256 threads a block
+_BWD_RESIDENT = {1: 4, 2: 3, 4: 2, 8: 1}
+
+
+class NormBwdPlan(NamedTuple):
+    """The backward kernels' first launch: ``blocks`` blocks (one partial
+    row each) of ``rows_per_block`` contiguous rows; a team of
+    ``warps_per_row`` warps a row, each lane owning ``quads`` quads of 4
+    columns (``warps_per_row`` 0: rows wider than :data:`BWD_TIER`, a block
+    a row)."""
+    blocks: int
+    rows_per_block: int
+    warps_per_row: int
+    quads: int
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def norm_bwd_plan(rows: int, hidden: int, n_sms: int) -> NormBwdPlan:
+    """Plan of the backward kernels for ``rows >= 1`` rows of ``hidden``
+    columns on a card of ``n_sms`` SMs; it depends on nothing else, so
+    one card sums in one order every time. Up to :data:`BWD_TIER`
+    columns a lane holds at most :data:`_BWD_LANE_QUADS` quads while a
+    team of 8 warps can take the row, more (up to 8, 32 columns) past
+    that; the rows are shared by one wave of blocks, as many an SM as
+    the kernel's registers let stay resident, every block at least one
+    row. Wider rows take ``rows / 256`` rows a block (1 to 32), so that a
+    few wide rows still fill the card."""
+    if hidden > BWD_TIER:
+        rpb = min(32, max(1, rows // 256))
+        return NormBwdPlan(-(-rows // rpb), rpb, 0, 0)
+    quads = min(_BWD_LANE_QUADS, _pow2_at_least(-(-hidden // 128)))
+    wpr = _pow2_at_least(-(-hidden // (128 * quads)))
+    if wpr > _BWD_WARPS:  # 8 warps a row, each lane holding more quads
+        quads = _pow2_at_least(-(-hidden // (128 * _BWD_WARPS)))
+        wpr = _BWD_WARPS
+    teams = _BWD_WARPS // wpr
+    blocks = max(1, min(_BWD_RESIDENT[quads] * n_sms, -(-rows // teams)))
+    rpb = -(-rows // blocks)
+    return NormBwdPlan(-(-rows // rpb), rpb, wpr, quads)
+
+
+def _norm_bwd_partitioned(dy2d: torch.Tensor, x2d: torch.Tensor,
+                          mu: Optional[torch.Tensor], rstd: torch.Tensor,
+                          w: torch.Tensor, plan: NormBwdPlan,
+                          x_is_xhat: bool = False):
+    """Plain model of the backward kernels under ``plan``: dx as the plain
+    backward; each parameter gradient summed in the kernels' order. A
+    block's team ``t`` adds its rows ``r0 + t, r0 + t + teams, ...`` in
+    turn, the teams' sums are added in team order into the block's partial
+    row; in the column pass row group ``g`` of warp ``k`` adds the partial
+    rows ``4 k + g``, then every 32nd, a warp's groups add as ``(g0 + g1)
+    + (g2 + g3)`` and the warps' sums in warp order. ``mu`` None is
+    RMSNorm: ``(dx, dgamma)``; else ``(dx, dgamma, dbeta)``."""
+    if mu is None:
+        dx, _ = rms_norm_bwd_reference(dy2d, x2d, rstd, w, x_is_xhat)
+        xhat = x2d.float() if x_is_xhat else x2d.float() * rstd
+    else:
+        dx, _, _ = layer_norm_bwd_reference(dy2d, x2d, mu, rstd, w,
+                                            x_is_xhat)
+        xhat = x2d.float() if x_is_xhat else (x2d.float() - mu) * rstd
+    dy = dy2d.float()
+    rows, hidden = dy.shape
+    teams = 1 if plan.warps_per_row == 0 else \
+        _BWD_WARPS // plan.warps_per_row
+    grads = []
+    for term in [dy * xhat] + ([] if mu is None else [dy]):
+        part = term.new_zeros(plan.blocks, hidden)
+        for b in range(plan.blocks):
+            r0 = b * plan.rows_per_block
+            r1 = min(rows, r0 + plan.rows_per_block)
+            for t in range(teams):
+                s = term.new_zeros(hidden)
+                for r in range(r0 + t, r1, teams):
+                    s = s + term[r]
+                part[b] = part[b] + s
+        groups = 32 // _BWD_COLS
+        total = term.new_zeros(hidden)
+        for k in range(_BWD_WARPS):
+            g = [term.new_zeros(hidden) for _ in range(groups)]
+            for i in range(groups):
+                for r in range(groups * k + i, plan.blocks,
+                               groups * _BWD_WARPS):
+                    g[i] = g[i] + part[r]
+            total = total + ((g[0] + g[1]) + (g[2] + g[3]))
+        grads.append(total)
+    return (dx, *grads)
+
+
 def _check_kernel_args(x2d, tensors) -> None:
     hidden = x2d.shape[1]
     if x2d.dtype not in (torch.float32, torch.bfloat16):
@@ -139,26 +247,31 @@ def _check_bwd_args(dy2d, x2d, stats) -> None:
 
 
 def _launch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mu: torch.Tensor,
-                rstd: torch.Tensor, w: torch.Tensor, x_is_xhat: bool = False
+                rstd: torch.Tensor, w: torch.Tensor, x_is_xhat: bool = False,
+                plan: Optional[NormBwdPlan] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on CUDA tensors: dy and x ``[rows,
     hidden]`` fp32 or bf16 (x the fp32 x-hat with ``x_is_xhat``), mu/rstd
-    fp32 ``[rows, 1]``, w fp32; any hidden."""
+    fp32 ``[rows, 1]``, w fp32; any hidden. ``plan`` defaults to
+    :func:`norm_bwd_plan` for the card."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w),))
     _check_bwd_args(dy2d, x2d, (("mu", mu), ("rstd", rstd)))
-    lib = _build.kernels()
     dev = x2d.device
-    n_part = lib.apex_layer_norm_bwd_blocks(rows)
     dx = torch.empty_like(dy2d)
-    part = torch.empty((2, n_part, hidden), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return dx, *torch.zeros((2, hidden), dtype=torch.float32, device=dev)
     grads = torch.empty((2, hidden), dtype=torch.float32, device=dev)
+    lib = _build.kernels()
+    plan = plan or norm_bwd_plan(rows, hidden, _build.sm_count(dev.index))
+    part = torch.empty((2, plan.blocks, hidden), dtype=torch.float32,
+                       device=dev)
     rc = lib.apex_layer_norm_bwd(
         dy2d.data_ptr(), x2d.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
         w.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
         rows, hidden, int(dy2d.dtype == torch.bfloat16),
-        int(x2d.dtype == torch.bfloat16), int(x_is_xhat), dev.index,
+        int(x2d.dtype == torch.bfloat16), int(x_is_xhat), *plan, dev.index,
         _build.current_stream(dev))
     _build.check(rc, "layer_norm_bwd")
     _device.LAUNCHES["layer_norm_bwd"] += 1
@@ -185,24 +298,28 @@ def _launch_rms(x2d: torch.Tensor, w: torch.Tensor, eps: float
 
 def _launch_rms_bwd(dy2d: torch.Tensor, x2d: torch.Tensor,
                     rstd: torch.Tensor, w: torch.Tensor,
-                    x_is_xhat: bool = False
+                    x_is_xhat: bool = False,
+                    plan: Optional[NormBwdPlan] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the RMSNorm backward kernels on CUDA tensors, as
     :func:`_launch_bwd` without mu and dbeta."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w),))
     _check_bwd_args(dy2d, x2d, (("rstd", rstd),))
-    lib = _build.kernels()
     dev = x2d.device
     dx = torch.empty_like(dy2d)
-    part = torch.empty((lib.apex_layer_norm_bwd_blocks(rows), hidden),
-                       dtype=torch.float32, device=dev)
+    if rows == 0:
+        return dx, torch.zeros(hidden, dtype=torch.float32, device=dev)
     dw = torch.empty(hidden, dtype=torch.float32, device=dev)
+    lib = _build.kernels()
+    plan = plan or norm_bwd_plan(rows, hidden, _build.sm_count(dev.index))
+    part = torch.empty((plan.blocks, hidden), dtype=torch.float32,
+                       device=dev)
     rc = lib.apex_rms_norm_bwd(
         dy2d.data_ptr(), x2d.data_ptr(), rstd.data_ptr(), w.data_ptr(),
         dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, hidden,
         int(dy2d.dtype == torch.bfloat16), int(x2d.dtype == torch.bfloat16),
-        int(x_is_xhat), dev.index, _build.current_stream(dev))
+        int(x_is_xhat), *plan, dev.index, _build.current_stream(dev))
     _build.check(rc, "rms_norm_bwd")
     _device.LAUNCHES["rms_norm_bwd"] += 1
     return dx, dw

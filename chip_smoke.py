@@ -36,9 +36,17 @@ any failure exits non-zero and prints no result line:
    4096] and [2048, 8192] bf16, widths 1000 and 32768, and its
    memory-efficient backward; the numerics monitor's row statistics over
    the 345M buffer in bf16 and fp32 and at a ragged length, with inf and
-   nan planted in known rows);
+   nan planted in known rows; both norm backwards on either side of
+   their register tier and wide, widths 1, 31, 1000, 1024, 4096, 8192,
+   8193, 32768 and 65536 at 1, 7 and 8192 rows, every dtype pair and the
+   x-hat form; the split decode at lengths on and beside split
+   boundaries under the card's plan and under splits that end mid-page,
+   every slot empty, and 8 and 64 slots at kv_len 1024; the redesigned
+   kernels each run twice, bit for bit);
    times of kernel, plain version, one PyTorch library call as
-   yardstick, and the least time the card could take;
+   yardstick (the device time of SDPA, of ``F.layer_norm``'s and
+   ``F.rms_norm``'s backward kernels), and the least time the card could
+   take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
    vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine(n_slots=8, prefill_chunk=8)`` on 16 staggered
@@ -101,6 +109,7 @@ Exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import subprocess
 import sys
@@ -130,6 +139,8 @@ from apex_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_reference,
 )
 from apex_tpu_torch.ops.flash_decode import (
+    DecodePlan,
+    decode_plan,
     flash_decode,
     paged_decode_reference,
 )
@@ -189,6 +200,10 @@ from apex_tpu_torch.transformer.testing import (
     gpt_loss,
     init_gpt_params,
 )
+
+# the modules (the package re-exports functions of the same names)
+fd_mod = importlib.import_module("apex_tpu_torch.ops.flash_decode")
+ln_mod = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 (non-tensor-core)
 #: flop/s — the kernels here but bf16 flash attention do their arithmetic
@@ -370,61 +385,142 @@ def flash_decode_checks(dev):
     # K/V reads come from device memory as each layer's pool would
     q, pools, pt, kl = _page_case(g, dev, dec_lens, torch.bfloat16,
                                   torch.bfloat16, n_pools=8)
-    it = {"i": 0}
-
-    def nxt():
-        it["i"] = (it["i"] + 1) % len(pools)
-        return pools[it["i"]]
-
-    ms = time_ms(lambda: flash_decode(q, *nxt(), pt, kl))
-    dev_ms = device_ms(lambda: flash_decode(q, *nxt(), pt, kl),
-                       "flash_decode_kernel")
-    plain_ms = time_ms(lambda: paged_decode_reference(q, *nxt(), pt, kl),
-                       iters=20)
-    # yardstick: SDPA over the already gathered dense K/V (the gather
-    # itself is not timed)
-    kd = pools[0][0][pt.long()].permute(0, 2, 1, 3, 4).reshape(
-        SLOTS, N_HEADS, MP * PAGE, HEAD_DIM)
-    vd = pools[0][1][pt.long()].permute(0, 2, 1, 3, 4).reshape(
-        SLOTS, N_HEADS, MP * PAGE, HEAD_DIM)
-    mask = (torch.arange(MP * PAGE, device=dev)[None, :]
-            < kl[:, None]).reshape(SLOTS, 1, 1, MP * PAGE)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask))
-    tokens = int(kl.sum())
-    elem = 2
-    nbytes = (2 * tokens * N_HEADS * HEAD_DIM * elem      # K and V rows
-              + 2 * q.numel() * elem                      # q in, out
-              + sum(-(-L // PAGE) for L in dec_lens) * 4  # page-table reads
-              + kl.numel() * 4)
-    flops = 4 * tokens * N_HEADS * HEAD_DIM
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = flops / FP32_FLOPS * 1e3
-    log(f"  flash_decode decode bf16 [8,16,64] over {tokens} tokens: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-        f"ms, bound {max(b_ms, f_ms):.4f} ms; kernel device time "
-        f"{dev_ms} ms")
+    t = _decode_timing(dev, q, pools, pt, kl, "decode bf16 [8,16,64]")
     # the chunk shape is timed too, for PERF.md
     qc, pc, ptc, klc = _page_case(g, dev, chunk_lens, torch.bfloat16,
                                   torch.bfloat16, n_pools=8)
-    itc = {"i": 0}
-
-    def nxtc():
-        itc["i"] = (itc["i"] + 1) % len(pc)
-        return pc[itc["i"]]
-
+    nxtc = _rotating(pc)
     ms_c = time_ms(lambda: flash_decode(qc, *nxtc(), ptc, klc))
     dev_c = device_ms(lambda: flash_decode(qc, *nxtc(), ptc, klc),
-                      "flash_decode_kernel")
+                      "flash_decode_")
     log(f"  flash_decode chunk bf16 [64,16,64] over {int(klc.sum())} "
         f"tokens: kernel {ms_c:.4f} ms, device time {dev_c} ms")
+    errs.append(flash_decode_split_checks(dev, g))
     return {"name": "flash_decode", "route": "cuda",
             "source": "apex_tpu_torch/csrc/flash_decode.cu",
             "replaces": "apex_tpu/ops/flash_decode.py:147",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(b_ms, f_ms),
-            "bound_by": "bytes" if b_ms >= f_ms else "operations",
-            "library_ms": lib_ms, "device_ms": dev_ms}
+            "max_abs_err": max(errs), **t}
+
+
+def _decode_timing(dev, q, pools, pt, kl, label):
+    """Call and device ms of the decode kernel over ``pools`` in turn (more
+    than the 50 MB L2 together, or as many as fit the call's pool sizes),
+    its plain version's ms, the device ms of SDPA over the already
+    gathered dense K/V (the gather itself untimed) as the library
+    yardstick, and the bound: the live tokens' K/V rows, q, out, the live
+    page-table entries and the lengths, over the HBM rate."""
+    b, n, d = q.shape
+    mp = pt.shape[1]
+    ps = pools[0][0].shape[2]
+    nxt = _rotating(pools)
+    ms = time_ms(lambda: flash_decode(q, *nxt(), pt, kl))
+    dev_ms = device_ms(lambda: flash_decode(q, *nxt(), pt, kl),
+                       "flash_decode_")
+    plain_ms = time_ms(lambda: paged_decode_reference(q, *nxt(), pt, kl),
+                       iters=5)
+    kd = pools[0][0][pt.long()].permute(0, 2, 1, 3, 4).reshape(
+        b, n, mp * ps, d)
+    vd = pools[0][1][pt.long()].permute(0, 2, 1, 3, 4).reshape(
+        b, n, mp * ps, d)
+    mask = (torch.arange(mp * ps, device=dev)[None, :]
+            < kl[:, None]).reshape(b, 1, 1, mp * ps)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None, :], kd, vd,
+                                              attn_mask=mask)
+    lib_call = time_ms(sdpa)
+    lib_ms = device_ms(sdpa, "")
+    tokens = int(kl.sum())
+    elem = pools[0][0].element_size()
+    nbytes = (2 * tokens * n * d * elem                    # K and V rows
+              + 2 * q.numel() * q.element_size()           # q in, out
+              + sum(-(-int(L) // ps) for L in kl) * 4      # page-table reads
+              + kl.numel() * 4)
+    b_ms, by = bound(nbytes, 4 * tokens * n * d)
+    log(f"  flash_decode {label} over {tokens} tokens: kernel {ms:.4f} ms "
+        f"(device {dev_ms} ms), plain "
+        f"{plain_ms:.4f} ms, sdpa over gathered K/V {lib_call:.4f} ms "
+        f"(device {lib_ms} ms), bound {b_ms:.5f} ms ({by}), share of bound "
+        f"{b_ms / dev_ms if dev_ms else None}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib_ms, "device_ms": dev_ms}
+
+
+def flash_decode_split_checks(dev, g):
+    """The split decode (split-K over the token axis, the splits of a
+    (slot, head) one thread block cluster merging in shared memory):
+    lengths at the first split boundaries and one either side under the
+    card's plan and under 8 splits of 36 tokens that end mid-page, every
+    slot empty (zeros), two runs bit for bit; then 8 and 64 slots each at
+    kv_len 1024 (the 345M's whole context, 128 pages of 8), checked and
+    timed. Returns the largest error (``TOL`` of q's dtype)."""
+    mp = 128
+    t_max = mp * PAGE
+    errs = []
+    for name, kv_dt, q_dt in (("bf16", torch.bfloat16, torch.bfloat16),
+                              ("f32", torch.float32, torch.float32),
+                              ("f32 q / bf16 pages", torch.bfloat16,
+                               torch.float32)):
+        plan = decode_plan(SLOTS, N_HEADS, PAGE, MP,
+                           _build.sm_count(dev.index))
+        for p in (plan, DecodePlan(-(-MP * PAGE // 36), 36)):
+            S = p.split_len
+            lens = [0, S - 1, S, S + 1, 2 * S - 1, 2 * S + 1,
+                    min(3 * S, MP * PAGE) - 1, MP * PAGE]
+            q, pools, pt, kl = _page_case(g, dev, lens, kv_dt, q_dt)
+            k, v = pools[0]
+            got = fd_mod._launch(q, k, v, pt, kl, HEAD_DIM ** -0.5, p)
+            again = fd_mod._launch(q, k, v, pt, kl, HEAD_DIM ** -0.5, p)
+            want = paged_decode_reference(q, k, v, pt, kl)
+            err = check_close(f"flash_decode split {p} {name}", got, want,
+                              q_dt)
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_decode {p} {name}: two runs "
+                                     f"differ")
+            if got[0].abs().max() != 0:
+                raise AssertionError("flash_decode: kv_len == 0 not zero")
+            empty = fd_mod._launch(q, k, v, pt, torch.zeros_like(kl),
+                                   HEAD_DIM ** -0.5, p)
+            if empty.abs().max() != 0:
+                raise AssertionError(f"flash_decode {p}: every split empty "
+                                     f"but the output is not zero")
+            errs.append(err)
+            log(f"  flash_decode {name} {p} lens {lens}: max abs err "
+                f"{err:.3e}; twice bitwise equal; all-empty zeros")
+    for slots, n_pools in ((8, 4), (64, 2)):
+        pages = slots * mp + 1
+        pools = [tuple(torch.randn(pages, N_HEADS, PAGE, HEAD_DIM,
+                                   generator=g, device=dev).to(
+                                       torch.bfloat16) for _ in range(2))
+                 for _ in range(n_pools)]
+        q = torch.randn(slots, N_HEADS, HEAD_DIM, generator=g,
+                        device=dev).to(torch.bfloat16)
+        pt = (torch.randperm(pages - 1, generator=g, device=dev)[
+            :slots * mp] + 1).reshape(slots, mp).to(torch.int32)
+        plan = decode_plan(slots, N_HEADS, PAGE, mp,
+                           _build.sm_count(dev.index))
+        S = plan.split_len
+        for lens in ([t_max] * slots,
+                     [(S + (i % 3) - 1) if i % 2 else min(t_max, 2 * S + 1)
+                      for i in range(slots)]):
+            kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = flash_decode(q, *pools[0], pt, kl)
+            again = flash_decode(q, *pools[0], pt, kl)
+            err = check_close(f"flash_decode [{slots},16,64] x {t_max}", got,
+                              paged_decode_reference(q, *pools[0], pt, kl),
+                              torch.bfloat16)
+            if not torch.equal(got, again):
+                raise AssertionError("flash_decode: two runs differ")
+            errs.append(err)
+        log(f"  flash_decode [{slots},16,64] bf16 {plan}, kv_len {t_max} and "
+            f"at the split boundaries: max abs err {max(errs[-2:]):.3e}; "
+            f"twice bitwise equal")
+        kl = torch.full((slots,), t_max, dtype=torch.int32, device=dev)
+        _decode_timing(dev, q, pools, pt, kl,
+                       f"bf16 [{slots},16,64] x {t_max}")
+        del pools
+        torch.cuda.empty_cache()
+    return max(errs)
 
 
 def layer_norm_checks(dev):
@@ -506,6 +602,96 @@ def bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS):
 SUM_TOL = (1e-3, 1e-4)
 
 
+#: PyTorch's LayerNorm backward kernels (aten/src/ATen/native/cuda/
+#: layer_norm_kernel.cu) by name: the library yardstick of #3 is their
+#: device time, not the host's autograd call around them
+LN_BWD_LIBRARY = ("layer_norm", "LayerNorm", "GammaBeta", "gamma_beta",
+                  "ComputeInternalGradients", "ComputeGradientFusedParams")
+
+
+def _library_bwd_ms(fn, match, label):
+    """Call ms of a library backward (``torch.autograd.grad`` over a
+    retained graph) and the device ms of its kernels named by ``match``;
+    every kernel of the call is logged by name with its device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = time_ms(fn, iters=20)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.key: e.device_time_total / 1e3 / 20
+             for e in prof.key_averages() if e.device_time_total > 0}
+    log(f"  {label}: kernels {json.dumps(names)}")
+    return call, device_ms(fn, match, iters=20)
+
+
+def norm_bwd_tier_checks(dev):
+    """Both norm backwards (#3, #5) against their plain versions on either
+    side of the team kernel's register tier (widths 1, 31, 1000, 1024,
+    4096, 8192 and 8193) and wide (32768, 65536: the block-a-row kernel),
+    at 1, 7 and 8192 rows, every dtype pair of x and dy and the x-hat
+    form, each on the same statistics as its plain version: dx within
+    ``TOL`` of dy's dtype, the parameter gradients within ``SUM_TOL``; a
+    second run bit for bit. Returns the largest LayerNorm and RMSNorm
+    errors."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    errs = {"layer_norm": [], "rms_norm": []}
+    pairs = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32))
+    for hidden in (1, 31, 1000, 1024, 4096, 8192, 8193, 32768, 65536):
+        for rows in (1, 7, 8192):
+            x0 = torch.randn(rows, hidden, generator=g, device=dev) * 3 + 1
+            dy0 = torch.randn(rows, hidden, generator=g, device=dev)
+            w = torch.randn(hidden, generator=g, device=dev)
+            for norm, (x_dt, dy_dt) in ((n, p) for n in errs for p in pairs):
+                x, dy = x0.to(x_dt), dy0.to(dy_dt)
+                if norm == "layer_norm":
+                    _, mu, rstd = layer_norm_reference(
+                        x, w, torch.zeros_like(w), 1e-5)
+                    xhat = (x.float() - mu) * rstd
+
+                    def kern(xin, is_xhat):
+                        return layer_norm_bwd(dy, xin, mu, rstd, w, is_xhat)
+
+                    def plain(xin, is_xhat):
+                        return layer_norm_bwd_reference(dy, xin, mu, rstd, w,
+                                                        is_xhat)
+                else:
+                    _, rstd = rms_norm_reference(x, w, 1e-5)
+                    xhat = x.float() * rstd
+
+                    def kern(xin, is_xhat):
+                        return rms_norm_bwd(dy, xin, rstd, w, is_xhat)
+
+                    def plain(xin, is_xhat):
+                        return rms_norm_bwd_reference(dy, xin, rstd, w,
+                                                      is_xhat)
+                for xin, is_xhat in ((x, False), (xhat, True)):
+                    got, again = kern(xin, is_xhat), kern(xin, is_xhat)
+                    want = plain(xin, is_xhat)
+                    what = (f"{norm}_bwd [{rows},{hidden}] x {x_dt} dy "
+                            f"{dy_dt}{' x-hat' if is_xhat else ''}")
+                    if got[0].dtype != dy_dt:
+                        raise AssertionError(f"{what}: dx {got[0].dtype}")
+                    err = max([check_close(what, got[0], want[0], dy_dt)]
+                              + [check_close(what + " parameter gradient",
+                                             a, c, None, SUM_TOL)
+                                 for a, c in zip(got[1:], want[1:])])
+                    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                        raise AssertionError(f"{what}: two runs differ")
+                    errs[norm].append(err)
+            del x0, dy0, x, dy, xhat
+            torch.cuda.empty_cache()
+        log(f"  norm backwards at hidden {hidden}, rows 1/7/8192, 4 dtype "
+            f"pairs, x and x-hat: max abs err LayerNorm "
+            f"{max(errs['layer_norm']):.3e}, RMSNorm "
+            f"{max(errs['rms_norm']):.3e}; twice bitwise equal")
+    return max(errs["layer_norm"]), max(errs["rms_norm"])
+
+
 def layer_norm_bwd_checks(dev):
     """The backward kernel at the train step's shape ([8 * 1024, 1024],
     fp32 x as the model normalises an fp32 copy), with fp32 and bf16
@@ -547,21 +733,27 @@ def layer_norm_bwd_checks(dev):
                 return layer_norm_bwd(dy, x, mu, rstd, w)
             ms = time_ms(run)
             dev_ms = device_ms(run, "norm_bwd_")
+            split = [device_ms(run, m) for m in ("norm_bwd_team_kernel",
+                                                 "norm_bwd_cols_kernel")]
             plain_ms = time_ms(
                 lambda: layer_norm_bwd_reference(dy, x, mu, rstd, w),
                 iters=20)
             xl, wl, bl = (t.clone().requires_grad_(True) for t in (x, w, b))
             yl = F.layer_norm(xl, (HIDDEN,), wl, bl, 1e-5)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                yl, (xl, wl, bl), dy, retain_graph=True), iters=20)
+            lib_call, lib_ms = _library_bwd_ms(
+                lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                            retain_graph=True),
+                LN_BWD_LIBRARY, "F.layer_norm backward")
             nbytes = 3 * x.numel() * 4 + 2 * rows * 4 + 3 * HIDDEN * 4
             b_ms, by = bound(nbytes, 12 * x.numel())
             timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": by}
             log(f"  layer_norm_bwd [{rows},{HIDDEN}] f32: kernel {ms:.4f} "
                 f"ms, plain {plain_ms:.4f} ms, F.layer_norm backward "
-                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); kernel "
-                f"device time {dev_ms} ms")
+                f"{lib_call:.4f} ms (device {lib_ms} ms), bound {b_ms:.4f} "
+                f"ms ({by}); kernel device time {dev_ms} ms (rows pass "
+                f"{split[0]}, column pass {split[1]}), share of bound "
+                f"{b_ms / dev_ms if dev_ms else None}")
     return {"name": "layer_norm_bwd", "route": "cuda",
             "source": "apex_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_tpu/ops/layer_norm.py:210",
@@ -734,10 +926,10 @@ def rms_norm_checks(dev):
         es = x.element_size()
         xl = x.clone().requires_grad_(True)
         wl = w.to(dt).requires_grad_(True)
+        yl = F.rms_norm(xl, (hidden,), wl, 1e-5)
 
-        def lib_pair():
-            yl = F.rms_norm(xl, (hidden,), wl, 1e-5)
-            return torch.autograd.grad(yl, (xl, wl), dy)
+        def lib_bwd():
+            return torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)
         fwd = _kernel_timing(
             lambda: rms_norm_fwd(x, w), lambda: rms_norm_reference(x, w,
                                                                    1e-5),
@@ -746,16 +938,21 @@ def rms_norm_checks(dev):
             4 * x.numel())
         bwd = _kernel_timing(
             lambda: rms_norm_bwd(dy, x, rstd, w),
-            lambda: rms_norm_bwd_reference(dy, x, rstd, w), lib_pair,
+            lambda: rms_norm_bwd_reference(dy, x, rstd, w), None,
             "norm_bwd_", 3 * x.numel() * es + rows * 4 + 2 * hidden * 4,
             10 * x.numel())
+        # the library yardstick of the backward: the device time of every
+        # kernel of F.rms_norm's backward (a retained graph)
+        lib_call, bwd["library_ms"] = _library_bwd_ms(
+            lib_bwd, "", f"F.rms_norm backward {str(dt)[6:]}")
         for name, t in (("rms_norm_fwd", fwd), ("rms_norm_bwd", bwd)):
+            lib = (f"{t['library_ms']:.4f} ms" if name == "rms_norm_fwd"
+                   else f"backward {lib_call:.4f} ms (device "
+                        f"{t['library_ms']} ms)")
             log(f"  {name} [{rows},{hidden}] {str(dt)[6:]}: kernel "
                 f"{t['ms']:.4f} ms (device {t['device_ms']} ms), plain "
-                f"{t['plain_ms']:.4f} ms, F.rms_norm"
-                f"{'' if name == 'rms_norm_fwd' else ' fwd+bwd'} "
-                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                f"({t['bound_by']})")
+                f"{t['plain_ms']:.4f} ms, F.rms_norm {lib}, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
         if dt == torch.bfloat16:
             out = [{"name": "rms_norm_fwd", "route": "cuda",
                     "source": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -3134,12 +3331,14 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    (fd, ln, ln_bwd, ln_wide_errs, rms, (fa_fwd, fa_bwd), head_dim_errs,
-     adam, fused, softmax, lamb, sgd, flat, row_stats, novograd) = phase(
+    (fd, ln, ln_bwd, ln_wide_errs, rms, tier_errs, (fa_fwd, fa_bwd),
+     head_dim_errs, adam, fused, softmax, lamb, sgd, flat, row_stats,
+     novograd) = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), layer_norm_width_checks(dev),
-                 rms_norm_checks(dev), flash_attention_checks(dev),
+                 rms_norm_checks(dev), norm_bwd_tier_checks(dev),
+                 flash_attention_checks(dev),
                  flash_head_dim_checks(dev), packed_adam_checks(dev),
                  fused_block_checks(dev), fused_softmax_checks(dev),
                  packed_lamb_checks(dev), packed_sgd_checks(dev),
@@ -3148,7 +3347,9 @@ def main() -> int:
     fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], head_dim_errs[0])
     fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], head_dim_errs[1])
     ln["max_abs_err"] = max(ln["max_abs_err"], ln_wide_errs[0])
-    ln_bwd["max_abs_err"] = max(ln_bwd["max_abs_err"], ln_wide_errs[1])
+    ln_bwd["max_abs_err"] = max(ln_bwd["max_abs_err"], ln_wide_errs[1],
+                                tier_errs[0])
+    rms[1]["max_abs_err"] = max(rms[1]["max_abs_err"], tier_errs[1])
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     near = phase("phase 4: fp32 token identity", token_identity, dev)
     log(f"  near-ties: {near}")

@@ -49,13 +49,18 @@ rounded to bf16, ~2e-3, fails) and against the plain backward that
 keeps x (1e-4 fp32, 8e-3 bf16 of each norm: x-hat from y carries y's
 rounding); the row statistics' counts
 and maxima exactly, their sums rtol 1e-5; the monitored step's records
-exactly.
+exactly. The norm backwards on both sides of their register tier (widths
+1 to 8193, every dtype pair, x-hat) and the split decode (lengths at a
+split and one either side, splits ending mid-page, every head dim) as
+the LayerNorm and decode kernels, and each twice bit for bit.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from apex_tpu_torch import _device
+from apex_tpu_torch import _build, _device
 from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
 from apex_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
@@ -64,7 +69,12 @@ from apex_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_reference,
 )
 from apex_tpu_torch.ops import fused_block as fb
-from apex_tpu_torch.ops.flash_decode import flash_decode, paged_decode_reference
+from apex_tpu_torch.ops.flash_decode import (
+    DecodePlan,
+    decode_plan,
+    flash_decode,
+    paged_decode_reference,
+)
 from apex_tpu_torch.ops.layer_norm import (
     layer_norm,
     layer_norm_bwd,
@@ -99,6 +109,10 @@ from apex_tpu_torch.ops.packed_optimizer import (
 )
 
 pytestmark = pytest.mark.cuda
+
+# the modules (the package re-exports functions of the same names)
+fd_mod = importlib.import_module("apex_tpu_torch.ops.flash_decode")
+ln_mod = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
@@ -1394,3 +1408,145 @@ def test_monitored_step_makes_no_host_sync_and_names_the_leaf(
     assert [(r["step"], r["loss"], r["tokens"]) for r in metrics] == [
         (2, 2.5, 32.0), (4, 0.75, 32.0)]
     assert metrics[-1]["overflow_skips"] == 1
+
+
+NORM_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+def _norm_bwd_pair(norm, dy, x, stats, w, x_is_xhat=False, plan=None):
+    """The kernel backward and the plain one on the same statistics."""
+    if norm == "layer_norm":
+        mu, rstd = stats
+        got = ln_mod._launch_bwd(dy, x, mu, rstd, w, x_is_xhat, plan)
+        want = layer_norm_bwd_reference(dy, x, mu, rstd, w, x_is_xhat)
+    else:
+        (rstd,) = stats
+        got = ln_mod._launch_rms_bwd(dy, x, rstd, w, x_is_xhat, plan)
+        want = rms_norm_bwd_reference(dy, x, rstd, w, x_is_xhat)
+    return got, want
+
+
+@pytest.mark.parametrize("rows", [1, 7, 300])
+@pytest.mark.parametrize("hidden", [1, 31, 1000, 1024, 4096, 8192, 8193])
+@pytest.mark.parametrize("norm", ["layer_norm", "rms_norm"])
+def test_norm_bwd_kernels_across_the_tier(cuda_device, norm, hidden, rows):
+    """Both norm backwards on either side of the team kernel's register
+    tier (8192) and at unaligned widths (1, 31, 1000: element-by-element
+    quads), every dtype pair of x and dy and the x-hat form: dx within
+    ``TOL`` of dy's dtype, parameter gradients atol 1e-3 rtol 1e-4, a
+    second run bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(hidden * 8 + rows)
+    x0 = torch.randn(rows, hidden, generator=g, device=cuda_device) * 3 + 1
+    dy0 = torch.randn(rows, hidden, generator=g, device=cuda_device)
+    w = torch.randn(hidden, generator=g, device=cuda_device)
+    for x_dt, dy_dt in NORM_PAIRS:
+        x, dy = x0.to(x_dt), dy0.to(dy_dt)
+        if norm == "layer_norm":
+            _, mu, rstd = layer_norm_reference(x, w, torch.zeros_like(w),
+                                               1e-5)
+            stats, xhat = (mu, rstd), (x.float() - mu) * rstd
+        else:
+            _, rstd = rms_norm_reference(x, w, 1e-5)
+            stats, xhat = (rstd,), x.float() * rstd
+        for xin, is_xhat in ((x, False), (xhat, True)):
+            got, want = _norm_bwd_pair(norm, dy, xin, stats, w, is_xhat)
+            again, _ = _norm_bwd_pair(norm, dy, xin, stats, w, is_xhat)
+            torch.cuda.synchronize()
+            assert got[0].dtype == dy_dt
+            torch.testing.assert_close(got[0].float(), want[0].float(),
+                                       **TOL[dy_dt])
+            for a, c in zip(got[1:], want[1:]):
+                torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-4)
+            for a, c in zip(got, again):
+                assert torch.equal(a, c), "two runs differ"
+
+
+@pytest.mark.parametrize("hidden,n_sms", [(1000, 3), (2048, 2), (4096, 1),
+                                          (8193, 2)])
+@pytest.mark.parametrize("norm", ["layer_norm", "rms_norm"])
+def test_norm_bwd_kernel_follows_its_partitioned_model(cuda_device, norm,
+                                                       hidden, n_sms):
+    """Under a plan for a small SM count (several blocks, teams of 1-4
+    warps, a block-a-row plan past the tier) the kernels' parameter
+    gradients against their plain model ``_norm_bwd_partitioned``, which
+    sums in the kernels' order (atol 1e-4 rtol 1e-5: the same additions,
+    each product rounded apart from its sum on the CPU side; a row
+    dropped or counted twice moves a sum by ~1), and dx as the plain
+    backward's."""
+    rows = 37
+    g = torch.Generator(device=cuda_device).manual_seed(hidden)
+    x = torch.randn(rows, hidden, generator=g, device=cuda_device) * 3 + 1
+    dy = torch.randn(rows, hidden, generator=g, device=cuda_device)
+    w = torch.randn(hidden, generator=g, device=cuda_device)
+    plan = ln_mod.norm_bwd_plan(rows, hidden, n_sms)
+    if norm == "layer_norm":
+        _, mu, rstd = layer_norm_reference(x, w, torch.zeros_like(w), 1e-5)
+        got = ln_mod._launch_bwd(dy, x, mu, rstd, w, plan=plan)
+    else:
+        mu = None
+        _, rstd = rms_norm_reference(x, w, 1e-5)
+        got = ln_mod._launch_rms_bwd(dy, x, rstd, w, plan=plan)
+    want = ln_mod._norm_bwd_partitioned(dy, x, mu, rstd, w, plan)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **TOL[torch.float32])
+    for a, c in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-5)
+
+
+def _split_lens(split_len, t_max):
+    """Lengths at the first two split boundaries, one either side, an empty
+    slot and the whole context."""
+    return [0, 1, split_len - 1, split_len, split_len + 1,
+            2 * split_len - 1, 2 * split_len + 1, t_max]
+
+
+@pytest.mark.parametrize("kv_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "f32q_bf16kv"])
+@pytest.mark.parametrize("plan", ["default", "mid_page"])
+def test_flash_decode_at_split_boundaries(cuda_device, kv_dtype, q_dtype,
+                                          plan):
+    """The split decode at lengths on and beside split boundaries, under
+    the card's plan (32 pages of 8 a slot: 4 splits of 64 on an H100) and
+    under 8 splits of 36 tokens (ending mid-page), against the plain version
+    within ``TOL``; empty slots exactly 0; a second run bit for bit; every
+    slot empty gives zeros."""
+    mp, ps = 32, 8
+    if plan == "default":
+        p = decode_plan(8, 4, ps, mp,
+                        _build.sm_count(torch.cuda.current_device()))
+    else:
+        p = DecodePlan(-(-mp * ps // 36), 36)
+    lens = _split_lens(p.split_len, mp * ps)
+    q, k, v, pt, kl = _decode_case(cuda_device, kv_dtype, q_dtype,
+                                   lens=lens, P=8 * mp + 1, mp=mp)
+    _device.reset_launch_counts()
+    got = fd_mod._launch(q, k, v, pt, kl, 0.125, p)
+    assert _device.launch_counts()["flash_decode"] == 1
+    again = fd_mod._launch(q, k, v, pt, kl, 0.125, p)
+    want = paged_decode_reference(q, k, v, pt, kl, scale=0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL[q_dtype])
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got, again), "two runs differ"
+    empty = fd_mod._launch(q, k, v, pt, torch.zeros_like(kl), 0.125, p)
+    assert torch.equal(empty, torch.zeros_like(empty))
+
+
+@pytest.mark.parametrize("d", [16, 33, 36, 64, 80, 128, 256])
+@pytest.mark.parametrize("kv_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "f32q_bf16kv"])
+def test_flash_decode_kernel_at_head_dims(cuda_device, kv_dtype, q_dtype, d):
+    """Every lane-group width of the decode kernel (4 to 32 lanes a token
+    row, two vectors a lane at fp32 d 256) and head dims that are no whole
+    number of 16-byte vectors (33; 36 in bf16), read element by element,
+    against the plain version within ``TOL``."""
+    q, k, v, pt, kl = _decode_case(cuda_device, kv_dtype, q_dtype, d=d,
+                                   lens=(0, 1, 9, 30, 64, 17))
+    got = flash_decode(q, k, v, pt, kl)
+    want = paged_decode_reference(q, k, v, pt, kl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[q_dtype])

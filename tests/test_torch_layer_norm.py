@@ -10,6 +10,8 @@ the plain versions on the card by ``tests/test_torch_cuda.py`` and
 Tolerances: fp32 atol/rtol 1e-5 on y and the statistics; bf16 input
 2e-2 on y (one bf16 rounding of values of order 1), statistics fp32.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,11 @@ import pytest
 import torch
 
 from apex_tpu.normalization import FusedLayerNorm as JaxFusedLayerNorm
-from apex_tpu.ops.layer_norm import _layer_norm_fwd_impl, _ln_bwd_pallas
+from apex_tpu.ops.layer_norm import (
+    _layer_norm_fwd_impl,
+    _ln_bwd_pallas,
+    _ln_bwd_xla,
+)
 from apex_tpu.ops.layer_norm import layer_norm as jax_layer_norm
 from apex_tpu_torch.normalization import (
     FusedLayerNorm,
@@ -30,6 +36,9 @@ from apex_tpu_torch.ops.layer_norm import (
     layer_norm_fwd,
     layer_norm_reference,
 )
+
+# the module (the package re-exports a function of the same name)
+tln = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
 
 def _case(rows=24, hidden=256, seed=0):
@@ -202,3 +211,69 @@ def test_layer_norm_memory_efficient_is_refused():
                                    rtol=1e-5)
     with pytest.raises(ValueError, match="normalized_shape"):
         fused_layer_norm(torch.from_numpy(x), (8,))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' partition: a planned grid of blocks over contiguous
+# row ranges, teams of warps within a block, partial rows summed in a fixed
+# order (`_norm_bwd_partitioned`, the plain model of the kernels), against
+# JAX's backward on both sides of the register tier (8192) and wide; a small
+# SM count makes several blocks, teams with no row and uneven ranges.
+# Tolerances: fp32 dx 1e-5, column sums 1e-4 (their order); bf16 dy 2e-2 on
+# dx (one rounding), 1e-3 on the sums.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hidden", [1000, 1024, 8193, 32768])
+@pytest.mark.parametrize("rows,n_sms", [(7, 1), (37, 3)])
+@pytest.mark.parametrize("dy_dtype,tol,sum_tol", [
+    ("float32", 1e-5, 1e-4), ("bfloat16", 2e-2, 1e-3)])
+def test_norm_bwd_partition_matches_jax(hidden, rows, n_sms, dy_dtype, tol,
+                                        sum_tol):
+    x, w, b = _case(rows, hidden, seed=hidden + rows)
+    dy = np.random.default_rng(rows).normal(size=x.shape).astype(np.float32)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    _, mu, rstd = layer_norm_reference(tx, tw, torch.from_numpy(b), 1e-5)
+    tdy = torch.from_numpy(dy).to(getattr(torch, dy_dtype))
+    plan = tln.norm_bwd_plan(rows, hidden, n_sms)
+    dx, dw, db = tln._norm_bwd_partitioned(tdy, tx, mu, rstd, tw, plan)
+    jdx, jdw, jdb = _ln_bwd_xla(jnp.asarray(dy, getattr(jnp, dy_dtype)),
+                                jnp.asarray(x), jnp.asarray(mu.numpy()),
+                                jnp.asarray(rstd.numpy()), jnp.asarray(w),
+                                True)
+    assert dx.dtype == tdy.dtype
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(jdx.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    for got, want in ((dw, jdw), (db, jdb)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=sum_tol, atol=sum_tol)
+    # the memory-efficient form: x-hat in, mu not read
+    xhat = (tx - mu) * rstd
+    hdx, hdw, hdb = tln._norm_bwd_partitioned(tdy, xhat, mu, rstd, tw, plan,
+                                              x_is_xhat=True)
+    torch.testing.assert_close(hdx.float(), dx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hdw, dw, rtol=sum_tol, atol=sum_tol)
+    torch.testing.assert_close(hdb, db, rtol=sum_tol, atol=sum_tol)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 37, 8192])
+@pytest.mark.parametrize("hidden", [1, 31, 128, 1000, 1024, 1025, 4096,
+                                    8192, 8193, 65536])
+@pytest.mark.parametrize("n_sms", [1, 132])
+def test_norm_bwd_plan_covers_every_row_once(rows, hidden, n_sms):
+    """Every row in exactly one block, no block empty, a team's lanes
+    covering the whole row (quads of 4 columns, teams of 1-8 warps of
+    the tier's 8-warp blocks), the block-a-row kernel past the tier, and
+    the grid no larger than the rows or (in the tier) the card."""
+    plan = tln.norm_bwd_plan(rows, hidden, n_sms)
+    owner = [r // plan.rows_per_block for r in range(rows)]
+    assert sorted(set(owner)) == list(range(plan.blocks))
+    if hidden > tln.BWD_TIER:
+        assert (plan.warps_per_row, plan.quads) == (0, 0)
+        assert 1 <= plan.rows_per_block <= 32
+        return
+    assert plan.warps_per_row in (1, 2, 4, 8) and plan.quads in (1, 2, 4, 8)
+    assert plan.quads * 4 * 32 * plan.warps_per_row >= hidden
+    assert plan.blocks <= 4 * n_sms  # one wave: at most 4 blocks an SM
+    teams = 8 // plan.warps_per_row
+    assert plan.blocks <= -(-rows // teams)

@@ -31,7 +31,7 @@ from apex_tpu.normalization import FusedRMSNorm as JaxFusedRMSNorm
 from apex_tpu.normalization import MixedFusedLayerNorm as JaxMixedLN
 from apex_tpu.normalization import MixedFusedRMSNorm as JaxMixedRMSNorm
 from apex_tpu.normalization import manual_rms_norm as jax_manual_rms_norm
-from apex_tpu.ops.layer_norm import _ln_bwd_xla
+from apex_tpu.ops.layer_norm import _ln_bwd_xla, _rms_bwd_xla
 from apex_tpu.ops.layer_norm import layer_norm as jax_layer_norm
 from apex_tpu.ops.layer_norm import rms_norm as jax_rms_norm
 from apex_tpu.transformer.layers import FusedLayerNorm as JaxSPLayerNorm
@@ -373,8 +373,9 @@ def test_layer_norm_bwd_takes_wide_rows(hidden, monkeypatch):
     """The LayerNorm backward at widths past a block's shared memory: on
     the CPU route its plain version against JAX's; on the kernel route the
     wrapper hands such a row to the kernel (which keeps its column
-    partials in device memory) instead of refusing it — checked with the
-    library replaced by a recorder of the call."""
+    partials in device memory) instead of refusing it, with the plan of
+    the block-a-row kernel — checked with the library replaced by a
+    recorder of the call."""
     rng = np.random.default_rng(hidden)
     x = rng.normal(size=(3, hidden)).astype(np.float32)
     w = rng.normal(size=(hidden,)).astype(np.float32)
@@ -393,15 +394,50 @@ def test_layer_norm_bwd_takes_wide_rows(hidden, monkeypatch):
     calls = []
 
     class FakeLib:
-        def apex_layer_norm_bwd_blocks(self, rows):
-            return -(-rows // 32)
-
         def apex_layer_norm_bwd(self, *args):
             calls.append(args)
             return 0
 
     monkeypatch.setattr(_build, "kernels", FakeLib)
     monkeypatch.setattr(_build, "current_stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda index: 132)
     tln._launch_bwd(torch.from_numpy(dy), tx, mu, rstd, tw)
     (args,) = calls
     assert args[10:15] == (3, hidden, 0, 0, 0)  # rows, hidden, dtypes, xhat
+    # the plan: 3 blocks of 1 row, the block-a-row kernel (0 warps a row)
+    assert args[15:19] == (3, 1, 0, 0)
+
+
+@pytest.mark.parametrize("hidden", [1000, 1024, 8193, 32768])
+@pytest.mark.parametrize("rows,n_sms", [(7, 1), (37, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_bwd_partition_matches_jax(hidden, rows, n_sms, dtype):
+    """The backward kernels' partition for RMSNorm (``mu`` None: no
+    dbeta), its plain model ``_norm_bwd_partitioned`` against JAX's
+    backward on both sides of the register tier and wide, x and dy in
+    ``dtype``, and its x-hat form; tolerances of ``TOL`` (dx, then the
+    column sums)."""
+    rng = np.random.default_rng(hidden + rows)
+    x = np.array(jnp.asarray((rng.normal(size=(rows, hidden)) * 2 + 0.5)
+                             .astype(np.float32), JDT[dtype])
+                 .astype(jnp.float32))
+    w = rng.normal(size=(hidden,)).astype(np.float32)
+    dy = rng.normal(size=(rows, hidden)).astype(np.float32)
+    tx = torch.from_numpy(x).to(TDT[dtype])
+    tdy = torch.from_numpy(dy).to(TDT[dtype])
+    tw = torch.from_numpy(w)
+    _, rstd = tln.rms_norm_reference(tx, tw, 1e-5)
+    plan = tln.norm_bwd_plan(rows, hidden, n_sms)
+    dx, dw = tln._norm_bwd_partitioned(tdy, tx, None, rstd, tw, plan)
+    jdx, jdw = _rms_bwd_xla(jnp.asarray(dy, JDT[dtype]),
+                            jnp.asarray(x, JDT[dtype]),
+                            jnp.asarray(rstd.numpy()), jnp.asarray(w), True)
+    tol, sum_tol = TOL[dtype]
+    assert dx.dtype == TDT[dtype] and dw.dtype == torch.float32
+    _close(dx, jdx, tol, "dx")
+    _close(dw, jdw, sum_tol, "dgamma")
+    xhat = tx.float() * rstd
+    hdx, hdw = tln._norm_bwd_partitioned(tdy, xhat, None, rstd, tw, plan,
+                                         x_is_xhat=True)
+    _close(hdx, jdx, tol, "dx from x-hat")
+    _close(hdw, jdw, sum_tol, "dgamma from x-hat")
