@@ -353,6 +353,9 @@ class PrefixCache:
       evicts cache before preempting live work, and eviction can never
       free a page a live reader holds (reader-held entries are
       skipped, not unpinned).
+    - :meth:`flush` drops every entry — the weight hot-swap barrier: a
+      cache entry computed under old weights must not survive a swap
+      (``ServingEngine.swap_params`` calls it).
 
     Deterministic: LRU order is insertion/touch order, no wall clock.
     """
@@ -368,6 +371,11 @@ class PrefixCache:
         self.hit_tokens = 0
         self.insertions = 0
         self.evictions = 0
+        #: bumped on every index mutation (insert/evict/flush) — the
+        #: invalidation token for ``match_len`` memoization (admission
+        #: walks every queued request per submit; a memo keyed on this
+        #: makes repeat walks O(1) between mutations)
+        self.generation = 0
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -411,6 +419,13 @@ class PrefixCache:
             matched = end
         return pages, matched
 
+    def match_len(self, tokens: Sequence[int]) -> int:
+        """Read-only: how many head tokens of ``tokens`` the cache
+        covers right now (no pins, no LRU touch) — the admission
+        estimate of prefill work actually owed."""
+        _, matched = self._walk(tokens, touch=False)
+        return matched
+
     def acquire(self, tokens: Sequence[int]):
         """Longest-prefix hit with reader pins: returns ``(pages,
         matched_tokens)``; every returned page has had one reader
@@ -442,6 +457,7 @@ class PrefixCache:
         self.allocator.pin(page)
         self._entries[key] = _CacheEntry(page, key[0])
         self.insertions += 1
+        self.generation += 1
         return True
 
     def evict_one(self) -> Optional[int]:
@@ -454,8 +470,22 @@ class PrefixCache:
                 del self._entries[key]
                 self.allocator.unpin(e.page)
                 self.evictions += 1
+                self.generation += 1
                 return e.page
         return None
+
+    def flush(self) -> int:
+        """Drop EVERY entry (pages with readers stay live until their
+        readers release; zero-reader pages free immediately). The
+        weight hot-swap barrier. Returns the number of entries
+        dropped."""
+        n = len(self._entries)
+        for e in self._entries.values():
+            self.allocator.unpin(e.page)
+        self._entries.clear()
+        if n:
+            self.generation += 1
+        return n
 
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,

@@ -1,4 +1,5 @@
-"""Iteration-level (continuous-batching) scheduler for the decode engine.
+"""Iteration-level (continuous-batching) scheduler for the decode engine
+(counterpart of ``apex_tpu/serving/scheduler.py``).
 
 Orca-style scheduling: admission and eviction happen **between** decode
 steps, at token granularity, against a fixed-shape slot batch — the
@@ -34,16 +35,15 @@ The scheduler never touches device tensors — the engine applies its
 decisions through one masked slot-state update plus the pending COW
 page copies (``serving.engine``).
 
-Host code copied from ``apex_tpu/serving/scheduler.py`` with
-speculative decoding and the fault-injection hooks left out: a slot
-writes exactly the tokens it consumes.
+Host code copied from ``apex_tpu/serving/scheduler.py``: the same
+admissions, preemptions, forks and page tables on the same trace.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 from collections import Counter, deque
-from typing import Deque, List, Optional, Sequence, Set, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -58,7 +58,7 @@ from .robustness import (
     RejectionError,
     RejectionReason,
     RequestStatus,
-    SchedulerError,
+    SchedulerError,  # noqa: F401  (re-export: historical home)
 )
 from .sampling import SamplingParams
 
@@ -71,7 +71,10 @@ class Request:
 
     ``arrival_step`` lets traces stagger admissions deterministically
     (the continuous-batching tests and the smoke run submit a whole
-    trace up front). ``status`` walks the
+    trace up front). ``ttft_budget_ms``/``latency_budget_ms`` are
+    wall-clock deadlines against the engine's clock (None = no
+    deadline); ``priority`` orders shed-victim selection under
+    degradation (higher = keep longer). ``status`` walks the
     :class:`~.robustness.RequestStatus` lifecycle and lands in exactly
     one terminal state.
     """
@@ -80,6 +83,9 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int] = None
     arrival_step: int = 0
+    priority: int = 0
+    ttft_budget_ms: Optional[float] = None
+    latency_budget_ms: Optional[float] = None
     # non-greedy decoding policy (None = greedy argmax — the
     # token-identity default); draws are keyed (sampling.seed, rid,
     # position), so replay/recovery/migration regenerate them exactly
@@ -96,14 +102,32 @@ class Request:
     status: RequestStatus = RequestStatus.PENDING
     end_reason: Optional[str] = None
     failure: Optional[dict] = None
+    retries: int = 0
+    restarts: int = 0
     # prefix-cache accounting: prompt tokens skipped at the LAST
-    # admission thanks to a cache hit (TTFT attribution + bench)
+    # admission thanks to a cache hit (TTFT attribution + summary)
     cached_tokens: int = 0
+    # fleet routing: the replica that last admitted this request (None
+    # outside fleet serving / before dispatch) — summary attribution
+    # and the migration trail both key on it
+    replica_id: Optional[int] = None
     # seniority, assigned at FIRST admission and stable across
     # preemptions — the total order that makes preemption terminate
     # (younger never preempts older, so the most senior request always
     # progresses)
     admit_seq: Optional[int] = None
+    # tracing (telemetry.spans): the TraceContext stamped at submit and
+    # carried across engines/migrations, plus the latency-attribution
+    # ledgers — running end-to-end terms and the TTFT-instant snapshot
+    # (both partition measured wall time over spans.ATTR_TERMS)
+    trace: Optional[object] = None
+    attr: Optional[dict] = None
+    attr_ttft: Optional[dict] = None
+    # generic label dict for the fleet health plane's aggregation layer
+    # (telemetry.timeseries — the multi-tenant hook): carried onto this
+    # request's request_end record, where it merges with (and wins
+    # over) any stream-level TaggedRecorder labels
+    labels: Optional[dict] = None
 
     @property
     def done(self) -> bool:
@@ -127,6 +151,16 @@ class RunningSlot:
     # memoized chain digests (digests[j] names prompt[:page-j end]) so
     # publication hashes each token once per slot, not once per page
     digests: List[bytes] = dataclasses.field(default_factory=list)
+    # attribution: this admission re-prefills work a disruption already
+    # paid for (preemption/restart replay) — prefill intervals bucket
+    # to "replay" instead of "prefill_compute"
+    replay: bool = False
+    # the boundary timestamp at which the engine admitted this slot
+    # (span t_start for the prefill span; None outside tracing)
+    t_admit: Optional[float] = None
+    # attribution: the first post-admission interval of a cache-hit
+    # admission buckets to "cached_skip" exactly once
+    hit_attributed: bool = False
 
     @property
     def prefilling(self) -> bool:
@@ -148,6 +182,11 @@ class Scheduler:
     then — after the device step — :meth:`advance` and, for finished
     requests, :meth:`evict`.
 
+    ``chaos`` (optional, duck-typed — ``resilience.ServingChaos``) lets
+    the fault harness steal page allocations: a stolen ``alloc`` looks
+    exactly like a dry pool, driving the preemption machinery under
+    test without actually shrinking it.
+
     ``prefix_cache=True`` builds a :class:`~.kv_cache.PrefixCache`
     over the allocator (``self.cache``); ``prefill_chunk`` is how many
     prompt tokens a prefilling slot consumes per step (the engine's
@@ -156,18 +195,21 @@ class Scheduler:
     """
 
     def __init__(self, spec: PagedKVSpec, n_slots: int,
-                 max_prompt_len: int, *,
-                 prefix_cache: bool = False, prefill_chunk: int = 1):
+                 max_prompt_len: int, chaos=None, *,
+                 prefix_cache: bool = False, prefill_chunk: int = 1,
+                 spec_k: int = 0):
         self.spec = spec
         self.n_slots = int(n_slots)
         self.max_prompt_len = int(max_prompt_len)
         self.prefill_chunk = max(1, int(prefill_chunk))
+        self.spec_k = max(0, int(spec_k))
         self.allocator = PageAllocator(spec.num_pages)
         self.cache: Optional[PrefixCache] = (
             PrefixCache(spec, self.allocator) if prefix_cache else None)
         self.slots: List[Optional[RunningSlot]] = [None] * self.n_slots
         self.waiting: Deque[Request] = deque()
         self._admit_seq = itertools.count()
+        self.chaos = chaos
         # pending COW page copies (src, dst) + slots whose cursor moved
         # outside the admit/advance lockstep — both drained by the
         # engine each boundary (take_forks / take_dirty_slots)
@@ -185,6 +227,16 @@ class Scheduler:
             raise RejectionError(reason)
         req.status = RequestStatus.QUEUED
         self.waiting.append(req)
+
+    def remove_waiting(self, req: Request) -> bool:
+        """Pull a queued request back out (timeout, shed, cancel). The
+        caller finalizes its status; pages were never allocated for a
+        waiting request, so there is nothing else to release."""
+        try:
+            self.waiting.remove(req)
+            return True
+        except ValueError:
+            return False
 
     def validate(self, req: Request,
                  prompt_len: Optional[int] = None
@@ -275,7 +327,8 @@ class Scheduler:
                 req.admit_seq = next(self._admit_seq)
             run = RunningSlot(req=req, prompt=list(req.prompt)
                               + list(req.out_tokens),
-                              admit_seq=req.admit_seq)
+                              admit_seq=req.admit_seq,
+                              replay=(req.preemptions + req.restarts) > 0)
             reason = self.validate(req, len(run.prompt))
             if reason is not None:
                 # unreachable for submit()-validated requests (replay
@@ -290,7 +343,7 @@ class Scheduler:
                     run.published = len(pages)
                 # reset on EVERY admission: the field means "skipped at
                 # the LAST admission", and a cache-miss readmission
-                # (e.g. after its entry was evicted) must not report the
+                # (e.g. after a hot-swap flush) must not report the
                 # previous admission's savings
                 req.cached_tokens = run.cached_tokens
             req.status = RequestStatus.RUNNING
@@ -300,13 +353,41 @@ class Scheduler:
 
     # -- paging ------------------------------------------------------------
     def next_take(self, run: RunningSlot) -> int:
-        """Tokens this slot consumes (and writes) next step: up to
-        ``prefill_chunk`` prompt tokens while prefilling, exactly one
-        while decoding. The engine's device step computes the same
-        quantity — host mirrors and device state advance in lockstep."""
+        """Tokens this slot consumes next step: up to ``prefill_chunk``
+        prompt tokens while prefilling, exactly one while decoding.
+        The engine's device step computes the same quantity —
+        host mirrors and device state advance in lockstep. (Under
+        speculative decoding a decode slot may consume MORE — see
+        :meth:`next_take_upper`; its actual advance is read back from
+        the step's emitted row, since acceptance is decided on device.)
+        """
         if run.prefilling:
             return min(self.prefill_chunk, len(run.prompt) - run.pos)
         return 1
+
+    def draft_cap(self, run: RunningSlot) -> int:
+        """How many tokens this decode slot may DRAFT next step: at
+        most ``spec_k``, and never past the last position the request
+        can consume (``max_new - emitted - 1`` more emits will be fed
+        back — the final emitted token never is), so the device never
+        writes K/V beyond what :meth:`ensure_capacity` paged. 0 while
+        prefilling (prompt ingestion needs no speculation) and when
+        speculative decoding is off."""
+        if self.spec_k <= 0 or run.prefilling:
+            return 0
+        remaining = run.req.max_new_tokens - len(run.req.out_tokens)
+        return max(0, min(self.spec_k, remaining - 1))
+
+    def next_take_upper(self, run: RunningSlot) -> int:
+        """Worst-case tokens this slot may WRITE next step — the bound
+        :meth:`ensure_capacity` pages and COW-fork-scans against: the
+        prefill chunk while prefilling, the carried token plus every
+        drafted position while decoding. Speculative writes past the
+        accepted prefix are rolled back as bookkeeping
+        (:meth:`rollback_kv`) after the step."""
+        if run.prefilling:
+            return self.next_take(run)
+        return 1 + self.draft_cap(run)
 
     def _fork_index(self, run: RunningSlot, end: int) -> Optional[int]:
         """The first page index this step's writes touch that is
@@ -324,9 +405,13 @@ class Scheduler:
 
     def rollback_kv(self, i: int, run: RunningSlot, new_pos: int, *,
                     keep_pages: Optional[int] = None) -> None:
-        """Un-write a slot's last KV positions — the cache-pressure
-        rollback (``_rollback_cached``: the cursor rewinds to a page
-        boundary and the shared head recomputes).
+        """Un-write a slot's last-n KV positions: ONE bookkeeping path
+        for every consumer that wrote ahead of where the cursor ends up
+        — speculative-decode rejection (drafted positions past the
+        accepted prefix; ``new_pos`` = the already-advanced cursor,
+        only the worst-case tail pages are returned) and the
+        cache-pressure rollback (``_rollback_cached``: cursor rewinds
+        to a page boundary and the shared head recomputes).
 
         Frees the slot's hold on pages ``keep_pages:`` (default: just
         enough to cover ``new_pos`` consumed tokens), cancels any
@@ -405,7 +490,7 @@ class Scheduler:
             if self.slots[i] is not run:
                 continue  # preempted / yielded earlier in this loop
             while self.slots[i] is run:
-                end = run.pos + self.next_take(run)
+                end = run.pos + self.next_take_upper(run)
                 fork_j = self._fork_index(run, end)
                 if (fork_j is None
                         and len(run.pages) >= self.spec.pages_for(end)):
@@ -434,8 +519,10 @@ class Scheduler:
         changed instead (it yielded its own slot, or rolled back its
         cached head) — the caller re-evaluates."""
         while True:
-            page = self.allocator.alloc()
-            if page is None and self.cache is not None:
+            stolen = (self.chaos is not None
+                      and self.chaos.steal_alloc())
+            page = None if stolen else self.allocator.alloc()
+            if page is None and not stolen and self.cache is not None:
                 # pool dry: cached-but-unread pages go before any live
                 # request is preempted (evict_one never frees a page a
                 # reader holds)
@@ -445,7 +532,7 @@ class Scheduler:
                     page = self.allocator.alloc()
             if page is not None:
                 return page
-            if fork_j is not None and run.prefilling:
+            if fork_j is not None and not stolen and run.prefilling:
                 # a fork target the pool cannot provide, for a slot
                 # still inside its prompt: recompute the shared head
                 # instead of displacing anyone (the rolled-back pages
@@ -459,12 +546,14 @@ class Scheduler:
                 return None
             victim = self._pick_victim(exclude=i)
             if victim is None:
-                if fork_j is not None:
-                    # a decode-time COW fork the pool cannot serve, with
-                    # no one to preempt: requeue ourselves and retry at
-                    # the next boundary (the replay prompt grows by at
-                    # least one emitted token per fork-preemption cycle,
-                    # so this terminates)
+                if stolen or fork_j is not None:
+                    # a chaos-injected transient allocation fault — or
+                    # a decode-time COW fork the pool cannot serve —
+                    # with no one to preempt: requeue ourselves and
+                    # retry at the next boundary (the fault budget is
+                    # finite; the replay prompt grows by at least one
+                    # emitted token per fork-preemption cycle, so this
+                    # terminates)
                     preempted.append(self._preempt(i))
                     return None
                 # unreachable for validated requests (validate()
@@ -557,17 +646,24 @@ class Scheduler:
         ]
         return np.stack(rows)
 
-    def advance(self, slot_indices: Sequence[int]) -> None:
+    def advance(self, slot_indices: Sequence[int],
+                consumed: Optional[Dict[int, int]] = None) -> None:
         """Consume this step's tokens on each given slot — one while
         decoding, up to ``prefill_chunk`` while prefilling (the same
-        :meth:`next_take` the device step computes) — and publish
-        freshly completed prompt pages to the prefix index."""
+        :meth:`next_take` the device step computes) — and
+        publish freshly completed prompt pages to the prefix index.
+
+        ``consumed`` overrides the advance per slot index: under
+        speculative decoding a decode slot's cursor moves by its
+        ACCEPTED token count, which the host learns from the step's
+        emitted row rather than computing a priori."""
         for i in slot_indices:
             run = self.slots[i]
             if run is None:
                 raise SchedulerError(f"advance on empty slot {i}")
             was_prefilling = run.prefilling
-            run.pos += self.next_take(run)
+            take = (consumed or {}).get(i)
+            run.pos += self.next_take(run) if take is None else int(take)
             if self.cache is not None and was_prefilling:
                 self._publish(run)
 
@@ -615,7 +711,7 @@ class Scheduler:
     def check_invariants(self) -> None:
         """Page accounting must balance exactly — now including the
         prefix-cache refcount cross-checks — and the lifecycle states
-        must match occupancy (tests):
+        must match occupancy (tests + chaos harness):
 
         - every live slot's pages carry refcount >= 1, and each page's
           reader refcount equals exactly the number of slots holding

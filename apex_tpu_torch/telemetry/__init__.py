@@ -10,10 +10,15 @@
 - :mod:`~apex_tpu_torch.telemetry.numerics` — the numerics health
   monitor: per-tensor overflow provenance (pytree and packed flat-buffer
   paths, the latter on the ``packed_row_stats`` kernel), activation-watch
-  taps, and the anomaly rules.
+  taps, and the anomaly rules;
+- :mod:`~apex_tpu_torch.telemetry.spans` — end-to-end request tracing
+  over the recorder sinks: :class:`Tracer`/:class:`TraceContext` span
+  records (deterministic under ``VirtualClock``), the exact-sum
+  latency-attribution ledger, and the bounded flight-recorder ring
+  dumped as a black box on hangs and recovery.
 
-Alerts, SLOs, spans, tracing, time series and pipeline accounting are not
-ported yet.
+Alerts, SLOs, profiler tracing, time series and pipeline accounting are
+not ported yet.
 """
 from . import numerics  # noqa: F401
 from .metrics import (  # noqa: F401
@@ -30,6 +35,7 @@ from .numerics import (  # noqa: F401
     NumericsState,
     activation_watch,
 )
+from . import spans  # noqa: F401
 from .recorder import (  # noqa: F401
     JsonlRecorder,
     MultiRecorder,
@@ -42,6 +48,17 @@ from .recorder import (  # noqa: F401
     read_jsonl,
     stamp_wall,
 )
+from .spans import (  # noqa: F401
+    ATTR_TERMS,
+    TraceContext,
+    Tracer,
+    attr_account,
+    attr_init,
+    attr_snapshot_ttft,
+    attribution_summary,
+    dominant_cause,
+    emit_terminal_span,
+)
 
 __all__ = [
     "MetricsState", "accumulate", "drain", "init_metrics",
@@ -51,4 +68,7 @@ __all__ = [
     "JsonlRecorder", "MultiRecorder", "NullRecorder",
     "RingBufferRecorder", "TaggedRecorder", "flush", "is_logging_process",
     "percentiles", "read_jsonl", "stamp_wall",
+    "spans", "ATTR_TERMS", "TraceContext", "Tracer", "attr_account",
+    "attr_init", "attr_snapshot_ttft", "attribution_summary",
+    "dominant_cause", "emit_terminal_span",
 ]

@@ -52,8 +52,36 @@ any failure exits non-zero and prints no result line:
    ``ServingEngine(n_slots=8, prefill_chunk=8)`` on 16 staggered
    requests of 128 prompt + 64 new tokens, with the kernels' launch
    counts zeroed before and read after;
+   3b. serving under overload (``bench.py``'s ``serving_overload``): the
+   same model, 8 slots, 24 requests of 128 + 64 tokens arriving every 12
+   steps (twice the rate the slots drain), seeded priorities, latency
+   and TTFT budgets scaled from a calibration trace's step p50, bounded
+   queue admission (16, watermarks 0.75 / 0.375) and shedding after 3
+   pressured boundaries: goodput, SLO attainment, terminal states, TTFT,
+   queue depth and a profiled stretch; every request in exactly one
+   terminal state, the queue bound, the scheduler's invariants, no page
+   leaked, both serving kernels launched and no training kernel. The
+   storm's queue stays below the high watermark on the card, so the
+   watermark's refusal and shedding do not run here; a deadline, or a
+   refusal on the TTFT bound, runs only when steps are slower than the
+   calibration trace's. All are held against the JAX engine on the CPU
+   under ``VirtualClock`` (``tests/test_torch_serving_robustness.py``);
+   3c. speculative decoding A/B (``bench.py``'s ``spec_decode``): the
+   same storm with ``prefill_chunk=8`` at ``spec_k`` 0 and 4 (2-gram
+   drafts), the same checks, drafts asserted, no gain asserted; the
+   decode kernel timed at the speculative step's 64 query rows;
+   3d. chaos on the fp32 configuration of phase 4: a poisoned request
+   quarantined with the others' tokens bitwise those of a clean run, an
+   engine kill recovered with ``recover_from``, a wedged fetch caught by
+   ``HangWatchdog`` within its timeout and recovered, a transient poison
+   retried to completion, and a traced run with the metrics drain into a
+   JSONL file (one terminal span per request, rooted trees, TTFT
+   attribution summing to the TTFT, one metrics record per 4 steps, one
+   ``serving_summary``);
 4. token identity: the same width in fp32 (position table x40) against
-   the port's dense ``reference_decode``;
+   the port's dense ``reference_decode``, plain and with ``spec_k=4``,
+   then ``spec_k=4`` with the position table x1, where drafts are
+   accepted (asserted) and rejected;
 5. the 345M train step (seq 1024, batch 8, bf16 O2, packed FusedAdam):
    the headline step (``fused_block=True``, ``selective_elementwise``
    recompute), 2 warm-up and 6 timed steps, then the unfused step
@@ -98,7 +126,9 @@ any failure exits non-zero and prints no result line:
    GPTs at head dim 128 (flash) and 80 (no flash kernel: the fused
    softmax) with the default attention choice, and 1-layer fused-block
    GPTs at hidden 5120 and 8192 (loss and gradients);
-8. a ``{"kernels": [...]}`` line (25 kernels; every one launched on a
+8. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+   the LayerNorm forward's launches counted over the serving runs of
+   phases 3-3c; every one launched on a
    main path except ``axpby_flat``, which no path of the JAX package
    calls, and the RMSNorm pair, which no model of it runs: their
    launches are the norm modules' of phase 7), the card line, and last
@@ -186,9 +216,20 @@ from apex_tpu_torch.optimizers.fused_novograd import (
     leaf_norms_sq,
     row_denominators,
 )
+from apex_tpu_torch.resilience import (
+    ChaosError,
+    HangError,
+    HangWatchdog,
+    RetryPolicy,
+    ServingChaos,
+)
 from apex_tpu_torch.serving import (
+    AdmissionConfig,
+    DegradationPolicy,
     Request,
+    RequestStatus,
     ServingEngine,
+    is_terminal,
     reference_decode,
 )
 from apex_tpu_torch.telemetry.numerics import NumericsMonitor
@@ -315,9 +356,12 @@ def check_close(name, got, want, dtype, tol=None, margin=False):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _page_case(g, dev, lens, dtype, q_dtype, n_pools=1):
+def _page_case(g, dev, lens, dtype, q_dtype, n_pools=1, rows_per_slot=1):
     """Random pools and a page table over ``lens``; entries past a
-    slot's length point at the garbage page 0."""
+    slot's length point at the garbage page 0. Rows ``b`` with one
+    ``b // rows_per_slot`` are the query columns of one slot of a chunked
+    step, and read that slot's pages, as the engine's flattened chunk
+    does."""
     B = len(lens)
     pools = [(torch.randn(POOL_PAGES, N_HEADS, PAGE, HEAD_DIM, generator=g,
                           device=dev).to(dtype),
@@ -325,12 +369,12 @@ def _page_case(g, dev, lens, dtype, q_dtype, n_pools=1):
                           device=dev).to(dtype))
              for _ in range(n_pools)]
     q = torch.randn(B, N_HEADS, HEAD_DIM, generator=g, device=dev).to(q_dtype)
-    # distinct pages per slot (rows of one chunked slot share them)
+    # distinct pages per slot
     perm = torch.randperm(POOL_PAGES - 1, generator=g, device=dev) + 1
     pt = torch.zeros(B, MP, dtype=torch.int32, device=dev)
     for b, L in enumerate(lens):
         used = -(-L // PAGE)
-        s = (b % SLOTS) * MP
+        s = (b // rows_per_slot) * MP
         pt[b, :used] = perm[s:s + used]
     kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, pools, pt, kv_lens
@@ -354,7 +398,8 @@ def flash_decode_checks(dev):
         chunk_lens += [pos + j + 1 if j < take else 0 for j in range(8)]
     cases.append(("chunk bf16", chunk_lens, torch.bfloat16, torch.bfloat16))
     for name, lens, kv_dt, q_dt in cases:
-        q, pools, pt, kl = _page_case(g, dev, lens, kv_dt, q_dt)
+        q, pools, pt, kl = _page_case(g, dev, lens, kv_dt, q_dt,
+                                      rows_per_slot=len(lens) // SLOTS)
         k, v = pools[0]
         got = flash_decode(q, k, v, pt, kl)
         want = paged_decode_reference(q, k, v, pt, kl)
@@ -388,7 +433,7 @@ def flash_decode_checks(dev):
     t = _decode_timing(dev, q, pools, pt, kl, "decode bf16 [8,16,64]")
     # the chunk shape is timed too, for PERF.md
     qc, pc, ptc, klc = _page_case(g, dev, chunk_lens, torch.bfloat16,
-                                  torch.bfloat16, n_pools=8)
+                                  torch.bfloat16, n_pools=8, rows_per_slot=8)
     nxtc = _rotating(pc)
     ms_c = time_ms(lambda: flash_decode(qc, *nxtc(), ptc, klc))
     dev_c = device_ms(lambda: flash_decode(qc, *nxtc(), ptc, klc),
@@ -407,8 +452,11 @@ def _decode_timing(dev, q, pools, pt, kl, label):
     than the 50 MB L2 together, or as many as fit the call's pool sizes),
     its plain version's ms, the device ms of SDPA over the already
     gathered dense K/V (the gather itself untimed) as the library
-    yardstick, and the bound: the live tokens' K/V rows, q, out, the live
-    page-table entries and the lengths, over the HBM rate."""
+    yardstick, and the bound: the K/V rows of every distinct live page
+    once (the rows of a chunked slot read one page list; each page up to
+    the longest length that reaches into it), q, out, the live page-table
+    entries and the lengths, over the HBM rate; the operations count
+    every row's tokens."""
     b, n, d = q.shape
     mp = pt.shape[1]
     ps = pools[0][0].shape[2]
@@ -431,13 +479,19 @@ def _decode_timing(dev, q, pools, pt, kl, label):
     lib_call = time_ms(sdpa)
     lib_ms = device_ms(sdpa, "")
     tokens = int(kl.sum())
+    live = {}
+    for row, L in zip(pt.tolist(), kl.tolist()):
+        for i in range(-(-L // ps)):
+            live[row[i]] = max(live.get(row[i], 0), min(ps, L - i * ps))
+    kv_tokens = sum(live.values())
     elem = pools[0][0].element_size()
-    nbytes = (2 * tokens * n * d * elem                    # K and V rows
+    nbytes = (2 * kv_tokens * n * d * elem                 # K and V rows
               + 2 * q.numel() * q.element_size()           # q in, out
               + sum(-(-int(L) // ps) for L in kl) * 4      # page-table reads
               + kl.numel() * 4)
     b_ms, by = bound(nbytes, 4 * tokens * n * d)
-    log(f"  flash_decode {label} over {tokens} tokens: kernel {ms:.4f} ms "
+    log(f"  flash_decode {label} over {tokens} tokens ({kv_tokens} "
+        f"distinct K/V rows): kernel {ms:.4f} ms "
         f"(device {dev_ms} ms), plain "
         f"{plain_ms:.4f} ms, sdpa over gathered K/V {lib_call:.4f} ms "
         f"(device {lib_ms} ms), bound {b_ms:.5f} ms ({by}), share of bound "
@@ -2325,43 +2379,434 @@ def profile_steps(eng, rng, cfg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: serving under overload (bench.py's serving_overload)
+# ---------------------------------------------------------------------------
+
+#: the overload storm: 24 requests of 128 + 64 tokens at twice the rate 8
+#: slots drain (one request needs 192 slot-steps: a sustainable interval
+#: of 192 // 8 = 24 steps, halved)
+OVERLOAD_REQUESTS, OVERLOAD_PROMPT, OVERLOAD_NEW = 24, 128, 64
+OVERLOAD_FACTOR = 2.0
+SERVICE_STEPS = OVERLOAD_PROMPT + OVERLOAD_NEW
+OVERLOAD_INTERVAL = max(1, int((SERVICE_STEPS // SLOTS) / OVERLOAD_FACTOR))
+
+
+def overload_engine(cfg, params, dev, sink, **kw):
+    return ServingEngine(
+        cfg, params, n_slots=SLOTS, device=dev, sink=sink,
+        admission=AdmissionConfig(max_queue=2 * SLOTS, high_watermark=0.75,
+                                  low_watermark=0.375),
+        degradation=DegradationPolicy(shed_after=3), **kw)
+
+
+def overload_trace(cfg, rng, interval, budget_ms=None, ttft_ms=None,
+                   n=OVERLOAD_REQUESTS, priorities=True):
+    """The bench's storm: prompts (and priorities) drawn from ``rng``."""
+    return [Request(
+        prompt=[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             size=OVERLOAD_PROMPT)],
+        max_new_tokens=OVERLOAD_NEW, arrival_step=i * interval,
+        latency_budget_ms=budget_ms, ttft_budget_ms=ttft_ms,
+        priority=int(rng.integers(0, 3)) if priorities else 0)
+        for i in range(n)]
+
+
+def overload_budgets(step_ms: float):
+    """(latency, TTFT) budgets scaled from a calibration step p50 as the
+    bench scales them: generous for an engine that is not overloaded,
+    tight against unbounded queueing."""
+    return SERVICE_STEPS * step_ms * 3.0, OVERLOAD_PROMPT * step_ms * 4.0
+
+
+def check_storm(eng, reqs, ring, label):
+    """The overload contract: every request in exactly one terminal
+    state (one request_end record each), the queue bound held, the
+    scheduler's invariants, no page leaked."""
+    ends = {}
+    for e in ring.events("request_end"):
+        ends[e["rid"]] = ends.get(e["rid"], 0) + 1
+    for r in reqs:
+        if not is_terminal(r.status) or ends.get(r.rid) != 1:
+            raise AssertionError(
+                f"{label}: request {r.rid} is {r.status.value} with "
+                f"{ends.get(r.rid, 0)} request_end records")
+    st = eng.last_stats
+    if st["max_queue_depth"] > 2 * SLOTS:
+        raise AssertionError(f"{label}: queue depth {st['max_queue_depth']}"
+                             f" over its bound {2 * SLOTS}")
+    eng.scheduler.check_invariants()
+    leaks = eng.scheduler.allocator.used_count
+    if leaks:
+        raise AssertionError(f"{label}: {leaks} pages leaked")
+
+
+def check_serving_launches(launches, label):
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} never launched")
+    trained = {k: c for k, c in launches.items()
+               if k not in SERVING_KERNELS and c}
+    if trained:
+        raise AssertionError(f"{label}: training kernels launched while "
+                             f"serving: {trained}")
+
+
+def serve_overload(dev):
+    cfg = gpt345m(torch.bfloat16)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ring = telemetry.RingBufferRecorder(capacity=100000)
+    eng = overload_engine(cfg, params, dev, ring)
+    # calibration: a short saturated trace warms the engine and primes
+    # the admission controller's step-time estimate; the storm's prompts
+    # come next from the same rng (bench.py's order)
+    rng = np.random.default_rng(0)
+    eng.generate(overload_trace(cfg, rng, 0, n=4, priorities=False))
+    step_ms = eng.last_stats["step_ms"]["p50"]
+    budget_ms, ttft_ms = overload_budgets(step_ms)
+    reqs = overload_trace(cfg, rng, OVERLOAD_INTERVAL, budget_ms, ttft_ms)
+    ring.records.clear()
+    torch.cuda.synchronize()
+    _device.reset_launch_counts()
+    eng.generate(reqs, max_steps=SERVICE_STEPS * OVERLOAD_REQUESTS + 1000)
+    torch.cuda.synchronize()
+    launches = _device.launch_counts()
+    check_storm(eng, reqs, ring, "overload")
+    check_serving_launches(launches, "overload")
+    st = eng.last_stats
+    counts = ring.counts_by_event()
+    log(f"  345M bf16 overload x{OVERLOAD_FACTOR}: {OVERLOAD_REQUESTS} "
+        f"requests every {OVERLOAD_INTERVAL} steps, calibration step p50 "
+        f"{step_ms:.3f} ms, budgets latency {budget_ms:.1f} ms TTFT "
+        f"{ttft_ms:.1f} ms")
+    log(f"  goodput {st['goodput_tokens_per_sec']:.1f} tokens/s "
+        f"(all tokens {st['tokens_per_sec']:.1f}/s), SLO attainment "
+        f"{st['slo_attainment']:.4f} ({st['slo_attained']} of "
+        f"{st['n_requests']}), by_status {st['by_status']}, TTFT p50 "
+        f"{st['ttft_ms'].get('p50')} ms p99 {st['ttft_ms'].get('p99')} ms, "
+        f"max queue depth {st['max_queue_depth']} (bound {2 * SLOTS}), "
+        f"{st['steps']} steps, step p50 {st['step_ms']['p50']:.3f} ms, "
+        f"reject/shed/degrade records {counts.get('reject', 0)}/"
+        f"{counts.get('shed', 0)}/{counts.get('degrade', 0)}, page leaks 0")
+    log("  overload_json " + json.dumps(
+        {k: st[k] for k in ("goodput_tokens_per_sec", "tokens_per_sec",
+                            "slo_attainment", "slo_attained", "by_status",
+                            "ttft_ms", "latency_ms", "step_ms",
+                            "max_queue_depth", "steps", "occupancy",
+                            "preemptions", "wall_s")}))
+    # a profiled stretch of the same engine under the same budgets: 12
+    # requests at once (8 slots busy, 4 queued through admission, which
+    # refuses one whose TTFT lower bound exceeds its budget), 16 steps
+    # profiled (a trace of every op of a whole storm would take minutes
+    # to gather), then the rest drained unprofiled
+    stretch = overload_trace(cfg, rng, 0, budget_ms, ttft_ms, n=SLOTS + 4)
+    refused = 0
+    for r in stretch:
+        r.max_new_tokens = 16
+        refused += eng.try_submit(r) is not None
+    profiled(lambda: [eng.run_step() for _ in range(16)],
+             f"overload stretch, 16 steps, {refused} refused at intake", 8)
+    eng.generate([])
+    check_storm(eng, stretch, ring, "overload stretch")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: speculative decoding A/B (bench.py's spec_decode)
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_NGRAM, SPEC_CHUNK = 4, 2, 8
+
+
+def spec_ab(dev):
+    cfg = gpt345m(torch.bfloat16)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def engine(k, ring):
+        return overload_engine(cfg, params, dev, ring,
+                               prefill_chunk=SPEC_CHUNK, spec_k=k,
+                               spec_ngram=SPEC_NGRAM)
+
+    # calibration on a baseline engine of its own (its prefix cache
+    # leaves with it): one budget set for both sides; each side's storm
+    # is drawn anew from the same seed (bench.py's order)
+    calib = engine(0, None)
+    calib.generate(overload_trace(cfg, np.random.default_rng(0), 0, n=4))
+    step_ms = calib.last_stats["step_ms"]["p50"]
+    del calib
+    budget_ms, ttft_ms = overload_budgets(step_ms)
+    out, launches = {}, {}
+    for k in (0, SPEC_K):
+        ring = telemetry.RingBufferRecorder(capacity=100000)
+        eng = engine(k, ring)
+        reqs = overload_trace(cfg, np.random.default_rng(0),
+                              OVERLOAD_INTERVAL, budget_ms, ttft_ms)
+        torch.cuda.synchronize()
+        _device.reset_launch_counts()
+        eng.generate(reqs, max_steps=SERVICE_STEPS * OVERLOAD_REQUESTS + 1000)
+        torch.cuda.synchronize()
+        launches[k] = _device.launch_counts()
+        check_storm(eng, reqs, ring, f"spec_k={k}")
+        check_serving_launches(launches[k], f"spec_k={k}")
+        st = eng.last_stats
+        out[k] = st
+        log(f"  spec_k={k}: goodput {st['goodput_tokens_per_sec']:.1f} "
+            f"tokens/s, SLO attainment {st['slo_attainment']:.4f}, "
+            f"by_status {st['by_status']}, drafted {st['drafted_tokens']}, "
+            f"accepted {st['accepted_tokens']}, accept_rate "
+            f"{st['accept_rate']}, tokens_per_step {st['tokens_per_step']}, "
+            f"{st['steps']} steps, step p50 {st['step_ms']['p50']:.3f} ms, "
+            f"TTFT p99 {st['ttft_ms'].get('p99')} ms, page leaks 0")
+    spec = out[SPEC_K]
+    if spec["drafted_tokens"] <= 0:
+        raise AssertionError("spec_k=4 drafted nothing")
+    base_g = out[0]["goodput_tokens_per_sec"]
+    log(f"  goodput ratio spec/base "
+        f"{spec['goodput_tokens_per_sec'] / base_g if base_g else None}")
+    log("  spec_json " + json.dumps({str(k): {
+        key: st[key] for key in (
+            "goodput_tokens_per_sec", "tokens_per_sec", "slo_attainment",
+            "by_status", "drafted_tokens", "accepted_tokens", "accept_rate",
+            "tokens_per_step", "steps", "step_ms", "wall_s")}
+        for k, st in out.items()}))
+    # the decode kernel at the spec step's query rows: 8 slots x 8
+    # columns, each decode slot verifying 1 + 4 positions near the end
+    # of its 192-token context
+    g = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    C = max(SPEC_CHUNK, SPEC_K + 1)
+    lens = []
+    for _ in range(SLOTS):
+        pos = int(rng.integers(OVERLOAD_PROMPT, SERVICE_STEPS - C))
+        lens += [pos + j + 1 if j < SPEC_K + 1 else 0 for j in range(C)]
+    q, pools, pt, kl = _page_case(g, dev, lens, torch.bfloat16,
+                                  torch.bfloat16, n_pools=8, rows_per_slot=C)
+    t = _decode_timing(dev, q, pools, pt, kl,
+                       f"spec step bf16 [{len(lens)},16,64]")
+    return {k: launches[k] for k in launches}, t
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: chaos, the watchdog, recovery and tracing on the card
+# ---------------------------------------------------------------------------
+
+def identity_cfg(dev, position_scale=40.0):
+    """Phase 4's fp32 configuration: 345M width, max positions 64, the
+    position table x40 so continuations depend on position. At x1 the
+    random model greedy-decodes into repeating runs, so speculative
+    drafts are proposed and accepted."""
+    cfg = gpt345m(torch.float32, max_pos=64)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    params["embedding"]["position"] = (params["embedding"]["position"]
+                                       * position_scale)
+    return cfg, params
+
+
+def same_or_near_tie(cfg, params, prompt, got, ref, label, dev):
+    """Token identity with phase 4's rule: equal, or first apart where
+    the dense model's top-2 logits lie within 1e-4 of the top one (a
+    near-tie fp32 summation order can flip). Returns 1 for a near-tie,
+    0 for identity; raises otherwise."""
+    if got == ref:
+        return 0
+    j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+             min(len(got), len(ref)))
+    if j >= min(len(got), len(ref)):
+        raise AssertionError(f"{label}: lengths differ {len(got)} "
+                             f"!= {len(ref)}")
+    with torch.no_grad():
+        logits = gpt_forward(cfg, params, torch.tensor(
+            [list(prompt) + ref[:j]], device=dev))[0, -1]
+    top2 = torch.topk(logits, 2).values
+    gap = float(top2[0] - top2[1])
+    if gap < 1e-4 * abs(float(top2[0])):
+        log(f"  {label}: near-tie at token {j} (top-2 gap {gap:.3e}); "
+            f"{got[j]} vs {ref[j]}")
+        return 1
+    raise AssertionError(f"{label}: diverges at token {j} (gap "
+                         f"{gap:.3e}): {got} != {ref}")
+
+
+def chaos_trace(cfg):
+    rng = np.random.default_rng(5)
+    return [Request(prompt=[int(t) for t in
+                            rng.integers(0, cfg.vocab_size, size=L)],
+                    max_new_tokens=12, arrival_step=2 * i, rid=100 + i)
+            for i, L in enumerate((14, 21, 9, 17))]
+
+
+def chaos_checks(dev):
+    cfg, params = identity_cfg(dev)
+    kw = dict(n_slots=2, prefill_chunk=8, device=dev)
+    near = 0
+    clean_reqs = chaos_trace(cfg)
+    clean = ServingEngine(cfg, params, **kw).generate(clean_reqs)
+    # (a) poison quarantine: the victim FAILED, the others bit for bit
+    reqs = chaos_trace(cfg)
+    chaos = ServingChaos().poison_request(101, at_step=8)
+    eng = ServingEngine(cfg, params, chaos=chaos, **kw)
+    out = eng.generate(reqs)
+    if chaos.faults_fired != [("poison", 101, 8)]:
+        raise AssertionError(f"poison fired {chaos.faults_fired}")
+    for r in reqs:
+        if r.rid == 101:
+            if r.status is not RequestStatus.FAILED:
+                raise AssertionError(f"poisoned request is {r.status}")
+        elif out[r.rid] != clean[r.rid]:
+            raise AssertionError(f"request {r.rid}: tokens differ from the "
+                                 f"clean run under a poisoned neighbour")
+    if eng.scheduler.allocator.used_count:
+        raise AssertionError("poisoned run leaked pages")
+    log("  poison: request 101 FAILED (nonfinite_logits at step 8), the "
+        "other 3 requests' tokens bitwise equal to the clean run")
+    # (b) kill mid-flight, recover onto a fresh engine
+    reqs = chaos_trace(cfg)
+    eng = ServingEngine(cfg, params,
+                        chaos=ServingChaos().kill_engine_at(10), **kw)
+    try:
+        eng.generate(reqs)
+        raise AssertionError("the injected kill did not fire")
+    except ChaosError:
+        pass
+    eng2, survivors = ServingEngine.recover_from(eng, chaos=None)
+    eng2.generate(survivors)
+    for r in reqs:
+        near += same_or_near_tie(cfg, params, r.prompt, list(r.out_tokens),
+                                 clean[r.rid], f"recover {r.rid}", dev)
+    log(f"  kill at step 10: {len(survivors)} survivors recovered, tokens "
+        f"equal to the uninterrupted run (near-ties {near})")
+    # (c) a wedged fetch under the watchdog
+    reqs = chaos_trace(cfg)
+    ring = telemetry.RingBufferRecorder()
+    wd = HangWatchdog(timeout_s=0.5, poll_s=0.02, sink=ring)
+    eng = ServingEngine(cfg, params, watchdog=wd, sink=ring,
+                        chaos=ServingChaos().wedge_step_at(6, stall_s=30.0),
+                        **kw)
+    t0 = time.perf_counter()
+    try:
+        eng.generate(reqs)
+        raise AssertionError("the wedge was not caught")
+    except HangError:
+        waited = time.perf_counter() - t0
+    wd.close()
+    hang = ring.events("hang")
+    if len(hang) != 1 or hang[0]["step"] != 6:
+        raise AssertionError(f"hang records {hang}")
+    # steps 0-5 run in well under a second; the 30 s stall is cut short
+    if waited > 0.5 + 2.0:
+        raise AssertionError(f"HangError after {waited:.2f} s")
+    eng2, survivors = ServingEngine.recover_from(eng, watchdog=None,
+                                                 chaos=None)
+    eng2.generate(survivors)
+    n_near = near
+    for r in reqs:
+        near += same_or_near_tie(cfg, params, r.prompt, list(r.out_tokens),
+                                 clean[r.rid], f"wedge {r.rid}", dev)
+    log(f"  wedge at step 6: HangError {waited:.3f} s into the trace "
+        f"(timeout 0.5 s), hang record with all-thread stacks; the "
+        f"recovered engine completed the trace (near-ties {near - n_near})")
+    # (d) request-level retry after a transient poison
+    reqs = chaos_trace(cfg)
+    eng = ServingEngine(cfg, params,
+                        chaos=ServingChaos().poison_request(102),
+                        **kw)
+    eng.generate(reqs, retry_failed=RetryPolicy(attempts=3, deadline=60.0))
+    if eng.last_stats["retries"] != 1 or any(
+            r.status is not RequestStatus.COMPLETED for r in reqs):
+        raise AssertionError(f"retry: {eng.last_stats['by_status']}")
+    n_near = near
+    for r in reqs:
+        near += same_or_near_tie(cfg, params, r.prompt, list(r.out_tokens),
+                                 clean[r.rid], f"retry {r.rid}", dev)
+    log(f"  retry_failed: the poisoned request retried once and completed "
+        f"(near-ties {near - n_near})")
+    # (e) tracing, the metrics drain and the summary record into a JSONL
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.jsonl"
+        sink = telemetry.JsonlRecorder(path)
+        reqs = chaos_trace(cfg)
+        eng = ServingEngine(cfg, params, trace=True, telemetry_every=4,
+                            sink=sink, **kw)
+        eng.generate(reqs)
+        sink.close()
+        recs = telemetry.read_jsonl(path)
+    check_trace_records(recs, reqs, eng.last_stats["steps"])
+    return near
+
+
+def check_trace_records(recs, reqs, steps):
+    spans = [r for r in recs if r.get("event") == "span"]
+    terminal = [r for r in spans if r["terminal"]]
+    if sorted(r["rid"] for r in terminal) != sorted(q.rid for q in reqs):
+        raise AssertionError("not one terminal span per request")
+    roots = {r["span_id"]: r["trace_id"] for r in terminal}
+    for r in spans:
+        if not r["terminal"] and roots.get(r["parent_id"]) != r["trace_id"]:
+            raise AssertionError(f"span without its root: {r}")
+    worst = 0.0
+    for q in reqs:
+        measured = q.t_first_token - q.t_arrival
+        worst = max(worst, abs(sum(q.attr_ttft.values()) - measured)
+                    / measured)
+    if worst > 0.01:
+        raise AssertionError(f"TTFT attribution off by {worst:.3e}")
+    metrics = [r for r in recs if r.get("event") == "metrics"
+               and r.get("tag") == "serving"]
+    if len(metrics) != steps // 4:
+        raise AssertionError(f"{len(metrics)} serving metrics records for "
+                             f"{steps} steps")
+    summaries = [r for r in recs if r.get("event") == "serving_summary"]
+    if len(summaries) != 1:
+        raise AssertionError(f"{len(summaries)} serving_summary records")
+    log(f"  trace: {len(spans)} spans, {len(terminal)} terminal (one per "
+        f"request), every tree rooted, TTFT attribution within "
+        f"{worst:.2e} of the measured TTFT, {len(metrics)} serving metrics "
+        f"records for {steps} steps, 1 serving_summary")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: token identity against the dense reference
 # ---------------------------------------------------------------------------
 
 def token_identity(dev):
-    cfg = gpt345m(torch.float32, max_pos=64)
-    params = init_gpt_params(
-        cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
-    params["embedding"]["position"] = params["embedding"]["position"] * 40.0
-    rng = np.random.default_rng(1)
-    reqs = [Request(prompt=[int(t) for t in
-                            rng.integers(0, cfg.vocab_size, size=L)],
-                    max_new_tokens=16, arrival_step=i)
-            for i, L in enumerate((24, 31))]
-    eng = ServingEngine(cfg, params, n_slots=2, prefill_chunk=8,
-                        device=dev)
-    out = eng.generate(reqs)
+    """fp32 tokens of the engine against the dense reference, plain and
+    with speculative decoding (``spec_k=4``); the position table x40
+    drafts nothing, so a third leg runs ``spec_k=4`` at x1, where drafts
+    are accepted and rejected. Returns the near-ties."""
     near_ties = 0
-    for r in reqs:
-        ref = reference_decode(cfg, params, r.prompt, r.max_new_tokens)
-        got = out[r.rid]
-        if got == ref:
-            log(f"  request {r.rid}: 16 tokens identical to reference")
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
-        with torch.no_grad():
-            logits = gpt_forward(cfg, params, torch.tensor(
-                [list(r.prompt) + ref[:j]], device=dev))[0, -1]
-        top2 = torch.topk(logits, 2).values
-        gap = float(top2[0] - top2[1])
-        if gap < 1e-4 * abs(float(top2[0])):
-            near_ties += 1
-            log(f"  request {r.rid}: near-tie at token {j} (top-2 gap "
-                f"{gap:.3e}); engine {got[j]} vs reference {ref[j]}")
-            continue
-        raise AssertionError(
-            f"request {r.rid}: diverges at token {j} (gap {gap:.3e}): "
-            f"engine {got} != reference {ref}")
+    spec = dict(spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+    for label, scale, kw, new in (
+            ("plain", 40.0, {}, 16), ("spec_k=4", 40.0, spec, 16),
+            ("spec_k=4, position table x1", 1.0, spec, 24)):
+        cfg, params = identity_cfg(dev, scale)
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt=[int(t) for t in
+                                rng.integers(0, cfg.vocab_size, size=L)],
+                        max_new_tokens=new, arrival_step=i)
+                for i, L in enumerate((24, 31))]
+        eng = ServingEngine(cfg, params, n_slots=2, prefill_chunk=8,
+                            device=dev, **kw)
+        out = eng.generate(reqs)
+        for r in reqs:
+            ref = reference_decode(cfg, params, r.prompt, r.max_new_tokens)
+            tie = same_or_near_tie(cfg, params, r.prompt, out[r.rid], ref,
+                                   f"{label} request {r.rid}", dev)
+            near_ties += tie
+            if not tie:
+                log(f"  {label} request {r.rid}: {new} tokens identical "
+                    f"to reference")
+        if kw:
+            st = eng.last_stats
+            leaks = eng.scheduler.allocator.used_count
+            log(f"  {label}: drafted {st['drafted_tokens']}, accepted "
+                f"{st['accepted_tokens']}, page leaks {leaks}")
+            if leaks:
+                raise AssertionError(f"{label}: {leaks} pages leaked")
+            if scale == 1.0 and not (st["drafted_tokens"] > 0
+                                     and st["accepted_tokens"] > 0):
+                raise AssertionError(f"{label}: no draft was accepted")
     return near_ties
 
 
@@ -3351,8 +3796,17 @@ def main() -> int:
                                 tier_errs[0])
     rms[1]["max_abs_err"] = max(rms[1]["max_abs_err"], tier_errs[1])
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
-    near = phase("phase 4: fp32 token identity", token_identity, dev)
-    log(f"  near-ties: {near}")
+    overload = phase("phase 3b: GPT-2 345M bf16 serving under a 2x overload "
+                     "storm (admission, deadlines, degradation armed)",
+                     serve_overload, dev)
+    spec_launches, spec_fd = phase(
+        "phase 3c: speculative decoding A/B on the storm (spec_k 0 and 4)",
+        spec_ab, dev)
+    chaos_near = phase("phase 3d: chaos, the watchdog, recovery and "
+                       "tracing (fp32)", chaos_checks, dev)
+    near = phase("phase 4: fp32 token identity, plain and spec_k=4",
+                 token_identity, dev)
+    log(f"  near-ties: {near} (phase 3d: {chaos_near})")
     train = phase("phase 5: GPT-2 345M bf16 train step: headline, unfused, "
                   "fused, non-flash, packed-SGD, loss-scaled clipped and "
                   "two monitored legs", train_345m, dev)
@@ -3428,11 +3882,16 @@ def main() -> int:
                               absent=("flash_attn_fwd", "flash_attn_bwd"),
                               hidden_size=1280,
                               compute_dtype=torch.bfloat16)))
-    fd["launches"] = serving["flash_decode"]
-    # launches on the main paths: the serving run, the eight GPT legs and
+    # the serving runs: phase 3, the overload storm and both sides of the
+    # speculative A/B
+    served = [serving, overload, *spec_launches.values()]
+    fd["launches"] = sum(c["flash_decode"] for c in served)
+    # launches on the main paths: the serving runs, the eight GPT legs and
     # the five BERT legs
-    ln["launches"] = (serving["layer_norm_fwd"] + train["layer_norm_fwd"]
-                      + bert["layer_norm_fwd"])
+    ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
+                      + train["layer_norm_fwd"] + bert["layer_norm_fwd"])
+    log(f"  flash_decode at the spec step's 64 query rows: "
+        f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
                *softmax, *lamb, sgd, *flat, row_stats, novograd)
     for kr in kernels[2:]:

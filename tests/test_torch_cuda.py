@@ -1550,3 +1550,148 @@ def test_flash_decode_kernel_at_head_dims(cuda_device, kv_dtype, q_dtype, d):
     want = paged_decode_reference(q, k, v, pt, kl)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[q_dtype])
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's robustness and speculative paths on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_serving(dev, position_scale=0.0, **kw):
+    """A 2-layer fp32 engine on ``dev``; position table x
+    ``position_scale`` (0: greedy decode repeats, so drafts accept)."""
+    from apex_tpu_torch.serving import ServingEngine
+    from apex_tpu_torch.transformer.testing import GPTConfig, init_gpt_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(num_layers=2, hidden_size=64, num_attention_heads=4,
+                    vocab_size=128, max_position_embeddings=64)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0))
+    params["embedding"]["position"] = (params["embedding"]["position"]
+                                       * position_scale)
+    return cfg, params, ServingEngine(cfg, params, device=dev, **kw)
+
+
+def _decoding_engine(dev, **kw):
+    """An engine with both slots past their prompts (decode steps)."""
+    from apex_tpu_torch.serving import Request
+
+    cfg, params, eng = _tiny_serving(dev, n_slots=2, **kw)
+    rng = np.random.default_rng(12)
+    for i in range(2):
+        eng.submit(Request(prompt=[int(t) for t in rng.integers(0, 128, 6)],
+                           max_new_tokens=56, rid=70 + i))
+    while any(r.prefilling for _, r in eng.scheduler.running()) or \
+            eng.scheduler.waiting:
+        eng.run_step()
+    for _ in range(4):
+        eng.run_step()
+    torch.cuda.synchronize()
+    return eng
+
+
+def test_spec_step_makes_one_host_sync(cuda_device):
+    """A greedy speculative decode step with the metrics drain armed,
+    under ``set_sync_debug_mode("warn")``: exactly one synchronising
+    operation — the fetch of the emitted matrix. Every upload goes
+    through pinned memory, the drain defers without a sync."""
+    import warnings
+
+    eng = _decoding_engine(cuda_device, spec_k=4, spec_ngram=2,
+                           prefill_chunk=4, telemetry_every=1)
+    eng.run_step()  # a warm step: every buffer and handle exists
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            em = eng.run_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (enabling the mode also warns once that it is a prototype)
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert em.shape == (2, 5 + 1) and (em[:, 0] >= 0).all()
+    assert eng._accum["drafted_tokens"] > 0
+
+
+@pytest.mark.parametrize("spec_k", [0, 4])
+def test_poison_mask_isolates_its_row_bitwise(cuda_device, spec_k):
+    """One device step from the same state, with and without slot 0
+    poisoned: slot 0 reads ``POISONED``, slot 1's emitted tokens, carried
+    state and KV pages are bit for bit those of the clean step."""
+    import dataclasses as dc
+
+    from apex_tpu_torch.serving import POISONED
+
+    eng = _decoding_engine(cuda_device, spec_k=spec_k, spec_ngram=2)
+    pt = torch.from_numpy(eng.scheduler.page_table_array()).to(cuda_device)
+    pages0 = eng.kv.pages.clone()
+    slots0 = dc.replace(eng.slots, **{
+        f.name: getattr(eng.slots, f.name).clone()
+        for f in dc.fields(eng.slots)})
+    caps = torch.tensor([4, 4], dtype=torch.int32, device=cuda_device)
+    runs = []
+    for poison in ([False, False], [True, False]):
+        eng.kv.pages.copy_(pages0)
+        eng.slots = dc.replace(slots0, **{
+            f.name: getattr(slots0, f.name).clone()
+            for f in dc.fields(slots0)})
+        mask = torch.tensor(poison, device=cuda_device)
+        if spec_k:
+            em = eng._spec_device_step(pt, mask, caps, False)
+        else:
+            em = eng._device_step(pt, mask, False, False)
+        runs.append((em.cpu(), eng.slots.tokens.cpu(),
+                     eng.slots.positions.cpu(), eng.kv.pages.clone()))
+    (em0, tok0, pos0, kv0), (em1, tok1, pos1, kv1) = runs
+    row = (lambda e: e[0]) if em0.dim() == 1 else (lambda e: e[0, 0])
+    assert int(row(em1)) == POISONED and int(row(em0)) >= 0
+    assert torch.equal(em1[1], em0[1])
+    assert torch.equal(tok1[1], tok0[1]) and torch.equal(pos1[1], pos0[1])
+    live = [p for p in eng.scheduler.slots[1].pages]
+    assert torch.equal(kv1[:, :, live], kv0[:, :, live])
+
+
+def test_watchdog_fires_on_a_wedged_fetch(cuda_device):
+    """A chaos-wedged fetch under ``HangWatchdog(timeout_s=0.3)``: a
+    ``HangError`` within the timeout plus a second, a ``hang`` event
+    with the step and all-thread stacks, and the recovered engine
+    completes the request with the tokens of an unwedged run."""
+    import time as _time
+
+    from apex_tpu_torch import telemetry
+    from apex_tpu_torch.resilience import (
+        HangError,
+        HangWatchdog,
+        ServingChaos,
+    )
+    from apex_tpu_torch.serving import Request, ServingEngine
+
+    def req():
+        return Request(prompt=[5, 9, 14, 3, 77, 2], max_new_tokens=8,
+                       rid=90)
+
+    cfg, params, clean = _tiny_serving(cuda_device, position_scale=40.0,
+                                       n_slots=1)
+    want = clean.generate([req()])[90]
+    ring = telemetry.RingBufferRecorder()
+    wd = HangWatchdog(timeout_s=0.3, poll_s=0.02, sink=ring)
+    eng = ServingEngine(cfg, params, device=cuda_device, n_slots=1,
+                        watchdog=wd, sink=ring,
+                        chaos=ServingChaos().wedge_step_at(4, stall_s=20.0))
+    r = req()
+    t0 = _time.perf_counter()
+    with pytest.raises(HangError):
+        eng.generate([r])
+    waited = _time.perf_counter() - t0
+    wd.close()
+    # steps 0-3 run warm in milliseconds; the 20 s stall is cut short
+    assert waited < 0.3 + 2.0, waited
+    hang = ring.events("hang")
+    assert len(hang) == 1 and hang[0]["step"] == 4
+    assert "MainThread" in hang[0]["stacks"]
+    eng2, survivors = ServingEngine.recover_from(eng, watchdog=None,
+                                                 chaos=None)
+    assert eng2.device == eng.device
+    eng2.generate(survivors)
+    assert r.out_tokens == want

@@ -62,7 +62,10 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "telemetry.metrics", "telemetry.numerics",
                  "normalization.fused_layer_norm",
                  "transformer.layers.layer_norm",
-                 "contrib.layer_norm.layer_norm"):
+                 "contrib.layer_norm.layer_norm",
+                 "resilience.watchdog", "resilience.chaos",
+                 "resilience.retry", "serving.spec_decode",
+                 "serving.robustness", "telemetry.spans"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 

@@ -299,9 +299,13 @@ def test_engine_summary_fields(engine_runs):
 
 
 def test_engine_refuses_left_out_features(models):
+    """Tensor parallelism is the one feature of the JAX engine still
+    refused; the rest are accepted."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="spec_k"):
-        tserving.ServingEngine(tcfg, tparams, device="cpu", spec_k=2)
+    tserving.ServingEngine(tcfg, tparams, device="cpu", spec_k=2,
+                           admission=tserving.AdmissionConfig(),
+                           degradation=tserving.DegradationPolicy(),
+                           trace=True, telemetry_every=4)
     with pytest.raises(NotImplementedError, match="tp"):
         tserving.ServingEngine(tcfg, tparams, device="cpu", tp=2)
     with pytest.raises(TypeError, match="bogus"):

@@ -22,16 +22,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
 
-SHAPES = ((8, 16, 1024, 64), (8, 8, 1024, 128))
+from _torch_ab import run_sides
 
-BUILD = r'''
-from apex_tpu_torch import _build
-_build.build()
-'''
+SHAPES = ((8, 16, 1024, 64), (8, 8, 1024, 128))
 
 CHILD = r'''
 import json, sys
@@ -53,10 +48,6 @@ for shape in json.loads(sys.argv[1]):
 '''
 
 
-def _env(path: str):
-    return dict(os.environ, PYTHONPATH=os.path.abspath(path))
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts to compare")
@@ -64,42 +55,15 @@ def main() -> int:
     ap.add_argument("--logs", default="_tree/flash_ab",
                     help="directory for each process's output")
     args = ap.parse_args()
-    os.makedirs(args.logs, exist_ok=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=path,
-                               env=_env(path), stdout=subprocess.PIPE,
-                               stderr=subprocess.STDOUT, text=True)
-              for path in args.trees]
-    for path, p in zip(args.trees, builds):
-        log, _ = p.communicate(timeout=900)
-        if p.returncode:
-            sys.stderr.write(log[-4000:])
-            raise SystemExit(f"{path}: build exit {p.returncode}")
-    order = (list(range(len(args.trees)))
-             + list(reversed(range(len(args.trees))))) * args.rounds
     dev = {}
-    for i, t in enumerate(order):
+    for i, t, rec in run_sides(args.trees, CHILD, "flash_json",
+                               rounds=args.rounds, logs=args.logs,
+                               argv=lambda t: [json.dumps(SHAPES)]):
         path = args.trees[t]
-        out = subprocess.run(
-            [sys.executable, "-c", CHILD, json.dumps(SHAPES)], cwd=path,
-            env=_env(path), capture_output=True, text=True, timeout=900)
-        with open(os.path.join(args.logs, f"{i}_{t}.log"), "w") as f:
-            f.write(out.stdout + out.stderr)
-        if out.returncode:
-            sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
-            raise SystemExit(f"{path}: exit {out.returncode}")
-        for line in out.stdout.splitlines():
-            if not line.startswith("flash_json "):
-                continue
-            rec = json.loads(line.split(" ", 1)[1])
-            rec.update(tree=path, run=i)
-            print("flash_json " + json.dumps(rec), flush=True)
-            key = (path, tuple(rec["shape"]))
-            dev.setdefault(key, []).append(
-                (rec["fwd"]["device_ms"], rec["bwd"]["device_ms"]))
+        rec.update(tree=path, run=i)
+        print("flash_json " + json.dumps(rec), flush=True)
+        dev.setdefault((path, tuple(rec["shape"])), []).append(
+            (rec["fwd"]["device_ms"], rec["bwd"]["device_ms"]))
     for (path, shape), v in dev.items():
         print(f"{path} {list(shape)}: device ms fwd "
               f"{', '.join(str(f) for f, _ in v)}; bwd "

@@ -3,7 +3,8 @@ checkouts of the PyTorch port on one card.
 
 Each run is a fresh process whose working directory is one checkout: it
 imports that checkout's ``chip_smoke`` (which builds the checkout's
-kernels into its own build directory) and drives the named legs through
+kernels into its own build directory; all builds are started together
+first) and drives the named legs through
 ``chip_smoke.train_leg`` (2 warm-up steps, ``--timed`` timed steps, launch
 counts asserted, one profiled step). The runs alternate base, head, head,
 base (``--rounds`` such blocks), so a drift of the host or the card over
@@ -29,9 +30,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
+
+from _torch_ab import run_sides
 
 #: ``chip_smoke.train_leg`` keywords of each leg; each launches
 #: ``chip_smoke.HEADLINE_LAUNCHES`` a step but where ``LAUNCHES`` says
@@ -106,23 +107,6 @@ for name, kw, launches in legs:
 '''
 
 
-def run_checkout(path: str, legs, timed: int, log_path: str):
-    arg = json.dumps([(name, LEGS[name], LAUNCHES.get(name))
-                      for name in legs])
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
-    out = subprocess.run([sys.executable, "-c", CHILD, arg, str(timed)],
-                         cwd=path, env=env, capture_output=True, text=True,
-                         timeout=900)
-    with open(log_path, "w") as f:
-        f.write(out.stdout + out.stderr)
-    if out.returncode:
-        sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
-        raise SystemExit(f"{path}: exit {out.returncode}")
-    return [json.loads(line.split(" ", 1)[1])
-            for line in out.stdout.splitlines()
-            if line.startswith("leg_json ")]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True)
@@ -133,23 +117,21 @@ def main() -> int:
     ap.add_argument("--timed", type=int, default=6)
     args = ap.parse_args()
     legs = [x for x in args.legs.split(",") if x]
-    head_legs = legs + [x for x in args.head_legs.split(",") if x]
-    os.makedirs("chiprun_out/ab", exist_ok=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
+    side_legs = (legs, legs + [x for x in args.head_legs.split(",") if x])
+    which = ("base", "head")
+
+    def argv(s):
+        return [json.dumps([(name, LEGS[name], LAUNCHES.get(name))
+                            for name in side_legs[s]]), str(args.timed)]
     p50 = {}
-    order = ["base", "head", "head", "base"] * args.rounds
-    for i, which in enumerate(order):
-        path = args.base if which == "base" else args.head
-        for rec in run_checkout(path, legs if which == "base" else head_legs,
-                                args.timed, f"chiprun_out/ab/{i}_{which}.log"):
-            rec.update(checkout=which, run=i)
-            print("ab_json " + json.dumps(rec), flush=True)
-            p50.setdefault((which, rec["leg"]), []).append(rec["p50"])
-    for (which, leg), v in sorted(p50.items()):
-        print(f"{which} {leg}: p50 ms {', '.join(f'{x:.2f}' for x in v)}")
+    for i, s, rec in run_sides([args.base, args.head], CHILD, "leg_json",
+                               rounds=args.rounds, logs="chiprun_out/ab",
+                               argv=argv):
+        rec.update(checkout=which[s], run=i)
+        print("ab_json " + json.dumps(rec), flush=True)
+        p50.setdefault((which[s], rec["leg"]), []).append(rec["p50"])
+    for (side, leg), v in sorted(p50.items()):
+        print(f"{side} {leg}: p50 ms {', '.join(f'{x:.2f}' for x in v)}")
     return 0
 
 
