@@ -35,6 +35,9 @@ SOURCES = ("flash_attention.cu", "flash_attention_bf16.cu",
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
+#: the dtype codes of the kernels' C interfaces (0 fp32, 1 bf16, 2 fp16)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -46,75 +49,77 @@ _L = ctypes.c_longlong
 _ARGTYPES = {
     # q, k_pages, v_pages, page_table, kv_lens, out,
     # n_slots, n_heads, head_dim, page_size, pages_per_seq, n_splits,
-    # split_len, scale, q_is_bf16, kv_is_bf16, device, stream
+    # split_len, scale, q_dtype, kv_dtype, device, stream
     "apex_flash_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _I, _P],
-    # x, w, b, y, mu, rstd, rows, hidden, eps, x_is_bf16, device, stream
+    # x, w, b, y, mu, rstd, rows, hidden, eps, x_dtype, device, stream
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                             _P],
     # dy, x, mu, rstd, w, dx, dw_part, db_part, dw, db, rows, hidden,
-    # dy_is_bf16, x_is_bf16, x_is_xhat, n_part, rows_per_block,
+    # dy_dtype, x_dtype, x_is_xhat, n_part, rows_per_block,
     # warps_per_row, quads, device, stream
     "apex_layer_norm_bwd": [_P] * 10 + [_I] * 10 + [_P],
-    # x, w, y, rstd, rows, hidden, eps, x_is_bf16, device, stream
+    # x, w, y, rstd, rows, hidden, eps, x_dtype, device, stream
     "apex_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
-    # dy, x, rstd, w, dx, dw_part, dw, rows, hidden, dy_is_bf16, x_is_bf16,
+    # dy, x, rstd, w, dx, dw_part, dw, rows, hidden, dy_dtype, x_dtype,
     # x_is_xhat, n_part, rows_per_block, warps_per_row, quads, device, stream
     "apex_rms_norm_bwd": [_P] * 7 + [_I] * 10 + [_P],
-    # q, k, v, kv_mask, o, lse, b, n, s_q, s_k, d, scale, causal, dropout,
-    # seed, threshold, drop_scale, is_bf16, device, stream
-    "apex_flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
-                                                  _I, _I, _P],
-    # q, k, v, o, do, lse, kv_mask, delta, dq, dk, dv, b, n, s_q, s_k, d,
-    # scale, causal, dropout, seed, threshold, drop_scale, is_bf16,
-    # device, stream
-    "apex_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _U, _U, _F,
-                                                   _I, _I, _P],
+    # q, k, v, kv_mask, bias, seg_q, seg_k, o, lse, b, n, s_q, s_k, d,
+    # scale, causal, dropout, seed, threshold, drop_scale, bias_dtype,
+    # bias_sb, bias_sh, bias_sq, seg_sb_q, seg_sb_k, dtype, device, stream
+    "apex_flash_attn_fwd": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _U, _U, _F, _I]
+    + [_L] * 5 + [_I, _I, _P],
+    # q, k, v, o, do, lse, kv_mask, bias, seg_q, seg_k, delta, dq, dk, dv,
+    # dbias, b, n, s_q, s_k, d, scale, causal, dropout, seed, threshold,
+    # drop_scale, bias_dtype, bias_sb, bias_sh, bias_sq, seg_sb_q, seg_sb_k,
+    # dtype, device, stream
+    "apex_flash_attn_bwd": [_P] * 15 + [_I] * 5
+    + [_F, _I, _I, _U, _U, _F, _I] + [_L] * 5 + [_I, _I, _P],
     # rows -> number of partial rows of the fused-block column sums
     "apex_fused_block_partials": [_I],
-    # x, b, y, rows, n, is_bf16, device, stream
+    # x, b, y, rows, n, dtype, device, stream
     "apex_bias_gelu_fwd": [_P] * 3 + [_I] * 4 + [_P],
-    # dy, x, b, dx, part, db, rows, n, is_bf16, device, stream
+    # dy, x, b, dx, part, db, rows, n, dtype, device, stream
     "apex_bias_gelu_bwd": [_P] * 6 + [_I] * 4 + [_P],
     # x, b, res, out, rows, n, dropout, seed, threshold, drop_scale,
-    # is_bf16, device, stream
+    # dtype, device, stream
     "apex_bdr_fwd": [_P] * 4 + [_I] * 3 + [_U, _U, _F, _I, _I, _P],
     # dy, dx, part, db, rows, n, dropout, seed, threshold, drop_scale,
-    # is_bf16, device, stream
+    # dtype, device, stream
     "apex_bdr_bwd": [_P] * 4 + [_I] * 3 + [_U, _U, _F, _I, _I, _P],
     # x, b, res, w, lb, sum, y, mu, rstd, rows, n, eps, dropout, seed,
-    # threshold, drop_scale, is_bf16, device, stream
+    # threshold, drop_scale, dtype, device, stream
     "apex_raln_fwd": [_P] * 9 + [_I, _I, _F, _I, _U, _U, _F, _I, _I, _P],
     # dsum_out, dy, sum, mu, rstd, w, dres, dx, part, grads, rows, n,
-    # dropout, seed, threshold, drop_scale, is_bf16, device, stream
+    # dropout, seed, threshold, drop_scale, dtype, device, stream
     "apex_raln_bwd": [_P] * 10 + [_I] * 3 + [_U, _U, _F, _I, _I, _P],
     # g, m, v, src, p_out, lr, bc1, bc2, inv_scale, noop, n, beta1,
     # 1 - beta1, beta2, 1 - beta2, eps, wd, adam_w_mode, write_mv,
-    # write_master, g_is_bf16, p_is_bf16, device, stream
+    # write_master, g_dtype, p_dtype, device, stream
     "apex_packed_adam": [_P] * 10 + [_L] + [_F] * 6 + [_I] * 6 + [_P],
-    # x, out, inv_scale, rows, op_max, x_is_bf16, device, stream
+    # x, out, inv_scale, rows, op_max, x_dtype, device, stream
     "apex_packed_row_reduce": [_P] * 3 + [_L] + [_I] * 3 + [_P],
-    # x, sq, ma, nf, inv_scale, n, x_is_bf16, device, stream
+    # x, sq, ma, nf, inv_scale, n, x_dtype, device, stream
     "apex_packed_row_stats": [_P] * 5 + [_L] + [_I] * 2 + [_P],
     # g, m, v, src, u, row_u, row_p, inv_scale, clip, bc1, bc2, noop, rows,
-    # beta1, beta2, beta3, 1 - beta2, eps, wd, adam_w_mode, g_is_bf16,
+    # beta1, beta2, beta3, 1 - beta2, eps, wd, adam_w_mode, g_dtype,
     # device, stream
     "apex_packed_lamb_stage1": [_P] * 12 + [_L] + [_F] * 6 + [_I] * 3
     + [_P],
-    # u, src, coef, p_out, lr, noop, rows, write_master, p_is_bf16, device,
+    # u, src, coef, p_out, lr, noop, rows, write_master, p_dtype, device,
     # stream
     "apex_packed_scale_update": [_P] * 6 + [_L] + [_I] * 3 + [_P],
     # g, buf, src, p_out, lr, first_run, inv_scale, noop, n, momentum,
     # 1 - dampening, wd, nesterov, wd_after_momentum, write_master,
-    # g_is_bf16, p_is_bf16, device, stream
+    # g_dtype, p_dtype, device, stream
     "apex_packed_sgd": [_P] * 8 + [_L] + [_F] * 3 + [_I] * 6 + [_P],
-    # x, out, scale, row_bad, found, n, x_is_bf16, out_is_bf16, device,
+    # x, out, scale, row_bad, found, n, x_dtype, out_dtype, device,
     # stream
     "apex_scale_flat": [_P] * 5 + [_L] + [_I] * 3 + [_P],
-    # x, y, out, a, b, found, n, x_is_bf16, y_is_bf16, out_is_bf16, device,
+    # x, y, out, a, b, found, n, x_dtype, y_dtype, out_dtype, device,
     # stream
     "apex_axpby_flat": [_P] * 6 + [_L] + [_I] * 4 + [_P],
     # g, m, src, denom, p_out, lr, bc1, inv_scale, noop, n, beta1, beta3,
-    # wd, reg_inside_moment, g_is_bf16, p_is_bf16, device, stream
+    # wd, reg_inside_moment, g_dtype, p_dtype, device, stream
     "apex_packed_novograd": [_P] * 9 + [_L] + [_F] * 3 + [_I] * 4 + [_P],
     # x, y, rows, sk, sq, scale, causal, dtype, vec, device, stream
     "apex_softmax_fwd": [_P, _P, _L, _I, _I, _F, _I, _I, _I, _I, _P],
@@ -210,6 +215,11 @@ def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (read once): the
     backward norm and decode kernels size their grids by it."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    """The kernels' code for ``t``'s dtype (:data:`DTYPE_CODE`)."""
+    return DTYPE_CODE[t.dtype]
 
 
 def check(rc: int, what: str) -> None:

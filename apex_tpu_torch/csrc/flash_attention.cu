@@ -4,13 +4,14 @@
 // Replaces: apex_tpu/ops/flash_attention.py, the TPU kernels _fwd_kernel
 // (launched by _fwd, :390) and _bwd_dq_kernel / _bwd_dkv_kernel (launched by
 // _bwd, :673). Layout [b, n, s, d], contiguous; q, k, v, o, do and the
-// gradients share one dtype (fp32 or bf16); the lse is [b, n, s_q] fp32.
-// bf16 inputs go to the tensor-core kernels of flash_attention_bf16.cu
-// (launch_bf16); fp32 inputs stay on the kernels below, since a tensor core
-// would round fp32 operands to TF32.
+// gradients share one dtype (fp32, bf16 or fp16); the lse is [b, n, s_q]
+// fp32. bf16 and fp16 inputs go to the tensor-core kernels of
+// flash_attention_bf16.cu (launch_tc); fp32 inputs stay on the kernels
+// below, since a tensor core would round fp32 operands to TF32.
 //
-//   s   = (round(q * scale)) . k            fp32; masked to -1e30 (causal
-//                                           ki > qi, kv_mask[b, ki] == 0)
+//   s   = (round(q * scale)) . k + bias     fp32; masked to -1e30 (causal
+//                                           ki > qi, kv_mask[b, ki] == 0,
+//                                           seg_q[qi] != seg_k[ki])
 //   o   = dropout(softmax(s)) @ v           p rounded to the input dtype
 //                                           before the product, as the TPU
 //                                           kernel's p.astype(v.dtype)
@@ -20,7 +21,12 @@
 // delta = rowsum(do * o) in fp32 and ds = p * (dp * keep / (1 - p_drop) -
 // delta); dv = p_drop^T do, dk = ds^T round(q * scale), dq = ds k * scale.
 // Every score at or below -5e29 counts as masked (p = 0), so a fully masked
-// row has zero gradients, never NaN. Dropout keeps (q, k) when the murmur3
+// row has zero gradients, never NaN. With a bias gradient the dq kernel
+// writes ds (fp32, before the scale) into dbias [b, n, s_q, s_k], each
+// element once; the wrapper sums it over the bias's broadcast dims. Segment
+// ids are non-decreasing, so each block walks only the tiles of the other
+// operand whose ids can match its own (segment_range). Dropout keeps (q, k)
+// when the murmur3
 // hash of (seed, b * n + h, global q, global k) in uint32 arithmetic is at
 // least round(p_drop * 2^32): the TPU kernel's _keep_mask bit for bit, the
 // same bits in forward and backward.
@@ -59,14 +65,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_attention.cuh"  // Args, kNegInf, kDead, launch_bf16
+#include "flash_attention.cuh"  // Args, kNegInf, kDead, launch_tc
 #include "hash_dropout.cuh"     // keep_bit, the dropout hash
 
 namespace {
 
 using apex_flash::Args;
+using apex_flash::bias_at;
 using apex_flash::kDead;
 using apex_flash::kNegInf;
+using apex_flash::segment_range;
 
 // Threads per row P (a power of two, so a row's threads share a warp), rows
 // a block owns R, rows of the other operand per staged tile KT.
@@ -91,6 +99,29 @@ __device__ __forceinline__ float round_to(float x);
 template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
+}
+
+// The offset of a block's (batch, head) bias plane and its rows of segment
+// ids (null without ids).
+struct Plane {
+  long long bias;
+  const int* seg_q;
+  const int* seg_k;
+};
+
+__device__ __forceinline__ Plane plane_of(const Args& a, int bh) {
+  const int ib = bh / a.n, ih = bh % a.n;
+  Plane p;
+  p.bias = ib * a.bias_sb + ih * a.bias_sh;
+  p.seg_q = a.seg_q ? a.seg_q + ib * a.seg_sb_q : nullptr;
+  p.seg_k = a.seg_k ? a.seg_k + ib * a.seg_sb_k : nullptr;
+  return p;
+}
+
+// The bias of score (qi, kj) of a plane, 0 without a bias.
+__device__ __forceinline__ float bias_of(const Args& a, const Plane& pl,
+                                         int qi, int kj) {
+  return a.bias != nullptr ? bias_at(a, pl.bias + qi * a.bias_sq + kj) : 0.f;
 }
 
 // A row split in P slices of H floats, each slice padded by 4 floats so
@@ -157,12 +188,46 @@ __device__ __forceinline__ void stage(Tile<G::KT, G::P, D / G::P>& dst,
   }
 }
 
+// The keys [*k_begin, *k_end) that query rows [q0, q0 + rows) visit: up to
+// the causal diagonal, within the range whose segment ids can match. Every
+// thread of the block calls it.
+template <int kTile>
+__device__ __forceinline__ void key_range(const Args& a, const Plane& pl,
+                                          int q0, int rows, int* k_begin,
+                                          int* k_end) {
+  *k_begin = 0;
+  *k_end = a.causal ? min(a.s_k, q0 + rows) : a.s_k;
+  if (pl.seg_q != nullptr) {
+    int lo, hi;
+    segment_range(pl.seg_q, q0, min(q0 + rows, a.s_q), pl.seg_k, a.s_k, &lo,
+                  &hi);
+    *k_begin = lo;
+    *k_end = min(*k_end, hi);
+  }
+}
+
+// One thread per key of the tile at k0 (threads below kTile): whether it is
+// alive (inside s_k, kv_mask set) and its segment id.
+template <int kTile>
+__device__ __forceinline__ void stage_keys(const Args& a, const Plane& pl,
+                                           int ib, int k0, uint8_t* live,
+                                           int* seg) {
+  if (threadIdx.x >= kTile) return;
+  const int kj = k0 + threadIdx.x;
+  const bool in = kj < a.s_k;
+  live[threadIdx.x] =
+      in && (a.kv_mask == nullptr ||
+             a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0);
+  if (pl.seg_k != nullptr) seg[threadIdx.x] = in ? pl.seg_k[kj] : -2;
+}
+
 template <typename T, int D, typename G = Geo<D>>
 __global__ void __launch_bounds__(G::R * G::P) flash_fwd_kernel(Args a) {
   constexpr int P = G::P, H = D / P, kRows = G::R, kTile = G::KT;
   __shared__ __align__(16) Tile<kTile, P, H> ks;
   __shared__ __align__(16) Tile<kTile, P, H> vs;
   __shared__ uint8_t live_k[kTile];
+  __shared__ int seg_k[kTile];
   const int iq = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int bh = blockIdx.y;
   const int ib = bh / a.n;
@@ -172,6 +237,8 @@ __global__ void __launch_bounds__(G::R * G::P) flash_fwd_kernel(Args a) {
   const bool qvalid = qi < a.s_q;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
+  const Plane pl = plane_of(a, bh);
+  const int qseg = pl.seg_q != nullptr && qvalid ? pl.seg_q[qi] : -1;
   const T* q = static_cast<const T*>(a.q) + qbase;
   const T* k = static_cast<const T*>(a.k) + kbase;
   const T* v = static_cast<const T*>(a.v) + kbase;
@@ -185,18 +252,13 @@ __global__ void __launch_bounds__(G::R * G::P) flash_fwd_kernel(Args a) {
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
-  const int k_end = a.causal ? min(a.s_k, (iq + 1) * kRows) : a.s_k;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+  int k_begin, k_end;
+  key_range<kTile>(a, pl, iq * kRows, kRows, &k_begin, &k_end);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
     stage<T, D>(ks, k, k0, a.s_k, 1.f, false);
     stage<T, D>(vs, v, k0, a.s_k, 1.f, false);
-    if (threadIdx.x < kTile) {
-      const int kj = k0 + threadIdx.x;
-      live_k[threadIdx.x] =
-          kj < a.s_k &&
-          (a.kv_mask == nullptr ||
-           a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0);
-    }
+    stage_keys<kTile>(a, pl, ib, k0, live_k, seg_k);
     __syncthreads();
     float s[kTile];
     float tmax = kNegInf;
@@ -205,8 +267,9 @@ __global__ void __launch_bounds__(G::R * G::P) flash_fwd_kernel(Args a) {
       float part = slice_dot<H>(qr, ks.x[j][slice]);
       part = row_sum<P>(part);
       const int kj = k0 + j;
-      const bool live = live_k[j] && !(a.causal && kj > qi);
-      s[j] = live ? part : kNegInf;
+      const bool live = live_k[j] && !(a.causal && kj > qi) &&
+                        (pl.seg_q == nullptr || seg_k[j] == qseg);
+      s[j] = live ? part + bias_of(a, pl, qi, kj) : kNegInf;
       tmax = fmaxf(tmax, s[j]);
     }
     const float m_new = fmaxf(m, tmax);
@@ -247,6 +310,7 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dq_kernel(Args a) {
   __shared__ __align__(16) Tile<kTile, P, H> ks;
   __shared__ __align__(16) Tile<kTile, P, H> vs;
   __shared__ uint8_t live_k[kTile];
+  __shared__ int seg_k[kTile];
   const int iq = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int ib = bh / a.n;
@@ -256,6 +320,12 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dq_kernel(Args a) {
   const bool qvalid = qi < a.s_q;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
+  const Plane pl = plane_of(a, bh);
+  const int qseg = pl.seg_q != nullptr && qvalid ? pl.seg_q[qi] : -1;
+  float* dbias = a.dbias != nullptr
+                     ? a.dbias + static_cast<long long>(bh) * a.s_q * a.s_k +
+                           static_cast<long long>(qi) * a.s_k
+                     : nullptr;
   const long long qoff = qbase + static_cast<long long>(qi) * D + slice * H;
   const T* k = static_cast<const T*>(a.k) + kbase;
   const T* v = static_cast<const T*>(a.v) + kbase;
@@ -279,18 +349,13 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dq_kernel(Args a) {
   const long long srow = static_cast<long long>(bh) * a.s_q + qi;
   if (qvalid && slice == 0) a.delta[srow] = delta;
   const float lse = qvalid ? a.lse_in[srow] : 0.f;
-  const int k_end = a.causal ? min(a.s_k, (iq + 1) * kRows) : a.s_k;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+  int k_begin, k_end;
+  key_range<kTile>(a, pl, iq * kRows, kRows, &k_begin, &k_end);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
     __syncthreads();
     stage<T, D>(ks, k, k0, a.s_k, 1.f, false);
     stage<T, D>(vs, v, k0, a.s_k, 1.f, false);
-    if (threadIdx.x < kTile) {
-      const int kj = k0 + threadIdx.x;
-      live_k[threadIdx.x] =
-          kj < a.s_k &&
-          (a.kv_mask == nullptr ||
-           a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0);
-    }
+    stage_keys<kTile>(a, pl, ib, k0, live_k, seg_k);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
@@ -299,14 +364,17 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dq_kernel(Args a) {
       sp = row_sum<P>(sp);
       dp = row_sum<P>(dp);
       const int kj = k0 + j;
-      const bool live = qvalid && live_k[j] && !(a.causal && kj > qi);
-      const float s = live ? sp : kNegInf;
+      const bool live = qvalid && live_k[j] && !(a.causal && kj > qi) &&
+                        (pl.seg_q == nullptr || seg_k[j] == qseg);
+      const float s = live ? sp + bias_of(a, pl, qi, kj) : kNegInf;
       const float p = s <= kDead ? 0.f : expf(s - lse);
       if (a.dropout) {
         dp = keep_bit(a.seed, bh, qi, kj, a.threshold) ? dp * a.drop_scale
                                                         : 0.f;
       }
       const float ds = p * (dp - delta);
+      if (dbias != nullptr && qvalid && slice == 0 && kj < a.s_k)
+        dbias[kj] = ds;
       slice_axpy<H>(acc, round_to<T>(ds), ks.x[j][slice]);
     }
   }
@@ -324,6 +392,7 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dkv_kernel(Args a) {
   __shared__ __align__(16) Tile<kTile, P, H> dos;  // do
   __shared__ float lse_s[kTile];
   __shared__ float delta_s[kTile];
+  __shared__ int seg_q[kTile];
   const int ik = blockIdx.x;  // low key tiles see the most queries: first
   const int bh = blockIdx.y;
   const int ib = bh / a.n;
@@ -331,6 +400,8 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dkv_kernel(Args a) {
   const int slice = threadIdx.x % P;
   const int kj = ik * kRows + row;
   const bool kvalid = kj < a.s_k;
+  const Plane pl = plane_of(a, bh);
+  const int kseg = pl.seg_k != nullptr && kvalid ? pl.seg_k[kj] : -1;
   const bool klive =
       kvalid && (a.kv_mask == nullptr ||
                  a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0);
@@ -348,9 +419,17 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dkv_kernel(Args a) {
     dk[d] = 0.f;
     dv[d] = 0.f;
   }
-  // causal: query qi sees key kj only when qi >= kj
-  const int q_begin = a.causal ? (ik * kRows / kTile) * kTile : 0;
-  for (int q0 = q_begin; q0 < a.s_q; q0 += kTile) {
+  // causal: query qi sees key kj only when qi >= kj; segments: only the
+  // queries whose ids can match the block's keys
+  int q_begin = a.causal ? (ik * kRows / kTile) * kTile : 0, q_end = a.s_q;
+  if (pl.seg_q != nullptr) {
+    int lo, hi;
+    segment_range(pl.seg_k, ik * kRows, min((ik + 1) * kRows, a.s_k),
+                  pl.seg_q, a.s_q, &lo, &hi);
+    q_begin = max(q_begin, lo);
+    q_end = hi;
+  }
+  for (int q0 = q_begin; q0 < q_end; q0 += kTile) {
     __syncthreads();
     stage<T, D>(qs, q, q0, a.s_q, a.scale, true);
     stage<T, D>(dos, dout, q0, a.s_q, 1.f, false);
@@ -360,9 +439,10 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dkv_kernel(Args a) {
       const long long r = static_cast<long long>(bh) * a.s_q + qi;
       lse_s[threadIdx.x] = ok ? a.lse_in[r] : 0.f;
       delta_s[threadIdx.x] = ok ? a.delta[r] : 0.f;
+      if (pl.seg_q != nullptr) seg_q[threadIdx.x] = ok ? pl.seg_q[qi] : -2;
     }
     __syncthreads();
-    const int n_i = min(kTile, a.s_q - q0);
+    const int n_i = min(kTile, q_end - q0);
 #pragma unroll 4
     for (int i = 0; i < n_i; ++i) {
       float sp = slice_dot<H>(kr, qs.x[i][slice]);
@@ -370,8 +450,9 @@ __global__ void __launch_bounds__(G::R * G::P) flash_bwd_dkv_kernel(Args a) {
       sp = row_sum<P>(sp);
       dp = row_sum<P>(dp);
       const int qi = q0 + i;
-      const bool live = klive && !(a.causal && kj > qi);
-      const float s = live ? sp : kNegInf;
+      const bool live = klive && !(a.causal && kj > qi) &&
+                        (pl.seg_q == nullptr || seg_q[i] == kseg);
+      const float s = live ? sp + bias_of(a, pl, qi, kj) : kNegInf;
       const float p = s <= kDead ? 0.f : expf(s - lse_s[i]);
       float pd = p;
       if (a.dropout) {
@@ -435,34 +516,56 @@ cudaError_t dispatch_f32(bool fwd, const Args& a, int d, int bn,
   }
 }
 
-int run(bool fwd, const Args& a, int b, int d, int is_bf16, int device,
+int run(bool fwd, const Args& a, int b, int d, int dtype, int device,
         void* stream) {
   if (b == 0 || a.n == 0 || a.s_q == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bn = b * a.n;
-  e = is_bf16 ? apex_flash::launch_bf16(fwd, a, bn, d, device, s)
-              : dispatch_f32(fwd, a, d, bn, s);
+  e = dtype == apex_flash::kF32
+          ? dispatch_f32(fwd, a, d, bn, s)
+          : apex_flash::launch_tc(fwd, a, bn, d, dtype, device, s);
   return static_cast<int>(e);
+}
+
+// The inputs both passes share: the bias (pointer, dtype code, batch, head
+// and row strides in elements) and the segment ids (batch strides).
+void set_extras(Args& a, const void* bias, int bias_dtype, long long bias_sb,
+                long long bias_sh, long long bias_sq, const void* seg_q,
+                const void* seg_k, long long seg_sb_q, long long seg_sb_k) {
+  a.bias = bias;
+  a.bias_dtype = bias_dtype;
+  a.bias_sb = bias_sb;
+  a.bias_sh = bias_sh;
+  a.bias_sq = bias_sq;
+  a.seg_q = static_cast<const int*>(seg_q);
+  a.seg_k = static_cast<const int*>(seg_k);
+  a.seg_sb_q = seg_sb_q;
+  a.seg_sb_k = seg_sb_k;
 }
 
 }  // namespace
 
 // Forward: o [b, n, s_q, d] and lse [b, n, s_q] fp32. head dim d one of 32,
-// 64, 96, 128, 256; kv_mask may be null. Returns the cudaError_t of the launch.
-extern "C" int apex_flash_attn_fwd(const void* q, const void* k,
-                                   const void* v, const void* kv_mask,
-                                   void* o, void* lse, int b, int n, int s_q,
-                                   int s_k, int d, float scale, int causal,
-                                   int dropout, uint32_t seed,
-                                   uint32_t threshold, float drop_scale,
-                                   int is_bf16, int device, void* stream) {
+// 64, 96, 128, 256; dtype 0 fp32, 1 bf16, 2 fp16; kv_mask, bias and the
+// segment ids may be null (the ids come in pairs). Returns the cudaError_t of
+// the launch.
+extern "C" int apex_flash_attn_fwd(
+    const void* q, const void* k, const void* v, const void* kv_mask,
+    const void* bias, const void* seg_q, const void* seg_k, void* o,
+    void* lse, int b, int n, int s_q, int s_k, int d, float scale,
+    int causal, int dropout, uint32_t seed, uint32_t threshold,
+    float drop_scale, int bias_dtype, long long bias_sb, long long bias_sh,
+    long long bias_sq, long long seg_sb_q, long long seg_sb_k, int dtype,
+    int device, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  set_extras(a, bias, bias_dtype, bias_sb, bias_sh, bias_sq, seg_q, seg_k,
+             seg_sb_q, seg_sb_k);
   a.out = o;
   a.lse = static_cast<float*>(lse);
   a.n = n;
@@ -474,21 +577,22 @@ extern "C" int apex_flash_attn_fwd(const void* q, const void* k,
   a.seed = seed;
   a.threshold = threshold;
   a.drop_scale = drop_scale;
-  return run(true, a, b, d, is_bf16, device, stream);
+  return run(true, a, b, d, dtype, device, stream);
 }
 
 // Backward: dq, dk, dv from q, k, v, o, do and the forward's lse; delta is
-// fp32 [b, n, s_q] scratch. Two launches (dq and delta, then dk and dv).
-extern "C" int apex_flash_attn_bwd(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, const void* lse,
-                                   const void* kv_mask, void* delta,
-                                   void* dq, void* dk, void* dv, int b,
-                                   int n, int s_q, int s_k, int d,
-                                   float scale, int causal, int dropout,
-                                   uint32_t seed, uint32_t threshold,
-                                   float drop_scale, int is_bf16, int device,
-                                   void* stream) {
+// fp32 [b, n, s_q] scratch; dbias, when not null, fp32 [b, n, s_q, s_k]
+// zeroed by the caller, receives ds. Two launches (dq, delta and dbias, then
+// dk and dv).
+extern "C" int apex_flash_attn_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* kv_mask, const void* bias,
+    const void* seg_q, const void* seg_k, void* delta, void* dq, void* dk,
+    void* dv, void* dbias, int b, int n, int s_q, int s_k, int d,
+    float scale, int causal, int dropout, uint32_t seed, uint32_t threshold,
+    float drop_scale, int bias_dtype, long long bias_sb, long long bias_sh,
+    long long bias_sq, long long seg_sb_q, long long seg_sb_k, int dtype,
+    int device, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -497,10 +601,13 @@ extern "C" int apex_flash_attn_bwd(const void* q, const void* k,
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  set_extras(a, bias, bias_dtype, bias_sb, bias_sh, bias_sq, seg_q, seg_k,
+             seg_sb_q, seg_sb_k);
   a.delta = static_cast<float*>(delta);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
+  a.dbias = static_cast<float*>(dbias);
   a.n = n;
   a.s_q = s_q;
   a.s_k = s_k;
@@ -510,5 +617,5 @@ extern "C" int apex_flash_attn_bwd(const void* q, const void* k,
   a.seed = seed;
   a.threshold = threshold;
   a.drop_scale = drop_scale;
-  return run(false, a, b, d, is_bf16, device, stream);
+  return run(false, a, b, d, dtype, device, stream);
 }

@@ -1,22 +1,24 @@
-// Flash attention forward and backward in bf16 on Hopper's tensor cores
-// (sm_90a), at head dims 32, 64, 96, 128 and 256.
+// Flash attention forward and backward in bf16 and fp16 on Hopper's tensor
+// cores (sm_90a), at head dims 32, 64, 96, 128 and 256.
 //
 // Replaces: apex_tpu/ops/flash_attention.py, the TPU kernels _fwd_kernel
 // (launched by _fwd, :390) and _bwd_dq_kernel / _bwd_dkv_kernel (launched by
-// _bwd, :673), for bf16 inputs; fp32 inputs keep the CUDA-core kernels of
-// flash_attention.cu, whose entry points call launch_bf16 below. The
+// _bwd, :673), for bf16 and fp16 inputs (one template, the element type T a
+// template argument); fp32 inputs keep the CUDA-core kernels of
+// flash_attention.cu, whose entry points call launch_tc below. The
 // arithmetic is that file's (see its header): scores from round(q * scale),
-// -1e30 for masked scores and everything at or below -5e29 counted masked,
-// the murmur3 dropout bit keep_bit(seed, b * n + h, q, k), lse in natural
-// log, o = 0 and lse = -1e30 for a fully masked row.
+// plus the additive bias in fp32, then the causal, kv-mask and segment masks
+// as -1e30, everything at or below -5e29 counted masked, the murmur3 dropout
+// bit keep_bit(seed, b * n + h, q, k), lse in natural log, o = 0 and lse =
+// -1e30 for a fully masked row (a -1e30 folded into the bias included).
 //
-// Numerics. The TPU kernels make every product a dot_general of bf16
-// operands with fp32 accumulation: s = round(q * scale) . k^T, o += bf16(p)
-// . v (p after the dropout scale), dp = do . v^T, dq += bf16(ds) . k, dv +=
-// bf16(p_dropped)^T . do, dk += bf16(ds)^T . round(q * scale). mma.sync
-// m16n8k16 with bf16 operands and fp32 accumulators computes exactly those
-// products; only the order of the sums differs. The softmax's exponentials
-// are exp2f of scores times log2(e) (a few fp32 ulps).
+// Numerics. The TPU kernels make every product a dot_general of 16-bit
+// operands with fp32 accumulation: s = round(q * scale) . k^T, o += T(p)
+// . v (p after the dropout scale), dp = do . v^T, dq += T(ds) . k, dv +=
+// T(p_dropped)^T . do, dk += T(ds)^T . round(q * scale). mma.sync
+// m16n8k16 with bf16 or fp16 operands and fp32 accumulators computes exactly
+// those products; only the order of the sums differs. The softmax's
+// exponentials are exp2f of scores times log2(e) (a few fp32 ulps).
 //
 // What bounds it on the H100: the tensor cores. At the GPT-2 345M shape
 // ([8, 16, 1024, 64] causal) the forward's ~17 GFLOP take 0.017 ms at 989
@@ -24,28 +26,43 @@
 // (five products) 0.043 ms. These kernels use mma.sync, whose rate on
 // Hopper is below wgmma's, and seven products in the backward (the two
 // launches each recompute the scores), so they stay well above that bound.
+// A bias adds its bytes (read once by the forward, twice by the backward)
+// and, with its gradient, the fp32 dbias that the dq launch writes.
 //
 // Design. One block of four warps owns 64 rows; each warp owns 16 of them,
 // one m16 slice of every product, and walks the other operand's tiles
 // through a two-stage cp.async ring in shared memory (rows past the end
-// zero-filled). Each fragment element takes its mask from its own
+// zero-filled). Each fragment element takes its bias and mask from its own
 // coordinates (row grp or grp + 8 of its warp's slice, column 2 tig or
-// 2 tig + 1 of its n tile); tiles that need no mask skip the test.
+// 2 tig + 1 of its n tile); tiles that need no mask skip the test. A bias
+// broadcast over query rows (a key-padding bias [b, 1, 1, s_k]) is read once
+// a tile into shared memory by the query-major launches and once a block
+// into registers by the key-major one; any other bias is read per element
+// (each row's elements of a tile are neighbours). Segment ids are
+// non-decreasing, so the keys a query tile can see are one contiguous range,
+// bounded by the ids of its first and last rows (block_count_below): every
+// launch walks only the tiles of that range, and packed sequences cost about
+// the sum of their squared lengths rather than the square of the total.
+// Each kernel is built twice, with that code (kX) and without it: the
+// bias and segment checks cost a plain causal batch 5-12% of its time
+// when they were runtime branches (H100 80GB HBM3, 700 W; PERF.md).
 // - forward: query-major. s = Q K^T in registers, the online softmax across
-//   the four lanes of a quad, P rounded to bf16 in registers as the A
-//   operand of O += P V (V through ldmatrix.trans). Causal blocks stop at
-//   the diagonal; the longest rows go first.
+//   the four lanes of a quad, P rounded to T in registers as the A operand
+//   of O += P V (V through ldmatrix.trans). Causal blocks stop at the
+//   diagonal; the longest rows go first.
 // - backward, dq: query-major, the same walk; s = Q K^T and dp = dO V^T,
-//   p = exp(s - lse), ds = p (dp - delta), dQ += bf16(ds) K (K through
+//   p = exp(s - lse), ds = p (dp - delta), dQ += T(ds) K (K through
 //   ldmatrix.trans). It computes delta = rowsum(do * o) in fp32 and writes
-//   it for the next launch.
+//   it for the next launch; with a bias gradient it writes ds (fp32, no
+//   scale) into dbias, each element once, as the TPU dq kernel does.
 // - backward, dk/dv: key-major, walking query tiles with their lse and
 //   delta. It computes s^T = K Q^T and dp^T = V dO^T directly, so P^T and
-//   dS^T land in the accumulator layout that dV += bf16(P^T) dO and dK +=
-//   bf16(dS^T) Q take as A (dO and Q through ldmatrix.trans); the masks, the
-//   dropout bit and the dead test use the transposed coordinates.
-// Two launches, no atomics: every output element is summed by one thread in
-// a fixed order, so the backward is deterministic.
+//   dS^T land in the accumulator layout that dV += T(P^T) dO and dK +=
+//   T(dS^T) Q take as A (dO and Q through ldmatrix.trans); the bias, the
+//   masks, the dropout bit and the dead test use the transposed coordinates.
+// Two launches, no atomics: every output element is summed (and every dbias
+// element written) by one thread in a fixed order, so the backward is
+// deterministic.
 //
 // Tiles. The accumulators of a warp's 16 rows take D / 2 floats a thread per
 // output, a score tile (its width) / 2. The forward walks 64 keys a tile (32
@@ -57,6 +74,7 @@
 // twice: dV first (s^T and P^T), then dK (s^T again, dp^T); one more product
 // (six instead of five in that launch).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,11 +89,14 @@ using mma_bf16::bf16;
 using mma_bf16::c_to_a;
 using mma_bf16::cp_async_commit;
 using mma_bf16::cp_async_wait;
+using mma_bf16::f16;
 using mma_bf16::load_a;
 using mma_bf16::load_b_kn;
 using mma_bf16::load_b_nk;
 using mma_bf16::mma;
 using mma_bf16::pack;
+using mma_bf16::to_f32;
+using mma_bf16::unpack;
 
 constexpr int kThreads = 128;  // four warps, 16 rows each
 constexpr int kRows = 64;      // the rows a block owns
@@ -89,18 +110,20 @@ struct Geo {
   static constexpr int kQueries = D >= 64 ? 32 : 64;   // dk/dv's q/do tile
   static constexpr bool kTwoPass = D == 256;           // dk/dv: dV, then dK
   static constexpr int kLd = mma_bf16::ld<D>();
-  static constexpr int kFwdSmem =  // q, k and v rings, live flags
-      (kRows + 4 * kFwdKeys) * kLd * 2 + kFwdKeys;
+  // q, k and v rings, then a tile's key bias (fp32), key ids and live flags
+  static constexpr int kFwdSmem = (kRows + 4 * kFwdKeys) * kLd * 2 +
+                                  kFwdKeys * (4 + 4 + 1);
   static constexpr int kDqSmem =
-      (2 * kRows + 4 * kDqKeys) * kLd * 2 + kDqKeys;
+      (2 * kRows + 4 * kDqKeys) * kLd * 2 + kDqKeys * (4 + 4 + 1);
+  // k, v, the q and do rings, then a tile's lse, delta and query ids
   static constexpr int kDkvSmem =
-      (2 * kRows + 4 * kQueries) * kLd * 2 + 2 * kQueries * 4;
+      (2 * kRows + 4 * kQueries) * kLd * 2 + 3 * kQueries * 4;
 };
 
-// Rows [r0, r0 + R) of a [rows, D] bf16 matrix into a shared tile by
-// cp.async; rows past the end are zero-filled.
-template <int R, int D>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int r0,
+// Rows [r0, r0 + R) of a [rows, D] matrix into a shared tile by cp.async;
+// rows past the end are zero-filled.
+template <int R, int D, typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, int r0,
                                           int rows) {
   constexpr int kChunks = D / 8, kLd = mma_bf16::ld<D>();
   static_assert(R * kChunks % kThreads == 0, "whole chunks a thread");
@@ -109,16 +132,16 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, int r0,
     const int c = threadIdx.x + i * kThreads;
     const int r = c / kChunks, ch = c % kChunks;
     const bool ok = r0 + r < rows;
-    const bf16* from =
+    const T* from =
         ok ? src + static_cast<long long>(r0 + r) * D + ch * 8 : src;
     mma_bf16::cp_async_16(dst + r * kLd + ch * 8, from, ok);
   }
 }
 
-// x -> round_bf16(x * scale) over a shared tile of R rows, in place: the TPU
+// x -> round_T(x * scale) over a shared tile of R rows, in place: the TPU
 // kernel's _scaled_q (the scale applied in fp32, rounded to the dtype).
-template <int R, int D>
-__device__ __forceinline__ void scale_tile(bf16* tile, float scale) {
+template <int R, int D, typename T>
+__device__ __forceinline__ void scale_tile(T* tile, float scale) {
   constexpr int kChunks = D / 8, kLd = mma_bf16::ld<D>();
 #pragma unroll
   for (int i = 0; i < R * kChunks / kThreads; ++i) {
@@ -129,9 +152,8 @@ __device__ __forceinline__ void scale_tile(bf16* tile, float scale) {
     uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      w[j] = pack(f.x * scale, f.y * scale);
+      const float2 f = unpack<T>(w[j]);
+      w[j] = pack<T>(f.x * scale, f.y * scale);
     }
     *p = v;
   }
@@ -148,9 +170,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // The 16 x D accumulator of a warp's rows [r0, r0 + 16), times mul, rounded
-// into rows below `rows` of a [rows, D] bf16 matrix.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst,
+// into rows below `rows` of a [rows, D] matrix of T.
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* dst,
                                            const float (&acc)[D / 8][4],
                                            int r0, int rows, float mul) {
   const int lane = threadIdx.x % 32;
@@ -158,23 +180,73 @@ __device__ __forceinline__ void store_rows(bf16* dst,
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + (lane >> 2) + 8 * h;
     if (r >= rows) continue;
-    bf16* row = dst + static_cast<long long>(r) * D + 2 * (lane & 3);
+    T* row = dst + static_cast<long long>(r) * D + 2 * (lane & 3);
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       *reinterpret_cast<uint32_t*>(row + dt * 8) =
-          pack(acc[dt][2 * h] * mul, acc[dt][2 * h + 1] * mul);
+          pack<T>(acc[dt][2 * h] * mul, acc[dt][2 * h + 1] * mul);
+    }
+  }
+}
+
+// What a block knows of its (batch, head) beyond q, k and v: the offset of
+// its bias plane, its rows of segment ids.
+struct Plane {
+  long long bias;    // ib * bias_sb + ih * bias_sh
+  const int* seg_q;  // this batch row's ids, or null
+  const int* seg_k;
+};
+
+template <bool kX>
+__device__ __forceinline__ Plane plane_of(const Args& a, int bh) {
+  if (!kX) return Plane{0, nullptr, nullptr};
+  const int ib = bh / a.n, ih = bh % a.n;
+  Plane p;
+  p.bias = ib * a.bias_sb + ih * a.bias_sh;
+  p.seg_q = a.seg_q ? a.seg_q + ib * a.seg_sb_q : nullptr;
+  p.seg_k = a.seg_k ? a.seg_k + ib * a.seg_sb_k : nullptr;
+  return p;
+}
+
+// Adds the bias to the 16 x (8 NT) score tile of a warp. Row r of the tile
+// is r0 + r of the warp's own operand, column c is c0 + c of the walked one;
+// kKeyMajor: rows are keys, columns queries. col_bias (shared, per column)
+// and row_bias (registers, per row) hold a bias broadcast over query rows;
+// otherwise each element reads its own.
+template <int NT, bool kKeyMajor>
+__device__ __forceinline__ void add_bias(float (&s)[NT][4], const Args& a,
+                                         long long plane, int r0, int c0,
+                                         const float* col_bias,
+                                         const float (&row_bias)[2]) {
+  const int lane = threadIdx.x % 32;
+  const bool bcast = a.bias_sq == 0;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (lane >> 2) + 8 * (e >> 1);
+      const int c = nt * 8 + 2 * (lane & 3) + (e & 1);
+      const int qi = kKeyMajor ? c0 + c : r, kj = kKeyMajor ? r : c0 + c;
+      if (bcast) {
+        s[nt][e] += kKeyMajor ? row_bias[e >> 1] : col_bias[c];
+      } else if (qi < a.s_q && kj < a.s_k) {
+        s[nt][e] += bias_at(a, plane + qi * a.bias_sq + kj);
+      }
     }
   }
 }
 
 // Masks the 16 x (8 NT) score tile of a warp whose element (row, column)
 // pairs query qi with key kj: causal kj > qi, a dead key (live == false:
-// past s_k or kv_mask 0), a query past s_q. Row r of the tile is r0 + r of
-// the warp's own operand; column c is c0 + c of the walked one.
+// past s_k or kv_mask 0), a query past s_q, a query and key of different
+// segments (col_seg non-null: the ids of the walked operand's tile, row_seg
+// those of the thread's two rows). Coordinates as add_bias.
 template <int NT, bool kKeyMajor>
 __device__ __forceinline__ void mask_tile(float (&s)[NT][4], const Args& a,
                                           int r0, int c0, const uint8_t* live,
-                                          const bool (&row_live)[2]) {
+                                          const bool (&row_live)[2],
+                                          const int* col_seg,
+                                          const int (&row_seg)[2]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -191,42 +263,96 @@ __device__ __forceinline__ void mask_tile(float (&s)[NT][4], const Args& a,
         ok = kj < a.s_k && (a.kv_mask == nullptr || live[c]) &&
              !(a.causal && kj > r);
       }
+      if (col_seg != nullptr) ok = ok && col_seg[c] == row_seg[e >> 1];
       if (!ok) s[nt][e] = kNegInf;
     }
   }
+}
+
+// The key tiles [j0, j0 + n) of width BN that the query rows [q0, q0 +
+// kRows) visit: up to the causal diagonal, within the range of keys whose
+// segment can match. Every thread of the block calls it.
+template <int BN, bool kX>
+__device__ __forceinline__ void key_tiles(const Args& a, const Plane& pl,
+                                          int q0, int* j0, int* n) {
+  int k_begin = 0;
+  int k_end = a.causal ? min(a.s_k, q0 + kRows) : a.s_k;
+  if (kX && pl.seg_q != nullptr) {
+    int lo, hi;
+    segment_range(pl.seg_q, q0, min(q0 + kRows, a.s_q), pl.seg_k, a.s_k, &lo,
+                  &hi);
+    k_begin = lo;
+    k_end = min(k_end, hi);
+  }
+  *j0 = k_begin / BN;
+  *n = k_end > *j0 * BN ? (k_end - *j0 * BN + BN - 1) / BN : 0;
+}
+
+// The segment ids of a warp's two rows per thread (r0 + lane / 4 + 8 h), or
+// -1 past the end or without ids.
+__device__ __forceinline__ void row_ids(const int* seg, int r0, int rows,
+                                        int (&out)[2]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (lane >> 2) + 8 * h;
+    out[h] = seg != nullptr && r < rows ? seg[r] : -1;
+  }
+}
+
+// One thread per key of the tile at k0 (threads below BN): the key's live
+// flag, segment id and (for a bias broadcast over query rows) bias.
+template <int BN, bool kX>
+__device__ __forceinline__ void stage_keys(const Args& a, const Plane& pl,
+                                           int k0, uint8_t* live, int* kseg,
+                                           float* kbias) {
+  if (threadIdx.x >= BN) return;
+  const int kj = k0 + threadIdx.x;
+  const bool in = kj < a.s_k;
+  const int ib = blockIdx.y / a.n;
+  if (a.kv_mask != nullptr)
+    live[threadIdx.x] =
+        in && a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0;
+  if (!kX) return;
+  if (pl.seg_k != nullptr) kseg[threadIdx.x] = in ? pl.seg_k[kj] : -2;
+  if (a.bias != nullptr && a.bias_sq == 0)
+    kbias[threadIdx.x] = in ? bias_at(a, pl.bias + kj) : 0.f;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D, bool kX>
 __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Args a) {
   using G = Geo<D>;
   constexpr int BN = G::kFwdKeys, LD = G::kLd, NT = BN / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kRows * LD;  // two stages
-  bf16* vs = ks + 2 * BN * LD;
-  uint8_t* live = reinterpret_cast<uint8_t*>(vs + 2 * BN * LD);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kRows * LD;  // two stages
+  T* vs = ks + 2 * BN * LD;
+  float* kbias = reinterpret_cast<float*>(vs + 2 * BN * LD);
+  int* kseg = reinterpret_cast<int*>(kbias + BN);
+  uint8_t* live = reinterpret_cast<uint8_t*>(kseg + BN);
 
   const int iq = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int bh = blockIdx.y;
-  const int ib = bh / a.n;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = iq * kRows, w0 = q0 + warp * 16;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
-  const bf16* k = static_cast<const bf16*>(a.k) + kbase;
-  const bf16* v = static_cast<const bf16*>(a.v) + kbase;
-  const int k_end = a.causal ? min(a.s_k, q0 + kRows) : a.s_k;
-  const int n_tiles = (k_end + BN - 1) / BN;
+  const T* k = static_cast<const T*>(a.k) + kbase;
+  const T* v = static_cast<const T*>(a.v) + kbase;
+  const Plane pl = plane_of<kX>(a, bh);
+  int j0, n_tiles;
+  key_tiles<BN, kX>(a, pl, q0, &j0, &n_tiles);
+  const bool need_mask = a.kv_mask != nullptr || pl.seg_q != nullptr;
 
-  copy_tile<kRows, D>(qs, static_cast<const bf16*>(a.q) + qbase, q0, a.s_q);
+  copy_tile<kRows, D>(qs, static_cast<const T*>(a.q) + qbase, q0, a.s_q);
   cp_async_commit();
   if (n_tiles > 0) {
-    copy_tile<BN, D>(ks, k, 0, a.s_k);
-    copy_tile<BN, D>(vs, v, 0, a.s_k);
+    copy_tile<BN, D>(ks, k, j0 * BN, a.s_k);
+    copy_tile<BN, D>(vs, v, j0 * BN, a.s_k);
   }
   cp_async_commit();
   cp_async_wait<1>();
@@ -234,23 +360,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Args a) {
   scale_tile<kRows, D>(qs, a.scale);  // the first tile's barrier publishes it
 
   const bool no_live[2] = {true, true};
+  const float no_bias[2] = {0.f, 0.f};
+  int rseg[2];
+  row_ids(pl.seg_q, w0, a.s_q, rseg);
   float o[DT][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    const bf16* kt = ks + (j & 1) * BN * LD;
-    const bf16* vt = vs + (j & 1) * BN * LD;
+    const int k0 = (j0 + j) * BN;
+    const T* kt = ks + (j & 1) * BN * LD;
+    const T* vt = vs + (j & 1) * BN * LD;
     if (j + 1 < n_tiles) {
       copy_tile<BN, D>(ks + ((j + 1) & 1) * BN * LD, k, k0 + BN, a.s_k);
       copy_tile<BN, D>(vs + ((j + 1) & 1) * BN * LD, v, k0 + BN, a.s_k);
     }
     cp_async_commit();
-    if (a.kv_mask != nullptr && threadIdx.x < BN) {
-      const int kj = k0 + threadIdx.x;
-      live[threadIdx.x] =
-          kj < a.s_k &&
-          a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0;
-    }
+    stage_keys<BN, kX>(a, pl, k0, live, kseg, kbias);
     cp_async_wait<1>();
     __syncthreads();
 
@@ -263,13 +387,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Args a) {
       for (int np = 0; np < BN / 16; ++np) {
         uint32_t kb[4];
         load_b_nk<LD>(kb, kt, np * 16, kk * 16, lane);
-        mma(s[2 * np], qa, kb[0], kb[1]);
-        mma(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma<T>(s[2 * np], qa, kb[0], kb[1]);
+        mma<T>(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
-    if (k0 + BN > a.s_k || a.kv_mask != nullptr ||
-        (a.causal && k0 + BN - 1 > w0)) {
-      mask_tile<NT, false>(s, a, w0, k0, live, no_live);
+    if (kX && a.bias != nullptr)
+      add_bias<NT, false>(s, a, pl.bias, w0, k0, kbias, no_bias);
+    if (k0 + BN > a.s_k || need_mask || (a.causal && k0 + BN - 1 > w0)) {
+      mask_tile<NT, false>(s, a, w0, k0, live, no_live,
+                           pl.seg_q != nullptr ? kseg : nullptr, rseg);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -307,20 +433,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Args a) {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t pa[4];
-      c_to_a(pa, s, kk);  // p rounded to bf16 after the dropout scale
+      c_to_a<T>(pa, s, kk);  // p rounded to T after the dropout scale
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vb[4];
         load_b_kn<LD>(vb, vt, kk * 16, dp * 16, lane);
-        mma(o[2 * dp], pa, vb[0], vb[1]);
-        mma(o[2 * dp + 1], pa, vb[2], vb[3]);
+        mma<T>(o[2 * dp], pa, vb[0], vb[1]);
+        mma<T>(o[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_async_wait<0>();
 
-  bf16* out = static_cast<bf16*>(a.out) + qbase;
+  T* out = static_cast<T*>(a.out) + qbase;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lh = quad_sum(l[h]);
@@ -328,11 +454,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Args a) {
     if (qi >= a.s_q) continue;
     const bool dead = lh == 0.f;
     const float safe_l = dead ? 1.f : lh;
-    bf16* row = out + static_cast<long long>(qi) * D + 2 * (lane & 3);
+    T* row = out + static_cast<long long>(qi) * D + 2 * (lane & 3);
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       *reinterpret_cast<uint32_t*>(row + dt * 8) =
-          pack(o[dt][2 * h] / safe_l, o[dt][2 * h + 1] / safe_l);
+          pack<T>(o[dt][2 * h] / safe_l, o[dt][2 * h + 1] / safe_l);
     }
     if ((lane & 3) == 0) {
       a.lse[static_cast<long long>(bh) * a.s_q + qi] =
@@ -342,45 +468,51 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_tc_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// backward, dq (and delta)
+// backward, dq (and delta, and dbias)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D, bool kX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(Args a) {
   using G = Geo<D>;
   constexpr int BN = G::kDqKeys, LD = G::kLd, NT = BN / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kRows * LD;
-  bf16* ks = dos + kRows * LD;  // two stages
-  bf16* vs = ks + 2 * BN * LD;
-  uint8_t* live = reinterpret_cast<uint8_t*>(vs + 2 * BN * LD);
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + kRows * LD;
+  T* ks = dos + kRows * LD;  // two stages
+  T* vs = ks + 2 * BN * LD;
+  float* kbias = reinterpret_cast<float*>(vs + 2 * BN * LD);
+  int* kseg = reinterpret_cast<int*>(kbias + BN);
+  uint8_t* live = reinterpret_cast<uint8_t*>(kseg + BN);
 
   const int iq = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
-  const int ib = bh / a.n;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = iq * kRows, w0 = q0 + warp * 16;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
-  const bf16* k = static_cast<const bf16*>(a.k) + kbase;
-  const bf16* v = static_cast<const bf16*>(a.v) + kbase;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + qbase;
-  const int k_end = a.causal ? min(a.s_k, q0 + kRows) : a.s_k;
-  const int n_tiles = (k_end + BN - 1) / BN;
+  const T* k = static_cast<const T*>(a.k) + kbase;
+  const T* v = static_cast<const T*>(a.v) + kbase;
+  const T* dout = static_cast<const T*>(a.dout) + qbase;
+  const Plane pl = plane_of<kX>(a, bh);
+  int j0, n_tiles;
+  key_tiles<BN, kX>(a, pl, q0, &j0, &n_tiles);
+  const bool need_mask = a.kv_mask != nullptr || pl.seg_q != nullptr;
+  float* dbias = kX && a.dbias != nullptr
+                     ? a.dbias + static_cast<long long>(bh) * a.s_q * a.s_k
+                     : nullptr;
 
-  copy_tile<kRows, D>(qs, static_cast<const bf16*>(a.q) + qbase, q0, a.s_q);
+  copy_tile<kRows, D>(qs, static_cast<const T*>(a.q) + qbase, q0, a.s_q);
   copy_tile<kRows, D>(dos, dout, q0, a.s_q);
   cp_async_commit();
   if (n_tiles > 0) {
-    copy_tile<BN, D>(ks, k, 0, a.s_k);
-    copy_tile<BN, D>(vs, v, 0, a.s_k);
+    copy_tile<BN, D>(ks, k, j0 * BN, a.s_k);
+    copy_tile<BN, D>(vs, v, j0 * BN, a.s_k);
   }
   cp_async_commit();
 
   // delta = rowsum(do * o) in fp32 for the warp's rows, written for the
   // dk/dv launch; lse of the thread's two rows, in log2 units
-  const bf16* o = static_cast<const bf16*>(a.o) + qbase;
+  const T* o = static_cast<const T*>(a.o) + qbase;
   float delta[2] = {0.f, 0.f}, lse2[2] = {0.f, 0.f};
   for (int r = 0; r < 16; ++r) {
     const int qi = w0 + r;
@@ -388,7 +520,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(Args a) {
     if (qi < a.s_q) {
       for (int d = lane; d < D; d += 32) {
         const long long at = static_cast<long long>(qi) * D + d;
-        part += __bfloat162float(dout[at]) * __bfloat162float(o[at]);
+        part += to_f32(dout[at]) * to_f32(o[at]);
       }
     }
 #pragma unroll
@@ -410,22 +542,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(Args a) {
   scale_tile<kRows, D>(qs, a.scale);
 
   const bool no_live[2] = {true, true};
+  const float no_bias[2] = {0.f, 0.f};
+  int rseg[2];
+  row_ids(pl.seg_q, w0, a.s_q, rseg);
   float acc[DT][4] = {};
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    const bf16* kt = ks + (j & 1) * BN * LD;
-    const bf16* vt = vs + (j & 1) * BN * LD;
+    const int k0 = (j0 + j) * BN;
+    const T* kt = ks + (j & 1) * BN * LD;
+    const T* vt = vs + (j & 1) * BN * LD;
     if (j + 1 < n_tiles) {
       copy_tile<BN, D>(ks + ((j + 1) & 1) * BN * LD, k, k0 + BN, a.s_k);
       copy_tile<BN, D>(vs + ((j + 1) & 1) * BN * LD, v, k0 + BN, a.s_k);
     }
     cp_async_commit();
-    if (a.kv_mask != nullptr && threadIdx.x < BN) {
-      const int kj = k0 + threadIdx.x;
-      live[threadIdx.x] =
-          kj < a.s_k &&
-          a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0;
-    }
+    stage_keys<BN, kX>(a, pl, k0, live, kseg, kbias);
     cp_async_wait<1>();
     __syncthreads();
 
@@ -440,74 +570,90 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(Args a) {
         uint32_t kb[4], vb[4];
         load_b_nk<LD>(kb, kt, np * 16, kk * 16, lane);
         load_b_nk<LD>(vb, vt, np * 16, kk * 16, lane);
-        mma(s[2 * np], qa, kb[0], kb[1]);
-        mma(s[2 * np + 1], qa, kb[2], kb[3]);
-        mma(dp[2 * np], da, vb[0], vb[1]);
-        mma(dp[2 * np + 1], da, vb[2], vb[3]);
+        mma<T>(s[2 * np], qa, kb[0], kb[1]);
+        mma<T>(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma<T>(dp[2 * np], da, vb[0], vb[1]);
+        mma<T>(dp[2 * np + 1], da, vb[2], vb[3]);
       }
     }
-    if (k0 + BN > a.s_k || a.kv_mask != nullptr ||
-        (a.causal && k0 + BN - 1 > w0)) {
-      mask_tile<NT, false>(s, a, w0, k0, live, no_live);
+    if (kX && a.bias != nullptr)
+      add_bias<NT, false>(s, a, pl.bias, w0, k0, kbias, no_bias);
+    if (k0 + BN > a.s_k || need_mask || (a.causal && k0 + BN - 1 > w0)) {
+      mask_tile<NT, false>(s, a, w0, k0, live, no_live,
+                           pl.seg_q != nullptr ? kseg : nullptr, rseg);
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
+        const int qi = w0 + (lane >> 2) + 8 * h;
+        const int kj = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
         const float x = s[nt][e];
         const float p = x <= kDead ? 0.f : exp2f(fmaf(x, kLog2e, -lse2[h]));
         float d = dp[nt][e];
         if (a.dropout) {
-          const int qi = w0 + (lane >> 2) + 8 * h;
-          const int kj = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
           d = keep_bit(a.seed, bh, qi, kj, a.threshold) ? d * a.drop_scale
                                                          : 0.f;
         }
-        s[nt][e] = p * (d - delta[h]);  // ds
+        const float ds = p * (d - delta[h]);
+        s[nt][e] = ds;
+        if (dbias != nullptr && qi < a.s_q && kj < a.s_k)
+          dbias[static_cast<long long>(qi) * a.s_k + kj] = ds;
       }
     }
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t sa[4];
-      c_to_a(sa, s, kk);
+      c_to_a<T>(sa, s, kk);
 #pragma unroll
       for (int dd = 0; dd < D / 16; ++dd) {
         uint32_t kb[4];
         load_b_kn<LD>(kb, kt, kk * 16, dd * 16, lane);
-        mma(acc[2 * dd], sa, kb[0], kb[1]);
-        mma(acc[2 * dd + 1], sa, kb[2], kb[3]);
+        mma<T>(acc[2 * dd], sa, kb[0], kb[1]);
+        mma<T>(acc[2 * dd + 1], sa, kb[2], kb[3]);
       }
     }
     __syncthreads();
   }
   cp_async_wait<0>();
-  store_rows<D>(static_cast<bf16*>(a.dq) + qbase, acc, w0, a.s_q, a.scale);
+  store_rows<D>(static_cast<T*>(a.dq) + qbase, acc, w0, a.s_q, a.scale);
 }
 
 // ---------------------------------------------------------------------------
 // backward, dk and dv
 // ---------------------------------------------------------------------------
 
-// One walk of the dk/dv kernel over the query tiles [q_begin, s_q): adds
-// bf16(P^T dropped) dO into dv when kDV, bf16(dS^T) Q into dk when kDK.
-template <int D, bool kDV, bool kDK>
-__device__ __forceinline__ void dkv_walk(const Args& a, int bh, int w0,
-                                         const bool (&row_live)[2],
-                                         int q_begin, const bf16* ks,
-                                         const bf16* vs, bf16* qs, bf16* dos,
-                                         float* lse2_s, float* delta_s,
+// A warp's key rows, per thread (w0 + lane / 4 + 8 h): alive (inside s_k,
+// kv_mask set), their segment ids and, for a bias broadcast over query rows,
+// their bias.
+struct KeyRows {
+  bool live[2];
+  int seg[2];
+  float bias[2];
+};
+
+// One walk of the dk/dv kernel over the query tiles [q_begin, q_end): adds
+// T(P^T dropped) dO into dv when kDV, T(dS^T) Q into dk when kDK.
+template <int D, bool kDV, bool kDK, bool kX, typename T>
+__device__ __forceinline__ void dkv_walk(const Args& a, int bh,
+                                         const Plane& pl, int w0,
+                                         const KeyRows& kr, int q_begin,
+                                         int q_end, const T* ks, const T* vs,
+                                         T* qs, T* dos, float* lse2_s,
+                                         float* delta_s, int* qseg_s,
                                          float (&dv)[D / 8][4],
                                          float (&dk)[D / 8][4]) {
   using G = Geo<D>;
   constexpr int BQ = G::kQueries, LD = G::kLd, NT = BQ / 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long qbase = static_cast<long long>(bh) * a.s_q * D;
-  const bf16* q = static_cast<const bf16*>(a.q) + qbase;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + qbase;
-  const int n_tiles = a.s_q > q_begin ? (a.s_q - q_begin + BQ - 1) / BQ : 0;
+  const T* q = static_cast<const T*>(a.q) + qbase;
+  const T* dout = static_cast<const T*>(a.dout) + qbase;
+  const int n_tiles = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
   // rows that need a mask whatever the query tile
-  const bool rows_masked = a.kv_mask != nullptr || w0 + 16 > a.s_k;
+  const bool rows_masked = a.kv_mask != nullptr || pl.seg_q != nullptr ||
+                           w0 + 16 > a.s_k;
 
   if (n_tiles > 0) {
     copy_tile<BQ, D>(qs, q, q_begin, a.s_q);
@@ -516,8 +662,8 @@ __device__ __forceinline__ void dkv_walk(const Args& a, int bh, int w0,
   cp_async_commit();
   for (int j = 0; j < n_tiles; ++j) {
     const int q0 = q_begin + j * BQ;
-    bf16* qt = qs + (j & 1) * BQ * LD;
-    const bf16* dt = dos + (j & 1) * BQ * LD;
+    T* qt = qs + (j & 1) * BQ * LD;
+    const T* dt = dos + (j & 1) * BQ * LD;
     if (j + 1 < n_tiles) {
       copy_tile<BQ, D>(qs + ((j + 1) & 1) * BQ * LD, q, q0 + BQ, a.s_q);
       copy_tile<BQ, D>(dos + ((j + 1) & 1) * BQ * LD, dout, q0 + BQ, a.s_q);
@@ -529,6 +675,8 @@ __device__ __forceinline__ void dkv_walk(const Args& a, int bh, int w0,
       const long long r = static_cast<long long>(bh) * a.s_q + qi;
       lse2_s[threadIdx.x] = ok ? a.lse_in[r] * kLog2e : 0.f;
       delta_s[threadIdx.x] = ok ? a.delta[r] : 0.f;
+      if (kX && pl.seg_q != nullptr)
+        qseg_s[threadIdx.x] = ok ? pl.seg_q[qi] : -2;
     }
     cp_async_wait<1>();
     __syncthreads();
@@ -545,18 +693,21 @@ __device__ __forceinline__ void dkv_walk(const Args& a, int bh, int w0,
       for (int np = 0; np < BQ / 16; ++np) {
         uint32_t qb[4];
         load_b_nk<LD>(qb, qt, np * 16, kk * 16, lane);
-        mma(s[2 * np], ka, qb[0], qb[1]);
-        mma(s[2 * np + 1], ka, qb[2], qb[3]);
+        mma<T>(s[2 * np], ka, qb[0], qb[1]);
+        mma<T>(s[2 * np + 1], ka, qb[2], qb[3]);
         if (kDK) {
           uint32_t db[4];
           load_b_nk<LD>(db, dt, np * 16, kk * 16, lane);
-          mma(dp[2 * np], va, db[0], db[1]);
-          mma(dp[2 * np + 1], va, db[2], db[3]);
+          mma<T>(dp[2 * np], va, db[0], db[1]);
+          mma<T>(dp[2 * np + 1], va, db[2], db[3]);
         }
       }
     }
+    if (kX && a.bias != nullptr)
+      add_bias<NT, true>(s, a, pl.bias, w0, q0, nullptr, kr.bias);
     if (rows_masked || q0 + BQ > a.s_q || (a.causal && w0 + 15 > q0)) {
-      mask_tile<NT, true>(s, a, w0, q0, nullptr, row_live);
+      mask_tile<NT, true>(s, a, w0, q0, nullptr, kr.live,
+                          pl.seg_q != nullptr ? qseg_s : nullptr, kr.seg);
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -579,21 +730,21 @@ __device__ __forceinline__ void dkv_walk(const Args& a, int bh, int w0,
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t pa[4], sa[4];
-      if (kDV) c_to_a(pa, s, kk);
-      if (kDK) c_to_a(sa, dp, kk);
+      if (kDV) c_to_a<T>(pa, s, kk);
+      if (kDK) c_to_a<T>(sa, dp, kk);
 #pragma unroll
       for (int dd = 0; dd < D / 16; ++dd) {
         if (kDV) {
           uint32_t ob[4];
           load_b_kn<LD>(ob, dt, kk * 16, dd * 16, lane);
-          mma(dv[2 * dd], pa, ob[0], ob[1]);
-          mma(dv[2 * dd + 1], pa, ob[2], ob[3]);
+          mma<T>(dv[2 * dd], pa, ob[0], ob[1]);
+          mma<T>(dv[2 * dd + 1], pa, ob[2], ob[3]);
         }
         if (kDK) {
           uint32_t qb[4];
           load_b_kn<LD>(qb, qt, kk * 16, dd * 16, lane);
-          mma(dk[2 * dd], sa, qb[0], qb[1]);
-          mma(dk[2 * dd + 1], sa, qb[2], qb[3]);
+          mma<T>(dk[2 * dd], sa, qb[0], qb[1]);
+          mma<T>(dk[2 * dd + 1], sa, qb[2], qb[3]);
         }
       }
     }
@@ -602,17 +753,18 @@ __device__ __forceinline__ void dkv_walk(const Args& a, int bh, int w0,
   cp_async_wait<0>();
 }
 
-template <int D>
+template <typename T, int D, bool kX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(Args a) {
   using G = Geo<D>;
   constexpr int BQ = G::kQueries, LD = G::kLd, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kRows * LD;
-  bf16* qs = vs + kRows * LD;  // two stages, round(q * scale)
-  bf16* dos = qs + 2 * BQ * LD;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kRows * LD;
+  T* qs = vs + kRows * LD;  // two stages, round(q * scale)
+  T* dos = qs + 2 * BQ * LD;
   float* lse2_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);
   float* delta_s = lse2_s + BQ;
+  int* qseg_s = reinterpret_cast<int*>(delta_s + BQ);
 
   const int ik = blockIdx.x;  // low key tiles see the most queries: first
   const int bh = blockIdx.y;
@@ -620,37 +772,51 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(Args a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k0 = ik * kRows, w0 = k0 + warp * 16;
   const long long kbase = static_cast<long long>(bh) * a.s_k * D;
-  copy_tile<kRows, D>(ks, static_cast<const bf16*>(a.k) + kbase, k0, a.s_k);
-  copy_tile<kRows, D>(vs, static_cast<const bf16*>(a.v) + kbase, k0, a.s_k);
+  const Plane pl = plane_of<kX>(a, bh);
+  copy_tile<kRows, D>(ks, static_cast<const T*>(a.k) + kbase, k0, a.s_k);
+  copy_tile<kRows, D>(vs, static_cast<const T*>(a.v) + kbase, k0, a.s_k);
   cp_async_commit();
 
-  bool row_live[2];
+  KeyRows kr;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kj = w0 + (lane >> 2) + 8 * h;
-    row_live[h] = kj < a.s_k &&
-                  (a.kv_mask == nullptr ||
-                   a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] != 0);
+    const bool in = kj < a.s_k;
+    kr.live[h] = in && (a.kv_mask == nullptr ||
+                        a.kv_mask[static_cast<long long>(ib) * a.s_k + kj] !=
+                            0);
+    kr.seg[h] = kX && pl.seg_k != nullptr && in ? pl.seg_k[kj] : -1;
+    kr.bias[h] = kX && a.bias != nullptr && a.bias_sq == 0 && in
+                     ? bias_at(a, pl.bias + kj)
+                     : 0.f;
   }
-  // causal: query qi sees key kj only when qi >= kj
-  const int q_begin = a.causal ? (k0 / BQ) * BQ : 0;
-  bf16* dk_out = static_cast<bf16*>(a.dk) + kbase;
-  bf16* dv_out = static_cast<bf16*>(a.dv) + kbase;
+  // causal: query qi sees key kj only when qi >= kj; segments: only the
+  // queries whose ids can match the block's keys
+  int q_begin = a.causal ? (k0 / BQ) * BQ : 0, q_end = a.s_q;
+  if (kX && pl.seg_q != nullptr) {
+    int lo, hi;
+    segment_range(pl.seg_k, k0, min(k0 + kRows, a.s_k), pl.seg_q, a.s_q, &lo,
+                  &hi);
+    q_begin = max(q_begin, lo);
+    q_end = hi;
+  }
+  T* dk_out = static_cast<T*>(a.dk) + kbase;
+  T* dv_out = static_cast<T*>(a.dv) + kbase;
   if (G::kTwoPass) {
     {
       float dv[DT][4] = {};
-      dkv_walk<D, true, false>(a, bh, w0, row_live, q_begin, ks, vs, qs, dos,
-                               lse2_s, delta_s, dv, dv);
+      dkv_walk<D, true, false, kX>(a, bh, pl, w0, kr, q_begin, q_end, ks, vs, qs,
+                               dos, lse2_s, delta_s, qseg_s, dv, dv);
       store_rows<D>(dv_out, dv, w0, a.s_k, 1.f);
     }
     float dk[DT][4] = {};
-    dkv_walk<D, false, true>(a, bh, w0, row_live, q_begin, ks, vs, qs, dos,
-                             lse2_s, delta_s, dk, dk);
+    dkv_walk<D, false, true, kX>(a, bh, pl, w0, kr, q_begin, q_end, ks, vs, qs,
+                             dos, lse2_s, delta_s, qseg_s, dk, dk);
     store_rows<D>(dk_out, dk, w0, a.s_k, 1.f);
   } else {
     float dk[DT][4] = {}, dv[DT][4] = {};
-    dkv_walk<D, true, true>(a, bh, w0, row_live, q_begin, ks, vs, qs, dos,
-                            lse2_s, delta_s, dv, dk);
+    dkv_walk<D, true, true, kX>(a, bh, pl, w0, kr, q_begin, q_end, ks, vs, qs,
+                            dos, lse2_s, delta_s, qseg_s, dv, dk);
     store_rows<D>(dv_out, dv, w0, a.s_k, 1.f);
     store_rows<D>(dk_out, dk, w0, a.s_k, 1.f);
   }
@@ -672,53 +838,78 @@ cudaError_t allow_smem(Kernel* kernel, int bytes, int device, bool* ready) {
   return e;
 }
 
-template <int D>
+template <typename T, int D, bool kX>
 cudaError_t launch_fwd(const Args& a, int bn, int device, cudaStream_t s) {
   static bool ready[kMaxDevices];
   constexpr int kSmem = Geo<D>::kFwdSmem;
-  cudaError_t e = allow_smem(flash_fwd_tc_kernel<D>, kSmem, device, ready);
+  cudaError_t e =
+      allow_smem(flash_fwd_tc_kernel<T, D, kX>, kSmem, device, ready);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.s_q + kRows - 1) / kRows, bn);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, kSmem, s>>>(a);
+  flash_fwd_tc_kernel<T, D, kX><<<grid, kThreads, kSmem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D, bool kX>
 cudaError_t launch_bwd(const Args& a, int bn, int device, cudaStream_t s) {
   static bool ready_dq[kMaxDevices], ready_dkv[kMaxDevices];
   constexpr int kDq = Geo<D>::kDqSmem, kDkv = Geo<D>::kDkvSmem;
-  cudaError_t e = allow_smem(flash_bwd_dq_tc_kernel<D>, kDq, device, ready_dq);
+  cudaError_t e =
+      allow_smem(flash_bwd_dq_tc_kernel<T, D, kX>, kDq, device, ready_dq);
   if (e != cudaSuccess) return e;
-  e = allow_smem(flash_bwd_dkv_tc_kernel<D>, kDkv, device, ready_dkv);
+  e = allow_smem(flash_bwd_dkv_tc_kernel<T, D, kX>, kDkv, device,
+                 ready_dkv);
   if (e != cudaSuccess) return e;
   // dq first: it writes delta, which the dk/dv launch reads
   const dim3 gq((a.s_q + kRows - 1) / kRows, bn);
-  flash_bwd_dq_tc_kernel<D><<<gq, kThreads, kDq, s>>>(a);
+  flash_bwd_dq_tc_kernel<T, D, kX><<<gq, kThreads, kDq, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.s_k == 0) return e;
   const dim3 gk((a.s_k + kRows - 1) / kRows, bn);
-  flash_bwd_dkv_tc_kernel<D><<<gk, kThreads, kDkv, s>>>(a);
+  flash_bwd_dkv_tc_kernel<T, D, kX><<<gk, kThreads, kDkv, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+// The kernels with the bias and segment code (kX) where the call has a
+// bias, segment ids or a dbias to write, else the kernels without it, so
+// the attention of a plain causal or padded batch runs none of it.
+template <typename T, int D>
 cudaError_t launch(bool fwd, const Args& a, int bn, int device,
                    cudaStream_t s) {
-  return fwd ? launch_fwd<D>(a, bn, device, s)
-             : launch_bwd<D>(a, bn, device, s);
+  const bool x = a.bias != nullptr || a.seg_q != nullptr ||
+                 a.dbias != nullptr;
+  if (fwd)
+    return x ? launch_fwd<T, D, true>(a, bn, device, s)
+             : launch_fwd<T, D, false>(a, bn, device, s);
+  return x ? launch_bwd<T, D, true>(a, bn, device, s)
+           : launch_bwd<T, D, false>(a, bn, device, s);
+}
+
+template <typename T>
+cudaError_t launch_typed(bool fwd, const Args& a, int bn, int d, int device,
+                         cudaStream_t s) {
+  // the instantiated head dims (KERNEL_HEAD_DIMS of the wrapper)
+  switch (d) {
+#define APEX_FLASH_D(D) \
+  case D:               \
+    return launch<T, D>(fwd, a, bn, device, s);
+    APEX_FLASH_D(32)
+    APEX_FLASH_D(64)
+    APEX_FLASH_D(96)
+    APEX_FLASH_D(128)
+    APEX_FLASH_D(256)
+#undef APEX_FLASH_D
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-cudaError_t launch_bf16(bool fwd, const Args& a, int bn, int d, int device,
-                        cudaStream_t stream) {
-  // the instantiated head dims (KERNEL_HEAD_DIMS of the wrapper)
-  switch (d) {
-    case 32: return launch<32>(fwd, a, bn, device, stream);
-    case 64: return launch<64>(fwd, a, bn, device, stream);
-    case 96: return launch<96>(fwd, a, bn, device, stream);
-    case 128: return launch<128>(fwd, a, bn, device, stream);
-    case 256: return launch<256>(fwd, a, bn, device, stream);
+cudaError_t launch_tc(bool fwd, const Args& a, int bn, int d, int dtype,
+                      int device, cudaStream_t stream) {
+  switch (dtype) {
+    case kBF16: return launch_typed<bf16>(fwd, a, bn, d, device, stream);
+    case kF16: return launch_typed<f16>(fwd, a, bn, d, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -48,12 +48,13 @@
 //   page may hold anything, so it is skipped, not multiplied by zero).
 // - Scores and accumulation are fp32, the softmax in base 2 with scale *
 //   log2(e) folded into q (exp2f); q and the pages may be f32/f32,
-//   bf16/bf16 or f32 q over bf16 pages (no cast of the pool). The output
+//   bf16/bf16, fp16/fp16 or f32 q over 16-bit pages (no cast of the pool). The output
 //   takes q's dtype. Each lane group's (m, l, acc) merges with the warp's
 //   other groups by shuffles, then the warps' through shared memory, in
 //   warp order.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -71,7 +72,11 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
@@ -86,6 +91,15 @@ template <> struct Vec<float> {
 };
 template <> struct Vec<__nv_bfloat16> {
   using Raw = uint4;
+  static constexpr int kN = 8;
+};
+// eight fp16 values, a type of their own so that unpack and pack pick the
+// fp16 conversions
+struct __align__(16) Half8 {
+  uint4 u;
+};
+template <> struct Vec<__half> {
+  using Raw = Half8;
   static constexpr int kN = 8;
 };
 
@@ -103,6 +117,14 @@ __device__ __forceinline__ void unpack(const uint4& r, float v[8]) {
     v[2 * i + 1] = __high2float(b[i]);
   }
 }
+__device__ __forceinline__ void unpack(const Half8& r, float v[8]) {
+  const __half2* h = reinterpret_cast<const __half2*>(&r.u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __low2float(h[i]);
+    v[2 * i + 1] = __high2float(h[i]);
+  }
+}
 __device__ __forceinline__ void pack(const float v[4], float4& r) {
   r = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -114,6 +136,15 @@ __device__ __forceinline__ void pack(const float v[8], uint4& r) {
     u[i] = *reinterpret_cast<unsigned*>(&b);
   }
   r = make_uint4(u[0], u[1], u[2], u[3]);
+}
+__device__ __forceinline__ void pack(const float v[8], Half8& r) {
+  unsigned u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    u[i] = *reinterpret_cast<unsigned*>(&h);
+  }
+  r.u = make_uint4(u[0], u[1], u[2], u[3]);
 }
 
 // The vector of a row at column c: one 16-byte load when `vec` (then d is
@@ -476,8 +507,8 @@ extern "C" int apex_flash_decode(const void* q, const void* k_pages,
                                  const void* kv_lens, void* out, int n_slots,
                                  int n_heads, int head_dim, int page_size,
                                  int pages_per_seq, int n_splits,
-                                 int split_len, float scale, int q_is_bf16,
-                                 int kv_is_bf16, int device, void* stream) {
+                                 int split_len, float scale, int q_dtype,
+                                 int kv_dtype, int device, void* stream) {
   if (n_slots == 0) return 0;
   if (n_splits < 1 || n_splits > kMaxSplits || split_len < 1 ||
       static_cast<long long>(n_splits) * split_len <
@@ -488,22 +519,26 @@ extern "C" int apex_flash_decode(const void* q, const void* k_pages,
   const int* pt = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // q and pages in one dtype, or an fp32 q over 16-bit pages (dtype codes
+  // 0 fp32, 1 bf16, 2 fp16); a 16-bit q over fp32 pages is not taken
+#define APEX_FD_TYPED(QT, KT)                                               \
+  launch_typed<QT, KT>(q, k_pages, v_pages, pt, lens, out, n_slots, n_heads, \
+                       head_dim, page_size, pages_per_seq, n_splits,        \
+                       split_len, scale, s)
   cudaError_t err;
-  if (!q_is_bf16 && !kv_is_bf16) {
-    err = launch_typed<float, float>(q, k_pages, v_pages, pt, lens, out,
-                                     n_slots, n_heads, head_dim, page_size,
-                                     pages_per_seq, n_splits, split_len,
-                                     scale, s);
-  } else if (q_is_bf16 && kv_is_bf16) {
-    err = launch_typed<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pages, v_pages, pt, lens, out, n_slots, n_heads, head_dim,
-        page_size, pages_per_seq, n_splits, split_len, scale, s);
-  } else if (!q_is_bf16 && kv_is_bf16) {
-    err = launch_typed<float, __nv_bfloat16>(
-        q, k_pages, v_pages, pt, lens, out, n_slots, n_heads, head_dim,
-        page_size, pages_per_seq, n_splits, split_len, scale, s);
+  if (q_dtype == 0 && kv_dtype == 0) {
+    err = APEX_FD_TYPED(float, float);
+  } else if (q_dtype == 1 && kv_dtype == 1) {
+    err = APEX_FD_TYPED(__nv_bfloat16, __nv_bfloat16);
+  } else if (q_dtype == 2 && kv_dtype == 2) {
+    err = APEX_FD_TYPED(__half, __half);
+  } else if (q_dtype == 0 && kv_dtype == 1) {
+    err = APEX_FD_TYPED(float, __nv_bfloat16);
+  } else if (q_dtype == 0 && kv_dtype == 2) {
+    err = APEX_FD_TYPED(float, __half);
   } else {
-    err = cudaErrorInvalidValue;  // bf16 q over f32 pages: not taken
+    err = cudaErrorInvalidValue;
   }
+#undef APEX_FD_TYPED
   return static_cast<int>(err);
 }

@@ -16,9 +16,9 @@
 //                                             dw, dlb, db column sums
 // where drop(v) = v * keep * 1 / (1 - p), keep = keep_bit(seed, 0, row, col,
 // round(p * 2^32)) (hash_dropout.cuh; p = 0 skips the hash). x, r, dy and the
-// row outputs share one dtype (fp32 or bf16); b, w, lb are fp32 (the wrapper
-// widens bf16 parameters, which is exact); all arithmetic is fp32 with one
-// rounding per output, as in the TPU kernel bodies. The LayerNorm of
+// row outputs share one dtype (fp32, bf16 or fp16); b, w, lb are fp32 (the
+// wrapper widens 16-bit parameters, which is exact); all arithmetic is fp32
+// with one rounding per output, as in the TPU kernel bodies. The LayerNorm of
 // raln_fwd runs on the sum AFTER its rounding, with the centred two-pass
 // variance of layer_norm.cu.
 //
@@ -49,6 +49,7 @@
 // walks its columns over the rows, so its column partials stay 24 registers
 // whatever the width.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +90,12 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
 #pragma unroll
   for (int j = 0; j < kVec; ++j) v[j] = __bfloat162float(h[j]);
 }
+__device__ __forceinline__ void load8(const __half* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half* h = reinterpret_cast<const __half*>(&u);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) v[j] = __half2float(h[j]);
+}
 __device__ __forceinline__ void store8(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
@@ -99,11 +106,21 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   for (int j = 0; j < kVec; ++j) h[j] = __float2bfloat16(v[j]);
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
 }
+__device__ __forceinline__ void store8(__half* p, const float* v) {
+  alignas(16) __half h[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) h[j] = __float2half_rn(v[j]);
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+}
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
@@ -133,6 +150,9 @@ __device__ __forceinline__ void storev(T* p, const float* v, int cnt) {
 __device__ __forceinline__ float round_to(float x, float*) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_to(float x, __half*) {
+  return __half2float(__float2half_rn(x));
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -671,17 +691,21 @@ void launch_raln_bwd(const Shape& sh, const void* dsum_out, const void* dy,
         dso, dyt, st, mu, rstd, w, drt, dxt, part, rows, n, d);
 }
 
-// F<dtype, aligned>(args...) for the four instances of an elementwise kernel
-#define APEX_DISPATCH(F, is_bf16, n, ...)                       \
+// F<dtype, aligned>(args...) for the six instances of an elementwise
+// kernel; dtype is the wrappers' code (0 fp32, 1 bf16, 2 fp16)
+#define APEX_DISPATCH_T(F, T, aligned_, ...)                    \
   do {                                                          \
-    const bool aligned_ = (n) % kVec == 0;                      \
-    if (is_bf16) {                                              \
-      if (aligned_) F<__nv_bfloat16, true>(__VA_ARGS__);        \
-      else F<__nv_bfloat16, false>(__VA_ARGS__);                \
-    } else {                                                    \
-      if (aligned_) F<float, true>(__VA_ARGS__);                \
-      else F<float, false>(__VA_ARGS__);                        \
-    }                                                           \
+    if (aligned_) F<T, true>(__VA_ARGS__);                      \
+    else F<T, false>(__VA_ARGS__);                              \
+  } while (0)
+#define APEX_DISPATCH(F, dtype, n, ...)                                   \
+  do {                                                                    \
+    const bool aligned_ = (n) % kVec == 0;                                \
+    if ((dtype) == 1) APEX_DISPATCH_T(F, __nv_bfloat16, aligned_,         \
+                                      __VA_ARGS__);                       \
+    else if ((dtype) == 2) APEX_DISPATCH_T(F, __half, aligned_,           \
+                                           __VA_ARGS__);                  \
+    else APEX_DISPATCH_T(F, float, aligned_, __VA_ARGS__);                \
   } while (0)
 
 }  // namespace
@@ -697,21 +721,21 @@ extern "C" int apex_fused_block_partials(int rows) {
 }
 
 extern "C" int apex_bias_gelu_fwd(const void* x, const void* b, void* y,
-                                  int rows, int n, int is_bf16, int device,
+                                  int rows, int n, int dtype, int device,
                                   void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Shape sh = shape(rows, n, kEwRows);
-  APEX_DISPATCH(launch_bias_gelu_fwd, is_bf16, n, sh, x,
+  APEX_DISPATCH(launch_bias_gelu_fwd, dtype, n, sh, x,
                 static_cast<const float*>(b), y, rows, n, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int apex_bias_gelu_bwd(const void* dy, const void* x,
                                   const void* b, void* dx, void* part,
-                                  void* db, int rows, int n, int is_bf16,
+                                  void* db, int rows, int n, int dtype,
                                   int device, void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -719,7 +743,7 @@ extern "C" int apex_bias_gelu_bwd(const void* dy, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Shape sh = shape(rows, n, kSumRows);
   float* pf = static_cast<float*>(part);
-  APEX_DISPATCH(launch_bias_gelu_bwd, is_bf16, n, sh, dy, x,
+  APEX_DISPATCH(launch_bias_gelu_bwd, dtype, n, sh, dy, x,
                 static_cast<const float*>(b), dx, pf, rows, n, s);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -730,21 +754,21 @@ extern "C" int apex_bias_gelu_bwd(const void* dy, const void* x,
 extern "C" int apex_bdr_fwd(const void* x, const void* b, const void* res,
                             void* out, int rows, int n, int dropout,
                             uint32_t seed, uint32_t threshold, float scale,
-                            int is_bf16, int device, void* stream) {
+                            int dtype, int device, void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Shape sh = shape(rows, n, kEwRows);
   const Drop d{dropout, seed, threshold, scale};
-  APEX_DISPATCH(launch_bdr_fwd, is_bf16, n, sh, x,
+  APEX_DISPATCH(launch_bdr_fwd, dtype, n, sh, x,
                 static_cast<const float*>(b), res, out, rows, n, d, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int apex_bdr_bwd(const void* dy, void* dx, void* part, void* db,
                             int rows, int n, int dropout, uint32_t seed,
-                            uint32_t threshold, float scale, int is_bf16,
+                            uint32_t threshold, float scale, int dtype,
                             int device, void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -753,7 +777,7 @@ extern "C" int apex_bdr_bwd(const void* dy, void* dx, void* part, void* db,
   const Shape sh = shape(rows, n, kSumRows);
   const Drop d{dropout, seed, threshold, scale};
   float* pf = static_cast<float*>(part);
-  APEX_DISPATCH(launch_bdr_bwd, is_bf16, n, sh, dy, dx, pf, rows, n, d, s);
+  APEX_DISPATCH(launch_bdr_bwd, dtype, n, sh, dy, dx, pf, rows, n, d, s);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
@@ -764,7 +788,7 @@ extern "C" int apex_raln_fwd(const void* x, const void* b, const void* res,
                              const void* w, const void* lb, void* sum,
                              void* y, void* mu, void* rstd, int rows, int n,
                              float eps, int dropout, uint32_t seed,
-                             uint32_t threshold, float scale, int is_bf16,
+                             uint32_t threshold, float scale, int dtype,
                              int device, void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -777,9 +801,12 @@ extern "C" int apex_raln_fwd(const void* x, const void* b, const void* res,
   const float* lf = static_cast<const float*>(lb);
   float* muf = static_cast<float*>(mu);
   float* rf = static_cast<float*>(rstd);
-  if (is_bf16)
+  if (dtype == 1)
     launch_raln_fwd<__nv_bfloat16>(sh, x, bf, res, wf, lf, sum, y, muf, rf,
                                    rows, n, eps, d, s);
+  else if (dtype == 2)
+    launch_raln_fwd<__half>(sh, x, bf, res, wf, lf, sum, y, muf, rf, rows, n,
+                            eps, d, s);
   else
     launch_raln_fwd<float>(sh, x, bf, res, wf, lf, sum, y, muf, rf, rows, n,
                            eps, d, s);
@@ -792,7 +819,7 @@ extern "C" int apex_raln_bwd(const void* dsum_out, const void* dy,
                              const void* rstd, const void* w, void* dres,
                              void* dx, void* part, void* grads, int rows,
                              int n, int dropout, uint32_t seed,
-                             uint32_t threshold, float scale, int is_bf16,
+                             uint32_t threshold, float scale, int dtype,
                              int device, void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -804,9 +831,12 @@ extern "C" int apex_raln_bwd(const void* dsum_out, const void* dy,
   const float* rf = static_cast<const float*>(rstd);
   const float* wf = static_cast<const float*>(w);
   float* pf = static_cast<float*>(part);
-  if (is_bf16)
+  if (dtype == 1)
     launch_raln_bwd<__nv_bfloat16>(sh, dsum_out, dy, sum, muf, rf, wf, dres,
                                    dx, pf, rows, n, d, s);
+  else if (dtype == 2)
+    launch_raln_bwd<__half>(sh, dsum_out, dy, sum, muf, rf, wf, dres, dx, pf,
+                            rows, n, d, s);
   else
     launch_raln_bwd<float>(sh, dsum_out, dy, sum, muf, rf, wf, dres, dx, pf,
                            rows, n, d, s);

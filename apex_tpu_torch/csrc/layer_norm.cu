@@ -1,5 +1,6 @@
 // LayerNorm and RMSNorm, forward and backward, for Hopper (sm_90a): fp32
-// statistics per row.
+// statistics per row; x, y, dy and dx in fp32, bf16 or fp16 (dtype codes 0,
+// 1, 2 at the entry points).
 //
 // Forward. Replaces: apex_tpu/ops/layer_norm.py, _ln_fwd_pallas /
 // _ln_fwd_kernel (the TPU kernel). For each row x of a [rows, hidden] input:
@@ -20,6 +21,7 @@
 // over the row (neighbouring threads read neighbouring elements) followed
 // by a warp-shuffle then shared-memory block sum in fp32.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -30,9 +32,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // Sum over the block; every thread gets the total.
@@ -89,7 +95,7 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
                                    const void* b, void* y, void* mu,
                                    void* rstd, int rows, int hidden,
-                                   float eps, int x_is_bf16, int device,
+                                   float eps, int x_dtype, int device,
                                    void* stream) {
   if (rows == 0) return 0;
   cudaError_t set = cudaSetDevice(device);
@@ -99,10 +105,14 @@ extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
   const float* bf = static_cast<const float*>(b);
   float* muf = static_cast<float*>(mu);
   float* rf = static_cast<float*>(rstd);
-  if (x_is_bf16) {
+  if (x_dtype == 1) {
     ln_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), wf, bf,
         static_cast<__nv_bfloat16*>(y), muf, rf, hidden, eps);
+  } else if (x_dtype == 2) {
+    ln_fwd_kernel<__half><<<rows, kThreads, 0, s>>>(
+        static_cast<const __half*>(x), wf, bf, static_cast<__half*>(y), muf,
+        rf, hidden, eps);
   } else {
     ln_fwd_kernel<float><<<rows, kThreads, 0, s>>>(
         static_cast<const float*>(x), wf, bf, static_cast<float*>(y), muf,
@@ -150,17 +160,21 @@ __global__ void __launch_bounds__(kThreads)
 // (ones for the non-affine norm); rstd fp32 [rows].
 extern "C" int apex_rms_norm_fwd(const void* x, const void* w, void* y,
                                  void* rstd, int rows, int hidden, float eps,
-                                 int x_is_bf16, int device, void* stream) {
+                                 int x_dtype, int device, void* stream) {
   if (rows == 0) return 0;
   cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   float* rf = static_cast<float*>(rstd);
-  if (x_is_bf16) {
+  if (x_dtype == 1) {
     rms_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), wf,
         static_cast<__nv_bfloat16*>(y), rf, hidden, eps);
+  } else if (x_dtype == 2) {
+    rms_fwd_kernel<__half><<<rows, kThreads, 0, s>>>(
+        static_cast<const __half*>(x), wf, static_cast<__half*>(y), rf,
+        hidden, eps);
   } else {
     rms_fwd_kernel<float><<<rows, kThreads, 0, s>>>(
         static_cast<const float*>(x), wf, static_cast<float*>(y), rf, hidden,
@@ -195,7 +209,7 @@ extern "C" int apex_rms_norm_fwd(const void* x, const void* w, void* y,
 //      8 warps takes a row; each lane owns NQ quads of 4 columns (quad k at
 //      column (k * team lanes + lane) * 4), so the row stays in registers
 //      between its two sums and is read from device memory once, a quad
-//      as one 16-byte (fp32) or 8-byte (bf16) load (element by element when
+//      as one 16-byte (fp32) or 8-byte (16-bit) load (element by element when
 //      hidden % 4 != 0 or a buffer is not 16-byte aligned). A one-warp team
 //      reduces with shuffles alone, a wider one with one named barrier a
 //      row. A block of 8 warps walks a contiguous range of rows, its teams
@@ -241,12 +255,29 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[2] = __low2float(b);
   v[3] = __high2float(b);
 }
+__device__ __forceinline__ void load4(const __half* p, float v[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __half2 a = *reinterpret_cast<const __half2*>(&t.x);
+  const __half2 b = *reinterpret_cast<const __half2*>(&t.y);
+  v[0] = __low2float(a);
+  v[1] = __high2float(a);
+  v[2] = __low2float(b);
+  v[3] = __high2float(b);
+}
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
   __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<unsigned*>(&a);
+  t.y = *reinterpret_cast<unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+__device__ __forceinline__ void store4(__half* p, const float v[4]) {
+  __half2 a = __floats2half2_rn(v[0], v[1]);
+  __half2 b = __floats2half2_rn(v[2], v[3]);
   uint2 t;
   t.x = *reinterpret_cast<unsigned*>(&a);
   t.y = *reinterpret_cast<unsigned*>(&b);
@@ -634,18 +665,28 @@ bool plan_ok(const BwdArgs& a) {
 
 template <bool kRms>
 cudaError_t launch_norm_bwd(const BwdArgs& a, float* dw, float* db,
-                            int dy_is_bf16, int x_is_bf16, int device,
+                            int dy_dtype, int x_dtype, int device,
                             cudaStream_t s) {
   if (!plan_ok(a)) return cudaErrorInvalidValue;
   cudaError_t e;
-  if (dy_is_bf16 && x_is_bf16) {
+  // dy and x in one dtype, or either in fp32 (x is the fp32 x-hat of a
+  // 16-bit dy in the memory-efficient backward); bf16 with fp16 is refused
+  if (dy_dtype == 1 && x_dtype == 1) {
     e = launch_by_plan<__nv_bfloat16, __nv_bfloat16, kRms>(a, device, s);
-  } else if (dy_is_bf16) {
+  } else if (dy_dtype == 2 && x_dtype == 2) {
+    e = launch_by_plan<__half, __half, kRms>(a, device, s);
+  } else if (dy_dtype == 1 && x_dtype == 0) {
     e = launch_by_plan<__nv_bfloat16, float, kRms>(a, device, s);
-  } else if (x_is_bf16) {
+  } else if (dy_dtype == 2 && x_dtype == 0) {
+    e = launch_by_plan<__half, float, kRms>(a, device, s);
+  } else if (dy_dtype == 0 && x_dtype == 1) {
     e = launch_by_plan<float, __nv_bfloat16, kRms>(a, device, s);
-  } else {
+  } else if (dy_dtype == 0 && x_dtype == 2) {
+    e = launch_by_plan<float, __half, kRms>(a, device, s);
+  } else if (dy_dtype == 0 && x_dtype == 0) {
     e = launch_by_plan<float, float, kRms>(a, device, s);
+  } else {
+    return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
   norm_bwd_cols_kernel<<<(a.hidden + kCols - 1) / kCols, kColWarps * 32, 0,
@@ -657,9 +698,9 @@ cudaError_t launch_norm_bwd(const BwdArgs& a, float* dw, float* db,
 }  // namespace
 
 // LayerNorm backward. Returns the cudaError_t of the launches (0 on
-// success). dy and dx share a dtype (fp32 or bf16); x is fp32 or bf16 (xhat
-// itself when x_is_xhat, then mu is not read); mu, rstd [rows] and w
-// [hidden] fp32; dw, db [hidden] fp32; dw_part, db_part [n_part, hidden]
+// success). dy and dx share a dtype (fp32, bf16 or fp16); x is in dy's
+// dtype, or either is fp32 (xhat itself when x_is_xhat, then mu is not
+// read); mu, rstd [rows] and w [hidden] fp32; dw, db [hidden] fp32; dw_part, db_part [n_part, hidden]
 // fp32 scratch. The plan (n_part blocks of rows_per_block rows, warps_per_row
 // warps of quads quads of 4 columns a lane; warps_per_row 0 for rows wider
 // than 8192) is the host's norm_bwd_plan. Any hidden.
@@ -667,8 +708,8 @@ extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
                                    const void* mu, const void* rstd,
                                    const void* w, void* dx, void* dw_part,
                                    void* db_part, void* dw, void* db,
-                                   int rows, int hidden, int dy_is_bf16,
-                                   int x_is_bf16, int x_is_xhat, int n_part,
+                                   int rows, int hidden, int dy_dtype,
+                                   int x_dtype, int x_is_xhat, int n_part,
                                    int rows_per_block, int warps_per_row,
                                    int quads, int device, void* stream) {
   if (rows == 0 || hidden == 0) return 0;
@@ -681,15 +722,15 @@ extern "C" int apex_layer_norm_bwd(const void* dy, const void* x,
                   rows, hidden, x_is_xhat, n_part, rows_per_block,
                   warps_per_row, quads};
   return static_cast<int>(launch_norm_bwd<false>(
-      a, static_cast<float*>(dw), static_cast<float*>(db), dy_is_bf16,
-      x_is_bf16, device, static_cast<cudaStream_t>(stream)));
+      a, static_cast<float*>(dw), static_cast<float*>(db), dy_dtype,
+      x_dtype, device, static_cast<cudaStream_t>(stream)));
 }
 
 // RMSNorm backward, as apex_layer_norm_bwd without mu, db_part and db.
 extern "C" int apex_rms_norm_bwd(const void* dy, const void* x,
                                  const void* rstd, const void* w, void* dx,
                                  void* dw_part, void* dw, int rows,
-                                 int hidden, int dy_is_bf16, int x_is_bf16,
+                                 int hidden, int dy_dtype, int x_dtype,
                                  int x_is_xhat, int n_part,
                                  int rows_per_block, int warps_per_row,
                                  int quads, int device, void* stream) {
@@ -701,6 +742,6 @@ extern "C" int apex_rms_norm_bwd(const void* dy, const void* x,
                   static_cast<float*>(dw_part), nullptr, rows, hidden,
                   x_is_xhat, n_part, rows_per_block, warps_per_row, quads};
   return static_cast<int>(launch_norm_bwd<true>(
-      a, static_cast<float*>(dw), nullptr, dy_is_bf16, x_is_bf16, device,
+      a, static_cast<float*>(dw), nullptr, dy_dtype, x_dtype, device,
       static_cast<cudaStream_t>(stream)));
 }

@@ -9,7 +9,7 @@
 //   u += wd * p                               (AdamW, wd != 0)
 //   p' = p - lr * u
 //   noop set: p' = p, m' = m, v' = v          (the CUDA noop_flag contract)
-// then p_out = p' in the parameter dtype (fp32 or bf16), and m, v and the
+// then p_out = p' in the parameter dtype (fp32/bf16/fp16), and m, v and the
 // fp32 master are written back IN PLACE when asked (write_mv, write_master).
 // write_mv = 0 is the fork's no_update_mv mode: m' and v' only feed p'.
 //
@@ -110,7 +110,7 @@ cudaError_t launch(const void* g, void* m, void* v, void* src, void* p_out,
 }  // namespace
 
 // One packed Adam sweep over n elements (n a multiple of 4; every pointer
-// 16-byte aligned). g is fp32 or bf16, p_out fp32 or bf16, m/v/src fp32
+// 16-byte aligned). g and p_out each fp32, bf16 or fp16, m/v/src fp32
 // and updated in place as write_mv / write_master say. lr, bc1, bc2 and
 // inv_scale point to fp32 device scalars; noop to an fp32 device scalar
 // (>= 0.5 means skip) or is null. Returns the cudaError_t of the launch.
@@ -121,8 +121,8 @@ extern "C" int apex_packed_adam(const void* g, void* m, void* v, void* src,
                                 float one_minus_beta1, float beta2,
                                 float one_minus_beta2, float eps, float wd,
                                 int adam_w_mode, int write_mv,
-                                int write_master, int g_is_bf16,
-                                int p_is_bf16, int device, void* stream) {
+                                int write_master, int g_dtype,
+                                int p_dtype, int device, void* stream) {
   if (n == 0) return 0;
   if (n % 4) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
@@ -139,19 +139,12 @@ extern "C" int apex_packed_adam(const void* g, void* m, void* v, void* src,
   const float* f_inv = static_cast<const float*>(inv_scale);
   const float* f_noop = static_cast<const float*>(noop);
   const long long n4 = n / 4;
-  if (g_is_bf16 && p_is_bf16) {
-    e = launch<__nv_bfloat16, __nv_bfloat16>(g, m, v, src, p_out, f_lr,
-                                             f_bc1, f_bc2, f_inv, f_noop, n4,
-                                             hp, sms, s);
-  } else if (g_is_bf16) {
-    e = launch<__nv_bfloat16, float>(g, m, v, src, p_out, f_lr, f_bc1, f_bc2,
-                                     f_inv, f_noop, n4, hp, sms, s);
-  } else if (p_is_bf16) {
-    e = launch<float, __nv_bfloat16>(g, m, v, src, p_out, f_lr, f_bc1, f_bc2,
-                                     f_inv, f_noop, n4, hp, sms, s);
-  } else {
-    e = launch<float, float>(g, m, v, src, p_out, f_lr, f_bc1, f_bc2, f_inv,
-                             f_noop, n4, hp, sms, s);
-  }
+  e = packed_sweep::by_dtype(g_dtype, [&](auto tg) {
+    return packed_sweep::by_dtype(p_dtype, [&](auto tp) {
+      return launch<typename decltype(tg)::type, typename decltype(tp)::type>(
+          g, m, v, src, p_out, f_lr, f_bc1, f_bc2, f_inv, f_noop, n4, hp, sms,
+          s);
+    });
+  });
   return static_cast<int>(e);
 }

@@ -9,7 +9,7 @@
 //   axpby:  out = a * x + b * y             (each product and the sum
 //                                            rounded on its own)
 // the finite test is made on the fp32 result before its cast to the output
-// dtype (fp32 or bf16), as the TPU kernel's jnp.isfinite(out32). Flags are
+// dtype (fp32/bf16/fp16), as the TPU kernel's jnp.isfinite(out32). Flags are
 // kept per ROW of 1024 elements: the scale kernel writes a byte per row of
 // the input (1 = the row holds a non-finite result) when asked, and each
 // kernel sets a one-byte found flag, zeroed by the caller, when any row is
@@ -28,28 +28,22 @@
 // What bounds it on the H100: bytes. scale reads 2 or 4 and writes 2 or 4
 // bytes an element against one multiply; axpby reads two buffers. Design:
 // one warp a row, each lane eight groups of four consecutive elements
-// (neighbouring lanes on neighbouring 16-byte fp32 or 8-byte bf16 groups),
+// (neighbouring lanes on neighbouring 16-byte fp32 or 8-byte 16-bit groups),
 // the row's verdict one __any_sync; a grid-stride loop over rows.
 #include "packed_sweep.cuh"
 
 namespace {
 
 using packed_sweep::load4;
+using packed_sweep::store1;
 using packed_sweep::store4;
+using packed_sweep::to_f32;
 
 constexpr int kRow = 1024;              // PackSpec's ROW
 constexpr int kGroups = kRow / 4 / 32;  // groups of four a lane owns in a row
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // out = x * s (AXPBY false) or a * x + b * y (AXPBY true) over n elements.
 template <typename TX, typename TY, typename TO, bool AXPBY>
@@ -120,26 +114,25 @@ int prologue(int device, int* sms) {
 }
 
 template <typename TX, typename TY, bool AXPBY>
-cudaError_t by_out(int out_is_bf16, const void* x, const void* y, void* out,
+cudaError_t by_out(int out_dtype, const void* x, const void* y, void* out,
                    const float* a, const float* b, uint8_t* row_bad,
                    uint8_t* found, long long n, int sms, cudaStream_t s) {
-  return out_is_bf16
-             ? launch<TX, TY, __nv_bfloat16, AXPBY>(x, y, out, a, b, row_bad,
-                                                    found, n, sms, s)
-             : launch<TX, TY, float, AXPBY>(x, y, out, a, b, row_bad, found,
-                                            n, sms, s);
+  return packed_sweep::by_dtype(out_dtype, [&](auto to) {
+    return launch<TX, TY, typename decltype(to)::type, AXPBY>(
+        x, y, out, a, b, row_bad, found, n, sms, s);
+  });
 }
 
 }  // namespace
 
-// out = x * scale over n elements (x, out fp32 or bf16; every pointer
+// out = x * scale over n elements (x, out fp32, bf16 or fp16; every pointer
 // 16-byte aligned). row_bad: a byte per row of 1024 elements, (n + 1023) /
 // 1024 of them, or null; found: one byte the caller zeroed, set to 1 when
 // any result is non-finite. scale points to an fp32 device scalar. Returns
 // the cudaError_t of the launch.
 extern "C" int apex_scale_flat(const void* x, void* out, const void* scale,
                                void* row_bad, void* found, long long n,
-                               int x_is_bf16, int out_is_bf16, int device,
+                               int x_dtype, int out_dtype, int device,
                                void* stream) {
   if (n == 0) return 0;
   int sms = 0;
@@ -149,22 +142,20 @@ extern "C" int apex_scale_flat(const void* x, void* out, const void* scale,
   const float* sc = static_cast<const float*>(scale);
   uint8_t* rb = static_cast<uint8_t*>(row_bad);
   uint8_t* f = static_cast<uint8_t*>(found);
-  const cudaError_t e =
-      x_is_bf16 ? by_out<__nv_bfloat16, float, false>(out_is_bf16, x, nullptr,
-                                                      out, sc, nullptr, rb, f,
-                                                      n, sms, s)
-                : by_out<float, float, false>(out_is_bf16, x, nullptr, out,
-                                              sc, nullptr, rb, f, n, sms, s);
+  const cudaError_t e = packed_sweep::by_dtype(x_dtype, [&](auto tx) {
+    return by_out<typename decltype(tx)::type, float, false>(
+        out_dtype, x, nullptr, out, sc, nullptr, rb, f, n, sms, s);
+  });
   return static_cast<int>(e);
 }
 
-// out = a * x + b * y over n elements (x, y, out each fp32 or bf16; every
-// pointer 16-byte aligned); found as apex_scale_flat's. a and b point to
+// out = a * x + b * y over n elements (x, y, out each fp32, bf16 or fp16;
+// every pointer 16-byte aligned); found as apex_scale_flat's. a and b point to
 // fp32 device scalars.
 extern "C" int apex_axpby_flat(const void* x, const void* y, void* out,
                                const void* a, const void* b, void* found,
-                               long long n, int x_is_bf16, int y_is_bf16,
-                               int out_is_bf16, int device, void* stream) {
+                               long long n, int x_dtype, int y_dtype,
+                               int out_dtype, int device, void* stream) {
   if (n == 0) return 0;
   int sms = 0;
   const int rc = prologue(device, &sms);
@@ -173,18 +164,12 @@ extern "C" int apex_axpby_flat(const void* x, const void* y, void* out,
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
   uint8_t* f = static_cast<uint8_t*>(found);
-  cudaError_t e;
-  if (x_is_bf16 && y_is_bf16)
-    e = by_out<__nv_bfloat16, __nv_bfloat16, true>(out_is_bf16, x, y, out, af,
-                                                   bf, nullptr, f, n, sms, s);
-  else if (x_is_bf16)
-    e = by_out<__nv_bfloat16, float, true>(out_is_bf16, x, y, out, af, bf,
-                                           nullptr, f, n, sms, s);
-  else if (y_is_bf16)
-    e = by_out<float, __nv_bfloat16, true>(out_is_bf16, x, y, out, af, bf,
-                                           nullptr, f, n, sms, s);
-  else
-    e = by_out<float, float, true>(out_is_bf16, x, y, out, af, bf, nullptr, f,
-                                   n, sms, s);
+  const cudaError_t e = packed_sweep::by_dtype(x_dtype, [&](auto tx) {
+    return packed_sweep::by_dtype(y_dtype, [&](auto ty) {
+      return by_out<typename decltype(tx)::type, typename decltype(ty)::type,
+                    true>(out_dtype, x, y, out, af, bf, nullptr, f, n, sms,
+                          s);
+    });
+  });
   return static_cast<int>(e);
 }

@@ -201,12 +201,12 @@ unsigned row_blocks(long long rows) {
 }  // namespace
 
 // Per-row sum of squares (op_max = 0) or max |x| (op_max = 1) of
-// x * inv_scale over `rows` rows of 1024 elements; x fp32 or bf16, out
+// x * inv_scale over `rows` rows of 1024 elements; x fp32, bf16 or fp16, out
 // fp32 (rows,), inv_scale an fp32 device scalar. Returns the cudaError_t
 // of the launch.
 extern "C" int apex_packed_row_reduce(const void* x, void* out,
                                       const void* inv_scale, long long rows,
-                                      int op_max, int x_is_bf16, int device,
+                                      int op_max, int x_dtype, int device,
                                       void* stream) {
   if (rows == 0) return 0;
   const cudaError_t e = cudaSetDevice(device);
@@ -215,27 +215,22 @@ extern "C" int apex_packed_row_reduce(const void* x, void* out,
   const float* inv = static_cast<const float*>(inv_scale);
   float* o = static_cast<float*>(out);
   const unsigned blocks = row_blocks(rows);
-  if (x_is_bf16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const cudaError_t le = packed_sweep::by_dtype(x_dtype, [&](auto tx) {
+    using T = typename decltype(tx)::type;
+    const T* xt = static_cast<const T*>(x);
     if (op_max)
-      row_reduce_kernel<__nv_bfloat16, true><<<blocks, kThreads, 0, s>>>(
-          xb, o, inv, rows);
+      row_reduce_kernel<T, true><<<blocks, kThreads, 0, s>>>(xt, o, inv,
+                                                             rows);
     else
-      row_reduce_kernel<__nv_bfloat16, false><<<blocks, kThreads, 0, s>>>(
-          xb, o, inv, rows);
-  } else {
-    const float* xf = static_cast<const float*>(x);
-    if (op_max)
-      row_reduce_kernel<float, true><<<blocks, kThreads, 0, s>>>(xf, o, inv,
-                                                                 rows);
-    else
-      row_reduce_kernel<float, false><<<blocks, kThreads, 0, s>>>(xf, o, inv,
-                                                                  rows);
-  }
+      row_reduce_kernel<T, false><<<blocks, kThreads, 0, s>>>(xt, o, inv,
+                                                              rows);
+    return cudaSuccess;
+  });
+  if (le != cudaSuccess) return static_cast<int>(le);
   return static_cast<int>(cudaGetLastError());
 }
 
-// LAMB stage 1 over `rows` rows of 1024 elements. g fp32 or bf16; m, v
+// LAMB stage 1 over `rows` rows of 1024 elements. g fp32, bf16 or fp16; m, v
 // fp32, updated in place unless noop; src fp32; u fp32 (new); row_u,
 // row_p fp32 (rows,). inv_scale, clip, bc1, bc2 point to fp32 device
 // scalars, noop to one (>= 0.5 means skip) or is null.
@@ -244,7 +239,7 @@ extern "C" int apex_packed_lamb_stage1(
     void* row_p, const void* inv_scale, const void* clip, const void* bc1,
     const void* bc2, const void* noop, long long rows, float beta1,
     float beta2, float beta3, float one_minus_beta2, float eps, float wd,
-    int adam_w_mode, int g_is_bf16, int device, void* stream) {
+    int adam_w_mode, int g_dtype, int device, void* stream) {
   if (rows == 0) return 0;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -259,24 +254,25 @@ extern "C" int apex_packed_lamb_stage1(
       static_cast<const float*>(inv_scale), static_cast<const float*>(clip), \
       static_cast<const float*>(bc1), static_cast<const float*>(bc2),      \
       static_cast<const float*>(noop), rows, hp
-  if (g_is_bf16)
-    lamb_stage1_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), APEX_STAGE1_ARGS);
-  else
-    lamb_stage1_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(g), APEX_STAGE1_ARGS);
+  const cudaError_t le = packed_sweep::by_dtype(g_dtype, [&](auto tg) {
+    using T = typename decltype(tg)::type;
+    lamb_stage1_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(g), APEX_STAGE1_ARGS);
+    return cudaSuccess;
+  });
 #undef APEX_STAGE1_ARGS
+  if (le != cudaSuccess) return static_cast<int>(le);
   return static_cast<int>(cudaGetLastError());
 }
 
-// LAMB stage 2 over `rows` rows of 1024 elements: p_out (fp32 or bf16) =
+// LAMB stage 2 over `rows` rows of 1024 elements: p_out (fp32, bf16, fp16) =
 // src - (lr * coef[row]) * u; src (fp32) updated in place when
 // write_master. coef fp32 (rows,); lr and noop as in stage 1.
 extern "C" int apex_packed_scale_update(const void* u, void* src,
                                         const void* coef, void* p_out,
                                         const void* lr, const void* noop,
                                         long long rows, int write_master,
-                                        int p_is_bf16, int device,
+                                        int p_dtype, int device,
                                         void* stream) {
   if (rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -292,12 +288,12 @@ extern "C" int apex_packed_scale_update(const void* u, void* src,
   const float* cf = static_cast<const float*>(coef);
   const float* lf = static_cast<const float*>(lr);
   const float* nf = static_cast<const float*>(noop);
-  if (p_is_bf16)
-    scale_update_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        uf, sf, cf, static_cast<__nv_bfloat16*>(p_out), lf, nf, n4,
-        write_master);
-  else
-    scale_update_kernel<float><<<blocks, kThreads, 0, s>>>(
-        uf, sf, cf, static_cast<float*>(p_out), lf, nf, n4, write_master);
+  const cudaError_t le = packed_sweep::by_dtype(p_dtype, [&](auto tp) {
+    using T = typename decltype(tp)::type;
+    scale_update_kernel<T><<<blocks, kThreads, 0, s>>>(
+        uf, sf, cf, static_cast<T*>(p_out), lf, nf, n4, write_master);
+    return cudaSuccess;
+  });
+  if (le != cudaSuccess) return static_cast<int>(le);
   return static_cast<int>(cudaGetLastError());
 }

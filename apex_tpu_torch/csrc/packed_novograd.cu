@@ -15,7 +15,7 @@
 //   u += wd * p                                   (wd != 0, not inside)
 //   p' = p - lr * u
 //   noop set: nothing is written but p_out = p    (the CUDA noop_flag contract)
-// then p_out = p' in the parameter dtype (fp32 or bf16), and m' written back
+// then p_out = p' in the parameter dtype (fp32/bf16/fp16), and m' written back
 // in place. src is read only (the JAX kernel aliases m alone).
 //
 // lr, bc1, inv_scale and noop are fp32 scalars in device memory, so a step
@@ -103,7 +103,7 @@ cudaError_t launch(const void* g, void* m, const void* src, const void* denom,
 }  // namespace
 
 // One packed NovoGrad sweep over n elements (n a multiple of 1024; every
-// pointer 16-byte aligned). g fp32 or bf16, p_out fp32 or bf16, m fp32 and
+// pointer 16-byte aligned). g and p_out each fp32, bf16 or fp16, m fp32 and
 // updated in place, src fp32 and read only, denom fp32 with one value per
 // row of 1024 elements. lr, bc1 and inv_scale point to fp32 device scalars;
 // noop to one (>= 0.5 means skip) or is null. Returns the cudaError_t of the
@@ -114,7 +114,7 @@ extern "C" int apex_packed_novograd(const void* g, void* m, const void* src,
                                     const void* inv_scale, const void* noop,
                                     long long n, float beta1, float beta3,
                                     float wd, int reg_inside_moment,
-                                    int g_is_bf16, int p_is_bf16, int device,
+                                    int g_dtype, int p_dtype, int device,
                                     void* stream) {
   if (n == 0) return 0;
   if (n % 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -130,18 +130,12 @@ extern "C" int apex_packed_novograd(const void* g, void* m, const void* src,
   const float* f_inv = static_cast<const float*>(inv_scale);
   const float* f_noop = static_cast<const float*>(noop);
   const long long n4 = n / 4;
-  if (g_is_bf16 && p_is_bf16)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(g, m, src, denom, p_out, f_lr,
-                                             f_bc1, f_inv, f_noop, n4, hp,
-                                             sms, s);
-  else if (g_is_bf16)
-    e = launch<__nv_bfloat16, float>(g, m, src, denom, p_out, f_lr, f_bc1,
-                                     f_inv, f_noop, n4, hp, sms, s);
-  else if (p_is_bf16)
-    e = launch<float, __nv_bfloat16>(g, m, src, denom, p_out, f_lr, f_bc1,
-                                     f_inv, f_noop, n4, hp, sms, s);
-  else
-    e = launch<float, float>(g, m, src, denom, p_out, f_lr, f_bc1, f_inv,
-                             f_noop, n4, hp, sms, s);
+  e = packed_sweep::by_dtype(g_dtype, [&](auto tg) {
+    return packed_sweep::by_dtype(p_dtype, [&](auto tp) {
+      return launch<typename decltype(tg)::type, typename decltype(tp)::type>(
+          g, m, src, denom, p_out, f_lr, f_bc1, f_inv, f_noop, n4, hp, sms,
+          s);
+    });
+  });
   return static_cast<int>(e);
 }

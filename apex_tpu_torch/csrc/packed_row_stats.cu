@@ -37,10 +37,7 @@ constexpr int kGroups = kRow / 4 / 32;  // groups of four a lane owns in a row
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using packed_sweep::to_f32;
 
 // max that keeps a nan (a nan operand wins)
 __device__ __forceinline__ float max_nan(float acc, float x) {
@@ -101,12 +98,12 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Per-row statistics of x * inv_scale over n elements (x fp32 or bf16,
+// Per-row statistics of x * inv_scale over n elements (x fp32, bf16 or fp16,
 // 16-byte aligned): sq, ma and nf are fp32 [(n + 1023) / 1024]; inv_scale
 // points to an fp32 device scalar. Returns the cudaError_t of the launch.
 extern "C" int apex_packed_row_stats(const void* x, void* sq, void* ma,
                                      void* nf, const void* inv_scale,
-                                     long long n, int x_is_bf16, int device,
+                                     long long n, int x_dtype, int device,
                                      void* stream) {
   if (n == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
@@ -123,12 +120,12 @@ extern "C" int apex_packed_row_stats(const void* x, void* sq, void* ma,
   float* maf = static_cast<float*>(ma);
   float* nff = static_cast<float*>(nf);
   const float* inv = static_cast<const float*>(inv_scale);
-  if (x_is_bf16) {
-    row_stats_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), sqf, maf, nff, inv, n, rows);
-  } else {
-    row_stats_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), sqf, maf, nff, inv, n, rows);
-  }
+  e = packed_sweep::by_dtype(x_dtype, [&](auto tx) {
+    using T = typename decltype(tx)::type;
+    row_stats_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), sqf, maf, nff, inv, n, rows);
+    return cudaSuccess;
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@
 //   d += wd * p                                   (wd != 0, wd_after_momentum)
 //   p' = p - lr * d
 //   noop set: nothing is written but p_out = p    (the CUDA noop_flag contract)
-// then p_out = p' in the parameter dtype (fp32 or bf16), buf' written back
+// then p_out = p' in the parameter dtype (fp32/bf16/fp16), buf' written back
 // in place (when momentum != 0) and the fp32 master in place when
 // write_master.
 //
@@ -105,7 +105,7 @@ cudaError_t launch(const void* g, void* buf, void* src, void* p_out,
 }  // namespace
 
 // One packed SGD sweep over n elements (n a multiple of 4; every pointer
-// 16-byte aligned). g fp32 or bf16, p_out fp32 or bf16, buf and src fp32
+// 16-byte aligned). g and p_out each fp32, bf16 or fp16, buf and src fp32
 // and updated in place (buf when momentum != 0, src when write_master).
 // lr, first_run and inv_scale point to fp32 device scalars (first_run
 // >= 0.5 means the first step); noop to one (>= 0.5 means skip) or is
@@ -116,8 +116,8 @@ extern "C" int apex_packed_sgd(const void* g, void* buf, void* src,
                                const void* noop, long long n, float momentum,
                                float one_minus_dampening, float wd,
                                int nesterov, int wd_after_momentum,
-                               int write_master, int g_is_bf16,
-                               int p_is_bf16, int device, void* stream) {
+                               int write_master, int g_dtype,
+                               int p_dtype, int device, void* stream) {
   if (n == 0) return 0;
   if (n % 4) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
@@ -133,18 +133,11 @@ extern "C" int apex_packed_sgd(const void* g, void* buf, void* src,
   const float* f_inv = static_cast<const float*>(inv_scale);
   const float* f_noop = static_cast<const float*>(noop);
   const long long n4 = n / 4;
-  if (g_is_bf16 && p_is_bf16)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(g, buf, src, p_out, f_lr,
-                                             f_first, f_inv, f_noop, n4, hp,
-                                             sms, s);
-  else if (g_is_bf16)
-    e = launch<__nv_bfloat16, float>(g, buf, src, p_out, f_lr, f_first, f_inv,
-                                     f_noop, n4, hp, sms, s);
-  else if (p_is_bf16)
-    e = launch<float, __nv_bfloat16>(g, buf, src, p_out, f_lr, f_first, f_inv,
-                                     f_noop, n4, hp, sms, s);
-  else
-    e = launch<float, float>(g, buf, src, p_out, f_lr, f_first, f_inv, f_noop,
-                             n4, hp, sms, s);
+  e = packed_sweep::by_dtype(g_dtype, [&](auto tg) {
+    return packed_sweep::by_dtype(p_dtype, [&](auto tp) {
+      return launch<typename decltype(tg)::type, typename decltype(tp)::type>(
+          g, buf, src, p_out, f_lr, f_first, f_inv, f_noop, n4, hp, sms, s);
+    });
+  });
   return static_cast<int>(e);
 }

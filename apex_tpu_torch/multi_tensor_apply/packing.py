@@ -10,7 +10,7 @@ buffers of the two packages compare element by element. Padding is
 always zero. The paged KV pool uses ``ROW`` and :func:`is_row_aligned`.
 
 Buckets (``bucket_elems``, ``pack_bucket``, ``shard_bounds``) come with
-the distributed slice (ROADMAP.md, queue A4).
+the distributed slice (ROADMAP.md, queue A6.2).
 """
 from __future__ import annotations
 

@@ -155,18 +155,20 @@ def _decode_split_plain(q, k_pages, v_pages, page_table, kv_lens,
 
 
 _KV_DTYPES = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.float32, torch.bfloat16)}
+              (torch.float16, torch.float16), (torch.float32, torch.bfloat16),
+              (torch.float32, torch.float16)}
 
 
 def _launch(q, k_pages, v_pages, page_table, kv_lens, scale: float,
             plan: Optional[DecodePlan] = None) -> torch.Tensor:
     """Launch ``csrc/flash_decode.cu`` on CUDA tensors. q/pages may be
-    f32/f32, bf16/bf16 or f32/bf16; every tensor contiguous. ``plan``
+    f32/f32, bf16/bf16, f16/f16, f32/bf16 or f32/f16; every tensor
+    contiguous. ``plan``
     defaults to :func:`decode_plan` for the card."""
     if (q.dtype, k_pages.dtype) not in _KV_DTYPES:
         raise TypeError(
-            f"flash_decode kernel takes q/pages f32/f32, bf16/bf16 or "
-            f"f32/bf16, got {q.dtype}/{k_pages.dtype}")
+            f"flash_decode kernel takes q/pages f32/f32, bf16/bf16, f16/f16, "
+            f"f32/bf16 or f32/f16, got {q.dtype}/{k_pages.dtype}")
     for t in (q, k_pages, v_pages, page_table, kv_lens):
         if not t.is_contiguous():
             raise ValueError("flash_decode kernel needs contiguous tensors")
@@ -187,7 +189,7 @@ def _launch(q, k_pages, v_pages, page_table, kv_lens, scale: float,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), b, n, d,
         ps, mp, plan.splits, plan.split_len, float(scale),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
+        _build.dtype_code(q), _build.dtype_code(k_pages),
         dev.index, _build.current_stream(dev))
     _build.check(rc, "flash_decode")
     _device.LAUNCHES["flash_decode"] += 1

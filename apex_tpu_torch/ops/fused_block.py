@@ -31,7 +31,7 @@ recompute policy of ``standalone_transformer_lm`` save their outputs
 backward is a plain call. The ``*_reference`` functions are the plain
 versions. Route (``_device.kernel_route``): CUDA tensors go through the
 kernels, CPU tensors through the plain versions. On the card the kernels
-take x, residual and gradients of one dtype (fp32 or bf16) and any
+take x, residual and gradients of one dtype (fp32, bf16 or fp16) and any
 trailing dim; other inputs raise ``ValueError`` before any launch.
 """
 from typing import Optional, Tuple
@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build, _device
+from .._build import dtype_code as _code
 from .flash_attention import (
     _dropout_args,
     _hash_keep_bits,
@@ -196,11 +197,11 @@ def _kernel_args(name: str, rows_: Tuple[torch.Tensor, ...],
     the parameter vectors as contiguous fp32 (widening is exact)."""
     n = rows_[0].shape[-1]
     dtype = rows_[0].dtype
-    if dtype not in (torch.float32, torch.bfloat16) or any(
+    if dtype not in _build.DTYPE_CODE or any(
             t.dtype != dtype for t in rows_):
         raise ValueError(
-            f"{name} kernel takes row tensors of one dtype, fp32 or bf16; "
-            f"got {[t.dtype for t in rows_]}")
+            f"{name} kernel takes row tensors of one dtype, fp32, bf16 or "
+            f"fp16; got {[t.dtype for t in rows_]}")
     if not fused_block_available(n):
         raise ValueError(f"{name} kernel takes a trailing dim of at least "
                          f"1, got {n}")
@@ -215,10 +216,6 @@ def _kernel_args(name: str, rows_: Tuple[torch.Tensor, ...],
     return rows_, params
 
 
-def _is_bf16(t: torch.Tensor) -> int:
-    return int(t.dtype == torch.bfloat16)
-
-
 def _launch_bias_gelu_fwd(x2d, bias):
     (x2d,), (b,) = _kernel_args("bias_gelu_fwd", (x2d,), (bias,))
     rows, n = x2d.shape
@@ -226,7 +223,7 @@ def _launch_bias_gelu_fwd(x2d, bias):
     dev = x2d.device
     y = torch.empty_like(x2d)
     rc = lib.apex_bias_gelu_fwd(x2d.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                rows, n, _is_bf16(x2d), dev.index,
+                                rows, n, _code(x2d), dev.index,
                                 _build.current_stream(dev))
     _build.check(rc, "bias_gelu_fwd")
     _device.LAUNCHES["bias_gelu_fwd"] += 1
@@ -248,7 +245,7 @@ def _launch_bias_gelu_bwd(dy2d, x2d, bias):
     db = torch.empty(n, dtype=torch.float32, device=dev)
     rc = lib.apex_bias_gelu_bwd(dy2d.data_ptr(), x2d.data_ptr(), b.data_ptr(),
                                 dx.data_ptr(), part.data_ptr(), db.data_ptr(),
-                                rows, n, _is_bf16(x2d), dev.index,
+                                rows, n, _code(x2d), dev.index,
                                 _build.current_stream(dev))
     _build.check(rc, "bias_gelu_bwd")
     _device.LAUNCHES["bias_gelu_bwd"] += 1
@@ -264,7 +261,7 @@ def _launch_bdr_fwd(x2d, bias, r2d, seed, dropout_p):
     out = torch.empty_like(r2d)
     rc = lib.apex_bdr_fwd(x2d.data_ptr(), b.data_ptr(), r2d.data_ptr(),
                           out.data_ptr(), rows, n,
-                          *_dropout_args(dropout_p, seed), _is_bf16(x2d),
+                          *_dropout_args(dropout_p, seed), _code(x2d),
                           dev.index, _build.current_stream(dev))
     _build.check(rc, "bias_dropout_residual_fwd")
     _device.LAUNCHES["bias_dropout_residual_fwd"] += 1
@@ -285,7 +282,7 @@ def _launch_bdr_bwd(dy2d, seed, dropout_p, dx_dtype):
     db = torch.empty(n, dtype=torch.float32, device=dev)
     rc = lib.apex_bdr_bwd(dy2d.data_ptr(), dx.data_ptr(), part.data_ptr(),
                           db.data_ptr(), rows, n,
-                          *_dropout_args(dropout_p, seed), _is_bf16(dy2d),
+                          *_dropout_args(dropout_p, seed), _code(dy2d),
                           dev.index, _build.current_stream(dev))
     _build.check(rc, "bias_dropout_residual_bwd")
     _device.LAUNCHES["bias_dropout_residual_bwd"] += 1
@@ -306,7 +303,7 @@ def _launch_raln_fwd(x2d, bias, r2d, w, lb, seed, eps, dropout_p):
                            w.data_ptr(), lb.data_ptr(), s.data_ptr(),
                            y.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                            rows, n, float(eps),
-                           *_dropout_args(dropout_p, seed), _is_bf16(x2d),
+                           *_dropout_args(dropout_p, seed), _code(x2d),
                            dev.index, _build.current_stream(dev))
     _build.check(rc, "residual_ln_fwd")
     _device.LAUNCHES["residual_ln_fwd"] += 1
@@ -331,7 +328,7 @@ def _launch_raln_bwd(dsum2d, dy2d, s2d, mu, rstd, w, seed, dropout_p):
                            s2d.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                            w.data_ptr(), dres.data_ptr(), dx.data_ptr(),
                            part.data_ptr(), grads.data_ptr(), rows, n,
-                           *_dropout_args(dropout_p, seed), _is_bf16(s2d),
+                           *_dropout_args(dropout_p, seed), _code(s2d),
                            dev.index, _build.current_stream(dev))
     _build.check(rc, "residual_ln_bwd")
     _device.LAUNCHES["residual_ln_bwd"] += 1

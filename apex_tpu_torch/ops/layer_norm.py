@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build, _device
+from .._build import dtype_code as _code
 
 
 def layer_norm_reference(x2d: torch.Tensor, w: torch.Tensor,
@@ -200,8 +201,9 @@ def _norm_bwd_partitioned(dy2d: torch.Tensor, x2d: torch.Tensor,
 
 def _check_kernel_args(x2d, tensors) -> None:
     hidden = x2d.shape[1]
-    if x2d.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"layer_norm kernel takes f32/bf16 x, got {x2d.dtype}")
+    if x2d.dtype not in _build.DTYPE_CODE:
+        raise TypeError(
+            f"layer_norm kernel takes f32/bf16/f16 x, got {x2d.dtype}")
     for name, t in tensors:
         if t.dtype != torch.float32 or tuple(t.shape) != (hidden,):
             raise ValueError(
@@ -215,7 +217,7 @@ def _check_kernel_args(x2d, tensors) -> None:
 def _launch(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors: x ``[rows, hidden]``
-    fp32 or bf16, w/b fp32 ``[hidden]``, all contiguous."""
+    fp32, bf16 or fp16, w/b fp32 ``[hidden]``, all contiguous."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w), ("bias", b)))
     lib = _build.kernels()
@@ -226,7 +228,7 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     rc = lib.apex_layer_norm_fwd(
         x2d.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
         mu.data_ptr(), rstd.data_ptr(), rows, hidden, float(eps),
-        int(x2d.dtype == torch.bfloat16), dev.index,
+        _code(x2d), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "layer_norm_fwd")
     _device.LAUNCHES["layer_norm_fwd"] += 1
@@ -235,11 +237,16 @@ def _launch(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _check_bwd_args(dy2d, x2d, stats) -> None:
     rows = x2d.shape[0]
-    if dy2d.dtype not in (torch.float32, torch.bfloat16) or \
+    if dy2d.dtype not in _build.DTYPE_CODE or \
             dy2d.shape != x2d.shape or not dy2d.is_contiguous():
         raise ValueError(
-            f"dy must be a contiguous f32/bf16 {tuple(x2d.shape)} tensor, "
-            f"got {dy2d.dtype} {tuple(dy2d.shape)}")
+            f"dy must be a contiguous f32/bf16/f16 {tuple(x2d.shape)} "
+            f"tensor, got {dy2d.dtype} {tuple(dy2d.shape)}")
+    if torch.float32 not in (x2d.dtype, dy2d.dtype) \
+            and x2d.dtype != dy2d.dtype:
+        raise TypeError(f"the backward kernels take dy and x in one dtype "
+                        f"or either in fp32, got dy {dy2d.dtype} and x "
+                        f"{x2d.dtype}")
     for name, t in stats:
         if t.dtype != torch.float32 or t.numel() != rows \
                 or not t.is_contiguous():
@@ -251,8 +258,8 @@ def _launch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mu: torch.Tensor,
                 plan: Optional[NormBwdPlan] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on CUDA tensors: dy and x ``[rows,
-    hidden]`` fp32 or bf16 (x the fp32 x-hat with ``x_is_xhat``), mu/rstd
-    fp32 ``[rows, 1]``, w fp32; any hidden. ``plan`` defaults to
+    hidden]`` fp32, bf16 or fp16 (x the fp32 x-hat with ``x_is_xhat``),
+    mu/rstd fp32 ``[rows, 1]``, w fp32; any hidden. ``plan`` defaults to
     :func:`norm_bwd_plan` for the card."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w),))
@@ -270,8 +277,8 @@ def _launch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mu: torch.Tensor,
         dy2d.data_ptr(), x2d.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
         w.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
-        rows, hidden, int(dy2d.dtype == torch.bfloat16),
-        int(x2d.dtype == torch.bfloat16), int(x_is_xhat), *plan, dev.index,
+        rows, hidden, _code(dy2d),
+        _code(x2d), int(x_is_xhat), *plan, dev.index,
         _build.current_stream(dev))
     _build.check(rc, "layer_norm_bwd")
     _device.LAUNCHES["layer_norm_bwd"] += 1
@@ -281,7 +288,7 @@ def _launch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mu: torch.Tensor,
 def _launch_rms(x2d: torch.Tensor, w: torch.Tensor, eps: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the RMSNorm forward kernel on CUDA tensors: x ``[rows,
-    hidden]`` fp32 or bf16, w fp32 ``[hidden]``, both contiguous."""
+    hidden]`` fp32, bf16 or fp16, w fp32 ``[hidden]``, both contiguous."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w),))
     y = torch.empty_like(x2d)
@@ -289,7 +296,7 @@ def _launch_rms(x2d: torch.Tensor, w: torch.Tensor, eps: float
     dev = x2d.device
     rc = _build.kernels().apex_rms_norm_fwd(
         x2d.data_ptr(), w.data_ptr(), y.data_ptr(), rstd.data_ptr(), rows,
-        hidden, float(eps), int(x2d.dtype == torch.bfloat16), dev.index,
+        hidden, float(eps), _code(x2d), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "rms_norm_fwd")
     _device.LAUNCHES["rms_norm_fwd"] += 1
@@ -318,7 +325,7 @@ def _launch_rms_bwd(dy2d: torch.Tensor, x2d: torch.Tensor,
     rc = lib.apex_rms_norm_bwd(
         dy2d.data_ptr(), x2d.data_ptr(), rstd.data_ptr(), w.data_ptr(),
         dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, hidden,
-        int(dy2d.dtype == torch.bfloat16), int(x2d.dtype == torch.bfloat16),
+        _code(dy2d), _code(x2d),
         int(x_is_xhat), *plan, dev.index, _build.current_stream(dev))
     _build.check(rc, "rms_norm_bwd")
     _device.LAUNCHES["rms_norm_bwd"] += 1

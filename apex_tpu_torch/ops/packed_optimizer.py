@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build, _device
+from .._build import dtype_code as _code
 from ..multi_tensor_apply.packing import DEFAULT_CHUNK, ROW, _round_up
 
 
@@ -69,13 +70,13 @@ def _rows(kernel: str, n: int) -> int:
 
 
 def _check_flat(kernel: str, n: int, io=(), f32=()) -> None:
-    """``io``: tensors that may be fp32 or bf16 (gradients, parameter
-    outputs); ``f32``: ``(name, tensor)`` fp32 state. Each must be a
+    """``io``: tensors that may be fp32, bf16 or fp16 (gradients,
+    parameter outputs); ``f32``: ``(name, tensor)`` fp32 state. Each must be a
     contiguous 1-D buffer of ``n`` elements on a 16-byte boundary."""
     for t in io:
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{kernel} kernel takes f32/bf16 gradients and "
-                            f"parameters, got {t.dtype}")
+        if t.dtype not in _build.DTYPE_CODE:
+            raise TypeError(f"{kernel} kernel takes f32/bf16/f16 gradients "
+                            f"and parameters, got {t.dtype}")
     for name, t in f32:
         if t.dtype != torch.float32:
             raise ValueError(f"{kernel}: {name} must be fp32, got {t.dtype}")
@@ -84,10 +85,6 @@ def _check_flat(kernel: str, n: int, io=(), f32=()) -> None:
             raise ValueError(f"{kernel} kernel needs contiguous 1-D 16-byte "
                              f"aligned buffers of {n} elements, got "
                              f"{tuple(t.shape)}")
-
-
-def _is_bf16(t: torch.Tensor) -> int:
-    return int(t.dtype == torch.bfloat16)
 
 
 def _noop_ptr(noop: Optional[torch.Tensor]):
@@ -139,8 +136,8 @@ def _launch(flat_g, flat_m, flat_v, flat_src, p_out, lr, bc1, bc2, inv,
         flat_src.data_ptr(), p_out.data_ptr(), lr.data_ptr(),
         bc1.data_ptr(), bc2.data_ptr(), inv.data_ptr(), _noop_ptr(noop), n,
         beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, wd, int(adam_w_mode),
-        int(write_mv), int(write_master), _is_bf16(flat_g),
-        _is_bf16(p_out), dev.index,
+        int(write_mv), int(write_master), _code(flat_g),
+        _code(p_out), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "packed_adam")
     _device.LAUNCHES["packed_adam"] += 1
@@ -251,7 +248,7 @@ def packed_sgd_apply(flat_g: torch.Tensor, flat_buf: torch.Tensor,
             p_out.data_ptr(), lr.data_ptr(), first.data_ptr(),
             inv.data_ptr(), _noop_ptr(noop), n, momentum, 1.0 - dampening,
             wd, int(nesterov), int(wd_after_momentum), int(write_master),
-            _is_bf16(flat_g), _is_bf16(p_out), dev.index,
+            _code(flat_g), _code(p_out), dev.index,
             _build.current_stream(dev))
         _build.check(rc, "packed_sgd")
         _device.LAUNCHES["packed_sgd"] += 1
@@ -297,7 +294,7 @@ def packed_row_reduce(flat: torch.Tensor, *, op: str = "sqsum",
     inv = _scalar(inv_scale, dev)
     rc = _build.kernels().apex_packed_row_reduce(
         flat.data_ptr(), out.data_ptr(), inv.data_ptr(), rows,
-        int(op == "maxabs"), _is_bf16(flat), dev.index,
+        int(op == "maxabs"), _code(flat), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "packed_row_reduce")
     _device.LAUNCHES["packed_row_reduce"] += 1
@@ -383,7 +380,7 @@ def packed_lamb_stage1(flat_g: torch.Tensor, flat_m: torch.Tensor,
         flat_src.data_ptr(), u.data_ptr(), row_u.data_ptr(),
         row_p.data_ptr(), inv.data_ptr(), clip.data_ptr(), bc1.data_ptr(),
         bc2.data_ptr(), _noop_ptr(noop), rows, beta1, beta2, beta3,
-        1.0 - beta2, eps, wd, int(adam_w_mode), _is_bf16(flat_g),
+        1.0 - beta2, eps, wd, int(adam_w_mode), _code(flat_g),
         dev.index, _build.current_stream(dev))
     _build.check(rc, "packed_lamb_stage1")
     _device.LAUNCHES["packed_lamb_stage1"] += 1
@@ -435,7 +432,7 @@ def packed_scale_update(flat_u: torch.Tensor, flat_src: torch.Tensor,
     rc = _build.kernels().apex_packed_scale_update(
         flat_u.data_ptr(), flat_src.data_ptr(), row_coef.data_ptr(),
         p_out.data_ptr(), lr.data_ptr(), _noop_ptr(noop), rows,
-        int(write_master), _is_bf16(p_out), dev.index,
+        int(write_master), _code(p_out), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "packed_scale_update")
     _device.LAUNCHES["packed_scale_update"] += 1
@@ -507,7 +504,7 @@ def packed_novograd_apply(flat_g: torch.Tensor, flat_m: torch.Tensor,
         flat_g.data_ptr(), flat_m.data_ptr(), flat_src.data_ptr(),
         row_denom.data_ptr(), p_out.data_ptr(), lr.data_ptr(),
         bc1.data_ptr(), inv.data_ptr(), _noop_ptr(noop), n, beta1, beta3,
-        wd, int(reg_inside_moment), _is_bf16(flat_g), _is_bf16(p_out),
+        wd, int(reg_inside_moment), _code(flat_g), _code(p_out),
         dev.index, _build.current_stream(dev))
     _build.check(rc, "packed_novograd")
     _device.LAUNCHES["packed_novograd"] += 1
@@ -534,8 +531,8 @@ def _pad_to_rows(flat: torch.Tensor, chunk_size: Optional[int] = None
 
 
 def _flat_dtype(kernel: str, dtype: torch.dtype) -> None:
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{kernel} kernel takes f32/bf16 buffers, got "
+    if dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"{kernel} kernel takes f32/bf16/f16 buffers, got "
                         f"{dtype}")
 
 
@@ -570,7 +567,7 @@ def packed_row_stats(flat: torch.Tensor, *, inv_scale=1.0
     inv = _scalar(inv_scale, dev)
     rc = _build.kernels().apex_packed_row_stats(
         flat.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), inv.data_ptr(), n, _is_bf16(flat), dev.index,
+        out[2].data_ptr(), inv.data_ptr(), n, _code(flat), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "packed_row_stats")
     _device.LAUNCHES["packed_row_stats"] += 1
@@ -623,7 +620,7 @@ def multi_tensor_scale_flat(flat: torch.Tensor, scale, out_dtype=None, *,
     rc = _build.kernels().apex_scale_flat(
         flat.data_ptr(), out.data_ptr(), scale.data_ptr(),
         None if row_bad is None else row_bad.data_ptr(), found.data_ptr(),
-        n, _is_bf16(flat), _is_bf16(out), dev.index,
+        n, _code(flat), _code(out), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "scale_flat")
     _device.LAUNCHES["scale_flat"] += 1
@@ -667,8 +664,8 @@ def multi_tensor_axpby_flat(a, b, flat_x: torch.Tensor,
     a, b = _scalar(a, dev), _scalar(b, dev)
     rc = _build.kernels().apex_axpby_flat(
         flat_x.data_ptr(), flat_y.data_ptr(), out.data_ptr(), a.data_ptr(),
-        b.data_ptr(), found.data_ptr(), n, _is_bf16(flat_x),
-        _is_bf16(flat_y), _is_bf16(out), dev.index,
+        b.data_ptr(), found.data_ptr(), n, _code(flat_x),
+        _code(flat_y), _code(out), dev.index,
         _build.current_stream(dev))
     _build.check(rc, "axpby_flat")
     _device.LAUNCHES["axpby_flat"] += 1

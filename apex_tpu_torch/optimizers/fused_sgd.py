@@ -59,7 +59,7 @@ class FusedSGD:
             raise NotImplementedError(
                 "FusedSGD(packed_spec=...) adopts the layout of GradBuckets, "
                 "which comes with the distributed slice (ROADMAP.md, queue "
-                "A4)")
+                "A6.2)")
         # parity: the functional step keeps no .grad
         del materialize_master_grads, set_grad_none
         self.lr = lr

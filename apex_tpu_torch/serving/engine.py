@@ -26,8 +26,9 @@ that step's emitted tokens — the scheduler needs them for EOS and
 finish decisions, and they are the output; a ``HangWatchdog``
 (``watchdog=``) can arm it, so a wedged step surfaces as a ``HangError``
 with all-thread stacks instead of a silent stall. The greedy/sampling
-branch is decided from host mirrors, so greedy traffic adds no read; a
-step in which some slot samples adds one (``sampling._filtered_logits``).
+branch is decided from host mirrors, so greedy traffic adds no read, and
+a step in which some slot samples adds none either: the filters' deep
+sort is selected per row on the device (``sampling._filtered_logits``).
 The in-step metrics (``telemetry_every``) drain without a sync
 (``telemetry.drain``: a pinned copy and a CUDA event).
 

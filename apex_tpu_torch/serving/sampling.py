@@ -11,14 +11,15 @@ smallest set of survivors whose mass reaches ``p`` (always at least
 one); the draw is Gumbel-max over the filtered logits. ``temperature ==
 0`` is greedy argmax.
 
-The JAX ``lax.cond``s are Python ``if``s here:
+The JAX ``lax.cond``s become:
 
-- the greedy/sampling branch: the engine passes ``any_sampled`` from
-  its host mirrors, so the greedy hot path never reads the device; a
-  caller that passes None pays one ``.any()`` read;
+- the greedy/sampling branch: a Python ``if``; the engine passes
+  ``any_sampled`` from its host mirrors, so the greedy hot path never
+  reads the device; a caller that passes None pays one ``.any()`` read;
 - the deep-sort branch (some row's thresholds lie beyond the
-  ``TOP_FILTER_WIDTH`` prefix): ``.all()`` on the device — one extra
-  host read on steps that sample.
+  ``TOP_FILTER_WIDTH`` prefix): both sides on the device and a per-row
+  select, no host read. A step that samples pays one full sort of its
+  ``[R, vocab]`` scaled logits whether or not a row needs it.
 """
 from __future__ import annotations
 
@@ -121,13 +122,15 @@ def _filtered_logits(logits: torch.Tensor, temps: torch.Tensor,
     W = min(int(width), V)
     kth, thresh, covered = _thresholds(
         torch.topk(scaled, W, dim=-1).values, scaled, top_ks, top_ps)
-    if not bool(covered.all()):
-        # some row's thresholds lie beyond the prefix: one full sort for
-        # the batch; covered rows keep their prefix-path values
-        srt = torch.sort(scaled, dim=-1, descending=True).values
-        f_kth, f_thresh, _ = _thresholds(srt, scaled, top_ks, top_ps)
-        kth = torch.where(covered, kth, f_kth)
-        thresh = torch.where(covered, thresh, f_thresh)
+    # the JAX sampler takes the full sort under lax.cond when some row's
+    # thresholds lie beyond the prefix; branching on covered.all() here
+    # would read the device, so the sort runs on every sampled step and
+    # each row selects on the device. Covered rows keep their prefix-path
+    # values (the same bits as the JAX sampler's, whichever branch it took)
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    f_kth, f_thresh, _ = _thresholds(srt, scaled, top_ks, top_ps)
+    kth = torch.where(covered, kth, f_kth)
+    thresh = torch.where(covered, thresh, f_thresh)
     keep = (scaled >= kth[:, None]) & (scaled >= thresh[:, None])
     return torch.where(keep, scaled, _NEG_INF)
 

@@ -1,6 +1,6 @@
 """Transformer functional ops (counterpart of
 ``apex_tpu/transformer/functional``): the fused scale-mask-softmax.
-``fused_rope`` is not ported yet (ROADMAP.md, queue A3)."""
+``fused_rope`` is not ported yet (ROADMAP.md, queue A5.3)."""
 from .fused_softmax import (  # noqa: F401
     FusedScaleMaskSoftmax,
     generic_scaled_masked_softmax,

@@ -42,7 +42,15 @@ any failure exits non-zero and prints no result line:
    x-hat form; the split decode at lengths on and beside split
    boundaries under the card's plan and under splits that end mid-page,
    every slot empty, and 8 and 64 slots at kv_len 1024; the redesigned
-   kernels each run twice, bit for bit);
+   kernels each run twice, bit for bit; flash attention's additive bias,
+   every broadcast shape, with and without its gradient, a -1e30 folded
+   into it masking whole rows, and its segment ids from cu_seqlens, in
+   fp32, bf16 and fp16, the bf16 backward with dbias and with segments
+   twice bit for bit, both timed at the openfold MSA shape and the packed
+   fmha shape against SDPA with the equivalent mask; the fp16
+   instantiation of every kernel that took bf16 only before: decode, the
+   norms, the fused tails, the packed sweeps, the flat ops, the row
+   statistics);
    times of kernel, plain version, one PyTorch library call as
    yardstick (the device time of SDPA, of ``F.layer_norm``'s and
    ``F.rms_norm``'s backward kernels), and the least time the card could
@@ -125,11 +133,26 @@ any failure exits non-zero and prints no result line:
    overflow), BERT with packed NovoGrad (fp32 L2 and inf norm, bf16),
    GPTs at head dim 128 (flash) and 80 (no flash kernel: the fused
    softmax) with the default attention choice, and 1-layer fused-block
-   GPTs at hidden 5120 and 8192 (loss and gradients);
-8. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+   GPTs at hidden 5120 and 8192 (loss and gradients), and an fp16 GPT
+   with the fused tails and flash against the plain versions on the card
+   (the host's fp16 GEMMs are too slow to serve as the reference);
+8. the attention contribs at full width, forward and backward, the
+   kernels against their plain versions on the card (loss and every
+   gradient), with each leg's device time and peak memory: ``FMHA`` at
+   BERT-large's geometry over 32 packed sequences of 64-512 tokens with
+   dropout 0.1, fp16 and bf16 (segment ids); ``SelfMultiheadAttn`` at
+   Transformer-big's (1024, 16 heads, s 256, b 16, ragged lengths) fp16
+   with an additive key-padding mask (the bias, ``bias_grad=False``) and
+   with ``include_norm_add`` and a boolean padding mask;
+   ``EncdecMultiheadAttn`` fp16, 256 queries over 200 keys; openfold's
+   MSA row attention [1, 128, 8, 256, 32] bf16 with a key mask and a pair
+   bias with its gradient, and triangle attention [1, 256, 4, 256, 32]
+   with its bias;
+9. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
-   main path except ``axpby_flat``, which no path of the JAX package
+   main path (flash attention's also over phase 8's legs) except
+   ``axpby_flat``, which no path of the JAX package
    calls, and the RMSNorm pair, which no model of it runs: their
    launches are the norm modules' of phase 7), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -138,6 +161,7 @@ Exits non-zero when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import json
@@ -154,6 +178,12 @@ from apex_tpu_torch import _build, _device, telemetry
 from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
 from apex_tpu_torch.amp import LossScaler
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
+from apex_tpu_torch.contrib.fmha import FMHA
+from apex_tpu_torch.contrib.multihead_attn import (
+    EncdecMultiheadAttn,
+    SelfMultiheadAttn,
+)
+from apex_tpu_torch.contrib.openfold import attention_core
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
 from apex_tpu_torch.normalization import (
@@ -223,6 +253,7 @@ from apex_tpu_torch.resilience import (
     RetryPolicy,
     ServingChaos,
 )
+from apex_tpu_torch.serving import sampling
 from apex_tpu_torch.serving import (
     AdmissionConfig,
     DegradationPolicy,
@@ -244,6 +275,7 @@ from apex_tpu_torch.transformer.testing import (
 
 # the modules (the package re-exports functions of the same names)
 fd_mod = importlib.import_module("apex_tpu_torch.ops.flash_decode")
+fa_mod = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 ln_mod = importlib.import_module("apex_tpu_torch.ops.layer_norm")
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 (non-tensor-core)
@@ -330,6 +362,26 @@ def device_ms(fn, match, iters: int = 50, tries: int = 3):
         if total_us:
             return total_us / 1e3 / iters
     return None
+
+
+def device_split(fn, match: str, iters: int = 5):
+    """``(all kernels', matching kernels')`` device ms per call of ``fn``
+    from one ``torch.profiler`` trace, so the share and the whole come
+    from the same calls; None when the trace shows no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.device_time_total for e in events)
+    part = sum(e.device_time_total for e in events if match in e.key)
+    if not total:
+        return None
+    return total / 1e3 / iters, part / 1e3 / iters
 
 
 def check_close(name, got, want, dtype, tol=None, margin=False):
@@ -1191,6 +1243,396 @@ def flash_head_dim_checks(dev):
             _flash_timing(q, k, v, do, o, lse, causal)
         del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
     return max(fwd_errs), max(bwd_errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: flash attention's bias and segment ids, fp16 at every C3 site
+# ---------------------------------------------------------------------------
+
+#: flash attention in fp16 against its plain version: the kernels round p
+#: to fp16 against each tile's running max, the plain version against the
+#: row's, so values of order 1 may differ by a few fp16 roundings (2^-11)
+FLASH_F16_TOL = (5e-3, 5e-3)
+
+
+def _flash_tol(dtype):
+    return FLASH_F16_TOL if dtype == torch.float16 else TOL[dtype]
+
+
+def _bias_case(g, dev, shape, fold_row=False):
+    """A bias of order 1 in ``shape``; ``fold_row`` folds -1e30 into the
+    keys past three quarters of batch row 0 and into all of batch row 1."""
+    bias = 0.5 * torch.randn(shape, generator=g, device=dev)
+    if fold_row:
+        bias[0, ..., (3 * shape[-1]) // 4:] = -1e30
+        bias[1] = -1e30
+    return bias
+
+
+def _packed_lengths(seed: int, count: int, lo: int, hi: int):
+    """``count`` sequence lengths seeded uniform in [lo, hi] and their
+    int32 ``cu_seqlens``."""
+    lens = np.random.default_rng(seed).integers(lo, hi + 1, count)
+    return [int(x) for x in lens], np.concatenate(
+        [[0], np.cumsum(lens)]).astype(np.int32)
+
+
+#: the bias cases: (name, dtype, b, n, s_q, s_k, d, bias shape, causal,
+#: bias_grad, folded -1e30 rows)
+FLASH_BIAS_CASES = (
+    ("full bias, grad, causal f32", torch.float32, 2, 4, 300, 300, 64,
+     (2, 4, 300, 300), True, True, False),
+    ("batch-1 bias, grad bf16", torch.bfloat16, 2, 4, 320, 1000, 64,
+     (1, 4, 320, 1000), False, True, False),
+    ("key-padding bias, -1e30 rows, f16", torch.float16, 2, 4, 256, 256,
+     64, (2, 1, 1, 256), False, False, True),
+    ("key-padding bias, -1e30 rows, bf16", torch.bfloat16, 2, 4, 1000,
+     1000, 128, (2, 1, 1, 1000), False, False, True),
+    ("shared bias, grad, causal f16", torch.float16, 2, 4, 1000, 1000,
+     128, (1, 1, 1000, 1000), True, True, False),
+    ("openfold MSA pair bias, grad bf16 d 32", torch.bfloat16, 16, 8, 256,
+     256, 32, (1, 8, 256, 256), False, True, False),
+    ("pair bias, grad f32 d 256", torch.float32, 2, 2, 200, 200, 256,
+     (1, 2, 200, 200), False, True, False),
+    ("pair bias, grad f16 d 96", torch.float16, 2, 4, 300, 300, 96,
+     (1, 4, 300, 300), True, True, False),
+)
+
+
+def flash_bias_segment_checks(dev):
+    """The bias and segment inputs of #6/#7 against their plain versions in
+    fp32, bf16 and fp16 (``FLASH_BIAS_CASES``; segments from cu_seqlens at
+    head dims 64 and 128, causal and not, a one-token sequence and a
+    trailing padding segment), a -1e30 folded into the bias giving o = 0,
+    lse = -1e30 and zero gradients for the masked batch row; the bf16
+    backward with a bias gradient and with segments twice bit for bit; then
+    both timed at the openfold MSA and fmha shapes. Returns the worst
+    forward and backward errors."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    fwd_errs, bwd_errs = [], []
+
+    def check(name, dt, q, k, v, do, kw, bwd_kw, dead_row=False):
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw, **bwd_kw)
+        ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+        want = flash_attention_bwd_reference(q, k, v, ro, rlse, do, **kw,
+                                             **bwd_kw)
+        tol = _flash_tol(dt)
+        fe = max(check_close(f"flash_fwd {name} o", o, ro, dt, tol),
+                 check_close(f"flash_fwd {name} lse", lse, rlse,
+                             torch.float32))
+        be = max(check_close(f"flash_bwd {name} {i}", a, e, dt, tol)
+                 for i, (a, e) in enumerate(zip(got, want)))
+        if dead_row and (not bool((lse[1] == -1e30).all())
+                         or any(bool(x[1].any()) for x in (o, *got[:3]))):
+            raise AssertionError(f"flash {name}: the row masked by the "
+                                 f"bias is not zero")
+        fwd_errs.append(fe)
+        bwd_errs.append(be)
+        log(f"  flash {name} [{q.shape[0]},{q.shape[1]},{q.shape[2]}x"
+            f"{k.shape[2]},{q.shape[3]}]: fwd max abs err {fe:.3e}, bwd "
+            f"{be:.3e}")
+        return o, lse, got
+
+    for (name, dt, b, n, s_q, s_k, d, shape, causal, bias_grad,
+         fold) in FLASH_BIAS_CASES:
+        q, k, v, do = _attn_case(g, dev, b, n, s_q, s_k, d, dt)
+        bias = _bias_case(g, dev, shape, fold)
+        kw = dict(causal=causal, bias=bias)
+        o, lse, got = check(name, dt, q, k, v, do, kw,
+                            dict(bias_grad=bias_grad), dead_row=fold)
+        if name.startswith("batch-1 bias"):
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw,
+                                        bias_grad=True)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError("flash_bwd with dbias: two runs "
+                                     "differ")
+            log("  flash_bwd bf16 with dbias: two runs bitwise equal")
+    lens, cu = _packed_lengths(33, 12, 1, 200)
+    lens[3] = 1
+    total = sum(lens) + 37  # a trailing padding segment
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    segs = fa_mod.segment_ids_from_cu_seqlens(
+        torch.from_numpy(cu).to(dev), total)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for d, causal in ((64, False), (128, True)):
+            q, k, v, do = _attn_case(g, dev, 1, 4, total, total, d, dt)
+            kw = dict(causal=causal, seg_q=segs, seg_k=segs)
+            name = (f"segments x{len(lens)} + padding "
+                    f"{'causal ' if causal else ''}{str(dt)[6:]}")
+            o, lse, got = check(name, dt, q, k, v, do, kw, {})
+            if dt == torch.bfloat16 and d == 64:
+                again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError("flash_bwd with segments: two "
+                                         "runs differ")
+                log("  flash_bwd bf16 with segments: two runs bitwise equal")
+    flash_extra_timing(dev, g)
+    return max(fwd_errs), max(bwd_errs)
+
+
+def _sdpa_fwd_bwd(q, k, v, do, mask):
+    """SDPA's forward and its backward alone (a retained graph) with
+    ``attn_mask=mask`` (a float mask that requires grad gets its
+    gradient), as device ms each."""
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    leaves = (ql, kl, vl) + ((mask,) if mask.requires_grad else ())
+    fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask), "", iters=5)
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    bwd = device_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True), "",
+                    iters=5)
+    return fwd, bwd
+
+
+def _extra_timing(label, q, k, v, do, kw, bwd_kw, pairs, extra_bytes,
+                  sdpa_mask):
+    """#6 and #7 with a bias or segments: call and device ms of the
+    kernels, plain ms, SDPA's device ms with the equivalent mask, and the
+    bound (``pairs``: the (q, k) pairs of every head that this run's
+    masks leave; ``extra_bytes``: what the bias adds to the forward's and
+    the backward's bytes)."""
+    b, n, s_q, d = q.shape
+    elem = q.element_size()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+
+    def fwd():
+        return flash_attention_fwd(q, k, v, **kw)
+
+    def bwd():
+        return flash_attention_bwd(q, k, v, o, lse, do, **kw, **bwd_kw)
+    res = {}
+    for side, fn, plain, match, nbytes, flops in (
+            ("fwd", fwd, lambda: flash_attention_fwd_reference(q, k, v,
+                                                               **kw),
+             "flash_fwd_tc_kernel",
+             4 * q.numel() * elem + b * n * s_q * 4 + extra_bytes[0],
+             4 * n * pairs * d),
+            ("bwd", bwd, lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, **kw, **bwd_kw),
+             ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"),
+             8 * q.numel() * elem + b * n * s_q * 4 + extra_bytes[1],
+             10 * n * pairs * d)):
+        b_ms, by = bound(nbytes, flops, BF16_TC_FLOPS)
+        res[side] = {"ms": time_ms(fn, iters=5, warmup=2),
+                     "device_ms": device_ms(fn, match, iters=5),
+                     "plain_ms": time_ms(plain, iters=2, warmup=1),
+                     "bound_ms": b_ms, "bound_by": by}
+    lib = _sdpa_fwd_bwd(q, k, v, do, sdpa_mask)
+    res["fwd"]["library_ms"], res["bwd"]["library_ms"] = lib
+    for side in ("fwd", "bwd"):
+        r = res[side]
+        share = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
+        log(f"  flash {label} {side}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']} ms), plain {r['plain_ms']:.4f} ms, SDPA "
+            f"device {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), share of bound {share}")
+    log(f"  flash_extra_json {json.dumps({'case': label, **res})}")
+    return res
+
+
+def flash_extra_timing(dev, g):
+    """#6/#7 timed with a bias at the openfold MSA row attention's shape
+    ([128, 8, 256, 32] bf16, a [1, 8, 256, 256] pair bias with its
+    gradient; SDPA with the bias as a float attn_mask that requires grad)
+    and with segments at the fmha leg's shape (32 BERT sequences of
+    64-512 tokens packed, 16 heads of 64, fp16; SDPA over the
+    block-diagonal boolean mask of the same batch)."""
+    q, k, v, do = _attn_case(g, dev, 128, 8, 256, 256, 32, torch.bfloat16)
+    bias = _bias_case(g, dev, (1, 8, 256, 256)).to(torch.bfloat16)
+    _extra_timing("bias [128,8,256,32] bf16, pair bias + dbias", q, k, v,
+                  do, dict(bias=bias), dict(bias_grad=True),
+                  128 * 256 * 256,
+                  # the bias read; the backward also writes the full fp32
+                  # dbias that flash_attention_bwd returns
+                  (bias.numel() * 2, bias.numel() * 2 + q.shape[0]
+                   * q.shape[1] * 256 * 256 * 4),
+                  bias.clone().requires_grad_(True))
+    del q, k, v, do
+    lens, cu = _packed_lengths(34, 32, 64, 512)
+    total = int(cu[-1])
+    segs = fa_mod.segment_ids_from_cu_seqlens(
+        torch.from_numpy(cu).to(dev), total)
+    q, k, v, do = _attn_case(g, dev, 1, 16, total, total, 64,
+                             torch.float16)
+    block = segs[:, None] == segs[None, :]
+    _extra_timing(f"segments x32 [1,16,{total},64] f16 (pairs "
+                  f"{sum(x * x for x in lens)} of {total * total})", q, k,
+                  v, do, dict(seg_q=segs, seg_k=segs), {},
+                  sum(x * x for x in lens), (2 * total * 4, 2 * total * 4),
+                  block)
+
+
+#: the fused tails' fp16 rows: the residual sum is rounded to fp16 before
+#: the LayerNorm (as the TPU kernel stores and reloads it), so a sum that
+#: rounds the other way on the two sides (one ulp, 2^-10 relative, of
+#: sums up to 8) reaches y through rstd * w (about 1), beside y's own
+#: rounding
+FUSED_F16_TOL = (1e-2, 2e-3)
+
+
+def fp16_site_checks(dev):
+    """The fp16 instantiations of every kernel that took bf16 only before
+    (fault C3) against their plain versions at the 345M main-path shapes:
+    decode over fp16 pools (and an fp32 q over them), the LayerNorm and
+    RMSNorm forward and backward, the six fused tails, packed Adam, SGD,
+    NovoGrad and LAMB with fp16 gradients and model copy, the flat scale
+    and axpby, the row statistics. Returns the worst error per kernel
+    name."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    f16 = torch.float16
+    errs = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for q_dt in (f16, torch.float32):
+        q, pools, pt, kl = _page_case(g, dev, [0, 1, 8, 9, 100, 255, 256,
+                                               31], f16, q_dt)
+        kp, vp = pools[0]
+        got = flash_decode(q, kp, vp, pt, kl)
+        note("flash_decode", check_close(
+            f"flash_decode f16 pools, {q_dt} q", got,
+            paged_decode_reference(q, kp, vp, pt, kl), q_dt))
+    x = (torch.randn(8192, HIDDEN, generator=g, device=dev) * 3 + 1).to(f16)
+    w, b = (torch.randn(HIDDEN, generator=g, device=dev) for _ in range(2))
+    dy = torch.randn(8192, HIDDEN, generator=g, device=dev).to(f16)
+    y, mu, rstd = layer_norm_fwd(x, w, b, eps=1e-5)
+    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+    note("layer_norm_fwd", max(check_close("layer_norm f16 y", y, ry, f16),
+                               check_close("layer_norm f16 rstd", rstd,
+                                           rrstd, torch.float32)))
+    got = layer_norm_bwd(dy, x, mu, rstd, w)
+    want = layer_norm_bwd_reference(dy, x, mu, rstd, w)
+    note("layer_norm_bwd", max(
+        check_close("layer_norm_bwd f16 dx", got[0], want[0], f16),
+        *(check_close(f"layer_norm_bwd f16 {n_}", a, e, torch.float32,
+                      SUM_TOL)
+          for n_, a, e in zip(("dw", "db"), got[1:], want[1:]))))
+    y, rstd = rms_norm_fwd(x, w)
+    ry, _ = rms_norm_reference(x, w, 1e-5)
+    note("rms_norm_fwd", check_close("rms_norm f16 y", y, ry, f16))
+    got = rms_norm_bwd(dy, x, rstd, w)
+    want = rms_norm_bwd_reference(dy, x, rstd, w)
+    note("rms_norm_bwd", max(
+        check_close("rms_norm_bwd f16 dx", got[0], want[0], f16),
+        check_close("rms_norm_bwd f16 dw", got[1], want[1], torch.float32,
+                    SUM_TOL)))
+    x4 = torch.randn(8192, 4 * HIDDEN, generator=g, device=dev).to(f16)
+    b4 = 0.1 * torch.randn(4 * HIDDEN, generator=g, device=dev)
+    dy4 = torch.randn(8192, 4 * HIDDEN, generator=g, device=dev).to(f16)
+    r, dyh, ds = (torch.randn(8192, HIDDEN, generator=g,
+                              device=dev).to(f16) for _ in range(3))
+    lb = 0.1 * torch.randn(HIDDEN, generator=g, device=dev)
+    wn = 0.2 * torch.randn(HIDDEN, generator=g, device=dev) + 1.0
+    seed, p = -1234567, 0.1
+    s_, _, mu, rstd = fb._raln_fwd_impl(x, b, r, wn, lb, seed, 1e-5, p)
+    pairs = {
+        "bias_gelu_fwd": ((fb._bias_gelu_fwd_impl(x4, b4),),
+                          (fb.bias_gelu_reference(x4, b4),)),
+        "bias_gelu_bwd": (fb._bias_gelu_bwd(dy4, x4, b4),
+                          fb.bias_gelu_bwd_reference(dy4, x4, b4)),
+        "bias_dropout_residual_fwd": (
+            (fb._bdr_fwd_impl(x, b, r, seed, p),),
+            (fb.bias_dropout_residual_reference(x, b, r, seed, p),)),
+        "bias_dropout_residual_bwd": (
+            fb._bdr_bwd(dyh, seed, p, f16),
+            fb.bias_dropout_residual_bwd_reference(dyh, seed, p, f16)),
+        "residual_ln_fwd": (fb._raln_fwd_impl(x, b, r, wn, lb, seed, 1e-5,
+                                              p),
+                            fb.residual_ln_reference(x, b, r, wn, lb, seed,
+                                                     1e-5, p)),
+        "residual_ln_bwd": (fb._raln_bwd(ds, dyh, s_, mu, rstd, wn, seed,
+                                         p),
+                            fb.residual_ln_bwd_reference(ds, dyh, s_, mu,
+                                                         rstd, wn, seed,
+                                                         p)),
+    }
+    for name, (got, want) in pairs.items():
+        note(name, max(check_close(
+            f"{name} f16 output {i}", a, e,
+            f16 if a.dtype == f16 else torch.float32,
+            SUM_TOL if a.dim() == 1 else (
+                FUSED_F16_TOL if a.dtype == f16 else None))
+            for i, (a, e) in enumerate(zip(got, want))))
+    n = 1024 * 1024
+    gr = (1e-2 * torch.randn(n, generator=g, device=dev)).to(f16)
+    m0, v0 = (1e-3 * torch.randn(n, generator=g, device=dev),
+              1e-5 * torch.rand(n, generator=g, device=dev))
+    src = 0.05 * torch.randn(n, generator=g, device=dev)
+    hyper = dict(param_dtype=f16, lr=1e-4,
+                 bc1=torch.tensor(0.1, device=dev),
+                 bc2=torch.tensor(0.001, device=dev))
+    m, v, s2 = m0.clone(), v0.clone(), src.clone()
+    p_out, *_ = packed_adam_apply(gr, m, v, s2, **hyper)
+    rp, rm, rv, rs = packed_adam_reference(gr, m0, v0, src, **hyper)
+    note("packed_adam", max(check_close("packed_adam f16 p", p_out, rp,
+                                        f16),
+                            check_close("packed_adam f16 m", m, rm,
+                                        torch.float32)))
+    hyper = dict(param_dtype=f16, lr=torch.tensor(0.1, device=dev),
+                 first_run=torch.tensor(False, device=dev),
+                 inv_scale=torch.tensor(0.5, device=dev), momentum=0.9)
+    buf, s2 = m0.clone(), src.clone()
+    p_out, _, _ = packed_sgd_apply(gr, buf, s2, **hyper)
+    rp, rb, _ = packed_sgd_reference(gr, m0, src, **hyper)
+    note("packed_sgd", max(check_close("packed_sgd f16 p", p_out, rp, f16),
+                           check_close("packed_sgd f16 buf", buf, rb,
+                                       torch.float32)))
+    rows = n // 1024
+    denom = torch.rand(rows, generator=g, device=dev) + 0.5
+    hyper = dict(param_dtype=f16, lr=torch.tensor(1e-3, device=dev),
+                 bc1=torch.tensor(0.05, device=dev),
+                 inv_scale=torch.tensor(0.5, device=dev), beta1=0.95,
+                 beta3=0.05, wd=0.0, reg_inside_moment=False)
+    m = m0.clone()
+    p_out, _ = packed_novograd_apply(gr, m, src, denom, **hyper)
+    rp, rm = packed_novograd_reference(gr, m0, src, denom, **hyper)
+    note("packed_novograd", max(
+        check_close("packed_novograd f16 p", p_out, rp, f16),
+        check_close("packed_novograd f16 m", m, rm, torch.float32)))
+    inv = torch.tensor(0.25, device=dev)
+    note("packed_row_reduce", check_close(
+        "packed_row_reduce f16", packed_row_reduce(gr, op="sqsum",
+                                                   inv_scale=inv),
+        packed_row_reduce_reference(gr, op="sqsum", inv_scale=inv),
+        torch.float32, (0.0, 1e-5)))
+    hyper = dict(clip=torch.tensor(1.7, device=dev),
+                 bc1=torch.tensor(0.19, device=dev),
+                 bc2=torch.tensor(0.002, device=dev), inv_scale=inv,
+                 wd=0.01)
+    m, v = m0.clone(), v0.clone()
+    u, *_ = packed_lamb_stage1(gr, m, v, src, **hyper)
+    wu, *_ = packed_lamb_stage1_reference(gr, m0, v0, src, **hyper)
+    note("packed_lamb_stage1", check_close("packed_lamb_stage1 f16 u", u,
+                                           wu, torch.float32))
+    coef = torch.linspace(0.0, 3.0, rows, device=dev)
+    p_out, _ = packed_scale_update(u, src.clone(), coef, param_dtype=f16,
+                                   lr=torch.tensor(1e-2, device=dev),
+                                   write_master=False)
+    rp, _ = packed_scale_update_reference(u, src, coef, param_dtype=f16,
+                                          lr=1e-2, noop=None)
+    note("packed_scale_update", check_close("packed_scale_update f16",
+                                            p_out, rp, f16))
+    out, _ = multi_tensor_scale_flat(gr, 4.0, f16)
+    want, _ = multi_tensor_scale_flat_reference(gr, 4.0, f16)
+    note("scale_flat", check_close("scale_flat f16", out, want, f16,
+                                   (0.0, 0.0)))
+    out, _ = multi_tensor_axpby_flat(0.25, 1.5, gr, gr, f16)
+    want, _ = multi_tensor_axpby_flat_reference(0.25, 1.5, gr, gr, f16)
+    note("axpby_flat", check_close("axpby_flat f16", out, want, f16,
+                                   (0.0, 0.0)))
+    sq, ma, nf = packed_row_stats(gr, inv_scale=inv)
+    wsq, wma, wnf = packed_row_stats_reference(gr, inv_scale=inv)
+    note("packed_row_stats", max(check_close("packed_row_stats f16 sq", sq,
+                                             wsq, torch.float32,
+                                             (0.0, 1e-5)),
+                                 check_close("packed_row_stats f16 max", ma,
+                                             wma, torch.float32,
+                                             (0.0, 0.0))))
+    log(f"  fp16 sites: max abs err {json.dumps(errs)}")
+    return errs
 
 
 def _flash_timing(q, k, v, do, o, lse, causal):
@@ -2325,6 +2767,7 @@ def serve_345m(dev):
     log(f"  launches on the serving run: {launches} (per step: "
         f"flash_decode {launches['flash_decode'] / steps:.2f}, "
         f"layer_norm_fwd {launches['layer_norm_fwd'] / steps:.2f})")
+    sampler_cost(dev, cfg.vocab_size, st["step_ms"]["p50"])
     for name in SERVING_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
@@ -2342,6 +2785,25 @@ def serve_345m(dev):
                             "preemptions")}))
     profile_steps(eng, rng, cfg)
     return launches
+
+
+def sampler_cost(dev, vocab: int, step_p50: float) -> None:
+    """The device time a sampled serving step adds: the top-k / top-p
+    filters over ``[SLOTS, vocab]`` fp32 logits, whose full sort runs on
+    every sampled step (selected per row on the device, no host read),
+    beside the greedy trace's step p50."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    logits = torch.randn(SLOTS, vocab, generator=g, device=dev)
+    temps = torch.full((SLOTS,), 0.8, device=dev)
+    top_ks = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    top_ps = torch.full((SLOTS,), 0.9, device=dev)
+    filt = device_ms(lambda: sampling._filtered_logits(
+        logits, temps, top_ks, top_ps), "", iters=20)
+    sort = device_ms(lambda: torch.sort(logits, dim=-1, descending=True),
+                     "", iters=20)
+    log(f"  the sampler's filters on [{SLOTS}, {vocab}] fp32 (each sampled "
+        f"step): device {filt} ms, the full sort alone {sort} ms, beside "
+        f"the greedy step p50 {step_p50:.3f} ms")
 
 
 def profiled(run, label: str, top: int) -> None:
@@ -3406,10 +3868,27 @@ def attention_paths(dev):
 #: and 1.87e-2 (BERT, LAMB); a wrong update reads about 1, so the limit
 #: is 0.1, some 5 times the readings.
 PARITY_TOL = {torch.float32: (1e-5, 1e-4, 1e-3),
-              torch.bfloat16: (2e-3, 5e-2, 0.1)}
+              torch.bfloat16: (2e-3, 5e-2, 0.1),
+              # fp16 rounds at 2^-11, finer than bf16's 2^-8; the roundings
+              # fall at other places on the two sides all the same, so
+              # bf16's limits
+              torch.float16: (2e-3, 5e-2, 0.1)}
 
 #: the 2-layer full-width models of the parity runs: seq 256, batch 2
 PARITY_SEQ, PARITY_BATCH = 256, 2
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper routes CUDA tensors to its plain version: the
+    comparison side of a run on the card (no kernel launches, none
+    counted)."""
+    route = _device.kernel_route
+    _device.kernel_route = lambda *tensors: False
+    try:
+        yield
+    finally:
+        _device.kernel_route = route
 
 
 def _flat(params) -> torch.Tensor:
@@ -3425,7 +3904,7 @@ def parity_cfg(vocab: int, **cfg_kw) -> GPTConfig:
 
 
 def gpt_parity(dev, label: str, kernels, make_opt=None, absent=(),
-               scaled=False, **cfg_kw):
+               scaled=False, reference="cpu", **cfg_kw):
     """``gpt_loss`` of the 2-layer 345M-width GPT with packed
     FusedAdam(lr=1e-4, masters) or ``make_opt()``, card against CPU;
     ``scaled``: the loss-scaled, clipped step, then one forced
@@ -3439,7 +3918,7 @@ def gpt_parity(dev, label: str, kernels, make_opt=None, absent=(),
                  lambda p, d: gpt_loss(cfg, p, tokens.to(d), labels.to(d)),
                  make_opt or (lambda: FusedAdam(lr=1e-4, master_weights=True,
                                                 packed=True)),
-                 absent=absent, scaled=scaled)
+                 absent=absent, scaled=scaled, reference=reference)
 
 
 def bert_parity(dev, label: str, kernels, make_opt=None, absent=(),
@@ -3461,7 +3940,7 @@ def bert_parity(dev, label: str, kernels, make_opt=None, absent=(),
 
 
 def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
-                 absent=(), scaled=False):
+                 absent=(), scaled=False, reference="cpu"):
     """Loss, gradients and 3 optimizer steps of ``loss_of(params,
     device)`` on the card (kernels) against the CPU (plain versions), from
     the same fp32 params of ``cfg``; ``make_opt()`` builds each run's
@@ -3470,13 +3949,22 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
     ``scaled``: each step is :func:`scaled_step_fn` (dynamic loss
     scaling, the flat unscale, clipping to norm 1), and a fourth step
     with an inf in a gradient must be skipped on both runs
-    (:func:`check_overflow_skip`)."""
+    (:func:`check_overflow_skip`). ``reference="plain"``: the reference
+    run is on the card too, every kernel wrapper taking its plain version
+    (:func:`plain_kernels`), for dtypes whose CPU GEMMs are too slow to
+    serve as the reference (fp16: 0.4 GFLOP/s on the card's host,
+    measured beside 533 fp32)."""
     dt = cfg.compute_dtype
     loss_tol, grad_tol, upd_tol = PARITY_TOL[dt]
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
     runs = {}
     for where in ("cpu", "cuda"):
         d = torch.device("cpu") if where == "cpu" else dev
+        plain = where == "cpu" and reference == "plain"
+        if plain:
+            d = dev
+        route = plain_kernels() if plain else contextlib.nullcontext()
+        route.__enter__()
         params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
         opt = make_opt()
         state = opt.init(params)
@@ -3503,6 +3991,7 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
                            grads=tree_map(lambda g: g.float().cpu(), grads),
                            update=(_flat(params) - start).cpu(),
                            counts=counts)
+        route.__exit__(None, None, None)
     c, g = runs["cpu"], runs["cuda"]
     if any(c["counts"].values()):
         raise AssertionError(f"kernels launched on the CPU run: "
@@ -3527,9 +4016,10 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
                                                     c["losses"]))
     upd = float((g["update"] - c["update"]).norm() / c["update"].norm())
     upd_max = float((g["update"] - c["update"]).abs().max())
+    ref = "cpu" if reference == "cpu" else "card plain"
     log(f"  {label} 2-layer full-width {str(dt)[6:]}, seq {PARITY_SEQ}, "
         f"batch {PARITY_BATCH}: "
-        f"loss card {g['loss']:.7f} cpu {c['loss']:.7f} (rel {rel:.2e}); "
+        f"loss card {g['loss']:.7f} {ref} {c['loss']:.7f} (rel {rel:.2e}); "
         f"worst gradient leaf {worst:.2e} of its largest entry; 3 steps: "
         f"losses card {g['losses']} cpu {c['losses']} (max rel "
         f"{curve:.2e}); update rel {upd:.2e}, max abs {upd_max:.2e}; "
@@ -3750,6 +4240,187 @@ def lamb_packed_against_pytree(dev):
         f"{PACKED_LAMB_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the attention contribs over the flash kernels' bias and segments
+# ---------------------------------------------------------------------------
+
+#: a leg's kernels against their plain versions on the card: (loss rtol,
+#: each gradient leaf's max error over its largest entry). Both runs
+#: compute in the leg's dtype and differ where the kernels round p to it
+#: against a tile's running max (the plain version against the row's) and
+#: in the order of the sums: one rounding, 2^-8 in bf16 and 2^-11 in fp16,
+#: of values of order 1, so phase 7's bf16 limits, and a quarter of the
+#: gradient limit in fp16
+LEG_TOL = {torch.bfloat16: (2e-3, 5e-2), torch.float16: (1e-3, 1.25e-2)}
+
+
+
+
+def contrib_leg(dev, label: str, dtype, run, leaves, out_seed: int):
+    """One leg: ``loss = sum(run() * w)`` (w fixed, fp32) and its
+    gradients in every tensor of ``leaves`` (a dict), through the kernels
+    then through the plain versions on the card. Checks the flash kernels
+    launched on the kernel run, the loss within ``LEG_TOL`` of the sum of
+    its terms' magnitudes (its terms cancel: the loss itself sits far
+    below that sum) and each gradient within ``LEG_TOL`` of its largest
+    entry; logs the step's device time (all kernels, and the flash
+    kernels' share) and the kernel run's peak memory. Returns the kernel
+    run's launch counts."""
+    loss_tol, grad_tol = LEG_TOL[dtype]
+    w = {}
+
+    def step():
+        out = run()
+        if "w" not in w:
+            w["w"] = torch.randn(out.shape, device=dev, dtype=torch.float32,
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(out_seed))
+        terms = out.float() * w["w"]
+        loss = terms.sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), terms.detach().abs().sum(), grads
+
+    step()  # warm: shapes, the weight
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _device.reset_launch_counts()
+    loss_k, _, grads_k = step()
+    torch.cuda.synchronize()
+    counts = _device.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: {name} did not launch")
+    total_ms, flash_ms = device_split(step, "flash_") or (None, None)
+    with plain_kernels():
+        _device.reset_launch_counts()
+        loss_p, mag, grads_p = step()
+        torch.cuda.synchronize()
+        plain_counts = _device.launch_counts()
+    if plain_counts["flash_attn_fwd"] or plain_counts["flash_attn_bwd"]:
+        raise AssertionError(f"{label}: the plain run launched flash")
+    rel = abs(float(loss_k) - float(loss_p)) / float(mag)
+    worst = {}
+    for name, gk, gp in zip(leaves, grads_k, grads_p):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"{label}: gradient {name} not finite")
+        worst[name] = float((gk.float() - gp.float()).abs().max()
+                            / gp.float().abs().max().clamp_min(1e-30))
+    log(f"  {label}: loss kernels {float(loss_k):.6f} plain "
+        f"{float(loss_p):.6f} (difference {rel:.2e} of the sum of its "
+        f"terms' magnitudes, {float(mag):.1f}); gradient errors over their "
+        f"largest entries {json.dumps(worst)}; step device time "
+        f"{total_ms} ms (flash kernels {flash_ms} ms); peak memory "
+        f"{peak:.3f} GiB above the inputs; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    if rel > loss_tol:
+        raise AssertionError(f"{label}: loss differs from the plain run's")
+    bad = {k: e for k, e in worst.items() if e > grad_tol}
+    if bad:
+        raise AssertionError(f"{label}: gradients off {bad}")
+    return counts
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def _ragged_pad(g, dev, b, s, lo):
+    """A [b, s] key-padding mask, 1 = masked out: each row keeps a length
+    seeded uniform in [lo, s]."""
+    lens = torch.randint(lo, s + 1, (b,), generator=g, device=dev)
+    return (torch.arange(s, device=dev)[None, :] >= lens[:, None]).to(
+        torch.int32)
+
+
+def attention_contribs(dev):
+    """The three attention contribs at full width, forward and backward,
+    kernels against plain versions (``contrib_leg``): fmha at BERT-large's
+    geometry (hidden 1024, 16 heads, 32 packed sequences of 64-512 tokens,
+    dropout 0.1) in fp16 and bf16; multihead_attn at Transformer-big's
+    (1024, 16 heads, s 256, b 16, ragged lengths) with an additive [b, s]
+    key-padding mask (the bias path, ``bias_grad=False``) and with
+    ``include_norm_add`` and a boolean padding mask (the key mask), and
+    encoder-decoder at s_q 256 over s_k 200, fp16; openfold's AlphaFold 2
+    Evoformer attention in bf16: MSA row attention [1, 128, 8, 256, 32]
+    with a key mask and a [1, 1, 8, 256, 256] pair bias with its gradient,
+    and triangle attention [1, 256, 4, 256, 32] with its own bias. Returns
+    the flash kernels' launches over the legs."""
+    g = torch.Generator(device=dev).manual_seed(51)
+    launches = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    lens, cu = _packed_lengths(52, 32, 64, 512)
+    total = int(cu[-1])
+    cu_t = torch.from_numpy(cu).to(dev)
+    fmha = FMHA(hidden_size=1024, num_attention_heads=16,
+                attention_probs_dropout_prob=0.1)
+    log(f"  fmha: 32 sequences, {total} tokens (lengths {min(lens)}-"
+        f"{max(lens)})")
+    for dt in (torch.float16, torch.bfloat16):
+        qkv = _leaf(torch.randn(total, 3 * 1024, generator=g, device=dev)
+                    .to(dt))
+        add(contrib_leg(dev, f"fmha BERT-large {str(dt)[6:]}", dt,
+                        lambda: fmha(qkv, cu_t, dropout_seed=1234),
+                        {"qkv": qkv}, 53))
+        del qkv
+    f16, s, b = torch.float16, 256, 16
+    x = _leaf(torch.randn(s, b, 1024, generator=g, device=dev).to(f16))
+    pad = _ragged_pad(g, dev, b, s, 64)
+    for label, kw, mask in (
+            ("multihead_attn self, additive key padding", dict(
+                mask_additive=True, bias=True),
+             torch.where(pad != 0, -1e30, 0.0)),
+            ("multihead_attn self, norm_add, padding mask", dict(
+                include_norm_add=True, bias=True), pad)):
+        mod = SelfMultiheadAttn(1024, 16, dropout=0.1, **kw)
+        params = {k: _leaf(v) for k, v in mod.init(
+            torch.Generator(device=dev).manual_seed(54), device=dev,
+            dtype=f16).items()}
+
+        def run(mod=mod, params=params, mask=mask):
+            gen = torch.Generator(device=dev).manual_seed(55)
+            return mod(params, x, key_padding_mask=mask, dropout_seed=99,
+                       generator=gen)[0]
+        add(contrib_leg(dev, f"{label} fp16 [256,16,1024]", f16, run,
+                        {"x": x, **params}, 56))
+    mem = _leaf(torch.randn(200, b, 1024, generator=g, device=dev).to(f16))
+    enc_pad = _ragged_pad(g, dev, b, 200, 50)
+    mod = EncdecMultiheadAttn(1024, 16, dropout=0.1, bias=True)
+    params = {k: _leaf(v) for k, v in mod.init(
+        torch.Generator(device=dev).manual_seed(57), device=dev,
+        dtype=f16).items()}
+    add(contrib_leg(
+        dev, "multihead_attn encdec fp16 256 over 200", f16,
+        lambda: mod(params, x, mem, key_padding_mask=enc_pad,
+                    dropout_seed=98)[0],
+        {"x": x, "mem": mem, **params}, 58))
+    del x, mem, params
+    bf = torch.bfloat16
+    q, k, v = (_leaf(torch.randn(1, 128, 8, 256, 32, generator=g,
+                                 device=dev).to(bf)) for _ in range(3))
+    msa_mask = torch.ones(1, 128, 1, 1, 256, device=dev)
+    msa_mask[..., 236:] = 0.0  # padded residues
+    pair = _leaf((0.5 * torch.randn(1, 1, 8, 256, 256, generator=g,
+                                    device=dev)).to(bf))
+    add(contrib_leg(dev, "openfold MSA row attention + pair bias bf16", bf,
+                    lambda: attention_core(q, k, v, msa_mask, pair),
+                    {"q": q, "k": k, "v": v, "pair_bias": pair}, 59))
+    del q, k, v, pair
+    q, k, v = (_leaf(torch.randn(1, 256, 4, 256, 32, generator=g,
+                                 device=dev).to(bf)) for _ in range(3))
+    tri = _leaf((0.5 * torch.randn(1, 1, 4, 256, 256, generator=g,
+                                   device=dev)).to(bf))
+    add(contrib_leg(dev, "openfold triangle attention (starting node) bf16",
+                    bf, lambda: attention_core(q, k, v, None, tri),
+                    {"q": q, "k": k, "v": v, "tri_bias": tri}, 60))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3777,20 +4448,23 @@ def main() -> int:
         return out
 
     (fd, ln, ln_bwd, ln_wide_errs, rms, tier_errs, (fa_fwd, fa_bwd),
-     head_dim_errs, adam, fused, softmax, lamb, sgd, flat, row_stats,
-     novograd) = phase(
+     head_dim_errs, extra_errs, adam, fused, softmax, lamb, sgd, flat,
+     row_stats, novograd, f16_errs) = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), layer_norm_width_checks(dev),
                  rms_norm_checks(dev), norm_bwd_tier_checks(dev),
                  flash_attention_checks(dev),
-                 flash_head_dim_checks(dev), packed_adam_checks(dev),
+                 flash_head_dim_checks(dev), flash_bias_segment_checks(dev),
+                 packed_adam_checks(dev),
                  fused_block_checks(dev), fused_softmax_checks(dev),
                  packed_lamb_checks(dev), packed_sgd_checks(dev),
                  packed_flat_checks(dev), packed_row_stats_checks(dev),
-                 packed_novograd_checks(dev)))
-    fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], head_dim_errs[0])
-    fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], head_dim_errs[1])
+                 packed_novograd_checks(dev), fp16_site_checks(dev)))
+    fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], head_dim_errs[0],
+                                extra_errs[0])
+    fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], head_dim_errs[1],
+                                extra_errs[1])
     ln["max_abs_err"] = max(ln["max_abs_err"], ln_wide_errs[0])
     ln_bwd["max_abs_err"] = max(ln_bwd["max_abs_err"], ln_wide_errs[1],
                                 tier_errs[0])
@@ -3881,7 +4555,17 @@ def main() -> int:
                                "layer_norm_fwd", "layer_norm_bwd"),
                               absent=("flash_attn_fwd", "flash_attn_bwd"),
                               hidden_size=1280,
-                              compute_dtype=torch.bfloat16)))
+                              compute_dtype=torch.bfloat16),
+                   gpt_parity(dev, "fp16 GPT, fused, flash (reference: the "
+                              "plain versions on the card)",
+                              TRAIN_KERNELS + FUSED_KERNELS,
+                              reference="plain", compute_dtype=torch.float16,
+                              fused_block=True,
+                              apply_query_key_layer_scaling=False,
+                              use_flash_attention=True)))
+    contrib = phase("phase 8: the attention contribs (fmha, multihead_attn, "
+                    "openfold) at full width, kernels against plain "
+                    "versions", attention_contribs, dev)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
@@ -3894,8 +4578,13 @@ def main() -> int:
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
                *softmax, *lamb, sgd, *flat, row_stats, novograd)
+    # the fp16 instantiations (fault C3) are held in phase 2 as well
+    for kr in kernels:
+        if kr["name"] in f16_errs:
+            kr["max_abs_err"] = max(kr["max_abs_err"], f16_errs[kr["name"]])
     for kr in kernels[2:]:
-        kr["launches"] = train.get(kr["name"], 0) + bert.get(kr["name"], 0)
+        kr["launches"] = (train.get(kr["name"], 0) + bert.get(kr["name"], 0)
+                          + contrib.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

@@ -118,15 +118,16 @@ def test_flash_attention_sources_use_no_atomics(source):
 
 
 def test_bf16_flash_attention_runs_on_the_tensor_cores():
-    """The entry points send bf16 to the tensor-core kernels (the bf16
-    instantiations of the CUDA-core templates are gone) and those issue
-    their products as ``mma.sync`` with bf16 operands and fp32 sums, with
-    no per-element dot loop over the head dim."""
+    """The entry points send bf16 (and fp16) to the tensor-core kernels
+    (the bf16 instantiations of the CUDA-core templates are gone) and those
+    issue their products as ``mma.sync`` with 16-bit operands and fp32
+    sums, with no per-element dot loop over the head dim."""
     cuda_cores = (_build.CSRC_DIR / "flash_attention.cu").read_text()
-    assert "apex_flash::launch_bf16(" in cuda_cores
+    assert "apex_flash::launch_tc(" in cuda_cores
     assert "__nv_bfloat16" not in cuda_cores
     tensor_cores = (_build.CSRC_DIR / "flash_attention_bf16.cu").read_text()
     assert '#include "mma_bf16.cuh"' in tensor_cores
     assert "slice_dot" not in tensor_cores
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in (
-        _build.CSRC_DIR / "mma_bf16.cuh").read_text()
+    mma = (_build.CSRC_DIR / "mma_bf16.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in mma

@@ -147,7 +147,9 @@ def _decode_case(dev, kv_dtype, q_dtype, lens=(0, 1, 7, 8, 23, 64),
 
 @pytest.mark.parametrize("kv_dtype,q_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "f32q_bf16kv"])
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+    (torch.float16, torch.float32)],
+    ids=["f32", "bf16", "f32q_bf16kv", "f16", "f32q_f16kv"])
 def test_flash_decode_kernel_matches_plain(cuda_device, kv_dtype, q_dtype):
     args = _decode_case(cuda_device, kv_dtype, q_dtype)
     _device.reset_launch_counts()
@@ -178,7 +180,8 @@ def test_flash_decode_kernel_never_reads_past_the_length(cuda_device):
     assert torch.equal(flash_decode(q, kp, vp, pt, kl), clean)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_layer_norm_kernel_matches_plain(cuda_device, dtype):
     rng = np.random.default_rng(1)
     x = torch.from_numpy((rng.normal(size=(64, 1024)) * 3 + 1).astype(
@@ -197,7 +200,7 @@ def test_layer_norm_kernel_matches_plain(cuda_device, dtype):
 
 @pytest.mark.parametrize("x_dtype,dy_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-    (torch.bfloat16, torch.bfloat16)])
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16)])
 def test_layer_norm_grad_kernel_matches_plain(cuda_device, x_dtype,
                                               dy_dtype):
     """Autograd through layer_norm on the card runs the backward kernel;
@@ -315,7 +318,8 @@ def test_packed_adam_kernel_matches_plain(cuda_device, mode):
 SUM_TOL = dict(atol=1e-3, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 @pytest.mark.parametrize("rows,n", [(1000, 1024), (40, 4096), (7, 64),
                                     (40, 5120), (9, 8192), (3, 16384),
@@ -380,7 +384,7 @@ def test_fused_block_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="one dtype"):
         fb.bias_dropout_residual(x, b, x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="one dtype"):
-        fb.bias_gelu(x.half(), b)
+        fb.bias_gelu(x.double(), b)
 
 
 def test_train_step_on_card_matches_cpu(cuda_device):
@@ -649,7 +653,8 @@ def _flat(dev, rows, scale, seed, positive=False):
 
 
 @pytest.mark.parametrize("rows", [8, 37])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("op", ["sqsum", "maxabs"])
 def test_packed_row_reduce_kernel_matches_plain(cuda_device, op, dtype,
                                                 rows):
@@ -1175,7 +1180,8 @@ def test_layer_norm_kernels_take_wide_rows(cuda_device, hidden):
 @pytest.mark.parametrize("rows,hidden,dtype", [
     (64, 1024, torch.float32), (64, 1024, torch.bfloat16),
     (37, 1000, torch.float32), (8, 4096, torch.bfloat16),
-    (8, 65536, torch.float32)])
+    (8, 65536, torch.float32), (64, 1024, torch.float16),
+    (37, 1000, torch.float16)])
 def test_rms_norm_kernels_match_plain(cuda_device, rows, hidden, dtype):
     """The RMSNorm forward and backward kernels against their plain
     versions (the backward fed the same statistics), and the x-hat form of
@@ -1270,7 +1276,8 @@ def test_memory_efficient_norms_match_plain_on_card(cuda_device, norm,
 
 
 @pytest.mark.parametrize("n", FLAT_LENGTHS, ids=["rows", "ragged"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_packed_row_stats_kernel_matches_plain(cuda_device, n, dtype):
     """Per-row sum of squares, max |x| and non-finite count against the
     plain version: nan and inf planted in known rows show in those rows'
@@ -1571,15 +1578,20 @@ def _tiny_serving(dev, position_scale=0.0, **kw):
     return cfg, params, ServingEngine(cfg, params, device=dev, **kw)
 
 
-def _decoding_engine(dev, **kw):
-    """An engine with both slots past their prompts (decode steps)."""
+def _decoding_engine(dev, sampled=False, **kw):
+    """An engine with both slots past their prompts (decode steps); with
+    ``sampled``, slot 0 samples (temperature 0.8, top-p 0.9, top-k 0)."""
     from apex_tpu_torch.serving import Request
+    from apex_tpu_torch.serving.sampling import SamplingParams
 
     cfg, params, eng = _tiny_serving(dev, n_slots=2, **kw)
     rng = np.random.default_rng(12)
     for i in range(2):
+        policy = (SamplingParams(temperature=0.8, top_p=0.9, top_k=0,
+                                 seed=5) if sampled and i == 0 else None)
         eng.submit(Request(prompt=[int(t) for t in rng.integers(0, 128, 6)],
-                           max_new_tokens=56, rid=70 + i))
+                           max_new_tokens=56, rid=70 + i,
+                           **({"sampling": policy} if policy else {})))
     while any(r.prefilling for _, r in eng.scheduler.running()) or \
             eng.scheduler.waiting:
         eng.run_step()
@@ -1589,15 +1601,20 @@ def _decoding_engine(dev, **kw):
     return eng
 
 
-def test_spec_step_makes_one_host_sync(cuda_device):
-    """A greedy speculative decode step with the metrics drain armed,
-    under ``set_sync_debug_mode("warn")``: exactly one synchronising
-    operation — the fetch of the emitted matrix. Every upload goes
-    through pinned memory, the drain defers without a sync."""
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["greedy", "sampled"])
+@pytest.mark.parametrize("spec_k", [0, 4])
+def test_spec_step_makes_one_host_sync(cuda_device, spec_k, sampled):
+    """A decode step (speculative at spec_k 4, greedy or with one slot
+    sampling) with the metrics drain armed, under
+    ``set_sync_debug_mode("warn")``: exactly one synchronising operation
+    — the fetch of the emitted matrix. Every upload goes through pinned
+    memory, the drain defers without a sync, and the sampler's deep sort
+    is selected per row on the device."""
     import warnings
 
-    eng = _decoding_engine(cuda_device, spec_k=4, spec_ngram=2,
-                           prefill_chunk=4, telemetry_every=1)
+    eng = _decoding_engine(cuda_device, sampled=sampled, spec_k=spec_k,
+                           spec_ngram=2, prefill_chunk=4, telemetry_every=1)
     eng.run_step()  # a warm step: every buffer and handle exists
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1610,8 +1627,10 @@ def test_spec_step_makes_one_host_sync(cuda_device):
     syncs = [w for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
-    assert em.shape == (2, 5 + 1) and (em[:, 0] >= 0).all()
-    assert eng._accum["drafted_tokens"] > 0
+    assert em.shape[0] == 2 and (em.reshape(2, -1)[:, 0] >= 0).all()
+    if spec_k:
+        assert em.shape == (2, spec_k + 1 + 1)
+        assert eng._accum["drafted_tokens"] > 0
 
 
 @pytest.mark.parametrize("spec_k", [0, 4])
@@ -1695,3 +1714,238 @@ def test_watchdog_fires_on_a_wedged_fetch(cuda_device):
     assert eng2.device == eng.device
     eng2.generate(survivors)
     assert r.out_tokens == want
+
+
+# ---------------------------------------------------------------------------
+# flash attention's additive bias and segment ids, fp16 on every kernel
+# ---------------------------------------------------------------------------
+
+#: flash attention in fp16 against its plain version: the kernels round p
+#: to fp16 against each tile's running max and the plain version against
+#: the row's, so outputs and gradients of order 1 may differ by a few fp16
+#: roundings (2^-11 each), summed over the keys
+FLASH_F16_TOL = dict(atol=5e-3, rtol=5e-3)
+FLASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _flash_tol(dtype):
+    return FLASH_F16_TOL if dtype == torch.float16 else TOL[dtype]
+
+
+def _flash_inputs(dev, dtype, b, n, s_q, s_k, d, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+    return t(b, n, s_q, d), t(b, n, s_k, d), t(b, n, s_k, d), \
+        t(b, n, s_q, d)
+
+
+#: bias shapes [b|1, n|1, s_q|1, s_k] at b 2, n 4, s_q 200, s_k 300, and
+#: whether the case is causal (a causal cross shape)
+FLASH_BIAS_CASES = {"full": ((2, 4, 200, 300), True),
+                    "batch1": ((1, 4, 200, 300), False),
+                    "keypad": ((2, 1, 1, 300), False),
+                    "shared": ((1, 1, 200, 300), True)}
+
+
+@pytest.mark.parametrize("bias_grad", [True, False],
+                         ids=["bias_grad", "const_bias"])
+@pytest.mark.parametrize("case", list(FLASH_BIAS_CASES))
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_bias_kernels_match_plain(cuda_device, dtype, case,
+                                        bias_grad):
+    """The bias through both kernels against the plain versions, every
+    broadcast shape, with and without the dbias the dq kernel writes; the
+    key-padding form folds -1e30 in, batch row 1 wholly, which must give
+    o = 0, lse = -1e30 and zero gradients there."""
+    shape, causal = FLASH_BIAS_CASES[case]
+    q, k, v, do = _flash_inputs(cuda_device, dtype, 2, 4, 200, 300, 64, 21)
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    bias = 0.5 * torch.randn(shape, generator=g, device=cuda_device)
+    if case == "keypad":
+        bias[0, ..., 250:] = -1e30
+        bias[1] = -1e30
+    kw = dict(causal=causal, bias=bias)
+    _device.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, bias_grad=bias_grad,
+                              **kw)
+    counts = _device.launch_counts()
+    assert counts["flash_attn_fwd"] == 1 and counts["flash_attn_bwd"] == 1
+    ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+    want = flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                         bias_grad=bias_grad, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (4 if bias_grad else 3)
+    tol = _flash_tol(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.float(), e.float(), **tol)
+    if case == "keypad":
+        assert bool((lse[1] == -1e30).all())
+        for x in (o, *got):
+            assert not bool(x[1].any())
+
+
+#: packed sequences: lengths that end inside tiles, a one-token sequence,
+#: and 30 tokens past cu_seqlens[-1] (one padding segment)
+VARLEN_LENS, VARLEN_TOTAL = [70, 1, 130, 33, 200], 464
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_segment_kernels_match_plain(cuda_device, dtype, causal, d):
+    """Segment ids from cu_seqlens through both kernels against the plain
+    versions (the kernels walk only the tiles a segment can see), and the
+    varlen entry point through autograd."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_varlen,
+        segment_ids_from_cu_seqlens,
+    )
+
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(VARLEN_LENS)]),
+                      dtype=torch.int32, device=cuda_device)
+    segs = segment_ids_from_cu_seqlens(cu, VARLEN_TOTAL)
+    q, k, v, do = _flash_inputs(cuda_device, dtype, 1, 4, VARLEN_TOTAL,
+                                VARLEN_TOTAL, d, 23)
+    kw = dict(causal=causal, seg_q=segs, seg_k=segs)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+    want = flash_attention_bwd_reference(q, k, v, ro, rlse, do, **kw)
+    tol = _flash_tol(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.float(), e.float(), **tol)
+    qv, kv_, vv = (t[0].transpose(0, 1).contiguous().requires_grad_(True)
+                   for t in (q, k, v))
+    _device.reset_launch_counts()
+    ov = flash_attention_varlen(qv, kv_, vv, cu, causal=causal)
+    ov.backward(do[0].transpose(0, 1))
+    counts = _device.launch_counts()
+    assert counts["flash_attn_fwd"] == 1 and counts["flash_attn_bwd"] == 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ov.transpose(0, 1).float(), o[0].float(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(qv.grad.transpose(0, 1).float(),
+                               got[0][0].float(), rtol=0, atol=0)
+
+
+def test_flash_bias_and_segment_backward_is_deterministic(cuda_device):
+    """The bf16 backward with a full bias and its gradient, and with
+    segment ids, twice on the same inputs: the same bits, dbias included
+    (each element written once, no atomics)."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.bfloat16, 2, 4, 333,
+                                333, 64, 24)
+    bias = torch.randn(2, 4, 333, 333, device=cuda_device)
+    segs = (torch.arange(333, device=cuda_device) // 50).to(torch.int32)
+    for kw in (dict(bias=bias, bias_grad=True, causal=True),
+               dict(seg_q=segs, seg_k=segs, causal=True)):
+        fkw = {k_: x for k_, x in kw.items() if k_ != "bias_grad"}
+        o, lse = flash_attention_fwd(q, k, v, **fkw)
+        first = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        second = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_flash_fp16_is_available_and_refuses_other_dtypes(cuda_device):
+    from apex_tpu_torch.ops.flash_attention import flash_attention_available
+
+    assert flash_attention_available(256, 256, 64, cuda_device,
+                                     torch.float16)
+    assert not flash_attention_available(256, 256, 64, cuda_device,
+                                         torch.float64)
+    q = torch.zeros(1, 1, 16, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="f32/bf16/f16"):
+        flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd", "novograd", "lamb"])
+def test_packed_sweeps_take_fp16(cuda_device, name):
+    """The packed sweeps with fp16 gradients and an fp16 model copy
+    against their plain versions: the fp32 state as in fp32, the fp16
+    parameters within one fp16 rounding (2^-11)."""
+    dev, rows = cuda_device, 8
+    g = _flat(dev, rows, 1e-2, 40).to(torch.float16)
+    a, b_, src = (_flat(dev, rows, 1e-3, 41), _flat(dev, rows, 1e-5, 42,
+                                                    True),
+                  _flat(dev, rows, 0.05, 43))
+    f16 = dict(rtol=1e-3, atol=1e-6)
+    if name == "adam":
+        hyper = dict(param_dtype=torch.float16, lr=1e-4,
+                     bc1=torch.tensor(0.1, device=dev),
+                     bc2=torch.tensor(0.001, device=dev))
+        m, v, s_ = a.clone(), b_.clone(), src.clone()
+        p_out, *_ = packed_adam_apply(g, m, v, s_, **hyper)
+        rp, rm, rv, rs = packed_adam_reference(g, a, b_, src, **hyper)
+        state = ((m, rm), (v, rv), (s_, rs))
+    elif name == "sgd":
+        hyper = dict(param_dtype=torch.float16,
+                     lr=torch.tensor(0.1, device=dev),
+                     first_run=torch.tensor(False, device=dev),
+                     inv_scale=torch.tensor(0.5, device=dev), momentum=0.9)
+        buf, s_ = a.clone(), src.clone()
+        p_out, gb, gm = packed_sgd_apply(g, buf, s_, **hyper)
+        rp, rb, rs = packed_sgd_reference(g, a, src, **hyper)
+        state = ((buf, rb), (s_, rs))
+    elif name == "novograd":
+        denom = torch.rand(rows, device=dev) + 0.5
+        hyper = dict(param_dtype=torch.float16,
+                     lr=torch.tensor(1e-3, device=dev),
+                     bc1=torch.tensor(0.05, device=dev),
+                     inv_scale=torch.tensor(0.5, device=dev), beta1=0.95,
+                     beta3=0.05, wd=0.0, reg_inside_moment=False)
+        m = a.clone()
+        p_out, _ = packed_novograd_apply(g, m, src, denom, **hyper)
+        rp, rm = packed_novograd_reference(g, a, src, denom, **hyper)
+        state = ((m, rm),)
+    else:
+        hyper = dict(clip=torch.tensor(1.7, device=dev),
+                     bc1=torch.tensor(0.19, device=dev),
+                     bc2=torch.tensor(0.002, device=dev),
+                     inv_scale=torch.tensor(0.25, device=dev), wd=0.01)
+        m, v = a.clone(), b_.clone()
+        u, _, _, ru, rp_ = packed_lamb_stage1(g, m, v, src, **hyper)
+        wu, wm, wv, wru, wrp = packed_lamb_stage1_reference(g, a, b_, src,
+                                                            **hyper)
+        torch.testing.assert_close(u, wu, **PACKED_F32)
+        torch.testing.assert_close(ru, wru, **ROW_SUM)
+        coef = torch.linspace(0.0, 3.0, rows, device=dev)
+        p_out, _ = packed_scale_update(
+            u, src.clone(), coef, param_dtype=torch.float16,
+            lr=torch.tensor(1e-2, device=dev), write_master=False)
+        rp, _ = packed_scale_update_reference(
+            u, src, coef, param_dtype=torch.float16, lr=1e-2, noop=None)
+        state = ((m, wm), (v, wv))
+    torch.cuda.synchronize()
+    assert p_out.dtype == torch.float16
+    torch.testing.assert_close(p_out.float(), rp.float(), **f16)
+    for got, want in state:
+        torch.testing.assert_close(got, want, **PACKED_F32)
+
+
+def test_flat_ops_take_fp16(cuda_device):
+    """The flat scale and axpby over fp16 buffers (in and out) against
+    their plain versions: one rounding of the same fp32 product, bit for
+    bit; an inf planted in the input raises the found flag."""
+    n = 8 * 1024 + 3
+    g = torch.Generator(device=cuda_device).manual_seed(44)
+    x = torch.randn(n, generator=g, device=cuda_device).half()
+    y = torch.randn(n, generator=g, device=cuda_device).half()
+    x[7] = float("inf")
+    out, found = multi_tensor_scale_flat(x, 0.5, torch.float16)
+    want, wfound = multi_tensor_scale_flat_reference(x, 0.5, torch.float16)
+    assert out.dtype == torch.float16 and bool(found) and bool(wfound)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    out, found = multi_tensor_axpby_flat(0.25, 1.5, x, y, torch.float16)
+    want, wfound = multi_tensor_axpby_flat_reference(0.25, 1.5, x, y,
+                                                     torch.float16)
+    assert bool(found) and bool(wfound)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)

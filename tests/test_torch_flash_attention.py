@@ -14,7 +14,11 @@ same at head dims 128 and 256, where the bf16 kernels on the card run
 their products on the tensor cores with these plain versions as their
 judge, and for causal cross shapes (s_q != s_k, multiples of 8 as the
 JAX kernels require; the mask is ``k > q``, aligned at the top left).
-The hash dropout mask is compared bit for bit.
+The hash dropout mask is compared bit for bit. The additive bias (every
+broadcast shape, with and without its gradient) and the segment ids of
+``flash_attention_varlen`` run in fp32, bf16 and fp16: fp16 at 5e-3 (one
+fp16 rounding, 2^-11, of values up to a few, taken at other points on the
+two sides), dbias at its dtype's tolerance.
 """
 import importlib
 
@@ -205,15 +209,199 @@ def test_kernel_operands_are_16_byte_aligned(offset):
     assert (got.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
 
 
-def test_bias_and_varlen_are_refused():
+def test_dropout_without_seed_is_refused():
     q = torch.zeros(1, 1, 8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.flash_attention(q, q, q, bias=torch.zeros(1, 1, 8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.flash_attention_varlen(q[0, 0], q[0, 0], q[0, 0],
-                                 torch.tensor([0, 8]))
     with pytest.raises(ValueError, match="dropout_seed"):
         T.flash_attention(q, q, q, dropout_p=0.1)
+
+
+# ---------------------------------------------------------------------------
+# the additive bias and the segment ids (packed varlen sequences)
+# ---------------------------------------------------------------------------
+
+#: fp16 parity: one fp16 rounding (2^-11) of values up to a few, taken at
+#: other points on the two sides (the TPU kernel rounds p against the
+#: running max of its tile, the plain version against the row's)
+TOL_F16 = 5e-3
+TOLS = {**TOL, "float16": TOL_F16}
+
+#: the bias shapes of the JAX kernels' ``_bias_args``: full, broadcast over
+#: batch, the key-padding form [b, 1, 1, s_k], broadcast over batch and head
+BIAS_SHAPES = {"full": (B, N, S, S), "batch1": (1, N, S, S),
+               "keypad": (B, 1, 1, S), "shared": (1, 1, S, S)}
+
+
+def _bias(shape, seed=5):
+    """A bias of order 1; the key-padding form folds a -1e30 mask in, with
+    every key of batch row 1 masked (a fully masked row through the
+    bias)."""
+    rng = np.random.default_rng(seed)
+    bias = (0.5 * rng.normal(size=shape)).astype(np.float32)
+    if shape[1:3] == (1, 1):
+        bias[0, ..., (5 * S) // 6:] = -1e30
+        bias[1] = -1e30
+    return bias
+
+
+def _bias_case(shape_name, causal, bias_grad, dtype, p=0.0):
+    """o, lse, dq, dk, dv and dbias of the port (its plain versions on the
+    CPU) against the JAX package's Pallas kernels in interpret mode, 16-row
+    tiles, on the same numpy inputs; dbias is zeros with ``bias_grad``
+    off."""
+    q, k, v, do, _ = _inputs(6)
+    bias = _bias(BIAS_SHAPES[shape_name])
+    seed = 9 if p else None
+    jdt = getattr(jnp, dtype)
+    jx = [jnp.asarray(a, jdt) for a in (q, k, v, do)]
+    jb = jnp.asarray(bias)
+    jkw = dict(causal=causal, bias_grad=bias_grad, dropout_p=p,
+               dropout_seed=seed, block_q=16, block_k=16)
+    jo, vjp = jax.vjp(lambda a, b, c, e: J.flash_attention(
+        a, b, c, bias=e, **jkw), *jx[:3], jb)
+    jdq, jdk, jdv, jdb = vjp(jx[3])
+    _, jlse = J._fwd(*jx[:3], jb, None, None, None, seed, D ** -0.5, causal,
+                     p, 16, 16, True)
+
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in
+          (q, k, v, do)]
+    tb = torch.from_numpy(bias).requires_grad_(True)
+    for t in tx[:3]:
+        t.requires_grad_(True)
+    tkw = dict(causal=causal, dropout_p=p, dropout_seed=seed)
+    to = T.flash_attention(*tx[:3], bias=tb, bias_grad=bias_grad, **tkw)
+    to.backward(tx[3])
+    _, tlse = T.flash_attention_fwd(*(t.detach() for t in tx[:3]),
+                                    bias=tb.detach(), **tkw)
+    tol = TOLS[dtype]
+    for want, got in ((jo, to), (jlse, tlse), (jdq, tx[0].grad),
+                      (jdk, tx[1].grad), (jdv, tx[2].grad)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    assert tb.grad.shape == tb.shape and tb.grad.dtype == torch.float32
+    if not bias_grad:
+        assert not bool(tb.grad.any()) and not bool(jnp.any(jdb))
+    else:
+        np.testing.assert_allclose(_np(tb.grad), _np(jdb), rtol=tol,
+                                   atol=tol)
+    if shape_name == "keypad":  # batch row 1: every key masked by the bias
+        assert not bool(to[1].any()) and bool((tlse[1] == -1e30).all())
+        assert not bool(tx[0].grad[1].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("bias_grad", [True, False],
+                         ids=["bias_grad", "const_bias"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape_name", list(BIAS_SHAPES))
+def test_flash_bias_matches_jax_interpret(shape_name, causal, bias_grad,
+                                          dtype):
+    """Every broadcast shape of the bias, causal and not, with and without
+    its gradient (dbias summed over the broadcast dims), in every dtype."""
+    _bias_case(shape_name, causal, bias_grad, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_bias_with_dropout_matches_jax_interpret(dtype):
+    """A full bias with its gradient under hash dropout 0.1."""
+    _bias_case("full", True, True, dtype, p=0.1)
+
+
+def test_flash_bias_shape_is_checked():
+    q = torch.zeros(2, 2, 8, 16)
+    with pytest.raises(ValueError, match=r"must be \[b\|1, n\|1"):
+        T.flash_attention(q, q, q, bias=torch.zeros(2, 2, 8, 4))
+    with pytest.raises(ValueError, match=r"must be \[b\|1, n\|1"):
+        T.flash_attention(q, q, q, bias=torch.zeros(3, 1, 1, 8))
+
+
+def test_plain_backward_dbias_matches_autograd():
+    """The plain backward's dbias (ds, before any sum) equals torch
+    autograd through the plain forward with a full bias, fp32 1e-5."""
+    q, k, v, do, _ = _inputs(7)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tb = torch.from_numpy(_bias((B, N, S, S), 8)).requires_grad_(True)
+    o, lse = T.flash_attention_fwd_reference(tq, tk, tv, bias=tb,
+                                             causal=True)
+    o.backward(torch.from_numpy(do))
+    *_, dbias = T.flash_attention_bwd_reference(
+        tq, tk, tv, o.detach(), lse.detach(), torch.from_numpy(do),
+        bias=tb.detach(), bias_grad=True, causal=True)
+    torch.testing.assert_close(dbias, tb.grad, rtol=1e-5, atol=1e-5)
+
+
+#: packed sequences of 16 tokens' multiples and not: JAX's segment ids run
+#: on 16-row tiles, so several tiles hold two sequences; the last case
+#: leaves 8 tokens past cu_seqlens[-1] (one padding segment)
+VARLEN_CASES = {"three": ([20, 36, 8], 64), "ragged": ([5, 27, 16], 48),
+                "padded": ([24, 16], 48)}
+
+
+def _varlen_inputs(lens, total, seed=10, n=2, d=D):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=(total, n, d)).astype(np.float32)
+                   for _ in range(4))
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return q, k, v, do, cu
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("case", list(VARLEN_CASES))
+def test_flash_varlen_matches_jax_interpret(case, causal, dtype):
+    """flash_attention_varlen (segment ids from cu_seqlens) against the
+    JAX package's in interpret mode, forward and backward."""
+    lens, total = VARLEN_CASES[case]
+    q, k, v, do, cu = _varlen_inputs(lens, total)
+    jdt = getattr(jnp, dtype)
+    jx = [jnp.asarray(a, jdt) for a in (q, k, v, do)]
+    jo, vjp = jax.vjp(lambda a, b, c: J.flash_attention_varlen(
+        a, b, c, jnp.asarray(cu), causal=causal, block_q=16, block_k=16),
+        *jx[:3])
+    jgrads = vjp(jx[3])
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_(True)
+          for a in (q, k, v)]
+    to = T.flash_attention_varlen(*tx, torch.from_numpy(cu), causal=causal)
+    to.backward(torch.from_numpy(do).to(getattr(torch, dtype)))
+    assert tuple(to.shape) == (total, 2, D) and to.dtype == tx[0].dtype
+    tol = TOLS[dtype]
+    for want, got in ((jo, to), *zip(jgrads, (t.grad for t in tx))):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("case", list(VARLEN_CASES))
+def test_flash_varlen_matches_per_sequence_reference(case, causal):
+    """The port's varlen attention against its per-sequence reference and
+    the JAX package's ``mha_reference_varlen``, fp32 1e-5."""
+    lens, total = VARLEN_CASES[case]
+    q, k, v, _, cu = _varlen_inputs(lens, total, seed=11)
+    tx = [torch.from_numpy(a) for a in (q, k, v)]
+    got = T.flash_attention_varlen(*tx, torch.from_numpy(cu), causal=causal)
+    ref = T.mha_reference_varlen(*tx, torch.from_numpy(cu), causal=causal)
+    jref = J.mha_reference_varlen(*(jnp.asarray(a) for a in (q, k, v)),
+                                  jnp.asarray(cu), causal=causal)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(ref.numpy(), np.asarray(jref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_segment_ids_match_jax():
+    cu = np.array([0, 5, 5, 17, 30], np.int32)
+    got = T.segment_ids_from_cu_seqlens(torch.from_numpy(cu), 36)
+    want = J.segment_ids_from_cu_seqlens(jnp.asarray(cu), 36)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_mha_reference_with_bias_matches_jax():
+    q, k, v, _, _ = _inputs(12)
+    bias = _bias((1, N, S, S), 13)
+    want = J.mha_reference(*(jnp.asarray(a) for a in (q, k, v)),
+                           bias=jnp.asarray(bias), causal=True)
+    got = T.mha_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                          bias=torch.from_numpy(bias), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +418,11 @@ def test_flash_attention_available_per_head_dim(d):
     on_card = T.flash_attention_available(1024, 1024, d,
                                           torch.device("cuda"))
     assert on_card == (d in (32, 64, 96, 128, 256))
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        assert T.flash_attention_available(1024, 1024, d, "cuda",
+                                           dt) == on_card
+    assert not T.flash_attention_available(1024, 1024, d, "cuda",
+                                           torch.float64)
     assert T.flash_attention_available(1024, 1024, d, "cpu")
     assert T.flash_attention_available(1000, 1000, d, None)
 

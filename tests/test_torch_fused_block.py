@@ -121,6 +121,17 @@ def _gelu_f64(z):
             0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * d_inner, d_inner)
 
 
+def _cpu_state() -> str:
+    """What sets torch's CPU arithmetic in this process: the vector ISA
+    ATen dispatches to, the intra-op thread count, and whether denormals
+    survive a multiply on this thread (``torch.set_flush_denormal`` off)."""
+    tiny = torch.tensor([1e-39], dtype=torch.float32)
+    kept = bool((tiny * torch.tensor([1.0])).item() != 0.0)
+    return (f"cpu capability {torch.backends.cpu.get_cpu_capability()}, "
+            f"{torch.get_num_threads()} threads, denormals "
+            f"{'kept' if kept else 'flushed'}")
+
+
 def _within_fp32_gelu_error(got, z, g, what):
     """One package's fp32 ``y`` and ``dx`` against the float64 GeLU of
     the same fp32 ``z = x + b``, within the error of fp32 arithmetic:
@@ -141,7 +152,8 @@ def _within_fp32_gelu_error(got, z, g, what):
         err = np.abs(np.asarray(v, np.float64) - want)
         bad = err > lim
         assert not bad.any(), (what, name, float(err.max()),
-                               int(bad.sum()), float((err / lim).max()))
+                               int(bad.sum()), float((err / lim).max()),
+                               _cpu_state())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -295,8 +307,11 @@ def test_fused_block_available_and_kernel_refusals():
         tfb._kernel_args("t", (torch.zeros(2, 0),), ())
     with pytest.raises(ValueError, match="one dtype"):
         tfb._kernel_args("t", (x, x.to(torch.bfloat16)), ())
+    # fp16 is taken, as fp32 and bf16; a dtype no kernel instantiates not
+    rows, _ = tfb._kernel_args("t", (x.to(torch.float16),), ())
+    assert rows[0].dtype == torch.float16
     with pytest.raises(ValueError, match="one dtype"):
-        tfb._kernel_args("t", (x.to(torch.float16),), ())
+        tfb._kernel_args("t", (x.to(torch.float64),), ())
     with pytest.raises(ValueError, match="aligned"):
         tfb._kernel_args("t", (torch.zeros(4 * 64 + 1)[1:].view(4, 64),), ())
     rows, params = tfb._kernel_args("t", (x,), (torch.ones(64,

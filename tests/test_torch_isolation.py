@@ -65,7 +65,9 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "contrib.layer_norm.layer_norm",
                  "resilience.watchdog", "resilience.chaos",
                  "resilience.retry", "serving.spec_decode",
-                 "serving.robustness", "telemetry.spans"):
+                 "serving.robustness", "telemetry.spans",
+                 "contrib.fmha.fmha", "contrib.multihead_attn.multihead_attn",
+                 "contrib.openfold.mha", "contrib.openfold.layer_norm"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 

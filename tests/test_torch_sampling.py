@@ -127,6 +127,30 @@ def test_deep_sort_branch_taken():
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_sort_path_decides_tokens_like_jax(seed):
+    """Every sampled row's top-p reaches past the TOP_FILTER_WIDTH prefix
+    (flat rows, top-p 0.99): the full sort's thresholds decide what each
+    keeps (more tokens than the prefix holds), and the sampled tokens
+    equal the JAX sampler's, which takes its sort under lax.cond."""
+    rng = np.random.default_rng(100 + seed)
+    R, V = 4, 512
+    logits = (rng.normal(size=(R, V)) * 0.02).astype(np.float32)
+    temps = np.asarray([0.0, 0.8, 1.0, 1.2], np.float32)
+    top_ks = np.zeros(R, np.int32)
+    top_ps = np.full(R, 0.99, np.float32)
+    seeds = rng.integers(-2 ** 31, 2 ** 31, size=R).astype(np.int32)
+    rids = rng.integers(0, 1000, size=R).astype(np.int32)
+    pos = rng.integers(0, 4096, size=R).astype(np.int32)
+    args = (logits, temps, top_ks, top_ps, seeds, rids, pos)
+    allowed = tsamp._filtered_logits(*map(torch.from_numpy, args[:4]))
+    kept = torch.isfinite(allowed).sum(dim=-1)
+    assert bool((kept[1:] > tsamp.TOP_FILTER_WIDTH).all())
+    want = np.asarray(jsamp.sample_tokens(*map(jnp.asarray, args)))
+    got = tsamp.sample_tokens(*map(torch.from_numpy, args))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_greedy_rows_and_host_flag():
     args = list(_batch(1))
     args[1] = np.zeros_like(args[1])  # all greedy
