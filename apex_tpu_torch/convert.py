@@ -20,6 +20,15 @@ state. ``novograd_state_from_jax`` does the same for the pytree
 scaler's ``LossScaleState``, ``numerics_state_from_jax`` and
 ``metrics_state_from_jax`` for the telemetry states: a test can start
 both packages mid-run.
+
+``resnet_params_from_jax`` carries the imagenet example's flax
+``params`` and ``batch_stats`` into the port's ResNet
+(``examples/imagenet/resnet.py``): the key paths stay flax's, HWIO conv
+kernels become ``[out, in, kh, kw]`` (channels-last in memory) and
+``[in, out]`` dense kernels ``[out, in]``; ``resnet_params_to_jax`` is
+its inverse (numpy, flax layouts). ``fused_sgd_state_from_jax`` carries
+a pytree ``FusedSGDState`` (momentum buffers and masters through a
+caller-given tree map, ``resnet_params_from_jax``'s for the ResNet).
 """
 from __future__ import annotations
 
@@ -146,3 +155,69 @@ def metrics_state_from_jax(state: Mapping[str, Any], device="cpu"):
     return MetricsState(total_steps=int(np.asarray(state["total_steps"])),
                         window_steps=int(np.asarray(state["window_steps"])),
                         **fields)
+
+
+def _resnet_leaf(key: str, t: torch.Tensor, to_port: bool) -> torch.Tensor:
+    if key != "kernel":
+        return t
+    if t.dim() == 4:  # HWIO <-> OIHW
+        if to_port:
+            return t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        return t.permute(2, 3, 1, 0)
+    if t.dim() == 2:  # [in, out] <-> [out, in]
+        return t.t().contiguous() if to_port else t.t()
+    return t
+
+
+def _resnet_map(tree: Any, fn, key: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _resnet_map(v, fn, k) for k, v in tree.items()}
+    return fn(key, tree)
+
+
+def resnet_params_from_jax(params: Any, batch_stats: Any = None,
+                           device="cpu", dtype: Optional[torch.dtype] = None):
+    """The imagenet example's flax ``params`` (and ``batch_stats``), numpy
+    leaves, as the port's ResNet trees on ``device``: ``(params,
+    batch_stats)`` (``batch_stats`` None when not given). Float leaves are
+    cast to ``dtype`` when given; bf16 leaves arrive exactly."""
+    def leaf(key, a):
+        return _resnet_leaf(key, _leaf(a, "cpu", dtype), True).to(device)
+
+    p = _resnet_map(params, leaf)
+    s = None if batch_stats is None else params_from_jax(batch_stats,
+                                                         device)
+    return p, s
+
+
+def resnet_params_to_jax(tree: Any) -> Any:
+    """A port ResNet tree (params, or a tree of the same structure such as
+    momentum buffers) as numpy arrays in flax's layouts; bf16 leaves come
+    back as float32 arrays (numpy has no bf16)."""
+    def leaf(key, t):
+        t = _resnet_leaf(key, t.detach().cpu(), False)
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.contiguous().numpy()
+    return _resnet_map(tree, leaf)
+
+
+def fused_sgd_state_from_jax(state: Mapping[str, Any], device="cpu",
+                             tree_from_jax=None):
+    """A JAX pytree ``FusedSGDState`` (``step``, ``momentum_buffer`` and
+    ``master_params``, numpy leaves, the last None without masters) as the
+    port's ``FusedSGDState``; ``tree_from_jax(tree, device)`` maps the
+    trees (default :func:`params_from_jax` in fp32)."""
+    from .optimizers.fused_sgd import FusedSGDState
+
+    if tree_from_jax is None:
+        def tree_from_jax(tree, dev):
+            return params_from_jax(tree, dev, torch.float32)
+    masters = state.get("master_params")
+    return FusedSGDState(
+        step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                          device=device),
+        momentum_buffer=tree_from_jax(state["momentum_buffer"], device),
+        master_params=(None if masters is None
+                       else tree_from_jax(masters, device)))

@@ -27,8 +27,10 @@ Tree = Any
 
 
 def tree_zeros_like(tree: Tree, dtype=torch.float32) -> Tree:
-    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
-                                          device=x.device), tree)
+    """Zeros shaped like each leaf, in its memory format (a channels-last
+    kernel gets a channels-last buffer, so updates keep the format)."""
+    return tree_map(lambda x: torch.zeros_like(x, dtype=dtype or x.dtype),
+                    tree)
 
 
 def tree_f32(tree: Tree) -> Tree:

@@ -53,8 +53,9 @@ any failure exits non-zero and prints no result line:
    statistics);
    times of kernel, plain version, one PyTorch library call as
    yardstick (the device time of SDPA, of ``F.layer_norm``'s and
-   ``F.rms_norm``'s backward kernels), and the least time the card could
-   take;
+   ``F.rms_norm``'s backward kernels, and of their forwards
+   at [8192, 1024] fp32 and bf16 beside each call's time), and the least
+   time the card could take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
    vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine(n_slots=8, prefill_chunk=8)`` on 16 staggered
@@ -148,7 +149,22 @@ any failure exits non-zero and prints no result line:
    MSA row attention [1, 128, 8, 256, 32] bf16 with a key mask and a pair
    bias with its gradient, and triangle attention [1, 256, 4, 256, 32]
    with its bias;
-9. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+9. ResNet-50 with amp (BASELINE config #1; no kernel of the port on its
+   path: cuDNN's convolutions, cuBLAS's classifier, plain PyTorch
+   BatchNorm and pytree FusedSGD): 224 px, 1000 classes, random weights
+   from a seed, one synthetic uint8 batch of 256 staged on the card,
+   through ``main_amp.make_train_step``: O2 bf16 (2 + 6 steps: p50 / p99,
+   images/s, peak memory, a profiled step's busy and idle share, its
+   device ops and any NCHW/NHWC transposes, the dtypes ``initialize``
+   gives each leaf), the overflow step (an input of 1e30, skipped bit for
+   bit, the scale halved), O2 fp16 with the dynamic scale (skips
+   counted), O0, O1 (inside its ``autocast`` context: a conv sees bf16,
+   ``log_softmax`` fp32) and O3 (1 + 3 steps each), every loss finite and
+   falling and no port kernel launched; card against CPU at batch 8 with
+   TF32 off in fp64, fp32 and bf16 (``RESNET_PARITY``); and
+   ``main_amp.main`` as a user runs it (O2, batch 256, 3 steps, a
+   checkpoint in a temporary directory);
+10. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
    main path (flash attention's also over phase 8's legs) except
@@ -175,7 +191,14 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _build, _device, telemetry
-from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
+from apex_tpu_torch import amp
+from apex_tpu_torch._tree import (
+    leaf_paths,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    value_and_grad,
+)
 from apex_tpu_torch.amp import LossScaler
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
 from apex_tpu_torch.contrib.fmha import FMHA
@@ -185,6 +208,7 @@ from apex_tpu_torch.contrib.multihead_attn import (
 )
 from apex_tpu_torch.contrib.openfold import attention_core
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.examples.imagenet import main_amp, resnet
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
 from apex_tpu_torch.normalization import (
     FusedLayerNorm,
@@ -1068,6 +1092,45 @@ def rms_norm_checks(dev):
                     "source": "apex_tpu_torch/csrc/layer_norm.cu",
                     "replaces": "apex_tpu/ops/layer_norm.py:261",
                     "max_abs_err": max(errs["rms_norm_bwd"]), **bwd}]
+    return out
+
+
+def norm_fwd_library_times(dev):
+    """The library yardstick of rows 2 and 4 as device time: the
+    LayerNorm (#2) and RMSNorm (#4) forward kernels against
+    ``F.layer_norm``'s and ``F.rms_norm``'s forward at [8192, 1024] fp32
+    and bf16, each call timed too (CUDA events) and device-timed
+    (profiler, every kernel of the call), so a call-time gap can be told
+    apart as host cost (call minus device)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, hidden = 8192, 1024
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn(rows, hidden, generator=g, device=dev) * 2
+             + 0.5).to(dt)
+        w = torch.randn(hidden, generator=g, device=dev)
+        b = torch.randn(hidden, generator=g, device=dev)
+        wl, bl = w.to(dt), b.to(dt)
+        cases = {
+            "layer_norm_fwd": (lambda: layer_norm_fwd(x, w, b, eps=1e-5),
+                               "ln_fwd_kernel"),
+            "F.layer_norm": (lambda: F.layer_norm(x, (hidden,), wl, bl,
+                                                  1e-5), ""),
+            "rms_norm_fwd": (lambda: rms_norm_fwd(x, w), "rms_fwd_kernel"),
+            "F.rms_norm": (lambda: F.rms_norm(x, (hidden,), wl, 1e-5), ""),
+        }
+        res = {}
+        for name, (fn, match) in cases.items():
+            call = time_ms(fn, iters=50)
+            dev_ms = device_ms(fn, match, iters=20)
+            res[name] = {"call_ms": call, "device_ms": dev_ms,
+                         "host_ms": None if dev_ms is None
+                         else call - dev_ms}
+        out[str(dt)[6:]] = res
+        log(f"  norm forwards [{rows},{hidden}] {str(dt)[6:]}: "
+            + "; ".join(f"{n} call {r['call_ms']:.4f} device "
+                        f"{r['device_ms']} ms" for n, r in res.items()))
+    log("  norm_fwd_json " + json.dumps(out))
     return out
 
 
@@ -2806,10 +2869,11 @@ def sampler_cost(dev, vocab: int, step_p50: float) -> None:
         f"the greedy step p50 {step_p50:.3f} ms")
 
 
-def profiled(run, label: str, top: int) -> None:
+def profiled(run, label: str, top: int) -> dict:
     """Print where ``run``'s time goes: device time by kernel from a
     ``torch.profiler`` trace against the run's wall time; the remainder
-    is device idle."""
+    is device idle. Returns the wall and busy ms, the count of device ops
+    and the ``(device ms, count, name)`` rows."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2828,6 +2892,8 @@ def profiled(run, label: str, top: int) -> None:
         f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}, profiler on)")
     for dev_ms, count, key in rows[:top]:
         log(f"    {dev_ms:9.3f} ms  x{count:6d}  {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "device_ops": sum(r[1] for r in rows), "rows": rows}
 
 
 def profile_steps(eng, rng, cfg) -> None:
@@ -4421,6 +4487,442 @@ def attention_contribs(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: ResNet-50 with amp and FusedSGD (BASELINE config #1)
+# ---------------------------------------------------------------------------
+
+#: ``bench.py``'s ResNet-50 leg (``bench_resnet_o2``, :515-573) and the
+#: reference example's defaults: 224 px, 1000 classes, batch 256 (the
+#: example's default and the largest point of the bench's sweep), SGD
+#: momentum 0.9, weight decay 1e-4, lr 0.1 scaled by batch / 256
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 256, 224, 1000
+#: RESNET_PARITY: card against CPU, one step of ResNet-50 at batch 8, TF32
+#: off. fp64 (the model in fp64 throughout: the same function in both
+#: places, free of fp32's cancellation): the loss within 1e-12 relative,
+#: every gradient leaf and running statistic within 1e-8 of its largest
+#: entry. fp32: the loss within 1e-4 relative, every running statistic
+#: within 1e-3 of its largest entry, and the card's gradients no farther
+#: from the fp64 step's than the CPU's: the whole tree in L2 within 4
+#: times the CPU's distance, each leaf within ``F32_LEAF_K`` times the
+#: CPU's distance plus ``F32_LEAF_FLOOR`` (both over the leaf's largest
+#: entry). Card against CPU directly is not held to 1e-3 a leaf: at this
+#: shape fp32 itself moves leaves summed from cancelling terms (the
+#: zero-initialised blocks' BatchNorm parameters, the downsample kernels)
+#: by up to 6e-2 of their largest entry from the fp64 result, on the card
+#: and on the CPU alike, each by its own rounding. bf16 (O2): the loss
+#: within 3e-2, each leaf within 3e-2 of its largest entry plus 5 times
+#: the CPU's own bf16 distance of that leaf from the fp64 result, each
+#: tree within twice that distance in L2
+#: (``tests/test_torch_resnet_train.py``)
+RESNET_PARITY_BATCH = 8
+#: the fp32 per-leaf gate: each gradient leaf's distance from the fp64
+#: step (over the leaf's largest entry) on the card at most
+#: ``F32_LEAF_K`` times the CPU's plus ``F32_LEAF_FLOOR``; the card's
+#: worst leaf measured 3.6 times the CPU's distance (1.36e-2 against
+#: 3.75e-3, a zero-initialised block's BatchNorm scale; H100 80GB HBM3,
+#: 700 W), so K is twice that, and a fault confined to one leaf (an
+#: error of the order of the leaf) still fails it
+F32_LEAF_K = 8.0
+F32_LEAF_FLOOR = 1e-4
+
+
+def _resnet_batch(dev, batch=RESNET_BATCH, seed=0):
+    """One synthetic uint8 NHWC batch and its labels, staged on ``dev``
+    (``--reuse-batches 1``): the same bytes as the JAX example's."""
+    x, y = next(main_amp.synthetic_batches(np.random.default_rng(seed), 1,
+                                           batch, RESNET_SIZE,
+                                           RESNET_CLASSES))
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _resnet_setup(dev, level, half, batch=RESNET_BATCH, seed=0):
+    """ResNet-50 weights from ``seed``, ``amp.initialize`` at ``level``,
+    FusedSGD, and ``main_amp.make_train_step``: ``(step, state,
+    amp_state)``."""
+    model = resnet.build_model("resnet50", num_classes=RESNET_CLASSES)
+    params, bstats = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = FusedSGD(lr=0.1 * batch / 256, momentum=0.9, weight_decay=1e-4)
+    params, opt, st = amp.initialize(params, opt, opt_level=level,
+                                     half_dtype=half)
+    cast = st.opt_properties.cast_model_type not in (None, torch.float32)
+    step = main_amp.make_train_step(model, opt, st.scaler(0), half, cast)
+    return step, (params, bstats, opt.init(params), st.scaler_state(0)), st
+
+
+def _check_o2_dtypes(label, state, half):
+    """JAX's ``initialize`` at O2: batchnorm leaves fp32, the rest in the
+    half dtype; the optimizer's masters fp32."""
+    params, _, ostate, _ = state
+    leaves, treedef = tree_flatten(params)
+    for path, leaf in zip(leaf_paths(treedef), leaves):
+        want = (torch.float32 if any(m in path.lower() for m in
+                                     ("batchnorm", "bn")) else half)
+        if leaf.dtype != want:
+            raise AssertionError(f"{label}: {path} is {leaf.dtype}, "
+                                 f"expected {want}")
+    if not all(m.dtype == torch.float32
+               for m in tree_leaves(ostate.master_params)):
+        raise AssertionError(f"{label}: masters not fp32")
+
+
+def resnet_leg(dev, label, level, half, warm, timed, x, y, profile=False):
+    """``warm`` + ``timed`` steps of ResNet-50 on one staged batch through
+    ``make_train_step`` (the O1 leg inside its ``autocast`` context):
+    step p50 / p99, images/s, peak memory, skipped steps and the scale;
+    every loss finite, the last below the first; no kernel of the port
+    launched; the dtypes the convs, the BatchNorms, the classifier and
+    log_softmax see on the first step are flax's (:func:`expected_dtypes`).
+    """
+    t_leg = time.perf_counter()
+    step, state, st = _resnet_setup(dev, level, half)
+    if level == "O2":
+        _check_o2_dtypes(label, state, half)
+    lr = 0.1 * RESNET_BATCH / 256
+    seen = {}
+    box = {"state": state}
+
+    def run():
+        with st.autocast():
+            out = step(*box["state"], x, y, lr)
+        box["state"] = out[:4]
+        return out
+
+    losses, times = [], []
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _device.reset_launch_counts()
+        if i == 0:
+            with _dtype_spies(seen):
+                out = run()
+        else:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            if i >= warm:
+                times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out[4])
+    launches = {k: c for k, c in _device.launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    ostate, sstate = box["state"][2], box["state"][3]
+    skips = warm + timed - int(ostate.step)
+    p50, p99 = (float(np.percentile(times, q)) for q in (50, 99))
+    res = {"leg": label, "p50_ms": p50, "p99_ms": p99,
+           "images_per_s": RESNET_BATCH / (p50 / 1e3), "peak_gib": peak,
+           "losses": losses, "step_ms": times, "skipped": skips,
+           "loss_scale": float(sstate.loss_scale), "port_launches": launches}
+    res["dtypes"] = seen
+    if profile:
+        prof = profiled(run, f"ResNet-50 {label} step", 12)
+        res.update(busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                   idle=1 - prof["busy_ms"] / prof["wall_ms"],
+                   device_ops=prof["device_ops"],
+                   layout_transposes=[
+                       (r[2][:80], r[1], r[0]) for r in prof["rows"]
+                       if "nchwToNhwc" in r[2] or "nhwcToNchw" in r[2]
+                       or "NchwToNhwc" in r[2] or "NhwcToNchw" in r[2]],
+                   top=[(r[2][:80], r[1], round(r[0], 3))
+                        for r in prof["rows"][:8]])
+    res["leg_s"] = time.perf_counter() - t_leg
+    log(f"  {label}: step p50 {p50:.2f} ms p99 {p99:.2f} ms, "
+        f"{res['images_per_s']:.0f} images/s at p50; loss first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f}; peak {peak:.2f} GiB; "
+        f"skipped {skips}, scale {res['loss_scale']:g}; the leg "
+        f"{res['leg_s']:.1f} s")
+    log("  resnet_json " + json.dumps(res))
+    if launches:
+        raise AssertionError(f"{label}: port kernels launched on the "
+                             f"ResNet path: {launches}")
+    if seen != expected_dtypes(level, half):
+        raise AssertionError(f"{label}: dtypes {seen}, expected "
+                             f"{expected_dtypes(level, half)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    return res, box["state"], step, st
+
+
+@contextlib.contextmanager
+def _dtype_spies(seen):
+    """Record the dtypes the ResNet's ops receive and give: the input and
+    the kernel of every F.conv2d, the input of F.linear and F.log_softmax,
+    the output of every BatchNorm. Installed before ``autocast`` patches,
+    so the spies see the casted arguments."""
+    saved = {(F, n): getattr(F, n) for n in ("conv2d", "linear",
+                                             "log_softmax")}
+    saved[(resnet, "_batch_norm")] = resnet._batch_norm
+
+    def note(name, t):
+        seen.setdefault(name, set()).add(str(t.dtype))
+
+    def spy(mod, name):
+        orig = saved[(mod, name)]
+
+        def fn(t, *a, **k):
+            if mod is resnet:
+                out = orig(t, *a, **k)
+                note("batch_norm", out)
+                return out
+            note(name, t)
+            if name == "conv2d":
+                note("conv2d.weight", a[0])
+            return orig(t, *a, **k)
+        return fn
+
+    for mod, n in saved:
+        setattr(mod, n, spy(mod, n))
+    try:
+        yield
+    finally:
+        for (mod, n), f in saved.items():
+            setattr(mod, n, f)
+        for n in seen:
+            seen[n] = sorted(seen[n])
+
+
+def expected_dtypes(level, half):
+    """The dtypes flax's flow gives at ``level``: the convs compute in the
+    half dtype over half kernels (O0: fp32), every BatchNorm outputs fp32,
+    the classifier takes fp32 (O1: its autocast casts it to the half
+    dtype), log_softmax fp32."""
+    conv = "torch.float32" if level == "O0" else str(half)
+    return {"conv2d": [conv], "conv2d.weight": [conv],
+            "batch_norm": ["torch.float32"],
+            "linear": [str(half) if level == "O1" else "torch.float32"],
+            "log_softmax": ["torch.float32"]}
+
+
+def resnet_overflow(label, step, state, st, x):
+    """One step on an input of 1e30 (``tests/test_examples.py:66``'s
+    overflow): params, running statistics and optimizer state bit for
+    bit, the step count kept, the scale halved."""
+    before = [t.clone() for t in tree_leaves(state[:3])]
+    scale = float(state[3].loss_scale)
+    big = torch.full(x.shape, 1e30, device=x.device)
+    y0 = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    out = step(*state, big, y0, 0.1)
+    torch.cuda.synchronize()
+    after = tree_leaves(out[:3])
+    if not all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(before, after)):
+        raise AssertionError(f"{label}: the overflow step changed the "
+                             f"state")
+    if float(out[3].loss_scale) != scale / 2:
+        raise AssertionError(f"{label}: scale {float(out[3].loss_scale)} "
+                             f"after the overflow, was {scale}")
+    log(f"  {label}: an input of 1e30 skipped the step bit for bit "
+        f"({len(before)} tensors), scale {scale:g} -> "
+        f"{float(out[3].loss_scale):g}")
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN and matmul inside, the settings restored after;
+    both logged."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    log(f"  TF32 before: cudnn {saved[0]}, matmul {saved[1]}; off inside")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+        log(f"  TF32 restored: cudnn {saved[0]}, matmul {saved[1]}")
+
+
+def _resnet_grads(dev, level, half, params_cpu, bstats_cpu, x, y,
+                  cast_model_type=None):
+    """Loss, gradients and new running statistics of one ResNet-50
+    forward and backward at ``level`` on ``dev``, from the same weights."""
+    model = resnet.build_model("resnet50", num_classes=RESNET_CLASSES)
+    params = tree_map(lambda t: t.to(dev), params_cpu)
+    bstats = tree_map(lambda t: t.to(dev, half if half == torch.float64
+                                     else torch.float32), bstats_cpu)
+    params, _, st = amp.initialize(params, None, opt_level=level,
+                                   half_dtype=half,
+                                   cast_model_type=cast_model_type)
+    cast = st.opt_properties.cast_model_type not in (None, torch.float32)
+    xx = main_amp._normalize(x.to(dev), half, cast)
+    out = {}
+
+    def loss_fn(p):
+        logits, out["new"] = model.apply(p, bstats, xx, train=True)
+        return main_amp._loss(logits, y.to(dev))
+
+    # no loss scale (its unscale would round fp64 gradients through fp32)
+    loss, grads = value_and_grad(loss_fn, params)
+    return (float(loss), tree_map(lambda t: t.double().cpu(), grads),
+            tree_map(lambda t: t.double().cpu(), out["new"]))
+
+
+def _leaf_gaps(got, want):
+    """Each leaf's max error over its largest entry (0-entry leaves: the
+    max error itself), with the leaves' paths."""
+    leaves, treedef = tree_flatten(want)
+    out = []
+    for path, a, b in zip(leaf_paths(treedef), tree_leaves(got), leaves):
+        scale = float(b.abs().max())
+        out.append((float((a - b).abs().max()) / (scale if scale else 1.0),
+                    path))
+    return out
+
+
+def _tree_rel(got, want):
+    a = torch.cat([t.reshape(-1) for t in tree_leaves(got)])
+    b = torch.cat([t.reshape(-1) for t in tree_leaves(want)])
+    return float((a - b).norm() / b.norm())
+
+
+def resnet_parity(dev):
+    """ResNet-50 at full width, batch 8, 224 px, one step, card against
+    CPU, TF32 off: fp64, fp32 (O0) and bf16 (O2)."""
+    params, bstats = resnet.init_params(
+        "resnet50", torch.Generator().manual_seed(3),
+        num_classes=RESNET_CLASSES)
+    x, y = _resnet_batch("cpu", RESNET_PARITY_BATCH, seed=4)
+    runs = {}
+    t0 = time.perf_counter()
+    with tf32_off():
+        for key, level, half, cmt in (
+                ("f64", "O0", torch.float64, torch.float64),
+                ("f32", "O0", torch.float32, None),
+                ("bf16", "O2", torch.bfloat16, None)):
+            runs[key] = tuple(_resnet_grads(d, level, half, params, bstats,
+                                            x, y, cmt)
+                              for d in (dev, "cpu"))
+    log(f"  parity runs: {time.perf_counter() - t0:.1f} s")
+    summary = {}
+    ref = runs["f64"][0]
+    for key, loss_tol in (("f64", 1e-12), ("f32", 1e-4)):
+        card, cpu = runs[key]
+        rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        grads, stats = _leaf_gaps(card[1], cpu[1]), _leaf_gaps(card[2],
+                                                               cpu[2])
+        worst = sorted(grads, reverse=True)[:4]
+        summary[key] = {"loss_rel": rel, "grad_tree_rel": _tree_rel(
+            card[1], cpu[1]), "grad_worst": worst[0][0],
+            "grad_worst_leaf": worst[0][1], "stats_worst": max(stats)[0],
+            # how far each side's gradients lie from the fp64 step's
+            "card_vs_f64_tree": _tree_rel(card[1], ref[1]),
+            "cpu_vs_f64_tree": _tree_rel(cpu[1], ref[1]),
+            "card_vs_f64_worst": max(_leaf_gaps(card[1], ref[1]))[0],
+            "cpu_vs_f64_worst": max(_leaf_gaps(cpu[1], ref[1]))[0]}
+        log(f"  {key} parity: loss {card[0]:.8f} vs {cpu[0]:.8f} (rel "
+            f"{rel:.2e}); worst gradient leaves "
+            f"{[(f'{g:.2e}', p) for g, p in worst]}; "
+            + ", ".join(f"{k} {v:.2e}" for k, v in summary[key].items()
+                        if isinstance(v, float)))
+        bad = rel > loss_tol or max(stats)[0] > (1e-8 if key == "f64"
+                                                 else 1e-3)
+        if key == "f64":
+            bad |= worst[0][0] > 1e-8
+        else:  # the card's fp32 rounding no coarser than the CPU's
+            bad |= summary[key]["card_vs_f64_tree"] > max(
+                4 * summary[key]["cpu_vs_f64_tree"], 1e-6)
+            # and so leaf by leaf: each leaf's distance from the fp64
+            # step over the CPU's, the worst logged with the gate's margin
+            pairs = [(c, u, p) for (c, p), (u, _) in zip(
+                _leaf_gaps(card[1], ref[1]), _leaf_gaps(cpu[1], ref[1]))]
+            over = [(c / (F32_LEAF_K * u + F32_LEAF_FLOOR), c, u, p)
+                    for c, u, p in pairs]
+            summary[key]["leaf_gate_worst"] = max(over)[0]
+            log(f"  f32 leaves against fp64 (card, CPU, gate share), the "
+                f"worst 6: {[(f'{c:.2e}', f'{u:.2e}', f'{r:.2f}', p) for r, c, u, p in sorted(over, reverse=True)[:6]]}")
+            bad |= max(over)[0] > 1
+        if bad:
+            raise AssertionError(f"ResNet-50 {key} card against CPU out of "
+                                 f"tolerance")
+    card16, cpu16 = runs["bf16"]
+    rel16 = abs(card16[0] - cpu16[0]) / abs(cpu16[0])
+    worst_leaf, worst_ratio = 0.0, 0.0
+    for tree_i in (1, 2):
+        got, want, floor_ref = (tree_leaves(t[tree_i])
+                                for t in (card16, cpu16, ref))
+        for a, b, r in zip(got, want, floor_ref):
+            err, m = float((a - b).abs().max()), float(b.abs().max())
+            limit = 3e-2 * m + 5 * float((b - r).abs().max())
+            worst_leaf = max(worst_leaf, err / max(m, 1e-30))
+            if err > limit:
+                raise AssertionError(f"ResNet-50 bf16 leaf: {err:.3e} over "
+                                     f"{limit:.3e}")
+        ga = torch.cat([t.reshape(-1) for t in got])
+        gb = torch.cat([t.reshape(-1) for t in want])
+        gr = torch.cat([t.reshape(-1) for t in floor_ref])
+        ratio = float((ga - gb).norm() / (gb - gr).norm())
+        worst_ratio = max(worst_ratio, ratio)
+        if ratio > 2:
+            raise AssertionError(f"ResNet-50 bf16 tree: L2 {ratio:.2f} of "
+                                 f"the bf16 floor")
+    log(f"  bf16 O2 parity: loss {card16[0]:.6f} vs {cpu16[0]:.6f} (rel "
+        f"{rel16:.2e}); worst leaf {worst_leaf:.2e} of its largest entry, "
+        f"worst tree L2 {worst_ratio:.2f} of the CPU's bf16 distance from "
+        f"fp64")
+    if rel16 > 3e-2:
+        raise AssertionError("ResNet-50 bf16 loss out of tolerance")
+    summary["bf16"] = {"loss_rel": rel16, "leaf_worst": worst_leaf,
+                       "tree_l2_ratio_worst": worst_ratio}
+    log("  resnet_parity_json " + json.dumps(summary))
+
+
+def resnet_cli():
+    """``main_amp.main`` as a user runs it, in a temporary directory:
+    ResNet-50 O2, batch 256, 3 steps, ``--deterministic``."""
+    import io
+    import os
+
+    argv = ["--synthetic", "--arch", "resnet50", "--opt-level", "O2", "-b",
+            "256", "--epochs", "1", "--steps-per-epoch", "3",
+            "--deterministic", "--print-freq", "1"]
+    saved = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(buf):
+                main_amp.main(main_amp.parse(argv))
+            written = os.path.exists("checkpoint.pkl")
+        finally:
+            os.chdir(cwd)
+            (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic) = saved
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    if "Epoch: [0][2/3]" not in text or "Speed" not in text or not written:
+        raise AssertionError("main_amp: no Epoch [0][2/3] / Speed line or "
+                             "no checkpoint.pkl")
+
+
+def resnet_phase(dev):
+    """Phase 9: ResNet-50 at 224 px, 1000 classes, random weights from a
+    seed, one synthetic batch staged on the card: the O2 bf16 headline
+    (2 + 6 steps, profiled), O2 fp16 with the dynamic scale, O0, O1 (in
+    its autocast context, the dtypes a conv and log_softmax see asserted)
+    and O3 (1 + 3 steps each), the overflow step, card-against-CPU parity
+    and the example's CLI. cudnn.benchmark stays off (the default): on, its
+    autotuning of each leg's convolutions took ~110 s of the phase and
+    moved no step time (H100 80GB HBM3, 700 W)."""
+    log(f"  cudnn.benchmark {torch.backends.cudnn.benchmark}, "
+        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    x, y = _resnet_batch(dev)
+    _, state, step, st = resnet_leg(dev, "O2 bf16", "O2", torch.bfloat16, 2,
+                                    6, x, y, profile=True)
+    resnet_overflow("O2 bf16", step, state, st, x)
+    del state
+    resnet_leg(dev, "O2 fp16", "O2", torch.float16, 2, 6, x, y)
+    for level in ("O0", "O1", "O3"):
+        resnet_leg(dev, level, level, torch.bfloat16, 1, 3, x, y)
+    torch.cuda.empty_cache()
+    resnet_parity(dev)
+    resnet_cli()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4469,6 +4971,8 @@ def main() -> int:
     ln_bwd["max_abs_err"] = max(ln_bwd["max_abs_err"], ln_wide_errs[1],
                                 tier_errs[0])
     rms[1]["max_abs_err"] = max(rms[1]["max_abs_err"], tier_errs[1])
+    phase("phase 2: the norm forwards against F.layer_norm and F.rms_norm, "
+          "device time", norm_fwd_library_times, dev)
     serving = phase("phase 3: GPT-2 345M bf16 serving", serve_345m, dev)
     overload = phase("phase 3b: GPT-2 345M bf16 serving under a 2x overload "
                      "storm (admission, deadlines, degradation armed)",
@@ -4566,6 +5070,9 @@ def main() -> int:
     contrib = phase("phase 8: the attention contribs (fmha, multihead_attn, "
                     "openfold) at full width, kernels against plain "
                     "versions", attention_contribs, dev)
+    phase("phase 9: ResNet-50 amp O0-O3 with FusedSGD (BASELINE config "
+          "#1), the overflow skip, card against CPU, the example's CLI",
+          resnet_phase, dev)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]

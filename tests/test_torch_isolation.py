@@ -67,7 +67,11 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "resilience.retry", "serving.spec_decode",
                  "serving.robustness", "telemetry.spans",
                  "contrib.fmha.fmha", "contrib.multihead_attn.multihead_attn",
-                 "contrib.openfold.mha", "contrib.openfold.layer_norm"):
+                 "contrib.openfold.mha", "contrib.openfold.layer_norm",
+                 "amp.amp", "amp.utils", "amp.handle", "amp.frontend",
+                 "amp.lists.torch_overrides", "fp16_utils.fp16util",
+                 "fp16_utils.loss_scaler", "fp16_utils.fp16_optimizer",
+                 "examples.imagenet.resnet", "examples.imagenet.main_amp"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 
@@ -99,6 +103,21 @@ def test_engine_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, params)
     ServingEngine(cfg, params, device="cpu")  # the explicit CPU path
+
+
+def test_amp_and_the_resnet_example_default_to_the_card():
+    """``amp.initialize`` over a tree with no tensor puts its scaler
+    states on the card, and the example's ``--device`` default is the
+    card: on a host without one both raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet import main_amp
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        amp.initialize({}, None, opt_level="O2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_amp.main(main_amp.parse(["--synthetic", "--arch", "resnet18"]))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
