@@ -51,15 +51,16 @@ _ARGTYPES = {
     # n_slots, n_heads, head_dim, page_size, pages_per_seq, n_splits,
     # split_len, scale, q_dtype, kv_dtype, device, stream
     "apex_flash_decode": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _I, _P],
-    # x, w, b, y, mu, rstd, rows, hidden, eps, x_dtype, device, stream
-    "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
-                            _P],
+    # x, w, b, y, mu, rstd, rows, hidden, eps, x_dtype, blocks,
+    # rows_per_block, warps_per_row, vecs, device, stream
+    "apex_layer_norm_fwd": [_P] * 6 + [_I, _I, _F] + [_I] * 6 + [_P],
     # dy, x, mu, rstd, w, dx, dw_part, db_part, dw, db, rows, hidden,
     # dy_dtype, x_dtype, x_is_xhat, n_part, rows_per_block,
     # warps_per_row, quads, device, stream
     "apex_layer_norm_bwd": [_P] * 10 + [_I] * 10 + [_P],
-    # x, w, y, rstd, rows, hidden, eps, x_dtype, device, stream
-    "apex_rms_norm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
+    # x, w, y, rstd, rows, hidden, eps, x_dtype, blocks, rows_per_block,
+    # warps_per_row, vecs, device, stream
+    "apex_rms_norm_fwd": [_P] * 4 + [_I, _I, _F] + [_I] * 6 + [_P],
     # dy, x, rstd, w, dx, dw_part, dw, rows, hidden, dy_dtype, x_dtype,
     # x_is_xhat, n_part, rows_per_block, warps_per_row, quads, device, stream
     "apex_rms_norm_bwd": [_P] * 7 + [_I] * 10 + [_P],

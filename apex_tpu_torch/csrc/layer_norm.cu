@@ -9,17 +9,47 @@
 // and mu, rstd are written as [rows, 1] fp32. The variance is the centred
 // two-pass form the TPU kernel uses, not E[x^2] - E[x]^2.
 //
-// What bounds it on the H100: device-memory bytes, one read of x and one
-// write of y (about 8 flops per element against 8 bytes in fp32). At the
-// serving shapes ([8, 1024] and [64, 1024] fp32) the whole call moves 64 KB
-// to 512 KB, so its time is launch latency, not bandwidth.
+// RMSNorm forward. Replaces: apex_tpu/ops/layer_norm.py, _rms_fwd_pallas /
+// _rms_fwd_kernel. For each row:
+//   rstd = rsqrt(mean(x^2) + eps);  y = (x * rstd) * w   (y in x's dtype)
+// and rstd is written as [rows, 1] fp32 (RMSNorm subtracts no mean).
 //
-// Design: one block per row, so a row's reductions never leave the SM
-// (the TPU kernel held whole row blocks in VMEM; here a row of hidden
-// <= 64k fp32 is re-read from L1/L2 for the second and third sweeps, which
-// at these sizes costs less than staging it). Each sweep is a strided loop
-// over the row (neighbouring threads read neighbouring elements) followed
-// by a warp-shuffle then shared-memory block sum in fp32.
+// What bounds both on the H100: device-memory bytes, one read of x and one
+// write of y (about 8 flops per element against 4 to 8 bytes). The fp32
+// parameters are [hidden], read once per block. At the serving shapes
+// ([8, 1024] and [64, 1024] fp32) a call moves 64 KB to 512 KB, so its time
+// is launch latency, not bandwidth.
+//
+// Design (the backward's team template below, without its column pass). The
+// host plans the launch (apex_tpu_torch/ops/layer_norm.py, norm_fwd_plan)
+// from rows, hidden, the SM count, the element size and the norm:
+// (1) rows up to kFwdTier columns: ln_fwd_team_kernel / rms_fwd_team_kernel.
+//     A team of 1, 2, 4 or 8 warps takes a row; each lane owns NV vectors of
+//     16 bytes (8 columns in bf16 / fp16, 4 in fp32; vector k at column
+//     (k * team lanes + lane) * elements), so the row is read from device
+//     memory once, 16 bytes a lane a load, and stays in registers between
+//     its sums (element by element when hidden is not a whole number of
+//     vectors or a pointer is not 16-byte aligned). The block stages w (and
+//     b) in shared memory once, while its first rows' loads are in flight,
+//     for every row it walks: held in registers beside the row they took
+//     191 registers a thread at 32 bf16 columns a lane (one block an SM),
+//     in shared memory 127. Sums by shuffles; a team wider than a warp adds
+//     its warps' sums in warp order after a named barrier (one a
+//     statistic). A block of 8 warps walks a contiguous range of rows, its
+//     teams taking every (8 / warps a row)-th row; the grid is one wave, as
+//     many blocks an SM as the norm's kernel's registers let stay
+//     resident. One lane a team writes mu, rstd. At the 345M's [8192, 1024]
+//     a warp takes a row, 32 columns a lane, 2 blocks an SM (RMSNorm 3);
+//     issuing the next row's loads before the current row's sums measured
+//     no faster and was dropped (H100 80GB HBM3, 700 W).
+// (2) wider rows, a block of kWideThreads a row: ln_fwd_wide_kernel /
+//     rms_fwd_wide_kernel stage the row in dynamic shared memory (16-byte
+//     loads) where it fits in the block's opt-in shared memory (up to
+//     ~56,000 fp32 columns, ~112,000 in 16 bits), so x is read from device
+//     memory once (at [1024, 32768] 1.4-1.8x faster than the sweeps below,
+//     H100 80GB HBM3, 700 W; tools/torch_kernel_ab.py); past that
+//     ln_fwd_kernel / rms_fwd_kernel sweep the row two or three times (the
+//     later sweeps from L1/L2), so any width runs.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -41,7 +71,8 @@ __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half_rn(v);
 }
 
-// Sum over the block; every thread gets the total.
+// Sum over a block of kT threads; every thread gets the total.
+template <int kT = kThreads>
 __device__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -49,13 +80,363 @@ __device__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31;
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  v = lane < (kThreads / 32) ? red[lane] : 0.f;
+  v = lane < (kT / 32) ? red[lane] : 0.f;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   __syncthreads();  // red is reused by the next call
   return v;
 }
 
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
+}
+
+// 16 bytes of T as floats and back (round to nearest even).
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int E = 4;
+  __device__ static void unpack(const uint4& r, float v[4]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 pack(const float v[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static void unpack(const uint4& r, float v[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static uint4 pack(const float v[8]) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    return r;
+  }
+};
+template <>
+struct Vec16<__half> {
+  static constexpr int E = 8;
+  __device__ static void unpack(const uint4& r, float v[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static uint4 pack(const float v[8]) {
+    uint4 r;
+    __half2* h = reinterpret_cast<__half2*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    return r;
+  }
+};
+
+// The E columns of `row` from column c as 16 raw bytes: one load when `vec`
+// (then hidden % E == 0, so a vector that starts inside the row ends inside
+// it), else element by element; columns past the row read 0.
+template <typename T>
+__device__ __forceinline__ uint4 load_vec(const T* row, int c, int hidden,
+                                          bool vec) {
+  constexpr int E = Vec16<T>::E;
+  if (vec) {
+    return c < hidden ? *reinterpret_cast<const uint4*>(row + c)
+                      : make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    if (c + i < hidden) e[i] = row[c + i];
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* row, int c, int hidden, bool vec,
+                                          const float v[]) {
+  constexpr int E = Vec16<T>::E;
+  if (vec) {
+    if (c < hidden) *reinterpret_cast<uint4*>(row + c) = Vec16<T>::pack(v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      if (c + i < hidden) store(row + c + i, v[i]);
+  }
+}
+
+// E floats from p, 16-byte aligned, as 16-byte loads.
+template <int E>
+__device__ __forceinline__ void load_floats(const float* p, float v[E]) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p + i);
+    v[i] = t.x;
+    v[i + 1] = t.y;
+    v[i + 2] = t.z;
+    v[i + 3] = t.w;
+  }
+}
+
+constexpr int kFwdTier = 8192;    // widest row of the team kernels
+constexpr int kFwdWarps = 8;      // warps of a team-kernel block
+constexpr int kLaneCols = 32;     // columns a lane holds at most
+constexpr int kWideThreads = 512; // threads of a block-a-row kernel
+
+// A team's sum, in every lane: shuffles, then (wpr > 1) the team's warps in
+// warp order through `red`, double-buffered: a warp writes a buffer again
+// only after the next barrier, which its team reaches once all have read.
+__device__ __forceinline__ float team_sum(float v, float (*red)[kFwdWarps],
+                                          int& buf, int wpr, int team) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (wpr > 1) {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[buf][warp] = v;
+    team_sync(1 + team, 32 * wpr);
+    v = 0.f;
+    for (int i = 0; i < wpr; ++i) v += red[buf][team * wpr + i];
+    buf ^= 1;
+  }
+  return v;
+}
+
+// kRms: RMSNorm (no mean, no b, no mu). NV: vectors of 16 bytes a lane (the
+// plan guarantees hidden <= NV * E * 32 * wpr, wpr warps a row).
+template <typename T, bool kRms, int NV>
+__device__ __forceinline__ void norm_fwd_team(
+    const T* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ b, T* __restrict__ y, float* __restrict__ mu,
+    float* __restrict__ rstd, int rows, int rows_per_block, int hidden,
+    int wpr, float eps, bool vec) {
+  constexpr int E = Vec16<T>::E;
+  // the block's parameters, [cols] w then [cols] b, zero past the row
+  extern __shared__ float4 params[];
+  __shared__ float red[2][kFwdWarps];
+  const int warp = threadIdx.x >> 5;
+  const int teams = kFwdWarps / wpr;
+  const int team = warp / wpr;
+  const int span = 32 * wpr;                              // lanes of a team
+  const int lt = (warp % wpr) * 32 + (threadIdx.x & 31);  // lane in team
+  const float h = static_cast<float>(hidden);
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  // the first row's loads go out before the parameters are staged
+  int r = r0 + team;
+  uint4 xr[NV];
+  if (r < r1) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      xr[k] = load_vec(x + static_cast<long long>(r) * hidden,
+                       (k * span + lt) * E, hidden, vec);
+  }
+  const int cols = (hidden + E - 1) / E * E;
+  float* sw = reinterpret_cast<float*>(params);
+  float* sb = sw + cols;
+  for (int c = threadIdx.x; c < cols; c += kFwdWarps * 32) {
+    sw[c] = c < hidden ? w[c] : 0.f;
+    if (!kRms) sb[c] = c < hidden ? b[c] : 0.f;
+  }
+  __syncthreads();
+  int buf = 0;
+  for (; r < r1; r += teams) {
+    const long long off = static_cast<long long>(r) * hidden;
+    if (r != r0 + team) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        xr[k] = load_vec(x + off, (k * span + lt) * E, hidden, vec);
+    }
+    float m = 0.f;
+    if (!kRms) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        float v[E];
+        Vec16<T>::unpack(xr[k], v);
+#pragma unroll
+        for (int e = 0; e < E; ++e) s += v[e];  // 0 past the row
+      }
+      m = team_sum(s, red, buf, wpr, team) / h;
+    }
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = (k * span + lt) * E;
+      float v[E];
+      Vec16<T>::unpack(xr[k], v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = v[e] - m;
+        if (kRms || c + e < hidden) q += d * d;
+      }
+    }
+    const float rs = rsqrtf(team_sum(q, red, buf, wpr, team) / h + eps);
+    T* yr = y + off;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = (k * span + lt) * E;
+      if (c >= hidden) continue;  // the vector lies past the row
+      float v[E], wv[E], bv[E];
+      Vec16<T>::unpack(xr[k], v);
+      load_floats<E>(sw + c, wv);
+      if (!kRms) load_floats<E>(sb + c, bv);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        v[e] = kRms ? (v[e] * rs) * wv[e] : (v[e] - m) * rs * wv[e] + bv[e];
+      store_vec(yr, c, hidden, vec, v);
+    }
+    if (lt == 0) {
+      if (!kRms) mu[r] = m;
+      rstd[r] = rs;
+    }
+  }
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+    ln_fwd_team_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ b, T* __restrict__ y,
+                       float* __restrict__ mu, float* __restrict__ rstd,
+                       int rows, int rows_per_block, int hidden, int wpr,
+                       float eps, int vec) {
+  norm_fwd_team<T, false, NV>(x, w, b, y, mu, rstd, rows, rows_per_block,
+                              hidden, wpr, eps, vec);
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+    rms_fwd_team_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        T* __restrict__ y, float* __restrict__ rstd,
+                        int rows, int rows_per_block, int hidden, int wpr,
+                        float eps, int vec) {
+  norm_fwd_team<T, true, NV>(x, w, nullptr, y, nullptr, rstd, rows,
+                             rows_per_block, hidden, wpr, eps, vec);
+}
+
+// A block of kWideThreads a row, the row staged in dynamic shared memory in
+// x's dtype: one read of x from device memory, the later sweeps from shared
+// memory. Thread i owns vectors i, i + kWideThreads, ... (columns i, ... when
+// not `vec`) in every sweep, so a thread reads back only what it staged.
+template <typename T, bool kRms>
+__device__ __forceinline__ void norm_fwd_wide(
+    const T* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ b, T* __restrict__ y, float* __restrict__ mu,
+    float* __restrict__ rstd, int hidden, float eps, bool vec) {
+  constexpr int E = Vec16<T>::E;
+  extern __shared__ uint4 stage[];  // the row
+  __shared__ float red[kWideThreads / 32];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * hidden;
+  T* yr = y + row * hidden;
+  T* st = reinterpret_cast<T*>(stage);
+  const int nvec = (hidden + E - 1) / E;
+  const float h = static_cast<float>(hidden);
+  float s = 0.f;
+  if (vec) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nvec; i += kWideThreads) {
+      const uint4 r = *reinterpret_cast<const uint4*>(xr + i * E);
+      stage[i] = r;
+      float v[E];
+      Vec16<T>::unpack(r, v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s += kRms ? v[e] * v[e] : v[e];
+    }
+  } else {
+    for (int c = threadIdx.x; c < hidden; c += kWideThreads) {
+      const T t = xr[c];
+      st[c] = t;
+      const float v = to_f32(t);
+      s += kRms ? v * v : v;
+    }
+  }
+  float m = 0.f, rs;
+  if (kRms) {
+    rs = rsqrtf(block_sum<kWideThreads>(s, red) / h + eps);
+  } else {
+    m = block_sum<kWideThreads>(s, red) / h;
+    float q = 0.f;
+    if (vec) {
+      for (int i = threadIdx.x; i < nvec; i += kWideThreads) {
+        float v[E];
+        Vec16<T>::unpack(stage[i], v);
+#pragma unroll
+        for (int e = 0; e < E; ++e) q += (v[e] - m) * (v[e] - m);
+      }
+    } else {
+      for (int c = threadIdx.x; c < hidden; c += kWideThreads) {
+        const float d = to_f32(st[c]) - m;
+        q += d * d;
+      }
+    }
+    rs = rsqrtf(block_sum<kWideThreads>(q, red) / h + eps);
+  }
+  if (vec) {
+    for (int i = threadIdx.x; i < nvec; i += kWideThreads) {
+      float v[E], wv[E], bv[E];
+      Vec16<T>::unpack(stage[i], v);
+      load_floats<E>(w + i * E, wv);
+      if (!kRms) load_floats<E>(b + i * E, bv);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        v[e] = kRms ? (v[e] * rs) * wv[e] : (v[e] - m) * rs * wv[e] + bv[e];
+      *reinterpret_cast<uint4*>(yr + i * E) = Vec16<T>::pack(v);
+    }
+  } else {
+    for (int c = threadIdx.x; c < hidden; c += kWideThreads) {
+      const float v = to_f32(st[c]);
+      store(yr + c, kRms ? (v * rs) * w[c] : (v - m) * rs * w[c] + b[c]);
+    }
+  }
+  if (threadIdx.x == 0) {
+    if (!kRms) mu[row] = m;
+    rstd[row] = rs;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    ln_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ b, T* __restrict__ y,
+                       float* __restrict__ mu, float* __restrict__ rstd,
+                       int hidden, float eps, int vec) {
+  norm_fwd_wide<T, false>(x, w, b, y, mu, rstd, hidden, eps, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    rms_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        T* __restrict__ y, float* __restrict__ rstd,
+                        int hidden, float eps, int vec) {
+  norm_fwd_wide<T, true>(x, w, nullptr, y, nullptr, rstd, hidden, eps, vec);
+}
+
+// Rows past the opt-in shared memory: a block of kThreads a row, the row
+// swept three times (LayerNorm) or twice (RMSNorm), the later sweeps from
+// L1/L2 (a row of hidden <= 64k fp32 is 256 KB at most).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -88,50 +469,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 on success). The caller checks
-// shapes, dtypes, devices and contiguity; w and b are fp32 [hidden].
-extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
-                                   const void* b, void* y, void* mu,
-                                   void* rstd, int rows, int hidden,
-                                   float eps, int x_dtype, int device,
-                                   void* stream) {
-  if (rows == 0) return 0;
-  cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* muf = static_cast<float*>(mu);
-  float* rf = static_cast<float*>(rstd);
-  if (x_dtype == 1) {
-    ln_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, bf,
-        static_cast<__nv_bfloat16*>(y), muf, rf, hidden, eps);
-  } else if (x_dtype == 2) {
-    ln_fwd_kernel<__half><<<rows, kThreads, 0, s>>>(
-        static_cast<const __half*>(x), wf, bf, static_cast<__half*>(y), muf,
-        rf, hidden, eps);
-  } else {
-    ln_fwd_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), wf, bf, static_cast<float*>(y), muf,
-        rf, hidden, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// RMSNorm forward. Replaces: apex_tpu/ops/layer_norm.py, _rms_fwd_pallas /
-// _rms_fwd_kernel. For each row x of a [rows, hidden] input:
-//   rstd = rsqrt(mean(x^2) + eps);  y = (x * rstd) * w   (y in x's dtype)
-// and rstd is written as [rows, 1] fp32 (RMSNorm subtracts no mean).
-//
-// What bounds it on the H100: bytes, one read of x and one write of y (about
-// 4 flops per element). Design: the LayerNorm forward's, one block a row and
-// one fewer sweep (no mean): the sum of squares, then y, the row re-read from
-// L1/L2 (a row of hidden <= 64k fp32 is 256 KB at most).
-namespace {
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -154,33 +491,166 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) rstd[row] = r;
 }
 
+struct FwdArgs {
+  const void* x;
+  const float* w;
+  const float* b;  // null: RMSNorm
+  void* y;
+  float* mu;       // null: RMSNorm
+  float* rstd;
+  int rows, hidden;
+  float eps;
+  int blocks, rows_per_block, wpr, vecs;  // the host's plan
+};
+
+template <typename T, bool kRms, int NV>
+cudaError_t launch_fwd_team(const FwdArgs& a, int vec, cudaStream_t s) {
+  if constexpr (NV * Vec16<T>::E > kLaneCols) {
+    return cudaErrorInvalidValue;
+  } else {
+    const T* x = static_cast<const T*>(a.x);
+    T* y = static_cast<T*>(a.y);
+    constexpr int E = Vec16<T>::E;
+    // at most 2 * kFwdTier fp32: 64 KB, past the 48 KB default
+    const size_t smem = (kRms ? 1 : 2) *
+                        static_cast<size_t>((a.hidden + E - 1) / E * E) *
+                        sizeof(float);
+    auto kern = kRms ? reinterpret_cast<const void*>(
+                           rms_fwd_team_kernel<T, NV>)
+                     : reinterpret_cast<const void*>(
+                           ln_fwd_team_kernel<T, NV>);
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    if (kRms) {
+      rms_fwd_team_kernel<T, NV><<<a.blocks, kFwdWarps * 32, smem, s>>>(
+          x, a.w, y, a.rstd, a.rows, a.rows_per_block, a.hidden, a.wpr,
+          a.eps, vec);
+    } else {
+      ln_fwd_team_kernel<T, NV><<<a.blocks, kFwdWarps * 32, smem, s>>>(
+          x, a.w, a.b, y, a.mu, a.rstd, a.rows, a.rows_per_block, a.hidden,
+          a.wpr, a.eps, vec);
+    }
+    return cudaGetLastError();
+  }
+}
+
+// One dtype: the team kernel at its planned vectors a lane, or (wpr == 0) a
+// block a row, staged in shared memory when the row fits in the block's
+// opt-in shared memory beside its static array, else swept from L1/L2.
+template <typename T, bool kRms>
+cudaError_t launch_fwd_by_plan(const FwdArgs& a, int device, cudaStream_t s) {
+  constexpr int E = Vec16<T>::E;
+  const int vec = a.hidden % E == 0 && aligned16(a.x) && aligned16(a.y) &&
+                  aligned16(a.w) && (kRms || aligned16(a.b));
+  if (a.wpr > 0) {
+    switch (a.vecs) {
+      case 1: return launch_fwd_team<T, kRms, 1>(a, vec, s);
+      case 2: return launch_fwd_team<T, kRms, 2>(a, vec, s);
+      case 4: return launch_fwd_team<T, kRms, 4>(a, vec, s);
+      case 8: return launch_fwd_team<T, kRms, 8>(a, vec, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
+  const size_t smem = static_cast<size_t>((a.hidden + E - 1) / E) * 16;
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return e;
+  const size_t static_smem = (kWideThreads / 32) * sizeof(float);
+  if (smem + static_smem <= static_cast<size_t>(optin)) {
+    auto kern = kRms ? reinterpret_cast<const void*>(rms_fwd_wide_kernel<T>)
+                     : reinterpret_cast<const void*>(ln_fwd_wide_kernel<T>);
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    if (kRms) {
+      rms_fwd_wide_kernel<T><<<a.rows, kWideThreads, smem, s>>>(
+          x, a.w, y, a.rstd, a.hidden, a.eps, vec);
+    } else {
+      ln_fwd_wide_kernel<T><<<a.rows, kWideThreads, smem, s>>>(
+          x, a.w, a.b, y, a.mu, a.rstd, a.hidden, a.eps, vec);
+    }
+  } else if (kRms) {
+    rms_fwd_kernel<T><<<a.rows, kThreads, 0, s>>>(x, a.w, y, a.rstd,
+                                                 a.hidden, a.eps);
+  } else {
+    ln_fwd_kernel<T><<<a.rows, kThreads, 0, s>>>(x, a.w, a.b, y, a.mu,
+                                                a.rstd, a.hidden, a.eps);
+  }
+  return cudaGetLastError();
+}
+
+// The plan covers every row once and fits the kernel it names: a team's
+// lanes cover the row with at most kLaneCols columns each, or (wpr == 0)
+// one row a block.
+bool fwd_plan_ok(const FwdArgs& a, int elems) {
+  if (a.blocks < 1 || a.rows_per_block < 1 ||
+      static_cast<long long>(a.blocks) * a.rows_per_block < a.rows)
+    return false;
+  if (a.wpr == 0) return a.rows_per_block == 1 && a.blocks == a.rows;
+  const bool pow2 = a.wpr == 1 || a.wpr == 2 || a.wpr == 4 || a.wpr == 8;
+  return pow2 && a.hidden <= kFwdTier && a.vecs * elems <= kLaneCols &&
+         a.hidden <= a.vecs * elems * 32 * a.wpr;
+}
+
+template <bool kRms>
+int launch_norm_fwd(const FwdArgs& a, int x_dtype, int device, void* stream) {
+  if (a.rows == 0) return 0;
+  if (!fwd_plan_ok(a, x_dtype == 0 ? 4 : 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 1) {
+    e = launch_fwd_by_plan<__nv_bfloat16, kRms>(a, device, s);
+  } else if (x_dtype == 2) {
+    e = launch_fwd_by_plan<__half, kRms>(a, device, s);
+  } else {
+    e = launch_fwd_by_plan<float, kRms>(a, device, s);
+  }
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). w is fp32 [hidden]
-// (ones for the non-affine norm); rstd fp32 [rows].
+// LayerNorm forward. Returns the cudaError_t of the launch (0 on success).
+// The caller checks shapes, dtypes, devices and contiguity; w and b are
+// fp32 [hidden], mu and rstd fp32 [rows]. The plan (blocks of rows_per_block
+// rows, warps_per_row warps of vecs 16-byte vectors a lane; warps_per_row 0
+// for a block a row) is the host's norm_fwd_plan. Any hidden.
+extern "C" int apex_layer_norm_fwd(const void* x, const void* w,
+                                   const void* b, void* y, void* mu,
+                                   void* rstd, int rows, int hidden,
+                                   float eps, int x_dtype, int blocks,
+                                   int rows_per_block, int warps_per_row,
+                                   int vecs, int device, void* stream) {
+  const FwdArgs a{x, static_cast<const float*>(w),
+                  static_cast<const float*>(b), y, static_cast<float*>(mu),
+                  static_cast<float*>(rstd), rows, hidden, eps, blocks,
+                  rows_per_block, warps_per_row, vecs};
+  return launch_norm_fwd<false>(a, x_dtype, device, stream);
+}
+
+// RMSNorm forward, as apex_layer_norm_fwd without b and mu. w is fp32
+// [hidden] (ones for the non-affine norm); rstd fp32 [rows].
 extern "C" int apex_rms_norm_fwd(const void* x, const void* w, void* y,
                                  void* rstd, int rows, int hidden, float eps,
-                                 int x_dtype, int device, void* stream) {
-  if (rows == 0) return 0;
-  cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
-  float* rf = static_cast<float*>(rstd);
-  if (x_dtype == 1) {
-    rms_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), wf,
-        static_cast<__nv_bfloat16*>(y), rf, hidden, eps);
-  } else if (x_dtype == 2) {
-    rms_fwd_kernel<__half><<<rows, kThreads, 0, s>>>(
-        static_cast<const __half*>(x), wf, static_cast<__half*>(y), rf,
-        hidden, eps);
-  } else {
-    rms_fwd_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), wf, static_cast<float*>(y), rf, hidden,
-        eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int x_dtype, int blocks, int rows_per_block,
+                                 int warps_per_row, int vecs, int device,
+                                 void* stream) {
+  const FwdArgs a{x, static_cast<const float*>(w), nullptr, y, nullptr,
+                  static_cast<float*>(rstd), rows, hidden, eps, blocks,
+                  rows_per_block, warps_per_row, vecs};
+  return launch_norm_fwd<true>(a, x_dtype, device, stream);
 }
 
 // Backward of both norms. Replaces: apex_tpu/ops/layer_norm.py,
@@ -314,11 +784,6 @@ __device__ __forceinline__ void store_quad(T* row, int c, int hidden,
     for (int e = 0; e < 4; ++e)
       if (c + e < hidden) store(row + c + e, v[e]);
   }
-}
-
-// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
-__device__ __forceinline__ void team_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // kRms: RMSNorm (no mean, no dbeta). NQ: quads of 4 columns a lane (the
@@ -615,10 +1080,6 @@ cudaError_t launch_rows(const BwdArgs& a, size_t smem, cudaStream_t s) {
       a.rstd, a.w, static_cast<TD*>(a.dx), a.dw_part, a.db_part, a.rows,
       a.rows_per_block, a.hidden, a.x_is_xhat);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
 // The first launch for one dtype pair: the team kernel at its planned

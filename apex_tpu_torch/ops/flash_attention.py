@@ -40,9 +40,11 @@ overflow int64, so :func:`_mul32` splits the constant into 16-bit halves
 with the same hash.
 
 Route (``_device.kernel_route``): CUDA tensors go through the kernels,
-CPU tensors through the plain versions. The forward is the custom op
-:data:`FLASH_ATTN_FWD`, so a selective recompute policy can keep
-``(o, lse)`` instead of replaying the kernel.
+CPU tensors through the plain versions. The kernels are instantiated at
+head dims :data:`KERNEL_HEAD_DIMS`; any other up to 256 runs zero-padded
+to the next of them (:func:`kernel_head_dim`), which is exact. The
+forward is the custom op :data:`FLASH_ATTN_FWD`, so a selective
+recompute policy can keep ``(o, lse)`` instead of replaying the kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build, _device
 
@@ -316,6 +319,10 @@ def mha_reference_varlen(q, k, v, cu_seqlens, *, causal=False, scale=None):
 #: (``dispatch_f32`` in ``csrc/flash_attention.cu``, ``launch_typed`` in
 #: ``csrc/flash_attention_bf16.cu``)
 KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
+#: the widest head dim flash attention takes on the card (the JAX gate's
+#: ``d <= 256``): another head dim up to it runs zero-padded to the next
+#: instantiated one (:func:`kernel_head_dim`)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 #: the dtypes the CUDA kernels take: fp32 on the CUDA cores, bf16 and
 #: fp16 on the tensor cores
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -326,15 +333,58 @@ def flash_attention_available(s_q: int, s_k: int, d: int,
     """Whether flash attention runs at these shapes on ``device`` (the
     counterpart of the JAX module's ``flash_attention_available``, which
     takes flash for head dims up to 256 where its kernel tiles and leaves
-    the rest to the path without flash). On a CUDA device: exactly the
-    head dims and dtypes the kernels are instantiated for (any sequence
-    length; ``dtype`` None asks about the head dim alone); elsewhere the
-    plain version, which takes every shape."""
+    the rest to the path without flash). On a CUDA device: head dims up to
+    :data:`MAX_HEAD_DIM` in the kernels' dtypes (any sequence length;
+    ``dtype`` None asks about the head dim alone); elsewhere the plain
+    version, which takes every shape."""
     del s_q, s_k  # the kernels mask ragged tiles themselves
     if device is not None and torch.device(device).type == "cuda":
-        return d in KERNEL_HEAD_DIMS and (dtype is None
-                                          or dtype in KERNEL_DTYPES)
+        return d <= MAX_HEAD_DIM and (dtype is None
+                                      or dtype in KERNEL_DTYPES)
     return True
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head dim that runs head dim ``d``: ``d`` itself,
+    else the next wider one, its inputs zero-padded (160 runs at 256: 1.6
+    times the work of an exact kernel)."""
+    for k in KERNEL_HEAD_DIMS:
+        if k >= d:
+            return k
+    raise ValueError(f"flash attention CUDA kernels take head dims up to "
+                     f"{MAX_HEAD_DIM}, got {d}")
+
+
+def _pad_head(t: torch.Tensor, dp: int) -> torch.Tensor:
+    return F.pad(t, (0, dp - t.shape[-1]))
+
+
+def _head_padded_fwd(fwd, q, k, v, *args):
+    """``fwd(q, k, v, *args) -> (o, lse)`` at an instantiated head dim: q,
+    k and v zero-padded to :func:`kernel_head_dim`, o cut back. Exact: the
+    padded columns of q and k add 0 to every score and those of v give
+    the columns that are cut off; the scale (``1/sqrt(d)`` of the unpadded
+    d by default) is among ``args``, resolved before."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    if dp == d:
+        return fwd(q, k, v, *args)
+    o, lse = fwd(*(_pad_head(t, dp) for t in (q, k, v)), *args)
+    return o[..., :d].contiguous(), lse
+
+
+def _head_padded_bwd(bwd, q, k, v, o, lse, do, *args):
+    """``bwd(q, k, v, o, lse, do, *args) -> (dq, dk, dv, dbias)`` at an
+    instantiated head dim: q, k, v, o and do zero-padded (``delta =
+    rowsum(do * o)`` is unchanged), dq, dk and dv cut back; ``lse`` and
+    dbias have no head dim."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    if dp == d:
+        return bwd(q, k, v, o, lse, do, *args)
+    q, k, v, o, do = (_pad_head(t, dp) for t in (q, k, v, o, do))
+    dq, dk, dv, dbias = bwd(q, k, v, o, lse, do, *args)
+    return (*(g[..., :d].contiguous() for g in (dq, dk, dv)), dbias)
 
 
 def _kernel_args(q, k, v, kv_mask):
@@ -499,14 +549,32 @@ def _resolve(q, scale, dropout_p, dropout_seed):
 FLASH_ATTN_FWD = "apex_tpu_torch::flash_attn_fwd"
 
 
-def _fwd_impl(q, k, v, kv_mask, bias, seg_q, seg_k, causal, scale,
-              dropout_p, seed):
-    if _route(q, k, v, kv_mask, bias, seg_q, seg_k):
-        return _launch_fwd(q, k, v, kv_mask, bias, seg_q, seg_k, causal,
-                           scale, dropout_p, seed)
+def _plain_fwd(q, k, v, kv_mask, bias, seg_q, seg_k, causal, scale,
+               dropout_p, seed):
+    """The plain forward on :func:`_launch_fwd`'s arguments."""
     return flash_attention_fwd_reference(
         q, k, v, causal=causal, kv_mask=kv_mask, bias=bias, seg_q=seg_q,
         seg_k=seg_k, scale=scale, dropout_p=dropout_p, dropout_seed=seed)
+
+
+def _plain_bwd(q, k, v, o, lse, do, kv_mask, bias, seg_q, seg_k, causal,
+               scale, dropout_p, seed, emit_dbias):
+    """The plain backward on :func:`_launch_bwd`'s arguments: ``(dq, dk,
+    dv, dbias or None)``."""
+    out = flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=causal, kv_mask=kv_mask, bias=bias,
+        bias_grad=emit_dbias, seg_q=seg_q, seg_k=seg_k, scale=scale,
+        dropout_p=dropout_p, dropout_seed=seed)
+    return out if len(out) == 4 else out + (None,)
+
+
+def _fwd_impl(q, k, v, kv_mask, bias, seg_q, seg_k, causal, scale,
+              dropout_p, seed):
+    if _route(q, k, v, kv_mask, bias, seg_q, seg_k):
+        return _head_padded_fwd(_launch_fwd, q, k, v, kv_mask, bias, seg_q,
+                                seg_k, causal, scale, dropout_p, seed)
+    return _plain_fwd(q, k, v, kv_mask, bias, seg_q, seg_k, causal, scale,
+                      dropout_p, seed)
 
 
 #: the forward on resolved arguments: the kernel on CUDA tensors, the
@@ -524,13 +592,11 @@ def _bwd(q, k, v, o, lse, do, kv_mask, bias, seg_q, seg_k, causal, scale,
     ``(dq, dk, dv, dbias)``, dbias the fp32 ``[b, n, s_q, s_k]`` ds when
     ``emit_dbias`` and a bias is given, else None."""
     if _route(q, k, v, o, lse, do, kv_mask, bias, seg_q, seg_k):
-        return _launch_bwd(q, k, v, o, lse, do, kv_mask, bias, seg_q, seg_k,
-                           causal, scale, dropout_p, seed, emit_dbias)
-    out = flash_attention_bwd_reference(
-        q, k, v, o, lse, do, causal=causal, kv_mask=kv_mask, bias=bias,
-        bias_grad=emit_dbias, seg_q=seg_q, seg_k=seg_k, scale=scale,
-        dropout_p=dropout_p, dropout_seed=seed)
-    return out if len(out) == 4 else out + (None,)
+        return _head_padded_bwd(_launch_bwd, q, k, v, o, lse, do, kv_mask,
+                                bias, seg_q, seg_k, causal, scale, dropout_p,
+                                seed, emit_dbias)
+    return _plain_bwd(q, k, v, o, lse, do, kv_mask, bias, seg_q, seg_k,
+                      causal, scale, dropout_p, seed, emit_dbias)
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, kv_mask=None, bias=None,

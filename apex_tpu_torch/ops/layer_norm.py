@@ -5,7 +5,8 @@ Inputs are viewed as ``[rows, hidden]``; statistics (mean, rstd) are
 fp32 per row for any input dtype, the variance is the centred two-pass
 form, ``y`` takes the input's dtype and ``dx`` the incoming gradient's.
 The kernels are in ``csrc/layer_norm.cu``: the forward replaces the TPU
-kernel ``_ln_fwd_pallas``, the backward ``_ln_bwd_pallas``;
+kernel ``_ln_fwd_pallas``, the backward ``_ln_bwd_pallas``, each launch
+planned on the host (:func:`norm_fwd_plan`, :func:`norm_bwd_plan`);
 :func:`layer_norm_reference` and :func:`layer_norm_bwd_reference` are
 the plain versions.
 
@@ -27,6 +28,7 @@ rebuilds x-hat from it in fp32 (``(y - b) / w``, ``w`` clamped away from
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -152,6 +154,76 @@ def norm_bwd_plan(rows: int, hidden: int, n_sms: int) -> NormBwdPlan:
     return NormBwdPlan(-(-rows // rpb), rpb, wpr, quads)
 
 
+#: the forward team kernels' widest row (``csrc/layer_norm.cu``,
+#: ``kFwdTier``): 8 warps of 32 lanes holding at most
+#: :data:`_FWD_LANE_COLS` columns each; wider rows take a block a row
+FWD_TIER = 8192
+#: warps of a forward team-kernel block
+_FWD_WARPS = 8
+#: columns a lane holds at most (``kLaneCols``): 8 vectors of 16 bytes in
+#: fp32, 4 in bf16 / fp16. A lane holds as many before wider teams take
+#: the row: at [8192, 1024] a warp a row at 32 columns a lane ran the
+#: fastest one-wave LayerNorm plan in bf16 and came within 4 % of the
+#: fastest plan of any team shape (1-8 warps, 4-32 columns) in the other
+#: cases, without a prefetch of the next row (H100 80GB HBM3, 700 W;
+#: tools/torch_norm_fwd_sweep.py)
+_FWD_LANE_COLS = 32
+#: forward team-kernel blocks an SM holds at once, by (element bytes,
+#: vectors a lane), from the kernels' registers on sm_90a (ptxas) against
+#: 65,536 an SM at 256 threads a block. LayerNorm: fp32 39 / 48 / 64 / 123
+#: at 1 / 2 / 4 / 8 vectors; bf16 48 / 79 / 127 and fp16 48 / 64 / 117 at
+#: 1 / 2 / 4.
+_FWD_RESIDENT = {(4, 1): 6, (4, 2): 5, (4, 4): 4, (4, 8): 2,
+                 (2, 1): 5, (2, 2): 3, (2, 4): 2}
+#: as :data:`_FWD_RESIDENT` for RMSNorm (no mean, no b): fp32 30 / 38 /
+#: 42 / 76; bf16 32 / 48 / 80 and fp16 32 / 40 / 60
+_RMS_FWD_RESIDENT = {(4, 1): 8, (4, 2): 6, (4, 4): 5, (4, 8): 3,
+                     (2, 1): 8, (2, 2): 5, (2, 4): 3}
+
+
+class NormFwdPlan(NamedTuple):
+    """The forward kernels' launch: ``blocks`` blocks of ``rows_per_block``
+    contiguous rows; a team of ``warps_per_row`` warps a row, each lane
+    holding ``vecs`` vectors of 16 bytes (8 columns in bf16 / fp16, 4 in
+    fp32; ``warps_per_row`` 0: rows wider than :data:`FWD_TIER`, a block
+    a row)."""
+    blocks: int
+    rows_per_block: int
+    warps_per_row: int
+    vecs: int
+
+
+@functools.lru_cache(maxsize=1024)
+def norm_fwd_plan(rows: int, hidden: int, n_sms: int, elem_bytes: int,
+                  rms: bool = False) -> NormFwdPlan:
+    """Plan of the forward kernels (RMSNorm's with ``rms``) for ``rows >=
+    1`` rows of ``hidden`` columns of ``elem_bytes`` bytes (4, or 2 for
+    bf16 / fp16) on a card of ``n_sms`` SMs; it depends on nothing else,
+    and is cached, since every layer of a model asks for the same few.
+    Up to :data:`FWD_TIER` columns the narrowest team whose lanes hold at
+    most :data:`_FWD_LANE_COLS` columns takes a row (a warp up to 1024
+    columns), widened while its blocks would not give every SM one (few
+    rows: the serving steps' 8 and 64), each lane as few vectors as cover
+    the row; the rows are shared by one wave of blocks, as many an SM as
+    the kernel's registers let stay resident, every block at least one
+    row. Wider rows take a block each."""
+    if hidden > FWD_TIER:
+        return NormFwdPlan(rows, 1, 0, 0)
+    most = _FWD_LANE_COLS * elem_bytes // 16  # vectors a lane at most
+    nvec = -(-hidden // (16 // elem_bytes))  # 16-byte vectors of a row
+    wpr = _pow2_at_least(-(-nvec // (32 * most)))
+    while wpr < _FWD_WARPS and 32 * wpr < nvec and \
+            -(-rows // (_FWD_WARPS // wpr)) < n_sms:
+        wpr *= 2
+    vecs = _pow2_at_least(-(-nvec // (32 * wpr)))
+    teams = _FWD_WARPS // wpr
+    resident = (_RMS_FWD_RESIDENT if rms else _FWD_RESIDENT)[
+        (elem_bytes, vecs)]
+    blocks = max(1, min(resident * n_sms, -(-rows // teams)))
+    rpb = -(-rows // blocks)
+    return NormFwdPlan(-(-rows // rpb), rpb, wpr, vecs)
+
+
 def _norm_bwd_partitioned(dy2d: torch.Tensor, x2d: torch.Tensor,
                           mu: Optional[torch.Tensor], rstd: torch.Tensor,
                           w: torch.Tensor, plan: NormBwdPlan,
@@ -215,21 +287,26 @@ def _check_kernel_args(x2d, tensors) -> None:
 
 
 def _launch(x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-            eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            eps: float, plan: Optional[NormFwdPlan] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on CUDA tensors: x ``[rows, hidden]``
-    fp32, bf16 or fp16, w/b fp32 ``[hidden]``, all contiguous."""
+    fp32, bf16 or fp16, w/b fp32 ``[hidden]``, all contiguous. ``plan``
+    defaults to :func:`norm_fwd_plan` for the card."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w), ("bias", b)))
-    lib = _build.kernels()
-    y = torch.empty_like(x2d)
-    mu = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     dev = x2d.device
+    y = torch.empty_like(x2d)
+    mu = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return y, mu, rstd
+    lib = _build.kernels()
+    plan = plan or norm_fwd_plan(rows, hidden, _build.sm_count(dev.index),
+                                 x2d.element_size())
     rc = lib.apex_layer_norm_fwd(
         x2d.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
         mu.data_ptr(), rstd.data_ptr(), rows, hidden, float(eps),
-        _code(x2d), dev.index,
-        _build.current_stream(dev))
+        _code(x2d), *plan, dev.index, _build.current_stream(dev))
     _build.check(rc, "layer_norm_fwd")
     _device.LAUNCHES["layer_norm_fwd"] += 1
     return y, mu, rstd
@@ -285,18 +362,24 @@ def _launch_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, mu: torch.Tensor,
     return dx, grads[0], grads[1]
 
 
-def _launch_rms(x2d: torch.Tensor, w: torch.Tensor, eps: float
+def _launch_rms(x2d: torch.Tensor, w: torch.Tensor, eps: float,
+                plan: Optional[NormFwdPlan] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the RMSNorm forward kernel on CUDA tensors: x ``[rows,
-    hidden]`` fp32, bf16 or fp16, w fp32 ``[hidden]``, both contiguous."""
+    hidden]`` fp32, bf16 or fp16, w fp32 ``[hidden]``, both contiguous;
+    ``plan`` as in :func:`_launch`."""
     rows, hidden = x2d.shape
     _check_kernel_args(x2d, (("weight", w),))
-    y = torch.empty_like(x2d)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     dev = x2d.device
+    y = torch.empty_like(x2d)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return y, rstd
+    plan = plan or norm_fwd_plan(rows, hidden, _build.sm_count(dev.index),
+                                 x2d.element_size(), rms=True)
     rc = _build.kernels().apex_rms_norm_fwd(
         x2d.data_ptr(), w.data_ptr(), y.data_ptr(), rstd.data_ptr(), rows,
-        hidden, float(eps), _code(x2d), dev.index,
+        hidden, float(eps), _code(x2d), *plan, dev.index,
         _build.current_stream(dev))
     _build.check(rc, "rms_norm_fwd")
     _device.LAUNCHES["rms_norm_fwd"] += 1

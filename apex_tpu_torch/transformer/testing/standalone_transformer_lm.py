@@ -57,7 +57,7 @@ from torch.utils.checkpoint import (
 from ...contrib.xentropy import lm_head_cross_entropy, lm_logits
 from ...ops.flash_attention import (
     FLASH_ATTN_FWD,
-    KERNEL_HEAD_DIMS,
+    MAX_HEAD_DIM,
     flash_attention_available,
     flash_attention_sbhd,
 )
@@ -315,7 +315,7 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
         raise ValueError(
             f"use_flash_attention=True but the flash kernels on "
             f"{hidden.device} do not take head dim {hn} (they take "
-            f"{KERNEL_HEAD_DIMS})")
+            f"head dims up to {MAX_HEAD_DIM})")
     if not use_flash:
         ctx = _softmax_attention(cfg, q, k, v, attention_mask, causal,
                                  layer_number if qk_scaling else None,

@@ -25,13 +25,19 @@ any failure exits non-zero and prints no result line:
    head dims 32, 96, 128 and 256, and bf16 (the tensor-core kernels) at
    every head dim with lengths 1000 and 17, causal 320x1000, a fully
    masked row at d 256 and dropout at d 128, the bf16 backward twice
-   bitwise equal; the fused tails at widths 5120, 8192,
+   bitwise equal; at head dims 48, 80 and 160 (no kernel of their own:
+   the next one's on zero-padded operands) in fp32 and bf16, causal, a
+   dead row, dropout and a cross shape; the fused tails at widths 5120, 8192,
    16384 and 1000; the flat scale (bf16 -> fp32, fp32 -> fp32, fp32 ->
    bf16, per-row flags naming planted inf, nan and overflow rows, a
    ragged length) and axpby over the 345M buffer; packed NovoGrad over
    BERT-large's buffer with L2 and inf-norm denominators, decay inside
    and outside the moment, and noop; the LayerNorm forward and backward
-   at hidden 32768 and 65536; the RMSNorm forward and backward at the
+   at hidden 32768 and 65536; both norm forwards at every branch of
+   their plan (the team kernels at widths 1000-8192, a block a row with
+   the row staged in shared memory, and past it) in fp32, bf16 and fp16
+   at 1, 7 and 8192 rows, from 16-byte aligned pointers and from views
+   one element off; the RMSNorm forward and backward at the
    345M's rows [8192, 1024] in fp32 and bf16, affine and not, at [4096,
    4096] and [2048, 8192] bf16, widths 1000 and 32768, and its
    memory-efficient backward; the numerics monitor's row statistics over
@@ -54,8 +60,9 @@ any failure exits non-zero and prints no result line:
    times of kernel, plain version, one PyTorch library call as
    yardstick (the device time of SDPA, of ``F.layer_norm``'s and
    ``F.rms_norm``'s backward kernels, and of their forwards
-   at [8192, 1024] fp32 and bf16 beside each call's time), and the least
-   time the card could take;
+   at [8192, 1024] fp32 and bf16 beside each call's time, warm and with
+   the inputs rotated past the L2), and the least time the card could
+   take;
 3. full-width serving: GPT-2 345M (24 layers, hidden 1024, 16 heads,
    vocab 50304, bf16, random weights from a seed) through
    ``ServingEngine(n_slots=8, prefill_chunk=8)`` on 16 staggered
@@ -132,8 +139,9 @@ any failure exits non-zero and prints no result line:
    gradient, the steps; then packed against pytree LAMB on the card;
    the fp32 GPT with the loss-scaled, clipped step (3 steps and a forced
    overflow), BERT with packed NovoGrad (fp32 L2 and inf norm, bf16),
-   GPTs at head dim 128 (flash) and 80 (no flash kernel: the fused
-   softmax) with the default attention choice, and 1-layer fused-block
+   GPTs at head dim 128 (flash), 80 (flash on zero-padded operands) and
+   320 (past flash's 256: the fused softmax) with the default attention
+   choice, and 1-layer fused-block
    GPTs at hidden 5120 and 8192 (loss and gradients), and an fp16 GPT
    with the fused tails and flash against the plain versions on the card
    (the host's fp16 GEMMs are too slow to serve as the reference);
@@ -148,7 +156,9 @@ any failure exits non-zero and prints no result line:
    ``EncdecMultiheadAttn`` fp16, 256 queries over 200 keys; openfold's
    MSA row attention [1, 128, 8, 256, 32] bf16 with a key mask and a pair
    bias with its gradient, and triangle attention [1, 256, 4, 256, 32]
-   with its bias;
+   with its bias; at head dim 48 (the head-dim-64 kernels on zero-padded
+   operands), ``FMHA`` (768, 16 heads) over the same packed sequences and
+   MSA row attention [1, 64, 8, 256, 48], bf16;
 9. ResNet-50 with amp (BASELINE config #1; no kernel of the port on its
    path: cuDNN's convolutions, cuBLAS's classifier, plain PyTorch
    BatchNorm and pytree FusedSGD): 224 px, 1000 classes, random weights
@@ -678,7 +688,7 @@ def layer_norm_checks(dev):
         if rows == 8 and dt == torch.float32:
             ms = time_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5))
             dev_ms = device_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5),
-                               "ln_fwd_kernel")
+                               "::ln_fwd_")
             plain_ms = time_ms(
                 lambda: layer_norm_reference(x, w, b, 1e-5))
             lib_ms = time_ms(
@@ -703,7 +713,7 @@ def layer_norm_checks(dev):
             # the train step's shape (the model normalises an fp32 copy)
             t_ms = time_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5))
             t_dev = device_ms(lambda: layer_norm_fwd(x, w, b, eps=1e-5),
-                              "ln_fwd_kernel")
+                              "::ln_fwd_")
             t_plain = time_ms(lambda: layer_norm_reference(x, w, b, 1e-5),
                               iters=20)
             t_lib = time_ms(lambda: F.layer_norm(x, (HIDDEN,), w, b, 1e-5))
@@ -717,6 +727,85 @@ def layer_norm_checks(dev):
             "source": "apex_tpu_torch/csrc/layer_norm.cu",
             "replaces": "apex_tpu/ops/layer_norm.py:187",
             "max_abs_err": max(errs), **timing}
+
+
+#: the forward norms' plan branches (``ln_mod.norm_fwd_plan``) by width:
+#: the team kernels (vector widths, ragged 1025, and 1000, a whole number
+#: of vectors in fp32 but not in 16 bits; up to 8192), a block a row
+#: staging the row in shared memory (8193, 32768; 65536 in 16 bits) and
+#: past it, the row swept from L1/L2 (65536 fp32, 131072 in 16 bits);
+#: each at the rows given
+NORM_FWD_WIDTHS = ((1024, (1, 7, 8192)), (1000, (7,)), (1025, (1, 7, 8192)),
+                   (8192, (7, 8192)), (8193, (7, 8192)), (32768, (1, 7)),
+                   (65536, (1, 7)), (131072, (1, 7)))
+
+
+def _fwd_branch(rows: int, hidden: int, dt, dev) -> str:
+    """The kernel the forward plan runs: "team", "staged" or "swept"."""
+    es = torch.tensor([], dtype=dt).element_size()
+    plan = ln_mod.norm_fwd_plan(rows, hidden, _build.sm_count(dev.index), es)
+    if plan.warps_per_row:
+        return "team"
+    optin = torch.cuda.get_device_properties(
+        dev.index).shared_memory_per_block_optin
+    # the staged row in 16-byte vectors beside the block's static array
+    return "staged" if -(-hidden * es // 16) * 16 + 64 <= optin else "swept"
+
+
+def norm_fwd_branch_checks(dev):
+    """Both forwards (#2, #4) against their plain versions at every branch
+    of their plan (``NORM_FWD_WIDTHS``) in fp32, bf16 and fp16, rows 1, 7
+    and 8192, each also from a view at an element offset of 1 of a flat
+    buffer (a pointer that is not 16-byte aligned: the element-by-element
+    path): y at its dtype's tolerance, mu and rstd at fp32's, one launch a
+    call. Returns the worst LayerNorm and RMSNorm errors."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    errs = {"layer_norm_fwd": [], "rms_norm_fwd": []}
+    seen = set()
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for hidden, rows_list in NORM_FWD_WIDTHS:
+            w = torch.randn(hidden, generator=g, device=dev)
+            b = torch.randn(hidden, generator=g, device=dev)
+            for rows in rows_list:
+                flat = (torch.randn(rows * hidden + 1, generator=g,
+                                    device=dev) * 3 + 1).to(dt)
+                branch = _fwd_branch(rows, hidden, dt, dev)
+                for name, x in (("aligned", flat[:-1].view(rows, hidden)),
+                                ("offset 1", flat[1:].view(rows, hidden))):
+                    label = (f"[{rows},{hidden}] {str(dt)[6:]} {branch} "
+                             f"{name}")
+                    _device.reset_launch_counts()
+                    y, mu, rstd = layer_norm_fwd(x, w, b, eps=1e-5)
+                    ys, rs = rms_norm_fwd(x, w)
+                    counts = _device.launch_counts()
+                    if (counts["layer_norm_fwd"],
+                            counts["rms_norm_fwd"]) != (1, 1):
+                        raise AssertionError(f"norm forwards {label}: "
+                                             f"launches {counts}")
+                    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+                    rys, rrs = rms_norm_reference(x, w, 1e-5)
+                    errs["layer_norm_fwd"].append(max(
+                        check_close(f"layer_norm y {label}", y, ry, dt),
+                        check_close(f"layer_norm mu {label}", mu, rmu,
+                                    torch.float32),
+                        check_close(f"layer_norm rstd {label}", rstd, rrstd,
+                                    torch.float32)))
+                    errs["rms_norm_fwd"].append(max(
+                        check_close(f"rms_norm y {label}", ys, rys, dt),
+                        check_close(f"rms_norm rstd {label}", rs, rrs,
+                                    torch.float32)))
+                    seen.add((str(dt)[6:], branch))
+                del flat
+        torch.cuda.empty_cache()
+    missing = {(d, b) for d in ("float32", "bfloat16", "float16")
+               for b in ("team", "staged", "swept")} - seen
+    if missing:
+        raise AssertionError(f"norm forward branches not run: {missing}")
+    log(f"  norm forwards at every plan branch (team, staged, swept), "
+        f"aligned and at offset 1, fp32/bf16/fp16, rows 1, 7, 8192: max "
+        f"abs err LayerNorm {max(errs['layer_norm_fwd']):.3e}, RMSNorm "
+        f"{max(errs['rms_norm_fwd']):.3e}")
+    return max(errs["layer_norm_fwd"]), max(errs["rms_norm_fwd"])
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS):
@@ -1064,7 +1153,7 @@ def rms_norm_checks(dev):
             lambda: rms_norm_fwd(x, w), lambda: rms_norm_reference(x, w,
                                                                    1e-5),
             lambda: F.rms_norm(x, (hidden,), w.to(dt), 1e-5),
-            "rms_fwd_kernel", 2 * x.numel() * es + hidden * 4 + rows * 4,
+            "::rms_fwd_", 2 * x.numel() * es + hidden * 4 + rows * 4,
             4 * x.numel())
         bwd = _kernel_timing(
             lambda: rms_norm_bwd(dy, x, rstd, w),
@@ -1101,35 +1190,42 @@ def norm_fwd_library_times(dev):
     ``F.layer_norm``'s and ``F.rms_norm``'s forward at [8192, 1024] fp32
     and bf16, each call timed too (CUDA events) and device-timed
     (profiler, every kernel of the call), so a call-time gap can be told
-    apart as host cost (call minus device)."""
+    apart as host cost (call minus device). Warm: one input set, which
+    with its output fits the 50 MB L2; cold: input sets rotated past 50
+    MB (3 in fp32, 4 in bf16), so each call reads device memory."""
     g = torch.Generator(device=dev).manual_seed(23)
     rows, hidden = 8192, 1024
     out = {}
     for dt in (torch.float32, torch.bfloat16):
-        x = (torch.randn(rows, hidden, generator=g, device=dev) * 2
-             + 0.5).to(dt)
+        xs = [(torch.randn(rows, hidden, generator=g, device=dev) * 2
+               + 0.5).to(dt) for _ in range(3 if dt == torch.float32 else 4)]
+        x, nxt = xs[0], _rotating(xs)
         w = torch.randn(hidden, generator=g, device=dev)
         b = torch.randn(hidden, generator=g, device=dev)
         wl, bl = w.to(dt), b.to(dt)
         cases = {
-            "layer_norm_fwd": (lambda: layer_norm_fwd(x, w, b, eps=1e-5),
-                               "ln_fwd_kernel"),
-            "F.layer_norm": (lambda: F.layer_norm(x, (hidden,), wl, bl,
-                                                  1e-5), ""),
-            "rms_norm_fwd": (lambda: rms_norm_fwd(x, w), "rms_fwd_kernel"),
-            "F.rms_norm": (lambda: F.rms_norm(x, (hidden,), wl, 1e-5), ""),
+            "layer_norm_fwd": (lambda x: layer_norm_fwd(x, w, b, eps=1e-5),
+                               "::ln_fwd_"),
+            "F.layer_norm": (lambda x: F.layer_norm(x, (hidden,), wl, bl,
+                                                    1e-5), ""),
+            "rms_norm_fwd": (lambda x: rms_norm_fwd(x, w), "::rms_fwd_"),
+            "F.rms_norm": (lambda x: F.rms_norm(x, (hidden,), wl, 1e-5), ""),
         }
         res = {}
         for name, (fn, match) in cases.items():
-            call = time_ms(fn, iters=50)
-            dev_ms = device_ms(fn, match, iters=20)
+            call = time_ms(lambda: fn(x), iters=50)
+            dev_ms = device_ms(lambda: fn(x), match, iters=20)
+            cold = device_ms(lambda: fn(nxt()), match, iters=20)
             res[name] = {"call_ms": call, "device_ms": dev_ms,
+                         "cold_device_ms": cold,
                          "host_ms": None if dev_ms is None
                          else call - dev_ms}
         out[str(dt)[6:]] = res
         log(f"  norm forwards [{rows},{hidden}] {str(dt)[6:]}: "
             + "; ".join(f"{n} call {r['call_ms']:.4f} device "
-                        f"{r['device_ms']} ms" for n, r in res.items()))
+                        f"{r['device_ms']} cold {r['cold_device_ms']} ms"
+                        for n, r in res.items()))
+        del xs, x
     log("  norm_fwd_json " + json.dumps(out))
     return out
 
@@ -1261,6 +1357,19 @@ FLASH_HEAD_DIM_CASES = (
      torch.bfloat16, False, True, 0.0),
     ("d 128 bf16 causal, dropout 0.1", 2, 8, 1024, 1024, 128,
      torch.bfloat16, True, False, 0.1),
+    # head dims no kernel is instantiated for: zero-padded to the next
+    ("d 48 bf16 causal, s 1000 (padded to 64)", 2, 4, 1000, 1000, 48,
+     torch.bfloat16, True, False, 0.0),
+    ("d 48 f32 kv_mask, dead row, s 300 (padded to 64)", 2, 4, 300, 300,
+     48, torch.float32, False, True, 0.0),
+    ("d 80 bf16 kv_mask, dead row, s 300 (padded to 96)", 2, 4, 300, 300,
+     80, torch.bfloat16, False, True, 0.0),
+    ("d 80 f32 causal, s 1000 (padded to 96)", 2, 4, 1000, 1000, 80,
+     torch.float32, True, False, 0.0),
+    ("d 80 bf16 causal, dropout 0.1 (padded to 96)", 2, 8, 1024, 1024, 80,
+     torch.bfloat16, True, False, 0.1),
+    ("d 160 bf16 causal cross 320x1000 (padded to 256)", 2, 4, 320, 1000,
+     160, torch.bfloat16, True, False, 0.0),
 )
 
 
@@ -4484,6 +4593,24 @@ def attention_contribs(dev):
     add(contrib_leg(dev, "openfold triangle attention (starting node) bf16",
                     bf, lambda: attention_core(q, k, v, None, tri),
                     {"q": q, "k": k, "v": v, "tri_bias": tri}, 60))
+    del q, k, v, tri
+    # head dim 48, which no kernel is instantiated for: the head-dim-64
+    # kernels on zero-padded operands
+    fmha48 = FMHA(hidden_size=768, num_attention_heads=16,
+                  attention_probs_dropout_prob=0.1)
+    qkv = _leaf(torch.randn(total, 3 * 768, generator=g, device=dev).to(bf))
+    add(contrib_leg(dev, "fmha head dim 48 (768, 16 heads) bf16, padded "
+                    "to 64", bf, lambda: fmha48(qkv, cu_t, dropout_seed=1234),
+                    {"qkv": qkv}, 61))
+    del qkv
+    q, k, v = (_leaf(torch.randn(1, 64, 8, 256, 48, generator=g,
+                                 device=dev).to(bf)) for _ in range(3))
+    pair = _leaf((0.5 * torch.randn(1, 1, 8, 256, 256, generator=g,
+                                    device=dev)).to(bf))
+    add(contrib_leg(dev, "openfold MSA row attention + pair bias, head dim "
+                    "48, bf16, padded to 64", bf,
+                    lambda: attention_core(q, k, v, msa_mask[:, :64], pair),
+                    {"q": q, "k": k, "v": v, "pair_bias": pair}, 62))
     return launches
 
 
@@ -4949,13 +5076,14 @@ def main() -> int:
         log(f"  ({time.perf_counter() - tp:.1f} s)")
         return out
 
-    (fd, ln, ln_bwd, ln_wide_errs, rms, tier_errs, (fa_fwd, fa_bwd),
-     head_dim_errs, extra_errs, adam, fused, softmax, lamb, sgd, flat,
-     row_stats, novograd, f16_errs) = phase(
+    (fd, ln, ln_bwd, ln_wide_errs, rms, tier_errs, fwd_branch_errs,
+     (fa_fwd, fa_bwd), head_dim_errs, extra_errs, adam, fused, softmax,
+     lamb, sgd, flat, row_stats, novograd, f16_errs) = phase(
         "phase 2: kernels against their plain versions",
         lambda: (flash_decode_checks(dev), layer_norm_checks(dev),
                  layer_norm_bwd_checks(dev), layer_norm_width_checks(dev),
                  rms_norm_checks(dev), norm_bwd_tier_checks(dev),
+                 norm_fwd_branch_checks(dev),
                  flash_attention_checks(dev),
                  flash_head_dim_checks(dev), flash_bias_segment_checks(dev),
                  packed_adam_checks(dev),
@@ -4967,7 +5095,9 @@ def main() -> int:
                                 extra_errs[0])
     fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], head_dim_errs[1],
                                 extra_errs[1])
-    ln["max_abs_err"] = max(ln["max_abs_err"], ln_wide_errs[0])
+    ln["max_abs_err"] = max(ln["max_abs_err"], ln_wide_errs[0],
+                            fwd_branch_errs[0])
+    rms[0]["max_abs_err"] = max(rms[0]["max_abs_err"], fwd_branch_errs[1])
     ln_bwd["max_abs_err"] = max(ln_bwd["max_abs_err"], ln_wide_errs[1],
                                 tier_errs[0])
     rms[1]["max_abs_err"] = max(rms[1]["max_abs_err"], tier_errs[1])
@@ -5053,12 +5183,18 @@ def main() -> int:
                    gpt_parity(dev, "head dim 128 (8 heads), flash by default",
                               TRAIN_KERNELS[:4], num_attention_heads=8),
                    fused_width_parity(dev),
-                   gpt_parity(dev, "head dim 80 (hidden 1280), no flash "
-                              "kernel: fused softmax",
+                   gpt_parity(dev, "head dim 80 (hidden 1280), flash "
+                              "padded to head dim 96",
+                              TRAIN_KERNELS[:4],
+                              absent=("softmax_fwd", "softmax_bwd"),
+                              hidden_size=1280,
+                              compute_dtype=torch.bfloat16),
+                   gpt_parity(dev, "head dim 320 (hidden 1280, 4 heads), "
+                              "past flash's 256: fused softmax",
                               ("softmax_fwd", "softmax_bwd",
                                "layer_norm_fwd", "layer_norm_bwd"),
                               absent=("flash_attn_fwd", "flash_attn_bwd"),
-                              hidden_size=1280,
+                              hidden_size=1280, num_attention_heads=4,
                               compute_dtype=torch.bfloat16),
                    gpt_parity(dev, "fp16 GPT, fused, flash (reference: the "
                               "plain versions on the card)",

@@ -967,24 +967,66 @@ def test_flash_attention_takes_misaligned_views(cuda_device):
 
 
 def test_flash_attention_refuses_other_head_dims(cuda_device):
+    """Head dims up to 256 run (80 zero-padded to 96); past 256 the path
+    without flash takes them, and flash itself refuses."""
     from apex_tpu_torch.ops.flash_attention import flash_attention_available
 
-    assert flash_attention_available(1024, 1024, 128, cuda_device)
-    assert not flash_attention_available(1024, 1024, 80, cuda_device)
-    q = torch.zeros(1, 2, 16, 80, device=cuda_device)
+    for d in (128, 80, 16, 256):
+        assert flash_attention_available(1024, 1024, d, cuda_device)
+    assert not flash_attention_available(1024, 1024, 320, cuda_device)
+    q = torch.zeros(1, 2, 16, 320, device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_fwd(q, q, q, causal=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 48, 80, 160, 200])
+def test_flash_attention_padded_head_dims_match_plain(cuda_device, d,
+                                                      dtype):
+    """A head dim no kernel is instantiated for runs the next one's
+    kernels on zero-padded operands: forward and backward against the
+    plain versions at the unpadded width (causal, a ragged length, a
+    key-padding mask with a fully masked batch row), one launch each."""
+    rng = np.random.default_rng(d)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda_device, dtype)
+    q, k, v, do = (t(2, 4, 333, d) for _ in range(4))
+    kv_mask = torch.ones(2, 333, dtype=torch.bool, device=cuda_device)
+    kv_mask[1] = False
+    tol = _flash_tol(dtype)
+    for kw in (dict(causal=True), dict(kv_mask=kv_mask)):
+        _device.reset_launch_counts()
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        counts = _device.launch_counts()
+        assert counts["flash_attn_fwd"] == counts["flash_attn_bwd"] == 1
+        ro, rlse = flash_attention_fwd_reference(q, k, v, **kw)
+        want = flash_attention_bwd_reference(q, k, v, ro, rlse, do, **kw)
+        torch.cuda.synchronize()
+        assert o.shape == q.shape
+        torch.testing.assert_close(o.float(), ro.float(), **tol)
+        torch.testing.assert_close(lse, rlse, **TOL[torch.float32])
+        for got, ref in zip(grads, want):
+            assert got.shape == q.shape
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
 @pytest.mark.parametrize("hidden,heads,dtype,kernels", [
     (256, 2, torch.float32, ("flash_attn_fwd", "flash_attn_bwd")),
-    (160, 2, torch.bfloat16, ("softmax_fwd", "softmax_bwd"))],
-    ids=["head_dim_128_flash", "head_dim_80_softmax"])
+    (160, 2, torch.bfloat16, ("flash_attn_fwd", "flash_attn_bwd")),
+    (640, 2, torch.bfloat16, ("softmax_fwd", "softmax_bwd"))],
+    ids=["head_dim_128_flash", "head_dim_80_flash_padded",
+         "head_dim_320_softmax"])
 def test_step_at_other_head_dims_on_card_matches_cpu(cuda_device, hidden,
                                                      heads, dtype, kernels):
     """A 2-layer GPT with ``use_flash_attention=None`` at head dim 128
-    takes the flash kernels, at head dim 80 (no flash kernel) the fused
-    softmax kernels: loss and gradients on the card against the CPU."""
+    takes the flash kernels, at head dim 80 the flash kernels of head dim
+    96 on zero-padded operands, at head dim 320 (past flash's 256) the
+    fused softmax kernels: loss and gradients on the card against the
+    CPU."""
     from apex_tpu_torch.transformer.testing import (
         GPTConfig,
         gpt_loss,
@@ -1208,6 +1250,87 @@ def test_rms_norm_kernels_match_plain(cuda_device, rows, hidden, dtype):
     wdx, wdw = rms_norm_bwd_reference(dy, xhat, rstd, w, x_is_xhat=True)
     torch.testing.assert_close(hdx.float(), wdx.float(), **TOL[dtype])
     torch.testing.assert_close(hdw, wdw, atol=1e-3, rtol=1e-4)
+
+
+#: the forward norms' plan branches: the team kernels (vector widths and
+#: ragged ones, up to 8192), a block a row staging the row in shared
+#: memory (8193, 32768; 65536 in 16 bits), past it the row swept from
+#: L1/L2 (65536 fp32, 131072 in 16 bits)
+NORM_FWD_BRANCHES = [(1, 1024), (7, 1024), (8192, 1024), (7, 1001),
+                     (7, 1025), (7, 8192), (7, 8193), (1, 32768),
+                     (7, 65536), (1, 131072)]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset_1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,hidden", NORM_FWD_BRANCHES)
+def test_norm_fwd_kernels_match_plain_at_every_branch(cuda_device, rows,
+                                                      hidden, dtype,
+                                                      offset):
+    """Both forwards against their plain versions at every branch of
+    their plan, from contiguous views at an element offset of 0 and of 1
+    (a pointer that is not 16-byte aligned: element by element), one
+    launch a call: y at its dtype's tolerance, mu and rstd at fp32's."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + hidden)
+    flat = (torch.randn(rows * hidden + 1, generator=g, device=cuda_device)
+            * 3 + 1).to(dtype)
+    x = flat[offset:offset + rows * hidden].view(rows, hidden)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    w = torch.randn(hidden, generator=g, device=cuda_device)
+    b = torch.randn(hidden, generator=g, device=cuda_device)
+    _device.reset_launch_counts()
+    y, mu, rstd = layer_norm_fwd(x, w, b)
+    ys, rs = rms_norm_fwd(x, w)
+    counts = _device.launch_counts()
+    assert counts["layer_norm_fwd"] == counts["rms_norm_fwd"] == 1
+    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+    rys, rrs = rms_norm_reference(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert y.dtype == ys.dtype == dtype and mu.shape == rs.shape == (rows, 1)
+    torch.testing.assert_close(y.float(), ry.float(), **TOL[dtype])
+    torch.testing.assert_close(ys.float(), rys.float(), **TOL[dtype])
+    for got, want in ((mu, rmu), (rstd, rrstd), (rs, rrs)):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [1024, 1000])
+def test_norm_fwd_team_kernels_take_every_plan(cuda_device, hidden, dtype):
+    """Every team shape that covers the row (1-8 warps a row, 1-8 vectors
+    a lane, at most 32 columns a lane) and a few grids, through the
+    internal launchers: y, mu and rstd of both norms against their plain
+    versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(hidden)
+    rows = 777
+    x = (torch.randn(rows, hidden, generator=g, device=cuda_device) * 3
+         + 1).to(dtype)
+    w = torch.randn(hidden, generator=g, device=cuda_device)
+    b = torch.randn(hidden, generator=g, device=cuda_device)
+    per = 16 // x.element_size()
+    ry, rmu, rrstd = layer_norm_reference(x, w, b, 1e-5)
+    rys, rrs = rms_norm_reference(x, w, 1e-5)
+    tried = 0
+    for wpr in (1, 2, 4, 8):
+        for vecs in (1, 2, 4, 8):
+            if vecs * per > 32 or vecs * per * 32 * wpr < hidden:
+                continue
+            teams = 8 // wpr
+            for blocks in (1, 132, -(-rows // teams)):
+                rpb = -(-rows // blocks)
+                plan = ln_mod.NormFwdPlan(-(-rows // rpb), rpb, wpr, vecs)
+                y, mu, rstd = ln_mod._launch(x, w, b, 1e-5, plan=plan)
+                ys, rs = ln_mod._launch_rms(x, w, 1e-5, plan=plan)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), ry.float(),
+                                           **TOL[dtype])
+                torch.testing.assert_close(ys.float(), rys.float(),
+                                           **TOL[dtype])
+                for got, want in ((mu, rmu), (rstd, rrstd), (rs, rrs)):
+                    torch.testing.assert_close(got, want,
+                                               **TOL[torch.float32])
+                tried += 1
+    assert tried >= 6
 
 
 def _xhat(y, w, b, eps=1e-5):

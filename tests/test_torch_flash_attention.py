@@ -409,15 +409,16 @@ def test_mha_reference_with_bias_matches_jax():
 # the head dim, the path without flash elsewhere (the JAX package's rule)
 # ---------------------------------------------------------------------------
 
-#: head dims that a GPT-2/BERT-style model runs: hidden / heads
-HEAD_DIMS = [16, 32, 64, 80, 96, 128, 160, 256]
+#: head dims that a GPT-2/BERT-style model runs: hidden / heads (and one
+#: past the kernels' 256)
+HEAD_DIMS = [16, 32, 64, 80, 96, 128, 160, 256, 320]
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_attention_available_per_head_dim(d):
     on_card = T.flash_attention_available(1024, 1024, d,
                                           torch.device("cuda"))
-    assert on_card == (d in (32, 64, 96, 128, 256))
+    assert on_card == (d <= 256)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         assert T.flash_attention_available(1024, 1024, d, "cuda",
                                            dt) == on_card
@@ -457,9 +458,10 @@ def _route_spy(monkeypatch):
 @pytest.mark.parametrize("use_flash", [None, True, False])
 def test_model_takes_flash_only_at_a_head_dim_the_card_takes(
         monkeypatch, d, use_flash):
-    """``use_flash_attention=None`` takes flash at an instantiated head dim
-    and the path without flash (the fused softmax) at any other; ``True``
-    at another head dim raises; ``False`` never takes flash."""
+    """``use_flash_attention=None`` takes flash at a head dim up to 256
+    (the kernels' own or zero-padded to the next) and the path without
+    flash (the fused softmax) past it; ``True`` past 256 raises; ``False``
+    never takes flash."""
     from apex_tpu_torch.transformer.testing import (
         GPTConfig,
         gpt_loss,
@@ -474,7 +476,7 @@ def test_model_takes_flash_only_at_a_head_dim_the_card_takes(
     assert cfg.kv_channels == d
     params = init_gpt_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.arange(32).reshape(2, 16) % 64
-    on_card = d in T.KERNEL_HEAD_DIMS
+    on_card = d <= T.MAX_HEAD_DIM
     if use_flash and not on_card:
         with pytest.raises(ValueError, match="head dim"):
             gpt_loss(cfg, params, tokens, tokens)
@@ -484,3 +486,71 @@ def test_model_takes_flash_only_at_a_head_dim_the_card_takes(
     takes_flash = on_card and use_flash is not False
     assert calls == {"flash": int(takes_flash),
                      "softmax": int(not takes_flash)}
+
+
+# ---------------------------------------------------------------------------
+# head dims between the instantiated ones: the CUDA route zero-pads q, k, v
+# (and o, do) to the next instantiated head dim and cuts the results back
+# ---------------------------------------------------------------------------
+
+def _spied(fn, seen):
+    def run(q, *a):
+        seen.append(q.shape[-1])
+        return fn(q, *a)
+    return run
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,masked,p", [CASES[0], CASES[4]],
+                         ids=["causal", "kv_mask_dropout"])
+@pytest.mark.parametrize("d", [16, 48, 80, 160])
+def test_head_padded_route_matches_jax_interpret(d, causal, masked, p,
+                                                 dtype):
+    """The pad and slice helpers of the CUDA route around the plain
+    versions, at head dims no kernel is instantiated for, against the JAX
+    module in interpret mode: o, lse, dq, dk and dv at the unpadded width,
+    the plain versions run at the padded one, the scale ``1/sqrt(d)`` of
+    the unpadded d."""
+    q, k, v, do, mask = _inputs(d=d)
+    seed = 7 if p else None
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v, do)]
+    jmask = jnp.asarray(mask) if masked else None
+    jkw = dict(causal=causal, kv_mask=jmask, dropout_p=p, dropout_seed=seed,
+               block_q=16, block_k=16)
+    jo, vjp = jax.vjp(lambda a, b, c: J.flash_attention(a, b, c, **jkw),
+                      *jx[:3])
+    jdq, jdk, jdv = vjp(jx[3])
+    _, jlse = J._fwd(*jx[:3], None,
+                     None if jmask is None else jmask.astype(jnp.int8),
+                     None, None, seed, d ** -0.5, causal, p, 16, 16, True)
+
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(getattr(torch, dtype))
+                       for a in (q, k, v, do))
+    args = (torch.from_numpy(mask) if masked else None, None, None, None,
+            causal, d ** -0.5, p, T._resolve_seed(p, seed))
+    seen = []
+    o, lse = T._head_padded_fwd(_spied(T._plain_fwd, seen), tq, tk, tv,
+                                *args)
+    dq, dk, dv, dbias = T._head_padded_bwd(_spied(T._plain_bwd, seen), tq,
+                                           tk, tv, o, lse, tdo, *args,
+                                           False)
+    assert seen == [T.kernel_head_dim(d)] * 2 and seen[0] > d
+    assert dbias is None
+    for t in (o, dq, dk, dv):
+        assert t.shape == tq.shape and t.dtype == tq.dtype
+        assert t.is_contiguous()
+    tol = TOL[dtype]
+    for want, got in ((jo, o), (jlse, lse), (jdq, dq), (jdk, dk),
+                      (jdv, dv)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_kernel_head_dim_is_the_next_instantiated_one():
+    """Each head dim up to 256 runs at the narrowest instantiated head dim
+    that holds it; past 256 the CUDA route refuses."""
+    for d in range(1, 257):
+        k = T.kernel_head_dim(d)
+        assert k in T.KERNEL_HEAD_DIMS and k >= d
+        assert all(j < d for j in T.KERNEL_HEAD_DIMS if j < k)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        T.kernel_head_dim(257)

@@ -73,6 +73,33 @@ def test_fmha_varlen_matches_jax(causal, dtype):
     _assert_close(j, t, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fmha_head_dim_48_padded_route_matches_jax(monkeypatch, dtype):
+    """At head dim 48 (no kernel of its own) through the CUDA route's pad
+    and slice helpers, the plain versions standing in for the kernels at
+    head dim 64: the output and the packed qkv's gradient against the JAX
+    package's."""
+    from apex_tpu_torch.ops import flash_attention as F
+
+    seen = []
+
+    def spied(fn):
+        def run(q, *a):
+            seen.append(q.shape[-1])
+            return fn(q, *a)
+        return run
+    monkeypatch.setattr(F, "_route", lambda *t: True)
+    monkeypatch.setattr(F, "_launch_fwd", spied(F._plain_fwd))
+    monkeypatch.setattr(F, "_launch_bwd", spied(F._plain_bwd))
+    qkv, g, cu = _packed([24, 40, 16], d=48, seed=3)
+    j, t = _both(qkv, g, cu, dtype,
+                 lambda a, c: j_fmha_varlen(a, c, causal=True),
+                 lambda a, c: fmha_varlen(a, c, causal=True))
+    assert seen == [64, 64]
+    assert tuple(t[0].shape) == (80, 2, 48)
+    _assert_close(j, t, dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fmha_module_matches_jax(dtype):
     """The ``[total, hidden]`` module layout, with tokens past

@@ -277,3 +277,38 @@ def test_norm_bwd_plan_covers_every_row_once(rows, hidden, n_sms):
     assert plan.blocks <= 4 * n_sms  # one wave: at most 4 blocks an SM
     teams = 8 // plan.warps_per_row
     assert plan.blocks <= -(-rows // teams)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 37, 8192])
+@pytest.mark.parametrize("hidden", [1, 31, 128, 1000, 1024, 1025, 4096,
+                                    8192, 8193, 65536])
+@pytest.mark.parametrize("n_sms", [1, 132])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("rms", [False, True])
+def test_norm_fwd_plan_covers_every_row_once(rows, hidden, n_sms,
+                                             elem_bytes, rms):
+    """Every row in exactly one block, no block empty; in the tier a
+    team's lanes cover the whole row (16-byte vectors: 8 columns in 16
+    bits, 4 in fp32; at most 32 columns a lane; teams of 1-8 warps of an
+    8-warp block) and the grid is one wave at most (the resident blocks an
+    SM of the plan's kernel, LayerNorm's or RMSNorm's, times the SMs);
+    past the tier a block a row."""
+    plan = tln.norm_fwd_plan(rows, hidden, n_sms, elem_bytes, rms)
+    owner = [r // plan.rows_per_block for r in range(rows)]
+    assert sorted(set(owner)) == list(range(plan.blocks))
+    if hidden > tln.FWD_TIER:
+        assert plan == (rows, 1, 0, 0)
+        return
+    per_vec = 16 // elem_bytes
+    assert plan.warps_per_row in (1, 2, 4, 8) and plan.vecs in (1, 2, 4, 8)
+    assert plan.vecs * per_vec <= 32
+    assert plan.vecs * per_vec * 32 * plan.warps_per_row >= hidden
+    resident = tln._RMS_FWD_RESIDENT if rms else tln._FWD_RESIDENT
+    assert plan.blocks <= resident[(elem_bytes, plan.vecs)] * n_sms
+    teams = 8 // plan.warps_per_row
+    assert plan.blocks <= -(-rows // teams)
+    # the narrowest team that covers the row, or the grid too small for
+    # the card at half the team
+    half = plan.warps_per_row // 2
+    assert plan.warps_per_row == 1 or half * 32 * 32 < hidden \
+        or -(-rows // (8 // half)) < n_sms

@@ -196,10 +196,37 @@ def test_fully_masked_key_mask_warns_once_on_the_cpu(monkeypatch):
         tmha.attention_core(q, q, q, mask=dead)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_head_dim_48_padded_route_matches_jax(monkeypatch, dtype):
+    """At head dim 48 (no kernel of its own) through the CUDA route's pad
+    and slice helpers, the plain versions standing in for the kernels at
+    head dim 64: output and every gradient, the pair bias's included,
+    against the JAX package's."""
+    from apex_tpu_torch.ops import flash_attention as F
+
+    seen = []
+
+    def spied(fn):
+        def run(q, *a):
+            seen.append(q.shape[-1])
+            return fn(q, *a)
+        return run
+    monkeypatch.setattr(F, "_route", lambda *t: True)
+    monkeypatch.setattr(F, "_launch_fwd", spied(F._plain_fwd))
+    monkeypatch.setattr(F, "_launch_bwd", spied(F._plain_bwd))
+    q, k, v, g, bias = _operands((2, 2, 32, 48), 8, (1, 2, 32, 32))
+    j, t = _grads(q, k, v, g, dtype, bias=bias)
+    assert seen == [64, 64]
+    _check(j, t, dtype, dbias_tol=1e-4)
+    assert t[0].shape == (2, 2, 32, 48)
+
+
 def test_can_use_fused_attention_and_toggles():
     assert T.can_use_fused_attention((2, 2, 32, 16), True, True, "cpu")
     assert T.can_use_fused_attention((2, 2, 32, 32), device="cuda")
-    assert not T.can_use_fused_attention((2, 2, 32, 16), device="cuda")
+    # another head dim up to 256 runs zero-padded; past it, no flash
+    assert T.can_use_fused_attention((2, 2, 32, 16), device="cuda")
+    assert not T.can_use_fused_attention((2, 2, 32, 320), device="cuda")
     assert T.AttnTri is T.attention_core
     before = tmha.is_enabled()
     try:

@@ -1,13 +1,28 @@
-"""Time the norm backward and paged flash-decode kernels of several
-checkouts of the PyTorch port on one card, in alternating fresh processes.
+"""Time the norm and paged flash-decode kernels of several checkouts of
+the PyTorch port on one card, in alternating fresh processes.
 
 Each run is a fresh process whose working directory is one checkout. It
-calls that checkout's public wrappers ``layer_norm_bwd``, ``rms_norm_bwd``
-and ``flash_decode`` (so an older checkout runs it too) on inputs made on
-the card from a seed, and reads each call's device time from a
-``torch.profiler`` trace (the kernels whose names hold ``norm_bwd`` or
-``flash_decode``; host time excluded). Cases:
+calls that checkout's public wrappers ``layer_norm_fwd``,
+``rms_norm_fwd``, ``layer_norm_bwd``, ``rms_norm_bwd`` and
+``flash_decode`` (so an older checkout runs it too) on inputs made on the
+card from a seed, and reads each call's device time from a
+``torch.profiler`` trace (the kernels whose names start ``ln_fwd_``,
+``rms_fwd_``, or hold ``norm_bwd`` or ``flash_decode``; host time
+excluded). Cases:
 
+- ``ln_fwd_bf16``, ``ln_fwd_f32``, ``rms_fwd_bf16`` and ``rms_fwd_f32``:
+  the forwards at ``[8192, 1024]``, and ``ln_fwd_serving``, the LayerNorm
+  forward at the serving step's ``[8, 1024]`` fp32; each also warm (one
+  input set: ``warm_ms``), and ``F.layer_norm`` / ``F.rms_norm`` on the
+  same inputs, cold and warm (``library_ms``, ``library_warm_ms``: every
+  kernel of the call); each with the CUDA-event time of a back-to-back
+  call of the wrapper, of its launcher under the custom op (``_launch``,
+  ``_launch_rms``) and of the library on the warm set, the median of 25
+  batches (``call_ms``, ``launch_call_ms``, ``library_call_ms``: at ``[8,
+  1024]`` the host's cost a call);
+- ``ln_fwd_wide_bf16``, ``ln_fwd_wide_f32``, ``rms_fwd_wide_bf16`` and
+  ``rms_fwd_wide_f32``: the same at ``[1024, 32768]``, rows wider than the
+  team kernels take;
 - ``ln_bwd``: the LayerNorm backward at ``[8192, 1024]`` fp32, the GPT-2
   345M train step's shape (x and dy fp32);
 - ``rms_bwd_bf16`` and ``rms_bwd_f32``: the RMSNorm backward at ``[8192,
@@ -24,7 +39,8 @@ together. The checkouts run in the order given, then in reverse
 (``--rounds`` such blocks), so a drift of the card over the call falls on
 every side.
 
-    python3 tools/torch_kernel_ab.py _tree/parent . --rounds 2
+    python3 tools/torch_kernel_ab.py _tree/parent . --rounds 2 \
+        [--cases fwd]
 
 Prints the card's name and power limit, one ``kab_json`` line per
 checkout, case and round (device ms, its split by kernel, the bound), and
@@ -42,10 +58,16 @@ from _torch_ab import run_sides
 
 CHILD = r'''
 import json
+import sys
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 from apex_tpu_torch.ops.flash_decode import flash_decode
-from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, rms_norm_bwd
+from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd, layer_norm_fwd,
+                                           rms_norm_bwd, rms_norm_fwd)
+
+# the module (the package re-exports a function of the same name)
+ln_mod = sys.modules["apex_tpu_torch.ops.layer_norm"]
 
 HBM = 3.35e12
 dev = torch.device("cuda", 0)
@@ -68,6 +90,23 @@ def device_ms(fn, match, iters=50):
     return None, {}
 
 
+def call_ms(fn, batches=25, iters=40):
+    """CUDA-event ms a call of ``fn``, called back to back (host cost
+    included): the median of ``batches`` batches of ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    per = []
+    for _ in range(batches):
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        t1.synchronize()
+        per.append(t0.elapsed_time(t1) / iters)
+    return sorted(per)[batches // 2]
+
+
 def rotating(sets):
     it = {"i": -1}
 
@@ -75,6 +114,39 @@ def rotating(sets):
         it["i"] = (it["i"] + 1) % len(sets)
         return sets[it["i"]]
     return nxt
+
+
+def norm_fwd(case, rms, dt, rows=8192, hidden=1024):
+    g = torch.Generator(device=dev).manual_seed(8)
+    es = torch.tensor([], dtype=dt).element_size()
+    # x and y of the sets together past the 50 MB L2, with a set to spare
+    n_sets = max(2, -(-50 * 2 ** 20 // (2 * rows * hidden * es)) + 1)
+    sets = [(torch.randn(rows, hidden, generator=g, device=dev) * 2
+             + 0.5).to(dt) for _ in range(n_sets)]
+    w = torch.randn(hidden, generator=g, device=dev)
+    b = torch.randn(hidden, generator=g, device=dev)
+    wl, bl = w.to(dt), b.to(dt)
+    if rms:
+        fn, match = (lambda x: rms_norm_fwd(x, w)), "::rms_fwd_"
+        launch = lambda x: ln_mod._launch_rms(x, w, 1e-5)
+        lib = lambda x: F.rms_norm(x, (hidden,), wl, 1e-5)
+    else:
+        fn, match = ((lambda x: layer_norm_fwd(x, w, b, eps=1e-5)),
+                     "::ln_fwd_")
+        launch = lambda x: ln_mod._launch(x, w, b, 1e-5)
+        lib = lambda x: F.layer_norm(x, (hidden,), wl, bl, 1e-5)
+    nxt = rotating(sets)
+    ms, by = device_ms(lambda: fn(nxt()), match)
+    warm, _ = device_ms(lambda: fn(sets[0]), match)
+    lib_ms, _ = device_ms(lambda: lib(nxt()), "")
+    lib_warm, _ = device_ms(lambda: lib(sets[0]), "")
+    nbytes = 2 * rows * hidden * es + (1 if rms else 2) * (hidden + rows) * 4
+    return {"case": case, "device_ms": ms, "warm_ms": warm, "kernels": by,
+            "library_ms": lib_ms, "library_warm_ms": lib_warm,
+            "call_ms": call_ms(lambda: fn(sets[0])),
+            "launch_call_ms": call_ms(lambda: launch(sets[0])),
+            "library_call_ms": call_ms(lambda: lib(sets[0])),
+            "sets": n_sets, "bound_ms": nbytes / HBM * 1e3}
 
 
 def norm(case, rms, dt, rows=8192, hidden=1024, n_sets=2):
@@ -124,16 +196,32 @@ def decode(case, lens, mp, n_pools, n=16, d=64, ps=8):
             "bound_ms": nbytes / HBM * 1e3}
 
 
-cases = [lambda: norm("ln_bwd", False, torch.float32),
-         lambda: norm("rms_bwd_bf16", True, torch.bfloat16, n_sets=4),
-         lambda: norm("rms_bwd_f32", True, torch.float32),
-         lambda: decode("decode_serving", [0, 1, 7, 8, 64, 129, 191, 192],
-                        32, 8),
-         lambda: decode("decode_8x1024", [1024] * 8, 128, 4),
-         lambda: decode("decode_64x1024", [1024] * 64, 128, 2)]
-for case in cases:
-    print("kab_json " + json.dumps(case()), flush=True)
-    torch.cuda.empty_cache()
+cases = {
+    "ln_fwd_bf16": lambda c: norm_fwd(c, False, torch.bfloat16),
+    "ln_fwd_f32": lambda c: norm_fwd(c, False, torch.float32),
+    "rms_fwd_bf16": lambda c: norm_fwd(c, True, torch.bfloat16),
+    "rms_fwd_f32": lambda c: norm_fwd(c, True, torch.float32),
+    "ln_fwd_serving": lambda c: norm_fwd(c, False, torch.float32, rows=8),
+    "ln_fwd_wide_bf16": lambda c: norm_fwd(c, False, torch.bfloat16,
+                                           rows=1024, hidden=32768),
+    "ln_fwd_wide_f32": lambda c: norm_fwd(c, False, torch.float32,
+                                          rows=1024, hidden=32768),
+    "rms_fwd_wide_bf16": lambda c: norm_fwd(c, True, torch.bfloat16,
+                                            rows=1024, hidden=32768),
+    "rms_fwd_wide_f32": lambda c: norm_fwd(c, True, torch.float32,
+                                           rows=1024, hidden=32768),
+    "ln_bwd": lambda c: norm(c, False, torch.float32),
+    "rms_bwd_bf16": lambda c: norm(c, True, torch.bfloat16, n_sets=4),
+    "rms_bwd_f32": lambda c: norm(c, True, torch.float32),
+    "decode_serving": lambda c: decode(c, [0, 1, 7, 8, 64, 129, 191, 192],
+                                       32, 8),
+    "decode_8x1024": lambda c: decode(c, [1024] * 8, 128, 4),
+    "decode_64x1024": lambda c: decode(c, [1024] * 64, 128, 2)}
+only = sys.argv[1:]
+for name, case in cases.items():
+    if not only or any(o in name for o in only):
+        print("kab_json " + json.dumps(case(name)), flush=True)
+        torch.cuda.empty_cache()
 '''
 
 
@@ -143,16 +231,22 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--logs", default="_tree/kernel_ab",
                     help="directory for each process's output")
+    ap.add_argument("--cases", nargs="*", default=[],
+                    help="run only the cases whose names hold one of these")
     args = ap.parse_args()
     dev = {}
     for i, t, rec in run_sides(args.trees, CHILD, "kab_json",
-                               rounds=args.rounds, logs=args.logs):
+                               rounds=args.rounds, logs=args.logs,
+                               argv=lambda s: args.cases):
         path = args.trees[t]
         rec.update(tree=path, run=i)
         print("kab_json " + json.dumps(rec), flush=True)
-        dev.setdefault((rec["case"], path), []).append(rec["device_ms"])
+        dev.setdefault((rec["case"], path), []).append(
+            (rec["device_ms"], rec.get("call_ms")))
     for (case, path), v in sorted(dev.items()):
-        print(f"{case} {path}: device ms {', '.join(str(x) for x in v)}")
+        print(f"{case} {path}: device ms "
+              f"{', '.join(str(d) for d, _ in v)}; call ms "
+              f"{', '.join(str(c) for _, c in v)}")
     return 0
 
 
