@@ -19,8 +19,14 @@ attention without flash through ``transformer.functional.fused_softmax``
 (forward and backward kernels); BERT (``bert_forward``,
 ``standalone_bert``) with ``contrib.xentropy.softmax_cross_entropy_loss``
 and ``optimizers.FusedLAMB``, pytree or packed (the ``ops.packed_optimizer``
-row reduce, LAMB stage 1 and trust-ratio apply kernels); and
-``optimizers.FusedSGD``, pytree or packed (the packed SGD kernel).
+row reduce, LAMB stage 1 and trust-ratio apply kernels);
+``optimizers.FusedSGD``, pytree or packed (the packed SGD kernel); the
+norms, the telemetry core, the attention contribs, the amp frontend and
+``fp16_utils``; and ``fused_dense`` (with the fp8 delayed-scaling recipe
+of ``fused_dense.fp8``, whose GEMM is ``torch._scaled_mm`` on the fp8
+tensor cores, and the GPT's ``GPTConfig(fp8=True)``), ``mlp``,
+``transformer.functional.fused_rope`` and
+``contrib.openfold.FusedAdamSWA``.
 """
 from ._device import (  # noqa: F401
     kernel_route,

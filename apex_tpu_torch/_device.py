@@ -27,7 +27,10 @@ tails
 ``residual_ln_fwd``/``_bwd``, and the fused softmax ``softmax_fwd``
 (causal or unmasked), ``softmax_masked_fwd`` and ``softmax_bwd``. A
 forward output that a selective recompute policy hands back from its
-cache launches nothing and counts nothing.
+cache launches nothing and counts nothing. One key counts a library
+call, not a kernel of the port: ``fp8_gemm``, the cuBLASLt fp8 GEMM
+(``torch._scaled_mm``) of ``fused_dense.fp8``, counted at its call
+site.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "bias_dropout_residual_fwd": 0, "bias_dropout_residual_bwd": 0,
     "residual_ln_fwd": 0, "residual_ln_bwd": 0,
     "softmax_fwd": 0, "softmax_masked_fwd": 0, "softmax_bwd": 0,
+    "fp8_gemm": 0,
 }
 
 

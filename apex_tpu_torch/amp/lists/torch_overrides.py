@@ -34,10 +34,12 @@ import (``_entries``) so a torch release dropping an alias cannot break
 the patcher. ``JAX_COUNTERPART`` maps each entry's name
 (``"torch.mm"``, ``"F.linear"``) to the JAX entry of the same category
 that does the same work (``"jnp.matmul"``), or None where the JAX lists
-have none; the parity tests read it. The apex entries of the JAX file's
-``_apex_low_precision`` (``mlp.mlp``, ``fused_dense.*``) join when those
-modules are ported; until then the existence filter leaves them out,
-which is the JAX file's own ``try``/``except`` behaviour.
+have none; the parity tests read it. The port's own GEMM surfaces are
+low-precision entries too, as the JAX file's ``_apex_low_precision``
+lists ``apex_tpu``'s: ``mlp.mlp``, ``fused_dense.fused_dense``,
+``fused_dense.fused_dense_gelu_dense`` and ``fused_dense.dense_no_bias``
+(patched on the packages ``apex_tpu_torch.mlp`` and
+``apex_tpu_torch.fused_dense``, where callers reach them).
 
 The ops are patched only where a caller reaches them by attribute at
 call time (``F.conv2d(...)``); operators and tensor methods (``a @ b``,
@@ -103,6 +105,27 @@ LOW_PRECISION_FUNCS = (
         ("conv_transpose3d", "lax.conv_transpose"), ("conv_tbc", _CONV),
     ])
 )
+
+
+
+def _port_low_precision():
+    """The port's own GEMM surfaces (the JAX file's
+    ``_apex_low_precision``: the reference registers its fused MLP and
+    dense ops on the FP16 list)."""
+    out = []
+    for label, names in (
+            ("mlp", [("mlp", "apex_tpu.mlp.mlp")]),
+            ("fused_dense", [
+                ("fused_dense", "apex_tpu.fused_dense.fused_dense"),
+                ("fused_dense_gelu_dense",
+                 "apex_tpu.fused_dense.fused_dense_gelu_dense"),
+                ("dense_no_bias", "apex_tpu.fused_dense.dense_no_bias")])):
+        _MODULES[label] = importlib.import_module(f"apex_tpu_torch.{label}")
+        out += _entries(label, names)
+    return out
+
+
+LOW_PRECISION_FUNCS += _port_low_precision()
 
 # -- fp32: numerically sensitive ops (reference FP32_FUNCS) -----------------
 

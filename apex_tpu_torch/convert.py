@@ -29,6 +29,14 @@ kernels become ``[out, in, kh, kw]`` (channels-last in memory) and
 its inverse (numpy, flax layouts). ``fused_sgd_state_from_jax`` carries
 a pytree ``FusedSGDState`` (momentum buffers and masters through a
 caller-given tree map, ``resnet_params_from_jax``'s for the ResNet).
+
+``fp8_state_from_jax`` carries the delayed-scaling state of
+``apex_tpu/fused_dense/fp8.py`` (an ``Fp8DenseState``, or the GPT's dict
+of stacked ones) into ``fused_dense.fp8``'s, and
+``fused_adam_swa_state_from_jax`` openfold's ``FusedAdamSWAState``. The
+``FusedDense``, ``FusedDenseGeluDense`` and ``MLP`` modules keep flax's
+parameter names: their flax params load through :func:`params_from_jax`
+and ``load_state_dict``.
 """
 from __future__ import annotations
 
@@ -221,3 +229,34 @@ def fused_sgd_state_from_jax(state: Mapping[str, Any], device="cpu",
         momentum_buffer=tree_from_jax(state["momentum_buffer"], device),
         master_params=(None if masters is None
                        else tree_from_jax(masters, device)))
+
+
+def fp8_state_from_jax(state: Any, device="cpu"):
+    """A JAX ``Fp8DenseState`` (fields ``x``, ``w``, ``g``, each an
+    ``Fp8TensorMeta`` of ``amax_history`` and ``scale``, or ``g`` None;
+    leaves numpy or anything ``np.asarray`` takes), or a dict of them
+    (the GPT's ``{name: stacked state}``), as the port's, in fp32."""
+    from .fused_dense.fp8 import Fp8DenseState, Fp8TensorMeta
+
+    if isinstance(state, Mapping):
+        return {k: fp8_state_from_jax(v, device) for k, v in state.items()}
+
+    def meta(m):
+        if m is None:
+            return None
+        return Fp8TensorMeta(
+            amax_history=_tensor(m.amax_history, torch.float32, device),
+            scale=_tensor(m.scale, torch.float32, device))
+    return Fp8DenseState(x=meta(state.x), w=meta(state.w), g=meta(state.g))
+
+
+def fused_adam_swa_state_from_jax(state: Any, device="cpu"):
+    """A JAX ``FusedAdamSWAState`` (``step``, ``n_averaged``, moment
+    trees of numpy leaves) as the port's; the moments in fp32."""
+    from .contrib.openfold.fused_adam_swa import FusedAdamSWAState
+
+    return FusedAdamSWAState(
+        step=_tensor(state.step, torch.int32, device),
+        n_averaged=_tensor(state.n_averaged, torch.int32, device),
+        exp_avg=params_from_jax(state.exp_avg, device, torch.float32),
+        exp_avg_sq=params_from_jax(state.exp_avg_sq, device, torch.float32))

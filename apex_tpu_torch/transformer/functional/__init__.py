@@ -1,6 +1,12 @@
 """Transformer functional ops (counterpart of
-``apex_tpu/transformer/functional``): the fused scale-mask-softmax.
-``fused_rope`` is not ported yet (ROADMAP.md, queue A5.3)."""
+``apex_tpu/transformer/functional``): the fused scale-mask-softmax and
+the rotary positional embeddings."""
+from .fused_rope import (  # noqa: F401
+    fused_apply_rotary_pos_emb,
+    fused_apply_rotary_pos_emb_2d,
+    fused_apply_rotary_pos_emb_cached,
+    fused_apply_rotary_pos_emb_thd,
+)
 from .fused_softmax import (  # noqa: F401
     FusedScaleMaskSoftmax,
     generic_scaled_masked_softmax,

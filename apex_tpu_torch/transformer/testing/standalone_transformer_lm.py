@@ -32,9 +32,18 @@ as far as serving and the single-device train step use it.
   bias-dropout-residual and residual-add-LayerNorm forward and backward;
   GEMMs (the attention products included) are ``F.linear`` /
   ``torch.bmm`` / ``torch.mm``, as the JAX package left them to XLA.
+- fp8 (``GPTConfig.fp8``): the four projection GEMMs of a layer (qkv,
+  proj, fc1, fc2) on the e4m3 / e5m2 delayed-scaling recipe of
+  ``fused_dense.fp8_fused_dense_qgrad`` (the library fp8 GEMM on the
+  card), the states threaded through :func:`transformer_block` as
+  ``[L, ...]`` stacks: :func:`init_gpt_fp8_states`,
+  :func:`init_gpt_fp8_carriers`, ``gpt_loss(..., fp8_states=,
+  fp8_carriers=)`` returning ``(loss, new_states)``, and
+  :func:`record_gpt_grad_amaxes` over the carriers' gradients.
 
-Not ported yet (ROADMAP.md): tensor, sequence and context parallelism
-and fp8. Hidden
+Not ported yet (ROADMAP.md): tensor, sequence and context parallelism,
+and with them the amax reduction over a group
+(``fp8_amax_reduction_axes``, A6.1). Hidden
 dropout of the unfused branch draws from an explicit ``torch.Generator``
 (JAX's ``bernoulli`` stream cannot be matched); attention dropout and
 the fused tails' hidden dropout are the kernels' hash, seeded from the
@@ -44,7 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +63,15 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..._device import resolve_device
+from ..._tree import tree_map
 from ...contrib.xentropy import lm_head_cross_entropy, lm_logits
+from ...fused_dense.fp8 import (
+    FP8_GEMM,
+    fp8_fused_dense_qgrad,
+    init_fp8_dense_state,
+    record_grad_amax,
+)
 from ...ops.flash_attention import (
     FLASH_ATTN_FWD,
     MAX_HEAD_DIM,
@@ -114,6 +131,15 @@ class GPTConfig:
     # fc2 bias + hash dropout + residual after the MLP). Hidden dropout is
     # then the counter hash seeded per tail, not the generator's mask.
     fused_block: bool = False
+    # fp8 (e4m3 forward, e5m2 gradients, delayed scaling) on the four
+    # projection GEMMs of a layer (qkv / proj / fc1 / fc2): pass
+    # init_gpt_fp8_states(cfg) and init_gpt_fp8_carriers(cfg) to gpt_loss.
+    # fp8_amax_reduction_axes (the JAX package's pmax over mesh axes)
+    # must stay None until parallel_state is ported (A6.1)
+    fp8: bool = False
+    fp8_margin: float = 0.0
+    fp8_amax_history_len: int = 16
+    fp8_amax_reduction_axes: Optional[Tuple[str, ...]] = None
     # BERT: the pooler and binary (sentence-order) head
     add_binary_head: bool = False
 
@@ -208,11 +234,22 @@ def lm_head(h: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, word.shape[0])
 
 
-def gpt_forward(cfg: GPTConfig, params: Params,
-                tokens: torch.Tensor) -> torch.Tensor:
+def gpt_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
+                fp8_states=None, fp8_carriers=None):
     """Dense inference forward: ``tokens [b, s]`` -> fp32 logits
     ``[b, s, vocab]``. Deterministic (no dropout); causal attention
-    with an fp32 softmax over all earlier positions."""
+    with an fp32 softmax over all earlier positions.
+
+    With ``cfg.fp8`` (``fp8_states`` and ``fp8_carriers`` given, which
+    :func:`gpt_hidden` checks) the logits come from the training path,
+    as the JAX ``gpt_forward`` computes them (:func:`gpt_hidden`, then
+    the tied head), and ``(logits, new_fp8_states)`` is returned."""
+    if cfg.fp8 or fp8_states is not None:
+        hidden, new_fp8 = gpt_hidden(cfg, params, tokens,
+                                     fp8_states=fp8_states,
+                                     fp8_carriers=fp8_carriers)
+        return lm_head(hidden.transpose(0, 1),
+                       params["embedding"]["word"]), new_fp8
     b, s = tokens.shape
     if s > cfg.max_position_embeddings:
         raise ValueError(
@@ -269,12 +306,65 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int],
     return torch.where(keep, x / (1.0 - rate), 0).to(x.dtype)
 
 
+FP8_GEMM_NAMES = ("qkv", "proj", "fc1", "fc2")
+
+
+def init_gpt_fp8_states(cfg: GPTConfig, device=None):
+    """Per-layer delayed-scaling state of the four projection GEMMs:
+    ``{name: Fp8DenseState with [L, ...] leaves}`` on ``device`` (None:
+    the card), with gradient metas. Thread through ``gpt_loss(...,
+    fp8_states=...)``; the returned states carry the rolled x and w
+    histories, and the gradient amaxes come back as the gradients of
+    the ``fp8_carriers`` (fold them in with
+    :func:`record_gpt_grad_amaxes`)."""
+    one = init_fp8_dense_state(cfg.fp8_amax_history_len,
+                               with_grad_meta=True,
+                               device=resolve_device(device))
+    return {name: tree_map(lambda t: t.expand(cfg.num_layers, *t.shape)
+                           .clone(), one)
+            for name in FP8_GEMM_NAMES}
+
+
+def init_gpt_fp8_carriers(cfg: GPTConfig, device=None):
+    """Zero per-layer gradient-amax carriers ``{name: [L] fp32}``:
+    differentiate with respect to them; their gradients are the
+    per-layer ``max|dY|``."""
+    device = resolve_device(device)
+    return {name: torch.zeros(cfg.num_layers, dtype=torch.float32,
+                              device=device)
+            for name in FP8_GEMM_NAMES}
+
+
+def record_gpt_grad_amaxes(cfg: GPTConfig, fp8_states, carrier_grads):
+    """Fold the backward-observed gradient amaxes (the carriers'
+    gradients) into each layer's g meta."""
+    return {name: record_grad_amax(
+                fp8_states[name], carrier_grads[name],
+                margin=cfg.fp8_margin,
+                amax_reduction_axes=cfg.fp8_amax_reduction_axes)
+            for name in FP8_GEMM_NAMES}
+
+
+def _fp8_dense(cfg: GPTConfig, fp8, name: str, x: torch.Tensor,
+               w: torch.Tensor, b: Optional[torch.Tensor]):
+    """One fp8 projection: the e4m3 GEMM with this layer's state and
+    carrier, then the bias in ``x``'s dtype; returns ``(y,
+    new_state)``."""
+    state, carrier = fp8[name]
+    y, new_state = fp8_fused_dense_qgrad(
+        x, w, None, state, carrier, margin=cfg.fp8_margin,
+        amax_reduction_axes=cfg.fp8_amax_reduction_axes)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y, new_state
+
+
 def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                        hidden: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
                        dropout_seed: Optional[int], deterministic: bool,
                        layer_number: Optional[int] = None,
-                       fuse_tail: bool = False) -> torch.Tensor:
+                       fuse_tail: bool = False, fp8=None):
     """Self-attention on one device (the JAX ``parallel_attention``):
     fused QKV GEMM, then flash attention or, with
     ``use_flash_attention=False`` or where flash does not apply (the
@@ -282,10 +372,20 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     do not take: ``flash_attention_available``), the scores through
     :func:`_softmax_attention`; output projection. ``True`` where flash
     cannot run raises ``ValueError``.
-    ``fuse_tail`` leaves ``proj_b`` to the caller's fused tail."""
+    ``fuse_tail`` leaves ``proj_b`` to the caller's fused tail. With
+    ``fp8`` (``{name: (Fp8DenseState, carrier)}`` for qkv and proj) the
+    projections run the fp8 recipe and ``(out, new_fp8)`` is returned."""
     s, b, _ = hidden.shape
     n, hn = cfg.num_attention_heads, cfg.kv_channels
-    qkv = linear(hidden, lp["qkv_w"], lp["qkv_b"]).reshape(s, b, n, 3 * hn)
+    new_fp8 = None
+    if fp8 is not None:
+        new_fp8 = {}
+        qkv, new_fp8["qkv"] = _fp8_dense(
+            cfg, fp8, "qkv", hidden, lp["qkv_w"].to(hidden.dtype),
+            lp["qkv_b"])
+    else:
+        qkv = linear(hidden, lp["qkv_w"], lp["qkv_b"])
+    qkv = qkv.reshape(s, b, n, 3 * hn)
     q, k, v = qkv.split(hn, dim=-1)  # [s, b, n, hn]
     qk_scaling = (cfg.apply_query_key_layer_scaling
                   and cfg.compute_dtype == torch.float16
@@ -320,7 +420,8 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
         ctx = _softmax_attention(cfg, q, k, v, attention_mask, causal,
                                  layer_number if qk_scaling else None,
                                  dropout_seed, deterministic)
-        return _attn_out_proj(cfg, lp, ctx.to(hidden.dtype), fuse_tail)
+        return _attn_out_proj(cfg, lp, ctx.to(hidden.dtype), fuse_tail,
+                              fp8, new_fp8)
     p = 0.0 if deterministic or dropout_seed is None \
         else float(cfg.attention_dropout)
     flash_kw = dict(dropout_p=p, dropout_seed=dropout_seed) if p > 0.0 \
@@ -328,7 +429,7 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     ctx = flash_attention_sbhd(q, k, v, causal=causal, kv_mask=kv_mask,
                                scale=1.0 / (hn ** 0.5), **flash_kw)
     ctx = ctx.to(hidden.dtype).reshape(s, b, n * hn)
-    return _attn_out_proj(cfg, lp, ctx, fuse_tail)
+    return _attn_out_proj(cfg, lp, ctx, fuse_tail, fp8, new_fp8)
 
 
 def _softmax_attention(cfg: GPTConfig, q: torch.Tensor, k: torch.Tensor,
@@ -384,20 +485,39 @@ def _softmax_attention(cfg: GPTConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def _attn_out_proj(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
-                   ctx: torch.Tensor, fuse_tail: bool = False
-                   ) -> torch.Tensor:
+                   ctx: torch.Tensor, fuse_tail: bool = False, fp8=None,
+                   new_fp8=None):
     """Attention output projection (dense); ``fuse_tail`` omits
-    ``proj_b``, which rides the caller's fused tail."""
-    return linear(ctx, lp["proj_w"], None if fuse_tail else lp["proj_b"])
+    ``proj_b``, which rides the caller's fused tail. With ``fp8`` the
+    projection runs the fp8 recipe and ``(out, new_fp8)`` is returned,
+    carrying the rolled qkv and proj states."""
+    bias = None if fuse_tail else lp["proj_b"]
+    if fp8 is not None:
+        out, new_fp8["proj"] = _fp8_dense(
+            cfg, fp8, "proj", ctx, lp["proj_w"].to(ctx.dtype), bias)
+        return out, new_fp8
+    return linear(ctx, lp["proj_w"], bias)
 
 
 def parallel_mlp(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
-                 hidden: torch.Tensor, fuse_tail: bool = False
-                 ) -> torch.Tensor:
+                 hidden: torch.Tensor, fuse_tail: bool = False, fp8=None):
     """h -> 4h GEMM + bias, tanh GeLU, 4h -> h GEMM + bias (the JAX
     ``parallel_mlp``). ``fuse_tail`` is the fused-block MLP: fc1 runs
     bias-free and :func:`bias_gelu` adds its bias, fc2 runs bias-free
-    and the caller fuses ``fc2_b`` into its tail."""
+    and the caller fuses ``fc2_b`` into its tail. With ``fp8`` (fc1 and
+    fc2's states and carriers) both GEMMs run the fp8 recipe and
+    ``(out, new_fp8)`` is returned."""
+    if fp8 is not None:
+        new_fp8 = {}
+        inter, new_fp8["fc1"] = _fp8_dense(
+            cfg, fp8, "fc1", hidden, lp["fc1_w"].to(hidden.dtype),
+            None if fuse_tail else lp["fc1_b"])
+        inter = (bias_gelu(inter, lp["fc1_b"].to(inter.dtype)) if fuse_tail
+                 else F.gelu(inter, approximate="tanh"))
+        out, new_fp8["fc2"] = _fp8_dense(
+            cfg, fp8, "fc2", inter, lp["fc2_w"].to(inter.dtype),
+            None if fuse_tail else lp["fc2_b"])
+        return out, new_fp8
     if fuse_tail:
         inter = linear(hidden, lp["fc1_w"], None)
         inter = bias_gelu(inter, lp["fc1_b"].to(inter.dtype))
@@ -411,10 +531,13 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                       hidden: torch.Tensor,
                       attention_mask: Optional[torch.Tensor],
                       seeds: Optional[tuple], deterministic: bool,
-                      layer_number: Optional[int] = None) -> torch.Tensor:
+                      layer_number: Optional[int] = None, fp8_l=None):
     """Pre-LN transformer layer: LayerNorm on an fp32 copy, attention,
     dropout + residual, LayerNorm, MLP, dropout + residual. ``seeds`` =
     (attention, attention-residual, MLP-residual) dropout seeds, or None.
+    With ``fp8_l`` (``{name: (Fp8DenseState, carrier)}``, this layer's
+    slice) the four projections run the fp8 recipe and ``(hidden,
+    new_fp8_l)`` is returned.
 
     With ``cfg.fused_block`` the two tails are the single-sweep ops of
     ``ops/fused_block.py``: the attention tail is
@@ -428,7 +551,11 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     ln1 = ln_fp32(hidden, lp["input_ln_w"], lp["input_ln_b"], eps).to(dt)
     attn = parallel_attention(cfg, lp, ln1, attention_mask, s_attn,
                               deterministic, layer_number,
-                              fuse_tail=cfg.fused_block)
+                              fuse_tail=cfg.fused_block, fp8=fp8_l)
+    new_fp8 = {}
+    if fp8_l is not None:
+        attn, attn_fp8 = attn
+        new_fp8.update(attn_fp8)
     attn = tap("apex_tpu.transformer_layer/attn", attn, layer=layer_number)
     if cfg.fused_block:
         p = 0.0 if deterministic or s_res1 is None else cfg.hidden_dropout
@@ -436,20 +563,28 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
             attn, lp["proj_b"].to(dt), hidden, lp["post_ln_w"],
             lp["post_ln_b"], eps=eps, dropout_p=p,
             seed=_hash_dropout_seed(s_res1, p))
-        mlp_out = tap("apex_tpu.transformer_layer/mlp",
-                      parallel_mlp(cfg, lp, ln2, fuse_tail=True),
-                      layer=layer_number)
+    else:
+        hidden = (hidden + _dropout(attn, cfg.hidden_dropout, s_res1,
+                                    deterministic)).to(dt)
+        ln2 = ln_fp32(hidden, lp["post_ln_w"], lp["post_ln_b"], eps).to(dt)
+    mlp_out = parallel_mlp(cfg, lp, ln2, fuse_tail=cfg.fused_block,
+                           fp8=fp8_l)
+    if fp8_l is not None:
+        mlp_out, mlp_fp8 = mlp_out
+        new_fp8.update(mlp_fp8)
+    mlp_out = tap("apex_tpu.transformer_layer/mlp", mlp_out,
+                  layer=layer_number)
+    if cfg.fused_block:
         p = 0.0 if deterministic or s_res2 is None else cfg.hidden_dropout
-        return bias_dropout_residual(
+        out = bias_dropout_residual(
             mlp_out, lp["fc2_b"].to(dt), hidden, dropout_p=p,
             seed=_hash_dropout_seed(s_res2, p))
-    hidden = (hidden + _dropout(attn, cfg.hidden_dropout, s_res1,
-                                deterministic)).to(dt)
-    ln2 = ln_fp32(hidden, lp["post_ln_w"], lp["post_ln_b"], eps).to(dt)
-    mlp_out = tap("apex_tpu.transformer_layer/mlp",
-                  parallel_mlp(cfg, lp, ln2), layer=layer_number)
-    return (hidden + _dropout(mlp_out, cfg.hidden_dropout, s_res2,
-                              deterministic)).to(dt)
+    else:
+        out = (hidden + _dropout(mlp_out, cfg.hidden_dropout, s_res2,
+                                 deterministic)).to(dt)
+    if fp8_l is not None:
+        return out, new_fp8
+    return out
 
 
 def _hash_dropout_seed(seed: Optional[int], p: float) -> Optional[int]:
@@ -479,9 +614,11 @@ _FUSED_BLOCK_SAVEABLE_OPS = frozenset({
 
 #: the weight GEMMs: ``F.linear`` on an ``[s, b, h]`` activation reaches
 #: ``aten::mm`` on the flattened rows, a product with no batch dims (JAX's
-#: ``dots_with_no_batch_dims_saveable``); ``bmm`` has batch dims and is
-#: replayed
-_NO_BATCH_DIM_GEMMS = frozenset({"aten::mm", "aten::addmm"})
+#: ``dots_with_no_batch_dims_saveable``), and so does the fp8 projection's
+#: GEMM (``fused_dense.fp8.FP8_GEMM``, the custom op around
+#: ``aten::_scaled_mm`` on the card, which the policy sees whole); ``bmm``
+#: has batch dims and is replayed
+_NO_BATCH_DIM_GEMMS = frozenset({"aten::mm", "aten::addmm", FP8_GEMM})
 
 
 def _policy_with_saveable_ops(ops: frozenset, ctx, op, *args, **kwargs):
@@ -508,7 +645,8 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
                       hidden: torch.Tensor,
                       attention_mask: Optional[torch.Tensor],
                       layer_seeds: Optional[list] = None,
-                      deterministic: bool = True) -> torch.Tensor:
+                      deterministic: bool = True, fp8_states=None,
+                      fp8_carriers=None):
     """The stacked ``[L, ...]`` layers in a Python loop (the JAX
     ``lax.scan``). The stacks are unbound once, so the backward stacks
     the per-layer gradients in one copy. ``recompute_granularity="full"``
@@ -519,7 +657,12 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
     also keeps the fused tails' outputs (pairs with ``fused_block``; the
     backward then launches no forward kernel again). Dropout seeds are
     fixed per layer beforehand, so a recomputed layer draws the same
-    masks."""
+    masks.
+
+    With ``fp8_states`` (``{name: Fp8DenseState [L, ...]}``) and
+    ``fp8_carriers`` (``{name: [L]}``) each layer takes its row of both
+    and ``(hidden, new_fp8_states)`` is returned, the rolled states
+    stacked again."""
     rg = cfg.recompute_granularity
     if rg not in (None, "full", "selective", "selective_elementwise"):
         raise ValueError(
@@ -528,22 +671,38 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
     keys = sorted(layer_params)
     stacks = [layer_params[k].unbind(0) for k in keys]
     L = len(stacks[0])
+    with_fp8 = fp8_states is not None
+    new_fp8 = []
     for l in range(L):
         seeds = None if layer_seeds is None else layer_seeds[l]
+        fp8_l = None
+        if with_fp8:
+            fp8_l = {name: (tree_map(lambda t, l=l: t[l], fp8_states[name]),
+                            fp8_carriers[name][l])
+                     for name in FP8_GEMM_NAMES}
 
-        def run(h, *vals, seeds=seeds, l=l):
+        def run(h, *vals, seeds=seeds, l=l, fp8_l=fp8_l):
             return transformer_layer(cfg, dict(zip(keys, vals)), h,
                                      attention_mask, seeds, deterministic,
-                                     l + 1)
+                                     l + 1, fp8_l=fp8_l)
 
         vals = [st[l] for st in stacks]
         if rg is None:
-            hidden = run(hidden, *vals)
+            out = run(hidden, *vals)
         else:
             kw = {} if rg == "full" else dict(context_fn=functools.partial(
                 create_selective_checkpoint_contexts, _POLICIES[rg]))
-            hidden = checkpoint(run, hidden, *vals, use_reentrant=False,
-                                preserve_rng_state=False, **kw)
+            out = checkpoint(run, hidden, *vals, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+        if with_fp8:
+            hidden, state_l = out
+            new_fp8.append(state_l)
+        else:
+            hidden = out
+    if with_fp8:
+        return hidden, {name: tree_map(lambda *ts: torch.stack(ts),
+                                       *[st[name] for st in new_fp8])
+                        for name in FP8_GEMM_NAMES}
     return hidden
 
 
@@ -574,21 +733,34 @@ def gpt_embed(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
 
 def gpt_hidden(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               deterministic: bool = True) -> torch.Tensor:
+               deterministic: bool = True, fp8_states=None,
+               fp8_carriers=None):
     """GPT trunk -> pre-head hidden states ``[s, b, h]`` in
     compute_dtype: embeddings, the layer stack, the final LayerNorm.
     Dropout (when not ``deterministic``) draws its seeds from
-    ``generator``."""
-    return _trunk(cfg, params, tokens, None, generator, deterministic)
+    ``generator``. With ``fp8_states`` and ``fp8_carriers`` the
+    projection GEMMs run the e4m3 / e5m2 recipe and ``(hidden,
+    new_fp8_states)`` is returned; ``cfg.fp8`` and the states must
+    agree."""
+    if bool(cfg.fp8) != (fp8_states is not None):
+        raise ValueError(
+            "GPTConfig.fp8 and the fp8_states argument must agree: the "
+            "flag declares the recipe, the state carries it — pass "
+            "init_gpt_fp8_states(cfg) (+ carriers) when cfg.fp8, and "
+            "don't pass states to a non-fp8 config. (The flag alone "
+            "cannot run fp8: delayed scaling is stateful.)")
+    return _trunk(cfg, params, tokens, None, generator, deterministic,
+                  fp8_states, fp8_carriers)
 
 
 def _trunk(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
            attention_mask: Optional[torch.Tensor],
            generator: Optional[torch.Generator],
-           deterministic: bool) -> torch.Tensor:
+           deterministic: bool, fp8_states=None, fp8_carriers=None):
     """Embeddings, the layer stack under ``attention_mask``, the final
-    LayerNorm -> ``[s, b, h]`` in compute_dtype; dropout seeds (one for
-    the embeddings, three per layer) drawn from ``generator``."""
+    LayerNorm -> ``[s, b, h]`` in compute_dtype (and the rolled fp8
+    states with ``fp8_states``); dropout seeds (one for the embeddings,
+    three per layer) drawn from ``generator``."""
     embed_seed = layer_seeds = None
     if generator is not None and not deterministic:
         embed_seed = _draw_seed(generator)
@@ -596,20 +768,35 @@ def _trunk(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
                        for _ in range(cfg.num_layers)]
     hidden = gpt_embed(cfg, params, tokens, None, embed_seed, deterministic)
     hidden = transformer_block(cfg, params["layers"], hidden,
-                               attention_mask, layer_seeds, deterministic)
-    return ln_fp32(hidden, params["final_ln_w"], params["final_ln_b"],
-                   cfg.layernorm_epsilon).to(cfg.compute_dtype)
+                               attention_mask, layer_seeds, deterministic,
+                               fp8_states, fp8_carriers)
+    new_fp8 = None
+    if fp8_states is not None:
+        hidden, new_fp8 = hidden
+    hidden = ln_fp32(hidden, params["final_ln_w"], params["final_ln_b"],
+                     cfg.layernorm_epsilon).to(cfg.compute_dtype)
+    return hidden if fp8_states is None else (hidden, new_fp8)
 
 
 def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
              labels: torch.Tensor, loss_mask: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
-             deterministic: bool = True) -> torch.Tensor:
+             deterministic: bool = True, fp8_states=None, fp8_carriers=None):
     """Masked mean LM loss, single device: the head GEMM and the cross
     entropy chunk-fused (``contrib.xentropy.lm_head_cross_entropy``),
     rows in ``[s, b]`` order, the chunk the largest divisor of ``s * b``
-    that is at most 2048."""
-    hidden = gpt_hidden(cfg, params, tokens, generator, deterministic)
+    that is at most 2048.
+
+    With ``fp8_states`` and ``fp8_carriers`` (:func:`init_gpt_fp8_states`,
+    :func:`init_gpt_fp8_carriers`) the layer projections run the fp8
+    recipe and ``(loss, new_fp8_states)`` is returned: differentiate
+    with respect to the params and the carriers, then fold the carriers'
+    gradients in with :func:`record_gpt_grad_amaxes`."""
+    hidden = gpt_hidden(cfg, params, tokens, generator, deterministic,
+                        fp8_states, fp8_carriers)
+    new_fp8 = None
+    if fp8_states is not None:
+        hidden, new_fp8 = hidden
     s, b, h = hidden.shape
     n = s * b
     chunk = next(c for c in range(min(2048, n), 0, -1) if n % c == 0)
@@ -619,9 +806,11 @@ def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
         save_logits_dtype=cfg.compute_dtype if cfg.ce_save_logits
         else None).reshape(s, b).transpose(0, 1)  # [b, s]
     if loss_mask is None:
-        return losses.mean()
-    m = loss_mask.to(torch.float32)
-    return (losses * m).sum() / m.sum().clamp_min(1.0)
+        loss = losses.mean()
+    else:
+        m = loss_mask.to(torch.float32)
+        loss = (losses * m).sum() / m.sum().clamp_min(1.0)
+    return loss if fp8_states is None else (loss, new_fp8)
 
 
 # --------------------------------------------------------------------------

@@ -174,10 +174,38 @@ any failure exits non-zero and prints no result line:
    TF32 off in fp64, fp32 and bf16 (``RESNET_PARITY``); and
    ``main_amp.main`` as a user runs it (O2, batch 256, 3 steps, a
    checkpoint in a temporary directory);
-10. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+10. fp8 (``fused_dense.fp8``) and the other modules of A5.2-A5.4, none
+   with a kernel of its own: (a) the fp8 GEMM route (``torch._scaled_mm``
+   on the fp8 tensor cores, e4m3 x e4m3, the dequantization folded in)
+   against its plain version over the same fp8 bytes at the 345M's four
+   projection shapes and at padded ones ([8192, 1000] x [1000, 1000],
+   7 rows), bf16, fp16 and fp32 out; the quantizers' bytes against the
+   CPU's and their saturation; the device time of one ``_scaled_mm``
+   and one bf16 ``F.linear`` a shape against their bounds (1979 and 989
+   TFLOP/s) and of the quantize passes; (b) ``bench.py``'s
+   ``bench_fp8_gemm`` chain of 8 GEMMs at [8192, 4096] x [4096, 4096],
+   bf16 against ``fp8_fused_dense`` with its state update, the ratio;
+   (c) ``bench_gpt_fp8``: the 345M unfused step with the four
+   projections of every layer on the fp8 recipe (2 + 6 steps, launches
+   exact with 96 fp8 GEMMs a step, a profiled step holding 96 of the
+   GEMM's op, loss falling, every layer's states calibrated, p50 beside
+   phase 5's bf16 unfused leg); (d) the 2-layer full-width fp8 GPT, card
+   against CPU, unfused and fused under ``selective_elementwise``, 3
+   steps in lockstep (``FP8_PARITY_TOL``: the gradients held to the
+   recipe's own error, since its e5m2 backward is chaotic);
+   (e) ``fused_dense_gelu_dense`` at the 345M's MLP, bf16, against the
+   plain versions (the bias-GeLU kernels launched); (f) ``MLP`` at the
+   upstream test's sizes, relu, sigmoid and none, card against CPU; (g)
+   ``fused_rope``'s four layouts at Llama-2-7B's attention shape, ragged
+   ``thd`` and a 32 x 32 image, card against CPU, forward and backward;
+   (h) ``FusedAdamSWA`` over the 345M's tree in its three math modes,
+   3 steps, card against CPU on each leaf's first 65536 elements;
+11. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
-   main path (flash attention's also over phase 8's legs) except
+   main path (flash attention's also over phase 8's legs, the norms',
+   flash's and packed Adam's also over phase 10's fp8 step, bias-GeLU's
+   also over ``fused_dense_gelu_dense``) except
    ``axpby_flat``, which no path of the JAX package
    calls, and the RMSNorm pair, which no model of it runs: their
    launches are the norm modules' of phase 7), the card line, and last
@@ -216,9 +244,15 @@ from apex_tpu_torch.contrib.multihead_attn import (
     EncdecMultiheadAttn,
     SelfMultiheadAttn,
 )
-from apex_tpu_torch.contrib.openfold import attention_core
+from apex_tpu_torch.contrib.openfold import (
+    AdamMathType,
+    FusedAdamSWA,
+    attention_core,
+)
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.examples.imagenet import main_amp, resnet
+from apex_tpu_torch.fused_dense import fp8, fused_dense_gelu_dense
+from apex_tpu_torch.mlp import MLP
 from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
 from apex_tpu_torch.normalization import (
     FusedLayerNorm,
@@ -299,12 +333,22 @@ from apex_tpu_torch.serving import (
 )
 from apex_tpu_torch.telemetry.numerics import NumericsMonitor
 from apex_tpu_torch.transformer.functional import fused_softmax as fs
+from apex_tpu_torch.transformer.functional import (
+    fused_apply_rotary_pos_emb,
+    fused_apply_rotary_pos_emb_2d,
+    fused_apply_rotary_pos_emb_cached,
+    fused_apply_rotary_pos_emb_thd,
+)
 from apex_tpu_torch.transformer.testing import (
+    FP8_GEMM_NAMES,
     GPTConfig,
     bert_forward,
     gpt_forward,
     gpt_loss,
+    init_gpt_fp8_carriers,
+    init_gpt_fp8_states,
     init_gpt_params,
+    record_gpt_grad_amaxes,
 )
 
 # the modules (the package re-exports functions of the same names)
@@ -2981,8 +3025,9 @@ def sampler_cost(dev, vocab: int, step_p50: float) -> None:
 def profiled(run, label: str, top: int) -> dict:
     """Print where ``run``'s time goes: device time by kernel from a
     ``torch.profiler`` trace against the run's wall time; the remainder
-    is device idle. Returns the wall and busy ms, the count of device ops
-    and the ``(device ms, count, name)`` rows."""
+    is device idle. Returns the wall and busy ms, the count of device ops,
+    the ``(device ms, count, name)`` rows and ``ops``: every event's name
+    (host ops too) to its ``(count, device ms)``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3001,8 +3046,10 @@ def profiled(run, label: str, top: int) -> dict:
         f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}, profiler on)")
     for dev_ms, count, key in rows[:top]:
         log(f"    {dev_ms:9.3f} ms  x{count:6d}  {key[:90]}")
+    ops = {e.key: (e.count, e.device_time_total / 1e3)
+           for e in prof.key_averages()}
     return {"wall_ms": wall_ms, "busy_ms": busy,
-            "device_ops": sum(r[1] for r in rows), "rows": rows}
+            "device_ops": sum(r[1] for r in rows), "rows": rows, "ops": ops}
 
 
 def profile_steps(eng, rng, cfg) -> None:
@@ -3590,7 +3637,7 @@ def drive_leg(label: str, expected: dict, timed: int, step, params, state,
     """2 warm-up steps, then ``timed`` timed steps of ``step`` with the
     launch counts zeroed before and read after: launches per step
     asserted exactly, every loss finite and the last below the first,
-    peak memory, and one profiled step."""
+    peak memory, and one profiled step (returned as ``profile``)."""
     losses = []
     for _ in range(2):
         params, state, loss = step(params, state)
@@ -3630,9 +3677,9 @@ def drive_leg(label: str, expected: dict, timed: int, step, params, state,
 
     def run():  # a packed step consumes the state: keep what it returns
         out["params"], out["state"], _ = step(params, state)
-    profiled(run, f"{label} step", 14)
+    prof = profiled(run, f"{label} step", 14)
     return {"launches": launches, "p50": p50, "p99": p99, "peak": peak_gb,
-            **out}
+            "profile": prof, **out}
 
 
 def numerics_step_fn(loss_fn, opt, mon, sink):
@@ -3708,7 +3755,9 @@ def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
     (:func:`check_overflow_skip`). ``numerics``: with ``scaled`` the
     monitored flat lifecycle (``scaled_step_fn(monitor=...)``, then
     :func:`check_monitored_run`), else ``bench.py``'s numerics leg
-    (:func:`numerics_step_fn`); records go to a JSONL file."""
+    (:func:`numerics_step_fn`); records go to a JSONL file. ``fp8=True``
+    (a ``GPTConfig`` field): :func:`fp8_step_fn`, then every layer's fp8
+    states checked calibrated (:func:`check_fp8_calibrated`)."""
     cfg = GPTConfig(num_layers=24, hidden_size=HIDDEN,
                     num_attention_heads=N_HEADS, vocab_size=50304,
                     max_position_embeddings=1024, hidden_dropout=0.0,
@@ -3742,10 +3791,15 @@ def train_leg(dev, label: str, expected: dict, timed: int, make_opt=None,
             mon = NumericsMonitor(params, tag="gpt_numerics")
             step = numerics_step_fn(loss_fn, opt, mon, sink)
             state = (state, mon.init(dev))
+        elif cfg.fp8:
+            step = fp8_step_fn(cfg, loss_fn, opt, dev)
+            state = (state, init_gpt_fp8_states(cfg, dev))
         else:
             step = train_step_fn(loss_fn, opt)
         leg = drive_leg(label, expected, timed, step, params, state,
                         tokens.numel())
+        if cfg.fp8:  # 2 warm-up, the timed and the profiled steps
+            check_fp8_calibrated(label, leg["state"][1], timed + 3)
         if scaled and numerics:
             check_monitored_run(step, leg["params"], leg["state"], poison,
                                 label, path, sink)
@@ -3773,7 +3827,7 @@ def train_345m(dev):
     unfused step with packed FusedSGD as a fifth, and the unfused step
     with dynamic loss scaling and gradient clipping over the flat
     gradient buffer as a sixth (then its forced overflow), all in this
-    one call."""
+    one call. Returns the legs' summed launches and each leg's p50."""
     legs = {}
     for key, label, expected, timed, kw in (
             ("headline", "345M headline (fused block, "
@@ -3812,8 +3866,9 @@ def train_345m(dev):
     log("  legs: " + "; ".join(
         f"{k} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms peak "
         f"{v['peak']:.2f} GiB" for k, v in legs.items()))
-    return {k: sum(v["launches"][k] for v in legs.values())
-            for k in legs["headline"]["launches"]}
+    return ({k: sum(v["launches"][k] for v in legs.values())
+             for k in legs["headline"]["launches"]},
+            {k: v["p50"] for k, v in legs.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -5050,6 +5105,674 @@ def resnet_phase(dev):
     resnet_cli()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: fp8 (fused_dense), fused_dense_gelu_dense, mlp, fused_rope and
+# FusedAdamSWA
+# ---------------------------------------------------------------------------
+
+#: the H100 SXM data sheet's dense fp8 tensor-core rate
+FP8_TC_FLOPS = 1979e12
+#: the 345M's four projection GEMMs a layer (rows, in, out): qkv, proj,
+#: fc1, fc2; then shapes cuBLASLt does not take as they are (padded to
+#: multiples of 16 and cut back)
+FP8_SHAPES = ((8192, 1024, 3072), (8192, 1024, 1024), (8192, 1024, 4096),
+              (8192, 4096, 1024))
+FP8_PADDED_SHAPES = ((8192, 1000, 1000), (7, 1000, 1000))
+#: the fp8 GEMM route (the dequantization folded into the call) against
+#: its plain version (an fp32 product of the same fp8 values divided by
+#: ``scale_x * scale_w``): the fp8 products are exact in fp32, so the two
+#: differ in the order and the precision of the sums and in a few fp32
+#: roundings of the folded scales, bounded by 2^-13 of the sum of
+#: |products| (Hopper's fp8 tensor cores keep fewer bits than fp32 in
+#: their partial sums between promotions to fp32), and then in the
+#: output's rounding: one ulp of the output dtype (two nearby values
+#: rounded once each)
+FP8_SUM_TOL = 2.0 ** -13
+FP8_OUT_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+               torch.float16: 2.0 ** -10}
+
+
+def _scaled(x, fp8_max=448.0):
+    """A per-tensor quantization scale that maps ``max|x|`` to
+    ``fp8_max`` (fp32, 0-d)."""
+    return torch.full((), fp8_max, device=x.device) / x.abs().amax().float()
+
+
+def fp8_gemm_checks(dev):
+    """(a) The fp8 GEMM route (``fused_dense.fp8.fp8_gemm``:
+    ``torch._scaled_mm`` on the fp8 tensor cores) against its plain
+    version on the same fp8 bytes, at the 345M's projection shapes and
+    at padded ones, with bf16, fp16 and fp32 outputs; the quantizers'
+    bytes on the card against the CPU's and their saturation; the device
+    time of one ``_scaled_mm`` and of one bf16 ``F.linear`` at each
+    projection shape against their bounds, and of the quantize passes."""
+    schema = str(torch.ops.aten._scaled_mm.default._schema)
+    probe = torch.ones(16, 16, device=dev).to(torch.float8_e4m3fn)
+    one = torch.ones((), device=dev)
+    ret = torch._scaled_mm(probe, probe.t(), one, one,
+                           out_dtype=torch.bfloat16)
+    log(f"  torch {torch.__version__}: {schema}; returns "
+        f"{type(ret).__name__}")
+    g = torch.Generator(device=dev).manual_seed(10)
+    worst = 0.0
+    for m, k, n in FP8_SHAPES + FP8_PADDED_SHAPES:
+        x = torch.randn(m, k, generator=g, device=dev)
+        w = torch.randn(n, k, generator=g, device=dev) * 0.02
+        sx, sw = _scaled(x), _scaled(w)
+        qx, qw = fp8.quantize_e4m3(x, sx), fp8.quantize_e4m3(w, sw)
+        for q, src, s in ((qx, x, sx), (qw, w, sw)):
+            cpu = fp8.quantize_e4m3(src.cpu(), s.cpu())
+            if not torch.equal(q.view(torch.uint8).cpu(),
+                               cpu.view(torch.uint8)):
+                raise AssertionError(f"e4m3 bytes at {(m, k, n)}: the card "
+                                     f"differs from the CPU")
+        mag = (qx.float().abs() @ qw.float().abs().t()) / (sx * sw)
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            before = _device.LAUNCHES["fp8_gemm"]
+            got = fp8.fp8_gemm(qx, qw, sx, sw, dt)
+            if _device.LAUNCHES["fp8_gemm"] != before + 1:
+                raise AssertionError("fp8_gemm did not count its call")
+            want = fp8.fp8_gemm_reference(qx, qw, sx, sw, dt).float()
+            if got.shape != (m, n) or got.dtype != dt:
+                raise AssertionError(f"fp8_gemm gave {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            err = (got.float() - want).abs()
+            over = err - FP8_OUT_ULP[dt] * want.abs()
+            ratio = float((over / mag.clamp_min(1e-30)).max())
+            worst = max(worst, ratio)
+            if ratio > FP8_SUM_TOL:
+                raise AssertionError(
+                    f"fp8 GEMM {(m, k, n)} -> {dt}: error {ratio:.3e} of "
+                    f"the sum of |products| beyond one output rounding "
+                    f"(limit {FP8_SUM_TOL:.3e}); max abs err "
+                    f"{float(err.max()):.3e}")
+        del mag, got, want, err, over
+    log(f"  fp8 GEMM against its plain version at "
+        f"{FP8_SHAPES + FP8_PADDED_SHAPES} (rows, in, out), bf16/fp16/fp32 "
+        f"out: worst error beyond one "
+        f"output rounding {worst:.3e} of the sum of |products| (limit "
+        f"2^-13 = {FP8_SUM_TOL:.3e})")
+    # saturation, and the e5m2 bytes over 2^-20 .. 2^20 and past the max
+    edge = torch.tensor([1e9, -1e9, 500.0, 448.0, -3.0], device=dev)
+    if fp8.quantize_e4m3(edge, one).float().tolist() != [448.0, -448.0,
+                                                          448.0, 448.0,
+                                                          -3.0]:
+        raise AssertionError("e4m3 does not saturate at 448")
+    if fp8.quantize_e5m2(edge * 1e3, one).float().tolist()[:3] != [
+            57344.0, -57344.0, 57344.0]:
+        raise AssertionError("e5m2 does not saturate at 57344")
+    wide = torch.randn(1 << 20, generator=g, device=dev) * torch.exp2(
+        torch.randint(-20, 21, (1 << 20,), generator=g, device=dev).float())
+    for fn in (fp8.quantize_e4m3, fp8.quantize_e5m2):
+        s = torch.full((), 3.7, device=dev)
+        if not torch.equal(fn(wide, s).view(torch.uint8).cpu(),
+                           fn(wide.cpu(), s.cpu()).view(torch.uint8)):
+            raise AssertionError(f"{fn.__name__}: card bytes differ from "
+                                 f"the CPU's")
+    log("  quantizers: e4m3 and e5m2 bytes on the card equal the CPU's "
+        "(2^20 values over 2^-20..2^20, the projection operands); "
+        "saturation at 448 and 57344")
+    times = []
+    for m, k, n in FP8_SHAPES + ((8192, 4096, 4096),):
+        x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        sx, sw = _scaled(x), _scaled(w)
+        qx, qw = fp8.quantize_e4m3(x, sx), fp8.quantize_e4m3(w, sw)
+        ix, iw = sx.reciprocal(), sw.reciprocal()
+        ms8 = device_ms(lambda: torch._scaled_mm(
+            qx, qw.t(), ix, iw, out_dtype=torch.bfloat16,
+            use_fast_accum=False), "")
+        msb = device_ms(lambda: F.linear(x, w), "")
+        msq = device_ms(lambda: fp8.quantize_e4m3(x, sx), "")
+        msa = device_ms(lambda: x.abs().amax(), "")
+        flops = 2.0 * m * k * n
+        b8 = max(flops / FP8_TC_FLOPS, (m * k + n * k + 2 * m * n)
+                 / HBM_BYTES_PER_S) * 1e3
+        bb = max(flops / BF16_TC_FLOPS, 2 * (m * k + n * k + m * n)
+                 / HBM_BYTES_PER_S) * 1e3
+        bq = 3 * m * k / HBM_BYTES_PER_S * 1e3
+        ba = 2 * m * k / HBM_BYTES_PER_S * 1e3
+        row = {"shape": [m, k, n], "scaled_mm_ms": ms8, "fp8_bound_ms": b8,
+               "linear_bf16_ms": msb, "bf16_bound_ms": bb,
+               "quantize_e4m3_ms": msq, "quantize_bound_ms": bq,
+               "amax_ms": msa, "amax_bound_ms": ba}
+        times.append(row)
+        log(f"  [{m}, {k}] x [{k}, {n}]: _scaled_mm e4m3 -> bf16 device "
+            f"{ms8:.4f} ms (bound {b8:.4f}, 1979 TFLOP/s), F.linear bf16 "
+            f"{msb:.4f} ms (bound {bb:.4f}, 989 TFLOP/s); quantize_e4m3 of "
+            f"x {msq:.4f} ms (bound {bq:.4f}), max|x| {msa:.4f} ms (bound "
+            f"{ba:.4f})")
+    log("  fp8_gemm_json " + json.dumps(times))
+
+
+def fp8_gemm_chain(dev, iters: int = 20):
+    """(b) ``bench.py``'s ``bench_fp8_gemm``: a chain of 8 GEMMs at m 8192,
+    k 4096, n 4096 in bf16 (``F.linear``, fp32 accumulation, bf16 out)
+    and through ``fp8_fused_dense`` with its state update (each chain
+    from the initial state, as the JAX leg passes it), CUDA-event ms a
+    chain; the ratio bf16 / fp8 (> 1: fp8 faster) and both chains'
+    device ms."""
+    m, k, n = 8192, 4096, 4096
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16)
+    state0 = fp8.init_fp8_dense_state(device=dev)
+
+    def chain_bf16():
+        y = x
+        for _ in range(8):
+            y = F.linear(y, w)
+        return y
+
+    def chain_fp8():
+        y, st = x, state0
+        for _ in range(8):
+            y, st = fp8.fp8_fused_dense(y, w, None, st)
+            y = y.to(torch.bfloat16)
+        return y
+
+    t_bf16 = time_ms(chain_bf16, iters, 3)
+    t_fp8 = time_ms(chain_fp8, iters, 3)
+    d_bf16 = device_ms(chain_bf16, "", iters=5)
+    d_fp8 = device_ms(chain_fp8, "", iters=5)
+    out = {"bf16_ms": t_bf16, "fp8_ms": t_fp8, "ratio": t_bf16 / t_fp8,
+           "bf16_device_ms": d_bf16, "fp8_device_ms": d_fp8}
+    log(f"  8-GEMM chain [{m}, {k}] x [{k}, {n}]: bf16 {t_bf16:.3f} ms, "
+        f"fp8 with delayed scaling {t_fp8:.3f} ms a chain (CUDA events), "
+        f"ratio bf16/fp8 {t_bf16 / t_fp8:.3f}; device {d_bf16:.3f} "
+        f"against {d_fp8:.3f} ms")
+    log("  fp8_chain_json " + json.dumps(out))
+
+
+#: the unfused 345M step with the four projections of every layer on the
+#: fp8 GEMM (``_device.LAUNCHES["fp8_gemm"]`` counts the library calls)
+FP8_STEP_LAUNCHES = {**UNFUSED_LAUNCHES, "fp8_gemm": 96}
+
+
+def fp8_loss_grads(cfg, loss_fn, params, states, dev):
+    """The fp8 loss at ``params`` with ``states`` and fresh zero carriers,
+    its gradients with respect to the params and the carriers, and the
+    carriers' gradients folded into the g metas: ``(loss, grads, new
+    states)``."""
+    box = {}
+
+    def f(tree):
+        loss, box["states"] = loss_fn(tree[0], fp8_states=states,
+                                      fp8_carriers=tree[1])
+        return loss
+    loss, (grads, amaxes) = value_and_grad(
+        f, (params, init_gpt_fp8_carriers(cfg, dev)))
+    return loss, grads, record_gpt_grad_amaxes(cfg, box["states"], amaxes)
+
+
+def fp8_step_fn(cfg, loss_fn, opt, dev):
+    """``bench.py``'s fp8 train step (``bench_gpt(fp8=True)``):
+    :func:`fp8_loss_grads`, then the optimizer's step. The state is
+    ``(optimizer state, fp8 states)``."""
+    def step(params, state):
+        ostate, states = state
+        loss, grads, states = fp8_loss_grads(cfg, loss_fn, params, states,
+                                             dev)
+        params, ostate = opt.step(grads, ostate, params)
+        return params, (ostate, states), loss
+    return step
+
+
+def check_fp8_calibrated(label, states, steps):
+    """Every layer's x, w and g histories hold ``steps`` positive amaxes
+    (the newest first) and every g scale has moved off 1."""
+    for name in FP8_GEMM_NAMES:
+        for meta in states[name]:
+            filled = meta.amax_history[:, :steps]
+            if not bool((filled > 0).all()):
+                raise AssertionError(f"{label}: {name} history not filled "
+                                     f"over {steps} steps")
+        if not bool((states[name].g.scale != 1.0).all()):
+            raise AssertionError(f"{label}: a {name} g scale is still 1")
+    log(f"  {label}: after {steps} steps every layer's x, w and g amax "
+        f"histories hold {steps} positive entries and every g scale moved "
+        f"off 1 (qkv g scales {states['qkv'].g.scale[:4].tolist()} ...)")
+
+
+def fp8_345m(dev, unfused_p50: float):
+    """(c) The 345M fp8 train step (``bench_gpt_fp8``): 24 x 1024, seq
+    1024, batch 8, unfused, no recompute, ``ce_save_logits``, bf16 over
+    fp32 masters, packed FusedAdam, the four projections of every layer
+    on the fp8 GEMM: 2 + 6 steps, launches asserted exactly (96 fp8
+    GEMMs a step among them), a profiled step that must hold 96
+    ``aten::_scaled_mm``, its p50 beside the bf16 unfused leg's of phase
+    5, and the states calibrated. Returns the leg's launches."""
+    leg = train_leg(dev, "345M fp8 unfused, no remat", FP8_STEP_LAUNCHES, 6,
+                    ce_save_logits=True, fp8=True)
+    ops = leg["profile"]["ops"]
+    counts = {name: ops.get(name, (0, 0.0)) for name in (fp8.FP8_GEMM,
+                                                          "aten::_scaled_mm")}
+    if [c for c, _ in counts.values()] != [96, 96]:
+        raise AssertionError(f"the profiled fp8 step holds {counts}, "
+                             f"expected 96 of each")
+    sgemm = sum(ms for ms, _, key in leg["profile"]["rows"]
+                if "sgemm" in key or "f32f32" in key)
+    gemms = [(round(ms, 3), c, key[:90]) for ms, c, key in
+             leg["profile"]["rows"] if "sgemm" not in key
+             and "f32f32" not in key and any(
+                 t in key.lower() for t in ("gemm", "nvjet", "sm90", "e4m3"))]
+    log(f"  profiled fp8 step: (count, device ms) {counts}; the fp32 "
+        f"backward GEMMs {sgemm:.2f} ms of {leg['profile']['busy_ms']:.1f} "
+        f"busy; other GEMM kernels {gemms}")
+    log(f"  fp8 step p50 {leg['p50']:.2f} ms against the bf16 unfused "
+        f"leg's {unfused_p50:.2f} ms (phase 5, this run): "
+        f"{leg['p50'] / unfused_p50:.3f}x; busy "
+        f"{leg['profile']['busy_ms']:.1f} of "
+        f"{leg['profile']['wall_ms']:.1f} ms profiled")
+    return leg["launches"]
+
+
+#: fp8 card against CPU (2 layers, full width, fp32 compute), step by
+#: step from the same params and states. The fp8 GEMM's sums differ
+#: (``FP8_SUM_TOL``), so an operand near an e4m3 or e5m2 rounding boundary
+#: rounds the other way on the two sides, by one ulp of that element
+#: (2^-3 in e4m3, 2^-2 in e5m2). The forward moves little from that; the
+#: backward is chaotic: each layer's e5m2 dY carries the flips of the
+#: layers above into its own roundings, so below the top layer the two
+#: sides round nearly independently (on the CPU alone, the word embedding
+#: scaled by 1 + 1e-6 moves the gradients by 0.5-0.9 of the recipe's own
+#: error). So the gradients are held to the recipe's own error, the CPU's
+#: fp8 gradients against the exact model's (fp8 off) at the same params:
+#: two independent draws of that noise stand sqrt(2) of one apart. Limits:
+#: the loss rel; each gradient leaf's distance from the CPU's over the CPU
+#: fp8 leaf's distance from the exact one (norms); the forward metas (x,
+#: w: the newest amax and the scale) rel, one e4m3 ulp (an operand of the
+#: largest output rounded the other way); the g metas rel, one e5m2 ulp;
+#: packed Adam's masters from the same gradients (one rounding a step, as
+#: phase 2's check)
+FP8_PARITY_TOL = {"loss": 1e-3, "grad share": 2.0 ** 0.5,
+                  "x/w state": 2.0 ** -3, "g state": 2.0 ** -2, "adam": 1e-6}
+
+
+def _state_rel(a, b):
+    """Largest relative gap between two fp8 state trees' newest amaxes
+    and scales, by field name (``qkv.g.scale``)."""
+    out = {}
+    for name in FP8_GEMM_NAMES:
+        for kind, ma, mb in zip("xwg", a[name], b[name]):
+            for field, ta, tb in ((f"{name}.{kind}.amax", ma.amax_history[
+                    :, 0], mb.amax_history[:, 0]), (f"{name}.{kind}.scale",
+                                                     ma.scale, mb.scale)):
+                ta, tb = ta.float().cpu(), tb.float().cpu()
+                out[field] = float(((ta - tb).abs()
+                                    / tb.abs().clamp_min(1e-30)).max())
+    return out
+
+
+def _norm_gap(a, b):
+    return float((a.float().cpu() - b.float().cpu()).norm()
+                 / b.float().cpu().norm().clamp_min(1e-30))
+
+
+def fp8_parity(dev, label: str, kernels, nudge=False, **cfg_kw):
+    """The 2-layer 345M-width fp8 GPT (fp32 compute), 3 steps in
+    lockstep: from the CPU run's params and fp8 states, the loss, every
+    gradient and the rolled states on the card (the kernels and the fp8
+    GEMM) against the CPU (the plain versions), each gradient leaf's gap
+    held to the recipe's own error (the CPU's fp8 gradients against the
+    exact model's); then packed FusedAdam(lr=1e-4, masters) steps the
+    card's copy with the CPU's gradients against the CPU's step. Limits
+    ``FP8_PARITY_TOL``; the card's states calibrated after 3 steps.
+    ``nudge``: also log how far a 1e-6 change of the input moves the CPU's
+    own fp8 gradients (the chaos of the e5m2 backward)."""
+    cfg = parity_cfg(50304, fp8=True, **cfg_kw)
+    exact = parity_cfg(50304, **cfg_kw)
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (PARITY_BATCH, PARITY_SEQ)))
+    labels = torch.roll(tokens, -1, dims=1)
+    cpu = torch.device("cpu")
+
+    def loss_fn(d):
+        return functools.partial(gpt_loss, cfg, tokens=tokens.to(d),
+                                 labels=labels.to(d))
+
+    def to(tree, d):
+        return tree_map(lambda t: t.to(d, copy=True), tree)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
+    states = init_gpt_fp8_states(cfg, cpu)
+    opts = [FusedAdam(lr=1e-4, master_weights=True, packed=True)
+            for _ in range(2)]
+    ostate = opts[0].init(params)
+    card_ostate = opts[1].init(to(params, dev))
+    launches = {}
+    worst = dict.fromkeys(FP8_PARITY_TOL, 0.0)
+    for k in range(3):
+        _device.reset_launch_counts()
+        lc, gc, sc = fp8_loss_grads(cfg, loss_fn(cpu), params, states, cpu)
+        if any(_device.launch_counts().values()):
+            raise AssertionError(f"launches on the CPU run: "
+                                 f"{_device.launch_counts()}")
+        lg, gg, sg = fp8_loss_grads(cfg, loss_fn(dev), to(params, dev),
+                                    to(states, dev), dev)
+        card_params, card_ostate = opts[1].step(to(gc, dev), card_ostate,
+                                                to(params, dev))
+        for key, n in _device.launch_counts().items():
+            launches[key] = launches.get(key, 0) + n
+        lr_, gr = value_and_grad(lambda p: gpt_loss(
+            exact, p, tokens, labels), params)
+        stepped, ostate = opts[0].step(gc, ostate, params)
+        lc, lg, lr_ = float(lc), float(lg), float(lr_)
+        loss_gap = abs(lg - lc) / abs(lc)
+        shares = {n: _norm_gap(b, a) / max(_norm_gap(a, r), 1e-30)
+                  for n, a, b, r in zip(
+                      PackSpec(params).leaf_names(), tree_leaves(gc),
+                      tree_leaves(gg), tree_leaves(gr))}
+        grad_name = max(shares, key=shares.get)
+        if nudge and k == 1:  # the chaos on the CPU alone
+            nudged = dict(params, embedding=dict(
+                params["embedding"],
+                word=params["embedding"]["word"] * (1.0 + 1e-6)))
+            _, gn, _ = fp8_loss_grads(cfg, loss_fn(cpu), nudged, states, cpu)
+            nudge = [_norm_gap(b, a) / max(_norm_gap(a, r), 1e-30)
+                     for a, b, r in zip(tree_leaves(gc), tree_leaves(gn),
+                                        tree_leaves(gr))]
+            log(f"  fp8 {label}: on the CPU alone, the word embedding x "
+                f"(1 + 1e-6) moves the fp8 gradients by {min(nudge):.3f}-"
+                f"{max(nudge):.3f} (median {float(np.median(nudge)):.3f}) of "
+                f"the recipe's own error")
+        srel = _state_rel(sg, sc)
+        fwd = {n: v for n, v in srel.items() if ".g." not in n}
+        bwd = {n: v for n, v in srel.items() if ".g." in n}
+        fwd_name, bwd_name = max(fwd, key=fwd.get), max(bwd, key=bwd.get)
+        adam = max(_leaf_rel(b, a) for a, b in zip(
+            tree_leaves(stepped), tree_leaves(card_params)))
+        log(f"  fp8 {label} step {k + 1}: loss card {lg:.7f} cpu {lc:.7f} "
+            f"(rel {loss_gap:.2e}; exact model {lr_:.7f}); gradient gap "
+            f"card-cpu over fp8-exact, worst leaf {grad_name} "
+            f"{shares[grad_name]:.3f} (median "
+            f"{float(np.median(list(shares.values()))):.3f}); forward metas "
+            f"worst {fwd_name} rel {fwd[fwd_name]:.2e}, g metas worst "
+            f"{bwd_name} rel {bwd[bwd_name]:.2e}; packed Adam on the card "
+            f"from the CPU's gradients {adam:.2e} of a leaf's largest entry")
+        for key, val in (("loss", loss_gap), ("grad share", shares[grad_name]),
+                         ("x/w state", fwd[fwd_name]),
+                         ("g state", bwd[bwd_name]), ("adam", adam)):
+            worst[key] = max(worst[key], val)
+        params, states = stepped, sc
+    missing = [n for n in kernels + ("fp8_gemm", "packed_adam")
+               if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} did not launch on the card")
+    check_fp8_calibrated(f"fp8 {label} (card)", sg, 3)
+    log(f"  fp8 {label}: worst over 3 steps {worst}; limits "
+        f"{FP8_PARITY_TOL}; card launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    if any(worst[k] > FP8_PARITY_TOL[k] for k in worst):
+        raise AssertionError(f"fp8 {label}: the card differs from the CPU "
+                             f"beyond {FP8_PARITY_TOL}")
+
+
+def fused_dense_leg(dev):
+    """(e) ``fused_dense_gelu_dense`` at the 345M's MLP (8192 tokens, 1024
+    -> 4096 -> 1024, bf16), forward and backward: the bias-GeLU kernels
+    launched once each, the output and every gradient against the plain
+    versions on the card, fwd + bwd device ms. Returns the launches."""
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * s).to(
+            torch.bfloat16)
+    args = (r(8192, HIDDEN), r(4 * HIDDEN, HIDDEN, s=0.02), r(4 * HIDDEN),
+            r(HIDDEN, 4 * HIDDEN, s=0.02), r(HIDDEN))
+    dy = r(8192, HIDDEN)
+
+    def run():
+        xs = [a.clone().requires_grad_(True) for a in args]
+        y = fused_dense_gelu_dense(*xs)
+        y.backward(dy)
+        return [y] + [a.grad for a in xs]
+    _device.reset_launch_counts()
+    got = run()
+    launches = _device.launch_counts()
+    if {k: v for k, v in launches.items() if v} != {"bias_gelu_fwd": 1,
+                                                     "bias_gelu_bwd": 1}:
+        raise AssertionError(f"fused_dense_gelu_dense launches {launches}")
+    with plain_kernels():
+        want = run()
+    margins = [check_close(f"fused_dense_gelu_dense {n}", a.detach(),
+                           b.detach(), torch.bfloat16, margin=True)[1]
+               for n, a, b in zip(("y", "dx", "dw1", "db1", "dw2", "db2"),
+                                  got, want)]
+    ms = device_ms(run, "", iters=10)
+    flops = 3 * 2 * 2 * 8192 * HIDDEN * 4 * HIDDEN
+    log(f"  fused_dense_gelu_dense [8192, 1024] -> 4096 -> 1024 bf16: "
+        f"bias-GeLU forward and backward launched once each; against the "
+        f"plain versions (y, dx, dw1, db1, dw2, db2) at most "
+        f"{max(margins):.3f} of the bf16 limit; forward + backward device "
+        f"{ms:.3f} ms (GEMM bound {flops / BF16_TC_FLOPS * 1e3:.3f} ms)")
+    return launches
+
+
+#: fp32 on the card (TF32 off) against the CPU: summation order only
+F32_LEAF_TOL = 1e-5
+
+
+def _leaf_rel(a, b):
+    """max |a - b| over max |b|."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def mlp_leg(dev):
+    """(f) ``MLP`` at the upstream apex test's sizes ([480, 1024, 1024,
+    512, 256, 1], batch 1024, fp32) with relu, sigmoid and none, forward
+    and backward, card against CPU from the same params (no kernel of the
+    port: cuBLAS GEMMs), each output and gradient within
+    ``F32_LEAF_TOL`` of its largest entry; fwd + bwd device ms."""
+    sizes = [480, 1024, 1024, 512, 256, 1]
+    x = torch.randn(1024, 480, generator=torch.Generator().manual_seed(13))
+    for act in ("relu", "sigmoid", "none"):
+        ref = MLP(sizes, activation=act, device="cpu",
+                  generator=torch.Generator().manual_seed(14))
+        card = MLP(sizes, activation=act, device=dev)
+        card.load_state_dict(ref.state_dict())
+        outs = []
+        for mod, d in ((ref, "cpu"), (card, dev)):
+            xi = x.to(d, copy=True).requires_grad_(True)
+            y = mod(xi)
+            y.backward(torch.ones_like(y))
+            outs.append([y, xi.grad] + [p.grad for p in mod.parameters()])
+        worst = max(_leaf_rel(b, a) for a, b in zip(*outs))
+        if worst > F32_LEAF_TOL:
+            raise AssertionError(f"MLP {act}: card differs from the CPU by "
+                                 f"{worst:.3e} of a result's largest entry")
+
+        def run():
+            xi = x.to(dev, copy=True).requires_grad_(True)
+            card(xi).sum().backward()
+        ms = device_ms(run, "", iters=10)
+        log(f"  MLP {sizes} batch 1024 fp32 {act}: card against CPU "
+            f"{worst:.2e} of a result's largest entry; forward + backward "
+            f"device {ms:.3f} ms")
+
+
+#: fused_rope card against CPU, plain PyTorch on both: the fp32 results
+#: differ by the two libraries' cos and sin (an ulp or two) and the
+#: gradients of freqs, cos and sin by their sums' order, each within
+#: ``F32_LEAF_TOL`` of its largest entry; the bf16 output by one bf16
+#: rounding of those (rtol 2^-7, atol 1e-5 for values the fp32 difference
+#: moves across zero); the bf16 gradient of t is the bf16 sum of two
+#: bf16-rounded terms (the cos and the rotated sin paths), which may
+#: cancel: within one bf16 rounding of the largest entry
+ROPE_BF16_TOL = (1e-5, 2.0 ** -7)
+
+
+def _rope_case(dev, label, fn, arrays, grads_of):
+    """``fn(*arrays)`` forward and backward (one fixed draw of dy) on the
+    CPU and on the card; the output and the gradient of each argument in
+    ``grads_of`` compared."""
+    res, dy = [], None
+    for d in ("cpu", dev):
+        xs = [a.to(d, copy=True).requires_grad_(i in grads_of)
+              if a.is_floating_point() else a.to(d)
+              for i, a in enumerate(arrays)]
+        y = fn(*xs)
+        if dy is None:
+            dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+                15)).to(y.dtype)
+        y.backward(dy.to(d))
+        res.append([y] + [xs[i].grad for i in grads_of])
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, a, b in zip(["out"] + [f"d{i}" for i in grads_of], *res):
+        if name == "out":
+            check_close(f"rope {label} out", b.detach().cpu(), a.detach(),
+                        b.dtype, tol=ROPE_BF16_TOL)
+            continue
+        rel = _leaf_rel(b, a)
+        worst[b.dtype] = max(worst[b.dtype], rel)
+        limit = F32_LEAF_TOL if b.dtype == torch.float32 else 2.0 ** -7
+        if rel > limit:
+            raise AssertionError(f"rope {label} {name}: {rel:.3e} of its "
+                                 f"largest entry")
+    log(f"  fused_rope {label}: card against CPU, the output within one "
+        f"rounding; gradients of t (bf16) {worst[torch.bfloat16]:.2e}, of "
+        f"the fp32 inputs {worst[torch.float32]:.2e} of their largest "
+        f"entry")
+
+
+def rope_leg(dev):
+    """(g) ``fused_rope``'s four layouts, forward and backward, card
+    against CPU: sbhd and cached cos/sin at Llama-2-7B's attention shape
+    (s 4096, b 1, 32 heads, d 128, bf16; NeoX frequencies, theta 10000)
+    with d2 128 and 64; thd over ragged cu_seqlens (4096 tokens in four
+    sequences); 2-D over a 32 x 32 image (b 2, 12 heads, d 64)."""
+    gen = torch.Generator().manual_seed(16)
+    s, h, d = 4096, 32, 128
+    t = torch.randn(s, 1, h, d, generator=gen).to(torch.bfloat16)
+
+    def neox(n, d2):
+        inv = 1.0 / 10000.0 ** (torch.arange(0, d2, 2).float() / d2)
+        f = torch.outer(torch.arange(n).float(), inv)
+        return torch.cat([f, f], dim=-1)
+
+    for d2 in (128, 64):
+        f = neox(s, d2)[:, None, None, :]
+        _rope_case(dev, f"sbhd [4096, 1, 32, 128] bf16 d2 {d2}",
+                   fused_apply_rotary_pos_emb, [t, f], (0, 1))
+        _rope_case(dev, f"cached cos/sin d2 {d2}",
+                   fused_apply_rotary_pos_emb_cached,
+                   [t, torch.cos(f), torch.sin(f)], (0, 1, 2))
+    lens = [1000, 17, 2048, 1031]
+    cu = torch.tensor([0] + np.cumsum(lens).tolist(), dtype=torch.int32)
+    _rope_case(dev, f"thd {lens}",
+               lambda x, c, f: fused_apply_rotary_pos_emb_thd(x, c, f),
+               [t[:, 0], cu, neox(max(lens), d)[:, None, None, :]], (0, 2))
+    img = torch.randn(2, 32 * 32, 12, 64, generator=gen).to(torch.bfloat16)
+    fh = neox(32, 32)[None, :, None, :]
+    _rope_case(dev, "2-D 32 x 32 image [2, 1024, 12, 64]",
+               lambda x, ch, sh, cw, sw: fused_apply_rotary_pos_emb_2d(
+                   x, 32, 32, ch, sh, cw, sw),
+               [img, torch.cos(fh), torch.sin(fh), torch.cos(fh),
+                torch.sin(fh)], (0, 1, 2, 3, 4))
+
+
+#: FusedAdamSWA card against CPU: every operation rounded once in fp32 in
+#: the same order on both, but CUDA's and the CPU's fp32 pow may round
+#: beta2**t an ulp apart, and the bias correction 1 - beta2**t cancels
+#: (0.999: an ulp of it is up to 6e-5 of 1 - 0.999**t at t <= 3; the
+#: square root halves it): the masters and SWA averages within 1e-6 of
+#: themselves plus 1e-4 of the leaf's largest 3-step update, the bf16
+#: compute copies within one bf16 rounding of that; the moments take no
+#: pow, but the weight decay carries the masters' gap into them: within
+#: 1e-6 of themselves plus 1e-6 of the leaf's largest
+SWA_TOL = {"rel": 1e-6, "update": 1e-4, "bf16": 2.0 ** -7}
+#: elements of each leaf the CPU reference updates: the step is elementwise,
+#: so each element's update is that of the whole tree's
+SWA_SLICE = 1 << 16
+
+
+def adam_swa_leg(dev):
+    """(h) ``FusedAdamSWA`` over the 345M's parameter tree (354,877,440
+    elements): fp32 masters, bf16 compute copies and fp32 SWA averages,
+    bf16 gradients, each math mode 3 steps on the card; the CPU runs the
+    same steps on each leaf's first ``SWA_SLICE`` elements (the update is
+    elementwise), compared within ``SWA_TOL``; the card's step device
+    ms."""
+    shapes = gpt345m_param_shapes(torch.float32)
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def draw(scale):
+        return tree_map(lambda m: torch.randn(
+            m.shape, generator=g, device=dev) * scale, shapes)
+
+    def head(tree):
+        return tree_map(lambda t: t.reshape(-1)[:SWA_SLICE].cpu(), tree)
+
+    masters = draw(0.02)
+    grads = [tree_map(lambda t: t.to(torch.bfloat16), draw(1e-3))
+             for _ in range(3)]
+    for mode in AdamMathType:
+        opt = FusedAdamSWA(swa_decay_rate=0.9, lr=1e-3, weight_decay=0.01,
+                           adam_math_mode=mode)
+        banks = {}
+        for d in ("cuda", "cpu"):
+            p = masters if d == "cuda" else head(masters)
+            cp = tree_map(lambda t: t.to(torch.bfloat16), p)
+            sp = tree_map(torch.zeros_like, p)
+            st = opt.init(p)
+            for i in range(3):
+                gi = grads[i] if d == "cuda" else head(grads[i])
+                p, cp, sp, st = opt.step(gi, st, p, cp, sp)
+            banks[d] = (p, cp, sp, st.exp_avg, st.exp_avg_sq)
+            if d == "cuda":
+                ms = device_ms(lambda: opt.step(grads[0], st, p, cp, sp), "",
+                               iters=2)
+                banks[d] = tuple(head(b) for b in banks[d])
+        margins = []
+        updates = [float((p - p0).abs().max()) for p, p0 in zip(
+            tree_leaves(banks["cpu"][0]), tree_leaves(head(masters)))]
+        for name, a, b in zip(("masters", "compute", "swa", "m", "v"),
+                              banks["cuda"], banks["cpu"]):
+            for x, y, upd in zip(tree_leaves(a), tree_leaves(b), updates):
+                atol = (SWA_TOL["rel"] * float(y.abs().max())
+                        if name in ("m", "v") else SWA_TOL["update"] * upd)
+                rtol = SWA_TOL["bf16"] if y.dtype == torch.bfloat16 \
+                    else SWA_TOL["rel"]
+                margins.append(check_close(
+                    f"FusedAdamSWA {mode.name} {name}", x, y, y.dtype,
+                    tol=(atol, rtol), margin=True)[1])
+        log(f"  FusedAdamSWA {mode.name} over the 345M tree, 3 steps: card "
+            f"against CPU at most {max(margins):.3f} of the limits; a step's "
+            f"device {ms:.3f} ms")
+
+
+def fp8_and_friends_phase(dev, unfused_p50: float):
+    """Phase 10: (a) the fp8 GEMM route, (b) the fp8 GEMM chain, (c) the
+    345M fp8 train step, (d) fp8 card against CPU, (e)
+    ``fused_dense_gelu_dense``, (f) ``MLP``, (g) ``fused_rope``, (h)
+    ``FusedAdamSWA``. Returns the main paths' launches ((c) and (e))."""
+    parts = {}
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.empty_cache()
+        parts[key] = round(time.perf_counter() - t0, 1)
+        return out
+    part("a", fp8_gemm_checks, dev)
+    part("b", fp8_gemm_chain, dev)
+    launches = part("c", fp8_345m, dev, unfused_p50)
+    part("d unfused", fp8_parity, dev, "unfused", TRAIN_KERNELS[:4],
+         nudge=True)
+    part("d fused", fp8_parity, dev, "fused block, selective_elementwise",
+         TRAIN_KERNELS[:4] + FUSED_KERNELS, fused_block=True,
+         recompute_granularity="selective_elementwise")
+    fd_launches = part("e", fused_dense_leg, dev)
+    part("f", mlp_leg, dev)
+    part("g", rope_leg, dev)
+    part("h", adam_swa_leg, dev)
+    log(f"  phase 10 parts (s): {parts}")
+    return {k: launches.get(k, 0) + fd_launches.get(k, 0) for k in launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5115,9 +5838,10 @@ def main() -> int:
     near = phase("phase 4: fp32 token identity, plain and spec_k=4",
                  token_identity, dev)
     log(f"  near-ties: {near} (phase 3d: {chaos_near})")
-    train = phase("phase 5: GPT-2 345M bf16 train step: headline, unfused, "
-                  "fused, non-flash, packed-SGD, loss-scaled clipped and "
-                  "two monitored legs", train_345m, dev)
+    train, train_p50 = phase(
+        "phase 5: GPT-2 345M bf16 train step: headline, unfused, fused, "
+        "non-flash, packed-SGD, loss-scaled clipped and two monitored legs",
+        train_345m, dev)
     bert = phase("phase 6: BERT-large bf16: non-flash and flash legs with "
                  "FusedLAMB, then pytree and packed LAMB and packed "
                  "NovoGrad without recompute", train_bert_large, dev)
@@ -5209,14 +5933,20 @@ def main() -> int:
     phase("phase 9: ResNet-50 amp O0-O3 with FusedSGD (BASELINE config "
           "#1), the overflow skip, card against CPU, the example's CLI",
           resnet_phase, dev)
+    fp8_launches = phase(
+        "phase 10: fp8 fused_dense (the fp8 GEMM route, the GEMM chain, the "
+        "345M fp8 train step, card against CPU), fused_dense_gelu_dense, "
+        "MLP, fused_rope, FusedAdamSWA", fp8_and_friends_phase, dev,
+        train_p50["unfused"])
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
     fd["launches"] = sum(c["flash_decode"] for c in served)
-    # launches on the main paths: the serving runs, the eight GPT legs and
-    # the five BERT legs
+    # launches on the main paths: the serving runs, the eight GPT legs, the
+    # five BERT legs and phase 10's fp8 step and fused_dense_gelu_dense
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
-                      + train["layer_norm_fwd"] + bert["layer_norm_fwd"])
+                      + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
+                      + fp8_launches["layer_norm_fwd"])
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -5227,7 +5957,8 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], f16_errs[kr["name"]])
     for kr in kernels[2:]:
         kr["launches"] = (train.get(kr["name"], 0) + bert.get(kr["name"], 0)
-                          + contrib.get(kr["name"], 0))
+                          + contrib.get(kr["name"], 0)
+                          + fp8_launches.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

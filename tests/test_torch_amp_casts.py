@@ -13,6 +13,8 @@ the promote lists (native and cast), ``disable_casts`` and the
 ``register_*`` functions. Dtypes are compared exactly; the cache test's
 tolerances are the JAX test's.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import jax.scipy.special  # noqa: F401  (resolved by name below)
@@ -162,6 +164,11 @@ TORCH_CALLS = {
     "torch.special.softmax": lambda f, x: f(x, 1),
     "torch.special.log_softmax": lambda f, x: f(x, 1),
     "xentropy.softmax_cross_entropy_loss": lambda f, x: f(x, _labels_t(x)),
+    "mlp.mlp": lambda f, x: f(x, [x[:3], x[:2, :3]], [x[0, :3], x[1, :2]]),
+    "fused_dense.fused_dense": lambda f, x: f(x, x[:3], x[0, :3]),
+    "fused_dense.fused_dense_gelu_dense": lambda f, x: f(
+        x, x[:3], x[0, :3], x[:2, :3], x[1, :2]),
+    "fused_dense.dense_no_bias": lambda f, x: f(x, x[:3]),
 }
 # F.conv* are the torch.conv* builtins under a second attribute
 for _n in ("conv1d", "conv2d", "conv3d", "conv_transpose1d",
@@ -216,13 +223,19 @@ JAX_CALLS = {
     "optax.sigmoid_binary_cross_entropy": lambda f, x: f(x, x),
     "apex_tpu.contrib.xentropy.softmax_cross_entropy_loss": lambda f, x: f(
         x, _labels_j(x)),
+    "apex_tpu.mlp.mlp": lambda f, x: f(
+        x, [x[:3], x[:2, :3]], [x[0, :3], x[1, :2]]),
+    "apex_tpu.fused_dense.fused_dense": lambda f, x: f(x, x[:3], x[0, :3]),
+    "apex_tpu.fused_dense.fused_dense_gelu_dense": lambda f, x: f(
+        x, x[:3], x[0, :3], x[:2, :3], x[1, :2]),
+    "apex_tpu.fused_dense.dense_no_bias": lambda f, x: f(x, x[:3]),
 }
 
 
 def _resolve_jax(name):
-    if name.startswith("apex_tpu.contrib.xentropy."):
-        from apex_tpu.contrib import xentropy
-        return getattr(xentropy, name.rsplit(".", 1)[1])
+    if name.startswith("apex_tpu."):
+        module, attr = name.rsplit(".", 1)
+        return getattr(importlib.import_module(module), attr)
     roots = {"jnp": jnp, "lax": jax.lax, "jax": jax, "optax": optax}
     head, *rest = name.split(".")
     obj = roots[head]
@@ -298,11 +311,19 @@ def test_every_jax_counterpart_is_on_the_same_jax_list():
                     out.add(f"{label}.{name}")
         return out
     jlow, jfp32 = names(jo.LOW_PRECISION_FUNCS), names(jo.FP32_FUNCS)
-    for entries, jset in ((to.LOW_PRECISION_FUNCS, jlow),
-                          (to.FP32_FUNCS, jfp32)):
+    for entries, jset, jentries in (
+            (to.LOW_PRECISION_FUNCS, jlow, jo.LOW_PRECISION_FUNCS),
+            (to.FP32_FUNCS, jfp32, jo.FP32_FUNCS)):
         for module, name in entries:
             jname = to.JAX_COUNTERPART[_entry_name(module, name)]
-            if jname is None or jname.startswith("apex_tpu."):
+            if jname is None:
+                continue
+            if jname.startswith("apex_tpu."):
+                # the JAX lists hold apex_tpu's own surfaces by (module,
+                # name)
+                jmod, jattr = jname.rsplit(".", 1)
+                assert any(m is importlib.import_module(jmod)
+                           and n == jattr for m, n in jentries), jname
                 continue
             assert jname in jset, (_entry_name(module, name), jname)
 

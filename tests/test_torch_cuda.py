@@ -52,7 +52,12 @@ and maxima exactly, their sums rtol 1e-5; the monitored step's records
 exactly. The norm backwards on both sides of their register tier (widths
 1 to 8193, every dtype pair, x-hat) and the split decode (lengths at a
 split and one either side, splits ending mid-page, every head dim) as
-the LayerNorm and decode kernels, and each twice bit for bit.
+the LayerNorm and decode kernels, and each twice bit for bit. The fp8
+GEMM route (``torch._scaled_mm``, the dequantization folded in, padded
+to multiples of 16) against its plain version over the same fp8 bytes:
+beyond one rounding of the output (2^-7 bf16, 2^-10 fp16), within 2^-13
+of the sum of |products| (Hopper's fp8 tensor cores keep fewer bits in
+their partial sums); the quantizers' bytes bit for bit against the CPU.
 """
 import importlib
 
@@ -2072,3 +2077,97 @@ def test_flat_ops_take_fp16(cuda_device):
                                                      torch.float16)
     assert bool(found) and bool(wfound)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# fp8 (fused_dense.fp8): the library fp8 GEMM route and the GPT's fp8 step
+# ---------------------------------------------------------------------------
+
+#: the fp8 GEMM route against its plain version over the same fp8 bytes:
+#: beyond one rounding of the output, within 2^-13 of the sum of
+#: |products| (the tensor cores' partial sums, the folded scales)
+FP8_SUM_TOL = 2.0 ** -13
+FP8_OUT_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+               torch.float16: 2.0 ** -10}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float16,
+                                       torch.float32])
+@pytest.mark.parametrize("mkn", [(256, 1024, 3072), (64, 4096, 1024),
+                                 (7, 1000, 1000), (33, 48, 24)])
+def test_fp8_gemm_matches_plain(cuda_device, mkn, out_dtype):
+    from apex_tpu_torch.fused_dense import fp8
+
+    m, k, n = mkn
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda_device)
+    w = torch.randn(n, k, generator=g, device=cuda_device) * 0.02
+    sx = torch.full((), 448.0, device=cuda_device) / x.abs().amax()
+    sw = torch.full((), 448.0, device=cuda_device) / w.abs().amax()
+    qx, qw = fp8.quantize_e4m3(x, sx), fp8.quantize_e4m3(w, sw)
+    _device.reset_launch_counts()
+    got = fp8.fp8_gemm(qx, qw, sx, sw, out_dtype)
+    assert _device.launch_counts()["fp8_gemm"] == 1
+    want = fp8.fp8_gemm_reference(qx, qw, sx, sw, out_dtype).float()
+    assert got.shape == (m, n) and got.dtype == out_dtype
+    mag = (qx.float().abs() @ qw.float().abs().t()) / (sx * sw)
+    over = (got.float() - want).abs() - FP8_OUT_ULP[out_dtype] * want.abs()
+    assert float((over / mag.clamp_min(1e-30)).max()) <= FP8_SUM_TOL
+
+
+def test_fp8_quantizers_match_the_cpu_bytes(cuda_device):
+    from apex_tpu_torch.fused_dense import fp8
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(1 << 16, generator=g, device=cuda_device) * torch.exp2(
+        torch.randint(-20, 21, (1 << 16,), generator=g,
+                      device=cuda_device).float())
+    x[:3] = torch.tensor([1e9, -1e9, 0.0])
+    for fn in (fp8.quantize_e4m3, fp8.quantize_e5m2):
+        s = torch.full((), 3.7, device=cuda_device)
+        assert torch.equal(fn(x, s).view(torch.uint8).cpu(),
+                           fn(x.cpu(), s.cpu()).view(torch.uint8))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_fp8_gpt_step_on_the_card(cuda_device, fused):
+    """A 2-layer fp8 GPT trained 3 steps on the card: 8 fp8 GEMMs a
+    step (4 a layer), finite losses, calibrated states."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig, gpt_loss, init_gpt_fp8_carriers, init_gpt_fp8_states,
+        init_gpt_params, record_gpt_grad_amaxes)
+
+    cfg = GPTConfig(num_layers=2, hidden_size=128, num_attention_heads=2,
+                    vocab_size=256, max_position_embeddings=64,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    compute_dtype=torch.bfloat16, fp8=True,
+                    fused_block=fused, recompute_granularity=(
+                        "selective_elementwise" if fused else None))
+    params = init_gpt_params(cfg, torch.Generator(device=cuda_device)
+                             .manual_seed(0), device=cuda_device)
+    tokens = torch.randint(0, 256, (2, 64), device=cuda_device)
+    labels = torch.roll(tokens, -1, dims=1)
+    opt = FusedAdam(lr=1e-3, master_weights=True, packed=True)
+    ostate = opt.init(params)
+    states = init_gpt_fp8_states(cfg, cuda_device)
+    losses = []
+    for _ in range(3):
+        box = {}
+
+        def f(tree):
+            loss, box["s"] = gpt_loss(cfg, tree[0], tokens, labels,
+                                      fp8_states=states,
+                                      fp8_carriers=tree[1])
+            return loss
+        _device.reset_launch_counts()
+        loss, (grads, amaxes) = value_and_grad(
+            f, (params, init_gpt_fp8_carriers(cfg, cuda_device)))
+        assert _device.launch_counts()["fp8_gemm"] == 8
+        states = record_gpt_grad_amaxes(cfg, box["s"], amaxes)
+        params, ostate = opt.step(grads, ostate, params)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    for meta in tree_leaves(states):
+        assert torch.isfinite(meta).all()
+    assert bool((states["fc2"].g.amax_history[:, :3] > 0).all())

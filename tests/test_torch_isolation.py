@@ -71,7 +71,10 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "amp.amp", "amp.utils", "amp.handle", "amp.frontend",
                  "amp.lists.torch_overrides", "fp16_utils.fp16util",
                  "fp16_utils.loss_scaler", "fp16_utils.fp16_optimizer",
-                 "examples.imagenet.resnet", "examples.imagenet.main_amp"):
+                 "examples.imagenet.resnet", "examples.imagenet.main_amp",
+                 "fused_dense.fp8", "fused_dense.fused_dense", "mlp.mlp",
+                 "transformer.functional.fused_rope",
+                 "contrib.openfold.fused_adam_swa"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 
