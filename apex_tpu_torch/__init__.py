@@ -26,7 +26,12 @@ norms, the telemetry core, the attention contribs, the amp frontend and
 of ``fused_dense.fp8``, whose GEMM is ``torch._scaled_mm`` on the fp8
 tensor cores, and the GPT's ``GPTConfig(fp8=True)``), ``mlp``,
 ``transformer.functional.fused_rope`` and
-``contrib.openfold.FusedAdamSWA``.
+``contrib.openfold.FusedAdamSWA``; the single-device contribs
+(``contrib.focal_loss``, ``group_norm``, ``groupbn``, ``cudnn_gbn``,
+``conv_bias_relu``, ``bottleneck``, ``index_mul_2d``, ``sparsity``,
+``transducer``, the legacy ``contrib.optimizers``), the single-device
+``parallel.sync_batch_norm`` and ``RNN``, plain PyTorch over cuDNN and
+cuBLAS.
 """
 from ._device import (  # noqa: F401
     kernel_route,

@@ -37,6 +37,15 @@ of stacked ones) into ``fused_dense.fp8``'s, and
 ``FusedDense``, ``FusedDenseGeluDense`` and ``MLP`` modules keep flax's
 parameter names: their flax params load through :func:`params_from_jax`
 and ``load_state_dict``.
+
+The single-device contribs: ``conv_kernel_from_jax`` turns an HWIO conv
+kernel into torch's ``[out, in, kh, kw]`` (channels-last in memory), the
+layout ``contrib.conv_bias_relu`` takes; ``bottleneck_state_from_jax``
+turns the flax ``Bottleneck``'s ``params`` and ``batch_stats`` into a
+state dict of ``contrib.bottleneck.Bottleneck``; ``fused_adam_state_from_jax``
+carries a pytree ``FusedAdamState`` (the legacy contrib Adam's too). The
+groupbn ``(params, state)`` dicts and the RNN models' parameter trees
+(dicts and lists) go through :func:`params_from_jax` as they are.
 """
 from __future__ import annotations
 
@@ -59,10 +68,14 @@ def _leaf(a: Any, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def params_from_jax(tree: Any, device="cpu",
                     dtype: Optional[torch.dtype] = None) -> Any:
-    """Nested dict of numpy arrays -> the same nested dict of tensors on
-    ``device`` (floating leaves cast to ``dtype`` when given)."""
+    """Nested dicts and lists of numpy arrays (the RNN models' trees hold
+    lists) -> the same nesting of tensors on ``device`` (floating leaves
+    cast to ``dtype`` when given)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [params_from_jax(v, device, dtype) for v in tree]
+        return out if isinstance(tree, list) else tuple(out)
     return _leaf(tree, device, dtype)
 
 
@@ -260,3 +273,45 @@ def fused_adam_swa_state_from_jax(state: Any, device="cpu"):
         n_averaged=_tensor(state.n_averaged, torch.int32, device),
         exp_avg=params_from_jax(state.exp_avg, device, torch.float32),
         exp_avg_sq=params_from_jax(state.exp_avg_sq, device, torch.float32))
+
+
+def conv_kernel_from_jax(kernel: Any, device="cpu",
+                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An HWIO conv kernel as ``[out, in, kh, kw]``, channels-last in
+    memory (the layout cuDNN takes with NHWC activations)."""
+    t = _leaf(kernel, "cpu", dtype).permute(3, 2, 0, 1)
+    return t.contiguous(memory_format=torch.channels_last).to(device)
+
+
+def bottleneck_state_from_jax(params: Any, batch_stats: Any = None,
+                              device="cpu") -> dict:
+    """The flax ``Bottleneck``'s ``params`` (and ``batch_stats``) as a
+    state dict of the port's ``contrib.bottleneck.Bottleneck``:
+    ``conv1.kernel`` (HWIO -> ``[out, in, kh, kw]``), ``bn1.scale``,
+    ``bn1.bias``, ``bn1.mean``, ``bn1.var``, ... Without ``batch_stats``
+    only the parameters (load with ``strict=False``)."""
+    out = {}
+    for name, leaves in params.items():
+        for key, a in leaves.items():
+            out[f"{name}.{key}"] = (conv_kernel_from_jax(a, device)
+                                    if key == "kernel"
+                                    else _leaf(a, device, None))
+    for name, leaves in (batch_stats or {}).items():
+        for key, a in leaves.items():
+            out[f"{name}.{key}"] = _leaf(a, device, None)
+    return out
+
+
+def fused_adam_state_from_jax(state: Any, device="cpu"):
+    """A JAX pytree ``FusedAdamState`` (``step``, the moment trees and
+    ``master_params``, numpy leaves or anything ``np.asarray`` takes) as
+    the port's, the moments and masters in fp32."""
+    from .optimizers.fused_adam import FusedAdamState
+
+    masters = state.master_params
+    return FusedAdamState(
+        step=_tensor(state.step, torch.int32, device),
+        exp_avg=params_from_jax(state.exp_avg, device, torch.float32),
+        exp_avg_sq=params_from_jax(state.exp_avg_sq, device, torch.float32),
+        master_params=(None if masters is None
+                       else params_from_jax(masters, device, torch.float32)))

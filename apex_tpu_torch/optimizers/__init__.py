@@ -1,8 +1,9 @@
 """Fused optimizers (counterpart of ``apex_tpu/optimizers``): FusedAdam,
 FusedLAMB, FusedSGD and FusedNovoGrad, each with its pytree path and its
 packed flat-buffer path, and FusedAdagrad (pytree only, as in the JAX
-package): every optimizer of ``apex_tpu/optimizers``. The contrib and
-distributed optimizers are not ported yet (ROADMAP.md, queues A5-A6)."""
+package): every optimizer of ``apex_tpu/optimizers``. The legacy
+contrib optimizers are ``contrib.optimizers``; the distributed ones wait
+for queue A6.6 (ROADMAP.md)."""
 from ._packed import PackedState  # noqa: F401
 from .fused_adagrad import FusedAdagrad, FusedAdagradState  # noqa: F401
 from .fused_adam import FusedAdam, FusedAdamState, FusedAdamW  # noqa: F401

@@ -200,7 +200,31 @@ any failure exits non-zero and prints no result line:
    ``thd`` and a 32 x 32 image, card against CPU, forward and backward;
    (h) ``FusedAdamSWA`` over the 345M's tree in its three math modes,
    3 steps, card against CPU on each leaf's first 65536 elements;
-11. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+11. the single-device contribs of A5.5 and ``RNN/`` at full width, no
+   kernel of the port on their paths (the launch counts read zero after
+   the phase), each leg forward and backward, timed, with its peak memory
+   and a byte or operation bound where the work is clean, and held
+   against the CPU on a slice or a small batch (``CONTRIB_TOL``): (a)
+   ``focal_loss`` at EfficientDet-D0's 49,104 anchors an image, 16 images,
+   96 classes (90 real), fp16, smoothing 0 and 0.1; (b) NHWC GroupNorm +
+   swish at the Stable Diffusion 1.5 UNet's four widths, bf16 and fp16;
+   (c) ``BatchNorm2d_NHWC`` at ``[256, 56, 56, 256]`` bf16, add + ReLU and
+   ReLU, two training steps and one in evaluation; (d) the four
+   ``conv_bias_relu`` functions at ResNet-50's 3x3 and strided 1x1 shapes,
+   bf16; (e) the ``Bottleneck`` at ResNet-50's stage-1 and stage-2 first
+   blocks, batch 256, bf16 input computed in fp32; (f) ``index_mul_2d``
+   at 524,288 gathered rows of 128, fp32, fp16 and bf16, forward,
+   backward and double backward; (g) ``ASP`` over the 345M's tree (masks
+   bit for bit), three masked ``FusedAdam`` steps, ``channel_swap_search``
+   on a ``[1024, 1024]`` weight; (h) the RNN-T joint and loss at the
+   MLPerf reference's widths (hidden 512, vocab 1024, batch 8, T 200, U
+   80), dense and packed, fp16; (i) the legacy contrib ``FusedAdam``
+   (scale 1024, clipped, both epsilon modes, bf16 output copies) and
+   ``FusedSGD`` over the 345M's tree; (j) sentiment-discovery's mLSTM
+   (hidden 4096, seq 256, batch 32) and the stacked bidirectional LSTM,
+   GRU, ReLU and Tanh (hidden 1024); a ``{"phase11": [...]}`` line of the
+   legs;
+12. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
    main path (flash attention's also over phase 8's legs, the norms',
@@ -216,6 +240,7 @@ Exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import importlib
 import json
@@ -235,6 +260,7 @@ from apex_tpu_torch._tree import (
     tree_flatten,
     tree_leaves,
     tree_map,
+    tree_unflatten,
     value_and_grad,
 )
 from apex_tpu_torch.amp import LossScaler
@@ -5773,6 +5799,783 @@ def fp8_and_friends_phase(dev, unfused_p50: float):
     return {k: launches.get(k, 0) + fd_launches.get(k, 0) for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the single-device contribs of A5.5 (focal_loss, group_norm,
+# groupbn, conv_bias_relu, bottleneck, index_mul_2d, sparsity, transducer,
+# the legacy contrib optimizers) and RNN/ at full width. No kernel of the
+# port sits on these paths (plain PyTorch over cuDNN and cuBLAS): the
+# launch counts must read zero after the phase.
+# ---------------------------------------------------------------------------
+
+#: card against CPU on phase 11's legs (the CPU on a slice or a small batch
+#: of the leg's inputs, the same function on the same values): fp32 (TF32
+#: off) within 1e-5 of each result's largest entry (summation order); a
+#: bf16 or fp16 result also within one rounding to its dtype of the
+#: largest (the fp32 value before the cast may fall either side of a
+#: rounding boundary); a bf16 convolution's output within two bf16
+#: roundings (2^-7: the conv's, then the bias add's); index_mul's forward
+#: and the 2:4 masks bit for bit; the legacy optimizers as ``SWA_TOL``.
+#: The gradients of the convs, the Bottleneck and the RNNs are held in
+#: fp64, within 1e-8 (fp64 sums in the libraries' orders, through the
+#: BatchNorm's E[x^2] - E[x]^2, which cancels: the Bottleneck's read
+#: 1.9e-10): a ReLU's gradient jumps where its input crosses 0,
+#: and in fp32 the card's and the CPU's pre-activations, a few ulps apart,
+#: put ~0.5 of 401,408 conv outputs on opposite sides of it (one such
+#: flip moved the 3x3 conv's input gradient by 6.1e-2 of its largest
+#: entry; H100 80GB HBM3 at 700 W), where fp64 puts none
+CONTRIB_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5,
+               torch.float16: 2.0 ** -11 + 1e-5, torch.float64: 1e-8}
+CONV_BF16_TOL = 2.0 ** -7
+
+
+def _gap(name, got, want, tol):
+    """``max |got - want| / max |want|``; raises above ``tol``."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: not finite")
+    gap = float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+    if gap > tol:
+        raise AssertionError(f"{name}: card against CPU {gap:.3e} of the "
+                             f"largest entry, limit {tol:.1e}")
+    return gap
+
+
+def _both_devices(dev, fn, arrays, grad=(), dy_seed=0):
+    """``fn`` over ``arrays`` (CPU tensors) on the CPU and on ``dev``:
+    ``{"cpu": (outputs, grads), "card": ...}``, the gradients those of
+    ``sum(outputs[0] * dy)`` for the arrays at positions ``grad``."""
+    out = {}
+    for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        xs = [a.to(d).requires_grad_() if i in grad else a.to(d)
+              for i, a in enumerate(arrays)]
+        res = fn(*xs)
+        res = res if isinstance(res, tuple) else (res,)
+        gs = ()
+        if grad:
+            dy = torch.randn(res[0].shape, generator=torch.Generator()
+                             .manual_seed(dy_seed)).to(d)
+            gs = torch.autograd.grad((res[0].float() * dy).sum(),
+                                     [xs[i] for i in grad])
+        out[side] = (res, gs)
+    return out
+
+
+def _hold_pair(label, pair, tols):
+    """Every output and gradient of ``_both_devices`` within its
+    ``tols`` entry (a dtype -> limit map, or a limit); the largest gap."""
+    gaps = []
+    card, cpu = pair["card"], pair["cpu"]
+    for kind, a_list, c_list in (("out", card[0], cpu[0]),
+                                 ("grad", card[1], cpu[1])):
+        for i, (a, c) in enumerate(zip(a_list, c_list)):
+            tol = tols[c.dtype] if isinstance(tols, dict) else tols
+            gaps.append(_gap(f"{label} {kind} {i}", a, c, tol))
+    return max(gaps)
+
+
+def _leg(rows, name, fn, nbytes=0.0, flops=0.0, peak=FP32_FLOPS, gap=None,
+         iters=3, warmup=1, **extra):
+    """Times ``fn`` (CUDA-event ms a call over ``iters`` calls), reads the
+    peak memory it took, logs and records the leg."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(fn, iters=iters, warmup=warmup)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = {"leg": name, "ms": round(ms, 4), "peak_gib": round(peak_gib, 3)}
+    if nbytes or flops:
+        b_ms, by = bound(nbytes, flops, peak)
+        row.update(bound_ms=round(b_ms, 4), bound_by=by)
+    if gap is not None:
+        row["card_cpu_gap"] = float(f"{gap:.3e}")
+    row.update(extra)
+    rows.append(row)
+    log(f"  {name}: {ms:.3f} ms"
+        + (f" (bound {row['bound_ms']:.4f} by {row['bound_by']})"
+           if "bound_ms" in row else "")
+        + f", peak {peak_gib:.2f} GiB"
+        + (f", card against CPU {gap:.2e}" if gap is not None else ""))
+    return row
+
+
+#: EfficientDet-D0 at 512 px (``efficientdet-d0``: min_level 3, max_level
+#: 7, num_scales 3 x aspect_ratios 3 = 9 anchors a location, 90 COCO
+#: classes, the focal loss's alpha 0.25 and gamma 1.5; the apex kernel
+#: takes the classes padded to a multiple of 8): 49,104 anchors an image
+FOCAL_LEVELS = (64, 32, 16, 8, 4)
+FOCAL_ANCHORS = 9 * sum(s * s for s in FOCAL_LEVELS)
+FOCAL_BATCH = 16
+
+
+def focal_leg(dev, rows):
+    """(a) ``focal_loss`` over a batch of 16 images' anchors, fp16
+    logits, ~1 % positive, ~4 % ignored (-2), the rest all-negative (-1);
+    label smoothing 0 and 0.1; forward and backward."""
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+
+    b, c, real = FOCAL_BATCH, 96, 90
+    g = torch.Generator(device=dev).manual_seed(41)
+    logits = (torch.randn(b, FOCAL_ANCHORS, c, generator=g, device=dev)
+              * 3).half()
+    cls = torch.randint(0, real, (b, FOCAL_ANCHORS), generator=g,
+                        device=dev)
+    u = torch.rand(b, FOCAL_ANCHORS, generator=g, device=dev)
+    y = torch.where(u < 0.01, cls, torch.where(u < 0.05, -2, -1))
+    npos = (y >= 0).sum().float()
+    for s in (0.0, 0.1):
+        def run(p, y, n, s=s):
+            return focal_loss(p, y, n, real, 0.25, 1.5, s)
+
+        def step():
+            p = logits.detach().requires_grad_()
+            return torch.autograd.grad(run(p, y, npos), p)
+        loss = run(logits, y, npos)
+        if not torch.isfinite(loss):
+            raise AssertionError("focal loss not finite")
+        pair = _both_devices(dev, run, [logits[:1].cpu(), y[:1].cpu(),
+                                        npos.cpu()], grad=(0,))
+        gap = _hold_pair(f"focal s={s}", pair, CONTRIB_TOL)
+        n = logits.numel()
+        _leg(rows, f"(a) focal_loss [{b}, {FOCAL_ANCHORS}, 96] fp16, "
+             f"smoothing {s}: fwd+bwd", step,
+             nbytes=n * 2 * 2 + y.numel() * 8, gap=gap,
+             loss=round(float(loss), 6))
+
+
+#: the Stable Diffusion 1.5 UNet at 512 px (``runwayml/stable-diffusion-v1-5``
+#: ``unet/config.json``: block_out_channels 320, 640, 1280, 1280,
+#: norm_num_groups 32, norm_eps 1e-5, SiLU; latent 64 x 64), batch 8
+GN_SHAPES = ((8, 64, 64, 320), (8, 32, 32, 640), (8, 16, 16, 1280),
+             (8, 8, 8, 1280))
+
+
+def group_norm_leg(dev, rows):
+    """(b) ``group_norm_nhwc`` with swish at the UNet's four widths, bf16
+    and fp16, forward and backward."""
+    from apex_tpu_torch.contrib.group_norm import group_norm_nhwc
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    for shape in GN_SHAPES:
+        c = shape[-1]
+        w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        for dt in (torch.bfloat16, torch.float16):
+            x = torch.randn(shape, generator=g, device=dev).to(dt)
+            dy = torch.randn(shape, generator=g, device=dev).to(dt)
+
+            def run(x, w, b):
+                return group_norm_nhwc(x, 32, w, b, 1e-5, "swish")
+
+            def step():
+                xs, ws, bs = (t.detach().requires_grad_()
+                              for t in (x, w, bias))
+                return torch.autograd.grad(run(xs, ws, bs), (xs, ws, bs), dy)
+            pair = _both_devices(dev, run, [x[:1].cpu(), w.cpu(),
+                                            bias.cpu()], grad=(0, 1, 2))
+            gap = _hold_pair("group_norm", pair, CONTRIB_TOL)
+            _leg(rows, f"(b) group_norm+swish {list(shape)} "
+                 f"{str(dt)[6:]}: fwd+bwd", step, nbytes=x.numel() * 2 * 5,
+                 gap=gap)
+
+
+#: ResNet-50's stage-1 tail at batch 256 (torchvision ``resnet50``)
+GROUPBN_SHAPE = (256, 56, 56, 256)
+
+
+def groupbn_leg(dev, rows):
+    """(c) ``BatchNorm2d_NHWC`` at ResNet-50's stage-1 tail, ``[256, 56,
+    56, 256]`` bf16: with a residual ``z`` (add + ReLU) and with
+    ``fuse_relu`` alone; two training steps (the running statistics
+    move), then one in evaluation."""
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    shape = GROUPBN_SHAPE
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).bfloat16()
+    z = torch.randn(shape, generator=g, device=dev).bfloat16()
+    for label, bn, zz in (("add+ReLU", BatchNorm2d_NHWC(c), z),
+                          ("fuse_relu", BatchNorm2d_NHWC(c, fuse_relu=True),
+                           None)):
+        params, state = bn.init(device=dev)
+        params = {k: (v + 0.1 * torch.randn(v.shape, generator=g,
+                                            device=dev)).requires_grad_()
+                  for k, v in params.items()}
+        box = {"state": state}
+
+        def step(bn=bn, params=params, zz=zz):
+            y, box["state"] = bn.apply(params, box["state"], x, zz)
+            return torch.autograd.grad(y.float().sum(),
+                                       (params["weight"], params["bias"]))
+        step()
+        step()
+        moved = float((box["state"]["running_mean"]).abs().max())
+        if not moved > 0:
+            raise AssertionError("groupbn: running mean did not move")
+        y_eval, same = bn.apply(params, box["state"], x, zz, training=False)
+        if same["running_mean"] is not box["state"]["running_mean"]:
+            raise AssertionError("groupbn: evaluation moved the statistics")
+
+        def run(x, *rest, bn=bn, with_z=zz is not None):
+            p = {"weight": rest[-2], "bias": rest[-1]}
+            _, st = bn.init(device=x.device)
+            y, st = bn.apply(p, st, x, rest[0] if with_z else None)
+            return y, st["running_mean"], st["running_var"]
+        arrays = [x[:8].cpu()] + ([z[:8].cpu()] if zz is not None else []) \
+            + [params["weight"].detach().cpu(), params["bias"].detach().cpu()]
+        grad = tuple(range(len(arrays)))
+        pair = _both_devices(dev, run, arrays, grad=grad)
+        gap = _hold_pair("groupbn", pair, CONTRIB_TOL)
+        n = x.numel()
+        _leg(rows, f"(c) BatchNorm2d_NHWC {label} {list(shape)} bf16: "
+             "train fwd+bwd", step, nbytes=n * 2 * (6 if zz is not None
+                                                    else 5), gap=gap,
+             eval_finite=bool(torch.isfinite(y_eval).all()))
+
+
+#: ResNet-50's shapes at batch 256 (torchvision ``resnet50``): stage 1's
+#: 3x3 conv (64 -> 64 at 56 x 56, padding 1) and stage 2's strided 1x1
+#: downsample (256 -> 512, stride 2)
+CONV_CASES = (("3x3 [256, 56, 56, 64] -> 64, pad 1", (256, 56, 56, 64), 64,
+               3, 1, 1),
+              ("1x1 [256, 56, 56, 256] -> 512, stride 2", (256, 56, 56, 256),
+               512, 1, 0, 2))
+
+
+def conv_bias_relu_leg(dev, rows):
+    """(d) the four ``conv_bias_relu`` functions at both shapes, bf16,
+    forward and backward (the frozen scale's bias and scale take none)."""
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+
+    g = torch.Generator(device=dev).manual_seed(44)
+    for label, shape, cout, k, pad, stride in CONV_CASES:
+        n, h, w_, cin = shape
+        x = torch.randn(shape, generator=g, device=dev).bfloat16()
+        w = (torch.randn(cout, cin, k, k, generator=g, device=dev)
+             * (k * k * cin) ** -0.5).bfloat16().contiguous(
+                 memory_format=torch.channels_last)
+        b = 0.1 * torch.randn(cout, generator=g, device=dev)
+        s = 1 + 0.1 * torch.rand(cout, generator=g, device=dev)
+        ho = (h + 2 * pad - k) // stride + 1
+        mask = (torch.rand(n, ho, ho, cout, generator=g, device=dev)
+                > 0.2).bfloat16()
+        fns = {
+            "ConvBiasReLU": lambda x, w, b, m, s: cbr.ConvBiasReLU(
+                x, w, b, pad, stride),
+            "ConvBiasMaskReLU": lambda x, w, b, m, s: cbr.ConvBiasMaskReLU(
+                x, w, b, m, pad, stride),
+            "ConvBias": lambda x, w, b, m, s: cbr.ConvBias(
+                x, w, b, pad, stride),
+            "ConvFrozenScaleBiasReLU":
+                lambda x, w, b, m, s: cbr.ConvFrozenScaleBiasReLU(
+                    x, w, s, b, pad, stride),
+        }
+        flops = 2.0 * n * ho * ho * cout * cin * k * k * 3
+        for name, fn in fns.items():
+            grad_of = (0, 1) if name == "ConvFrozenScaleBiasReLU" \
+                else (0, 1, 2)
+
+            def step(fn=fn, grad_of=grad_of):
+                xs = [x.detach().requires_grad_(), w.detach().requires_grad_(),
+                      b.detach().requires_grad_()]
+                y = fn(xs[0], xs[1], xs[2], mask, s)
+                return torch.autograd.grad(y, [xs[i] for i in grad_of],
+                                           torch.ones_like(y))
+            y = fn(x, w, b, mask, s)
+            if y.shape != (n, ho, ho, cout) or y.dtype != torch.bfloat16:
+                raise AssertionError(f"{name}: {tuple(y.shape)} {y.dtype}")
+            small = [x[:2].cpu(), w.cpu(), b.cpu(), mask[:2].cpu(), s.cpu()]
+            gap16 = _hold_pair(f"{name} bf16", _both_devices(
+                dev, fn, small), CONV_BF16_TOL)
+            gap32 = _hold_pair(f"{name} fp32", _both_devices(
+                dev, fn, [t.float() for t in small]), CONTRIB_TOL)
+            gap64 = _hold_pair(f"{name} fp64", _both_devices(
+                dev, fn, [t.double() for t in small], grad=grad_of),
+                CONTRIB_TOL)
+            _leg(rows, f"(d) {name} {label} bf16: fwd+bwd", step,
+                 flops=flops, peak=BF16_TC_FLOPS,
+                 gap=max(gap16, gap32, gap64))
+
+
+def _bottleneck_flops(n, hw, cin, mid, cout, stride):
+    ho = hw // stride
+    f = 2.0 * n * (hw * hw * cin * mid + ho * ho * mid * mid * 9
+                   + ho * ho * mid * cout)
+    if stride != 1 or cin != cout:
+        f += 2.0 * n * ho * ho * cin * cout
+    return 3 * f  # forward, and the backward's data and weight gradients
+
+
+#: ResNet-50's stage-1 block and stage 2's first at batch 256: (in, mid,
+#: out, stride) over an input of ``BOTTLENECK_INPUT``
+BOTTLENECK_INPUT = (256, 56, 56, 256)
+BOTTLENECK_BLOCKS = ((256, 64, 256, 1), (256, 128, 512, 2))
+
+
+def bottleneck_leg(dev, rows):
+    """(e) ``Bottleneck`` at ResNet-50's stage-1 block (256 -> 64 -> 256,
+    stride 1) and stage 2's first (256 -> 128 -> 512, stride 2, with the
+    downsample), batch 256, bf16 input computed in fp32 as flax promotes
+    it: forward and backward in training."""
+    from apex_tpu_torch.contrib.bottleneck import Bottleneck
+
+    g = torch.Generator(device=dev).manual_seed(45)
+    n, hw = BOTTLENECK_INPUT[:2]
+    x = torch.randn(BOTTLENECK_INPUT, generator=g, device=dev).bfloat16()
+    for cin, mid, cout, stride in BOTTLENECK_BLOCKS:
+        block = Bottleneck(cin, mid, cout, stride, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(46))
+        cpu_block = Bottleneck(cin, mid, cout, stride, device="cpu")
+        cpu_block.load_state_dict(block.state_dict())
+        params = list(block.parameters())
+
+        def step(block=block, params=params):
+            xs = x.detach().requires_grad_()
+            y = block(xs)
+            return torch.autograd.grad(y.sum(), [xs] + params)
+        ho = hw // stride
+        y = block(x)
+        if y.shape != (n, ho, ho, cout) or y.dtype != torch.float32:
+            raise AssertionError(f"Bottleneck: {tuple(y.shape)} {y.dtype}")
+        block.load_state_dict(cpu_block.state_dict())
+        small = x[:4]
+        outs = {}
+        for side, mod, d in (("card", block, dev),
+                             ("cpu", cpu_block, torch.device("cpu"))):
+            ys = mod(small.to(d))
+            # the gradients in fp64 (see CONTRIB_TOL), on copies
+            mod64 = copy.deepcopy(mod).double()
+            xs = small.to(d).double().requires_grad_()
+            gs = torch.autograd.grad(mod64(xs).sum(), [xs]
+                                     + list(mod64.parameters()))
+            outs[side] = ([ys, mod.bn3.mean, mod.bn3.var], gs)
+        gaps = [_gap("Bottleneck out", a, c, CONTRIB_TOL[torch.float32])
+                for a, c in zip(outs["card"][0], outs["cpu"][0])]
+        gaps += [_gap("Bottleneck fp64 grads", a, c,
+                      CONTRIB_TOL[torch.float64])
+                 for a, c in zip(outs["card"][1], outs["cpu"][1])]
+        _leg(rows, f"(e) Bottleneck {cin}->{mid}->{cout} stride {stride} "
+             f"{list(BOTTLENECK_INPUT)} bf16 -> fp32: train fwd+bwd", step,
+             flops=_bottleneck_flops(n, hw, cin, mid, cout, stride),
+             gap=max(gaps), out_shape=list(y.shape), out_dtype="float32")
+
+
+#: an OpenFold-style gather-multiply (chosen here, not a published
+#: configuration): 65,536 source rows of 128 channels gathered by 524,288
+#: seeded indices (8 a row on average)
+IMUL_ROWS, IMUL_N, IMUL_C = 65536, 524288, 128
+
+
+def index_mul_leg(dev, rows):
+    """(f) ``index_mul_2d`` in fp32, fp16 and bf16: the forward, the
+    backward and the double backward."""
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+
+    g = torch.Generator(device=dev).manual_seed(47)
+    idx = torch.randint(0, IMUL_ROWS, (IMUL_N,), generator=g, device=dev)
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        a = torch.randn(IMUL_ROWS, IMUL_C, generator=g, device=dev).to(dt)
+        b = torch.randn(IMUL_N, IMUL_C, generator=g, device=dev).to(dt)
+        wt = torch.randn(IMUL_N, IMUL_C, generator=g, device=dev).to(dt)
+
+        def grads(a, b, idx, wt, double=False):
+            a = a.detach().requires_grad_()
+            b = b.detach().requires_grad_()
+            loss = (index_mul_2d(a, b, idx).float() ** 2
+                    * wt.float()).sum()
+            ga, gb = torch.autograd.grad(loss, (a, b), create_graph=double)
+            if not double:
+                return ga, gb
+            return torch.autograd.grad(ga.float().square().sum(), b)
+        n_bytes = IMUL_N * IMUL_C * a.element_size()
+        fwd = index_mul_2d(a, b, idx)
+        sl = slice(0, 65536)
+        cpu_fwd = index_mul_2d(a.cpu(), b[sl].cpu(), idx[sl].cpu())
+        if not torch.equal(index_mul_2d(a, b[sl], idx[sl]).cpu(), cpu_fwd):
+            raise AssertionError(f"index_mul_2d {dt}: forward not bitwise")
+        card_g = grads(a, b[sl], idx[sl], wt[sl])
+        cpu_g = grads(a.cpu(), b[sl].cpu(), idx[sl].cpu(), wt[sl].cpu())
+        tol = CONTRIB_TOL[dt]
+        # grad_in1 sums the rows of repeated indices in the gradient's own
+        # dtype, in the card's atomic order or the CPU's sequential one:
+        # up to one rounding a term of the longest sum (the fp16 one read
+        # 5.4e-4 of its largest entry, 1.1 roundings; H100 80GB HBM3, 700 W)
+        k = int(torch.bincount(idx[sl]).max())
+        tol_in1 = tol if dt == torch.float32 else k * (tol - 1e-5) + 1e-5
+        gap = max(_gap("index_mul grad_in1", card_g[0], cpu_g[0], tol_in1),
+                  _gap("index_mul grad_in2", card_g[1], cpu_g[1], tol))
+        if dt == torch.float32:
+            gap = max(gap, _gap("index_mul double backward", grads(
+                a, b[sl], idx[sl], wt[sl], True)[0], grads(
+                a.cpu(), b[sl].cpu(), idx[sl].cpu(), wt[sl].cpu(),
+                True)[0], tol))
+        name = str(dt)[6:]
+        _leg(rows, f"(f) index_mul_2d [{IMUL_ROWS}, {IMUL_C}][{IMUL_N}] "
+             f"{name}: fwd", lambda: index_mul_2d(a, b, idx), iters=10,
+             nbytes=3 * n_bytes + IMUL_N * 8, gap=0.0)
+        _leg(rows, f"(f) index_mul_2d {name}: fwd+bwd",
+             lambda: grads(a, b, idx, wt), nbytes=7 * n_bytes + IMUL_N * 8,
+             gap=gap)
+        _leg(rows, f"(f) index_mul_2d {name}: double backward",
+             lambda: grads(a, b, idx, wt, True))
+        del fwd
+
+
+#: elements of each leaf the CPU reference holds the card's masks against
+#: (a leading slice along the first dim); the swap search's weight
+CONTRIB_SLICE = 1 << 16
+SWAP_N = 1024
+
+
+def _lead(t, n=CONTRIB_SLICE):
+    """A leading slice along dim 0 holding at least ``n`` elements (the
+    2:4 masks of a slice are those of the whole: groups lie along other
+    dims or within the first ``n`` elements of a 1-D leaf)."""
+    if t.dim() == 1:
+        return t[:n]
+    per = max(1, t[0].numel())
+    return t[:max(1, -(-n // per))]
+
+
+def sparsity_leg(dev, rows):
+    """(g) ``ASP`` over the GPT-2 345M's parameter tree (masks card
+    against CPU bit for bit on each leaf's leading slice), three
+    ``wrap_step``-ped pytree ``FusedAdam`` steps (masked entries stay
+    exactly 0), and ``channel_swap_search`` on a seeded ``[1024, 1024]``
+    weight for 20 iterations."""
+    from apex_tpu_torch.contrib.sparsity import (
+        ASP,
+        channel_swap_search,
+        sum_after_2_to_4,
+    )
+
+    shapes = gpt345m_param_shapes(torch.float32)
+    g = torch.Generator(device=dev).manual_seed(48)
+    params = tree_map(lambda m: torch.randn(m.shape, generator=g,
+                                            device=dev) * 0.02, shapes)
+    asp = ASP()
+    box = {}
+
+    def masks_fn():
+        box["m"] = asp.compute_sparse_masks(params)
+    n_el = sum(t.numel() for t in tree_leaves(params))
+    _leg(rows, "(g) ASP.compute_sparse_masks over the 345M tree (fp32)",
+         masks_fn, nbytes=n_el * 8, iters=2)
+    masks = box["m"]
+    for p, m in zip(tree_leaves(params), tree_leaves(masks)):
+        head = _lead(p)
+        want = asp.compute_sparse_masks({"x": head.cpu()})["x"]
+        if not torch.equal(_lead(m).cpu(), want):
+            raise AssertionError(f"ASP mask of a {tuple(p.shape)} leaf: "
+                                 "card and CPU differ")
+    params = asp.apply_masks(params, masks)
+    opt = FusedAdam(lr=1e-3, weight_decay=0.01)
+    step = asp.wrap_step(opt.step, masks)
+    state = opt.init(params)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g, device=dev)
+                     * 1e-3, params)
+    for _ in range(3):
+        params, state = step(grads, state, params)
+    for p, m in zip(tree_leaves(params), tree_leaves(masks)):
+        if p[m == 0].any():
+            raise AssertionError("ASP: a masked entry moved off 0")
+    _leg(rows, "(g) wrap_step(FusedAdam pytree) over the 345M tree",
+         lambda: step(grads, state, params), nbytes=n_el * 4 * 8, iters=2)
+    del params, state, grads, masks, box
+    torch.cuda.empty_cache()
+
+    m = torch.randn(SWAP_N, SWAP_N, generator=g, device=dev)
+    out = {}
+
+    def search():
+        out["r"] = channel_swap_search(m, max_iters=20)
+    _leg(rows, f"(g) channel_swap_search [{SWAP_N}, {SWAP_N}], 20 "
+         "iterations", search, iters=1, warmup=0)
+    perm, kept = out["r"]
+    if sorted(perm.tolist()) != list(range(SWAP_N)):
+        raise AssertionError("channel_swap_search: not a permutation")
+    base = float(sum_after_2_to_4(m))
+    cpu_kept = float(sum_after_2_to_4(m.cpu()[:, torch.as_tensor(perm)]))
+    if not kept >= base or abs(cpu_kept - kept) > 1e-6 * kept:
+        raise AssertionError(f"channel_swap_search: kept {kept} against "
+                             f"unpermuted {base}, CPU {cpu_kept}")
+    small = m[:128, :min(256, SWAP_N)]
+    pc, kc = channel_swap_search(small.cpu(), max_iters=20)
+    pg, kg = channel_swap_search(small, max_iters=20)
+    if not (pc == pg).all() or abs(kc - kg) > 1e-6 * kc:
+        raise AssertionError("channel_swap_search [128, 256]: card and CPU "
+                             "chose other swaps")
+    log(f"  (g) channel_swap_search: kept {kept:.2f} against {base:.2f} "
+        f"unpermuted (+{100 * (kept / base - 1):.3f} %), CPU {cpu_kept:.2f};"
+        f" [128, 256] card = CPU")
+
+
+#: the MLPerf Training RNN-T reference (``rnn_speech_recognition``:
+#: joint hidden 512, 1023 sentencepieces + blank), batch 8; utterances up
+#: to 200 encoder frames, transcripts up to 79 tokens (U = 80)
+RNNT_B, RNNT_H, RNNT_V, RNNT_T, RNNT_U = 8, 512, 1024, 200, 80
+
+
+def transducer_leg(dev, rows):
+    """(h) the RNN-T joint (packed and dense, ReLU, dropout 0.1, then the
+    joint's output layer to the vocabulary) and the loss on fp16 logits,
+    dense and ``packed_input``: forward and backward; card against CPU at
+    batch 2 in fp32, the losses and the logits' gradient."""
+    from apex_tpu_torch.contrib.transducer import (
+        TransducerLoss,
+        transducer_joint,
+        transducer_loss,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(49)
+    f = torch.randn(RNNT_B, RNNT_T, RNNT_H, generator=g, device=dev).half()
+    gg = torch.randn(RNNT_B, RNNT_U, RNNT_H, generator=g, device=dev).half()
+    w = (torch.randn(RNNT_V, RNNT_H, generator=g, device=dev)
+         * RNNT_H ** -0.5).half()
+    bias = torch.zeros(RNNT_V, device=dev, dtype=torch.float16)
+    f_len = torch.randint(RNNT_T // 2, RNNT_T + 1, (RNNT_B,), generator=g,
+                          device=dev)
+    y_len = torch.randint(RNNT_U // 4, RNNT_U, (RNNT_B,), generator=g,
+                          device=dev)
+    f_len[0], y_len[0] = RNNT_T, RNNT_U - 1
+    label = torch.randint(0, RNNT_V - 1, (RNNT_B, RNNT_U - 1), generator=g,
+                          device=dev)
+    g_len = y_len + 1
+    off = torch.cumsum(f_len * g_len, 0)
+    packed_rows = int(off[-1])
+    drop = torch.Generator(device=dev).manual_seed(50)
+    loss_mod = TransducerLoss(packed_input=True)
+
+    def dense_step():
+        fs, gs, ws = (t.detach().requires_grad_() for t in (f, gg, w))
+        h = transducer_joint(fs, gs, f_len, g_len, relu=True,
+                             dropout_prob=0.1, dropout_key=drop)
+        x = F.linear(h, ws, bias)
+        loss = transducer_loss(x, label, f_len, y_len, RNNT_V - 1).sum()
+        return (loss,) + torch.autograd.grad(loss, (fs, gs, ws))
+
+    def packed_step():
+        fs, gs, ws = (t.detach().requires_grad_() for t in (f, gg, w))
+        h = transducer_joint(fs, gs, f_len, g_len, pack_output=True,
+                             relu=True, dropout_prob=0.1, dropout_key=drop,
+                             batch_offset=off, packed_batch=packed_rows)
+        x = F.linear(h, ws, bias)
+        loss = loss_mod(x, label, f_len, y_len, RNNT_V - 1,
+                        batch_offset=off, max_f_len=RNNT_T).sum()
+        return (loss,) + torch.autograd.grad(loss, (fs, gs, ws))
+    ld, lp = dense_step()[0], packed_step()[0]
+    if not (torch.isfinite(ld) and torch.isfinite(lp)):
+        raise AssertionError("transducer loss not finite")
+    # card against CPU at batch 2, fp32: the loss on seeded logits, dense
+    # and packed, and the packed joint
+    cg = torch.Generator().manual_seed(51)
+    x2 = torch.randn(2, RNNT_T, RNNT_U, RNNT_V, generator=cg) * 2
+    fl2, yl2, lab2 = f_len[:2].cpu(), y_len[:2].cpu(), label[:2].cpu()
+    gap = _hold_pair("transducer loss", _both_devices(
+        dev, lambda x, l, fl, yl: transducer_loss(x, l, fl, yl,
+                                                  RNNT_V - 1),
+        [x2, lab2, fl2, yl2], grad=(0,)), CONTRIB_TOL)
+    off2 = torch.cumsum(fl2 * (yl2 + 1), 0)
+    rows2 = [x2[i, :int(fl2[i]), :int(yl2[i]) + 1].reshape(-1, RNNT_V)
+             for i in range(2)]
+    gap = max(gap, _hold_pair("transducer packed loss", _both_devices(
+        dev, lambda x, l, fl, yl, o: loss_mod(
+            x, l, fl, yl, RNNT_V - 1, batch_offset=o, max_f_len=RNNT_T),
+        [torch.cat(rows2), lab2, fl2, yl2, off2], grad=(0,)),
+        CONTRIB_TOL))
+    joint = _both_devices(dev, lambda f, g, fl, gl, o: transducer_joint(
+        f, g, fl, gl, pack_output=True, relu=True, batch_offset=o,
+        packed_batch=int(off2[-1])), [f[:2].float().cpu(),
+                                       gg[:2].float().cpu(), fl2,
+                                       yl2 + 1, off2])
+    if not torch.equal(joint["card"][0][0].cpu(), joint["cpu"][0][0]):
+        raise AssertionError("transducer joint: card and CPU differ")
+    n_logits = RNNT_B * RNNT_T * RNNT_U * RNNT_V
+    _leg(rows, f"(h) RNN-T dense: joint [{RNNT_B}, {RNNT_T}, {RNNT_U}, "
+         f"{RNNT_H}] + output layer + loss, fp16, fwd+bwd", dense_step, gap=gap,
+         loss=round(float(ld.detach()), 3), logits=n_logits)
+    _leg(rows, f"(h) RNN-T packed ({packed_rows} rows): joint + output "
+         "layer + packed_input loss, fp16, fwd+bwd", packed_step, gap=gap,
+         loss=round(float(lp.detach()), 3))
+
+
+def legacy_optimizer_leg(dev, rows):
+    """(i) the legacy contrib ``FusedAdam`` (loss scale 1024, ``grad_norms``
+    of the scaled gradients clipped to ``max_grad_norm`` 1.0, both
+    ``eps_inside_sqrt`` modes, bf16 ``output_params``) and ``FusedSGD``
+    (momentum 0.9) over the 345M tree, 3 steps each on the card; the CPU
+    runs the same steps on each leaf's first ``SWA_SLICE`` elements (the
+    update is elementwise, and the clip's norm is the whole tree's, the
+    same number on both) within ``SWA_TOL``."""
+    from apex_tpu_torch.contrib.optimizers import FusedAdam as LegacyAdam
+    from apex_tpu_torch.contrib.optimizers import FusedSGD as LegacySGD
+
+    shapes = gpt345m_param_shapes(torch.float32)
+    g = torch.Generator(device=dev).manual_seed(52)
+
+    def draw(scale):
+        return tree_map(lambda m: torch.randn(
+            m.shape, generator=g, device=dev) * scale, shapes)
+
+    def head(tree):
+        return tree_map(lambda t: t.reshape(-1)[:SWA_SLICE].cpu(), tree)
+
+    masters = draw(0.02)
+    grads = [draw(1024.0 * 1e-4) for _ in range(3)]
+    norms = [float(torch.sqrt(sum((t.double() ** 2).sum()
+                                  for t in tree_leaves(gr))))
+             for gr in grads]
+    makers = {
+        "FusedAdam eps outside sqrt": lambda: LegacyAdam(
+            lr=1e-3, max_grad_norm=1.0, weight_decay=0.01),
+        "FusedAdam eps_inside_sqrt": lambda: LegacyAdam(
+            lr=1e-3, max_grad_norm=1.0, weight_decay=0.01,
+            eps_inside_sqrt=True),
+        "FusedSGD momentum 0.9": lambda: LegacySGD(lr=0.01, momentum=0.9),
+    }
+    n_el = sum(t.numel() for t in tree_leaves(masters))
+    for name, make in makers.items():
+        opt = make()
+        banks = {}
+        for side in ("card", "cpu"):
+            p = masters if side == "card" else head(masters)
+            st = opt.init(p)
+            for i in range(3):
+                gi = grads[i] if side == "card" else head(grads[i])
+                p, st, out = opt.step(gi, st, p, scale=1024.0,
+                                      grad_norms=norms[i],
+                                      output_params_dtype=torch.bfloat16)
+            moments = (st.momentum_buffer,) if "SGD" in name else (
+                st.exp_avg, st.exp_avg_sq)
+            banks[side] = (p, out) + moments
+            if side == "card":
+                def one(opt=opt, st=st, p=p):
+                    return opt.step(grads[0], st, p, scale=1024.0,
+                                    grad_norms=norms[0],
+                                    output_params_dtype=torch.bfloat16)
+                _leg(rows, f"(i) legacy {name} over the 345M tree: a step",
+                     one, nbytes=n_el * (4 * (5 if "SGD" in name else 7)
+                                         + 2), iters=2)
+                banks[side] = tuple(head(b) for b in banks[side])
+        updates = [float((p - p0).abs().max()) for p, p0 in zip(
+            tree_leaves(banks["cpu"][0]), tree_leaves(head(masters)))]
+        margins = []
+        for kind, a, b in zip(("params", "output", "m", "v"), banks["card"],
+                              banks["cpu"]):
+            for x_, y_, upd in zip(tree_leaves(a), tree_leaves(b), updates):
+                atol = (SWA_TOL["rel"] * float(y_.abs().max())
+                        if kind in ("m", "v") else SWA_TOL["update"] * upd)
+                rtol = SWA_TOL["bf16"] if y_.dtype == torch.bfloat16 \
+                    else SWA_TOL["rel"]
+                margins.append(check_close(f"legacy {name} {kind}", x_, y_,
+                                           y_.dtype, tol=(atol, rtol),
+                                           margin=True)[1])
+        log(f"  (i) legacy {name}, 3 steps: card against CPU at most "
+            f"{max(margins):.3f} of the limits")
+        rows[-1]["limit_share"] = round(max(margins), 4)
+
+
+#: NVIDIA's sentiment-discovery mLSTM (``sentiment-discovery``
+#: ``--model mLSTM --rnn_size 4096 --emsize 64``; sequences of 256 bytes,
+#: batch 32); the stacked RNNs: 2 layers, bidirectional, hidden 1024,
+#: input 1024, seq 64, batch 32
+MLSTM = dict(input=64, hidden=4096, seq=256, batch=32)
+STACKED = dict(input=1024, hidden=1024, seq=64, batch=32, layers=2)
+
+
+def _rnn_flops(gates, inp, hid, seq, batch, layers=1, dirs=1, mult=False):
+    f = 0.0
+    for layer in range(layers):
+        i = inp if layer == 0 else hid * dirs
+        per = gates * hid * (i + hid) + (hid * (i + hid) if mult else 0)
+        f += 2.0 * batch * seq * per * dirs
+    return 3 * f
+
+
+def rnn_leg(dev, rows):
+    """(j) the RNN models in fp32: the mLSTM of sentiment-discovery, then
+    LSTM, GRU, ReLU and Tanh stacked 2 deep and bidirectional; forward
+    and backward; card against CPU at batch 2 over 16 steps."""
+    from apex_tpu_torch import RNN
+
+    g = torch.Generator(device=dev).manual_seed(53)
+    cases = [("mLSTM", RNN.mLSTM(MLSTM["input"], MLSTM["hidden"], 1),
+              MLSTM, dict(gates=4, mult=True))]
+    for name, gates in (("LSTM", 4), ("GRU", 3), ("ReLU", 1), ("Tanh", 1)):
+        cases.append((name, getattr(RNN, name)(
+            STACKED["input"], STACKED["hidden"], STACKED["layers"],
+            bidirectional=True), STACKED, dict(gates=gates)))
+    for name, model, shp, fl in cases:
+        params = model.init(g, device=dev)
+        leaves, treedef = tree_flatten(params)
+        x = torch.randn(shp["seq"], shp["batch"], shp["input"], generator=g,
+                        device=dev)
+
+        def step(model=model, leaves=leaves, treedef=treedef, x=x):
+            live = [t.detach().requires_grad_() for t in leaves]
+            y, _ = model(tree_unflatten(treedef, live), x)
+            return torch.autograd.grad(y.square().mean(), live)
+        small = x[:16, :2]
+        outs = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            y, fin = model(tree_unflatten(
+                treedef, [t.to(d) for t in leaves]), small.to(d))
+            # the gradients in fp64 (see CONTRIB_TOL)
+            live = [t.to(d, torch.float64).requires_grad_()
+                    for t in leaves]
+            y64, _ = model(tree_unflatten(treedef, live),
+                           small.to(d, torch.float64))
+            outs[side] = ([y] + tree_leaves(fin), torch.autograd.grad(
+                y64.square().mean(), live))
+        gap = max([_gap(f"{name} out", a, c, CONTRIB_TOL[torch.float32])
+                   for a, c in zip(outs["card"][0], outs["cpu"][0])]
+                  + [_gap(f"{name} fp64 grad", a, c,
+                          CONTRIB_TOL[torch.float64])
+                     for a, c in zip(outs["card"][1], outs["cpu"][1])])
+        dirs = 1 if name == "mLSTM" else 2
+        _leg(rows, f"(j) {name} hidden {shp['hidden']} seq {shp['seq']} "
+             f"batch {shp['batch']}" + ("" if dirs == 1 else
+                                        ", 2 layers bidirectional")
+             + " fp32: fwd+bwd", step, iters=2,
+             flops=_rnn_flops(fl["gates"], shp["input"], shp["hidden"],
+                              shp["seq"], shp["batch"],
+                              shp.get("layers", 1), dirs,
+                              fl.get("mult", False)), gap=gap)
+
+
+def contrib_phase(dev):
+    """Phase 11: the single-device contribs of A5.5 and ``RNN/`` at full
+    width, legs (a)-(j); each times its forward and backward (CUDA-event
+    ms, peak memory, a byte or operation bound where the work is clean)
+    and holds the card against the CPU. No kernel of the port lies on
+    these paths: every launch count reads zero after the phase. Prints a
+    ``{"phase11": [...]}`` line of the legs."""
+    rows = []
+    parts = {}
+    _device.reset_launch_counts()
+    with tf32_off():  # fp32 legs in fp32, run alone or from main()
+        for key, fn in (("a", focal_leg), ("b", group_norm_leg),
+                        ("c", groupbn_leg), ("d", conv_bias_relu_leg),
+                        ("e", bottleneck_leg), ("f", index_mul_leg),
+                        ("g", sparsity_leg), ("h", transducer_leg),
+                        ("i", legacy_optimizer_leg), ("j", rnn_leg)):
+            t0 = time.perf_counter()
+            fn(dev, rows)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            parts[key] = round(time.perf_counter() - t0, 1)
+    launched = {k: v for k, v in _device.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 11 launched kernels of the port: "
+                             f"{launched}")
+    log(f"  phase 11 parts (s): {parts}; launches: none")
+    print(json.dumps({"phase11": rows}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5938,6 +6741,11 @@ def main() -> int:
         "345M fp8 train step, card against CPU), fused_dense_gelu_dense, "
         "MLP, fused_rope, FusedAdamSWA", fp8_and_friends_phase, dev,
         train_p50["unfused"])
+    phase("phase 11: the single-device contribs of A5.5 and RNN/ at full "
+          "width (focal_loss, group_norm, groupbn, conv_bias_relu, "
+          "Bottleneck, index_mul_2d, sparsity, transducer, the legacy "
+          "optimizers, the RNNs), card against CPU, no kernel of the port",
+          contrib_phase, dev)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]

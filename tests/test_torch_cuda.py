@@ -59,6 +59,8 @@ beyond one rounding of the output (2^-7 bf16, 2^-10 fp16), within 2^-13
 of the sum of |products| (Hopper's fp8 tensor cores keep fewer bits in
 their partial sums); the quantizers' bytes bit for bit against the CPU.
 """
+import contextlib
+import copy
 import importlib
 
 import numpy as np
@@ -66,7 +68,13 @@ import pytest
 import torch
 
 from apex_tpu_torch import _build, _device
-from apex_tpu_torch._tree import tree_leaves, tree_map, value_and_grad
+from apex_tpu_torch._tree import (
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    value_and_grad,
+)
 from apex_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -2171,3 +2179,324 @@ def test_fp8_gpt_step_on_the_card(cuda_device, fused):
     for meta in tree_leaves(states):
         assert torch.isfinite(meta).all()
     assert bool((states["fc2"].g.amax_history[:, :3] > 0).all())
+
+
+# ---------------------------------------------------------------------------
+# the single-device contribs and RNN (no kernel of the port on their paths:
+# plain PyTorch over cuDNN and cuBLAS), card against CPU
+#
+# Tolerances: fp32 (TF32 off for cuDNN and cuBLAS) within 1e-5 of each
+# result's largest entry, the DP and the optimizer trajectories too;
+# gradients through a ReLU (the convs, the Bottleneck, the RNNs) in fp64
+# within 1e-8 (in fp32 the two devices' pre-activations, a few ulps
+# apart, can fall on either side of 0, where the gradient jumps; fp64
+# sums through the BatchNorm's E[x^2] - E[x]^2 cancel to ~1e-10);
+# index_mul's forward and the 2:4 masks bit for bit; index_mul's
+# grad_in1 within 1e-6 of its largest entry (the card's scatter-add
+# atomics sum repeated rows in an order that changes from run to run);
+# the legacy Adam within 1e-6 of itself plus 1e-4 of each leaf's largest
+# 3-step update (CUDA's and the CPU's fp32 pow may round beta2**t an ulp
+# apart, and 1 - beta2**t cancels it up)
+# ---------------------------------------------------------------------------
+
+CONTRIB_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _near(got, want, tol=CONTRIB_TOL):
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= tol * float(
+        want.abs().max()), (float((got - want).abs().max()),
+                            float(want.abs().max()))
+
+
+def _both(cuda_device, fn, *arrays, grad=()):
+    """``fn`` on the CPU and the card over the same arrays; returns
+    ``(outputs, gradients)`` per device (outputs a tuple), gradients of
+    ``sum(output[0] * dy)`` for the arrays at positions ``grad``. No
+    kernel of the port launches."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xs = [a.to(dev).requires_grad_() if i in grad else a.to(dev)
+              for i, a in enumerate(arrays)]
+        _device.reset_launch_counts()
+        with _no_tf32():
+            res = fn(*xs)
+            res = res if isinstance(res, tuple) else (res,)
+            gs = ()
+            if grad:
+                dy = torch.randn(res[0].shape, generator=torch.Generator()
+                                 .manual_seed(99)).to(dev)
+                gs = torch.autograd.grad(
+                    (res[0].float() * dy).sum(), [xs[i] for i in grad])
+        assert not any(_device.launch_counts().values())
+        out[str(dev)] = (res, gs)
+    return out["cpu"], out[str(cuda_device)]
+
+
+def test_index_mul_2d_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(257, 64, generator=g), torch.randn(4096, 64,
+                                                          generator=g)
+    idx = torch.randint(0, 257, (4096,), generator=g)
+    (co, cg), (go, gg) = _both(cuda_device, index_mul_2d, a, b, idx,
+                               grad=(0, 1))
+    assert torch.equal(go[0].cpu(), co[0])
+    _near(gg[0], cg[0], 1e-6)
+    assert torch.equal(gg[1].cpu(), cg[1])
+    for dt in (torch.float16, torch.bfloat16):
+        assert torch.equal(index_mul_2d(a.to(dt).to(cuda_device),
+                                        b.to(dt).to(cuda_device),
+                                        idx.to(cuda_device)).cpu(),
+                           index_mul_2d(a.to(dt), b.to(dt), idx))
+
+
+def test_focal_loss_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+
+    g = torch.Generator().manual_seed(1)
+    logits = torch.randn(4, 2000, 96, generator=g) * 3
+    y = torch.randint(-2, 90, (4, 2000), generator=g)
+    (co, cg), (go, gg) = _both(
+        cuda_device, lambda p, t: focal_loss(p, t, 321.0, 90, 0.25, 2.0, 0.1),
+        logits, y, grad=(0,))
+    _near(go[0], co[0])
+    _near(gg[0], cg[0])
+
+
+def test_group_norm_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.group_norm import group_norm_nhwc
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 16, 16, 320, generator=g)
+    w, b = torch.randn(320, generator=g), torch.randn(320, generator=g)
+    (co, cg), (go, gg) = _both(
+        cuda_device, lambda x, w, b: group_norm_nhwc(x, 32, w, b, 1e-5,
+                                                     "swish"),
+        x, w, b, grad=(0, 1, 2))
+    _near(go[0], co[0])
+    for a, c in zip(gg, cg):
+        _near(a, c)
+
+
+def test_groupbn_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.cudnn_gbn import GroupBatchNorm2d
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.parallel import sync_batch_norm
+
+    g = torch.Generator().manual_seed(3)
+    x, z = torch.randn(8, 14, 14, 64, generator=g), torch.randn(
+        8, 14, 14, 64, generator=g)
+    for bn in (BatchNorm2d_NHWC(64), GroupBatchNorm2d(64, group_size=1)):
+        def run(x, z, bn=bn):
+            p, s = bn.init(device=x.device)
+            y, s = bn.apply(p, s, x, z)
+            y2, _ = bn.apply(p, s, x, training=False)
+            return y, y2, s["running_mean"], s["running_var"]
+        (co, cg), (go, gg) = _both(cuda_device, run, x, z, grad=(0, 1))
+        for a, c in zip(go + gg, co + cg):
+            _near(a, c)
+    (co, _), (go, _) = _both(
+        cuda_device, lambda x: sync_batch_norm(
+            x, None, None, torch.zeros(64, device=x.device),
+            torch.ones(64, device=x.device), training=True, axis_name=None),
+        x)
+    for a, c in zip(go, co):
+        _near(a, c)
+
+
+def test_conv_bias_relu_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(4, 14, 14, 64, generator=g)
+    w3 = torch.randn(64, 64, 3, 3, generator=g).contiguous(
+        memory_format=torch.channels_last) * 0.05
+    w1 = torch.randn(128, 64, 1, 1, generator=g).contiguous(
+        memory_format=torch.channels_last) * 0.1
+    b, s = torch.randn(128, generator=g), torch.rand(128, generator=g)
+    mask = (torch.rand(4, 14, 14, 1, generator=g) > 0.3).float()
+    cases = [
+        (lambda x, w, b: cbr.ConvBiasReLU(x, w, b[:64], 1, 1), w3),
+        (lambda x, w, b: cbr.ConvBiasMaskReLU(x, w, b[:64], mask.to(x.device),
+                                              1, 1), w3),
+        (lambda x, w, b: cbr.ConvBias(x, w, b, 0, 2), w1),
+        (lambda x, w, b: cbr.ConvFrozenScaleBiasReLU(x, w, s.to(x.device), b,
+                                                     0, 2), w1),
+    ]
+    for fn, w in cases:
+        (co, _), (go, _) = _both(cuda_device, fn, x, w, b)
+        _near(go[0], co[0])
+        (_, cg), (_, gg) = _both(cuda_device, fn, x.double(), w.double(),
+                                 b.double(), grad=(0, 1))
+        for a, c in zip(gg, cg):
+            _near(a, c, 1e-8)
+    bf = cbr.ConvBiasReLU(x.bfloat16().to(cuda_device),
+                          w3.bfloat16().to(cuda_device),
+                          b[:64].to(cuda_device), 1, 1)
+    assert bf.dtype == torch.bfloat16 and bf.shape == (4, 14, 14, 64)
+
+
+def test_bottleneck_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.bottleneck import Bottleneck
+
+    for cin, mid, cout, stride in ((64, 16, 64, 1), (64, 32, 128, 2)):
+        cpu = Bottleneck(cin, mid, cout, stride, device="cpu",
+                         generator=torch.Generator().manual_seed(5))
+        card = Bottleneck(cin, mid, cout, stride, device=cuda_device)
+        card.load_state_dict(cpu.state_dict())
+        x = torch.randn(4, 14, 14, cin,
+                        generator=torch.Generator().manual_seed(6))
+        out = {}
+        for dev, mod in (("cpu", cpu), (cuda_device, card)):
+            with _no_tf32():
+                y = mod(x.bfloat16().to(dev))
+                assert y.dtype == torch.float32
+                mod64 = copy.deepcopy(mod).double()
+                xs = x.double().to(dev).requires_grad_()
+                gx, gk = torch.autograd.grad(mod64(xs).sum(),
+                                             (xs, mod64.conv2.kernel))
+            out[str(dev)] = (y, mod.bn3.mean, mod.bn3.var, gx, gk)
+        for i, (a, c) in enumerate(zip(out[str(cuda_device)], out["cpu"])):
+            _near(a, c, CONTRIB_TOL if i < 3 else 1e-8)
+
+
+def test_sparsity_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.sparsity import (
+        ASP,
+        apply_2_to_4,
+        channel_swap_search,
+        create_mask,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    g = torch.Generator().manual_seed(7)
+    for shape in ((1024, 1024), (64, 96, 3, 3), (4096,)):
+        w = torch.randn(shape, generator=g)
+        assert torch.equal(create_mask(w.to(cuda_device)).cpu(),
+                           create_mask(w))
+    ties = torch.randint(-2, 3, (256, 256), generator=g).float()
+    assert torch.equal(create_mask(ties.to(cuda_device)).cpu(),
+                       create_mask(ties))
+    assert torch.equal(apply_2_to_4(ties.to(cuda_device)).cpu(),
+                       apply_2_to_4(ties))
+    m = torch.randn(64, 128, generator=g)
+    with _no_tf32():
+        pc, kc = channel_swap_search(m, max_iters=30)
+        pg, kg = channel_swap_search(m.to(cuda_device), max_iters=30)
+    assert (pg == pc).all() and abs(kg - kc) <= 1e-6 * kc
+    params = {"w": torch.randn(64, 128, generator=g).to(cuda_device),
+              "b": torch.randn(128, generator=g).to(cuda_device)}
+    asp = ASP()
+    masks = asp.compute_sparse_masks(params)
+    params = asp.apply_masks(params, masks)
+    opt = FusedAdam(lr=1e-2)
+    step = asp.wrap_step(opt.step, masks)
+    state = opt.init(params)
+    for _ in range(3):
+        params, state = step(tree_map(torch.ones_like, params), state,
+                             params)
+    assert not params["w"][masks["w"] == 0].any()
+
+
+def test_legacy_optimizers_on_card_match_cpu(cuda_device):
+    from apex_tpu_torch.contrib.optimizers import FusedAdam, FusedSGD
+
+    g = torch.Generator().manual_seed(8)
+    p0 = {"w": torch.randn(256, 512, generator=g) * 0.02,
+          "b": torch.randn(512, generator=g) * 0.02}
+    grads = [{k: torch.randn(v.shape, generator=g) * 512.0
+              for k, v in p0.items()} for _ in range(3)]
+    for make in (lambda: FusedAdam(lr=1e-3, max_grad_norm=1.0,
+                                   weight_decay=0.01),
+                 lambda: FusedAdam(lr=1e-3, eps_inside_sqrt=True),
+                 lambda: FusedSGD(lr=0.1, momentum=0.9)):
+        res = {}
+        for dev in ("cpu", cuda_device):
+            opt = make()
+            p = tree_map(lambda t: t.to(dev), p0)
+            st = opt.init(p)
+            for gr in grads:
+                gr = tree_map(lambda t: t.to(dev), gr)
+                norm = torch.sqrt(sum((t.double() ** 2).sum()
+                                      for t in tree_leaves(gr))).float()
+                p, st, out = opt.step(gr, st, p, scale=1024.0,
+                                      grad_norms=norm,
+                                      output_params_dtype=torch.bfloat16)
+            res[str(dev)] = (p, out)
+        (pc, oc), (pg, og) = res["cpu"], res[str(cuda_device)]
+        for k in p0:
+            upd = float((pc[k] - p0[k]).abs().max())
+            diff = (pg[k].cpu() - pc[k]).abs()
+            assert float((diff - 1e-6 * pc[k].abs()).max()) <= 1e-4 * upd
+            assert og[k].dtype == torch.bfloat16
+
+
+def test_transducer_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch.contrib.transducer import (
+        TransducerLoss,
+        transducer_joint,
+    )
+
+    g = torch.Generator().manual_seed(9)
+    f, gg_ = torch.randn(2, 40, 64, generator=g), torch.randn(
+        2, 13, 64, generator=g)
+    f_len, g_len = torch.tensor([40, 23]), torch.tensor([13, 6])
+    off = torch.cumsum(f_len * g_len, 0)
+    (co, cg), (go, gg) = _both(
+        cuda_device, lambda f, g, fl, gl, o: transducer_joint(
+            f, g, fl, gl, pack_output=True, relu=True, batch_offset=o,
+            packed_batch=int(off[-1])), f, gg_, f_len, g_len, off,
+        grad=(0, 1))
+    assert torch.equal(go[0].cpu(), co[0])
+    for a, c in zip(gg, cg):
+        _near(a, c)
+    x = torch.randn(2, 40, 13, 129, generator=g) * 2
+    label = torch.randint(0, 128, (2, 12), generator=g)
+    y_len = torch.tensor([12, 5])
+    dbg = []
+    (co, cg), (go, gg) = _both(
+        cuda_device, lambda x, l, fl, yl: TransducerLoss()(
+            x, l, fl, yl, 128, debug_list=dbg), x, label, f_len, y_len,
+        grad=(0,))
+    _near(go[0], co[0])
+    _near(gg[0], cg[0])
+
+
+def test_rnn_on_card_matches_cpu(cuda_device):
+    from apex_tpu_torch import RNN
+
+    for name in ("LSTM", "GRU", "ReLU", "Tanh", "mLSTM"):
+        model = getattr(RNN, name)(32, 64, num_layers=2,
+                                   bidirectional=name != "mLSTM")
+        params = model.init(torch.Generator().manual_seed(10), device="cpu")
+        x = torch.randn(12, 4, 32, generator=torch.Generator().manual_seed(11))
+        leaves, treedef = tree_flatten(params)
+        out = {}
+        for dev in ("cpu", cuda_device):
+            live = [t.to(dev, torch.float64).requires_grad_()
+                    for t in leaves]
+            with _no_tf32():
+                y, _ = model(tree_unflatten(treedef, [
+                    t.to(dev) for t in leaves]), x.to(dev))
+                y64, _ = model(tree_unflatten(treedef, live),
+                               x.to(dev, torch.float64))
+                gs = torch.autograd.grad(y64.square().sum(), live)
+            out[str(dev)] = (y,) + gs
+        for i, (a, c) in enumerate(zip(out[str(cuda_device)], out["cpu"])):
+            _near(a, c, CONTRIB_TOL if i == 0 else 1e-8)

@@ -74,7 +74,18 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "examples.imagenet.resnet", "examples.imagenet.main_amp",
                  "fused_dense.fp8", "fused_dense.fused_dense", "mlp.mlp",
                  "transformer.functional.fused_rope",
-                 "contrib.openfold.fused_adam_swa"):
+                 "contrib.openfold.fused_adam_swa",
+                 "contrib.index_mul_2d.index_mul_2d",
+                 "contrib.focal_loss.focal_loss",
+                 "contrib.group_norm.group_norm", "parallel.sync_batchnorm",
+                 "contrib.groupbn.batch_norm", "contrib.cudnn_gbn",
+                 "contrib.conv_bias_relu.conv_bias_relu",
+                 "contrib.bottleneck.bottleneck",
+                 "contrib.sparsity.sparse_masklib", "contrib.sparsity.asp",
+                 "contrib.sparsity.permutation_search",
+                 "contrib.optimizers.legacy", "contrib.optimizers",
+                 "contrib.transducer.transducer", "RNN.cells",
+                 "RNN.models"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 
