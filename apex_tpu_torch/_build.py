@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host IO engine.
 
 The sources under ``apex_tpu_torch/csrc/`` have a plain C interface (no
 PyTorch headers), so each compiles in seconds: one ``nvcc -c`` per
@@ -8,11 +8,18 @@ with ``ctypes``. The build happens at the first kernel launch in a
 process (never at import: the CPU tests import every module on a host
 with no ``nvcc``) and is reused while it is newer than every file under
 ``csrc/`` (the shared headers ``*.cuh`` included).
+
+The host IO engine ``csrc/hostio.cpp`` (plain C++, no CUDA) is built
+apart with ``g++`` by :func:`load_hostio` at its first use, into
+``build/libapex_hostio_<hash>.so`` keyed by a hash of the source. A
+failed build raises with the compiler's output: nothing falls back to
+Python IO behind the caller's back.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import shutil
 import subprocess
@@ -227,3 +234,72 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if rc:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+# ---------------------------------------------------------------------------
+# the host IO engine (g++)
+# ---------------------------------------------------------------------------
+
+HOSTIO_SRC = CSRC_DIR / "hostio.cpp"
+HOSTIO_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+_hostio: Optional[ctypes.CDLL] = None
+
+
+def build_hostio(src: Path = HOSTIO_SRC, build_dir: Path = BUILD_DIR
+                 ) -> Path:
+    """Compile ``src`` with g++ into ``build_dir/libapex_hostio_<hash>.so``
+    (the hash of the source's bytes), or reuse that file when it exists.
+    Raises ``RuntimeError`` carrying the compiler's output when the
+    build fails."""
+    src = Path(src)
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = Path(build_dir) / f"libapex_hostio_{tag}.so"
+    if so.exists():
+        return so
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the host IO engine "
+                           f"({src.name}) is built with it")
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
+    proc = subprocess.run([gxx, *HOSTIO_FLAGS, str(src), "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed to build {src}:\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, so)  # atomic against a concurrent build
+    return so
+
+
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the engine's C signatures (the JAX loader's)."""
+    i64 = ctypes.c_int64
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    pptr = ctypes.POINTER(ctypes.c_void_p)
+    for name in ("hostio_write", "hostio_read"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, i64, p64, p64, pptr, ctypes.c_int]
+    for name in ("hostio_write_fd", "hostio_read_fd"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, i64, p64, p64, pptr, ctypes.c_int]
+    lib.hostio_file_size.restype = i64
+    lib.hostio_file_size.argtypes = [ctypes.c_char_p]
+    for name in ("hostio_pack", "hostio_unpack"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, i64, pptr, p64, p64, ctypes.c_int]
+    return lib
+
+
+def load_hostio() -> ctypes.CDLL:
+    """The host IO engine, built on first call (:func:`build_hostio`)
+    and configured. Raises where it cannot be built or loaded."""
+    global _hostio
+    with _lock:
+        if _hostio is None:
+            _hostio = _configure(ctypes.CDLL(str(build_hostio())))
+    return _hostio

@@ -7,6 +7,41 @@ attention, the small-shape LayerNorm and ``FusedAdamSWA``), and the
 single-device contribs in plain PyTorch: ``focal_loss``, ``group_norm``,
 ``groupbn``, ``cudnn_gbn``, ``conv_bias_relu``, ``bottleneck``
 (``Bottleneck``), ``index_mul_2d``, ``sparsity``, ``transducer`` and
-``optimizers`` (the legacy ``FusedAdam`` / ``FusedSGD``). Not yet:
-``gpu_direct_storage`` and the multi-rank parts (the spatial bottleneck,
-the ``DistributedFused*`` optimizers; ROADMAP.md, queues A5.6, A6)."""
+``optimizers`` (the legacy ``FusedAdam`` / ``FusedSGD``), and
+``gpu_direct_storage`` (``GDSFile`` over the host IO engine). Not yet:
+the multi-rank parts (the spatial bottleneck and its halo exchangers,
+the ``DistributedFused*`` optimizers; ROADMAP.md, queue A6.6).
+
+``optimizers`` imports eagerly, the others at first attribute access,
+as in the JAX package."""
+from . import optimizers  # noqa: F401
+from .. import _lazy_import
+
+_LAZY = (
+    "clip_grad",
+    "xentropy",
+    "layer_norm",
+    "group_norm",
+    "focal_loss",
+    "index_mul_2d",
+    "sparsity",
+    "bottleneck",
+    "gpu_direct_storage",
+    "transducer",
+    "fmha",
+    "multihead_attn",
+    "conv_bias_relu",
+    "groupbn",
+    "cudnn_gbn",
+    "openfold",
+)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return _lazy_import(__name__, globals(), name, {})
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -38,10 +38,13 @@ of the library GEMM adds one to ``_device.LAUNCHES["fp8_gemm"]``. The
 amax, scale, clamp and cast passes are plain PyTorch, as they are XLA
 ops in the JAX package.
 
-The JAX package reduces the amaxes over mesh axes
-(``amax_reduction_axes``, a ``pmax``); that group all-reduce comes with
-``parallel_state`` (ROADMAP.md A6.1), so any value other than None
-raises here.
+With ``amax_reduction_axes`` (axis names of
+``transformer.parallel_state``: ``"data"``, ``"tensor"``, ``"pipeline"``)
+the observed amaxes are MAX-reduced over that group of ranks before the
+scales are derived, where the JAX package ``pmax``es over mesh axes: one
+``all_reduce`` a site (the forward's x and w amaxes go together in one
+2-element reduction; a gradient amax in one of its own), so every rank
+that holds a shard of a tensor derives the same scale.
 """
 from __future__ import annotations
 
@@ -116,12 +119,12 @@ def quantize_e5m2(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return _quantize(x, scale, FP8_E5M2_MAX, torch.float8_e5m2)
 
 
-def _refuse_reduction(amax_reduction_axes) -> None:
-    if amax_reduction_axes is not None:
-        raise ValueError(
-            f"amax_reduction_axes={amax_reduction_axes!r}: reducing the "
-            "amaxes over a group needs parallel_state, which is not "
-            "ported yet (ROADMAP.md A6.1); on one rank pass None")
+def _reduce_amax(amax: torch.Tensor, amax_reduction_axes) -> torch.Tensor:
+    """The amax MAX-reduced over the group of ``amax_reduction_axes``
+    (``parallel_state.reduce_amax``, in place on this tensor)."""
+    from ..transformer import parallel_state
+
+    return parallel_state.reduce_amax(amax, amax_reduction_axes)
 
 
 def _updated_meta(meta: Fp8TensorMeta, amax_now: torch.Tensor, margin: float,
@@ -148,9 +151,11 @@ def _forward_metas(x: torch.Tensor, weight: torch.Tensor,
     """Observe the x and w amaxes and return the rolled metas. The
     amaxes describe the data, not the graph: no gradient flows into
     them."""
-    _refuse_reduction(amax_reduction_axes)
     amax_x = x.detach().abs().amax().float()
     amax_w = weight.detach().abs().amax().float()
+    if amax_reduction_axes is not None:
+        amax_x, amax_w = _reduce_amax(torch.stack([amax_x, amax_w]),
+                                      amax_reduction_axes).unbind()
     return (_updated_meta(state.x, amax_x, margin),
             _updated_meta(state.w, amax_w, margin))
 
@@ -329,8 +334,9 @@ def record_grad_amax(state: Fp8DenseState, amax, *, margin: float = 0.0,
     amaxes)."""
     if state.g is None:
         raise ValueError("state has no gradient meta")
-    _refuse_reduction(amax_reduction_axes)
     amax = torch.as_tensor(amax, dtype=torch.float32,
                            device=state.g.scale.device)
+    if amax_reduction_axes is not None:
+        amax = _reduce_amax(amax.clone(), amax_reduction_axes)
     return state._replace(
         g=_updated_meta(state.g, amax, margin, fp8_max=fp8_max))

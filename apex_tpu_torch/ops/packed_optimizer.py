@@ -301,18 +301,24 @@ def packed_row_reduce(flat: torch.Tensor, *, op: str = "sqsum",
     return out
 
 
-def multi_tensor_l2norm_flat(flat: torch.Tensor, *, inv_scale=1.0
+def multi_tensor_l2norm_flat(flat: torch.Tensor, *, inv_scale=1.0,
+                             chunk_size: int = DEFAULT_CHUNK
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global L2 norm of ``flat * inv_scale`` (any length, zero-padded to
     whole rows) in one sweep. Returns ``(norm, row_sq)``: the per-ROW
     partials of the input's rows, which a segmented sum over
-    ``PackSpec.row_segments`` turns into per-tensor norms."""
+    ``PackSpec.row_segments`` turns into per-tensor norms.
+    ``chunk_size`` is validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     n = flat.numel()
     rows = -(-n // ROW)
     if rows * ROW != n:
         flat = torch.cat([flat, flat.new_zeros(rows * ROW - n)])
     row_sq = packed_row_reduce(flat, op="sqsum", inv_scale=inv_scale)
     return torch.sqrt(row_sq.sum()), row_sq
+
+
+multi_tensor_l2norm_flat.accepts_chunk_size = True
 
 
 def packed_lamb_stage1_reference(flat_g, flat_m, flat_v, flat_src, *, clip,
@@ -530,6 +536,21 @@ def _pad_to_rows(flat: torch.Tensor, chunk_size: Optional[int] = None
     return flat, n
 
 
+def _chunk(chunk_size) -> int:
+    """``chunk_size`` read as the JAX module's ``_block_rows`` and
+    ``_pad_to_rows`` read it (``int(chunk_size)``), and refused where
+    they would divide by zero or pad backwards: it must be at least one
+    element. The four flat ops take it for the applier's sake
+    (``accepts_chunk_size``); their results do not depend on it, since
+    the JAX ops cut their outputs back to the input's rows and the CUDA
+    sweeps here size their grids from the buffer's rows alone."""
+    n = int(chunk_size)
+    if n < 1:
+        raise ValueError(f"chunk_size must be a positive number of "
+                         f"elements, got {chunk_size!r}")
+    return n
+
+
 def _flat_dtype(kernel: str, dtype: torch.dtype) -> None:
     if dtype not in _build.DTYPE_CODE:
         raise TypeError(f"{kernel} kernel takes f32/bf16/f16 buffers, got "
@@ -546,7 +567,8 @@ def packed_row_stats_reference(flat, *, inv_scale=1.0):
             (~torch.isfinite(x)).sum(dim=1, dtype=torch.float32))
 
 
-def packed_row_stats(flat: torch.Tensor, *, inv_scale=1.0
+def packed_row_stats(flat: torch.Tensor, *, inv_scale=1.0,
+                     chunk_size: int = DEFAULT_CHUNK
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(row_sq, row_maxabs, row_nonfinite)`` of ``flat * inv_scale`` in
     ONE sweep over a 1-D buffer of any length: per ROW (the last one cut
@@ -555,7 +577,9 @@ def packed_row_stats(flat: torch.Tensor, *, inv_scale=1.0
     numerics monitor's observation pass. The reductions are raw: a
     non-finite element makes its row's sum and max nan or inf. A segmented
     sum or max over a ``PackSpec``'s row-aligned leaves turns the rows into
-    per-tensor statistics. ``inv_scale`` is read on the device."""
+    per-tensor statistics. ``inv_scale`` is read on the device.
+    ``chunk_size`` is validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     if not _device.kernel_route(flat):
         return packed_row_stats_reference(flat, inv_scale=inv_scale)
     _flat_dtype("packed_row_stats", flat.dtype)
@@ -572,6 +596,9 @@ def packed_row_stats(flat: torch.Tensor, *, inv_scale=1.0
     _build.check(rc, "packed_row_stats")
     _device.LAUNCHES["packed_row_stats"] += 1
     return out[0], out[1], out[2]
+
+
+packed_row_stats.accepts_chunk_size = True
 
 
 def multi_tensor_scale_flat_reference(flat, scale, out_dtype=None, *,
@@ -592,7 +619,8 @@ def multi_tensor_scale_flat_reference(flat, scale, out_dtype=None, *,
 
 
 def multi_tensor_scale_flat(flat: torch.Tensor, scale, out_dtype=None, *,
-                            per_row_flags: bool = False):
+                            per_row_flags: bool = False,
+                            chunk_size: int = DEFAULT_CHUNK):
     """``out = flat * scale`` with non-finite flagging, one sweep over a
     1-D buffer of any length (``csrc/multi_tensor_scale_kernel.cu``).
     Returns ``(out, found_inf)``, or with ``per_row_flags`` ``(out,
@@ -601,7 +629,9 @@ def multi_tensor_scale_flat(flat: torch.Tensor, scale, out_dtype=None, *,
     ``PackSpec``'s row-aligned leaves turn into the non-finite leaves.
     The test is made on the fp32 product, before the cast to
     ``out_dtype`` (default: the input's). ``scale`` is read on the
-    device; ``found_inf`` is a 0-dim bool tensor there."""
+    device; ``found_inf`` is a 0-dim bool tensor there. ``chunk_size``
+    is validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     if not _device.kernel_route(flat):
         return multi_tensor_scale_flat_reference(
             flat, scale, out_dtype, per_row_flags=per_row_flags)
@@ -630,6 +660,9 @@ def multi_tensor_scale_flat(flat: torch.Tensor, scale, out_dtype=None, *,
     return out, found_inf, row_bad.view(torch.bool)
 
 
+multi_tensor_scale_flat.accepts_chunk_size = True
+
+
 def multi_tensor_axpby_flat_reference(a, b, flat_x, flat_y, out_dtype=None):
     """Plain version of :func:`multi_tensor_axpby_flat`."""
     dev = flat_x.device
@@ -639,13 +672,16 @@ def multi_tensor_axpby_flat_reference(a, b, flat_x, flat_y, out_dtype=None):
 
 
 def multi_tensor_axpby_flat(a, b, flat_x: torch.Tensor,
-                            flat_y: torch.Tensor, out_dtype=None
+                            flat_y: torch.Tensor, out_dtype=None, *,
+                            chunk_size: int = DEFAULT_CHUNK
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``out = a * x + b * y`` with non-finite flagging, one sweep over
     two 1-D buffers of any (equal) length
     (``csrc/multi_tensor_axpby_kernel.cu``). Returns ``(out,
     found_inf)``; ``out`` in ``out_dtype`` (default: x's), ``a`` and
-    ``b`` read on the device."""
+    ``b`` read on the device. ``chunk_size`` is validated
+    (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     if flat_x.shape != flat_y.shape:
         raise ValueError(f"axpby buffers must match: {tuple(flat_x.shape)} "
                          f"vs {tuple(flat_y.shape)}")
@@ -670,3 +706,6 @@ def multi_tensor_axpby_flat(a, b, flat_x: torch.Tensor,
     _build.check(rc, "axpby_flat")
     _device.LAUNCHES["axpby_flat"] += 1
     return out, found.view(torch.bool).reshape(())
+
+
+multi_tensor_axpby_flat.accepts_chunk_size = True

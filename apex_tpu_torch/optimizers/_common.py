@@ -92,3 +92,23 @@ def lr_tensor(lr, device) -> torch.Tensor:
     if isinstance(lr, torch.Tensor):
         return lr.to(device=device, dtype=torch.float32)
     return torch.full((), float(lr), dtype=torch.float32, device=device)
+
+
+class FusedOptimizer:
+    """Base of the fused optimizers: the functional ``init`` / ``step``
+    protocol (``apex_tpu/optimizers/_common.py``'s ``FusedOptimizer``)."""
+
+    def init(self, params: Tree):
+        raise NotImplementedError
+
+    def step(self, grads: Tree, state, params: Tree, **kw):
+        raise NotImplementedError
+
+    def as_gradient_transformation(self):
+        """The JAX package adapts an optimizer to an optax
+        ``GradientTransformation``; optax has no PyTorch counterpart, so
+        the port refuses."""
+        raise NotImplementedError(
+            f"{type(self).__name__}.as_gradient_transformation: optax has "
+            "no PyTorch counterpart; drive the optimizer through "
+            "init(params) and step(grads, state, params)")

@@ -15,6 +15,7 @@ import torch
 
 from .._tree import tree_leaves, tree_map
 from ._common import (
+    FusedOptimizer,
     lr_tensor,
     multi_tree_update,
     resolve_scale,
@@ -30,7 +31,7 @@ class FusedAdagradState(NamedTuple):
     sum: Tree  # fp32 accumulated squared gradients
 
 
-class FusedAdagrad:
+class FusedAdagrad(FusedOptimizer):
     def __init__(self, lr: float = 1e-2, eps: float = 1e-10,
                  weight_decay: float = 0.0, set_grad_none: bool = True,
                  adagrad_w_mode: bool = False):

@@ -32,6 +32,7 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..ops.packed_optimizer import packed_adam_apply
 from ._common import (
+    FusedOptimizer,
     lr_tensor,
     multi_tree_update,
     resolve_scale,
@@ -52,7 +53,7 @@ class FusedAdamState(NamedTuple):
     master_params: Optional[Tree]  # fp32 when master_weights else None
 
 
-class FusedAdam:
+class FusedAdam(FusedOptimizer):
     def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, adam_w_mode: bool = True,

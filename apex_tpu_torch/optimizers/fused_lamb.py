@@ -41,6 +41,7 @@ from ..ops.packed_optimizer import (
     packed_scale_update,
 )
 from ._common import (
+    FusedOptimizer,
     lr_tensor,
     multi_tree_update,
     resolve_scale,
@@ -60,7 +61,7 @@ class FusedLAMBState(NamedTuple):
     master_params: Optional[Tree]  # fp32 when master_weights else None
 
 
-class FusedLAMB:
+class FusedLAMB(FusedOptimizer):
     def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-6, weight_decay: float = 0.01,

@@ -34,6 +34,7 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..ops.packed_optimizer import packed_novograd_apply, packed_row_reduce
 from ._common import (
+    FusedOptimizer,
     lr_tensor,
     multi_tree_update,
     resolve_scale,
@@ -79,7 +80,7 @@ class FusedNovoGradState(NamedTuple):
     exp_avg_sq: Tree  # fp32 0-dim tensor per leaf
 
 
-class FusedNovoGrad:
+class FusedNovoGrad(FusedOptimizer):
     def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.95, 0.98),
                  eps: float = 1e-8, weight_decay: float = 0.0,

@@ -25,6 +25,7 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..ops.packed_optimizer import packed_sgd_apply
 from ._common import (
+    FusedOptimizer,
     lr_tensor,
     multi_tree_update,
     resolve_scale,
@@ -43,7 +44,7 @@ class FusedSGDState(NamedTuple):
     master_params: Optional[Tree]  # fp32 when master_weights else None
 
 
-class FusedSGD:
+class FusedSGD(FusedOptimizer):
     def __init__(self, lr: float, momentum: float = 0.0,
                  dampening: float = 0.0, weight_decay: float = 0.0,
                  nesterov: bool = False, wd_after_momentum: bool = False,

@@ -1,0 +1,22 @@
+"""Megatron-style transformer library (counterpart of
+``apex_tpu/transformer``): ``parallel_state`` over ``torch.distributed``,
+and at first access the fused ``functional`` ops, ``layers``, the
+model-parallel ``amp`` and the ``testing`` models. ``tensor_parallel``
+and ``_data`` come with queue A6.4, ``pipeline_parallel`` with A6.5
+(ROADMAP.md)."""
+from . import parallel_state  # noqa: F401
+from .. import _lazy_import
+
+_LAZY = ("functional", "layers", "amp", "testing")
+_NOT_PORTED = {"tensor_parallel": "A6.4", "_data": "A6.4",
+               "pipeline_parallel": "A6.5"}
+
+
+def __getattr__(name):
+    if name in _LAZY or name in _NOT_PORTED:
+        return _lazy_import(__name__, globals(), name, _NOT_PORTED)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

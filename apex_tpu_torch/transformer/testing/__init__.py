@@ -1,4 +1,5 @@
 from .standalone_bert import bert_model_provider  # noqa: F401
+from .standalone_gpt import gpt_model_provider  # noqa: F401
 from .standalone_transformer_lm import (  # noqa: F401
     FP8_GEMM_NAMES,
     GPTConfig,

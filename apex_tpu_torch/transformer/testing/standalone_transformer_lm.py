@@ -41,9 +41,11 @@ as far as serving and the single-device train step use it.
   fp8_carriers=)`` returning ``(loss, new_states)``, and
   :func:`record_gpt_grad_amaxes` over the carriers' gradients.
 
-Not ported yet (ROADMAP.md): tensor, sequence and context parallelism,
-and with them the amax reduction over a group
-(``fp8_amax_reduction_axes``, A6.1). Hidden
+Not ported yet (ROADMAP.md): tensor, sequence and context parallelism
+(A6.4, A6.5). ``fp8_amax_reduction_axes`` names
+``transformer.parallel_state`` axes: each layer's x and w amaxes, and
+each projection's stacked gradient amaxes, are MAX-reduced over that
+group, one all-reduce a site, where the JAX package ``pmax``es. Hidden
 dropout of the unfused branch draws from an explicit ``torch.Generator``
 (JAX's ``bernoulli`` stream cannot be matched); attention dropout and
 the fused tails' hidden dropout are the kernels' hash, seeded from the
@@ -134,8 +136,8 @@ class GPTConfig:
     # fp8 (e4m3 forward, e5m2 gradients, delayed scaling) on the four
     # projection GEMMs of a layer (qkv / proj / fc1 / fc2): pass
     # init_gpt_fp8_states(cfg) and init_gpt_fp8_carriers(cfg) to gpt_loss.
-    # fp8_amax_reduction_axes (the JAX package's pmax over mesh axes)
-    # must stay None until parallel_state is ported (A6.1)
+    # fp8_amax_reduction_axes: parallel_state axes the amaxes are
+    # MAX-reduced over (the JAX package's pmax over mesh axes)
     fp8: bool = False
     fp8_margin: float = 0.0
     fp8_amax_history_len: int = 16

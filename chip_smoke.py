@@ -224,16 +224,36 @@ any failure exits non-zero and prints no result line:
    (hidden 4096, seq 256, batch 32) and the stacked bidirectional LSTM,
    GRU, ReLU and Tanh (hidden 1024); a ``{"phase11": [...]}`` line of the
    legs;
-12. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+12. the rest of the single-device library (A5.6) and ``parallel_state``
+   (A6.1) at the 345M's full width (``a56_phase``): (a)
+   ``multi_tensor_applier`` over ``packed_adam_apply`` and the four flat
+   ops on the 345M's flat buffer at chunks 65536 and 4096, bit for bit
+   against the direct calls, and the six optimizers
+   ``FusedOptimizer``s; (b) ``hostio`` write and read of the 345M's fp32
+   tree from and into card tensors (~1.4 GB, GB/s) and ``flatten`` /
+   ``unflatten``, bit for bit; (c) ``GDSFile`` of a bf16 and an fp32 card
+   tensor, the file their bytes, ``load_data`` in place; (d)
+   ``checkpoint`` of the 345M unfused leg's state after 2 steps, saved
+   from and loaded onto the card, every leaf and the next step bit for
+   bit, a truncation raising ``CheckpointCorruptError``, a dead writer's
+   staging tree swept; (e) ``gpt_model_provider`` with ``cpu_offload``
+   off and on, the 345M unfused step, losses bit for bit, p50, peak (the
+   offload's lower) and idle share, then ``gpt_scaling_test`` at 24 x
+   1024 both ways; (f) NCCL at world 1 over a ``file://`` store: the
+   345M fp8 step with ``fp8_amax_reduction_axes`` bit for bit against
+   the step without (100 all-reduces a step), and ``GradScaler``
+   skipping a poisoned step; a ``{"phase12": [...]}`` line of the legs;
+13. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
    main path (flash attention's also over phase 8's legs, the norms',
-   flash's and packed Adam's also over phase 10's fp8 step, bias-GeLU's
-   also over ``fused_dense_gelu_dense``) except
-   ``axpby_flat``, which no path of the JAX package
-   calls, and the RMSNorm pair, which no model of it runs: their
-   launches are the norm modules' of phase 7), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   flash's and packed Adam's also over phases 10 and 12's 345M steps,
+   bias-GeLU's also over ``fused_dense_gelu_dense``, packed Adam's, the
+   row statistics', the row reduce's and the flat scale's and axpby's
+   also over phase 12's applier) except the RMSNorm pair, which no model
+   of the JAX package runs: their launches are the norm modules' of
+   phase 7), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero when no CUDA device is present.
 """
@@ -244,6 +264,8 @@ import copy
 import functools
 import importlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -264,8 +286,14 @@ from apex_tpu_torch._tree import (
     value_and_grad,
 )
 from apex_tpu_torch.amp import LossScaler
+from apex_tpu_torch.checkpoint import (
+    CheckpointCorruptError,
+    load_checkpoint,
+    save_checkpoint,
+)
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_flat
 from apex_tpu_torch.contrib.fmha import FMHA
+from apex_tpu_torch.contrib.gpu_direct_storage import GDSFile
 from apex_tpu_torch.contrib.multihead_attn import (
     EncdecMultiheadAttn,
     SelfMultiheadAttn,
@@ -276,16 +304,18 @@ from apex_tpu_torch.contrib.openfold import (
     attention_core,
 )
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.examples.gpt import gpt_scaling_test
 from apex_tpu_torch.examples.imagenet import main_amp, resnet
 from apex_tpu_torch.fused_dense import fp8, fused_dense_gelu_dense
 from apex_tpu_torch.mlp import MLP
-from apex_tpu_torch.multi_tensor_apply.packing import PackSpec
+from apex_tpu_torch.multi_tensor_apply import MultiTensorApply, PackSpec
 from apex_tpu_torch.normalization import (
     FusedLayerNorm,
     FusedRMSNorm,
     MixedFusedRMSNorm,
 )
 from apex_tpu_torch.ops import fused_block as fb
+from apex_tpu_torch.ops import hostio
 from apex_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -313,6 +343,7 @@ from apex_tpu_torch.ops.layer_norm import (
 from apex_tpu_torch.ops.packed_optimizer import (
     multi_tensor_axpby_flat,
     multi_tensor_axpby_flat_reference,
+    multi_tensor_l2norm_flat,
     multi_tensor_scale_flat,
     multi_tensor_scale_flat_reference,
     packed_adam_apply,
@@ -331,9 +362,12 @@ from apex_tpu_torch.ops.packed_optimizer import (
     packed_sgd_reference,
 )
 from apex_tpu_torch.optimizers import (
+    FusedAdagrad,
     FusedAdam,
     FusedLAMB,
+    FusedMixedPrecisionLamb,
     FusedNovoGrad,
+    FusedOptimizer,
     FusedSGD,
 )
 from apex_tpu_torch.optimizers.fused_novograd import (
@@ -358,6 +392,8 @@ from apex_tpu_torch.serving import (
     reference_decode,
 )
 from apex_tpu_torch.telemetry.numerics import NumericsMonitor
+from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer.amp import GradScaler
 from apex_tpu_torch.transformer.functional import fused_softmax as fs
 from apex_tpu_torch.transformer.functional import (
     fused_apply_rotary_pos_emb,
@@ -371,6 +407,7 @@ from apex_tpu_torch.transformer.testing import (
     bert_forward,
     gpt_forward,
     gpt_loss,
+    gpt_model_provider,
     init_gpt_fp8_carriers,
     init_gpt_fp8_states,
     init_gpt_params,
@@ -6576,6 +6613,459 @@ def contrib_phase(dev):
     print(json.dumps({"phase11": rows}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the single-device library (A5.6) and
+# parallel_state over torch.distributed (A6.1) at the 345M's full width
+# ---------------------------------------------------------------------------
+
+#: the applier's chunks: the reference's default and a small one
+APPLIER_CHUNKS = (2048 * 32, 4096)
+#: the 345M legs of phase 12: layers, sequence, batch, vocabulary
+P12_LAYERS, P12_SEQ, P12_BATCH, P12_VOCAB = 24, 1024, 8, 50304
+
+
+def fp8_allreduces() -> int:
+    """All-reduces of one fp8 step with the amax group: one per fp8
+    projection's forward (its x and w amaxes together: 4 a layer) and
+    one per projection's stacked gradient amaxes (4)."""
+    return P12_LAYERS * 4 + 4
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _same_bits(label: str, got, want) -> None:
+    """Every leaf of ``got`` equals ``want``'s leaf bit for bit (dtype
+    and shape too)."""
+    gl, wl = tree_leaves(got), tree_leaves(want)
+    bad = [i for i, (a, b) in enumerate(zip(gl, wl))
+           if a.dtype != b.dtype or a.shape != b.shape
+           or not torch.equal(_bits(a), _bits(b))]
+    if len(gl) != len(wl) or bad:
+        raise AssertionError(f"{label}: not bit for bit (leaves {bad} of "
+                             f"{len(gl)} against {len(wl)})")
+
+
+def _packed_tree(state):
+    """A packed optimizer state's tensors as a tree."""
+    return [state.step, state.exp_avg, state.exp_avg_sq,
+            state.master_params]
+
+
+def applier_leg(dev, rows, launches):
+    """(a) ``multi_tensor_applier`` over ``packed_adam_apply`` and the
+    four flat ops on the 345M's flat buffer at chunks 65536 and 4096,
+    each result bit for bit against the direct call; the applier's
+    launches counted (the direct calls are the comparison); the six
+    optimizers are ``FusedOptimizer``s."""
+    spec = PackSpec(gpt345m_param_shapes())
+    n = spec.total
+    g = torch.Generator(device=dev).manual_seed(31)
+    grad = (torch.randn(n, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    m0 = torch.randn(n, generator=g, device=dev) * 1e-3
+    v0 = torch.rand(n, generator=g, device=dev) * 1e-6
+    src0 = torch.randn(n, generator=g, device=dev) * 0.02
+    x = torch.randn(n, generator=g, device=dev) * 1e3
+    y = torch.randn(n, generator=g, device=dev)
+    x[5 * 1024 + 3] = float("inf")  # a non-finite element in row 5
+    inv = torch.tensor(1.0 / 1024, device=dev)
+    hyper = dict(param_dtype=torch.bfloat16,
+                 lr=torch.tensor(1e-4, device=dev),
+                 bc1=torch.tensor(0.1, device=dev),
+                 bc2=torch.tensor(0.001, device=dev), inv_scale=inv)
+
+    def adam(apply):
+        return apply(packed_adam_apply, grad, m0.clone(), v0.clone(),
+                     src0.clone(), **hyper)
+    cases = (
+        ("packed_adam_apply", adam),
+        ("packed_row_stats", lambda a: a(packed_row_stats, x,
+                                         inv_scale=inv)),
+        ("multi_tensor_l2norm_flat", lambda a: a(multi_tensor_l2norm_flat,
+                                                 y)),
+        ("multi_tensor_scale_flat", lambda a: a(
+            multi_tensor_scale_flat, x.to(torch.bfloat16), inv,
+            torch.float32, per_row_flags=True)),
+        ("multi_tensor_axpby_flat", lambda a: a(multi_tensor_axpby_flat,
+                                                0.5, 2.0, x, y)))
+    for chunk in APPLIER_CHUNKS:
+        applier = MultiTensorApply(chunk)
+        for name, case in cases:
+            want = case(lambda op, *a, **k: op(*a, **k))
+            torch.cuda.synchronize()
+            _device.reset_launch_counts()
+            got = case(applier)
+            torch.cuda.synchronize()
+            for k, c in _device.launch_counts().items():
+                launches[k] = launches.get(k, 0) + c
+            _same_bits(f"applier {name} chunk {chunk}", got, want)
+            del want, got
+    six = (FusedAdam(), FusedLAMB(), FusedMixedPrecisionLamb(),
+           FusedSGD(lr=0.01), FusedNovoGrad(), FusedAdagrad())
+    if not all(isinstance(o, FusedOptimizer) for o in six):
+        raise AssertionError("an optimizer is not a FusedOptimizer")
+    counted = {k: v for k, v in launches.items() if v}
+    log(f"  (a) applier over packed_adam_apply and the four flat ops on "
+        f"{n} elements at chunks {APPLIER_CHUNKS}: bit for bit against "
+        f"the direct calls; applier launches {counted}; the six "
+        f"optimizers are FusedOptimizers")
+    rows.append({"leg": "a applier", "elements": n, "chunks":
+                 list(APPLIER_CHUNKS), "launches": counted})
+
+
+def _345m_fp32_tree(dev, seed=32):
+    """The 345M's parameter tree in fp32 on the card, random values."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map(lambda m: torch.randn(m.shape, generator=g, device=dev),
+                    gpt345m_param_shapes(torch.float32))
+
+
+def _gbps(nbytes: int, seconds: float) -> float:
+    return nbytes / seconds / 1e9
+
+
+def hostio_leg(dev, rows, tmp, card):
+    """(b) ``write_arrays`` / ``read_arrays`` of the 345M's fp32 tree from
+    card tensors (pinned staging) and back into card tensors, bit for
+    bit; ``flatten`` / ``unflatten`` round trip bit for bit."""
+    if not hostio.native_available():
+        raise AssertionError("the native host IO engine did not build")
+    leaves = tree_leaves(_345m_fp32_tree(dev))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    path = f"{tmp}/master.bin"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    offs = hostio.write_arrays(path, leaves)
+    t_write = time.perf_counter() - t0
+    out = [torch.empty_like(t) for t in leaves]
+    t0 = time.perf_counter()
+    hostio.read_arrays(path, None, offs, out=out)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    _same_bits("hostio read back", out, leaves)
+    del out
+    t0 = time.perf_counter()
+    arena, aoffs = hostio.flatten(leaves)
+    t_flat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = hostio.unflatten(arena, leaves, aoffs)
+    t_unflat = time.perf_counter() - t0
+    _same_bits("hostio flatten/unflatten", back,
+               [t.cpu() for t in leaves])
+    del arena, back
+    os.remove(path)
+    r = {"leg": "b hostio", "bytes": nbytes,
+         "write_gbps": _gbps(nbytes, t_write),
+         "read_gbps": _gbps(nbytes, t_read),
+         "flatten_gbps": _gbps(nbytes, t_flat),
+         "unflatten_gbps": _gbps(nbytes, t_unflat), "card": card}
+    log(f"  (b) hostio, the 345M fp32 tree ({nbytes / 1e9:.3f} GB) from "
+        f"card tensors: write {r['write_gbps']:.3f} GB/s, read (warm page "
+        f"cache) into card tensors {r['read_gbps']:.3f} GB/s, flatten "
+        f"{r['flatten_gbps']:.3f} GB/s, unflatten {r['unflatten_gbps']:.3f}"
+        f" GB/s; bit for bit; {card}")
+    rows.append(r)
+
+
+def gds_leg(dev, rows, tmp):
+    """(c) ``GDSFile``: a bf16 and an fp32 card tensor saved; the file is
+    their bytes back to back; ``load_data`` into preallocated card
+    tensors gives them back bit for bit, in place."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    ts = [torch.randn(4096, 1024, generator=g, device=dev).to(
+        torch.bfloat16), torch.randn(1024, 1000, generator=g, device=dev)]
+    path = f"{tmp}/gds.bin"
+    with GDSFile(path, "w") as f:
+        for t in ts:
+            f.save_data(t)
+    raw = torch.frombuffer(bytearray(open(path, "rb").read()),
+                           dtype=torch.uint8)
+    if not torch.equal(raw, torch.cat([_bits(t).cpu() for t in ts])):
+        raise AssertionError("GDSFile bytes are not the tensors' bytes")
+    outs = [torch.zeros_like(t) for t in ts]
+    with GDSFile(path, "r") as f:
+        back = [f.load_data(o) for o in outs]
+    if not all(b is o for b, o in zip(back, outs)):
+        raise AssertionError("GDSFile.load_data did not fill in place")
+    _same_bits("GDSFile load_data", outs, ts)
+    os.remove(path)
+    log(f"  (c) GDSFile: bf16 [4096, 1024] and fp32 [1024, 1000] card "
+        f"tensors, file bytes equal, load_data in place bit for bit")
+    rows.append({"leg": "c GDSFile", "bytes": int(raw.numel())})
+
+
+def _unfused_345m(dev, cpu_offload=False, **cfg_kw):
+    """The 345M unfused leg's model through ``gpt_model_provider``: 24 x
+    1024, seq 1024, batch 8, bf16 compute over bf16 params with fp32
+    masters, packed FusedAdam, saved CE logits, no recompute, random
+    weights (seed 0) and tokens (seed 1). Returns ``(cfg, params, opt,
+    loss_fn)``, the loss bound to the batch."""
+    cfg = GPTConfig(num_layers=P12_LAYERS, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=P12_VOCAB,
+                    max_position_embeddings=P12_SEQ, hidden_dropout=0.0,
+                    attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                    ce_save_logits=True, **cfg_kw)
+    params, _, loss = gpt_model_provider(
+        cfg, torch.Generator(device=dev).manual_seed(0),
+        cpu_offload=cpu_offload, device=dev)
+    params = tree_map(lambda p: p.to(torch.bfloat16), params)
+    tokens = torch.randint(0, cfg.vocab_size, (P12_BATCH, P12_SEQ),
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    labels = torch.roll(tokens, -1, dims=1)
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    loss_fn = functools.partial(loss, tokens=tokens, labels=labels)
+    return cfg, params, opt, loss_fn
+
+
+def checkpoint_leg(dev, rows, tmp):
+    """(d) ``checkpoint``: the 345M unfused leg's train state after 2
+    steps saved from the card and loaded onto it through ``target``,
+    every leaf bit for bit; one more step from each bit for bit; a
+    truncated ``arrays.bin`` raises ``CheckpointCorruptError``; a dead
+    writer's ``.tmp-<pid>`` is swept."""
+    _, params, opt, loss_fn = _unfused_345m(dev)
+    step = train_step_fn(loss_fn, opt)
+    state = opt.init(params)
+    for _ in range(2):
+        params, state, _ = step(params, state)
+    train = {"params": params, "opt": state, "step": 2}
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 tree_leaves(params) + tree_leaves(_packed_tree(state)))
+    path = f"{tmp}/ck"
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    stale = f"{path}.tmp-{dead.pid}"
+    os.makedirs(stale)
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, train)
+    t_save = time.perf_counter() - t0
+    if os.path.exists(stale):
+        raise AssertionError("a dead writer's staging tree was not swept")
+    t0 = time.perf_counter()
+    back = load_checkpoint(path, target=train)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if back["step"] != 2 or back["opt"].spec is not state.spec:
+        raise AssertionError("checkpoint scalars or spec not restored")
+    _same_bits("checkpoint params", back["params"], params)
+    _same_bits("checkpoint optimizer state", _packed_tree(back["opt"]),
+               _packed_tree(state))
+    p_live, s_live, l_live = step(params, state)
+    p_back, s_back, l_back = step(back["params"], back["opt"])
+    _same_bits("the step after the restore", [l_back, *tree_leaves(
+        p_back), *_packed_tree(s_back)], [l_live, *tree_leaves(p_live),
+                                          *_packed_tree(s_live)])
+    del back, p_back, s_back, p_live, s_live, params, state, train
+    data = f"{path}/arrays.bin"
+    with open(data, "r+b") as f:
+        f.truncate(os.path.getsize(data) // 2)
+    try:
+        load_checkpoint(path)
+    except CheckpointCorruptError as e:
+        if e.__cause__ is None:
+            raise AssertionError("CheckpointCorruptError without a cause")
+    else:
+        raise AssertionError("a truncated checkpoint loaded")
+    shutil.rmtree(path)
+    r = {"leg": "d checkpoint", "bytes": nbytes, "save_s": t_save,
+         "load_s": t_load, "save_gbps": _gbps(nbytes, t_save),
+         "load_gbps": _gbps(nbytes, t_load), "tmp_free_gb": free_gb}
+    log(f"  (d) checkpoint of the 345M train state after 2 steps "
+        f"({nbytes / 1e9:.3f} GB: bf16 params, packed FusedAdam m, v, "
+        f"masters, step): save {t_save:.3f} s ({r['save_gbps']:.3f} GB/s), "
+        f"load onto the card {t_load:.3f} s ({r['load_gbps']:.3f} GB/s, "
+        f"warm page cache); every leaf and the next step bit for bit; "
+        f"truncation raised CheckpointCorruptError; the dead writer's "
+        f"tmp swept; {free_gb:.1f} GB free in the temp directory")
+    rows.append(r)
+
+
+def offload_leg(dev, rows, launches, tmp):
+    """(e) ``gpt_model_provider`` with ``cpu_offload`` False and True: the
+    345M unfused step without recompute, 1 + 3 steps each from the same
+    seeds, losses bit for bit; each side's p50, peak and idle share (one
+    profiled step); the offload's peak lower. Then the port's
+    ``gpt_scaling_test`` at the 345M's shape, both offloads."""
+    sides = {}
+    for off in (False, True):
+        _, params, opt, loss_fn = _unfused_345m(dev, cpu_offload=off)
+        step = train_step_fn(loss_fn, opt)
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        _device.reset_launch_counts()
+        for i in range(4):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        for k, c in _device.launch_counts().items():
+            launches[k] = launches.get(k, 0) + c
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        box = {}
+
+        def run():
+            box["out"] = step(params, state)
+        prof = profiled(run, f"345M unfused step, cpu_offload={off}", 6)
+        sides[off] = {"losses": losses, "p50": float(np.percentile(times,
+                                                                   50)),
+                      "peak_gib": peak, "idle": 1 - prof["busy_ms"]
+                      / prof["wall_ms"]}
+        del params, state, box, step, opt, loss_fn
+        torch.cuda.empty_cache()
+    _same_bits("cpu_offload losses", sides[True]["losses"],
+               sides[False]["losses"])
+    if not sides[True]["peak_gib"] < sides[False]["peak_gib"]:
+        raise AssertionError(f"cpu_offload did not lower the peak: "
+                             f"{sides[True]['peak_gib']:.2f} against "
+                             f"{sides[False]['peak_gib']:.2f} GiB")
+    for off, s in sides.items():
+        log(f"  (e) cpu_offload={off}: step p50 {s['p50']:.2f} ms, peak "
+            f"{s['peak_gib']:.2f} GiB, idle share {s['idle']:.3f} "
+            f"(profiled step), losses "
+            f"{[round(float(x), 6) for x in s['losses']]}")
+    log("  (e) losses bit for bit with and without the offload; the "
+        "offload's peak is lower")
+    results = gpt_scaling_test.main([
+        "--layers", str(P12_LAYERS), "--hidden", str(HIDDEN), "--heads",
+        str(N_HEADS), "--seq", str(P12_SEQ), "--batch", str(P12_BATCH),
+        "--steps", "3", "--offload", "both", "--device", str(dev),
+        "--out", f"{tmp}/gpt_scaling.json"])
+    log(f"  (e) gpt_scaling_test {P12_LAYERS} x {HIDDEN}: "
+        + json.dumps(results))
+    rows.append({"leg": "e cpu_offload",
+                 **{f"{'on' if k else 'off'}_{m}": v[m] for k, v in
+                    sides.items() for m in ("p50", "peak_gib", "idle")},
+                 "scaling": results})
+
+
+def _fp8_run(dev, axes):
+    """The 345M fp8 step (phase 10's leg) with ``fp8_amax_reduction_axes
+    = axes``, 3 steps from the same seeds: losses, the step ms, the last
+    params, optimizer and fp8 states, and the all-reduces of each step."""
+    cfg, params, opt, loss_fn = _unfused_345m(
+        dev, fp8=True, fp8_amax_reduction_axes=axes)
+    step = fp8_step_fn(cfg, loss_fn, opt, dev)
+    state = (opt.init(params), init_gpt_fp8_states(cfg, dev))
+    real = torch.distributed.all_reduce
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    losses, times, per_step = [], [], []
+    torch.distributed.all_reduce = counted
+    try:
+        for _ in range(3):
+            n0 = len(calls)
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append(len(calls) - n0)
+    finally:
+        torch.distributed.all_reduce = real
+    return {"losses": losses, "times": times, "allreduces": per_step,
+            "final": [*tree_leaves(params), *_packed_tree(state[0]),
+                      *tree_leaves(state[1])]}
+
+
+def nccl_leg(dev, rows, launches, tmp):
+    """(f) ``parallel_state`` on NCCL at world 1: the 345M fp8 step with
+    the amax group equals the step without it bit for bit (MAX over one
+    rank), with ``fp8_allreduces()`` (100) all-reduces a step;
+    ``GradScaler`` with a planted inf
+    skips the step and halves the scale."""
+    dist = torch.distributed
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0)
+    try:
+        parallel_state.initialize_model_parallel(1, 1, use_fp8_=True)
+        _device.reset_launch_counts()
+        plain = _fp8_run(dev, None)
+        grouped = _fp8_run(dev, ("data", "tensor"))
+        for k, c in _device.launch_counts().items():
+            launches[k] = launches.get(k, 0) + c
+        _same_bits("fp8 step with the amax group",
+                   grouped["losses"] + grouped["final"],
+                   plain["losses"] + plain["final"])
+        if plain["allreduces"] != [0] * 3 or \
+                grouped["allreduces"] != [fp8_allreduces()] * 3:
+            raise AssertionError(f"all-reduces per step: without "
+                                 f"{plain['allreduces']}, with "
+                                 f"{grouped['allreduces']}")
+        del plain["final"], grouped["final"]
+        torch.cuda.empty_cache()
+        # the model-parallel loss scaler: an inf on this rank skips
+        g = torch.Generator(device=dev).manual_seed(34)
+        params = {"w": torch.randn(1024, 1024, generator=g, device=dev).to(
+            torch.bfloat16)}
+        opt = FusedAdam(lr=1e-3, master_weights=True, packed=True)
+        ostate = opt.init(params)
+        scaler = GradScaler("dynamic", init_scale=2.0 ** 16)
+        sst = scaler.init_state(dev)
+        grads = {"w": torch.randn(1024, 1024, generator=g, device=dev)}
+        grads["w"][7, 7] = float("inf")
+        ugrads, sst = scaler.unscale(sst, grads)
+        new_params, ostate = opt.step(ugrads, ostate, params,
+                                      found_inf=sst.found_inf)
+        new_sst = scaler.update_scale(sst)
+        if not bool(sst.found_inf) or \
+                float(new_sst.loss_scale) != 2.0 ** 15:
+            raise AssertionError("GradScaler did not flag the inf or halve "
+                                 "the scale")
+        _same_bits("GradScaler skipped step", new_params, params)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    p_plain = float(np.percentile(plain["times"][1:], 50))
+    p_grouped = float(np.percentile(grouped["times"][1:], 50))
+    log(f"  (f) NCCL world 1: the 345M fp8 step with the amax group "
+        f"('data', 'tensor') bit for bit against the step without it; "
+        f"all-reduces per step {grouped['allreduces'][0]}; step p50 "
+        f"{p_grouped:.2f} ms with, {p_plain:.2f} ms without "
+        f"({p_grouped - p_plain:+.2f} ms); GradScaler skipped the "
+        f"poisoned step and halved the scale")
+    rows.append({"leg": "f nccl", "allreduces_per_step":
+                 grouped["allreduces"][0], "p50_with_ms": p_grouped,
+                 "p50_without_ms": p_plain,
+                 "step_ms_with": grouped["times"],
+                 "step_ms_without": plain["times"]})
+
+
+def a56_phase(dev, card):
+    """Phase 12: (a) the applier, (b) hostio, (c) ``GDSFile``, (d)
+    ``checkpoint``, (e) ``cpu_offload`` and the scaling study, (f)
+    ``parallel_state`` on NCCL at world 1. Prints a ``{"phase12":
+    [...]}`` line of the legs; returns the main paths' launches ((a)'s
+    applier calls, (e)'s and (f)'s steps)."""
+    rows, launches, parts = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn, args in (("a", applier_leg, (launches,)),
+                              ("b", hostio_leg, (tmp, card)),
+                              ("c", gds_leg, (tmp,)),
+                              ("d", checkpoint_leg, (tmp,)),
+                              ("e", offload_leg, (launches, tmp)),
+                              ("f", nccl_leg, (launches, tmp))):
+            t0 = time.perf_counter()
+            fn(dev, rows, *args)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            parts[key] = round(time.perf_counter() - t0, 1)
+    log(f"  phase 12 parts (s): {parts}")
+    print(json.dumps({"phase12": rows}), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6746,15 +7236,22 @@ def main() -> int:
           "Bottleneck, index_mul_2d, sparsity, transducer, the legacy "
           "optimizers, the RNNs), card against CPU, no kernel of the port",
           contrib_phase, dev)
+    p12 = phase("phase 12: the rest of the single-device library (A5.6: "
+                "the applier, hostio, GDSFile, checkpoint, cpu_offload and "
+                "the scaling study) and parallel_state on NCCL with the fp8 "
+                "amax group and GradScaler (A6.1), 345M width", a56_phase,
+                dev, card)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
     fd["launches"] = sum(c["flash_decode"] for c in served)
     # launches on the main paths: the serving runs, the eight GPT legs, the
-    # five BERT legs and phase 10's fp8 step and fused_dense_gelu_dense
+    # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense, and
+    # phase 12's applier calls and 345M steps
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
                       + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
-                      + fp8_launches["layer_norm_fwd"])
+                      + fp8_launches["layer_norm_fwd"]
+                      + p12.get("layer_norm_fwd", 0))
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -6766,16 +7263,16 @@ def main() -> int:
     for kr in kernels[2:]:
         kr["launches"] = (train.get(kr["name"], 0) + bert.get(kr["name"], 0)
                           + contrib.get(kr["name"], 0)
-                          + fp8_launches.get(kr["name"], 0))
+                          + fp8_launches.get(kr["name"], 0)
+                          + p12.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:
         kr["launches"] = norms[kr["name"]]
-    # multi_tensor_axpby_flat has no caller in the JAX package outside its
-    # own module and tests, and no model of it normalises with RMSNorm, so
-    # no main path launches these three: axpby_flat is checked and timed in
-    # phase 2 only, the RMSNorm kernels also through the modules (phase 7)
-    exempt = ("axpby_flat", "rms_norm_fwd", "rms_norm_bwd")
+    # no model of the JAX package normalises with RMSNorm, so no main path
+    # launches these two: the RMSNorm kernels run through the modules
+    # (phase 7); axpby_flat runs through the applier (phase 12)
+    exempt = ("rms_norm_fwd", "rms_norm_bwd")
     idle = [kr["name"] for kr in kernels
             if kr["launches"] <= 0 and kr["name"] not in exempt]
     if idle:

@@ -58,6 +58,10 @@ to multiples of 16) against its plain version over the same fp8 bytes:
 beyond one rounding of the output (2^-7 bf16, 2^-10 fp16), within 2^-13
 of the sum of |products| (Hopper's fp8 tensor cores keep fewer bits in
 their partial sums); the quantizers' bytes bit for bit against the CPU.
+Host IO from card tensors (through one pinned staging buffer), ``GDSFile``
+filling card tensors in place, the checkpoint round trip onto the card
+and the ``cpu_offload`` GPT step: all bit for bit, against the CPU's
+bytes or the step without offload.
 """
 import contextlib
 import copy
@@ -2500,3 +2504,109 @@ def test_rnn_on_card_matches_cpu(cuda_device):
             out[str(dev)] = (y,) + gs
         for i, (a, c) in enumerate(zip(out[str(cuda_device)], out["cpu"])):
             _near(a, c, CONTRIB_TOL if i == 0 else 1e-8)
+
+
+def _card_tensors(dev):
+    g = torch.Generator().manual_seed(21)
+    return [torch.randn(33, 17, generator=g).to(dev),
+            torch.randn(1000, generator=g).to(torch.bfloat16).to(dev),
+            torch.randint(0, 1 << 20, (5, 7), generator=g).to(dev),
+            torch.tensor(2.5, dtype=torch.float64).to(dev)]
+
+
+def _raw(t):
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def test_hostio_from_card_tensors_matches_the_cpu_bytes(cuda_device,
+                                                         tmp_path):
+    from apex_tpu_torch.ops import hostio
+
+    assert hostio.native_available()
+    card = _card_tensors(cuda_device)
+    host = [t.cpu() for t in card]
+    offs = hostio.write_arrays(str(tmp_path / "card.bin"), card)
+    assert hostio.write_arrays(str(tmp_path / "cpu.bin"), host) == offs
+    assert (tmp_path / "card.bin").read_bytes() == \
+        (tmp_path / "cpu.bin").read_bytes()
+    out = [torch.empty_like(t) for t in card]
+    hostio.read_arrays(str(tmp_path / "card.bin"), None, offs, out=out)
+    for a, b in zip(out, card):
+        assert a.device == b.device and torch.equal(_raw(a), _raw(b))
+    arena, aoffs = hostio.flatten(card)
+    harena, hoffs = hostio.flatten(host)
+    assert aoffs == hoffs and torch.equal(arena, harena)
+    for a, b in zip(hostio.unflatten(arena, host, aoffs), host):
+        assert torch.equal(_raw(a), _raw(b))
+
+
+def test_gdsfile_fills_card_tensors_in_place(cuda_device, tmp_path):
+    from apex_tpu_torch.contrib.gpu_direct_storage import GDSFile
+
+    card = _card_tensors(cuda_device)[:2]
+    path = str(tmp_path / "gds.bin")
+    with GDSFile(path, "w") as f:
+        for t in card:
+            f.save_data(t)
+    assert (tmp_path / "gds.bin").read_bytes() == b"".join(
+        _raw(t).numpy().tobytes() for t in card)
+    outs = [torch.zeros_like(t) for t in card]
+    with GDSFile(path, "r") as f:
+        back = [f.load_data(o) for o in outs]
+    for b, o, t in zip(back, outs, card):
+        assert b is o and o.device == t.device
+        assert torch.equal(_raw(o), _raw(t))
+
+
+def test_checkpoint_roundtrip_onto_the_card(cuda_device, tmp_path):
+    from apex_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    g = torch.Generator().manual_seed(5)
+    params = {"w": torch.randn(64, 48, generator=g).to(torch.bfloat16),
+              "b": [torch.randn(48, generator=g).to(torch.bfloat16)]}
+    params = tree_map(lambda t: t.to(cuda_device), params)
+    grads = tree_map(lambda t: torch.randn_like(t), params)
+    opt = FusedAdam(lr=1e-3, packed=True, master_weights=True)
+    state = opt.init(params)
+    params, state = opt.step(grads, state, params)
+    train = {"params": params, "opt": state, "step": 1}
+    save_checkpoint(str(tmp_path / "ck"), train)
+    back = load_checkpoint(str(tmp_path / "ck"), target=train)
+    for a, b in zip(tree_leaves(back["params"]), tree_leaves(params)):
+        assert a.device == b.device and torch.equal(_raw(a), _raw(b))
+    for f in ("step", "exp_avg", "exp_avg_sq", "master_params"):
+        a, b = getattr(back["opt"], f), getattr(state, f)
+        assert a.device == b.device and torch.equal(_raw(a), _raw(b))
+    assert back["opt"].spec is state.spec and back["step"] == 1
+    p1, s1 = opt.step(grads, back["opt"], back["params"])
+    p2, s2 = opt.step(grads, state, params)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        assert torch.equal(_raw(a), _raw(b))
+
+
+def test_cpu_offload_step_is_bit_for_bit_on_the_card(cuda_device):
+    from apex_tpu_torch.transformer.testing import (
+        GPTConfig,
+        gpt_model_provider,
+    )
+
+    cfg = GPTConfig(num_layers=2, hidden_size=256, num_attention_heads=4,
+                    vocab_size=1024, max_position_embeddings=256,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    compute_dtype=torch.bfloat16)
+    tokens = torch.randint(0, 1024, (4, 256), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+    labels = torch.roll(tokens, -1, dims=1)
+    out = []
+    for off in (False, True):
+        params, _, loss_fn = gpt_model_provider(
+            cfg, torch.Generator(cuda_device).manual_seed(0),
+            cpu_offload=off, device=cuda_device)
+        out.append(value_and_grad(
+            lambda p: loss_fn(p, tokens, labels), params))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(a, b)

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from apex_tpu_torch.ops import flash_attention as T
+T = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
 J = importlib.import_module("apex_tpu.ops.flash_attention")
 

@@ -13,6 +13,8 @@ points: the TPU kernel rounds p against the running max of its tile).
 Attention dropout is the shared counter hash, so outputs and gradients
 under dropout compare at the same tolerances.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,7 +81,7 @@ def test_fmha_head_dim_48_padded_route_matches_jax(monkeypatch, dtype):
     and slice helpers, the plain versions standing in for the kernels at
     head dim 64: the output and the packed qkv's gradient against the JAX
     package's."""
-    from apex_tpu_torch.ops import flash_attention as F
+    F = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
     seen = []
 

@@ -85,7 +85,14 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "contrib.sparsity.permutation_search",
                  "contrib.optimizers.legacy", "contrib.optimizers",
                  "contrib.transducer.transducer", "RNN.cells",
-                 "RNN.models"):
+                 "RNN.models", "multi_tensor_apply.multi_tensor_apply",
+                 "optimizers._common", "ops.hostio",
+                 "contrib.gpu_direct_storage",
+                 "contrib.gpu_direct_storage.gds", "checkpoint",
+                 "transformer.testing.standalone_gpt",
+                 "examples.gpt.gpt_scaling_test",
+                 "transformer.parallel_state", "parallel.multiproc",
+                 "transformer.amp", "transformer.amp.grad_scaler"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 

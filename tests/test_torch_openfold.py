@@ -13,6 +13,7 @@ fp16 5e-3 (one rounding of values of order 1 taken at other points); the
 eager reference ``attention_reference`` 2e-5 in fp32, as the JAX tests
 hold it.
 """
+import importlib
 import warnings
 
 import jax
@@ -202,7 +203,7 @@ def test_attention_head_dim_48_padded_route_matches_jax(monkeypatch, dtype):
     and slice helpers, the plain versions standing in for the kernels at
     head dim 64: output and every gradient, the pair bias's included,
     against the JAX package's."""
-    from apex_tpu_torch.ops import flash_attention as F
+    F = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
     seen = []
 
