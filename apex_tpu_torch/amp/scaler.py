@@ -31,6 +31,7 @@ from ..ops.multi_tensor import (
     multi_tensor_scale,
     update_scale_hysteresis,
 )
+from ..multi_tensor_apply.packing import DEFAULT_CHUNK, BucketBuffers
 from ..ops.packed_optimizer import multi_tensor_scale_flat
 
 Tree = Any
@@ -113,18 +114,26 @@ class LossScaler:
         nstate = monitor.observe(nstate, leaf_nonfinite=leaf_flags)
         return out, state._replace(found_inf=state.found_inf | found), nstate
 
-    def unscale_flat(self, state: LossScaleState, flat_grads: torch.Tensor,
-                     out_dtype=None, numerics=None):
+    def unscale_flat(self, state: LossScaleState, flat_grads,
+                     out_dtype=None, numerics=None, *,
+                     chunk_size: int = DEFAULT_CHUNK):
         """Unscale a packed flat gradient buffer in one
         ``multi_tensor_scale_flat(per_row_flags=True)`` sweep, recording
         an overflow; ``out_dtype=torch.float32`` makes this sweep the
-        gradients' one upcast. Returns ``(flat, state)``; with
+        gradients' one upcast. ``flat_grads`` is the buffer or the
+        ``BucketBuffers`` of the bucketed all-reduce (concatenated
+        first); ``chunk_size`` goes to the sweep, which validates it, and
+        changes nothing. Returns ``(flat, state)``; with
         ``numerics=(monitor, nstate)`` (the monitor built from the
         buffer's ``PackSpec``) the sweep's per-row flags become per-leaf
         provenance and the result is ``(flat, state, nstate)``."""
+        if isinstance(flat_grads, BucketBuffers):
+            flat_grads = (flat_grads.buffers[0]
+                          if len(flat_grads.buffers) == 1
+                          else torch.cat(flat_grads.buffers))
         out, found, row_bad = multi_tensor_scale_flat(
             flat_grads, 1.0 / state.loss_scale, out_dtype,
-            per_row_flags=True)
+            per_row_flags=True, chunk_size=chunk_size)
         new_state = state._replace(found_inf=state.found_inf | found)
         if numerics is None:
             return out, new_state
@@ -136,7 +145,8 @@ class LossScaler:
                        flat_grads) -> LossScaleState:
         """Record an overflow from flat SCALED gradients without unscaling
         them: one fused non-finite reduction per buffer (``flat_grads``
-        a buffer, or an object with ``buffers``). The verdict is
+        a buffer, or an object with ``buffers``: the ``BucketBuffers``
+        of the bucketed all-reduce, read bucket by bucket). The verdict is
         :meth:`unscale_flat`'s while the scale is at least 1; below 1 a
         finite ``g`` can overflow under ``1 / scale``, so ``|g| > fp32_max
         * scale`` also counts (never true at or above scale 1)."""

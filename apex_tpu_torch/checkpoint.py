@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ._tree import tree_unflatten
-from .multi_tensor_apply.packing import PackSpec
+from .multi_tensor_apply.packing import ROW, PackSpec
 from .ops import hostio
 from .optimizers._packed import PackedState
 
@@ -166,7 +166,8 @@ def _encode(tree, path: str, leaves: list):
         return {"packed_state": {
             f: _encode(getattr(tree, f), f"{path}.{f}", leaves)
             for f in ("step", "exp_avg", "exp_avg_sq", "master_params")},
-            "spec": {"chunk_size": spec.chunk_size,
+            "spec": {"chunk_size": spec.chunk_size, "align": spec.align,
+                     "bucket_elems": spec.bucket_elems,
                      "template": _encode_meta(template, f"{path}.spec")}}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         cls = type(tree)
@@ -244,7 +245,9 @@ def _decode(node, tensors: list, target=None, *, has_target=False):
         else:
             s = node["spec"]
             spec = PackSpec(_decode(s["template"], tensors),
-                            chunk_size=s["chunk_size"])
+                            align=s.get("align", ROW),
+                            chunk_size=s["chunk_size"],
+                            bucket_elems=s.get("bucket_elems"))
         return PackedState(spec=spec, **fields)
     if "namedtuple" in node:
         cls = _named_tuple(node["namedtuple"])

@@ -20,6 +20,7 @@ from typing import Any, Tuple
 import torch
 
 from ..._tree import tree_leaves, tree_map
+from ...multi_tensor_apply.packing import DEFAULT_CHUNK
 from ...ops.multi_tensor import multi_tensor_l2norm
 from ...ops.packed_optimizer import (
     multi_tensor_l2norm_flat,
@@ -63,13 +64,20 @@ def clip_grad_norm_(grads: Tree, max_norm: float, norm_type: float = 2.0,
                     grads), total_norm
 
 
-def clip_grad_norm_flat(flat_grads: torch.Tensor, max_norm: float
+def clip_grad_norm_flat(flat_grads: torch.Tensor, max_norm: float, *,
+                        chunk_size: int = DEFAULT_CHUNK
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """2-norm clipping over a packed flat gradient buffer in two sweeps
     (the norm's row partials, then the scale by the coefficient, read on
     the device). Returns ``(clipped_flat, total_norm)``; the buffer's
-    padding must be zero, as ``PackSpec.pack`` leaves it."""
-    total_norm, _ = multi_tensor_l2norm_flat(flat_grads)
-    clipped, _ = multi_tensor_scale_flat(flat_grads,
-                                         _clip_coef(max_norm, total_norm))
+    padding must be zero, as ``PackSpec.pack`` leaves it. ``chunk_size``
+    goes to both sweeps, which validate it; the result does not depend
+    on it."""
+    total_norm, _ = multi_tensor_l2norm_flat(flat_grads,
+                                             chunk_size=chunk_size)
+    clipped, _ = multi_tensor_scale_flat(
+        flat_grads, _clip_coef(max_norm, total_norm), chunk_size=chunk_size)
     return clipped, total_norm
+
+
+clip_grad_norm_flat.accepts_chunk_size = True

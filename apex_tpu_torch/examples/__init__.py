@@ -1,3 +1,4 @@
 """The examples of the port (counterpart of the repo's ``examples/``):
 ``examples.imagenet`` holds the ResNet family and its amp training
-script."""
+script, ``examples.gpt`` the GPT scaling study and
+``examples.simple.distributed`` the minimal data-parallel example."""

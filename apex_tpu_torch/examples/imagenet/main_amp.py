@@ -7,21 +7,41 @@ BASELINE config #1, ResNet-50 with amp O2 and FusedSGD on one card::
     python -m apex_tpu_torch.examples.imagenet.main_amp --synthetic \\
         --arch resnet50 --opt-level O2 -b 256
 
+BASELINE config #2, DDP + SyncBatchNorm + FusedAdam, one process a card
+(``-b`` is the global batch, split across the ranks)::
+
+    torchrun --nproc-per-node=N -m apex_tpu_torch.examples.imagenet.main_amp \\
+        --synthetic --arch resnet50 --opt-level O2 --sync_bn \\
+        --optimizer adam -b 256
+
+and ``--cpu N`` runs the same data-parallel program in a gloo world of N
+CPU processes spawned here (the JAX example's N-device CPU mesh).
+
 Kept from the JAX example: the flags, per-epoch train / validate, the
 prec@1 / prec@5 ``AverageMeter``s, the ``Speed`` img/s prints, the lr
 schedule (5-epoch warm-up, /10 at 30, 60 and 80), the checkpoint's keys,
-synthetic uint8 NHWC batches with the same bytes from the same seed, and
-the step: forward with batch statistics -> ``amp.scaled_value_and_grad``
--> the fused optimizer's step with ``found_inf`` -> the BatchNorm running
-statistics kept on an overflow -> ``update_scale`` -> prec@1/5, with no
-host read but the prints and the checkpoint.
+synthetic uint8 NHWC batches with the same bytes from the same seed (each
+rank takes its shard of the global batch, as the mesh shards it), and
+the step (``make_train_step``): forward with batch statistics ->
+``amp.scaled_value_and_grad`` -> the gradients synced by
+``parallel.DistributedDataParallel`` -> the loss and prec@1/5 averaged
+across ranks, ``found_inf`` reduced so that an overflow on any rank skips
+the step on all -> the fused optimizer's step with ``found_inf`` -> the
+BatchNorm running statistics averaged across ranks and kept on an
+overflow -> ``update_scale``, with no host read but the prints and the
+checkpoint. With no process group the step is the one-device step, with
+no collective.
 
 Differences, by design:
 
-- one device: ``--cpu N`` (a virtual N-device CPU mesh) becomes
-  ``--device`` (the card by default, ``cpu`` for the plain path). A world
-  size above 1 (``WORLD_SIZE``) and ``--sync_bn`` raise: DDP and
-  SyncBatchNorm come with the distributed slice (ROADMAP.md, A6);
+- ranks are processes (``torchrun``, or ``--cpu N``'s gloo world over a
+  file store in a temporary directory), not devices of one program: a
+  world size above 1 initialises ``torch.distributed`` from ``torchrun``'s
+  environment (NCCL on the card, the card ``LOCAL_RANK``), rank 0 prints
+  and writes the checkpoint, and the parameters are broadcast from rank 0
+  after initialisation;
+- ``--device`` picks the device (the card by default, ``cpu`` for the
+  plain path);
 - the images reach the model NCHW, channels-last in memory: the uint8
   NHWC batch is permuted on the device inside :func:`_normalize` (a view,
   no copy), the layout the tensor cores' convolutions take;
@@ -34,12 +54,15 @@ Differences, by design:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import pickle
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ... import amp
@@ -47,6 +70,7 @@ from ..._device import resolve_device
 from ..._tree import tree_map
 from ...convert import resnet_params_from_jax, resnet_params_to_jax
 from ...optimizers import FusedAdam, FusedSGD
+from ...parallel import DistributedDataParallel, flatten, unflatten
 from . import resnet as resnet_lib
 
 
@@ -72,7 +96,7 @@ def parse(argv=None):
                         help="run only N iterations (profiling)")
     parser.add_argument("--deterministic", action="store_true")
     parser.add_argument("--sync_bn", action="store_true",
-                        help="SyncBatchNorm across ranks (not ported yet)")
+                        help="SyncBatchNorm across the data-parallel ranks")
     parser.add_argument("--opt-level", type=str, default="O2")
     parser.add_argument("--keep-batchnorm-fp32", type=str, default=None)
     parser.add_argument("--loss-scale", type=str, default=None)
@@ -93,6 +117,9 @@ def parse(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; 'cpu' runs "
                              "the plain path)")
+    parser.add_argument("--cpu", default=0, type=int, metavar="N",
+                        help="run N data-parallel ranks as a gloo world of "
+                             "N CPU processes spawned here")
     return parser.parse_args(argv)
 
 
@@ -175,12 +202,41 @@ def _loss(logits, y):
     return -torch.mean(torch.gather(logp, 1, y.long()[:, None]))
 
 
-def make_train_step(model, optimizer, scaler, half_dtype, cast_input):
-    """One train step at world size 1: forward with batch statistics ->
-    scaled gradients -> the fused optimizer with the overflow skip -> the
-    scale update. ``step(params, batch_stats, opt_state, scaler_state, x,
-    y, lr) -> (params, batch_stats, opt_state, scaler_state, loss, prec1,
-    prec5)``, every output on the device."""
+def _mean_and_any(loss, prec1, prec5, found_inf, world: int):
+    """One all-reduce of ``(loss, prec1, prec5, found_inf)``: the first
+    three averaged across the ranks (``pmean``), the flag true where any
+    rank's is (``psum > 0``)."""
+    v = torch.stack([loss, prec1.to(loss.dtype), prec5.to(loss.dtype),
+                     found_inf.to(loss.dtype)])
+    dist.all_reduce(v)
+    mean = v[:3] / torch.full((), float(world), dtype=v.dtype,
+                              device=v.device)
+    return mean[0], mean[1], mean[2], v[3] > 0
+
+
+def _tree_mean(tree, world: int):
+    """Each leaf of ``tree`` averaged across the ranks, in one all-reduce
+    of the flattened tree."""
+    flat = flatten(tree)
+    dist.all_reduce(flat)
+    return unflatten(flat / torch.full((), float(world), dtype=flat.dtype,
+                                       device=flat.device), tree)
+
+
+def make_train_step(model, optimizer, scaler, half_dtype, cast_input,
+                    ddp=None):
+    """One train step: forward with batch statistics -> scaled gradients
+    -> the fused optimizer with the overflow skip -> the scale update.
+    ``step(params, batch_stats, opt_state, scaler_state, x, y, lr) ->
+    (params, batch_stats, opt_state, scaler_state, loss, prec1, prec5)``,
+    every output on the device.
+
+    With ``ddp`` (a ``DistributedDataParallel`` over the default group)
+    it is the JAX example's data-parallel step: the gradients synced by
+    ``ddp``, the loss and prec@1/5 averaged across ranks, ``found_inf``
+    true on every rank where it is on one, the running statistics
+    averaged across ranks and updated only on a step without an
+    overflow."""
 
     def loss_fn(params, batch_stats, x, y):
         logits, new_bstats = model.apply(params, batch_stats, x, train=True)
@@ -195,6 +251,14 @@ def make_train_step(model, optimizer, scaler, half_dtype, cast_input):
         x = _normalize(x, half_dtype, cast_input, consts[x.device])
         (loss, (new_bstats, logits)), grads, sstate = grad_fn(
             scaler_state, params, batch_stats, x, y)
+        prec1, prec5 = accuracy_topk(logits, y)
+        if ddp is not None:
+            world = dist.get_world_size()
+            grads = ddp.sync(grads)
+            loss, prec1, prec5, found = _mean_and_any(
+                loss, prec1, prec5, sstate.found_inf, world)
+            sstate = sstate._replace(found_inf=found)
+            new_bstats = _tree_mean(new_bstats, world)
         found_inf = sstate.found_inf
         new_params, new_opt_state = optimizer.step(
             grads, opt_state, params, lr=lr, found_inf=found_inf)
@@ -203,14 +267,15 @@ def make_train_step(model, optimizer, scaler, half_dtype, cast_input):
         new_bstats = tree_map(lambda old, new: torch.where(found_inf, old, new),
                               batch_stats, new_bstats)
         new_sstate = scaler.update_scale(sstate)
-        prec1, prec5 = accuracy_topk(logits, y)
         return (new_params, new_bstats, new_opt_state, new_sstate,
                 loss, prec1, prec5)
 
     return step
 
 
-def make_eval_step(model, half_dtype, cast_input):
+def make_eval_step(model, half_dtype, cast_input, ddp=None):
+    """``step(params, batch_stats, x, y) -> (loss, prec1, prec5)``,
+    averaged across the ranks with ``ddp``."""
     consts = {}
 
     def step(params, batch_stats, x, y):
@@ -220,7 +285,12 @@ def make_eval_step(model, half_dtype, cast_input):
             x = _normalize(x, half_dtype, cast_input, consts[x.device])
             logits = model.apply(params, batch_stats, x, train=False)
             prec1, prec5 = accuracy_topk(logits, y)
-            return _loss(logits, y), prec1, prec5
+            loss = _loss(logits, y)
+            if ddp is not None:
+                loss, prec1, prec5, _ = _mean_and_any(
+                    loss, prec1, prec5, torch.zeros_like(loss),
+                    dist.get_world_size())
+            return loss, prec1, prec5
 
     return step
 
@@ -259,16 +329,103 @@ def _from_checkpoint(tree, like, device):
 
 
 def main(args=None):
+    """Train as the JAX example does; with ``--cpu N`` in a gloo world of N
+    CPU processes, under ``torchrun`` (``WORLD_SIZE`` above 1) as one
+    rank of that world. Returns the best prec@1 (rank 0's)."""
     args = args or parse()
     if not args.synthetic:
         raise SystemExit(
             "a real JPEG input pipeline is not wired up in this port: run "
             "with --synthetic; passing a data directory would otherwise "
             "silently train on noise")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "a world size above 1 needs DDP, which comes with the "
-            "distributed slice (ROADMAP.md, queue A6)")
+    if args.cpu:
+        return _spawn_cpu_world(args)
+    joined = _join_world(args)
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _join_world(args) -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` above 1, no process group yet):
+    ``init_process_group`` from its environment, NCCL on the card
+    ``LOCAL_RANK`` (gloo with ``--device cpu``). True when it joined."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or (dist.is_available() and dist.is_initialized()):
+        return False
+    if "RANK" not in os.environ:
+        raise SystemExit(
+            f"WORLD_SIZE={world} without RANK: launch the ranks with "
+            "torchrun, or run a CPU world with --cpu N")
+    if args.device is None and torch.cuda.is_available():
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    on_card = torch.device(args.device or "cuda").type == "cuda"
+    if on_card:
+        torch.cuda.set_device(torch.device(args.device or "cuda"))
+    dist.init_process_group("nccl" if on_card else "gloo")
+    return True
+
+
+def _spawn_cpu_world(args):
+    """``--cpu N``: spawn N processes joined in a gloo world over a file
+    store in a temporary directory, each running :func:`_train` on the
+    CPU; rank 0 prints and writes the checkpoint. Returns rank 0's
+    result; a rank's failure raises ``SystemExit``."""
+    import torch.multiprocessing as mp
+
+    if args.device not in (None, "cpu"):
+        raise SystemExit(f"--cpu {args.cpu} runs on the CPU, not on "
+                         f"--device {args.device}")
+    ctx = mp.get_context("spawn")
+    n = args.cpu
+    with tempfile.TemporaryDirectory() as tmp:
+        results = ctx.SimpleQueue()
+        procs = [ctx.Process(target=_cpu_rank,
+                             args=(r, n, os.path.join(tmp, "store"), args,
+                                   results)) for r in range(n)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join()
+        failed = {r: proc.exitcode for r, proc in enumerate(procs)
+                  if proc.exitcode}
+        if failed:
+            raise SystemExit(f"--cpu {n}: ranks exited with {failed}")
+        return results.get()
+
+
+def _cpu_rank(rank, world, store, args, results):
+    """One rank of :func:`_spawn_cpu_world`'s gloo world."""
+    threads = os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(int(threads) if threads else
+                          max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            world_size=world, rank=rank)
+    try:
+        args.cpu, args.device = 0, "cpu"
+        best = _train(args)
+        if rank == 0:
+            results.put(best)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args):
+    """The training program on this rank (one process, or a rank of the
+    initialised process group)."""
+    distributed = dist.is_available() and dist.is_initialized()
+    rank, world = ((dist.get_rank(), dist.get_world_size()) if distributed
+                   else (0, 1))
+    if rank:
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _train_rank(args, distributed, rank, world)
+    return _train_rank(args, distributed, rank, world)
+
+
+def _train_rank(args, distributed, rank, world):
     if args.data:
         print(f"note: ignoring data dir {args.data!r} (synthetic mode)")
     print("opt_level =", args.opt_level)
@@ -278,23 +435,35 @@ def main(args=None):
     dev = resolve_device(args.device)
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"devices: 1 x {kind}")
+    print(f"devices: {world} x {kind}")
+    if args.batch_size % world:
+        raise SystemExit(f"global batch {args.batch_size} not divisible by "
+                         f"{world} ranks")
+    local_batch = args.batch_size // world
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = not args.deterministic
         torch.backends.cudnn.deterministic = args.deterministic
         print(f"cudnn.benchmark = {torch.backends.cudnn.benchmark}, "
               f"cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
               f"matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    ddp = DistributedDataParallel("data") if distributed else None
 
     half_dtype = (torch.bfloat16 if args.half_dtype == "bfloat16"
                   else torch.float16)
     seed = 0 if args.deterministic else int(time.time())
+    if distributed and not args.deterministic:  # rank 0's clock
+        t = torch.tensor([seed], dtype=torch.int64, device=dev)
+        dist.broadcast(t, src=0)
+        seed = int(t)
     rng = np.random.default_rng(seed)
 
     model = resnet_lib.build_model(args.arch, num_classes=args.num_classes,
                                    sync_bn=args.sync_bn)
     params, batch_stats = model.init(
         torch.Generator(device=dev).manual_seed(seed))
+    if ddp is not None:  # the reference's initial broadcast
+        params = ddp.broadcast_params(params)
+        batch_stats = ddp.broadcast_params(batch_stats)
 
     # lr scaled by global batch / 256, as the reference (`main_amp.py:167`)
     base_lr = args.lr * float(args.batch_size) / 256.0
@@ -324,8 +493,8 @@ def main(args=None):
     cast_input = amp_state.opt_properties.cast_model_type not in (
         None, torch.float32)
     train_step = make_train_step(model, optimizer, scaler, half_dtype,
-                                 cast_input)
-    eval_step = make_eval_step(model, half_dtype, cast_input)
+                                 cast_input, ddp)
+    eval_step = make_eval_step(model, half_dtype, cast_input, ddp)
 
     start_epoch = args.start_epoch
     resumed_best_prec1 = 0.0
@@ -346,9 +515,11 @@ def main(args=None):
         else:
             print(f"=> no checkpoint found at '{args.resume}'")
 
-    def on_device(x, y):
-        return (torch.from_numpy(x).to(dev),
-                torch.from_numpy(y).to(dev))
+    lo = rank * local_batch
+
+    def on_device(x, y):  # this rank's shard of the global batch
+        return (torch.from_numpy(x[lo:lo + local_batch]).to(dev),
+                torch.from_numpy(y[lo:lo + local_batch]).to(dev))
 
     len_epoch = args.steps_per_epoch
     if args.reuse_batches:
@@ -415,11 +586,12 @@ def main(args=None):
             "amp": amp_state.with_scaler_state(0, scaler_state).state_dict(),
             "best_prec1": best_prec1,
         }
-        with open("checkpoint.pkl", "wb") as f:
-            pickle.dump(ck, f)
-        if is_best:
-            with open("model_best.pkl", "wb") as f:
+        if rank == 0:
+            with open("checkpoint.pkl", "wb") as f:
                 pickle.dump(ck, f)
+            if is_best:
+                with open("model_best.pkl", "wb") as f:
+                    pickle.dump(ck, f)
 
     return best_prec1
 

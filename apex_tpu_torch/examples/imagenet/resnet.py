@@ -31,6 +31,11 @@ convolution or a matmul):
 - the classifier is ``Dense(dtype=float32)``: fp32 input, the (bf16
   under O2) kernel cast to fp32.
 
+``build_model(sync_bn=True)`` swaps each BatchNorm for the JAX example's
+SyncBatchNorm adapter (``_SyncBNShim``): ``parallel.sync_batch_norm``
+synced over the data-parallel ranks, momentum 0.1, the statistics in
+fp32 but the output in the conv's dtype (bf16 under O2), as there.
+
 The convs and the classifier are called through the module attributes
 (``F.conv2d``, ``F.linear``) at call time, so the O1 autocast's patches
 apply, as flax reaches ``lax.conv_general_dilated`` and
@@ -47,11 +52,15 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...parallel.sync_batchnorm import sync_batch_norm
+
 Tree = Dict[str, Any]
 
 #: flax BatchNorm's momentum and epsilon (``resnet.py:build_model``)
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
+#: the JAX example's SyncBatchNorm adapter's momentum (``resnet.py:173``)
+SYNC_BN_MOMENTUM = 0.1
 _EXPANSION = {"BasicBlock": 1, "Bottleneck": 4}
 
 _ARCHS = {
@@ -145,11 +154,27 @@ _DIMS = (0, 2, 3)
 
 
 def _batch_norm(x, p: Tree, stats: Tree, train: bool, new_stats: Tree,
-                name: str):
+                name: str, sync_axis=None):
     """flax ``BatchNorm(dtype=float32)`` over NCHW: fp32 statistics and
     output. In training the batch statistics normalise and the running
     ones update into ``new_stats[name]`` (no gradient flows into them);
-    in evaluation the running ones normalise."""
+    in evaluation the running ones normalise.
+
+    With ``sync_axis`` (``build_model(sync_bn=True)``) it is the JAX
+    example's SyncBatchNorm instead (``parallel.sync_batch_norm`` over
+    that axis, momentum 0.1): the statistics and the input gradient's
+    sums synced across the data-parallel ranks in the closed-form
+    backward of ``SyncBatchNormFunction``, two-pass variance, the
+    unbiased variance into the running one, the output in ``x``'s
+    dtype."""
+    if sync_axis is not None:
+        y, new_rm, new_rv = sync_batch_norm(
+            x, p["scale"], p["bias"], stats["mean"], stats["var"],
+            training=train, momentum=SYNC_BN_MOMENTUM, eps=BN_EPS,
+            axis_name=sync_axis if train else None, channel_last=False)
+        if train:
+            new_stats[name] = {"mean": new_rm, "var": new_rv}
+        return y
     ct = stat_dtype(x.dtype)
     scale, bias = p["scale"].to(ct), p["bias"].to(ct)
     if not train:
@@ -169,6 +194,9 @@ class ResNet:
     block: str  # "BasicBlock" or "Bottleneck"
     num_classes: int = 1000
     num_filters: int = 64
+    #: the JAX example's ``sync_bn``: SyncBatchNorm over ``bn_axis_name``
+    sync_bn: bool = False
+    bn_axis_name: str = "data"
 
     def blocks(self):
         """``(name, features, stride, in_channels, out_channels)`` of every
@@ -193,7 +221,10 @@ class ResNet:
         else:
             convs = [("Conv_0", 3, stride, cin, feats),
                      ("Conv_1", 3, 1, feats, feats)]
-        return convs, [f"BatchNorm_{i}" for i in range(len(convs))]
+        # flax names an unnamed norm by its module class: BatchNorm, or
+        # the JAX example's SyncBatchNorm adapter
+        norm = "_SyncBNShim" if self.sync_bn else "BatchNorm"
+        return convs, [f"{norm}_{i}" for i in range(len(convs))]
 
     def _shapes(self) -> Tuple[Tree, Tree]:
         """The ``params`` and ``batch_stats`` trees' leaf shapes, in the
@@ -270,8 +301,10 @@ class ResNet:
         dtype = x.dtype
         new = {}
 
+        sync = self.bn_axis_name if self.sync_bn else None
+
         def norm(h, p, s, name, out):
-            return _batch_norm(h, p[name], s[name], train, out, name)
+            return _batch_norm(h, p[name], s[name], train, out, name, sync)
 
         h = _conv(x, params["conv_init"]["kernel"], 2, dtype,
                   ((3, 3), (3, 3)))
@@ -302,18 +335,17 @@ class ResNet:
         return (logits, new) if train else logits
 
 
-def build_model(arch: str, num_classes: int = 1000,
-                sync_bn: bool = False) -> ResNet:
-    """A ResNet by name. ``sync_bn`` (SyncBatchNorm across data-parallel
-    ranks) comes with the distributed slice and raises here."""
+def build_model(arch: str, num_classes: int = 1000, sync_bn: bool = False,
+                bn_axis_name: str = "data") -> ResNet:
+    """A ResNet by name. ``sync_bn=True`` normalises with SyncBatchNorm
+    over the data-parallel ranks of ``bn_axis_name`` (the JAX example's
+    ``convert_syncbn_model`` path; its norms are named as flax names the
+    JAX example's, ``_SyncBNShim_<i>``)."""
     if arch not in _ARCHS:
         raise ValueError(f"unknown arch {arch!r}; options {model_names()}")
-    if sync_bn:
-        raise NotImplementedError(
-            "sync_bn needs SyncBatchNorm across ranks, which comes with the "
-            "distributed slice (ROADMAP.md, queue A6.3)")
     stages, block = _ARCHS[arch]
-    return ResNet(stage_sizes=stages, block=block, num_classes=num_classes)
+    return ResNet(stage_sizes=stages, block=block, num_classes=num_classes,
+                  sync_bn=sync_bn, bn_axis_name=bn_axis_name)
 
 
 def init_params(arch: str, generator: torch.Generator,

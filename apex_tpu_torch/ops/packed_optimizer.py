@@ -149,7 +149,8 @@ def packed_adam_apply(flat_g: torch.Tensor, flat_m: torch.Tensor,
                       inv_scale=1.0, noop=None, beta1: float = 0.9,
                       beta2: float = 0.999, eps: float = 1e-8,
                       wd: float = 0.0, adam_w_mode: bool = True,
-                      write_mv: bool = True, write_master: bool = True
+                      write_mv: bool = True, write_master: bool = True,
+                      chunk_size: int = DEFAULT_CHUNK
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                  Optional[torch.Tensor],
                                  Optional[torch.Tensor]]:
@@ -160,7 +161,9 @@ def packed_adam_apply(flat_g: torch.Tensor, flat_m: torch.Tensor,
     given buffers, updated in place. ``write_mv=False`` is the fork's
     ``no_update_mv`` mode: m and v only feed this step's update. With
     ``noop`` true every output equals its input (``p_out`` =
-    recast(src)); ``noop`` is read on the device."""
+    recast(src)); ``noop`` is read on the device. ``chunk_size`` is
+    validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     dev = flat_g.device
     if _device.kernel_route(flat_g, flat_m, flat_v, flat_src):
         p_out = torch.empty(flat_g.numel(), dtype=param_dtype, device=dev)
@@ -223,7 +226,8 @@ def packed_sgd_apply(flat_g: torch.Tensor, flat_buf: torch.Tensor,
                      momentum: float = 0.0, dampening: float = 0.0,
                      nesterov: bool = False, wd: float = 0.0,
                      wd_after_momentum: bool = False,
-                     write_master: bool = True
+                     write_master: bool = True,
+                     chunk_size: int = DEFAULT_CHUNK
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
     """One fused pass of momentum SGD (``multi_tensor_sgd_kernel.cu``'s
@@ -231,7 +235,9 @@ def packed_sgd_apply(flat_g: torch.Tensor, flat_buf: torch.Tensor,
     momentum buffer (when ``momentum != 0``) and the fp32 source (when
     ``write_master``) are the given buffers, updated in place.
     ``first_run`` (the step count is 0) materialises the buffer as the
-    gradient; it and ``noop`` are read on the device."""
+    gradient; it and ``noop`` are read on the device. ``chunk_size`` is
+    validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     dev = flat_g.device
     if _device.kernel_route(flat_g, flat_buf, flat_src):
         n = flat_g.numel()
@@ -276,12 +282,15 @@ def packed_row_reduce_reference(flat, *, op="sqsum", inv_scale=1.0):
 
 
 def packed_row_reduce(flat: torch.Tensor, *, op: str = "sqsum",
-                      inv_scale=1.0) -> torch.Tensor:
+                      inv_scale=1.0, chunk_size: int = DEFAULT_CHUNK
+                      ) -> torch.Tensor:
     """Per-ROW reduction of ``flat * inv_scale`` in one sweep
     (``multi_tensor_l2norm_kernel.cu``'s per-chunk stage): ``sqsum``
     (sum of squares, the partials of L2 norms) or ``maxabs`` (max |x|; a
     NaN row gives NaN). Returns fp32 ``(rows,)``. The kernel's row sums
-    take one fixed order, so they are the same from run to run."""
+    take one fixed order, so they are the same from run to run.
+    ``chunk_size`` is validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     if op not in ("sqsum", "maxabs"):
         raise ValueError(f"unknown row reduction {op!r}")
     if not _device.kernel_route(flat):
@@ -352,14 +361,17 @@ def packed_lamb_stage1(flat_g: torch.Tensor, flat_m: torch.Tensor,
                        clip, bc1, bc2, inv_scale=1.0, noop=None,
                        beta1: float = 0.9, beta2: float = 0.999,
                        beta3: float = 0.1, eps: float = 1e-6,
-                       wd: float = 0.01, adam_w_mode: bool = True):
+                       wd: float = 0.01, adam_w_mode: bool = True,
+                       chunk_size: int = DEFAULT_CHUNK):
     """LAMB stage 1 (``multi_tensor_lamb.cu`` stage 1 and the per-tensor
     norm kernel, fused): moments and the unratioed update in one sweep,
     with per-ROW sums of squares of the update and of the fp32 source —
     a segmented sum over ``PackSpec.row_segments`` turns those into the
     trust ratios' norms. Returns ``(u, m, v, row_u_sq, row_p_sq)``: u a
     new buffer, m and v the given ones, updated in place unless
-    ``noop``."""
+    ``noop``. ``chunk_size`` is validated (:func:`_chunk`) and changes
+    nothing."""
+    _chunk(chunk_size)
     dev = flat_g.device
     if not _device.kernel_route(flat_g, flat_m, flat_v, flat_src):
         u, new_m, new_v, u2, p2 = packed_lamb_stage1_reference(
@@ -408,13 +420,16 @@ def packed_scale_update_reference(flat_u, flat_src, row_coef, *,
 
 def packed_scale_update(flat_u: torch.Tensor, flat_src: torch.Tensor,
                         row_coef: torch.Tensor, *, param_dtype: torch.dtype,
-                        lr, noop=None, write_master: bool = True
+                        lr, noop=None, write_master: bool = True,
+                        chunk_size: int = DEFAULT_CHUNK
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """LAMB stage 2 (``multi_tensor_lamb.cu`` stage 2): ``p32 - (lr *
     coef[row]) * u`` with one coefficient per ROW (the trust ratios),
     recast to ``param_dtype`` in the same sweep. Returns ``(p_out,
     master | None)``: the fp32 source, updated in place when
-    ``write_master`` (and not ``noop``)."""
+    ``write_master`` (and not ``noop``). ``chunk_size`` is validated
+    (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     dev = flat_u.device
     if not _device.kernel_route(flat_u, flat_src, row_coef):
         p_out, new_p = packed_scale_update_reference(
@@ -477,14 +492,17 @@ def packed_novograd_apply(flat_g: torch.Tensor, flat_m: torch.Tensor,
                           flat_src: torch.Tensor, row_denom: torch.Tensor, *,
                           param_dtype: torch.dtype, lr, bc1, inv_scale=1.0,
                           noop=None, beta1: float = 0.95, beta3: float = 0.05,
-                          wd: float = 0.0, reg_inside_moment: bool = False
+                          wd: float = 0.0, reg_inside_moment: bool = False,
+                          chunk_size: int = DEFAULT_CHUNK
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """NovoGrad's elementwise stage (``multi_tensor_novograd.cu``) with the
     layer-wise denominator ``row_denom`` (fp32 ``(rows,)``: sqrt of the
     leaf's second moment plus eps) given per ROW. Returns ``(p_out, m)``:
     ``p_out`` a new buffer in ``param_dtype``, ``m`` the given buffer,
     updated in place unless ``noop``; ``flat_src`` is read only. ``lr``,
-    ``bc1``, ``inv_scale`` and ``noop`` are read on the device."""
+    ``bc1``, ``inv_scale`` and ``noop`` are read on the device.
+    ``chunk_size`` is validated (:func:`_chunk`) and changes nothing."""
+    _chunk(chunk_size)
     dev = flat_g.device
     if not _device.kernel_route(flat_g, flat_m, flat_src, row_denom):
         p_out, new_m = packed_novograd_reference(
@@ -540,10 +558,11 @@ def _chunk(chunk_size) -> int:
     """``chunk_size`` read as the JAX module's ``_block_rows`` and
     ``_pad_to_rows`` read it (``int(chunk_size)``), and refused where
     they would divide by zero or pad backwards: it must be at least one
-    element. The four flat ops take it for the applier's sake
-    (``accepts_chunk_size``); their results do not depend on it, since
-    the JAX ops cut their outputs back to the input's rows and the CUDA
-    sweeps here size their grids from the buffer's rows alone."""
+    element. Every sweep of this module takes it (the four flat ops for
+    the applier's sake, ``accepts_chunk_size``); their results do not
+    depend on it, since the JAX ops cut their outputs back to the
+    input's rows and the CUDA sweeps here size their grids from the
+    buffer's rows alone."""
     n = int(chunk_size)
     if n < 1:
         raise ValueError(f"chunk_size must be a positive number of "

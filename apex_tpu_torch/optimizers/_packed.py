@@ -15,7 +15,11 @@ from typing import Any, Optional
 import torch
 
 from .._tree import tree_leaves
-from ..multi_tensor_apply.packing import DEFAULT_CHUNK, PackSpec
+from ..multi_tensor_apply.packing import (
+    DEFAULT_CHUNK,
+    BucketBuffers,
+    PackSpec,
+)
 
 Tree = Any
 
@@ -63,13 +67,29 @@ class PackedState:
 def packed_init(params: Tree, *, chunk_size: Optional[int] = None,
                 with_exp_avg_sq: bool = True,
                 per_leaf_exp_avg_sq: bool = False,
-                master_weights: bool = False) -> PackedState:
+                master_weights: bool = False,
+                spec: Optional[PackSpec] = None) -> PackedState:
     """Build the flat-buffer state for ``params`` on their device, laid
     out by a ``PackSpec`` of ``chunk_size`` (default ``DEFAULT_CHUNK``).
     ``with_exp_avg_sq=False`` keeps no second moment (SGD);
     ``per_leaf_exp_avg_sq=True`` keeps one fp32 value per leaf
-    (NovoGrad's layer-wise moment)."""
-    spec = PackSpec(params, chunk_size=chunk_size or DEFAULT_CHUNK)
+    (NovoGrad's layer-wise moment).
+
+    ``spec=`` adopts a layout built elsewhere (``GradBuckets(params)
+    .spec``): the optimizer then steps on the reduced flat buffer of the
+    bucketed all-reduce as it comes. The adopted spec owns the chunking,
+    so a ``chunk_size`` other than its own raises, and ``params`` must
+    have its structure and shapes."""
+    if spec is not None:
+        if chunk_size is not None and chunk_size != spec.chunk_size:
+            raise ValueError(
+                f"chunk_size={chunk_size} conflicts with the adopted "
+                f"spec's chunk_size={spec.chunk_size}: the external layout "
+                "owns the kernel chunking; drop chunk_size or build the "
+                "spec (GradBuckets) with the one you want")
+        spec.check(params)
+    else:
+        spec = PackSpec(params, chunk_size=chunk_size or DEFAULT_CHUNK)
     dev = tree_leaves(params)[0].device
     if not with_exp_avg_sq:
         exp_avg_sq = None
@@ -93,15 +113,24 @@ def tree_common_dtype(tree: Tree, fallback=torch.float32) -> torch.dtype:
 
 
 def as_flat_grads(grads, spec: PackSpec) -> torch.Tensor:
-    """``grads`` — a tree, or a pre-packed 1-D buffer of exactly
-    ``spec.total`` elements in the spec's layout — as the flat gradient
-    buffer (a tree is packed in its leaves' common dtype)."""
+    """``grads`` as the flat gradient buffer in ``spec``'s layout. Three
+    forms: the :class:`BucketBuffers` handoff of the bucketed all-reduce
+    (concatenated here), a 1-D buffer of exactly ``spec.total`` elements
+    (the reduced buffer, taken as it is), or a tree (packed in its
+    leaves' common dtype). Any other 1-D length raises, unless the
+    tensor is the spec's own single-leaf tree (a bare leaf of that
+    shape), which packs."""
+    if isinstance(grads, BucketBuffers):
+        return spec.concat_buckets(grads.buffers)
     if isinstance(grads, torch.Tensor) and grads.dim() == 1 and not (
-            spec.n_leaves == 1 and spec.shapes[0] == tuple(grads.shape)):
+            spec.n_leaves == 1 and spec.shapes[0] == tuple(grads.shape)
+            and spec.treedef == ("leaf",)):
         if grads.shape[0] != spec.total:
             raise ValueError(
                 f"flat gradient buffer has {grads.shape[0]} elements but "
-                f"the optimizer's PackSpec lays out {spec.total}")
+                f"the optimizer's PackSpec lays out {spec.total}: build the "
+                "optimizer over the same spec as the gradient buckets "
+                "(packed_spec=buckets.spec)")
         return grads
     return spec.pack(grads, tree_common_dtype(grads))
 

@@ -11,6 +11,9 @@
   step's update and are not kept;
 - ``grad_scale`` / ``found_inf``, the capturable kernel's ``inv_scale``
   and ``noop_flag``;
+- ``set_grad_none`` and ``capturable`` are accepted and ignored, as in
+  the JAX package (no ``.grad``; the step count is always a device
+  scalar);
 - ``packed=True``: the state is flat fp32 buffers
   (:class:`~apex_tpu_torch.optimizers._packed.PackedState`) and the
   whole step — unscale + Adam + master -> param recast — is ONE launch
@@ -18,7 +21,11 @@
   which updates m, v and the masters in place. The returned params are
   views into that launch's parameter buffer (``PackSpec.unpack``), so
   unpacking them copies nothing; each step writes a fresh buffer, so the
-  views of an earlier step stay as they were.
+  views of an earlier step stay as they were. ``packed_chunk_size`` sets
+  the layout's chunk; ``packed_spec`` adopts a layout built elsewhere
+  (``parallel.GradBuckets(params).spec``), and ``step`` / ``step_flat``
+  then take the reduced flat buffer of the bucketed all-reduce, or its
+  ``BucketBuffers``, as they come.
 
 The pytree path (``packed=False``) is plain PyTorch per leaf, as the JAX
 package's is plain XLA.
@@ -58,10 +65,18 @@ class FusedAdam(FusedOptimizer):
                  betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, adam_w_mode: bool = True,
                  weight_decay: float = 0.0, amsgrad: bool = False,
-                 master_weights: bool = False, packed: bool = False):
+                 set_grad_none: bool = True, capturable: bool = True,
+                 master_weights: bool = False, packed: bool = False,
+                 packed_chunk_size: Optional[int] = None,
+                 packed_spec=None):
         if amsgrad:
             raise RuntimeError(
                 "FusedAdam does not support the AMSGrad variant.")
+        # parity: the functional step keeps no .grad, and the step count
+        # and bias corrections are device scalars whatever capturable says
+        del set_grad_none, capturable
+        if packed_spec is not None and not packed:
+            raise ValueError("packed_spec requires packed=True")
         self.lr = lr
         self.bias_correction = bias_correction
         self.betas = betas
@@ -70,10 +85,16 @@ class FusedAdam(FusedOptimizer):
         self.weight_decay = weight_decay
         self.master_weights = master_weights
         self.packed = packed
+        self.packed_chunk_size = packed_chunk_size
+        # an adopted layout (GradBuckets.spec): step and step_flat then
+        # take the reduced flat buffer or the BucketBuffers as they come
+        self.packed_spec = packed_spec
 
     def init(self, params: Tree):
         if self.packed:
-            return packed_init(params, master_weights=self.master_weights)
+            return packed_init(params, chunk_size=self.packed_chunk_size,
+                               master_weights=self.master_weights,
+                               spec=self.packed_spec)
         dev = tree_leaves(params)[0].device
         return FusedAdamState(
             step=torch.zeros((), dtype=torch.int32, device=dev),

@@ -14,7 +14,9 @@ state's ``exp_avg``; no second moment) and the masters in flat buffers
 and runs the whole step as ONE launch of the packed SGD kernel
 (``ops.packed_optimizer.packed_sgd_apply``), which updates them in place;
 ``found_inf`` is its noop flag, and the first-run flag (the step count is
-0) is read on the device.
+0) is read on the device. ``packed_spec`` adopts a layout built elsewhere
+(``parallel.GradBuckets(params).spec``): ``step`` then takes the reduced
+flat buffer of the bucketed all-reduce, or its ``BucketBuffers``.
 """
 from __future__ import annotations
 
@@ -56,11 +58,8 @@ class FusedSGD(FusedOptimizer):
         if nesterov and (momentum <= 0 or dampening != 0):
             raise ValueError(
                 "Nesterov momentum requires a momentum and zero dampening")
-        if packed_spec is not None:
-            raise NotImplementedError(
-                "FusedSGD(packed_spec=...) adopts the layout of GradBuckets, "
-                "which comes with the distributed slice (ROADMAP.md, queue "
-                "A6.2)")
+        if packed_spec is not None and not packed:
+            raise ValueError("packed_spec requires packed=True")
         # parity: the functional step keeps no .grad
         del materialize_master_grads, set_grad_none
         self.lr = lr
@@ -72,12 +71,16 @@ class FusedSGD(FusedOptimizer):
         self.master_weights = master_weights
         self.packed = packed
         self.packed_chunk_size = packed_chunk_size
+        # an adopted layout (GradBuckets.spec): step then takes the
+        # reduced flat buffer or the BucketBuffers as they come
+        self.packed_spec = packed_spec
 
     def init(self, params: Tree):
         if self.packed:
             return packed_init(params, chunk_size=self.packed_chunk_size,
                                with_exp_avg_sq=False,
-                               master_weights=self.master_weights)
+                               master_weights=self.master_weights,
+                               spec=self.packed_spec)
         dev = tree_leaves(params)[0].device
         return FusedSGDState(
             step=torch.zeros((), dtype=torch.int32, device=dev),

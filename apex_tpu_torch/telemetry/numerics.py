@@ -89,10 +89,20 @@ def _segment_rows(rows: torch.Tensor, lengths: torch.Tensor, n_leaves: int,
 
 def _row_lengths(row_ids: np.ndarray, n_rows: int, n_leaves: int,
                  device) -> torch.Tensor:
+    """Rows per leaf, then the trailing padding rows. A padding row
+    between two leaves (a bucket closing, an ``align`` above a row) joins
+    the leaf before it, so that every leaf's rows stay one contiguous
+    segment; its values are padding (zero), which no sum or max sees."""
     if n_rows > len(row_ids):
         raise ValueError(f"{n_rows} rows, the PackSpec lays out "
                          f"{len(row_ids)}")
-    lengths = np.bincount(row_ids[:n_rows], minlength=n_leaves + 1)
+    ids = row_ids[:n_rows].astype(np.int64)
+    real = ids < n_leaves
+    owner = np.maximum.accumulate(np.where(real, ids, -1))
+    if real.any():
+        owner[np.flatnonzero(real)[-1] + 1:] = n_leaves
+    owner[owner < 0] = n_leaves
+    lengths = np.bincount(owner, minlength=n_leaves + 1)
     return torch.from_numpy(lengths.astype(np.int64)).to(device)
 
 

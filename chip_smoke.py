@@ -243,14 +243,38 @@ any failure exits non-zero and prints no result line:
    345M fp8 step with ``fp8_amax_reduction_axes`` bit for bit against
    the step without (100 all-reduces a step), and ``GradScaler``
    skipping a poisoned step; a ``{"phase12": [...]}`` line of the legs;
-13. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+13. data parallelism (A6.2, A6.3) on NCCL at world 1 over a ``file://``
+   store (``ddp_phase``; one card: the collectives' path and cost, not a
+   reduction across cards): (a) the 345M unfused step (no recompute, bf16
+   over fp32 masters) on ``DistributedDataParallel(bucket_cap_mb=25)``,
+   ``reduce_flat`` -> ``unscale_flat`` -> ``clip_grad_norm_flat`` ->
+   ``FusedAdam(packed_spec=buckets.spec)``: launches exact, one
+   all-reduce a bucket, p50 / p99, peak, idle share, 3 steps bit for bit
+   against the step without the all-reduce, the host's top operations
+   with and without it, and ``sync_gradients`` (one all-reduce a leaf)
+   timed against the bucketed reduction; (b) ``bench_grad_lifecycle``'s
+   A/B at 64 Mi bf16 parameters in 24 leaves, 4 MB buckets, chunk 8192:
+   steps/s of the per-leaf step and of the fused flat lifecycle
+   (``reduce_flat(concat=False)`` -> ``found_inf_flat`` -> ``step_flat``),
+   the latter's ``sweep_bytes`` rate; (c) ``FusedSGD(packed_spec=...)``
+   on the reduced buffer bit for bit against the tree; (d) BASELINE
+   config #2, ResNet-50 O2 bf16 with DDP + SyncBatchNorm + FusedAdam at
+   batch 256 through ``main_amp.make_train_step`` (p50, images/s, peak,
+   idle share, all-reduces a step, beside phase 9's O2 bf16 p50), then
+   card (NCCL) against CPU (a gloo group) at batch 8 under phase 9's
+   gates; (e) ``LARC(FusedSGD)`` over the ResNet-50 tree, step ms, card
+   against CPU; (f) the simple DDP example's CLI, 50 steps, its loss
+   falling; a ``{"phase13": [...]}`` line of the legs;
+14. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
    main path (flash attention's also over phase 8's legs, the norms',
-   flash's and packed Adam's also over phases 10 and 12's 345M steps,
-   bias-GeLU's also over ``fused_dense_gelu_dense``, packed Adam's, the
-   row statistics', the row reduce's and the flat scale's and axpby's
-   also over phase 12's applier) except the RMSNorm pair, which no model
+   flash's and packed Adam's also over phases 10, 12 and 13's 345M
+   steps, bias-GeLU's also over ``fused_dense_gelu_dense``, packed Adam's,
+   the row statistics', the row reduce's and the flat scale's and axpby's
+   also over phase 12's applier, the row reduce's and the flat scale's
+   over phase 13's clipped DDP step, packed SGD's over phase 13's (c))
+   except the RMSNorm pair, which no model
    of the JAX package runs: their launches are the norm modules' of
    phase 7), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -373,6 +397,12 @@ from apex_tpu_torch.optimizers import (
 from apex_tpu_torch.optimizers.fused_novograd import (
     leaf_norms_sq,
     row_denominators,
+)
+from apex_tpu_torch.parallel import (
+    LARC,
+    DistributedDataParallel,
+    GradBuckets,
+    sync_gradients,
 )
 from apex_tpu_torch.resilience import (
     ChaosError,
@@ -5156,8 +5186,8 @@ def resnet_phase(dev):
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
         f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
     x, y = _resnet_batch(dev)
-    _, state, step, st = resnet_leg(dev, "O2 bf16", "O2", torch.bfloat16, 2,
-                                    6, x, y, profile=True)
+    o2, state, step, st = resnet_leg(dev, "O2 bf16", "O2", torch.bfloat16,
+                                     2, 6, x, y, profile=True)
     resnet_overflow("O2 bf16", step, state, st, x)
     del state
     resnet_leg(dev, "O2 fp16", "O2", torch.float16, 2, 6, x, y)
@@ -5166,6 +5196,7 @@ def resnet_phase(dev):
     torch.cuda.empty_cache()
     resnet_parity(dev)
     resnet_cli()
+    return o2
 
 
 # ---------------------------------------------------------------------------
@@ -7066,6 +7097,569 @@ def a56_phase(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data parallelism (A6.2, A6.3): DistributedDataParallel with the
+# bucketed flat gradient lifecycle, SyncBatchNorm and LARC, ResNet-50 with
+# DDP + SyncBatchNorm + FusedAdam (BASELINE config #2), on NCCL at world 1
+# ---------------------------------------------------------------------------
+
+#: DDP's bucket cap of the 345M leg, MB (the reference's default)
+DDP_BUCKET_MB = 25.0
+#: the lifecycle A/B of ``bench_grad_lifecycle`` at its on-card size: 64 Mi
+#: bf16 parameters in 24 leaves of odd sizes, 4 MB fp32 buckets, chunk 8192
+LIFECYCLE_PARAMS, LIFECYCLE_LEAVES = 64 * 2 ** 20, 24
+LIFECYCLE_BUCKET_MB, LIFECYCLE_CHUNK, LIFECYCLE_ITERS = 4.0, 8192, 10
+#: the card's memory rate (H100 SXM data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+#: LARC over the ResNet-50 tree, card against CPU after 2 steps: each
+#: leaf within 1e-5 of its largest entry (fp32; the norms sum in another
+#: order on each device)
+LARC_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def counted_all_reduces(calls):
+    """Count ``torch.distributed.all_reduce`` calls into ``calls``."""
+    real = torch.distributed.all_reduce
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    torch.distributed.all_reduce = counted
+    try:
+        yield
+    finally:
+        torch.distributed.all_reduce = real
+
+
+def host_ops(run, top: int):
+    """``(self CPU ms, calls, name)`` of the ``top`` host operations of
+    ``run`` by self CPU time, from a CPU-only ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)[:top]
+
+
+def ddp_step_fn(loss_fn, opt, scaler, buckets, ddp, max_norm=1.0):
+    """The 345M loss-scaled, clipped step (:func:`scaled_step_fn`) on the
+    bucketed lifecycle: ``ddp.reduce_flat`` (one all-reduce a bucket,
+    straight into the shared layout) -> ``unscale_flat`` ->
+    ``clip_grad_norm_flat`` -> ``FusedAdam(packed_spec=buckets.spec)``.
+    ``ddp=None`` is the same step with the all-reduce left out (the
+    buckets packed and concatenated)."""
+    def step(params, state):
+        ostate, ss = state
+        loss, grads = value_and_grad(
+            lambda p: scaler.scale_loss(ss, loss_fn(p)), params)
+        if ddp is None:
+            flat = buckets.concat(buckets.pack(grads))
+        else:
+            flat, _ = ddp.reduce_flat(grads, buckets=buckets)
+        flat, ss = scaler.unscale_flat(ss, flat, out_dtype=torch.float32)
+        flat, _ = clip_grad_norm_flat(flat, max_norm)
+        params, ostate = opt.step(flat, ostate, params,
+                                  found_inf=ss.found_inf)
+        return params, (ostate, scaler.update_scale(ss)), \
+            loss / ss.loss_scale
+    return step
+
+
+def _ddp_345m(dev, with_ddp):
+    """The 345M unfused leg's model (:func:`_unfused_345m`) on the bucketed
+    lifecycle: ``(step, params, state, buckets)``."""
+    _, params, _, loss_fn = _unfused_345m(dev)
+    buckets = GradBuckets(params, bucket_cap_mb=DDP_BUCKET_MB)
+    buckets.check()
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True,
+                    packed_spec=buckets.spec)
+    scaler = LossScaler("dynamic")
+    ddp = DistributedDataParallel("data", bucket_cap_mb=DDP_BUCKET_MB) \
+        if with_ddp else None
+    state = (opt.init(params), scaler.init_state(dev))
+    return (ddp_step_fn(loss_fn, opt, scaler, buckets, ddp), params, state,
+            buckets)
+
+
+def ddp_345m_leg(dev, rows, launches):
+    """(a) The 345M unfused step (24 x 1024, seq 1024, batch 8, bf16 over
+    fp32 masters, no recompute) on ``DistributedDataParallel(bucket_cap_mb
+    =25)``: launches per step exact, all-reduces a step equal to the
+    bucket count, p50 / p99, peak, idle share; 3 steps from the seeds bit
+    for bit (losses and the master buffer) against the same step with the
+    all-reduce left out; then ``sync_gradients``, one all-reduce a leaf,
+    timed against the bucketed reduction on the same gradients."""
+    step, params, state, buckets = _ddp_345m(dev, True)
+    calls = []
+    with counted_all_reduces(calls):
+        leg = drive_leg("345M unfused, loss-scaled, clipped, DDP buckets",
+                        SCALED_LAUNCHES, 6, step, params, state,
+                        P12_BATCH * P12_SEQ)
+        n0 = len(calls)
+        step(leg["params"], leg["state"])
+        per_step = len(calls) - n0
+    for k, c in leg["launches"].items():
+        launches[k] = launches.get(k, 0) + c
+    if per_step != buckets.n_buckets:
+        raise AssertionError(f"all-reduces a step {per_step}, buckets "
+                             f"{buckets.n_buckets}")
+    del leg["params"], leg["state"], step, params, state
+    torch.cuda.empty_cache()
+    runs, side_ms, hosts = {}, {}, {}
+    for with_ddp in (True, False):
+        step, params, state, _ = _ddp_345m(dev, with_ddp)
+        losses, times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        runs[with_ddp] = (losses, state[0].master_params.clone())
+        side_ms[with_ddp] = times[1:]
+        box = {"p": params, "s": state}
+
+        def one():
+            box["p"], box["s"], _ = step(box["p"], box["s"])
+        hosts[with_ddp] = host_ops(one, 8)
+        del step, params, state, box
+        torch.cuda.empty_cache()
+    _same_bits("345M DDP at world 1 against the step without the "
+               "all-reduce", runs[True][0] + [runs[True][1]],
+               runs[False][0] + [runs[False][1]])
+    del runs
+    torch.cuda.empty_cache()
+    # the per-leaf reduction against the bucketed one, same gradients
+    _, params, _, loss_fn = _unfused_345m(dev)
+    _, grads = value_and_grad(loss_fn, params)
+    del params
+    ddp = DistributedDataParallel("data", bucket_cap_mb=DDP_BUCKET_MB)
+    n_leaves = len(tree_leaves(grads))
+    timed = {}
+    for name, fn in (
+            ("per_leaf", lambda: sync_gradients(grads, "data")),
+            ("bucketed", lambda: ddp.reduce_flat(grads, buckets=buckets))):
+        fn()
+        torch.cuda.synchronize()
+        calls = []
+        times = []
+        with counted_all_reduces(calls):
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        timed[name] = (float(np.percentile(times, 50)), len(calls) // 5)
+    if timed["per_leaf"][1] != n_leaves:
+        raise AssertionError(f"sync_gradients: {timed['per_leaf'][1]} "
+                             f"all-reduces for {n_leaves} leaves")
+    del grads
+    prof = leg["profile"]
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    for with_ddp in (True, False):
+        log(f"  host ops of a step {'with' if with_ddp else 'without'} the "
+            f"all-reduce (self CPU ms, calls): "
+            + "; ".join(f"{k[:40]} {ms:.2f} x{n}"
+                        for ms, n, k in hosts[with_ddp]))
+    log(f"  (a) 345M DDP: {buckets.n_buckets} buckets of <= "
+        f"{DDP_BUCKET_MB:g} MB ({buckets.spec.total} elements), "
+        f"{per_step} all-reduces a step; p50 {leg['p50']:.2f} ms p99 "
+        f"{leg['p99']:.2f} ms, peak {leg['peak']:.2f} GiB, idle "
+        f"{idle:.3f}; 3 steps bit for bit against the step without the "
+        f"all-reduce (steps 2-3: {side_ms[True]} ms with, {side_ms[False]} "
+        f"ms without); the reduction alone: per leaf "
+        f"{timed['per_leaf'][0]:.2f}"
+        f" ms ({n_leaves} all-reduces), bucketed {timed['bucketed'][0]:.2f} "
+        f"ms ({timed['bucketed'][1]})")
+    rows.append({"leg": "a 345M DDP", "buckets": buckets.n_buckets,
+                 "allreduces_per_step": per_step, "p50_ms": leg["p50"],
+                 "p99_ms": leg["p99"], "peak_gib": leg["peak"],
+                 "idle": idle, "reduce_per_leaf_ms": timed["per_leaf"][0],
+                 "per_leaf_allreduces": n_leaves,
+                 "reduce_bucketed_ms": timed["bucketed"][0],
+                 "step_ms_with_allreduce": side_ms[True],
+                 "step_ms_without_allreduce": side_ms[False],
+                 "host_ops_with": hosts[True],
+                 "host_ops_without": hosts[False]})
+
+
+def lifecycle_leg(dev, rows, launches):
+    """(b) ``bench_grad_lifecycle``'s A/B at its on-card size: A, the
+    per-leaf step (``sync_gradients(allreduce_always_fp32=True)``, the
+    tree unscale, packed FusedAdam over the tree); B, the fused flat
+    lifecycle (``reduce_flat(concat=False)`` with raw sums ->
+    ``found_inf_flat`` -> ``step_flat(grad_scale=scale * world)``, the
+    fp32 masters the parameter store). Steps/s of both, B's
+    ``sweep_bytes`` over its step time against the card's rate."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    per = LIFECYCLE_PARAMS // LIFECYCLE_LEAVES
+    params = {f"w{i:02d}": (0.1 * torch.randn(per + (i % 3) * 17,
+                                              generator=g, device=dev)
+                            ).to(torch.bfloat16)
+              for i in range(LIFECYCLE_LEAVES)}
+    buckets = GradBuckets(params, bucket_cap_mb=LIFECYCLE_BUCKET_MB,
+                          chunk_size=LIFECYCLE_CHUNK,
+                          reduce_dtype=torch.float32)
+    xs = torch.randn(4, generator=g, device=dev)
+    world = torch.distributed.get_world_size()
+
+    def loss_fn(p):
+        s = 1.0 + 0.01 * xs.mean()
+        acc = 0.0
+        for leaf in tree_leaves(p):
+            acc = acc + ((leaf.to(torch.float32) * s) ** 2).mean()
+        return acc / len(p)
+
+    out = {}
+    for side in ("A per-leaf", "B flat"):
+        scaler = LossScaler("dynamic", init_scale=2.0 ** 8)
+        ss = scaler.init_state(dev)
+        if side.startswith("B"):
+            opt = FusedAdam(lr=1e-3, master_weights=True, packed=True,
+                            packed_spec=buckets.spec)
+            ddp = DistributedDataParallel(
+                "data", allreduce_always_fp32=True, gradient_average=False,
+                bucket_cap_mb=LIFECYCLE_BUCKET_MB)
+            carry = opt.init(params)
+
+            def step(carry, ss):
+                p = buckets.unpack(carry.master_params)
+                loss, grads = value_and_grad(
+                    lambda q: scaler.scale_loss(ss, loss_fn(q)), p)
+                bufs, _ = ddp.reduce_flat(grads, buckets=buckets,
+                                          concat=False)
+                ss = scaler.found_inf_flat(ss, bufs)
+                carry = opt.step_flat(bufs, carry, found_inf=ss.found_inf,
+                                      grad_scale=ss.loss_scale * world)
+                return carry, scaler.update_scale(ss), loss
+        else:
+            opt = FusedAdam(lr=1e-3, master_weights=True, packed=True,
+                            packed_chunk_size=LIFECYCLE_CHUNK)
+            carry = (params, opt.init(params))
+
+            def step(carry, ss):
+                p, ostate = carry
+                loss, grads = value_and_grad(
+                    lambda q: scaler.scale_loss(ss, loss_fn(q)), p)
+                grads = sync_gradients(grads, "data",
+                                       allreduce_always_fp32=True)
+                grads, ss = scaler.unscale(ss, grads)
+                p, ostate = opt.step(grads, ostate, p,
+                                     found_inf=ss.found_inf)
+                return (p, ostate), scaler.update_scale(ss), loss
+        for _ in range(2):
+            carry, ss, loss = step(carry, ss)
+        torch.cuda.synchronize()
+        _device.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(LIFECYCLE_ITERS):
+            carry, ss, loss = step(carry, ss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: c for k, c in _device.launch_counts().items() if c}
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        if counts != {"packed_adam": LIFECYCLE_ITERS} or not bool(
+                torch.isfinite(loss)):
+            raise AssertionError(f"lifecycle {side}: launches {counts}, "
+                                 f"loss {float(loss)}")
+        out[side] = LIFECYCLE_ITERS / dt
+        del carry
+        torch.cuda.empty_cache()
+    step_s = 1.0 / out["B flat"]
+    gbps = buckets.sweep_bytes() / step_s / 1e9
+    log(f"  (b) lifecycle A/B, {LIFECYCLE_PARAMS} bf16 parameters in "
+        f"{LIFECYCLE_LEAVES} leaves, {buckets.n_buckets} buckets of "
+        f"{LIFECYCLE_BUCKET_MB:g} MB: A per-leaf {out['A per-leaf']:.2f} "
+        f"steps/s, B flat {out['B flat']:.2f} steps/s "
+        f"({out['B flat'] / out['A per-leaf']:.2f}x); B's sweep_bytes "
+        f"{buckets.sweep_bytes()} over its step: {gbps:.1f} GB/s, "
+        f"{gbps * 1e9 / HBM_BYTES_PER_S:.3f} of 3.35 TB/s")
+    rows.append({"leg": "b lifecycle A/B", "steps_per_s_per_leaf":
+                 out["A per-leaf"], "steps_per_s_flat": out["B flat"],
+                 "buckets": buckets.n_buckets,
+                 "sweep_bytes": buckets.sweep_bytes(),
+                 "flat_gbps": gbps})
+
+
+def sgd_spec_leg(dev, rows, launches):
+    """(c) ``FusedSGD(packed=True, packed_spec=buckets.spec)`` on the 345M
+    tree: the step on the reduced flat buffer bit for bit against the
+    step that packs the gradient tree itself."""
+    g = torch.Generator(device=dev).manual_seed(42)
+    params = tree_map(lambda m: (torch.randn(m.shape, generator=g,
+                                             device=dev) * 0.02).to(
+        torch.bfloat16), gpt345m_param_shapes())
+    grads = tree_map(lambda p: (torch.randn(p.shape, generator=g,
+                                            device=dev) * 1e-3).to(
+        torch.bfloat16), params)
+    buckets = GradBuckets(params, bucket_cap_mb=DDP_BUCKET_MB)
+    opt = FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4,
+                   master_weights=True, packed=True,
+                   packed_spec=buckets.spec)
+    flat = buckets.concat(buckets.pack(grads))
+    results = []
+    for i, gr in enumerate((flat, grads)):
+        state = opt.init(params)
+        if state.spec is not buckets.spec:
+            raise AssertionError("FusedSGD did not adopt the buckets' spec")
+        torch.cuda.synchronize()
+        _device.reset_launch_counts()
+        p, state = opt.step(gr, state, params)
+        p, state = opt.step(gr, state, p)
+        torch.cuda.synchronize()
+        if i == 0:  # the flat buffer is the main path; the tree compares
+            for k, c in _device.launch_counts().items():
+                launches[k] = launches.get(k, 0) + c
+        results.append([*tree_leaves(p), *_packed_tree(state)[:2],
+                        state.master_params])
+    _same_bits("FusedSGD on the reduced buffer against the tree",
+               results[0], results[1])
+    log(f"  (c) FusedSGD(packed_spec=buckets.spec) on the 345M tree "
+        f"({buckets.n_buckets} buckets): 2 steps on the reduced flat buffer "
+        f"bit for bit against the tree it packs itself")
+    rows.append({"leg": "c FusedSGD packed_spec",
+                 "buckets": buckets.n_buckets})
+
+
+def _sync_bn_grads(dev, level, half, params_cpu, bstats_cpu, x, y, cmt,
+                   group):
+    """Loss, gradients and running statistics of one ResNet-50 forward
+    and backward with SyncBatchNorm over ``group`` on ``dev``, from the
+    same weights (:func:`_resnet_grads` with ``sync_bn``)."""
+    model = resnet.build_model("resnet50", num_classes=RESNET_CLASSES,
+                               sync_bn=True, bn_axis_name=group)
+    params = tree_map(lambda t: t.to(dev), params_cpu)
+    bstats = tree_map(lambda t: t.to(dev, half if half == torch.float64
+                                     else torch.float32), bstats_cpu)
+    params, _, st = amp.initialize(params, None, opt_level=level,
+                                   half_dtype=half, cast_model_type=cmt)
+    cast = st.opt_properties.cast_model_type not in (None, torch.float32)
+    xx = main_amp._normalize(x.to(dev), half, cast)
+    out = {}
+
+    def loss_fn(p):
+        logits, out["new"] = model.apply(p, bstats, xx, train=True)
+        return main_amp._loss(logits, y.to(dev))
+
+    loss, grads = value_and_grad(loss_fn, params)
+    return (float(loss), tree_map(lambda t: t.double().cpu(), grads),
+            tree_map(lambda t: t.double().cpu(), out["new"]))
+
+
+def _sync_bn_parity(dev, cpu_group):
+    """Card (NCCL) against CPU (a gloo group), batch 8, TF32 off, with
+    SyncBatchNorm: fp64 within 1e-8 a leaf, fp32 (O0) each leaf within
+    ``F32_LEAF_K`` times the CPU's distance from fp64 plus
+    ``F32_LEAF_FLOOR``, bf16 (O2) loss within 3e-2 and each leaf within
+    3e-2 of its largest entry plus 5 times the CPU's bf16 distance from
+    fp64: phase 9's gates."""
+    params, bstats = resnet.build_model(
+        "resnet50", RESNET_CLASSES, sync_bn=True).init(
+        torch.Generator().manual_seed(3))
+    x, y = _resnet_batch("cpu", RESNET_PARITY_BATCH, seed=4)
+    runs = {}
+    with tf32_off():
+        for key, level, half, cmt in (
+                ("f64", "O0", torch.float64, torch.float64),
+                ("f32", "O0", torch.float32, None),
+                ("bf16", "O2", torch.bfloat16, None)):
+            runs[key] = (
+                _sync_bn_grads(dev, level, half, params, bstats, x, y, cmt,
+                               "data"),
+                _sync_bn_grads("cpu", level, half, params, bstats, x, y,
+                               cmt, cpu_group))
+    ref = runs["f64"][1]
+    card, cpu = runs["f64"]
+    worst64 = max(max(_leaf_gaps(card[1], cpu[1]))[0],
+                  max(_leaf_gaps(card[2], cpu[2]))[0])
+    if abs(card[0] - cpu[0]) > 1e-12 * abs(cpu[0]) or worst64 > 1e-8:
+        raise AssertionError(f"sync-BN fp64 parity: loss {card[0]} vs "
+                             f"{cpu[0]}, worst leaf {worst64:.2e}")
+    card, cpu = runs["f32"]
+    over = max((c / (F32_LEAF_K * u + F32_LEAF_FLOOR), p) for (c, p), (u, _)
+               in zip(_leaf_gaps(card[1], ref[1]), _leaf_gaps(cpu[1],
+                                                              ref[1])))
+    rel32 = abs(card[0] - cpu[0]) / abs(cpu[0])
+    if over[0] > 1 or rel32 > 1e-4:
+        raise AssertionError(f"sync-BN fp32 parity: gate share {over}, "
+                             f"loss rel {rel32:.2e}")
+    card, cpu = runs["bf16"]
+    rel16 = abs(card[0] - cpu[0]) / abs(cpu[0])
+    worst16 = 0.0
+    for tree_i in (1, 2):
+        for a, b, r in zip(*(tree_leaves(t[tree_i])
+                             for t in (card, cpu, ref))):
+            err, m = float((a - b).abs().max()), float(b.abs().max())
+            worst16 = max(worst16, err / max(m, 1e-30))
+            if err > 3e-2 * m + 5 * float((b - r).abs().max()):
+                raise AssertionError(f"sync-BN bf16 leaf {err:.3e}")
+    if rel16 > 3e-2:
+        raise AssertionError(f"sync-BN bf16 loss rel {rel16:.2e}")
+    out = {"f64_worst": worst64, "f32_gate_share": over[0],
+           "f32_loss_rel": rel32, "bf16_loss_rel": rel16,
+           "bf16_leaf_worst": worst16}
+    log(f"  sync-BN parity card (NCCL) against CPU (gloo), batch 8: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out.items()))
+    return out
+
+
+def resnet_ddp_leg(dev, rows, o2_p50, cpu_group):
+    """(d) BASELINE config #2: ``main_amp``'s data-parallel step for
+    ResNet-50 at O2 bf16 with ``--sync_bn`` and ``--optimizer adam``,
+    batch 256 at 224 px, 2 + 6 steps on one staged batch: p50, images/s,
+    peak, idle share and all-reduces a step, beside phase 9's O2 bf16 leg
+    without DDP; then card against CPU at batch 8 (:func:`_sync_bn_parity`)."""
+    x, y = _resnet_batch(dev)
+    model = resnet.build_model("resnet50", num_classes=RESNET_CLASSES,
+                               sync_bn=True)
+    params, bstats = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = FusedAdam(lr=0.1 * RESNET_BATCH / 256, weight_decay=1e-4)
+    params, opt, st = amp.initialize(params, opt, opt_level="O2",
+                                     half_dtype=torch.bfloat16)
+    ddp = DistributedDataParallel("data")
+    params = ddp.broadcast_params(params)
+    step = main_amp.make_train_step(model, opt, st.scaler(0), torch.bfloat16,
+                                    True, ddp)
+    box = {"state": (params, bstats, opt.init(params), st.scaler_state(0))}
+    lr = 0.1 * RESNET_BATCH / 256
+
+    def run():
+        out = step(*box["state"], x, y, lr)
+        box["state"] = out[:4]
+        return out
+    losses, times, calls = [], [], []
+    for i in range(8):
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _device.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counted_all_reduces(calls):
+            out = run()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[4]))
+    launches = {k: c for k, c in _device.launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = len(calls) // 8
+    prof = profiled(run, "ResNet-50 O2 bf16 DDP + SyncBatchNorm + FusedAdam "
+                    "step", 10)
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    p50, p99 = (float(np.percentile(times, q)) for q in (50, 99))
+    if launches or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet-50 DDP: launches {launches}, losses "
+                             f"{losses}")
+    del box, step, out
+    torch.cuda.empty_cache()
+    parity = _sync_bn_parity(dev, cpu_group)
+    log(f"  (d) ResNet-50 O2 bf16, DDP + SyncBatchNorm + FusedAdam, batch "
+        f"{RESNET_BATCH}: p50 {p50:.2f} ms p99 {p99:.2f} ms, "
+        f"{RESNET_BATCH / (p50 / 1e3):.0f} images/s, peak {peak:.2f} GiB, "
+        f"idle {idle:.3f}, {per_step} all-reduces a step; phase 9's O2 bf16 "
+        f"without DDP: p50 {o2_p50:.2f} ms; losses {losses}")
+    rows.append({"leg": "d ResNet-50 DDP SyncBN Adam", "p50_ms": p50,
+                 "p99_ms": p99, "images_per_s": RESNET_BATCH / (p50 / 1e3),
+                 "peak_gib": peak, "idle": idle,
+                 "allreduces_per_step": per_step, "phase9_o2_p50_ms": o2_p50,
+                 "step_ms": times, "losses": losses, "parity": parity})
+
+
+def larc_leg(dev, rows):
+    """(e) ``LARC(FusedSGD)`` over the ResNet-50 tree (fp32, random
+    gradients): the step's ms on the card, and 2 steps card against CPU
+    within ``LARC_TOL`` of each leaf's largest entry."""
+    params, _ = resnet.init_params("resnet50",
+                                   torch.Generator().manual_seed(5),
+                                   num_classes=RESNET_CLASSES)
+    g = torch.Generator().manual_seed(6)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g) * 1e-2,
+                     params)
+    finals, ms = [], None
+    for d in (dev, "cpu"):
+        opt = LARC(FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4),
+                   trust_coefficient=0.02)
+        p = tree_map(lambda t: t.to(d), params)
+        gr = tree_map(lambda t: t.to(d), grads)
+        state = opt.init(p)
+        for _ in range(2):
+            p, state = opt.step(gr, state, p)
+        finals.append(p)
+        if d == dev:
+            torch.cuda.synchronize()
+            box = {"p": p, "s": state}
+
+            def one():
+                box["p"], box["s"] = opt.step(gr, box["s"], box["p"])
+            ms = time_ms(one, iters=10, warmup=2)
+    worst = max(_leaf_gaps(tree_map(lambda t: t.double().cpu(), finals[0]),
+                           tree_map(lambda t: t.double(), finals[1])))
+    if worst[0] > LARC_TOL:
+        raise AssertionError(f"LARC card against CPU: {worst}")
+    log(f"  (e) LARC(FusedSGD) over the ResNet-50 tree: {ms:.3f} ms a step; "
+        f"2 steps card against CPU, worst leaf {worst[0]:.2e} ({worst[1]})")
+    rows.append({"leg": "e LARC", "step_ms": ms, "worst_leaf": worst[0]})
+
+
+def simple_ddp_leg(dev, rows):
+    """(f) The simple DDP example through its CLI, 50 steps on the card
+    at NCCL world 1: its loss lines, the loss falling."""
+    import io
+
+    from apex_tpu_torch.examples.simple.distributed import (
+        distributed_data_parallel as simple_ddp,
+    )
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = simple_ddp.main(["--steps", "50"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    if len(losses) != 2 or not losses[-1][1] < losses[0][1] or \
+            "step 49: loss" not in text:
+        raise AssertionError(f"simple DDP example: {losses}")
+    rows.append({"leg": "f simple DDP example", "losses": losses})
+
+
+def ddp_phase(dev, o2_p50):
+    """Phase 13: data parallelism on NCCL at world 1 over a ``file://``
+    store (one card: the collectives' path and cost, not a reduction
+    across cards): (a) the 345M DDP step, (b) the lifecycle A/B, (c)
+    ``FusedSGD(packed_spec=...)``, (d) ResNet-50 with DDP + SyncBatchNorm
+    + FusedAdam, (e) ``LARC``, (f) the simple DDP example. Prints a
+    ``{"phase13": [...]}`` line; returns the main paths' launches."""
+    rows, launches, parts = [], {}, {}
+    dist = torch.distributed
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            cpu_group = dist.new_group(backend="gloo")
+            for key, fn, args in (("a", ddp_345m_leg, (rows, launches)),
+                                  ("b", lifecycle_leg, (rows, launches)),
+                                  ("c", sgd_spec_leg, (rows, launches)),
+                                  ("d", resnet_ddp_leg,
+                                   (rows, o2_p50, cpu_group)),
+                                  ("e", larc_leg, (rows,)),
+                                  ("f", simple_ddp_leg, (rows,))):
+                t0 = time.perf_counter()
+                fn(dev, *args)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                parts[key] = round(time.perf_counter() - t0, 1)
+        finally:
+            dist.destroy_process_group()
+    log(f"  phase 13 parts (s): {parts}")
+    print(json.dumps({"phase13": rows}), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7223,9 +7817,9 @@ def main() -> int:
     contrib = phase("phase 8: the attention contribs (fmha, multihead_attn, "
                     "openfold) at full width, kernels against plain "
                     "versions", attention_contribs, dev)
-    phase("phase 9: ResNet-50 amp O0-O3 with FusedSGD (BASELINE config "
-          "#1), the overflow skip, card against CPU, the example's CLI",
-          resnet_phase, dev)
+    o2 = phase("phase 9: ResNet-50 amp O0-O3 with FusedSGD (BASELINE "
+               "config #1), the overflow skip, card against CPU, the "
+               "example's CLI", resnet_phase, dev)
     fp8_launches = phase(
         "phase 10: fp8 fused_dense (the fp8 GEMM route, the GEMM chain, the "
         "345M fp8 train step, card against CPU), fused_dense_gelu_dense, "
@@ -7241,17 +7835,23 @@ def main() -> int:
                 "the scaling study) and parallel_state on NCCL with the fp8 "
                 "amax group and GradScaler (A6.1), 345M width", a56_phase,
                 dev, card)
+    p13 = phase("phase 13: data parallelism on NCCL at world 1 (A6.2, "
+                "A6.3): the 345M step on DDP buckets, the lifecycle A/B, "
+                "FusedSGD(packed_spec), ResNet-50 DDP + SyncBatchNorm + "
+                "FusedAdam (BASELINE config #2), LARC, the simple DDP "
+                "example", ddp_phase, dev, o2["p50_ms"])
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
     fd["launches"] = sum(c["flash_decode"] for c in served)
     # launches on the main paths: the serving runs, the eight GPT legs, the
-    # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense, and
-    # phase 12's applier calls and 345M steps
+    # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense,
+    # phase 12's applier calls and 345M steps, and phase 13's DDP steps
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
                       + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
                       + fp8_launches["layer_norm_fwd"]
-                      + p12.get("layer_norm_fwd", 0))
+                      + p12.get("layer_norm_fwd", 0)
+                      + p13.get("layer_norm_fwd", 0))
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -7264,7 +7864,8 @@ def main() -> int:
         kr["launches"] = (train.get(kr["name"], 0) + bert.get(kr["name"], 0)
                           + contrib.get(kr["name"], 0)
                           + fp8_launches.get(kr["name"], 0)
-                          + p12.get(kr["name"], 0))
+                          + p12.get(kr["name"], 0)
+                          + p13.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

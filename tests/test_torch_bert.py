@@ -294,8 +294,10 @@ def test_lamb_found_inf_skips_the_step():
 
 
 def test_lamb_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="GradBuckets"):
-        FusedSGD(lr=0.1, packed=True, packed_spec=object())
+    # FusedSGD adopts a GradBuckets layout since A6.2; a layout without
+    # the packed state is still refused, as the JAX package refuses it
+    with pytest.raises(ValueError, match="packed_spec requires packed"):
+        FusedSGD(lr=0.1, packed_spec=object())
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLAMB(amsgrad=True)
 

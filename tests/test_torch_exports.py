@@ -89,13 +89,6 @@ NOT_PORTED = {
         "halo_pad_1d", "spatial_conv3x3")},
     ("apex_tpu.contrib.optimizers", "DistributedFusedAdamState"): "A6.6",
     ("apex_tpu.contrib.optimizers", "DistributedFusedLAMBState"): "A6.6",
-    **{("apex_tpu.parallel", n): "A6.2" for n in (
-        "BucketBuffers", "DistributedDataParallel", "GradBuckets",
-        "Reducer", "flatten", "sync_gradients", "sync_gradients_bucketed",
-        "unflatten")},
-    **{("apex_tpu.parallel", n): "A6.3" for n in (
-        "LARC", "larc_adjust_gradients", "larc_transform", "SyncBatchNorm",
-        "convert_syncbn_model")},
     **{("apex_tpu.resilience", n): "A7" for n in _A7_RESILIENCE},
     **{("apex_tpu.serving", n): "A7" for n in _A7_SERVING},
     **{("apex_tpu.telemetry", n): "A7" for n in _A7_TELEMETRY},
@@ -194,9 +187,6 @@ def test_lazy_refusals_name_their_queue():
     import apex_tpu_torch.transformer
 
     for mod, name, queue in ((apex_tpu_torch, "analysis", "A8"),
-                             (apex_tpu_torch.parallel, "LARC", "A6.3"),
-                             (apex_tpu_torch.parallel,
-                              "DistributedDataParallel", "A6.2"),
                              (apex_tpu_torch.transformer, "tensor_parallel",
                               "A6.4"),
                              (apex_tpu_torch.transformer, "_data", "A6.4"),
@@ -204,6 +194,10 @@ def test_lazy_refusals_name_their_queue():
                               "pipeline_parallel", "A6.5")):
         with pytest.raises(AttributeError, match=queue.replace(".", r"\.")):
             getattr(mod, name)
+    # A6.2 and A6.3 landed: the data-parallel layer imports
+    for name in ("LARC", "DistributedDataParallel", "SyncBatchNorm",
+                 "BucketBuffers", "convert_syncbn_model"):
+        assert getattr(apex_tpu_torch.parallel, name)
 
 
 def test_ops_names_are_the_functions():

@@ -6,8 +6,10 @@ Numpy-seeded NHWC inputs (fp32 and bf16) through both, in training (the
 output, the new running statistics) and evaluation, NCHW too for
 ``sync_batch_norm``; the fused ReLU and the add + ReLU epilogue; the
 gradients of the input, the residual and the parameters; the JAX
-``(params, state)`` carried across with ``params_from_jax``; the
-refusals that name queue A6.3, and the cuDNN alias's own refusal.
+``(params, state)`` carried across with ``params_from_jax``; a training
+axis at world 1 and an axis outside the model-parallel layout refused;
+a group sync without a process group refused, and the cuDNN alias's own
+refusal.
 
 Tolerances: fp32 outputs, statistics and gradients within 1e-6 of each
 result's largest entry (fp32 statistics summed in orders the frameworks
@@ -89,11 +91,31 @@ def test_sync_batch_norm_gradients_match():
 
 
 def test_sync_batch_norm_refuses_an_axis_in_training():
-    x, w, b, rm, rv = (torch.from_numpy(a) for a in _arrays(2))
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        tsbn(x, w, b, rm, rv, training=True)  # default axis "data"
-    # evaluation reads no batch statistics: any axis name is fine
-    tsbn(x, w, b, rm, rv, training=False)
+    """Since A6.3 a training axis names the ranks the statistics are
+    synced over: with no process group a world of 1, the JAX function's
+    result over a one-device mesh axis. An axis that is not one of the
+    initialised model-parallel layout's is refused; evaluation reads no
+    batch statistics, so it takes any axis name."""
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    arrays = _arrays(2)
+    x, w, b, rm, rv = (torch.from_numpy(a) for a in arrays)
+    got = tsbn(x, w, b, rm, rv, training=True)  # default axis "data"
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
+    rep = jax.sharding.PartitionSpec()
+    want = jax.jit(jax.shard_map(
+        lambda *a: jsbn(*a, training=True), mesh=mesh, in_specs=rep,
+        out_specs=rep, check_vma=False))(*(jnp.asarray(a) for a in arrays))
+    for g, j in zip(got, want):
+        _close(g, j, 1e-6)
+    ps.initialize_model_parallel(1, 1)
+    try:
+        with pytest.raises(ValueError, match="not an axis"):
+            tsbn(x, w, b, rm, rv, training=True, axis_name="bn_group")
+        tsbn(x, w, b, rm, rv, training=True, axis_name="data")
+        tsbn(x, w, b, rm, rv, training=False, axis_name="bn_group")
+    finally:
+        ps.destroy_model_parallel()
 
 
 @pytest.mark.parametrize("mode", ["plain", "relu", "addrelu"])
@@ -149,9 +171,11 @@ def test_init_matches_and_group_sync_refuses():
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
     for k in js:
         np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]))
-    with pytest.raises(NotImplementedError, match="A6.3"):
+    # a group of 2 or 4 ranks needs a process group of that many
+    # (synced across ranks in tests/test_torch_sync_batchnorm.py)
+    with pytest.raises(ValueError, match="torch.distributed"):
         TBN(8, bn_group=2)
-    with pytest.raises(NotImplementedError, match="A6.3"):
+    with pytest.raises(ValueError, match="torch.distributed"):
         TGBN(8, group_size=4)
 
 

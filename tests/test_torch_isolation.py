@@ -92,7 +92,9 @@ def test_port_imports_without_jax_or_apex_tpu():
                  "transformer.testing.standalone_gpt",
                  "examples.gpt.gpt_scaling_test",
                  "transformer.parallel_state", "parallel.multiproc",
-                 "transformer.amp", "transformer.amp.grad_scaler"):
+                 "transformer.amp", "transformer.amp.grad_scaler",
+                 "parallel.distributed", "parallel.LARC",
+                 "examples.simple.distributed.distributed_data_parallel"):
         assert "apex_tpu_torch." + name in res["modules"], name
 
 

@@ -13,8 +13,9 @@ against the JAX package's (``examples/imagenet``), on the CPU: training.
 - the overflow step (an input of 1e30): params, statistics and optimizer
   state unchanged bit for bit, the scale halved, as in JAX;
 - the CLI at O0-O3, with ``--optimizer adam`` and ``--resume`` through
-  ``tests/test_examples.py``'s harness, the checkpoint's layout against the JAX file's, and the
-  refusals of SyncBatchNorm and of a world size above 1.
+  ``tests/test_examples.py``'s harness, the checkpoint's layout against the JAX file's,
+  ``--sync_bn`` at world 1 and the refusal of a world size above 1
+  without a launcher.
 
 Tolerances: the fp32 train steps within 1e-4 of each leaf's largest
 entry; the bf16 train steps' loss within 3e-2 relative and their trees
@@ -315,7 +316,8 @@ def test_cli_opt_levels(monkeypatch, tmp_path, capsys, opt_level):
 
 def test_cli_fused_adam(monkeypatch, tmp_path, capsys):
     """``--optimizer adam`` trains with the port's FusedAdam (the JAX
-    example's config #2 optimizer; its SyncBatchNorm waits for A6.3)."""
+    example's config #2 optimizer; config #2 across ranks, with
+    SyncBatchNorm, is ``tests/test_torch_sync_batchnorm.py``'s)."""
     prec1 = _run_main(monkeypatch, tmp_path,
                       ["--opt-level", "O2", "--optimizer", "adam",
                        "--lr", "0.256"])
@@ -366,11 +368,17 @@ def test_checkpoint_layout_matches_jax(monkeypatch, tmp_path, capsys):
     assert set(ck["amp"]["loss_scaler0"]) == set(jck["amp"]["loss_scaler0"])
 
 
-def test_refuses_sync_bn_and_a_world_size(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        _run_main(monkeypatch, tmp_path, ["--sync_bn"])
+def test_refuses_sync_bn_and_a_world_size(monkeypatch, tmp_path, capsys):
+    """Since A6.3 ``--sync_bn`` trains: without a process group its
+    statistics are one rank's, as on the JAX example's one-device mesh
+    (across ranks in ``tests/test_torch_sync_batchnorm.py``). A world size
+    above 1 with no launcher's rank is refused."""
+    prec1 = _run_main(monkeypatch, tmp_path, ["--sync_bn"])
+    assert np.isfinite(prec1)
+    assert "Epoch: [0][2/3]" in capsys.readouterr().out
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A6"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
         _run_main(monkeypatch, tmp_path, [])
 
 
