@@ -1,15 +1,15 @@
 """Megatron-style transformer library (counterpart of
-``apex_tpu/transformer``): ``parallel_state`` over ``torch.distributed``,
-and at first access the fused ``functional`` ops, ``layers``, the
-model-parallel ``amp`` and the ``testing`` models. ``tensor_parallel``
-and ``_data`` come with queue A6.4, ``pipeline_parallel`` with A6.5
-(ROADMAP.md)."""
+``apex_tpu/transformer``): ``parallel_state`` over ``torch.distributed``
+and ``tensor_parallel``, and at first access the fused ``functional``
+ops, ``layers``, the model-parallel ``amp``, the ``testing`` models and
+harness, the ``_data`` samplers and the ``microbatches`` calculators.
+``pipeline_parallel`` comes with queue A6.5 (ROADMAP.md)."""
 from . import parallel_state  # noqa: F401
+from . import tensor_parallel  # noqa: F401
 from .. import _lazy_import
 
-_LAZY = ("functional", "layers", "amp", "testing")
-_NOT_PORTED = {"tensor_parallel": "A6.4", "_data": "A6.4",
-               "pipeline_parallel": "A6.5"}
+_LAZY = ("functional", "layers", "amp", "testing", "_data", "microbatches")
+_NOT_PORTED = {"pipeline_parallel": "A6.5"}
 
 
 def __getattr__(name):

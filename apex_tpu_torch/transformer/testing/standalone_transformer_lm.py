@@ -1,5 +1,5 @@
-"""The GPT of ``apex_tpu/transformer/testing/standalone_transformer_lm.py``,
-as far as serving and the single-device train step use it.
+"""The GPT of ``apex_tpu/transformer/testing/standalone_transformer_lm.py``
+for serving and training, on one device or tensor-parallel.
 
 - :class:`GPTConfig`: the JAX config's field names and defaults for the
   model shape and the training fields of the unfused step.
@@ -40,16 +40,41 @@ as far as serving and the single-device train step use it.
   :func:`init_gpt_fp8_carriers`, ``gpt_loss(..., fp8_states=,
   fp8_carriers=)`` returning ``(loss, new_states)``, and
   :func:`record_gpt_grad_amaxes` over the carriers' gradients.
+- tensor and sequence parallelism (``axis_name="tensor"`` on
+  :func:`parallel_attention`, :func:`parallel_mlp`,
+  :func:`transformer_layer`, :func:`transformer_block`,
+  :func:`gpt_embed`, :func:`gpt_hidden`, :func:`gpt_forward`,
+  :func:`gpt_loss` and :func:`bert_forward`): the params are this rank's
+  shards (:func:`shard_gpt_params` cuts them by
+  :func:`gpt_partition_specs`), the projections are the
+  ``tensor_parallel`` column / row linears, the embedding and the tied
+  head are vocab-parallel and the loss is ``vocab_parallel_cross_entropy``
+  over the vocab-sharded logits that ``gpt_forward`` then returns. With
+  ``GPTConfig.sequence_parallel`` the activations between the linears
+  are split along the sequence: scattered after the embedding, gathered
+  before the head, and the parameters that meet only this rank's rows
+  (the LayerNorms, ``proj_b``, ``fc2_b``) enter through the copy into
+  the tensor region, so their gradients are summed over the ranks in the
+  backward, as the JAX package's autodiff sums them. The fused qkv
+  weight is cut in contiguous ``3h / tp`` rows, which are whole heads
+  with their own q, k and v in the per-head ``[q, k, v]`` layout of the
+  split below. A rank is a process; the collectives run over the
+  ``parallel_state`` group of the axis (``tensor_parallel.mappings``).
 
-Not ported yet (ROADMAP.md): tensor, sequence and context parallelism
-(A6.4, A6.5). ``fp8_amax_reduction_axes`` names
-``transformer.parallel_state`` axes: each layer's x and w amaxes, and
-each projection's stacked gradient amaxes, are MAX-reduced over that
-group, one all-reduce a site, where the JAX package ``pmax``es. Hidden
+Not ported yet (ROADMAP.md): context parallelism (A6.5).
+``fp8_amax_reduction_axes`` names ``transformer.parallel_state`` axes:
+each layer's x and w amaxes, and each projection's stacked gradient
+amaxes, are MAX-reduced over that group, one all-reduce a site, where
+the JAX package ``pmax``es (under tensor parallelism with model
+parallelism initialised and no axes named, over the amax group). Hidden
 dropout of the unfused branch draws from an explicit ``torch.Generator``
 (JAX's ``bernoulli`` stream cannot be matched); attention dropout and
 the fused tails' hidden dropout are the kernels' hash, seeded from the
-same generator.
+same generator. Under tensor parallelism every rank draws the same seeds
+(the activations are replicated); under sequence parallelism the
+generator is forked by rank first
+(``tensor_parallel.model_parallel_rng_key``), as the JAX package folds
+the rank into its key.
 """
 from __future__ import annotations
 
@@ -92,14 +117,22 @@ from ...ops.layer_norm import LAYER_NORM_FWD, RMS_NORM_FWD, layer_norm
 from ...telemetry.numerics import tap
 from ..enums import AttnMaskType
 from ..functional.fused_softmax import FusedScaleMaskSoftmax
+from ..tensor_parallel import (
+    column_parallel_linear,
+    mappings,
+    model_parallel_rng_key,
+    row_parallel_linear,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embedding,
+)
 
 Params = Dict[str, Any]
 
 
 @dataclasses.dataclass
 class GPTConfig:
-    """Model config (the JAX ``GPTConfig``'s fields for one device, with
-    its defaults)."""
+    """Model config (the JAX ``GPTConfig``'s fields, with its defaults;
+    context parallelism waits for A6.5)."""
 
     num_layers: int = 4
     hidden_size: int = 64
@@ -112,6 +145,10 @@ class GPTConfig:
     attention_dropout: float = 0.1
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32  # bf16 for mixed precision
+    # the tensor group's size (checked against the group of the axis_name
+    # the functions are given) and Megatron's sequence parallelism
+    tensor_model_parallel_size: int = 1
+    sequence_parallel: bool = False
     apply_query_key_layer_scaling: bool = True
     attn_mask_type: AttnMaskType = AttnMaskType.causal
     # None | "full" | "selective" | "selective_elementwise" (see
@@ -209,6 +246,82 @@ def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
     return params
 
 
+def gpt_partition_specs(cfg: GPTConfig) -> Params:
+    """Which dim of each parameter is split over the ``tensor`` axis, or
+    None (replicated), in the tree of :func:`init_gpt_params`: the JAX
+    package's ``PartitionSpec`` tree as dims (``P(None, t, None)`` is
+    1). Column weights and biases are split along their output rows,
+    row weights along their input columns, the word embedding along the
+    vocab; the rest is replicated."""
+    specs = {
+        "embedding": {"word": 0, "position": None},
+        "layers": {
+            "input_ln_w": None, "input_ln_b": None,
+            "qkv_w": 1, "qkv_b": 1,
+            "proj_w": 2, "proj_b": None,
+            "post_ln_w": None, "post_ln_b": None,
+            "fc1_w": 1, "fc1_b": 1,
+            "fc2_w": 2, "fc2_b": None,
+        },
+        "final_ln_w": None, "final_ln_b": None,
+    }
+    if cfg.add_binary_head:
+        specs["binary_head"] = {"pooler_w": None, "pooler_b": None,
+                                "head_w": None, "head_b": None}
+    return specs
+
+
+def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
+                     tp: int) -> Params:
+    """Rank ``rank``'s shards of a full parameter tree over ``tp`` ranks,
+    cut by :func:`gpt_partition_specs` (contiguous copies; replicated
+    leaves are the caller's tensors)."""
+    specs = gpt_partition_specs(cfg)
+
+    def cut(t, dim):
+        if dim is None:
+            return t
+        if t.shape[dim] % tp != 0:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} is not "
+                             f"divisible by tp={tp}")
+        return t.chunk(tp, dim=dim)[rank].contiguous()
+
+    def walk(p, s):
+        if isinstance(p, dict):
+            return {k: walk(v, s[k]) for k, v in p.items()}
+        return cut(p, s)
+
+    return walk(params, specs)
+
+
+def _tp_world(cfg: GPTConfig, axis_name) -> int:
+    """The tensor group's size on ``axis_name`` (1 without one), checked
+    against ``cfg.tensor_model_parallel_size``."""
+    if axis_name is None:
+        return 1
+    world = mappings.axis_world(axis_name)[1]
+    if world != cfg.tensor_model_parallel_size:
+        raise ValueError(
+            f"GPTConfig.tensor_model_parallel_size="
+            f"{cfg.tensor_model_parallel_size} but the group of axis "
+            f"{axis_name!r} has {world} ranks")
+    return world
+
+
+def _sp(cfg: GPTConfig, axis_name) -> bool:
+    return axis_name is not None and cfg.sequence_parallel
+
+
+def _replicated(cfg: GPTConfig, t: torch.Tensor, axis_name) -> torch.Tensor:
+    """A replicated parameter that meets only this rank's sequence rows
+    under sequence parallelism enters through the copy into the tensor
+    region (identity forward, its gradient summed over the ranks
+    backward); anywhere else it is used as it is."""
+    if _sp(cfg, axis_name):
+        return mappings.copy_to_tensor_model_parallel_region(t, axis_name)
+    return t
+
+
 def ln_fp32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             eps: float) -> torch.Tensor:
     """LayerNorm on an fp32 copy (the training path normalises in fp32
@@ -236,22 +349,43 @@ def lm_head(h: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, word.shape[0])
 
 
+def _lm_head(cfg: GPTConfig, params: Params, hidden: torch.Tensor,
+             axis_name) -> torch.Tensor:
+    """The tied head over ``[s, b, h]`` -> fp32 logits ``[s, b, vocab]``,
+    under tensor parallelism over this rank's vocab rows: the replicated
+    hidden enters through the copy into the region (its partial gradients
+    all-reduced backward); under sequence parallelism the gather before
+    the head already sums them (its reduce-scatter), so no copy."""
+    if axis_name is not None and not cfg.sequence_parallel:
+        hidden = mappings.copy_to_tensor_model_parallel_region(hidden,
+                                                               axis_name)
+    return lm_head(hidden, params["embedding"]["word"])
+
+
 def gpt_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
-                fp8_states=None, fp8_carriers=None):
+                fp8_states=None, fp8_carriers=None, axis_name=None,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True):
     """Dense inference forward: ``tokens [b, s]`` -> fp32 logits
     ``[b, s, vocab]``. Deterministic (no dropout); causal attention
     with an fp32 softmax over all earlier positions.
 
-    With ``cfg.fp8`` (``fp8_states`` and ``fp8_carriers`` given, which
-    :func:`gpt_hidden` checks) the logits come from the training path,
-    as the JAX ``gpt_forward`` computes them (:func:`gpt_hidden`, then
-    the tied head), and ``(logits, new_fp8_states)`` is returned."""
-    if cfg.fp8 or fp8_states is not None:
-        hidden, new_fp8 = gpt_hidden(cfg, params, tokens,
-                                     fp8_states=fp8_states,
-                                     fp8_carriers=fp8_carriers)
-        return lm_head(hidden.transpose(0, 1),
-                       params["embedding"]["word"]), new_fp8
+    With ``axis_name`` (tensor parallelism), with ``cfg.fp8``
+    (``fp8_states`` and ``fp8_carriers`` given, which :func:`gpt_hidden`
+    checks) or with ``deterministic=False`` the logits come from the
+    training path, as the JAX ``gpt_forward`` computes them
+    (:func:`gpt_hidden`, then the tied head): under tensor parallelism
+    they are this rank's vocab shard ``[b, s, vocab / tp]``; with fp8
+    ``(logits, new_fp8_states)`` is returned."""
+    if cfg.fp8 or fp8_states is not None or axis_name is not None \
+            or not deterministic:
+        hidden = gpt_hidden(cfg, params, tokens, generator, deterministic,
+                            fp8_states, fp8_carriers, axis_name=axis_name)
+        new_fp8 = None
+        if fp8_states is not None:
+            hidden, new_fp8 = hidden
+        logits = _lm_head(cfg, params, hidden, axis_name).transpose(0, 1)
+        return logits if fp8_states is None else (logits, new_fp8)
     b, s = tokens.shape
     if s > cfg.max_position_embeddings:
         raise ValueError(
@@ -361,14 +495,41 @@ def _fp8_dense(cfg: GPTConfig, fp8, name: str, x: torch.Tensor,
     return y, new_state
 
 
+def _proj(cfg: GPTConfig, fp8, name: str, x: torch.Tensor,
+          w: torch.Tensor, b: Optional[torch.Tensor], axis_name,
+          column: bool):
+    """One projection of a layer -> ``(y, new fp8 state or None)``:
+    dense (:func:`linear`, or :func:`_fp8_dense` with ``fp8``) without
+    ``axis_name``; else the column-parallel (``column``) or row-parallel
+    linear over this rank's shard, sequence-parallel with
+    ``cfg.sequence_parallel``, fp8 with ``fp8``."""
+    if axis_name is None:
+        if fp8 is not None:
+            return _fp8_dense(cfg, fp8, name, x, w.to(x.dtype), b)
+        return linear(x, w, b), None
+    st, car = fp8[name] if fp8 is not None else (None, None)
+    fn = column_parallel_linear if column else row_parallel_linear
+    kw = dict(gather_output=False) if column else \
+        dict(input_is_parallel=True)
+    y, _, new = fn(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                   axis_name=axis_name,
+                   sequence_parallel_enabled=cfg.sequence_parallel,
+                   fp8_state=st, fp8_grad_carrier=car,
+                   fp8_amax_reduction_axes=cfg.fp8_amax_reduction_axes,
+                   fp8_margin=cfg.fp8_margin, **kw)
+    return y, new
+
+
 def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                        hidden: torch.Tensor,
                        attention_mask: Optional[torch.Tensor],
                        dropout_seed: Optional[int], deterministic: bool,
                        layer_number: Optional[int] = None,
-                       fuse_tail: bool = False, fp8=None):
-    """Self-attention on one device (the JAX ``parallel_attention``):
-    fused QKV GEMM, then flash attention or, with
+                       fuse_tail: bool = False, fp8=None, axis_name=None):
+    """Self-attention (the JAX ``parallel_attention``): fused QKV GEMM
+    (column-parallel over this rank's heads with ``axis_name``, whose
+    ``3h / tp`` rows are whole heads in the per-head ``[q, k, v]``
+    layout), then flash attention or, with
     ``use_flash_attention=False`` or where flash does not apply (the
     configuration, or with ``None`` a head dim the device's flash kernels
     do not take: ``flash_attention_available``), the scores through
@@ -376,17 +537,17 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     cannot run raises ``ValueError``.
     ``fuse_tail`` leaves ``proj_b`` to the caller's fused tail. With
     ``fp8`` (``{name: (Fp8DenseState, carrier)}`` for qkv and proj) the
-    projections run the fp8 recipe and ``(out, new_fp8)`` is returned."""
-    s, b, _ = hidden.shape
-    n, hn = cfg.num_attention_heads, cfg.kv_channels
-    new_fp8 = None
-    if fp8 is not None:
-        new_fp8 = {}
-        qkv, new_fp8["qkv"] = _fp8_dense(
-            cfg, fp8, "qkv", hidden, lp["qkv_w"].to(hidden.dtype),
-            lp["qkv_b"])
-    else:
-        qkv = linear(hidden, lp["qkv_w"], lp["qkv_b"])
+    projections run the fp8 recipe and ``(out, new_fp8)`` is returned.
+    The output projection is row-parallel with ``axis_name``."""
+    b = hidden.shape[1]
+    n = cfg.num_attention_heads // _tp_world(cfg, axis_name)
+    hn = cfg.kv_channels
+    qkv, state = _proj(cfg, fp8, "qkv", hidden, lp["qkv_w"], lp["qkv_b"],
+                       axis_name, column=True)
+    new_fp8 = None if fp8 is None else {"qkv": state}
+    # under sequence parallelism the column-parallel QKV gathered the
+    # [s/tp] rows back to the whole sequence
+    s = qkv.shape[0]
     qkv = qkv.reshape(s, b, n, 3 * hn)
     q, k, v = qkv.split(hn, dim=-1)  # [s, b, n, hn]
     qk_scaling = (cfg.apply_query_key_layer_scaling
@@ -423,7 +584,7 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                                  layer_number if qk_scaling else None,
                                  dropout_seed, deterministic)
         return _attn_out_proj(cfg, lp, ctx.to(hidden.dtype), fuse_tail,
-                              fp8, new_fp8)
+                              fp8, new_fp8, axis_name)
     p = 0.0 if deterministic or dropout_seed is None \
         else float(cfg.attention_dropout)
     flash_kw = dict(dropout_p=p, dropout_seed=dropout_seed) if p > 0.0 \
@@ -431,7 +592,7 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     ctx = flash_attention_sbhd(q, k, v, causal=causal, kv_mask=kv_mask,
                                scale=1.0 / (hn ** 0.5), **flash_kw)
     ctx = ctx.to(hidden.dtype).reshape(s, b, n * hn)
-    return _attn_out_proj(cfg, lp, ctx, fuse_tail, fp8, new_fp8)
+    return _attn_out_proj(cfg, lp, ctx, fuse_tail, fp8, new_fp8, axis_name)
 
 
 def _softmax_attention(cfg: GPTConfig, q: torch.Tensor, k: torch.Tensor,
@@ -488,52 +649,49 @@ def _softmax_attention(cfg: GPTConfig, q: torch.Tensor, k: torch.Tensor,
 
 def _attn_out_proj(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                    ctx: torch.Tensor, fuse_tail: bool = False, fp8=None,
-                   new_fp8=None):
-    """Attention output projection (dense); ``fuse_tail`` omits
-    ``proj_b``, which rides the caller's fused tail. With ``fp8`` the
-    projection runs the fp8 recipe and ``(out, new_fp8)`` is returned,
-    carrying the rolled qkv and proj states."""
+                   new_fp8=None, axis_name=None):
+    """Attention output projection (dense, or row-parallel with
+    ``axis_name``); ``fuse_tail`` omits ``proj_b``, which rides the
+    caller's fused tail. With ``fp8`` the projection runs the fp8 recipe
+    and ``(out, new_fp8)`` is returned, carrying the rolled qkv and proj
+    states."""
     bias = None if fuse_tail else lp["proj_b"]
+    out, state = _proj(cfg, fp8, "proj", ctx, lp["proj_w"], bias, axis_name,
+                       column=False)
     if fp8 is not None:
-        out, new_fp8["proj"] = _fp8_dense(
-            cfg, fp8, "proj", ctx, lp["proj_w"].to(ctx.dtype), bias)
+        new_fp8["proj"] = state
         return out, new_fp8
-    return linear(ctx, lp["proj_w"], bias)
+    return out
 
 
 def parallel_mlp(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
-                 hidden: torch.Tensor, fuse_tail: bool = False, fp8=None):
+                 hidden: torch.Tensor, fuse_tail: bool = False, fp8=None,
+                 axis_name=None):
     """h -> 4h GEMM + bias, tanh GeLU, 4h -> h GEMM + bias (the JAX
-    ``parallel_mlp``). ``fuse_tail`` is the fused-block MLP: fc1 runs
-    bias-free and :func:`bias_gelu` adds its bias, fc2 runs bias-free
-    and the caller fuses ``fc2_b`` into its tail. With ``fp8`` (fc1 and
-    fc2's states and carriers) both GEMMs run the fp8 recipe and
-    ``(out, new_fp8)`` is returned."""
-    if fp8 is not None:
-        new_fp8 = {}
-        inter, new_fp8["fc1"] = _fp8_dense(
-            cfg, fp8, "fc1", hidden, lp["fc1_w"].to(hidden.dtype),
-            None if fuse_tail else lp["fc1_b"])
-        inter = (bias_gelu(inter, lp["fc1_b"].to(inter.dtype)) if fuse_tail
-                 else F.gelu(inter, approximate="tanh"))
-        out, new_fp8["fc2"] = _fp8_dense(
-            cfg, fp8, "fc2", inter, lp["fc2_w"].to(inter.dtype),
-            None if fuse_tail else lp["fc2_b"])
-        return out, new_fp8
-    if fuse_tail:
-        inter = linear(hidden, lp["fc1_w"], None)
-        inter = bias_gelu(inter, lp["fc1_b"].to(inter.dtype))
-        return linear(inter, lp["fc2_w"], None)
-    inter = F.gelu(linear(hidden, lp["fc1_w"], lp["fc1_b"]),
-                   approximate="tanh")
-    return linear(inter, lp["fc2_w"], lp["fc2_b"])
+    ``parallel_mlp``; with ``axis_name`` the column-parallel fc1 over
+    this rank's ``4h / tp`` columns and the row-parallel fc2).
+    ``fuse_tail`` is the fused-block MLP: fc1 runs bias-free and
+    :func:`bias_gelu` adds its bias (the ``fused_dense`` GEMM + bias +
+    GeLU shape), fc2 runs bias-free and the caller fuses ``fc2_b`` into
+    its tail. With ``fp8`` (fc1 and fc2's states and carriers) both GEMMs
+    run the fp8 recipe and ``(out, new_fp8)`` is returned."""
+    inter, st1 = _proj(cfg, fp8, "fc1", hidden, lp["fc1_w"],
+                       None if fuse_tail else lp["fc1_b"], axis_name,
+                       column=True)
+    inter = (bias_gelu(inter, lp["fc1_b"].to(inter.dtype)) if fuse_tail
+             else F.gelu(inter, approximate="tanh"))
+    out, st2 = _proj(cfg, fp8, "fc2", inter, lp["fc2_w"],
+                     None if fuse_tail else lp["fc2_b"], axis_name,
+                     column=False)
+    return out if fp8 is None else (out, {"fc1": st1, "fc2": st2})
 
 
 def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                       hidden: torch.Tensor,
                       attention_mask: Optional[torch.Tensor],
                       seeds: Optional[tuple], deterministic: bool,
-                      layer_number: Optional[int] = None, fp8_l=None):
+                      layer_number: Optional[int] = None, fp8_l=None,
+                      axis_name=None):
     """Pre-LN transformer layer: LayerNorm on an fp32 copy, attention,
     dropout + residual, LayerNorm, MLP, dropout + residual. ``seeds`` =
     (attention, attention-residual, MLP-residual) dropout seeds, or None.
@@ -546,14 +704,28 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     :func:`residual_add_layer_norm` (proj bias + hash dropout + residual
     + the MLP's pre-LN), the MLP tail :func:`bias_dropout_residual`; the
     tails' seeds come from ``seeds``, so a recomputed layer regenerates
-    the same masks."""
+    the same masks.
+
+    With ``axis_name`` the projections are tensor-parallel over this
+    rank's shards of ``lp``; under sequence parallelism ``hidden`` is this
+    rank's ``[s / tp, b, h]`` rows and the norms' parameters enter
+    through the copy into the tensor region, and so do ``proj_b`` and
+    ``fc2_b`` where the fused tails add them (the row-parallel linear
+    does it for the biases it adds)."""
     dt = hidden.dtype
     eps = cfg.layernorm_epsilon
     s_attn, s_res1, s_res2 = seeds if seeds is not None else (None,) * 3
+    if _sp(cfg, axis_name):
+        lp = dict(lp)
+        names = ("input_ln_w", "input_ln_b", "post_ln_w", "post_ln_b") + (
+            ("proj_b", "fc2_b") if cfg.fused_block else ())
+        for k in names:
+            lp[k] = _replicated(cfg, lp[k], axis_name)
     ln1 = ln_fp32(hidden, lp["input_ln_w"], lp["input_ln_b"], eps).to(dt)
     attn = parallel_attention(cfg, lp, ln1, attention_mask, s_attn,
                               deterministic, layer_number,
-                              fuse_tail=cfg.fused_block, fp8=fp8_l)
+                              fuse_tail=cfg.fused_block, fp8=fp8_l,
+                              axis_name=axis_name)
     new_fp8 = {}
     if fp8_l is not None:
         attn, attn_fp8 = attn
@@ -570,7 +742,7 @@ def transformer_layer(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                                     deterministic)).to(dt)
         ln2 = ln_fp32(hidden, lp["post_ln_w"], lp["post_ln_b"], eps).to(dt)
     mlp_out = parallel_mlp(cfg, lp, ln2, fuse_tail=cfg.fused_block,
-                           fp8=fp8_l)
+                           fp8=fp8_l, axis_name=axis_name)
     if fp8_l is not None:
         mlp_out, mlp_fp8 = mlp_out
         new_fp8.update(mlp_fp8)
@@ -648,7 +820,7 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
                       attention_mask: Optional[torch.Tensor],
                       layer_seeds: Optional[list] = None,
                       deterministic: bool = True, fp8_states=None,
-                      fp8_carriers=None):
+                      fp8_carriers=None, axis_name=None):
     """The stacked ``[L, ...]`` layers in a Python loop (the JAX
     ``lax.scan``). The stacks are unbound once, so the backward stacks
     the per-layer gradients in one copy. ``recompute_granularity="full"``
@@ -664,7 +836,8 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
     With ``fp8_states`` (``{name: Fp8DenseState [L, ...]}``) and
     ``fp8_carriers`` (``{name: [L]}``) each layer takes its row of both
     and ``(hidden, new_fp8_states)`` is returned, the rolled states
-    stacked again."""
+    stacked again. ``axis_name``: tensor parallelism over this rank's
+    shards (:func:`transformer_layer`)."""
     rg = cfg.recompute_granularity
     if rg not in (None, "full", "selective", "selective_elementwise"):
         raise ValueError(
@@ -686,7 +859,7 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
         def run(h, *vals, seeds=seeds, l=l, fp8_l=fp8_l):
             return transformer_layer(cfg, dict(zip(keys, vals)), h,
                                      attention_mask, seeds, deterministic,
-                                     l + 1, fp8_l=fp8_l)
+                                     l + 1, fp8_l=fp8_l, axis_name=axis_name)
 
         vals = [st[l] for st in stacks]
         if rg is None:
@@ -721,29 +894,40 @@ def _local_position_ids(cfg: GPTConfig, s_loc: int,
 def gpt_embed(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
               position_ids: Optional[torch.Tensor] = None,
               dropout_seed: Optional[int] = None,
-              deterministic: bool = True) -> torch.Tensor:
-    """Word + position embeddings -> ``[s, b, h]`` in compute_dtype."""
+              deterministic: bool = True, axis_name=None) -> torch.Tensor:
+    """Word + position embeddings -> ``[s, b, h]`` in compute_dtype.
+    With ``axis_name`` the word embedding is vocab-parallel over this
+    rank's rows; under sequence parallelism the result is then cut to
+    this rank's ``[s / tp]`` rows, which the dropout acts on."""
     b, s = tokens.shape
     if position_ids is None:
         position_ids = _local_position_ids(
             cfg, s, tokens.device).expand(b, s)
-    word = F.embedding(tokens.long(), params["embedding"]["word"])
+    if axis_name is not None:
+        word = vocab_parallel_embedding(tokens, params["embedding"]["word"],
+                                        axis_name=axis_name)
+    else:
+        word = F.embedding(tokens.long(), params["embedding"]["word"])
     pos = F.embedding(position_ids.long(), params["embedding"]["position"])
     emb = (word + pos).to(cfg.compute_dtype).transpose(0, 1).contiguous()
+    if _sp(cfg, axis_name):
+        emb = mappings.scatter_to_sequence_parallel_region(emb, axis_name)
     return _dropout(emb, cfg.hidden_dropout, dropout_seed, deterministic)
 
 
 def gpt_hidden(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                deterministic: bool = True, fp8_states=None,
-               fp8_carriers=None):
+               fp8_carriers=None, axis_name=None):
     """GPT trunk -> pre-head hidden states ``[s, b, h]`` in
     compute_dtype: embeddings, the layer stack, the final LayerNorm.
     Dropout (when not ``deterministic``) draws its seeds from
     ``generator``. With ``fp8_states`` and ``fp8_carriers`` the
     projection GEMMs run the e4m3 / e5m2 recipe and ``(hidden,
     new_fp8_states)`` is returned; ``cfg.fp8`` and the states must
-    agree."""
+    agree. With ``axis_name`` the trunk is tensor-parallel over this
+    rank's shards and the hidden states come out whole on every rank
+    (under sequence parallelism gathered along the sequence)."""
     if bool(cfg.fp8) != (fp8_states is not None):
         raise ValueError(
             "GPTConfig.fp8 and the fp8_states argument must agree: the "
@@ -752,61 +936,86 @@ def gpt_hidden(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
             "don't pass states to a non-fp8 config. (The flag alone "
             "cannot run fp8: delayed scaling is stateful.)")
     return _trunk(cfg, params, tokens, None, generator, deterministic,
-                  fp8_states, fp8_carriers)
+                  fp8_states, fp8_carriers, axis_name)
 
 
 def _trunk(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
            attention_mask: Optional[torch.Tensor],
            generator: Optional[torch.Generator],
-           deterministic: bool, fp8_states=None, fp8_carriers=None):
+           deterministic: bool, fp8_states=None, fp8_carriers=None,
+           axis_name=None):
     """Embeddings, the layer stack under ``attention_mask``, the final
     LayerNorm -> ``[s, b, h]`` in compute_dtype (and the rolled fp8
     states with ``fp8_states``); dropout seeds (one for the embeddings,
-    three per layer) drawn from ``generator``."""
+    three per layer) drawn from ``generator``, forked by rank first under
+    sequence parallelism. Under sequence parallelism the normalised rows
+    are gathered along the sequence at the end (reduce-scatter
+    backward)."""
+    _tp_world(cfg, axis_name)
+    sp = _sp(cfg, axis_name)
     embed_seed = layer_seeds = None
     if generator is not None and not deterministic:
+        if sp:
+            generator = model_parallel_rng_key(generator, axis_name)
         embed_seed = _draw_seed(generator)
         layer_seeds = [tuple(_draw_seed(generator) for _ in range(3))
                        for _ in range(cfg.num_layers)]
-    hidden = gpt_embed(cfg, params, tokens, None, embed_seed, deterministic)
+    hidden = gpt_embed(cfg, params, tokens, None, embed_seed, deterministic,
+                       axis_name)
     hidden = transformer_block(cfg, params["layers"], hidden,
                                attention_mask, layer_seeds, deterministic,
-                               fp8_states, fp8_carriers)
+                               fp8_states, fp8_carriers, axis_name)
     new_fp8 = None
     if fp8_states is not None:
         hidden, new_fp8 = hidden
-    hidden = ln_fp32(hidden, params["final_ln_w"], params["final_ln_b"],
+    hidden = ln_fp32(hidden,
+                     _replicated(cfg, params["final_ln_w"], axis_name),
+                     _replicated(cfg, params["final_ln_b"], axis_name),
                      cfg.layernorm_epsilon).to(cfg.compute_dtype)
+    if sp:
+        hidden = mappings.gather_from_sequence_parallel_region(hidden,
+                                                               axis_name)
     return hidden if fp8_states is None else (hidden, new_fp8)
 
 
 def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
              labels: torch.Tensor, loss_mask: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
-             deterministic: bool = True, fp8_states=None, fp8_carriers=None):
-    """Masked mean LM loss, single device: the head GEMM and the cross
+             deterministic: bool = True, fp8_states=None, fp8_carriers=None,
+             axis_name=None):
+    """Masked mean LM loss. Single device: the head GEMM and the cross
     entropy chunk-fused (``contrib.xentropy.lm_head_cross_entropy``),
     rows in ``[s, b]`` order, the chunk the largest divisor of ``s * b``
-    that is at most 2048.
+    that is at most 2048. With ``axis_name`` (tensor parallelism): the
+    vocab-sharded logits of :func:`gpt_forward` through
+    ``vocab_parallel_cross_entropy``; the loss is the same on every rank.
 
     With ``fp8_states`` and ``fp8_carriers`` (:func:`init_gpt_fp8_states`,
     :func:`init_gpt_fp8_carriers`) the layer projections run the fp8
     recipe and ``(loss, new_fp8_states)`` is returned: differentiate
     with respect to the params and the carriers, then fold the carriers'
     gradients in with :func:`record_gpt_grad_amaxes`."""
-    hidden = gpt_hidden(cfg, params, tokens, generator, deterministic,
-                        fp8_states, fp8_carriers)
     new_fp8 = None
-    if fp8_states is not None:
-        hidden, new_fp8 = hidden
-    s, b, h = hidden.shape
-    n = s * b
-    chunk = next(c for c in range(min(2048, n), 0, -1) if n % c == 0)
-    losses = lm_head_cross_entropy(
-        hidden.reshape(n, h), params["embedding"]["word"],
-        labels.transpose(0, 1).reshape(n), chunk_size=chunk,
-        save_logits_dtype=cfg.compute_dtype if cfg.ce_save_logits
-        else None).reshape(s, b).transpose(0, 1)  # [b, s]
+    if axis_name is not None:
+        logits = gpt_forward(cfg, params, tokens, fp8_states, fp8_carriers,
+                             axis_name, generator, deterministic)
+        if fp8_states is not None:
+            logits, new_fp8 = logits
+        losses = vocab_parallel_cross_entropy(logits, labels, 0.0,
+                                              axis_name)
+    else:
+        hidden = gpt_hidden(cfg, params, tokens, generator, deterministic,
+                            fp8_states, fp8_carriers)
+        if fp8_states is not None:
+            hidden, new_fp8 = hidden
+        s, b, h = hidden.shape
+        n = s * b
+        chunk = next(c for c in range(min(2048, n), 0, -1) if n % c == 0)
+        losses = lm_head_cross_entropy(
+            hidden.reshape(n, h), params["embedding"]["word"],
+            labels.transpose(0, 1).reshape(n), chunk_size=chunk,
+            save_logits_dtype=cfg.compute_dtype if cfg.ce_save_logits
+            else None).reshape(s, b).transpose(0, 1)  # [b, s]
     if loss_mask is None:
         loss = losses.mean()
     else:
@@ -822,7 +1031,7 @@ def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
 def bert_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
                  padding_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 deterministic: bool = True):
+                 deterministic: bool = True, axis_name=None):
     """BERT-style bidirectional encoder (the JAX ``bert_forward``):
     ``tokens [b, s]`` and ``padding_mask [b, s]`` (1 = real token,
     default all real) -> ``(lm_logits [b, s, vocab] fp32, binary_logits
@@ -831,7 +1040,8 @@ def bert_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
     flash attention takes as its key mask and the softmax path as its
     mask; then the final LayerNorm, the tied head with fp32 logits and,
     with ``cfg.add_binary_head``, the tanh pooler over the first token
-    and the binary head."""
+    and the binary head. With ``axis_name`` the encoder is
+    tensor-parallel and the MLM logits are this rank's vocab shard."""
     b, s = tokens.shape
     if padding_mask is None:
         padding_mask = torch.ones((b, s), dtype=torch.int32,
@@ -839,9 +1049,9 @@ def bert_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
     attn_mask = (padding_mask[:, None, None, :] == 0).to(torch.int8)
     cfg_pad = dataclasses.replace(cfg, attn_mask_type=AttnMaskType.padding)
     hidden = _trunk(cfg_pad, params, tokens, attn_mask, generator,
-                    deterministic)
+                    deterministic, axis_name=axis_name)
     # the head reads [b, s, h] rows, so the logits come out [b, s, v]
-    lm_logits = lm_head(hidden.transpose(0, 1), params["embedding"]["word"])
+    lm_logits = _lm_head(cfg, params, hidden.transpose(0, 1), axis_name)
     binary_logits = None
     if cfg.add_binary_head and "binary_head" in params:
         bh = params["binary_head"]

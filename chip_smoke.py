@@ -265,12 +265,36 @@ any failure exits non-zero and prints no result line:
    gates; (e) ``LARC(FusedSGD)`` over the ResNet-50 tree, step ms, card
    against CPU; (f) the simple DDP example's CLI, 50 steps, its loss
    falling; a ``{"phase13": [...]}`` line of the legs;
-14. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+14. tensor and sequence parallelism (A6.4) and the two single-device
+   examples (A5.7.1) (``tp_phase``), on two transports of the one card:
+   (a) NCCL at world 1 over a ``file://`` store (the collectives' path
+   and cost): the 345M unfused step (batch 8, bf16 over fp32 masters,
+   packed FusedAdam) through ``axis_name="tensor"``, 3 steps, its losses
+   against the dense step's within phase 5's bf16 loss parity, p50, peak,
+   the collectives a step; (b)-(d) gloo worlds of 2 and 8 processes that
+   share the card (NCCL refuses two ranks on one device: the kernels run
+   at the shard shapes, the collectives travel through the host), after
+   a probe of which collectives gloo takes on CUDA tensors: (b) TP 2, the
+   345M fused at batch 4 with sequence parallelism off and, where gloo
+   takes its collectives, on: one step a rank on ``shard_gpt_params``'
+   shards, the loss equal on both ranks, the loss and five leaves'
+   gathered gradients against the dense fused step on the card; (c)
+   BASELINE config #4, TP 8 with the fused tails and packed FusedAdam on
+   each shard, 2 + 3 steps: the loss falling and equal on every rank,
+   p50, every rank's peak, the collectives a step, rank 0's profiled
+   step and its kernels' device time a launch beside their bounds at the
+   shard shapes; (d) the microbatch calculator driving (b)'s step over 4
+   microbatches through ``accumulate_main_grads``, the fp32
+   ``main_grad`` against the one-batch gradient; (e) the ``fp8_training``
+   and ``dcgan`` examples' CLIs, 20 steps each; a ``{"phase14": [...]}``
+   line of the legs;
+15. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
    main path (flash attention's also over phase 8's legs, the norms',
-   flash's and packed Adam's also over phases 10, 12 and 13's 345M
-   steps, bias-GeLU's also over ``fused_dense_gelu_dense``, packed Adam's,
+   flash's and packed Adam's also over phases 10, 12, 13 and 14's 345M
+   steps (phase 14's on every rank), the fused tails' also over phase
+   14's fused steps, bias-GeLU's also over ``fused_dense_gelu_dense``, packed Adam's,
    the row statistics', the row reduce's and the flat scale's and axpby's
    also over phase 12's applier, the row reduce's and the flat scale's
    over phase 13's clipped DDP step, packed SGD's over phase 13's (c))
@@ -431,6 +455,10 @@ from apex_tpu_torch.transformer.functional import (
     fused_apply_rotary_pos_emb_cached,
     fused_apply_rotary_pos_emb_thd,
 )
+from apex_tpu_torch.transformer.microbatches import (
+    build_num_microbatches_calculator,
+)
+from apex_tpu_torch.transformer.tensor_parallel import accumulate_main_grads
 from apex_tpu_torch.transformer.testing import (
     FP8_GEMM_NAMES,
     GPTConfig,
@@ -438,10 +466,12 @@ from apex_tpu_torch.transformer.testing import (
     gpt_forward,
     gpt_loss,
     gpt_model_provider,
+    gpt_partition_specs,
     init_gpt_fp8_carriers,
     init_gpt_fp8_states,
     init_gpt_params,
     record_gpt_grad_amaxes,
+    shard_gpt_params,
 )
 
 # the modules (the package re-exports functions of the same names)
@@ -7660,6 +7690,603 @@ def ddp_phase(dev, o2_p50):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor and sequence parallelism (A6.4): the 345M through the
+# tensor-parallel path at TP 1 on NCCL, at TP 2 and TP 8 (BASELINE config
+# #4) in gloo worlds whose ranks share the card, the microbatch calculator
+# over accumulate_main_grads, and the two single-device examples (A5.7.1)
+# ---------------------------------------------------------------------------
+
+#: the 345M of phase 14: 24 x 1024, 16 heads, vocab 50304, seq 1024
+P14_LAYERS, P14_SEQ, P14_VOCAB = 24, 1024, 50304
+#: leg (a)'s batch (phase 5's), leg (b)'s and (d)'s, config #4's
+P14_BATCH_A, P14_BATCH_B, P14_BATCH_C = 8, 4, 8
+#: leg (b)'s gradients held against the dense fused step (gathered from
+#: the ranks, shard for shard)
+P14_GRAD_LEAVES = ("layers/qkv_w", "layers/fc2_w", "layers/input_ln_w",
+                   "layers/post_ln_b", "embedding/word")
+#: the collectives the mappings use, counted a step
+P14_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                   "reduce_scatter_tensor")
+#: kernel -> the profiler names of its launches, for the device time a
+#: launch at the shard shapes (config #4's profiled step)
+P14_MATCH = {"layer_norm_fwd": ("::ln_fwd_",),
+             "layer_norm_bwd": ("norm_bwd_",),
+             "flash_attn_fwd": ("flash_fwd_tc_kernel",),
+             "flash_attn_bwd": ("flash_bwd_dq_tc_kernel",
+                                "flash_bwd_dkv_tc_kernel"),
+             "bias_gelu_fwd": ("bias_gelu_fwd_kernel",),
+             "bias_gelu_bwd": ("bias_gelu_bwd_kernel",),
+             "bias_dropout_residual_fwd": ("bdr_fwd_kernel",),
+             "bias_dropout_residual_bwd": ("bdr_bwd_kernel",),
+             "residual_ln_fwd": ("raln_fwd_kernel",),
+             "residual_ln_bwd": ("raln_bwd_kernel",),
+             "packed_adam": ("packed_adam_kernel",)}
+#: the kernels each leg's steps must launch: the unfused step's (a) and
+#: the fused step's (b), (c)
+P14_UNFUSED_KERNELS = TRAIN_KERNELS
+P14_FUSED_KERNELS = TRAIN_KERNELS + FUSED_KERNELS
+
+
+def p14_cfg(**kw) -> GPTConfig:
+    return GPTConfig(num_layers=P14_LAYERS, hidden_size=HIDDEN,
+                     num_attention_heads=N_HEADS, vocab_size=P14_VOCAB,
+                     max_position_embeddings=P14_SEQ, hidden_dropout=0.0,
+                     attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                     **kw)
+
+
+def p14_model(cfg, dev, batch):
+    """The 345M's bf16 params (seed 0, drawn on the card: the same on
+    every rank) and a batch of tokens (seed 1) with their next-token
+    labels."""
+    params = tree_map(lambda p: p.to(torch.bfloat16), init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, P14_SEQ), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    return params, tokens, torch.roll(tokens, -1, dims=1)
+
+
+@contextlib.contextmanager
+def counted_collectives(counts):
+    """Count the calls of each of ``P14_COLLECTIVES`` into ``counts``."""
+    dist = torch.distributed
+    real = {n: getattr(dist, n) for n in P14_COLLECTIVES}
+
+    def wrap(name):
+        def counted(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return real[name](*a, **k)
+        return counted
+    for name in P14_COLLECTIVES:
+        setattr(dist, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _p14_steps(cfg, params, tokens, labels, axis_name, n):
+    """``n`` steps of ``gpt_loss`` (``axis_name`` None: the dense chunked
+    loss) with packed FusedAdam(lr 1e-4, fp32 masters): the losses, the
+    step ms, the collectives of each step, the launches of the steps."""
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    state = opt.init(params)
+    step = train_step_fn(lambda p: gpt_loss(cfg, p, tokens, labels,
+                                            axis_name=axis_name), opt)
+    losses, times, per_step = [], [], []
+    _device.reset_launch_counts()
+    for _ in range(n):
+        counts = {}
+        with counted_collectives(counts):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append(counts)
+    return {"losses": losses, "times": times, "collectives": per_step,
+            "launches": _device.launch_counts()}
+
+
+def tp1_leg(dev, rows, launches, tmp):
+    """(a) TP 1 on NCCL at world 1 over a ``file://`` store: the 345M
+    unfused step (batch 8, bf16 over fp32 masters, packed FusedAdam)
+    through ``axis_name="tensor"`` for 3 steps, its losses against the
+    dense step's from the same seeds within phase 5's bf16 loss parity
+    (at TP 1 only the loss differs: vocab-parallel cross entropy over the
+    whole fp32 logits against the chunk-fused one); p50, peak, the
+    collectives a step."""
+    dist = torch.distributed
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store14",
+                            world_size=1, rank=0)
+    try:
+        parallel_state.initialize_model_parallel(1)
+        cfg = p14_cfg(tensor_model_parallel_size=1)
+        dense = _p14_steps(cfg, *p14_model(cfg, dev, P14_BATCH_A), None, 3)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tp = _p14_steps(cfg, *p14_model(cfg, dev, P14_BATCH_A), "tensor", 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    for k, c in tp["launches"].items():
+        launches[k] = launches.get(k, 0) + c
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tp["losses"],
+                                                  dense["losses"]))
+    p50 = float(np.percentile(tp["times"], 50))
+    d50 = float(np.percentile(dense["times"], 50))
+    log(f"  (a) TP 1 on NCCL world 1, 345M unfused batch {P14_BATCH_A}: "
+        f"losses {tp['losses']} against dense {dense['losses']} (max rel "
+        f"{rel:.2e}); step p50 {p50:.2f} ms (dense {d50:.2f}), steps "
+        f"{[round(t, 2) for t in tp['times']]}; peak {peak:.2f} GiB; "
+        f"collectives a step {tp['collectives'][-1]}; launches "
+        f"{({k: v for k, v in tp['launches'].items() if v})}")
+    if rel > PARITY_TOL[torch.bfloat16][0]:
+        raise AssertionError(f"TP 1 losses differ from the dense step's: "
+                             f"{rel:.3e}")
+    # from these seeds the loss first falls below ln(vocab) and overshoots
+    # at the third step on every 345M leg (phase 5's curves), so 3 steps
+    # are held to finite values and to the dense step's losses
+    if not all(np.isfinite(tp["losses"])):
+        raise AssertionError(f"TP 1 losses: {tp['losses']}")
+    for name in P14_UNFUSED_KERNELS:
+        if tp["launches"][name] <= 0:
+            raise AssertionError(f"{name} did not launch on the TP 1 leg")
+    rows.append({"leg": "a tp1 nccl", "losses": tp["losses"],
+                 "dense_losses": dense["losses"], "max_rel": rel,
+                 "step_ms": tp["times"], "p50_ms": p50, "dense_p50_ms": d50,
+                 "peak_gib": peak, "collectives_per_step":
+                 tp["collectives"][-1]})
+
+
+def _gather_leaf(tree, key):
+    node = tree
+    for part in key.split("/"):
+        node = node[part]
+    return node
+
+
+def _gloo_probe(dev):
+    """Which of the mappings' collectives gloo takes on CUDA tensors:
+    ``{name: "ok" or the error}`` (a probe of the transport, run once
+    before the legs; the legs then use only what it took)."""
+    dist = torch.distributed
+    world = dist.get_world_size()
+    x = torch.ones(4, 8, device=dev, dtype=torch.bfloat16)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty(4 * world, 8), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(4 // world if 4 % world == 0 else 1, 8),
+            x if 4 % world == 0 else x.new_ones(world, 8)),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the probe's answer, not a failed leg
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def p14_worker(rank: int, world: int, store: str, out: str, spec: str):
+    """One rank of a gloo world on the card (legs (b)-(d)); writes
+    ``rank<r>.json`` (and ``rank<r>_<label>.pt``, the gradients of
+    ``P14_GRAD_LEAVES``) into ``out``."""
+    spec = json.loads(spec)
+    dist = torch.distributed
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    res = {"rank": rank, "probe": _gloo_probe(dev), "runs": {}}
+    try:
+        _build.kernels()
+        tpn = spec["tp"]
+        parallel_state.initialize_model_parallel(tpn)
+        r = parallel_state.get_tensor_model_parallel_rank()
+        sp_ok = all(res["probe"][n] == "ok" for n in P14_COLLECTIVES)
+        for label, kw, steps in spec["runs"]:
+            if kw.get("sequence_parallel") and not sp_ok:
+                continue
+            cfg = p14_cfg(tensor_model_parallel_size=tpn, fused_block=True,
+                          **kw)
+            params, tokens, labels = p14_model(cfg, dev, spec["batch"])
+            shard = shard_gpt_params(params, cfg, r, tpn)
+            del params
+            opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+            state = opt.init(shard)
+
+            def loss_fn(p):
+                return gpt_loss(cfg, p, tokens, labels, axis_name="tensor")
+            run = {"losses": [], "step_ms": [], "collectives": []}
+            box = {"one": None}
+
+            def one_step(i):
+                """Gradients (the first step's saved and kept with
+                ``save_grads``), then the optimizer's step on the shard."""
+                loss, grads = value_and_grad(loss_fn, box["shard"])
+                if i == 0 and spec.get("save_grads"):
+                    torch.save({k: _gather_leaf(grads, k).float().cpu()
+                                for k in P14_GRAD_LEAVES},
+                               f"{out}/rank{rank}_{label}.pt")
+                    box["one"] = grads
+                box["shard"], box["state"] = opt.step(grads, box["state"],
+                                                      box["shard"])
+                box["loss"] = loss
+            box["shard"], box["state"] = shard, state
+            del shard, state
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(steps):
+                if i == spec["warm"]:
+                    _device.reset_launch_counts()
+                counts = {}
+                with counted_collectives(counts):
+                    t0 = time.perf_counter()
+                    if i == spec.get("profile_step") and rank == 0:
+                        # a warm-up step, before the counted ones
+                        prof = profiled(lambda: one_step(i),
+                                        "config #4 rank 0 step", 14)
+                        run["profile"] = {
+                            "wall_ms": prof["wall_ms"],
+                            "busy_ms": prof["busy_ms"],
+                            "rows": prof["rows"][:14],
+                            "kernels": {k: [
+                                sum(n for key, (n, _) in prof["ops"].items()
+                                    if any(m in key for m in ms)),
+                                sum(t for key, (_, t) in prof["ops"].items()
+                                    if any(m in key for m in ms))]
+                                for k, ms in P14_MATCH.items()}}
+                    else:
+                        one_step(i)
+                    torch.cuda.synchronize()
+                    run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                run["losses"].append(float(box["loss"]))
+                run["collectives"].append(counts)
+            run["launches"] = {k: v for k, v in
+                               _device.launch_counts().items() if v}
+            run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if spec.get("microbatches") and not kw.get("sequence_parallel"):
+                run["micro"] = _p14_microbatches(cfg, shard_of_start(
+                    cfg, dev, spec["batch"], r, tpn), tokens, labels,
+                    box["one"], spec["batch"])
+            res["runs"][label] = run
+            del box, opt
+            torch.cuda.empty_cache()
+        if spec.get("dense") and rank == 0:
+            cfg = p14_cfg(fused_block=True)
+            params, tokens, labels = p14_model(cfg, dev, spec["batch"])
+            loss, grads = value_and_grad(
+                lambda p: gpt_loss(cfg, p, tokens, labels), params)
+            torch.save({k: _gather_leaf(grads, k).float().cpu()
+                        for k in P14_GRAD_LEAVES}, f"{out}/dense.pt")
+            res["dense_loss"] = float(loss)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def shard_of_start(cfg, dev, batch, r, tpn):
+    """This rank's shard of the seeded starting params."""
+    return shard_gpt_params(p14_model(cfg, dev, batch)[0], cfg, r, tpn)
+
+
+def _p14_microbatches(cfg, shard, tokens, labels, one, batch):
+    """(d) The microbatch calculator (``build_num_microbatches_calculator``
+    for a global batch of ``batch`` rows, micro batch 1, data-parallel 1)
+    driving the step's gradient over its microbatches through
+    ``accumulate_main_grads`` into fp32 ``main_grad`` buffers: their
+    mean against the one-batch gradient ``one`` (the loss is a mean over
+    equal microbatches), the worst leaf's gap over its largest entry."""
+    calc = build_num_microbatches_calculator(1, None, batch, 1, 1)
+    n = calc.get()
+    micro = (tokens.reshape(n, batch // n, -1),
+             labels.reshape(n, batch // n, -1))
+
+    def grad_fn(p, m):
+        return value_and_grad(lambda q: gpt_loss(
+            cfg, q, m[0], m[1], axis_name="tensor"), p)[1]
+    t0 = time.perf_counter()
+    main = accumulate_main_grads(grad_fn, shard, micro)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for a, b in zip(tree_leaves(main), tree_leaves(one)):
+        if a.dtype != torch.float32:
+            raise AssertionError("main_grad is not fp32")
+        gap = float((a / n - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+        worst = max(worst, gap)
+    return {"microbatches": n, "worst": worst, "ms": ms}
+
+
+def _spawn_p14(tmp, world, spec, timeout=600):
+    """Start ``world`` ranks of :func:`p14_worker` (one process each, all
+    on the card, a gloo world over a file store in ``tmp``), wait for
+    them, and return each rank's record; a rank that fails fails the
+    leg."""
+    out = os.path.join(tmp, f"w{world}")
+    os.makedirs(out, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    code = ("import sys, chip_smoke; chip_smoke.p14_worker(int(sys.argv[1]),"
+            " int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world),
+         os.path.join(out, "store"), out, json.dumps(spec)], env=env,
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    failed, logs = [], []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r}: no exit within {timeout} s")
+                continue
+            logs.append(text)
+            if p.returncode:
+                failed.append(f"rank {r} exited {p.returncode}:\n"
+                              f"{text[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    for line in logs[0].splitlines():
+        log(f"  | {line}")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, out
+
+
+def _add_launches(launches, recs, label):
+    for rec in recs:
+        for k, c in rec["runs"][label]["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+
+
+def tp2_leg(dev, rows, launches, tmp):
+    """(b) TP 2 in a gloo world of 2 on the card: the 345M fused
+    (``fused_block=True``) at batch 4 with sequence parallelism off and,
+    where gloo takes the sequence collectives on CUDA tensors, on; each
+    rank shards the seeded params with ``shard_gpt_params`` and takes one
+    step (gradients, then packed FusedAdam on its shard). The loss equal
+    on both ranks; the loss and the gradients of ``P14_GRAD_LEAVES``,
+    gathered from the ranks, against the dense fused step on the card
+    within phase 5's bf16 parity (loss rel 2e-3, a leaf's worst gap 5e-2
+    of its largest entry). (d) rides in the same world: the microbatch
+    calculator over 4 microbatches through ``accumulate_main_grads``, the
+    fp32 ``main_grad``'s mean against the one-batch gradient within the
+    same gradient limit. Returns the gloo probe."""
+    spec = {"tp": 2, "batch": P14_BATCH_B, "device": str(dev), "warm": 0, "save_grads": True,
+            "dense": True, "microbatches": True,
+            "runs": [["tp2", {}, 1],
+                     ["tp2_sp", {"sequence_parallel": True}, 1]]}
+    recs, out = _spawn_p14(tmp, 2, spec)
+    probe = recs[0]["probe"]
+    log(f"  gloo on CUDA tensors: {probe}")
+    loss_tol, grad_tol, _ = PARITY_TOL[torch.bfloat16]
+    dense_loss = recs[0]["dense_loss"]
+    dense = torch.load(os.path.join(out, "dense.pt"))
+    specs = gpt_partition_specs(p14_cfg())
+    for label in recs[0]["runs"]:
+        losses = [rec["runs"][label]["losses"][0] for rec in recs]
+        if len(set(losses)) != 1:
+            raise AssertionError(f"{label}: losses differ by rank: {losses}")
+        rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+        gaps = {}
+        shards = [torch.load(os.path.join(out, f"rank{r}_{label}.pt"))
+                  for r in range(2)]
+        for key in P14_GRAD_LEAVES:
+            dim = _gather_leaf(specs, key)
+            got = shards[0][key] if dim is None else torch.cat(
+                [s[key] for s in shards], dim)
+            if dim is None and not torch.equal(shards[0][key],
+                                               shards[1][key]):
+                raise AssertionError(f"{label}: {key} differs by rank")
+            want = dense[key]
+            gaps[key] = float((got - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30))
+        run0 = recs[0]["runs"][label]
+        log(f"  (b) {label} (TP 2, gloo world of 2 on the card, batch "
+            f"{P14_BATCH_B}, fused): loss {losses[0]:.6f} on both ranks, "
+            f"dense {dense_loss:.6f} (rel {rel:.2e}); gradient gaps "
+            f"{({k: f'{v:.2e}' for k, v in gaps.items()})}; step "
+            f"{run0['step_ms'][0]:.1f} ms; peaks "
+            f"{[round(rec['runs'][label]['peak_gib'], 2) for rec in recs]} "
+            f"GiB; collectives {run0['collectives'][0]}; launches "
+            f"{run0['launches']}")
+        if rel > loss_tol or max(gaps.values()) > grad_tol:
+            raise AssertionError(f"{label}: the TP 2 step differs from the "
+                                 f"dense step")
+        for name in P14_FUSED_KERNELS:
+            if run0["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"{label}: {name} did not launch")
+        _add_launches(launches, recs, label)
+        rows.append({"leg": f"b {label}", "loss": losses[0],
+                     "dense_loss": dense_loss, "rel": rel, "grad_gaps": gaps,
+                     "step_ms": run0["step_ms"],
+                     "collectives": run0["collectives"][0],
+                     "peaks_gib": [rec["runs"][label]["peak_gib"]
+                                   for rec in recs]})
+    if "tp2_sp" not in recs[0]["runs"]:
+        missing = [n for n in P14_COLLECTIVES if probe[n] != "ok"]
+        log(f"  (b) sequence parallelism left out on the card: gloo "
+            f"refused {missing} on CUDA tensors (the CPU tests cover it)")
+    micro = [rec["runs"]["tp2"]["micro"] for rec in recs]
+    worst = max(m["worst"] for m in micro)
+    log(f"  (d) microbatch calculator: {micro[0]['microbatches']} "
+        f"microbatches through accumulate_main_grads, fp32 main_grad mean "
+        f"against the one-batch gradient: worst leaf {worst:.2e} of its "
+        f"largest entry; {micro[0]['ms']:.1f} ms")
+    if micro[0]["microbatches"] != 4 or worst > grad_tol:
+        raise AssertionError(f"(d) microbatches: {micro}")
+    rows.append({"leg": "d microbatches", "ranks": micro})
+    return probe
+
+
+def _shard_bounds(batch):
+    """Bounds of the kernels whose shapes config #4's shards change: flash
+    attention over 2 heads, bias-GeLU over 512 columns, packed Adam over a
+    rank's shard (bytes as phase 2 counts them)."""
+    b, n, s, d = batch, N_HEADS // 8, P14_SEQ, HEAD_DIM
+    rows, cols = batch * P14_SEQ, 4 * HIDDEN // 8
+    flops = _attn_flops(b, n, s, s, d, True)
+    fwd = bound(4 * b * n * s * d * 2 + b * n * s * 4, flops, BF16_TC_FLOPS)
+    bwd = bound(8 * b * n * s * d * 2 + b * n * s * 4, 2.5 * flops,
+                BF16_TC_FLOPS)
+    shard = sum(t.numel() for t in tree_leaves(shard_gpt_params(
+        gpt345m_param_shapes(), p14_cfg(tensor_model_parallel_size=8), 0,
+        8)))
+    return {"flash_attn_fwd": fwd, "flash_attn_bwd": bwd,
+            "bias_gelu_fwd": bound(2 * rows * cols * 2 + cols * 2,
+                                   20 * rows * cols),
+            "bias_gelu_bwd": bound(3 * rows * cols * 2 + cols * 6,
+                                   30 * rows * cols),
+            "packed_adam": bound(shard * (2 + 2 + 3 * 8), 16 * shard)}
+
+
+def tp8_leg(dev, rows, launches, tmp):
+    """(c) BASELINE config #4: the 345M at TP 8 with the fused tails
+    (``fused_block=True``, the ``fused_dense`` GEMM + bias + GeLU shape on
+    4h / 8 = 512 columns) and packed FusedAdam on each rank's shard, in a
+    gloo world of 8 on the card, 2 + 3 steps at batch ``P14_BATCH_C``:
+    the loss falling and the same on every rank, p50, every rank's peak,
+    the collectives a step, rank 0's profile of the second warm-up step
+    and its kernels' device time a launch beside their bounds at the
+    shard shapes."""
+    spec = {"tp": 8, "batch": P14_BATCH_C, "device": str(dev), "warm": 2,
+            "profile_step": 1,
+            "runs": [["tp8", {}, 5]]}
+    recs, _ = _spawn_p14(tmp, 8, spec)
+    runs = [rec["runs"]["tp8"] for rec in recs]
+    losses = runs[0]["losses"]
+    if any(r["losses"] != losses for r in runs):
+        raise AssertionError(f"config #4 losses differ by rank: "
+                             f"{[r['losses'] for r in runs]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"config #4 losses: {losses}")
+    timed = runs[0]["step_ms"][2:]
+    p50 = float(np.percentile(timed, 50))
+    peaks = [round(r["peak_gib"], 2) for r in runs]
+    prof = runs[0]["profile"]
+    per_launch = {k: (t / c if c else None, c)
+                  for k, (c, t) in prof["kernels"].items()}
+    bounds = _shard_bounds(P14_BATCH_C)
+    log(f"  (c) config #4, TP 8 in a gloo world of 8 on the card, batch "
+        f"{P14_BATCH_C}, fused, packed FusedAdam on the shards: losses "
+        f"{losses} on every rank; step p50 {p50:.1f} ms (steps "
+        f"{[round(t, 1) for t in runs[0]['step_ms']]}), "
+        f"{P14_BATCH_C * P14_SEQ / (p50 / 1e3):.0f} tokens/s; peaks {peaks} "
+        f"GiB (sum {sum(peaks):.1f}); collectives a step "
+        f"{runs[0]['collectives'][-1]}; launches a step "
+        f"{({k: v / 3 for k, v in runs[0]['launches'].items()})}")
+    log(f"  (c) rank 0's profiled step: wall {prof['wall_ms']:.1f} ms, "
+        f"device busy {prof['busy_ms']:.1f} ms")
+    for dev_ms, count, key in prof["rows"]:
+        log(f"    {dev_ms:9.3f} ms  x{count:6d}  {key[:90]}")
+    for k, (ms, c) in per_launch.items():
+        b = bounds.get(k)
+        log(f"  (c) {k} at the shard shapes: "
+            f"{'n/a' if ms is None else f'{ms:.4f}'} ms a launch over {c} "
+            f"launches" + ("" if b is None else
+                           f", bound {b[0]:.4f} ms ({b[1]})"))
+    for name in P14_FUSED_KERNELS:
+        if runs[0]["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"config #4: {name} did not launch")
+    _add_launches(launches, recs, "tp8")
+    rows.append({"leg": "c config #4 tp8", "losses": losses,
+                 "step_ms": runs[0]["step_ms"], "p50_ms": p50,
+                 "peaks_gib": peaks,
+                 "collectives_per_step": runs[0]["collectives"][-1],
+                 "profile_wall_ms": prof["wall_ms"],
+                 "profile_busy_ms": prof["busy_ms"],
+                 "kernel_ms_per_launch": {k: v[0] for k, v in
+                                          per_launch.items()},
+                 "shard_bounds_ms": {k: v[0] for k, v in bounds.items()}})
+
+
+def examples_leg(dev, rows, launches):
+    """(e) The two single-device examples' CLIs on the card: fp8_training
+    at its defaults for 20 steps (every loss finite, the last below the
+    first) and the DCGAN for 20 steps (every loss finite)."""
+    import io
+
+    from apex_tpu_torch.examples.dcgan import main_amp as dcgan
+    from apex_tpu_torch.examples.gpt import fp8_training
+
+    out = {}
+    for name, fn, argv in (("fp8_training", fp8_training.main,
+                            ["--steps", "20"]),
+                           ("dcgan", dcgan.main, ["--steps", "20"])):
+        buf = io.StringIO()
+        _device.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            printed = fn(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, c in _device.launch_counts().items():
+            launches[k] = launches.get(k, 0) + c
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        vals = [v for row in printed for v in row[1:]]
+        if not vals or not all(np.isfinite(vals)):
+            raise AssertionError(f"{name}: {printed}")
+        out[name] = {"printed": printed, "s": secs}
+    fp8_losses = [l for _, l in out["fp8_training"]["printed"]]
+    if not fp8_losses[-1] < fp8_losses[0]:
+        raise AssertionError(f"fp8_training loss did not fall: {fp8_losses}")
+    log(f"  (e) fp8_training 20 steps in {out['fp8_training']['s']:.1f} s, "
+        f"dcgan 20 steps in {out['dcgan']['s']:.1f} s")
+    rows.append({"leg": "e examples", **out})
+
+
+def tp_phase(dev):
+    """Phase 14: tensor and sequence parallelism on one card, on two
+    transports. (a) NCCL at world 1 over a ``file://`` store: the
+    collectives' path and cost, no reduction across cards. (b)-(d) gloo
+    worlds of 2 and 8 processes sharing the card (NCCL refuses two ranks
+    on one device): the kernels run on the card at the shard shapes and
+    the collectives travel through the host, so the step times are the
+    host's reductions, not NVLink's. (e) the two single-device examples.
+    Prints a ``{"phase14": [...]}`` line; returns the main paths'
+    launches."""
+    rows, launches, parts = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn, args in (("a", tp1_leg, (rows, launches, tmp)),
+                              ("b", tp2_leg, (rows, launches, tmp)),
+                              ("c", tp8_leg, (rows, launches, tmp)),
+                              ("e", examples_leg, (rows, launches))):
+            t0 = time.perf_counter()
+            fn(dev, *args)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            parts[key] = round(time.perf_counter() - t0, 1)
+    log(f"  phase 14 parts (s): {parts}")
+    print(json.dumps({"phase14": rows}), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7840,18 +8467,24 @@ def main() -> int:
                 "FusedSGD(packed_spec), ResNet-50 DDP + SyncBatchNorm + "
                 "FusedAdam (BASELINE config #2), LARC, the simple DDP "
                 "example", ddp_phase, dev, o2["p50_ms"])
+    p14 = phase("phase 14: tensor and sequence parallelism (A6.4): the 345M "
+                "at TP 1 on NCCL world 1, at TP 2 and TP 8 (BASELINE config "
+                "#4) in gloo worlds on the card, the microbatch calculator, "
+                "and the fp8 and DCGAN examples (A5.7.1)", tp_phase, dev)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
     fd["launches"] = sum(c["flash_decode"] for c in served)
     # launches on the main paths: the serving runs, the eight GPT legs, the
     # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense,
-    # phase 12's applier calls and 345M steps, and phase 13's DDP steps
+    # phase 12's applier calls and 345M steps, phase 13's DDP steps, and
+    # phase 14's tensor-parallel steps on every rank and its examples
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
                       + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
                       + fp8_launches["layer_norm_fwd"]
                       + p12.get("layer_norm_fwd", 0)
-                      + p13.get("layer_norm_fwd", 0))
+                      + p13.get("layer_norm_fwd", 0)
+                      + p14.get("layer_norm_fwd", 0))
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -7865,7 +8498,8 @@ def main() -> int:
                           + contrib.get(kr["name"], 0)
                           + fp8_launches.get(kr["name"], 0)
                           + p12.get(kr["name"], 0)
-                          + p13.get(kr["name"], 0))
+                          + p13.get(kr["name"], 0)
+                          + p14.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

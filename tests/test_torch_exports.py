@@ -46,8 +46,6 @@ QUEUES = {"A6.2", "A6.3", "A6.4", "A6.5", "A6.6", "A6.7", "A7", "A8"}
 #: whole JAX modules the port does not mirror yet
 MODULES_NOT_PORTED = {
     "apex_tpu.analysis": "A8",
-    "apex_tpu.transformer._data": "A6.4",
-    "apex_tpu.transformer.tensor_parallel": "A6.4",
     "apex_tpu.transformer.pipeline_parallel": "A6.5",
     "apex_tpu.transformer.pipeline_parallel.schedules": "A6.5",
 }
@@ -92,14 +90,7 @@ NOT_PORTED = {
     **{("apex_tpu.resilience", n): "A7" for n in _A7_RESILIENCE},
     **{("apex_tpu.serving", n): "A7" for n in _A7_SERVING},
     **{("apex_tpu.telemetry", n): "A7" for n in _A7_TELEMETRY},
-    ("apex_tpu.transformer", "_data"): "A6.4",
-    ("apex_tpu.transformer", "tensor_parallel"): "A6.4",
     ("apex_tpu.transformer", "pipeline_parallel"): "A6.5",
-    **{("apex_tpu.transformer.testing", n): "A6.4" for n in (
-        "DistributedTestBase", "NcclDistributedTestBase",
-        "UccDistributedTestBase", "TEST_SUCCESS_MESSAGE",
-        "initialize_distributed", "print_separator", "set_random_seed",
-        "gpt_partition_specs")},
 }
 
 #: names the port carries under its own name: the O1 patch lists are
@@ -187,13 +178,19 @@ def test_lazy_refusals_name_their_queue():
     import apex_tpu_torch.transformer
 
     for mod, name, queue in ((apex_tpu_torch, "analysis", "A8"),
-                             (apex_tpu_torch.transformer, "tensor_parallel",
-                              "A6.4"),
-                             (apex_tpu_torch.transformer, "_data", "A6.4"),
                              (apex_tpu_torch.transformer,
                               "pipeline_parallel", "A6.5")):
         with pytest.raises(AttributeError, match=queue.replace(".", r"\.")):
             getattr(mod, name)
+    # A6.4 landed: tensor parallelism and the samplers import
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        ColumnParallelLinear,
+        vocab_parallel_cross_entropy,
+    )
+
+    assert ColumnParallelLinear and vocab_parallel_cross_entropy
+    assert apex_tpu_torch.transformer.tensor_parallel.RowParallelLinear
+    assert apex_tpu_torch.transformer._data.MegatronPretrainingSampler
     # A6.2 and A6.3 landed: the data-parallel layer imports
     for name in ("LARC", "DistributedDataParallel", "SyncBatchNorm",
                  "BucketBuffers", "convert_syncbn_model"):

@@ -58,7 +58,6 @@ TPU_ONLY = {
 
 #: (module, name) -> {parameter: the ROADMAP.md queue item that brings
 #: it, or why the port takes it elsewhere}
-_TP = "A6.4: tensor parallelism"
 _TP_SERVING = "A6.7: tensor-parallel serving"
 NOT_YET = {
     ("apex_tpu.serving", "ServingEngine"): {"devices": _TP_SERVING},
@@ -66,17 +65,8 @@ NOT_YET = {
         "chunk_hidden", "decode_tokens", "prefill_chunk_tokens",
         "run_spec_step")},
     ("apex_tpu.transformer.testing", "GPTConfig"): {
-        "tensor_model_parallel_size": _TP, "sequence_parallel": _TP,
         "context_parallel_axis": "A6.5: context parallelism",
         "context_parallel_zigzag": "A6.5: context parallelism"},
-    **{("apex_tpu.transformer.testing", n): {"axis_name": _TP} for n in (
-        "bert_forward", "gpt_embed", "gpt_loss", "transformer_block")},
-    ("apex_tpu.transformer.testing", "gpt_forward"): {
-        "axis_name": _TP,
-        "deterministic": "not a queue item: the port's gpt_forward is the "
-                         "inference forward; the training forward with "
-                         "dropout is gpt_hidden / gpt_loss (generator=, "
-                         "deterministic=)"},
 }
 
 #: whole names whose port waits for a queue item
