@@ -3,13 +3,14 @@
 and ``tensor_parallel``, and at first access the fused ``functional``
 ops, ``layers``, the model-parallel ``amp``, the ``testing`` models and
 harness, the ``_data`` samplers and the ``microbatches`` calculators.
-``pipeline_parallel`` comes with queue A6.5 (ROADMAP.md)."""
+``pipeline_parallel`` (the schedules and the stage-to-stage hops)."""
 from . import parallel_state  # noqa: F401
 from . import tensor_parallel  # noqa: F401
 from .. import _lazy_import
 
-_LAZY = ("functional", "layers", "amp", "testing", "_data", "microbatches")
-_NOT_PORTED = {"pipeline_parallel": "A6.5"}
+_LAZY = ("pipeline_parallel", "functional", "layers", "amp", "testing",
+         "_data", "microbatches")
+_NOT_PORTED: dict = {}
 
 
 def __getattr__(name):

@@ -29,6 +29,7 @@ from .standalone_transformer_lm import (  # noqa: F401
     init_gpt_params,
     parallel_attention,
     parallel_mlp,
+    pipeline_stage_layers,
     record_gpt_grad_amaxes,
     shard_gpt_params,
     transformer_block,

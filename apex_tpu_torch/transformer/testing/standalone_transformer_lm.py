@@ -61,7 +61,29 @@ for serving and training, on one device or tensor-parallel.
   split below. A rank is a process; the collectives run over the
   ``parallel_state`` group of the axis (``tensor_parallel.mappings``).
 
-Not ported yet (ROADMAP.md): context parallelism (A6.5).
+- context parallelism (``GPTConfig.context_parallel_axis``, a
+  ``parallel_state`` axis, any name without model parallelism (the
+  default group), or a ``ProcessGroup``): the sequence is sharded over
+  the group end to end, contiguously by rank or, with
+  ``context_parallel_zigzag``, in the layout of
+  ``context_parallel.zigzag_indices``; attention is
+  ``context_parallel.ring_attention`` (causal only, not with sequence
+  parallelism, no qk layer scaling or attention dropout, flash
+  required; zigzag needs a local sequence divisible by 16), the
+  position ids are this rank's global ones, the hidden-dropout
+  generator is forked by the rank, and the loss is the masked mean whose
+  numerator and denominator are summed over the group (all-reduce
+  forward, the same cotangent on every rank backward). The parameters
+  are replicated over the group: ``gpt_loss`` passes them through the
+  copy into the group's region (identity forward, all-reduce backward),
+  so their gradients come back summed over the ranks, as the JAX
+  package's autodiff sums them.
+- pipeline stages: :func:`pipeline_stage_layers` cuts the stacked layer
+  tree into a stage's ``vpp`` chunks in the reference layout (chunk
+  ``c`` of stage ``s`` holds layer block ``c pp + s``); the pipelined
+  model is composed by the caller around the schedules of
+  ``pipeline_parallel``, as the JAX package's callers compose it.
+
 ``fp8_amax_reduction_axes`` names ``transformer.parallel_state`` axes:
 each layer's x and w amaxes, and each projection's stacked gradient
 amaxes, are MAX-reduced over that group, one all-reduce a site, where
@@ -131,8 +153,8 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass
 class GPTConfig:
-    """Model config (the JAX ``GPTConfig``'s fields, with its defaults;
-    context parallelism waits for A6.5)."""
+    """Model config (the JAX ``GPTConfig``'s fields, with its
+    defaults)."""
 
     num_layers: int = 4
     hidden_size: int = 64
@@ -149,6 +171,11 @@ class GPTConfig:
     # the functions are given) and Megatron's sequence parallelism
     tensor_model_parallel_size: int = 1
     sequence_parallel: bool = False
+    # context parallelism: the axis (a parallel_state axis name, any name
+    # without model parallelism, or a ProcessGroup) the sequence is
+    # sharded over end to end; zigzag selects the load-balanced layout
+    context_parallel_axis: Optional[Any] = None
+    context_parallel_zigzag: bool = False
     apply_query_key_layer_scaling: bool = True
     attn_mask_type: AttnMaskType = AttnMaskType.causal
     # None | "full" | "selective" | "selective_elementwise" (see
@@ -294,6 +321,29 @@ def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
     return walk(params, specs)
 
 
+def pipeline_stage_layers(layers: Params, cfg: GPTConfig, stage: int,
+                          pp: int, vpp: int = 1) -> Params:
+    """Stage ``stage``'s layers of the stacked ``[L, ...]`` layer tree
+    (``params["layers"]``, whole or a tensor-parallel shard) in the
+    reference's interleaved layout: ``L / (pp vpp)`` layers a chunk,
+    chunk ``c`` holding global layer block ``c pp + stage``; leaves
+    ``[L / pp, ...]`` with ``vpp`` 1, else ``[vpp, L / (pp vpp), ...]``
+    (the schedules' chunk axis). The counterpart of the JAX callers'
+    ``P("pipeline", ...)`` in_specs."""
+    L = cfg.num_layers
+    if L % (pp * vpp) != 0:
+        raise ValueError(f"num_layers {L} is not divisible by pp x vpp = "
+                         f"{pp} x {vpp}")
+    block = L // (pp * vpp)
+
+    def cut(t):
+        chunks = [t[(c * pp + stage) * block:(c * pp + stage + 1) * block]
+                  for c in range(vpp)]
+        return chunks[0].contiguous() if vpp == 1 else torch.stack(chunks)
+
+    return {k: cut(v) for k, v in layers.items()}
+
+
 def _tp_world(cfg: GPTConfig, axis_name) -> int:
     """The tensor group's size on ``axis_name`` (1 without one), checked
     against ``cfg.tensor_model_parallel_size``."""
@@ -378,7 +428,7 @@ def gpt_forward(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
     they are this rank's vocab shard ``[b, s, vocab / tp]``; with fp8
     ``(logits, new_fp8_states)`` is returned."""
     if cfg.fp8 or fp8_states is not None or axis_name is not None \
-            or not deterministic:
+            or not deterministic or cfg.context_parallel_axis is not None:
         hidden = gpt_hidden(cfg, params, tokens, generator, deterministic,
                             fp8_states, fp8_carriers, axis_name=axis_name)
         new_fp8 = None
@@ -553,6 +603,11 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
     qk_scaling = (cfg.apply_query_key_layer_scaling
                   and cfg.compute_dtype == torch.float16
                   and layer_number is not None)
+    if cfg.context_parallel_axis is not None:
+        ctx = _context_parallel_attention(cfg, q, k, v, qk_scaling,
+                                          dropout_seed, deterministic)
+        return _attn_out_proj(cfg, lp, ctx.to(hidden.dtype), fuse_tail,
+                              fp8, new_fp8, axis_name)
     causal = cfg.attn_mask_type == AttnMaskType.causal
     kv_mask = None
     mask_ok = causal
@@ -593,6 +648,50 @@ def parallel_attention(cfg: GPTConfig, lp: Dict[str, torch.Tensor],
                                scale=1.0 / (hn ** 0.5), **flash_kw)
     ctx = ctx.to(hidden.dtype).reshape(s, b, n * hn)
     return _attn_out_proj(cfg, lp, ctx, fuse_tail, fp8, new_fp8, axis_name)
+
+
+def _context_parallel_attention(cfg: GPTConfig, q, k, v, qk_scaling: bool,
+                                dropout_seed, deterministic: bool):
+    """Ring attention over ``cfg.context_parallel_axis`` on ``[s_loc, b,
+    n, hn]`` -> context ``[s_loc, b, n * hn]``, after the JAX package's
+    refusals."""
+    from ..context_parallel import ring_attention
+
+    s, b, n, hn = q.shape
+    if cfg.attn_mask_type != AttnMaskType.causal:
+        raise ValueError("context parallelism supports causal attention only")
+    if cfg.sequence_parallel:
+        raise ValueError(
+            "context_parallel_axis and sequence_parallel are mutually "
+            "exclusive (Megatron SP gathers the full sequence inside the "
+            "block; CP keeps it sharded end-to-end)")
+    if qk_scaling:
+        raise ValueError(
+            "context parallelism needs a static softmax scale; disable "
+            "apply_query_key_layer_scaling (fp16 layer scaling)")
+    if cfg.attention_dropout > 0.0 and not deterministic \
+            and dropout_seed is not None:
+        raise ValueError(
+            "attention dropout is not supported on the ring-attention "
+            "path; set attention_dropout=0 (hidden dropout still works)")
+    if cfg.use_flash_attention is False:
+        raise ValueError(
+            "use_flash_attention=False cannot be honored under context "
+            "parallelism: ring attention runs the flash chunk kernels")
+    tile = s // 2 if cfg.context_parallel_zigzag else s
+    if cfg.context_parallel_zigzag and s % 16 != 0:
+        raise ValueError(
+            f"zigzag context parallelism needs local seq {s} % 16 == 0 "
+            "(the kernels run on tileable half-chunks)")
+    if tile % 8 != 0 or hn > MAX_HEAD_DIM:
+        raise ValueError(
+            f"context parallelism needs kernel-tileable shapes (seq {tile} "
+            f"% 8 == 0 and head dim {hn} <= {MAX_HEAD_DIM})")
+    qb, kb, vb = (t.permute(1, 2, 0, 3) for t in (q, k, v))
+    ctx = ring_attention(qb, kb, vb, axis_name=cfg.context_parallel_axis,
+                         causal=True, zigzag=cfg.context_parallel_zigzag,
+                         scale=1.0 / (hn ** 0.5))
+    return ctx.permute(2, 0, 1, 3).reshape(s, b, n * hn)
 
 
 def _softmax_attention(cfg: GPTConfig, q: torch.Tensor, k: torch.Tensor,
@@ -883,12 +982,30 @@ def transformer_block(cfg: GPTConfig, layer_params: Dict[str, torch.Tensor],
 
 def _local_position_ids(cfg: GPTConfig, s_loc: int,
                         device=None) -> torch.Tensor:
-    """``[s_loc]`` position ids (no context parallelism in the port)."""
-    if s_loc > cfg.max_position_embeddings:
+    """``[s_loc]`` GLOBAL position ids of this rank's tokens: ``arange``
+    without context parallelism; under it the shard's offset (contiguous
+    ``rank * s_loc``; zigzag the rank's chunks ``r`` and ``2 cp - 1 -
+    r``)."""
+    axis = cfg.context_parallel_axis
+    cp, r = 1, 0
+    if axis is not None:
+        _, cp, r, _ = mappings.axis_world(axis)
+    if cp * s_loc > cfg.max_position_embeddings:
         raise ValueError(
-            f"sequence {s_loc} exceeds max_position_embeddings="
-            f"{cfg.max_position_embeddings}")
-    return torch.arange(s_loc, device=device)
+            f"global sequence {cp}*{s_loc}={cp * s_loc} exceeds "
+            f"max_position_embeddings={cfg.max_position_embeddings}")
+    if axis is None:
+        return torch.arange(s_loc, device=device)
+    if cfg.context_parallel_zigzag:
+        if s_loc % 2 != 0:
+            raise ValueError(
+                "zigzag needs an even local sequence length, got "
+                f"{s_loc} tokens per rank")
+        h = s_loc // 2
+        return torch.cat([r * h + torch.arange(h, device=device),
+                          (2 * cp - 1 - r) * h
+                          + torch.arange(h, device=device)])
+    return r * s_loc + torch.arange(s_loc, device=device)
 
 
 def gpt_embed(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
@@ -957,6 +1074,10 @@ def _trunk(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
     if generator is not None and not deterministic:
         if sp:
             generator = model_parallel_rng_key(generator, axis_name)
+        if cfg.context_parallel_axis is not None:
+            # each context-parallel rank holds other tokens
+            generator = model_parallel_rng_key(generator,
+                                               cfg.context_parallel_axis)
         embed_seed = _draw_seed(generator)
         layer_seeds = [tuple(_draw_seed(generator) for _ in range(3))
                        for _ in range(cfg.num_layers)]
@@ -996,6 +1117,12 @@ def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
     with respect to the params and the carriers, then fold the carriers'
     gradients in with :func:`record_gpt_grad_amaxes`."""
     new_fp8 = None
+    cp_axis = cfg.context_parallel_axis
+    if cp_axis is not None:
+        # replicated over the group: each rank's gradient is a partial
+        # sum, which the copy's backward all-reduces
+        params = tree_map(lambda p: mappings.copy_to_tensor_model_parallel_region(
+            p, cp_axis), params)
     if axis_name is not None:
         logits = gpt_forward(cfg, params, tokens, fp8_states, fp8_carriers,
                              axis_name, generator, deterministic)
@@ -1016,7 +1143,17 @@ def gpt_loss(cfg: GPTConfig, params: Params, tokens: torch.Tensor,
             labels.transpose(0, 1).reshape(n), chunk_size=chunk,
             save_logits_dtype=cfg.compute_dtype if cfg.ce_save_logits
             else None).reshape(s, b).transpose(0, 1)  # [b, s]
-    if loss_mask is None:
+    if cp_axis is not None:
+        # the global masked mean: numerator and denominator summed over
+        # the group (all-reduce forward, identity backward)
+        m = torch.ones_like(losses) if loss_mask is None \
+            else loss_mask.to(torch.float32)
+        num = mappings.reduce_from_tensor_model_parallel_region(
+            (losses * m).sum(), cp_axis)
+        den = mappings.reduce_from_tensor_model_parallel_region(
+            m.sum(), cp_axis)
+        loss = num / den.clamp_min(1.0)
+    elif loss_mask is None:
         loss = losses.mean()
     else:
         m = loss_mask.to(torch.float32)

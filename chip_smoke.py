@@ -309,6 +309,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import importlib
 import json
@@ -351,7 +352,10 @@ from apex_tpu_torch.contrib.openfold import (
     FusedAdamSWA,
     attention_core,
 )
-from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.contrib.xentropy import (
+    lm_head_cross_entropy,
+    softmax_cross_entropy_loss,
+)
 from apex_tpu_torch.examples.gpt import gpt_scaling_test
 from apex_tpu_torch.examples.imagenet import main_amp, resnet
 from apex_tpu_torch.fused_dense import fp8, fused_dense_gelu_dense
@@ -458,7 +462,13 @@ from apex_tpu_torch.transformer.functional import (
 from apex_tpu_torch.transformer.microbatches import (
     build_num_microbatches_calculator,
 )
-from apex_tpu_torch.transformer.tensor_parallel import accumulate_main_grads
+from apex_tpu_torch.transformer.pipeline_parallel import (
+    get_forward_backward_func,
+)
+from apex_tpu_torch.transformer.tensor_parallel import (
+    accumulate_main_grads,
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.testing import (
     FP8_GEMM_NAMES,
     GPTConfig,
@@ -470,14 +480,29 @@ from apex_tpu_torch.transformer.testing import (
     init_gpt_fp8_carriers,
     init_gpt_fp8_states,
     init_gpt_params,
+    gpt_embed,
+    pipeline_stage_layers,
     record_gpt_grad_amaxes,
     shard_gpt_params,
+    transformer_block,
+)
+from apex_tpu_torch.transformer.testing.standalone_transformer_lm import (
+    _lm_head,
+    ln_fp32,
 )
 
 # the modules (the package re-exports functions of the same names)
 fd_mod = importlib.import_module("apex_tpu_torch.ops.flash_decode")
 fa_mod = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 ln_mod = importlib.import_module("apex_tpu_torch.ops.layer_norm")
+cp_mod = importlib.import_module("apex_tpu_torch.transformer.context_parallel")
+pp_p2p = importlib.import_module(
+    "apex_tpu_torch.transformer.pipeline_parallel.p2p_communication")
+pp_schedules = importlib.import_module(
+    "apex_tpu_torch.transformer.pipeline_parallel.schedules")
+pp_utils = importlib.import_module(
+    "apex_tpu_torch.transformer.pipeline_parallel.utils")
+mha_reference = fa_mod.mha_reference
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, fp32 (non-tensor-core)
 #: flop/s — the kernels here but bf16 flash attention do their arithmetic
@@ -8011,17 +8036,19 @@ def _p14_microbatches(cfg, shard, tokens, labels, one, batch):
     return {"microbatches": n, "worst": worst, "ms": ms}
 
 
-def _spawn_p14(tmp, world, spec, timeout=600):
-    """Start ``world`` ranks of :func:`p14_worker` (one process each, all
-    on the card, a gloo world over a file store in ``tmp``), wait for
-    them, and return each rank's record; a rank that fails fails the
-    leg."""
-    out = os.path.join(tmp, f"w{world}")
+def _spawn_p14(tmp, world, spec, timeout=600, worker="p14_worker",
+               name=None):
+    """Start ``world`` ranks of ``worker`` (:func:`p14_worker` or
+    :func:`p15_worker`; one process each, all on the card, a gloo world
+    over a file store in ``tmp``), wait for them, and return each rank's
+    record; a rank that fails, or a world that does not end within
+    ``timeout`` seconds, fails the leg."""
+    out = os.path.join(tmp, name or f"w{world}")
     os.makedirs(out, exist_ok=True)
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
-    code = ("import sys, chip_smoke; chip_smoke.p14_worker(int(sys.argv[1]),"
+    code = (f"import sys, chip_smoke; chip_smoke.{worker}(int(sys.argv[1]),"
             " int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])")
     procs = [subprocess.Popen(
         [sys.executable, "-c", code, str(r), str(world),
@@ -8287,6 +8314,1023 @@ def tp_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: pipeline and context parallelism (A6.5), the long-context
+# example (A5.7.2), BASELINE config #5
+# ---------------------------------------------------------------------------
+
+#: leg (b): the 345M (24 x 1024, seq 1024, P14_VOCAB) at PP 4, 8
+#: microbatches of 1, 1 warm-up + 2 timed steps a schedule
+P15_PP, P15_MICRO, P15_STEPS = 4, 8, 3
+#: the layer gradients (of the stages, put back in layer order) and the
+#: word table's (stage 0's, synced over the embedding group) held against
+#: the dense step's
+P15_GRAD_LEAVES = ("layers/qkv_w", "layers/fc2_w", "layers/input_ln_w",
+                   "layers/post_ln_b", "embedding/word")
+#: leg (c), BASELINE config #5: GPT-3 XL (Brown et al. 2020, table 2.1: 24
+#: layers, d_model 2048, ffn 8192, seq 2048) with Megatron-LM's 16 heads of
+#: 128 (the paper's 24 do not divide by TP 8), vocab 50304; the layout
+#: (tp, pp, vpp) and 4 microbatches of 1, 1 warm-up + 2 timed steps. The
+#: configuration's TP 8 x PP 4 does not fit as 32 processes on one card:
+#: measured (H100 80GB HBM3, 700 W) at allocator peaks of 1.10-1.45 GiB a
+#: rank and 80,740 MiB of the card in use, 25.6-35.6 s a step; so the leg
+#: runs TP 2 x PP 4 (a world of 8) at the same width and depth
+C5_LAYERS, C5_HIDDEN, C5_HEADS, C5_SEQ = 24, 2048, 16, 2048
+C5_TP, C5_PP, C5_VPP, C5_MICRO, C5_STEPS = 2, 4, 2, 4, 3
+C5_CLIP = 1.0
+#: leg (d): context parallelism at the 345M's width, seq 16384 (4096
+#: tokens a rank at CP 4), batch 1, 1 warm-up + 2 steps a layout; depth cut
+#: to 8 layers (each layer's ring moves ~235 MB a rank a step through the
+#: host: 7.8 s a step at 24 layers)
+P15_CP, P15_CP_SEQ, P15_CP_LAYERS, P15_CP_STEPS = 4, 16384, 8, 3
+#: the kernels the pipelined and context-parallel steps must launch, and
+#: config #5's with its clip
+P15_KERNELS = TRAIN_KERNELS
+C5_KERNELS = TRAIN_KERNELS + ("packed_row_reduce",)
+#: the collectives counted a step, beside the point-to-point ops
+P15_COLLECTIVES = P14_COLLECTIVES
+#: leg (d)'s ring chunk checks: the kernels against their plain versions
+#: with the global (merged) o and lse; bf16 results within one bf16
+#: rounding of values of order 1 (TOL)
+RING_TOL = TOL[torch.bfloat16]
+
+
+def p15_cfg(layers, hidden, heads, seq, vocab, **kw) -> GPTConfig:
+    return GPTConfig(num_layers=layers, hidden_size=hidden,
+                     num_attention_heads=heads, vocab_size=vocab,
+                     max_position_embeddings=seq, hidden_dropout=0.0,
+                     attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                     apply_query_key_layer_scaling=False, **kw)
+
+
+def _seeded(dev, seed, shape, std):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * std).to(
+        torch.bfloat16)
+
+
+def c5_rank_params(cfg, dev, rp, rt, tp, pp, vpp):
+    """Config #5's parameters of rank ``(rp, rt)`` drawn shard by shard
+    from seeds (a whole 1.3B tree a process would not fit 32 times): the
+    Megatron init (normal 0.02, output projections over sqrt(2 L), zero
+    biases, unit norms) of this stage's chunks at this tensor rank's
+    shard shapes; the word rows of tensor rank ``rt`` (the same on the
+    first and the last stage, the tied pair), the position table on the
+    first stage, the final LayerNorm on the last."""
+    h, L, ffn = cfg.hidden_size, cfg.num_layers, cfg.ffn_size
+    lc = L // (pp * vpp)
+    lead = (lc,) if vpp == 1 else (vpp, lc)
+    std, out_std = 0.02, 0.02 / (2.0 * L) ** 0.5
+    shapes = {"qkv_w": (3 * h // tp, h, std), "proj_w": (h, h // tp, out_std),
+              "fc1_w": (ffn // tp, h, std), "fc2_w": (h, ffn // tp, out_std)}
+    layers = {}
+    for i, (k, (a, b, sd)) in enumerate(sorted(shapes.items())):
+        layers[k] = _seeded(dev, 1000 * i + 10 * rp + rt, lead + (a, b), sd)
+    zeros = {"qkv_b": 3 * h // tp, "proj_b": h, "fc1_b": ffn // tp,
+             "fc2_b": h, "input_ln_b": h, "post_ln_b": h}
+    for k, n in zeros.items():
+        layers[k] = torch.zeros(lead + (n,), dtype=torch.bfloat16, device=dev)
+    for k in ("input_ln_w", "post_ln_w"):
+        layers[k] = torch.ones(lead + (h,), dtype=torch.bfloat16, device=dev)
+    params = {"layers": layers}
+    if rp == 0 or rp == pp - 1:
+        params["word"] = _seeded(dev, 7000 + rt, (cfg.vocab_size // tp, h),
+                                 std)
+    if rp == 0:
+        params["position"] = _seeded(dev, 8000,
+                                     (cfg.max_position_embeddings, h), std)
+    if rp == pp - 1:
+        params["final_ln_w"] = torch.ones(h, dtype=torch.bfloat16, device=dev)
+        params["final_ln_b"] = torch.zeros(h, dtype=torch.bfloat16,
+                                           device=dev)
+    return params
+
+
+def stage_params_of(full, cfg, rp, rt, tp, pp, vpp):
+    """This rank's tree cut from a whole (seeded) tree: its tensor shard's
+    stage layers, the word rows on the first and last stages, the position
+    table on the first, the final LayerNorm on the last."""
+    shard = shard_gpt_params(full, cfg, rt, tp) if tp > 1 else full
+    params = {"layers": pipeline_stage_layers(shard["layers"], cfg, rp, pp,
+                                              vpp)}
+    if rp == 0 or rp == pp - 1:
+        params["word"] = shard["embedding"]["word"]
+    if rp == 0:
+        params["position"] = shard["embedding"]["position"]
+    if rp == pp - 1:
+        params["final_ln_w"] = shard["final_ln_w"]
+        params["final_ln_b"] = shard["final_ln_b"]
+    return params
+
+
+def pipelined_gpt_grads(cfg, params, tokens, labels, schedule, rp, pp):
+    """The GPT composed around a pipeline ``schedule`` in the reference's
+    tied-embedding form: the embedding on the first stage outside the
+    schedule, the stage's layers inside it, the final LayerNorm, the tied
+    head and the loss on the last stage's final chunk (the dense
+    chunk-fused cross entropy at TP 1, else the vocab-parallel one), the
+    embedding's backward from the schedule's input gradients, the word
+    table's gradients summed over the embedding group (the first and last
+    stages). ``params`` is this rank's tree (:func:`stage_params_of`);
+    ``tokens``, ``labels`` ``[n_micro, b, s]``. Returns ``(loss, grads)``
+    in ``params``' structure."""
+    tp_axis = "tensor" if cfg.tensor_model_parallel_size > 1 else None
+    first, last = rp == 0, rp == pp - 1
+    n, b, s = tokens.shape
+    h, dt = cfg.hidden_size, cfg.compute_dtype
+    dev = tokens.device
+    live = {k: (v.detach().requires_grad_(True) if k != "layers" else v)
+            for k, v in params.items()}
+    if first:
+        emb_params = {"embedding": {"word": live["word"],
+                                    "position": live["position"]}}
+        emb = torch.stack([gpt_embed(cfg, emb_params, tokens[m],
+                                     axis_name=tp_axis) for m in range(n)])
+    else:
+        emb = torch.empty((n, s, b, h), dtype=dt, device=dev)
+    rows = s * b
+    chunk = next(c for c in range(min(2048, rows), 0, -1) if rows % c == 0)
+
+    def loss_fn(y, lab):
+        hid = ln_fp32(y, live["final_ln_w"], live["final_ln_b"],
+                      cfg.layernorm_epsilon).to(dt)
+        if tp_axis is None:
+            return lm_head_cross_entropy(
+                hid.reshape(rows, h), live["word"],
+                lab.transpose(0, 1).reshape(rows), chunk_size=chunk).mean()
+        logits = _lm_head(cfg, {"embedding": {"word": live["word"]}}, hid,
+                          tp_axis).transpose(0, 1)
+        return vocab_parallel_cross_entropy(logits, lab, 0.0,
+                                            tp_axis).mean()
+
+    def stage_fn(lp, x):
+        return transformer_block(cfg, lp, x, None, axis_name=tp_axis)
+
+    loss, glayers, dinputs = schedule(stage_fn, loss_fn, params["layers"],
+                                      emb.detach(), labels)
+    if first:
+        emb.backward(dinputs)
+    grads = {"layers": glayers}
+    for k, v in live.items():
+        if k != "layers":
+            grads[k] = v.grad if v.grad is not None else torch.zeros_like(v)
+    word = grads.get("word")
+    if word is None:  # a middle stage takes part in the group's sum
+        word = torch.zeros((cfg.vocab_size // cfg.tensor_model_parallel_size,
+                            h), dtype=torch.bfloat16, device=dev)
+    word = pp_utils.sync_embedding_grads({"w": word})["w"]
+    if "word" in grads:
+        grads["word"] = word
+    return loss, grads
+
+
+def warm_stage(cfg, params, tokens, labels, rp, pp, vpp):
+    """One microbatch through this stage alone, forward and backward, no
+    hop: every stage's process loads its kernels and libraries at once
+    (in a pipeline's first step they would load one stage after another,
+    each waiting for the last: ~9 s a process on the card, measured)."""
+    tp_axis = "tensor" if cfg.tensor_model_parallel_size > 1 else None
+    lp = {k: (v[0] if vpp > 1 else v).detach().requires_grad_(True)
+          for k, v in params["layers"].items()}
+    live = {k: v.detach().requires_grad_(True) for k, v in params.items()
+            if k != "layers"}
+    if rp == 0:
+        x = gpt_embed(cfg, {"embedding": {"word": live["word"],
+                                          "position": live["position"]}},
+                      tokens[0], axis_name=tp_axis)
+    else:
+        x = torch.zeros((tokens.shape[2], tokens.shape[1], cfg.hidden_size),
+                        dtype=cfg.compute_dtype, device=tokens.device,
+                        requires_grad=True)
+    y = transformer_block(cfg, lp, x, None, axis_name=tp_axis)
+    out = y.float().sum()
+    if rp == pp - 1:
+        hid = ln_fp32(y, live["final_ln_w"], live["final_ln_b"],
+                      cfg.layernorm_epsilon).to(cfg.compute_dtype)
+        if tp_axis is None:
+            rows = hid.shape[0] * hid.shape[1]
+            chunk = next(c for c in range(min(2048, rows), 0, -1)
+                         if rows % c == 0)
+            out = out + lm_head_cross_entropy(
+                hid.reshape(rows, -1), live["word"],
+                labels[0].transpose(0, 1).reshape(rows),
+                chunk_size=chunk).mean()
+        else:
+            logits = _lm_head(cfg, {"embedding": {"word": live["word"]}},
+                              hid, tp_axis).transpose(0, 1)
+            out = out + vocab_parallel_cross_entropy(
+                logits, labels[0], 0.0, tp_axis).mean()
+    out.backward()
+    torch.cuda.synchronize()
+
+
+def _layer_order(stage_grads, key, pp, vpp):
+    """A stacked layer gradient back in layer order from the stages'
+    chunks (chunk c of stage s = layer block c pp + s)."""
+    blocks = {}
+    for s, g in enumerate(stage_grads):
+        chunks = [g] if vpp == 1 else list(g)
+        for c, ch in enumerate(chunks):
+            blocks[c * pp + s] = ch
+    return torch.cat([blocks[i] for i in range(pp * vpp)])
+
+
+@contextlib.contextmanager
+def host_seconds(acc):
+    """Accumulate into ``acc`` the host seconds spent in the exchanges of
+    the schedules and the ring (``"p2p_s"``) and in ``all_reduce``
+    (``"all_reduce_s"``, the collectives of the mappings, the loss, the
+    syncs): where a gloo world's step time goes."""
+    dist = torch.distributed
+    sched = pp_schedules.common
+    real = (sched.exchange, cp_mod.exchange, dist.all_reduce)
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return run
+    sched.exchange = timed(real[0], "p2p_s")
+    cp_mod.exchange = timed(real[1], "p2p_s")
+    dist.all_reduce = timed(real[2], "all_reduce_s")
+    try:
+        yield
+    finally:
+        sched.exchange, cp_mod.exchange, dist.all_reduce = real
+
+
+def _p15_step_loop(rank, label, steps, warm, one_step, run, profile=None):
+    """``steps`` steps of ``one_step`` with the collectives and the
+    point-to-point ops of each counted and their host seconds taken, the
+    launches from step ``warm`` on; the first step profiled on rank 0
+    with ``profile``."""
+    p2p = pp_p2p
+    torch.cuda.reset_peak_memory_stats()
+    run.setdefault("host_s", [])
+    for i in range(steps):
+        if i == warm:
+            _device.reset_launch_counts()
+        counts, secs = {}, {}
+        p2p.reset_p2p_counts()
+        cp_mod.reset_ring_counts()
+        with counted_collectives(counts), host_seconds(secs):
+            t0 = time.perf_counter()
+            if i == 0 and profile is not None and rank == 0:
+                prof = profiled(one_step, label, 14)
+                run["profile"] = {
+                    "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+                    "rows": prof["rows"][:14],
+                    "kernels": {k: [
+                        sum(n for key, (n, _) in prof["ops"].items()
+                            if any(m in key for m in ms)),
+                        sum(t for key, (_, t) in prof["ops"].items()
+                            if any(m in key for m in ms))]
+                        for k, ms in profile.items()}}
+            else:
+                one_step()
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        run["collectives"].append(counts)
+        run["host_s"].append({k: round(v, 3) for k, v in secs.items()})
+        run["p2p"].append(p2p.p2p_counts())
+        run["ring"].append(dict(cp_mod.RING_COUNTS))
+    run["launches"] = {k: v for k, v in _device.launch_counts().items() if v}
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _empty_run():
+    return {"losses": [], "step_ms": [], "collectives": [], "p2p": [],
+            "ring": []}
+
+
+def _p15_pp_runs(res, spec, dev, rank, out):
+    """(b) This stage of the 345M at PP 4: 1F1B, then the interleaved
+    schedule (vpp 2), each from the seeded starting weights, packed
+    FusedAdam (fp32 masters) on the stage's tree."""
+    parallel_state.initialize_model_parallel(1, P15_PP)
+    rp = parallel_state.get_pipeline_model_parallel_rank()
+    cfg = p14_cfg()
+    full, tokens, labels = p14_model(cfg, dev, P15_MICRO)
+    tokens = tokens.reshape(P15_MICRO, 1, -1)
+    labels = labels.reshape(P15_MICRO, 1, -1)
+    for label, vpp in (("1f1b", 1), ("interleaved", 2)):
+        if vpp > 1:
+            parallel_state.set_virtual_pipeline_model_parallel_world_size(vpp)
+        schedule = (pp_schedules.pipeline_forward_backward_1f1b
+                    if vpp == 1 else get_forward_backward_func())
+        params = stage_params_of(full, cfg, rp, 0, 1, P15_PP, vpp)
+        if vpp == 1:
+            warm_stage(cfg, params, tokens, labels, rp, P15_PP, vpp)
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        box = {"p": params, "s": opt.init(params)}
+        run = _empty_run()
+        run["schedule"] = schedule.__name__
+
+        def one_step():
+            loss, grads = pipelined_gpt_grads(cfg, box["p"], tokens, labels,
+                                              schedule, rp, P15_PP)
+            if not run["losses"]:  # the starting weights' gradients
+                box["g0"] = {k: grads["layers"][k.split("/")[1]]
+                             for k in P15_GRAD_LEAVES
+                             if k.startswith("layers")}
+                if rp == 0:
+                    box["g0"]["embedding/word"] = grads["word"]
+            box["p"], box["s"] = opt.step(grads, box["s"], box["p"])
+            run["losses"].append(float(loss))
+
+        _p15_step_loop(rank, label, P15_STEPS, 1, one_step, run)
+        torch.save({k: v.float().cpu() for k, v in box["g0"].items()},
+                   f"{out}/rank{rank}_{label}.pt")
+        res["runs"][label] = run
+        del box, opt, params
+        torch.cuda.empty_cache()
+        parallel_state.set_virtual_pipeline_model_parallel_world_size(None)
+    if rank == 0:
+        # the dense step on the same batch, for the parity (rank 0 alone)
+        loss, grads = value_and_grad(
+            lambda p: gpt_loss(cfg, p, tokens.reshape(P15_MICRO, -1),
+                               labels.reshape(P15_MICRO, -1)), full)
+        torch.save({k: _gather_leaf(grads, k).float().cpu()
+                    for k in P15_GRAD_LEAVES}, f"{out}/dense.pt")
+        res["dense_loss"] = float(loss)
+
+
+def c5_rank_kernels_bounds(tp):
+    """Bounds of config #5's kernels at a rank's shard shapes: flash over
+    16 / tp heads of 128 at seq 2048, the LayerNorms over 2048 rows of
+    2048, packed Adam over the rank's stage shard, the row reduction of
+    the clip over its gradients (bytes as phase 2 counts them)."""
+    b, n, s, d = 1, C5_HEADS // tp, C5_SEQ, C5_HIDDEN // C5_HEADS
+    flops = _attn_flops(b, n, s, s, d, True)
+    rows, h = s, C5_HIDDEN
+    lc = C5_LAYERS // C5_PP
+    per_layer = (12 * h * h) // tp + 7 * h + (13 * h) // tp
+    shard = lc * per_layer + (50304 // tp) * h
+    return {"flash_attn_fwd": bound(4 * b * n * s * d * 2 + b * n * s * 4,
+                                    flops, BF16_TC_FLOPS),
+            "flash_attn_bwd": bound(8 * b * n * s * d * 2 + b * n * s * 4,
+                                    2.5 * flops, BF16_TC_FLOPS),
+            "layer_norm_fwd": bound(rows * h * (2 + 2) + 2 * h * 2
+                                    + rows * 8, 8 * rows * h),
+            "layer_norm_bwd": bound(rows * h * 2 * 3 + rows * 8
+                                    + 2 * h * 4, 12 * rows * h),
+            "packed_adam": bound(shard * (2 + 2 + 3 * 8), 16 * shard),
+            "packed_row_reduce": bound(shard * 2, 2 * shard)}
+
+
+C5_MATCH = {"layer_norm_fwd": ("::ln_fwd_",), "layer_norm_bwd": ("norm_bwd_",),
+            "flash_attn_fwd": ("flash_fwd_tc_kernel",),
+            "flash_attn_bwd": ("flash_bwd_dq_tc_kernel",
+                               "flash_bwd_dkv_tc_kernel"),
+            "packed_adam": ("packed_adam_kernel",),
+            "packed_row_reduce": ("row_reduce",)}
+
+#: the leaves replicated over the tensor axis (counted once in the
+#: model-parallel gradient norm, on tensor rank 0)
+C5_TP_REPLICATED = ("['layers']['input_ln_w']", "['layers']['input_ln_b']",
+                    "['layers']['post_ln_w']", "['layers']['post_ln_b']",
+                    "['layers']['proj_b']", "['layers']['fc2_b']",
+                    "['position']", "['final_ln_w']", "['final_ln_b']")
+
+
+def _p15_c5_run(res, spec, dev, rank, out):
+    """(c) BASELINE config #5 on this rank: the interleaved schedule
+    (``get_forward_backward_func`` with vpp set), the gradient clip over
+    the model-parallel group (``calc_params_l2_norm``: the row reduction,
+    the replicated leaves counted once; the last stage's copy of the tied
+    table left out, as Megatron leaves out shared parameters), packed
+    FusedAdam on the rank's shard."""
+    tp, pp, vpp = spec["tp"], spec["pp"], spec["vpp"]
+    parallel_state.initialize_model_parallel(tp, pp, vpp)
+    rp = parallel_state.get_pipeline_model_parallel_rank()
+    rt = parallel_state.get_tensor_model_parallel_rank()
+    cfg = p15_cfg(C5_LAYERS, C5_HIDDEN, C5_HEADS, C5_SEQ, P14_VOCAB,
+                  tensor_model_parallel_size=tp)
+    params = c5_rank_params(cfg, dev, rp, rt, tp, pp, vpp)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (C5_MICRO, 1, C5_SEQ),
+                           device=dev, generator=g)
+    labels = torch.roll(tokens, -1, dims=2)
+    schedule = get_forward_backward_func()
+    warm_stage(cfg, params, tokens, labels, rp, pp, vpp)
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    box = {"p": params, "s": opt.init(params)}
+    run = _empty_run()
+    run["schedule"] = schedule.__name__
+    run["norms"] = []
+
+    def one_step():
+        loss, grads = pipelined_gpt_grads(cfg, box["p"], tokens, labels,
+                                          schedule, rp, pp)
+        counted = dict(grads)
+        if rp == pp - 1 and pp > 1:
+            counted.pop("word")
+        norm = pp_utils.calc_params_l2_norm(
+            counted, tp_duplicate_paths=C5_TP_REPLICATED,
+            axis_name=("pipeline", "tensor"))
+        coef = torch.clamp(C5_CLIP / (norm + 1e-6), max=1.0)
+        grads = tree_map(lambda t: (t.float() * coef).to(t.dtype), grads)
+        box["p"], box["s"] = opt.step(grads, box["s"], box["p"])
+        run["losses"].append(float(loss))
+        run["norms"].append(float(norm))
+
+    _p15_step_loop(rank, "config #5 rank 0 step", C5_STEPS, 1, one_step, run,
+                   profile=C5_MATCH)
+    run["param_count"] = sum(t.numel() for t in tree_leaves(box["p"]))
+    res["runs"]["c5"] = run
+
+
+def card_memory_peak(fn):
+    """``(fn(), peak MiB of the card in use)``: ``nvidia-smi``'s
+    ``memory.used`` sampled every 2 s while ``fn`` runs (its per-process
+    list is empty on the chip's machine, so a world's processes are read
+    together)."""
+    import threading
+
+    peak, done = [0.0], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=20).stdout
+                peak[0] = max(peak[0], float(out.split()[0]))
+            except (OSError, subprocess.SubprocessError, ValueError,
+                    IndexError):
+                pass
+            done.wait(2.0)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join()
+    return out, peak[0]
+
+
+def _cp_shard(t, cp, r, zigzag):
+    """Rank r's shard of ``t [b, s]`` (or ``[b, n, s, d]`` along dim 2)."""
+    dim = 1 if t.dim() == 2 else 2
+    s = t.shape[dim]
+    if zigzag:
+        idx = torch.from_numpy(cp_mod.zigzag_indices(s, cp)[0]).to(t.device)
+        t = t.index_select(dim, idx)
+    n = s // cp
+    return t.narrow(dim, r * n, n).contiguous()
+
+
+def _gloo_a2a_probe(dev, world):
+    """Whether gloo takes ``all_to_all_single`` on CUDA tensors and moves
+    the right values (a probe of the transport Ulysses takes its tensors
+    through as they lie): ``"ok"``, or what went wrong."""
+    dist = torch.distributed
+    rank = dist.get_rank()
+    x = torch.arange(world * 4, dtype=torch.float32, device=dev) + 100 * rank
+    out = torch.empty_like(x)
+    try:
+        dist.all_to_all_single(out, x)
+        torch.cuda.synchronize()
+    except Exception as e:  # the probe's answer, not a failed leg
+        return f"{type(e).__name__}: {str(e)[:200]}"
+    want = torch.cat([torch.arange(rank * 4, rank * 4 + 4, device=dev)
+                      + 100 * j for j in range(world)]).float()
+    return "ok" if torch.equal(out, want) else f"wrong values: {out.tolist()}"
+
+
+def _p15_cp_runs(res, spec, dev, rank, out):
+    """(d) This rank of the 345M-wide GPT at CP 4 over seq 16384: zigzag,
+    then contiguous, each from the seeded starting weights, packed
+    FusedAdam; then Ulysses at [1, 16, 16384, 64] forward and backward."""
+    res["a2a_probe"] = _gloo_a2a_probe(dev, P15_CP)
+    if res["a2a_probe"] != "ok":
+        raise AssertionError(f"gloo all_to_all_single: {res['a2a_probe']}")
+    world = P15_CP
+    base = p15_cfg(P15_CP_LAYERS, HIDDEN, N_HEADS, P15_CP_SEQ, P14_VOCAB)
+    full = tree_map(lambda p: p.to(torch.bfloat16), init_gpt_params(
+        base, torch.Generator(device=dev).manual_seed(0), device=dev))
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, base.vocab_size, (1, P15_CP_SEQ), device=dev,
+                           generator=g)
+    labels = torch.roll(tokens, -1, dims=1)
+    for label, zig in (("zigzag", True), ("contiguous", False)):
+        cfg = dataclasses.replace(base, context_parallel_axis="cp",
+                                  context_parallel_zigzag=zig)
+        tok = _cp_shard(tokens, world, rank, zig)
+        lab = _cp_shard(labels, world, rank, zig)
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        box = {"p": tree_map(torch.clone, full)}
+        box["s"] = opt.init(box["p"])
+        run = _empty_run()
+
+        def one_step():
+            loss, grads = value_and_grad(
+                lambda p: gpt_loss(cfg, p, tok, lab), box["p"])
+            if not run["losses"] and rank == 0:
+                box["g0"] = {k: _gather_leaf(grads, k)
+                             for k in P14_GRAD_LEAVES}
+            box["p"], box["s"] = opt.step(grads, box["s"], box["p"])
+            run["losses"].append(float(loss))
+
+        _p15_step_loop(rank, label, P15_CP_STEPS, 1, one_step, run)
+        if rank == 0:
+            torch.save({k: v.float().cpu() for k, v in box["g0"].items()},
+                       f"{out}/rank0_{label}.pt")
+        res["runs"][label] = run
+        del box, opt
+        torch.cuda.empty_cache()
+    del full
+    # Ulysses: forward and backward across the ranks against flash
+    # attention on the whole sequence (rank 0) and the plain version on
+    # rank 0's rows
+    gq = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((1, N_HEADS, P15_CP_SEQ, HEAD_DIM),
+                               generator=gq, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    shards = [_cp_shard(t, world, rank, False).requires_grad_(True)
+              for t in (q, k, v)]
+    _device.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = cp_mod.ulysses_attention(*shards, axis_name="cp", causal=True)
+    o.backward(_cp_shard(do, world, rank, False))
+    torch.cuda.synchronize()
+    uly = {"ms": (time.perf_counter() - t0) * 1e3,
+           "launches": {k: c for k, c in _device.launch_counts().items()
+                        if c}}
+    if rank == 0:
+        n = P15_CP_SEQ // world
+        full_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        of = fa_mod.flash_attention(*full_in, causal=True)
+        of.backward(do)
+        uly["vs_flash"] = [_rel_gap(a, b[:, :, :n]) for a, b in zip(
+            (o, *(t.grad for t in shards)),
+            (of, *(t.grad for t in full_in)))]
+        ref = mha_reference(q[:, :, :n], k[:, :, :n], v[:, :, :n],
+                            causal=True)
+        uly["vs_plain"] = _rel_gap(o, ref)
+    res["ulysses"] = uly
+
+
+def _rel_gap(got, want) -> float:
+    """The worst gap over the largest entry of ``want``."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def p15_worker(rank: int, world: int, store: str, out: str, spec: str):
+    """One rank of a gloo world on the card for phase 15's legs (b), (c)
+    or (d) (``spec["leg"]``); writes ``rank<r>.json`` (and gradient
+    files) into ``out``."""
+    spec = json.loads(spec)
+    dist = torch.distributed
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    res = {"rank": rank, "runs": {}}
+    try:
+        _build.kernels()
+        {"pp": _p15_pp_runs, "c5": _p15_c5_run,
+         "cp": _p15_cp_runs}[spec["leg"]](res, spec, dev, rank, out)
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def nopipe_leg(dev, rows, launches, tmp):
+    """(a) NCCL at world 1, pp 1: ``get_forward_backward_func`` picks the
+    no-pipelining schedule; the 345M unfused step over 4 microbatches of 2
+    (gradients summed in fp32 over the microbatches, then packed FusedAdam)
+    against the dense batch-8 step on the same weights: the loss within
+    1e-4 relative, every leaf's gradient gap stated."""
+    dist = torch.distributed
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store15",
+                            world_size=1, rank=0)
+    try:
+        parallel_state.initialize_model_parallel(1, 1)
+        fn = get_forward_backward_func()
+        cfg = p14_cfg()
+        params, tokens, labels = p14_model(cfg, dev, P14_BATCH_A)
+        dense_loss, dense = value_and_grad(
+            lambda p: gpt_loss(cfg, p, tokens, labels), params)
+        micro = (tokens.reshape(4, 2, -1), labels.reshape(4, 2, -1))
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        state = opt.init(params)
+        _device.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = fn(lambda p, mb: gpt_loss(cfg, p, mb[0], mb[1]),
+                         lambda out, ex: out, params, micro)
+        new, state = opt.step(tree_map(lambda g, p: g.to(p.dtype), grads,
+                                       params), state, params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _device.launch_counts()
+    finally:
+        parallel_state.destroy_model_parallel()
+        dist.destroy_process_group()
+    for k, c in got.items():
+        launches[k] = launches.get(k, 0) + c
+    rel = abs(float(loss) - float(dense_loss)) / abs(float(dense_loss))
+    leaves, treedef = tree_flatten(grads)
+    gaps = {path: float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30))
+            for path, a, b in zip(leaf_paths(treedef), leaves,
+                                  tree_leaves(dense))}
+    log(f"  (a) pp 1 on NCCL world 1: {fn.__name__}, 345M unfused, 4 "
+        f"microbatches of 2: loss {float(loss):.6f} against the dense "
+        f"batch-8 step's {float(dense_loss):.6f} (rel {rel:.2e}); the step "
+        f"with the optimizer {ms:.1f} ms; worst leaf gap "
+        f"{max(gaps.values()):.2e} ({max(gaps, key=gaps.get)}); launches "
+        f"{({k: v for k, v in got.items() if v})}")
+    if fn.__name__ != "forward_backward_no_pipelining":
+        raise AssertionError(f"pp 1 dispatched to {fn.__name__}")
+    if rel > 1e-4 or not np.isfinite(float(loss)):
+        raise AssertionError(f"no-pipelining loss {float(loss)} against "
+                             f"{float(dense_loss)}")
+    for name in P15_KERNELS:
+        if got.get(name, 0) <= 0:
+            raise AssertionError(f"(a): {name} did not launch")
+    rows.append({"leg": "a nopipe nccl", "loss": float(loss),
+                 "dense_loss": float(dense_loss), "rel": rel, "ms": ms,
+                 "grad_gaps": gaps})
+
+
+def _add_runs(launches, recs, labels):
+    for rec in recs:
+        for label in labels:
+            for k, c in rec["runs"][label]["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+
+
+def pp_leg(dev, rows, launches, tmp):
+    """(b) PP 4 in a gloo world of 4 on the card, the 345M at full width
+    and depth: 1F1B, then the interleaved schedule (vpp 2, 3 layers a
+    chunk), 8 microbatches of 1; the loss the same on every stage and
+    within 1e-3 of the dense step's; gradient gaps by leaf against the
+    dense step, p50 a schedule, every rank's peak, the P2P ops a step."""
+    recs, out = _spawn_p14(tmp, P15_PP, {"leg": "pp", "device": str(dev)},
+                           timeout=420,
+                           worker="p15_worker", name="pp")
+    dense_loss = recs[0]["dense_loss"]
+    dense = torch.load(os.path.join(out, "dense.pt"))
+    for label, vpp in (("1f1b", 1), ("interleaved", 2)):
+        runs = [rec["runs"][label] for rec in recs]
+        losses = [r["losses"] for r in runs]
+        if any(l != losses[0] for l in losses):
+            raise AssertionError(f"(b) {label}: losses differ by stage: "
+                                 f"{losses}")
+        rel = abs(losses[0][0] - dense_loss) / abs(dense_loss)
+        stages = [torch.load(os.path.join(out, f"rank{r}_{label}.pt"))
+                  for r in range(P15_PP)]
+        gaps = {}
+        for key in P15_GRAD_LEAVES:
+            got = stages[0][key] if key == "embedding/word" else \
+                _layer_order([st[key] for st in stages], key, P15_PP, vpp)
+            want = dense[key]
+            gaps[key] = float((got - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30))
+        p50 = float(np.percentile(runs[0]["step_ms"][1:], 50))
+        peaks = [round(r["peak_gib"], 2) for r in runs]
+        log(f"  (b) PP 4 {label} ({runs[0]['schedule']}), gloo world of 4 "
+            f"on the card, 345M, 8 microbatches of 1: losses {losses[0]} "
+            f"on every stage, dense {dense_loss:.6f} (rel {rel:.2e}); "
+            f"gradient gaps {({k: f'{v:.2e}' for k, v in gaps.items()})}; "
+            f"step p50 {p50:.1f} ms (steps "
+            f"{[round(t, 1) for t in runs[0]['step_ms']]}); host seconds in "
+            f"the hops and all-reduces a step (rank 0) {runs[0]['host_s']}; "
+            f"peaks {peaks} "
+            f"GiB; P2P a step {[r['p2p'][-1] for r in runs]}; collectives "
+            f"a step {runs[0]['collectives'][-1]}; launches a step "
+            f"{[{k: v / (P15_STEPS - 1) for k, v in r['launches'].items()} for r in runs]}")
+        if rel > 1e-3 or max(gaps.values()) > PARITY_TOL[torch.bfloat16][1]:
+            raise AssertionError(f"(b) {label} differs from the dense step")
+        for name in P15_KERNELS:
+            if sum(r["launches"].get(name, 0) for r in runs) <= 0:
+                raise AssertionError(f"(b) {label}: {name} did not launch")
+        rows.append({"leg": f"b pp4 {label}", "losses": losses[0],
+                     "dense_loss": dense_loss, "rel": rel, "grad_gaps": gaps,
+                     "step_ms": runs[0]["step_ms"], "p50_ms": p50,
+                     "peaks_gib": peaks,
+                     "p2p_per_step": [r["p2p"][-1] for r in runs],
+                     "collectives_per_step": runs[0]["collectives"][-1]})
+    _add_runs(launches, recs, ("1f1b", "interleaved"))
+
+
+def c5_leg(dev, rows, launches, tmp):
+    """(c) BASELINE config #5: GPT-3 XL at TP x PP = ``C5_TP`` x ``C5_PP``
+    interleaved (vpp ``C5_VPP``), 4 microbatches of 1 at seq 2048, in a
+    gloo world of ``C5_TP * C5_PP`` processes on the card: the loss the
+    same on every rank and finite, p50 and tokens/s, every rank's peak
+    and device memory, the collectives and P2P ops a step, rank 0's
+    kernels' device ms a launch at the shard shapes beside their bounds."""
+    world = C5_TP * C5_PP
+    spec = {"leg": "c5", "tp": C5_TP, "pp": C5_PP, "vpp": C5_VPP,
+            "device": str(dev)}
+    (recs, _), card_mib = card_memory_peak(lambda: _spawn_p14(
+        tmp, world, spec, timeout=420, worker="p15_worker", name="c5"))
+    runs = [rec["runs"]["c5"] for rec in recs]
+    losses = runs[0]["losses"]
+    if any(r["losses"] != losses for r in runs) or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"config #5 losses: {[r['losses'] for r in runs]}")
+    timed = runs[0]["step_ms"][1:]
+    p50 = float(np.percentile(timed, 50))
+    tokens = C5_MICRO * C5_SEQ
+    peaks = [round(r["peak_gib"], 2) for r in runs]
+    prof = runs[0]["profile"]
+    bounds = c5_rank_kernels_bounds(C5_TP)
+    per_launch = {k: (t / c if c else None, c)
+                  for k, (c, t) in prof["kernels"].items()}
+    log(f"  (c) config #5, GPT-3 XL at TP {C5_TP} x PP {C5_PP} "
+        f"({runs[0]['schedule']}, vpp {C5_VPP}), gloo world of {world} on "
+        f"the card, {C5_MICRO} microbatches of 1 at seq {C5_SEQ}: losses "
+        f"{losses} on every rank, grad norms {runs[0]['norms']}; step p50 "
+        f"{p50:.1f} ms (steps {[round(t, 1) for t in runs[0]['step_ms']]}),"
+        f" {tokens / (p50 / 1e3):.0f} tokens/s; peaks {peaks} GiB (sum "
+        f"{sum(peaks):.1f}); host seconds in the hops and all-reduces a "
+        f"step (rank 0) {runs[0]['host_s']}; the card's memory in use at "
+        f"peak {card_mib:.0f} "
+        f"MiB (nvidia-smi); parameters a "
+        f"rank {[r['param_count'] for r in runs]}; collectives a step "
+        f"{runs[0]['collectives'][-1]}; P2P a step {runs[0]['p2p'][-1]}; "
+        f"launches a step {({k: v / (C5_STEPS - 1) for k, v in runs[0]['launches'].items()})}")
+    log(f"  (c) rank 0's first step, profiled: wall {prof['wall_ms']:.1f} ms,"
+        f" device busy {prof['busy_ms']:.1f} ms")
+    for dev_ms, count, key in prof["rows"]:
+        log(f"    {dev_ms:9.3f} ms  x{count:6d}  {key[:90]}")
+    for k, (ms, c) in per_launch.items():
+        b = bounds.get(k)
+        log(f"  (c) {k} at the shard shapes: "
+            f"{'n/a' if ms is None else f'{ms:.4f}'} ms a launch over {c} "
+            f"launches" + ("" if b is None else
+                           f", bound {b[0]:.4f} ms ({b[1]})"))
+    for name in C5_KERNELS:
+        if runs[0]["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"config #5: {name} did not launch")
+    _add_runs(launches, recs, ("c5",))
+    rows.append({"leg": "c config #5", "layout": [C5_TP, C5_PP, C5_VPP],
+                 "losses": losses, "norms": runs[0]["norms"],
+                 "step_ms": runs[0]["step_ms"], "p50_ms": p50,
+                 "tokens_per_s": tokens / (p50 / 1e3), "peaks_gib": peaks,
+                 "card_used_mib": card_mib,
+                 "collectives_per_step": runs[0]["collectives"][-1],
+                 "p2p_per_step": runs[0]["p2p"][-1],
+                 "profile_wall_ms": prof["wall_ms"],
+                 "profile_busy_ms": prof["busy_ms"],
+                 "kernel_ms_per_launch": {k: v[0] for k, v in
+                                          per_launch.items()},
+                 "bounds_ms": {k: v[0] for k, v in bounds.items()}})
+
+
+def ring_chunk_checks(dev):
+    """The ring's flash chunks on the card against their plain versions,
+    before the GPT leg trusts them: one rank's share of a CP 4 ring over
+    seq 16384 at [1, 16, 4096, 64] bf16 (the causal diagonal chunk, a whole
+    past chunk, the zigzag pair stacked [2, 16, 2048, 64]), forwards merged
+    by lse, then each chunk's backward from the GLOBAL o and lse (delta
+    from the o passed in); device ms a launch at those shapes beside their
+    bounds. Returns (forward, backward) worst errors and the timings."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, n, s, d = 1, N_HEADS, P15_CP_SEQ // P15_CP, HEAD_DIM
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k0, k1, v0, v1, do = (rnd(b, n, s, d) for _ in range(6))
+    scale = 1.0 / HEAD_DIM ** 0.5
+    errs_f, errs_b = [], []
+    # rank 1 of 4: the causal diagonal (its own K/V) and one past chunk
+    parts = []
+    for k, v, causal in ((k1, v1, True), (k0, v0, False)):
+        o_k, l_k = fa_mod._launch_fwd(q, k, v, None, None, None, None, causal,
+                                      scale, 0.0, None)
+        o_p, l_p = fa_mod._plain_fwd(q, k, v, None, None, None, None, causal,
+                                     scale, 0.0, None)
+        errs_f.append(_rel_gap(o_k, o_p))
+        errs_f.append(_rel_gap(l_k, l_p))
+        parts.append((o_k, l_k))
+    o = torch.zeros((b, n, s, d), dtype=torch.float32, device=dev)
+    lse = torch.full((b, n, s), -1e30, dtype=torch.float32, device=dev)
+    for o_j, l_j in parts:
+        o, lse = cp_mod._merge(o, lse, o_j, l_j)
+    o = o.to(torch.bfloat16)
+    for k, v, causal in ((k1, v1, True), (k0, v0, False)):
+        got = fa_mod._launch_bwd(q, k, v, o, lse, do, None, None, None, None,
+                                 causal, scale, 0.0, None, False)[:3]
+        want = fa_mod._plain_bwd(q, k, v, o, lse, do, None, None, None, None,
+                                 causal, scale, 0.0, None, False)[:3]
+        for a, w in zip(got, want):
+            errs_b.append(_rel_gap(a, w))
+    # the zigzag pair: two half chunks stacked along the batch
+    h = s // 2
+    qz = torch.cat([q[:, :, :h], q[:, :, h:]])
+    kz = torch.cat([k0[:, :, :h], k0[:, :, h:]])
+    vz = torch.cat([v0[:, :, :h], v0[:, :, h:]])
+    oz_k, lz_k = fa_mod._launch_fwd(qz, kz, vz, None, None, None, None, False,
+                                    scale, 0.0, None)
+    oz_p, lz_p = fa_mod._plain_fwd(qz, kz, vz, None, None, None, None, False,
+                                   scale, 0.0, None)
+    errs_f.append(_rel_gap(oz_k, oz_p))
+    fwd_err, bwd_err = max(errs_f), max(errs_b)
+    timing = {}
+    for label, (qq, kk, vv, causal) in (
+            ("full chunk [1,16,4096,64]", (q, k0, v0, False)),
+            ("diagonal chunk [1,16,4096,64] causal", (q, k1, v1, True)),
+            ("zigzag pair [2,16,2048,64]", (qz, kz, vz, False))):
+        bb, nn, sq, dd = qq.shape
+        flops = _attn_flops(bb, nn, sq, sq, dd, causal)
+        oo, ll = fa_mod._launch_fwd(qq, kk, vv, None, None, None, None,
+                                    causal, scale, 0.0, None)
+        dd_ = torch.ones_like(oo)
+        f_ms = device_ms(lambda: fa_mod._launch_fwd(
+            qq, kk, vv, None, None, None, None, causal, scale, 0.0, None),
+            "flash_fwd_tc_kernel")
+        b_ms = device_ms(lambda: fa_mod._launch_bwd(
+            qq, kk, vv, oo, ll, dd_, None, None, None, None, causal, scale,
+            0.0, None, False),
+            ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"))
+        timing[label] = {
+            "fwd_ms": f_ms, "bwd_ms": b_ms,
+            "fwd_bound": bound(4 * bb * nn * sq * dd * 2 + bb * nn * sq * 4,
+                               flops, BF16_TC_FLOPS),
+            "bwd_bound": bound(8 * bb * nn * sq * dd * 2 + bb * nn * sq * 4,
+                               2.5 * flops, BF16_TC_FLOPS)}
+    tol = RING_TOL
+    log(f"  (d) ring chunks on the card against their plain versions, "
+        f"global o and lse: forward worst {fwd_err:.3e} (o and lse), "
+        f"backward worst {bwd_err:.3e}, each of the largest entry")
+    for label, t in timing.items():
+        log(f"  (d) {label}: forward {t['fwd_ms']:.4f} ms (bound "
+            f"{t['fwd_bound'][0]:.4f}, {t['fwd_bound'][1]}), backward "
+            f"{t['bwd_ms']:.4f} ms (bound {t['bwd_bound'][0]:.4f}, "
+            f"{t['bwd_bound'][1]})")
+    if fwd_err > tol[0] or bwd_err > tol[0]:
+        raise AssertionError(f"ring chunks differ from their plain versions: "
+                             f"{fwd_err}, {bwd_err}")
+    return fwd_err, bwd_err, timing
+
+
+def cp_leg(dev, rows, launches, tmp):
+    """(d) CP 4 in a gloo world of 4 on the card: the 345M-wide GPT at seq
+    16384 (4096 tokens a rank), batch 1, zigzag then contiguous, 1 warm-up
+    + 2 steps each, held against the dense seq-16384 step run alone on the
+    card first (loss within 1e-3 relative, gradient gaps by leaf); the
+    ring's flash launches a step, the K/V bytes a step over the ring;
+    Ulysses forward and backward at [1, 16, 16384, 64] against flash
+    attention on the whole sequence and the plain version on rank 0's
+    rows. Returns the ring chunks' check errors."""
+    fwd_err, bwd_err, timing = ring_chunk_checks(dev)
+    cfg = p15_cfg(P15_CP_LAYERS, HIDDEN, N_HEADS, P15_CP_SEQ, P14_VOCAB)
+    full = tree_map(lambda p: p.to(torch.bfloat16), init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, P15_CP_SEQ), device=dev,
+                           generator=g)
+    labels = torch.roll(tokens, -1, dims=1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense_loss, grads = value_and_grad(
+        lambda p: gpt_loss(cfg, p, tokens, labels), full)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dense = {k: _gather_leaf(grads, k).float().cpu() for k in P14_GRAD_LEAVES}
+    dense_loss = float(dense_loss)
+    del full, grads
+    torch.cuda.empty_cache()
+    recs, out = _spawn_p14(tmp, P15_CP, {"leg": "cp", "device": str(dev)},
+                           timeout=480,
+                           worker="p15_worker", name="cp")
+    for label in ("zigzag", "contiguous"):
+        runs = [rec["runs"][label] for rec in recs]
+        losses = runs[0]["losses"]
+        if any(r["losses"] != losses for r in runs):
+            raise AssertionError(f"(d) {label}: losses differ by rank")
+        rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+        got = torch.load(os.path.join(out, f"rank0_{label}.pt"))
+        gaps = {k: float((got[k] - dense[k]).abs().max()
+                         / dense[k].abs().max().clamp_min(1e-30))
+                for k in P14_GRAD_LEAVES}
+        p50 = float(np.percentile(runs[0]["step_ms"][1:], 50))
+        steps_timed = P15_CP_STEPS - 1
+        per_step = {k: v / steps_timed for k, v in runs[0]["launches"].items()}
+        ring = runs[0]["ring"][-1]
+        log(f"  (d) CP 4 {label}, gloo world of 4 on the card, 345M width, "
+            f"{P15_CP_LAYERS} layers, seq {P15_CP_SEQ}: losses {losses} on "
+            f"every rank, dense {dense_loss:.6f} (rel {rel:.2e}); gradient "
+            f"gaps {({k: f'{v:.2e}' for k, v in gaps.items()})}; step p50 "
+            f"{p50:.1f} ms (steps {[round(t, 1) for t in runs[0]['step_ms']]})"
+            f", {P15_CP_SEQ / (p50 / 1e3):.0f} tokens/s; host seconds in the "
+            f"hops and all-reduces a step (rank 0) {runs[0]['host_s']}; peaks "
+            f"{[round(r['peak_gib'], 2) for r in runs]} GiB; the ring a step "
+            f"(rank 0) {ring}; launches a step {per_step}; collectives a "
+            f"step {runs[0]['collectives'][-1]}")
+        if rel > 1e-3 or max(gaps.values()) > PARITY_TOL[torch.bfloat16][1]:
+            raise AssertionError(f"(d) {label} differs from the dense step")
+        for name in P15_KERNELS:
+            if runs[0]["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"(d) {label}: {name} did not launch")
+        rows.append({"leg": f"d cp4 {label}", "losses": losses,
+                     "dense_loss": dense_loss, "rel": rel, "grad_gaps": gaps,
+                     "step_ms": runs[0]["step_ms"], "p50_ms": p50,
+                     "peaks_gib": [r["peak_gib"] for r in runs],
+                     "ring_per_step": ring, "launches_per_step": per_step,
+                     "collectives_per_step": runs[0]["collectives"][-1]})
+    uly = recs[0]["ulysses"]
+    log(f"  (d) Ulysses [1, 16, {P15_CP_SEQ}, 64] bf16 causal across 4 ranks: "
+        f"forward + backward {uly['ms']:.1f} ms (rank 0); against flash on "
+        f"the whole sequence (o, dq, dk, dv; of the largest entry) "
+        f"{uly['vs_flash']}; forward against the plain version on rank 0's "
+        f"rows {uly['vs_plain']:.3e}; "
+        f"gloo all_to_all_single on CUDA tensors: {recs[0]['a2a_probe']}")
+    if max(uly["vs_flash"]) > RING_TOL[0] or uly["vs_plain"] > RING_TOL[0]:
+        raise AssertionError(f"Ulysses differs: {uly}")
+    log(f"  (d) the dense seq-{P15_CP_SEQ} step alone: {dense_ms:.1f} ms, "
+        f"peak {dense_peak:.2f} GiB")
+    _add_runs(launches, recs, ("zigzag", "contiguous"))
+    rows.append({"leg": "d ulysses", **uly, "a2a_probe": recs[0]["a2a_probe"],
+                 "ring_chunks": timing, "dense_ms": dense_ms,
+                 "dense_peak_gib": dense_peak})
+    return fwd_err, bwd_err
+
+
+def long_context_leg(dev, rows, launches):
+    """(e) The long-context example's CLI on the card: 5 steps at --seq
+    8192 on one rank, then --world 4 (a gloo world of 4 processes on the
+    card); every loss finite, the last below the first."""
+    import io
+
+    from apex_tpu_torch.examples.long_context import train_long_context
+
+    out = {}
+    for name, argv in (("one rank", ["--seq", "8192", "--steps", "5"]),
+                       ("world 4", ["--world", "4", "--seq", "8192",
+                                    "--steps", "5"])):
+        buf = io.StringIO()
+        _device.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            printed = train_long_context.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, c in _device.launch_counts().items():
+            launches[k] = launches.get(k, 0) + c
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        losses = [l for _, l, _, _ in printed]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"long context {name}: {losses}")
+        out[name] = {"rows": printed, "s": secs}
+    log(f"  (e) long context at seq 8192: one rank {out['one rank']['s']:.1f}"
+        f" s, world 4 {out['world 4']['s']:.1f} s (5 steps each, process "
+        f"start-up included)")
+    rows.append({"leg": "e long context", **out})
+
+
+def pp_cp_phase(dev):
+    """Phase 15: pipeline and context parallelism on one card. (a) NCCL at
+    world 1: the no-pipelining schedule; (b)-(d) gloo worlds of processes
+    sharing the card (NCCL refuses two ranks on one device): the kernels
+    at the stages' and shards' shapes, the point-to-point hops and the
+    collectives through host memory, so step times are the host's, not
+    NVLink's; (e) the long-context example. Prints a ``{"phase15": [...]}``
+    line; returns the main paths' launches and the ring chunks' check
+    errors."""
+    rows, launches, parts = [], {}, {}
+    errs = (0.0, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn, args in (("a", nopipe_leg, (rows, launches, tmp)),
+                              ("b", pp_leg, (rows, launches, tmp)),
+                              ("c", c5_leg, (rows, launches, tmp)),
+                              ("d", cp_leg, (rows, launches, tmp)),
+                              ("e", long_context_leg, (rows, launches))):
+            t0 = time.perf_counter()
+            got = fn(dev, *args)
+            if key == "d":
+                errs = got
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            parts[key] = round(time.perf_counter() - t0, 1)
+    log(f"  phase 15 parts (s): {parts}")
+    print(json.dumps({"phase15": rows}), flush=True)
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8471,6 +9515,14 @@ def main() -> int:
                 "at TP 1 on NCCL world 1, at TP 2 and TP 8 (BASELINE config "
                 "#4) in gloo worlds on the card, the microbatch calculator, "
                 "and the fp8 and DCGAN examples (A5.7.1)", tp_phase, dev)
+    p15, (ring_fwd_err, ring_bwd_err) = phase(
+        "phase 15: pipeline and context parallelism (A6.5): no pipelining "
+        "on NCCL world 1, the 345M at PP 4 (1F1B, interleaved), BASELINE "
+        "config #5 (GPT-3 XL, TP x PP interleaved), CP 4 at seq 16384 (ring "
+        "and Ulysses), and the long-context example (A5.7.2)", pp_cp_phase,
+        dev)
+    fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], ring_fwd_err)
+    fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], ring_bwd_err)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
@@ -8478,13 +9530,15 @@ def main() -> int:
     # launches on the main paths: the serving runs, the eight GPT legs, the
     # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense,
     # phase 12's applier calls and 345M steps, phase 13's DDP steps, and
-    # phase 14's tensor-parallel steps on every rank and its examples
+    # phase 14's tensor-parallel steps on every rank and its examples, and
+    # phase 15's pipelined and context-parallel steps on every rank
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
                       + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
                       + fp8_launches["layer_norm_fwd"]
                       + p12.get("layer_norm_fwd", 0)
                       + p13.get("layer_norm_fwd", 0)
-                      + p14.get("layer_norm_fwd", 0))
+                      + p14.get("layer_norm_fwd", 0)
+                      + p15.get("layer_norm_fwd", 0))
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -8499,7 +9553,8 @@ def main() -> int:
                           + fp8_launches.get(kr["name"], 0)
                           + p12.get(kr["name"], 0)
                           + p13.get(kr["name"], 0)
-                          + p14.get(kr["name"], 0))
+                          + p14.get(kr["name"], 0)
+                          + p15.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

@@ -1,6 +1,7 @@
-"""The two single-device examples against the JAX scripts
-(``examples/gpt/fp8_training.py`` and ``examples/dcgan/main_amp.py``,
-run as ``tests/test_examples.py`` runs them): the same initial weights
+"""The examples against the JAX scripts (``examples/gpt/fp8_training.py``
+and ``examples/dcgan/main_amp.py``, run as ``tests/test_examples.py``
+runs them, and ``examples/long_context/train_long_context.py`` at
+``--cpu 4``): the same initial weights
 and data (drawn here with the JAX scripts' keys and handed to the port's
 CLI with ``--init``), 3 steps at the JAX tests' small sizes, every
 printed loss compared.
@@ -10,7 +11,8 @@ relative, ``chip_smoke.py``: the e4m3 / e5m2 recipe rounds the two
 packages' bf16 GEMM inputs to the same grid but their accumulations
 differ); the DCGAN's within 3e-2 relative, the amp parity tolerance of
 the bf16 ResNet steps (``tests/test_torch_resnet_train.py``, O2), here
-O1's bf16 casts of every convolution and GEMM.
+O1's bf16 casts of every convolution and GEMM; the long-context GPT's
+(fp32) within 1e-4, the JAX script printing its losses to 4 decimals.
 """
 import os
 import re
@@ -21,6 +23,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FP8_LOSS_TOL = 1e-3
@@ -138,3 +141,36 @@ def test_dcgan_matches_jax_script(tmp_path, capsys):
                                rtol=AMP_LOSS_TOL)
     assert "done." in out and all(np.isfinite(v) for row in got
                                   for v in row[1:])
+
+
+LONG_ARGS = ["--seq", "256", "--steps", "3", "--layers", "2", "--hidden",
+             "64", "--heads", "4", "--vocab", "128", "--batch", "2"]
+#: the JAX script prints its losses to 4 decimals
+PRINTED_LOSS_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("zigzag", ["--zigzag", "--no-zigzag"])
+def test_long_context_matches_jax_script(tmp_path, zigzag):
+    """A5.7.2: the long-context script at ``--cpu 4`` (JAX) and ``--world
+    4`` (a gloo world of 4 CPU processes), the JAX script's initial
+    weights and tokens handed over with ``--init``; every step's loss."""
+    from apex_tpu.transformer.testing import GPTConfig, init_gpt_params
+    from apex_tpu_torch.examples.long_context import train_long_context
+
+    cfg = GPTConfig(num_layers=2, hidden_size=64, num_attention_heads=4,
+                    vocab_size=128, max_position_embeddings=256,
+                    hidden_dropout=0.0, attention_dropout=0.0,
+                    apply_query_key_layer_scaling=False)
+    params = init_gpt_params(cfg, jax.random.PRNGKey(0))
+    tokens = jax.random.randint(jax.random.PRNGKey(1), (2, 256), 0, 128)
+    path = tmp_path / "init.npz"
+    np.savez(path, tokens=np.asarray(tokens), **_flat(params, "params"))
+    want = _run_jax_script(("long_context", "train_long_context.py"),
+                           ["--cpu", "4", zigzag] + LONG_ARGS)
+    wl = [float(m) for m in re.findall(r"step \d+: loss ([0-9.]+)", want)]
+    got = train_long_context.main(["--world", "4", "--device", "cpu",
+                                   "--init", str(path), zigzag] + LONG_ARGS)
+    assert [it for it, *_ in got] == [0, 1, 2] and len(wl) == 3
+    np.testing.assert_allclose([l for _, l, _, _ in got], wl,
+                               atol=PRINTED_LOSS_ATOL)
+    assert got[-1][1] < got[0][1]

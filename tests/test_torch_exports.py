@@ -46,8 +46,6 @@ QUEUES = {"A6.2", "A6.3", "A6.4", "A6.5", "A6.6", "A6.7", "A7", "A8"}
 #: whole JAX modules the port does not mirror yet
 MODULES_NOT_PORTED = {
     "apex_tpu.analysis": "A8",
-    "apex_tpu.transformer.pipeline_parallel": "A6.5",
-    "apex_tpu.transformer.pipeline_parallel.schedules": "A6.5",
 }
 
 _A7_RESILIENCE = (
@@ -90,8 +88,33 @@ NOT_PORTED = {
     **{("apex_tpu.resilience", n): "A7" for n in _A7_RESILIENCE},
     **{("apex_tpu.serving", n): "A7" for n in _A7_SERVING},
     **{("apex_tpu.telemetry", n): "A7" for n in _A7_TELEMETRY},
-    ("apex_tpu.transformer", "pipeline_parallel"): "A6.5",
 }
+
+#: functions of a JAX module the port mirrors that have no counterpart
+#: there, with the reason
+_VMA = ("JAX's varying-manual-axes (vma) bookkeeping for shard_map's type "
+        "checks; a rank of the port is a process holding plain tensors")
+NO_COUNTERPART = {
+    ("apex_tpu.transformer.pipeline_parallel.utils", n): _VMA
+    for n in ("pvary", "pvary_full", "pvary_union_like",
+              "vma_tracking_active")}
+
+#: modules (not packages) whose public functions and classes the port
+#: mirrors name for name (A6.5)
+MIRRORED_MODULES = (
+    "apex_tpu.transformer.context_parallel",
+    "apex_tpu.transformer.pipeline_parallel.p2p_communication",
+    "apex_tpu.transformer.pipeline_parallel.utils",
+    "apex_tpu.transformer.pipeline_parallel._timers",
+    "apex_tpu.transformer.pipeline_parallel.schedules.common",
+    "apex_tpu.transformer.pipeline_parallel.schedules.fwd_bwd_1f1b",
+    "apex_tpu.transformer.pipeline_parallel.schedules."
+    "fwd_bwd_no_pipelining",
+    "apex_tpu.transformer.pipeline_parallel.schedules."
+    "fwd_bwd_pipelining_with_interleaving",
+    "apex_tpu.transformer.pipeline_parallel.schedules."
+    "fwd_bwd_pipelining_without_interleaving",
+)
 
 #: names the port carries under its own name: the O1 patch lists are
 #: torch's functions, not jax's
@@ -177,11 +200,17 @@ def test_lazy_refusals_name_their_queue():
     import apex_tpu_torch.parallel
     import apex_tpu_torch.transformer
 
-    for mod, name, queue in ((apex_tpu_torch, "analysis", "A8"),
-                             (apex_tpu_torch.transformer,
-                              "pipeline_parallel", "A6.5")):
+    for mod, name, queue in ((apex_tpu_torch, "analysis", "A8"),):
         with pytest.raises(AttributeError, match=queue.replace(".", r"\.")):
             getattr(mod, name)
+    # A6.5 landed: the pipeline schedules and context parallelism import
+    assert apex_tpu_torch.transformer.pipeline_parallel.run_pipeline
+    from apex_tpu_torch.transformer.context_parallel import (
+        ring_attention,
+        ulysses_attention,
+    )
+
+    assert ring_attention and ulysses_attention
     # A6.4 landed: tensor parallelism and the samplers import
     from apex_tpu_torch.transformer.tensor_parallel import (
         ColumnParallelLinear,
@@ -298,3 +327,30 @@ def test_flat_op_chunk_size_is_validated(name):
     b = _run(name, T, x, y, torch.from_numpy, chunk_size=DEFAULT_CHUNK)
     for u, v in zip(a, b):
         torch.testing.assert_close(u, v, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("module", MIRRORED_MODULES)
+def test_mirrored_module_functions_ported(module):
+    """Every public function and class the JAX module defines is in the
+    port's module of the same path, but the allow-listed ones, which it
+    must not carry."""
+    import inspect
+
+    jm = importlib.import_module(module)
+    pm = importlib.import_module(module.replace("apex_tpu", "apex_tpu_torch",
+                                                1))
+    names = [n for n, o in vars(jm).items()
+             if (inspect.isfunction(o) or inspect.isclass(o))
+             and o.__module__ == jm.__name__ and not n.startswith("_")]
+    assert names, module
+    for name in names:
+        if (module, name) in NO_COUNTERPART:
+            assert not hasattr(pm, name), (module, name)
+            continue
+        assert callable(getattr(pm, name, None)), (module, name)
+
+
+def test_no_counterpart_entries_are_jax_names():
+    for module, name in NO_COUNTERPART:
+        assert module in MIRRORED_MODULES
+        assert callable(getattr(importlib.import_module(module), name))

@@ -64,9 +64,6 @@ NOT_YET = {
     **{("apex_tpu.serving", n): {"tp_axis": _TP_SERVING} for n in (
         "chunk_hidden", "decode_tokens", "prefill_chunk_tokens",
         "run_spec_step")},
-    ("apex_tpu.transformer.testing", "GPTConfig"): {
-        "context_parallel_axis": "A6.5: context parallelism",
-        "context_parallel_zigzag": "A6.5: context parallelism"},
 }
 
 #: whole names whose port waits for a queue item
