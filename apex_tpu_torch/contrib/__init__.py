@@ -4,13 +4,13 @@ chunked LM-head cross entropy, ``contrib.clip_grad``,
 (``contrib.fmha``: packed varlen sequences; ``contrib.multihead_attn``:
 self and encoder-decoder attention; ``contrib.openfold``: pair-biased
 attention, the small-shape LayerNorm and ``FusedAdamSWA``), and the
-single-device contribs in plain PyTorch: ``focal_loss``, ``group_norm``,
-``groupbn``, ``cudnn_gbn``, ``conv_bias_relu``, ``bottleneck``
-(``Bottleneck``), ``index_mul_2d``, ``sparsity``, ``transducer`` and
-``optimizers`` (the legacy ``FusedAdam`` / ``FusedSGD``), and
-``gpu_direct_storage`` (``GDSFile`` over the host IO engine). Not yet:
-the multi-rank parts (the spatial bottleneck and its halo exchangers,
-the ``DistributedFused*`` optimizers; ROADMAP.md, queue A6.6).
+contribs in plain PyTorch: ``focal_loss``, ``group_norm``, ``groupbn``,
+``cudnn_gbn``, ``conv_bias_relu``, ``bottleneck`` (``Bottleneck``, and
+the spatial-parallel ``SpatialBottleneck`` over the halo exchangers),
+``index_mul_2d``, ``sparsity``, ``transducer`` and ``optimizers`` (the
+legacy ``FusedAdam`` / ``FusedSGD`` and the ZeRO-2
+``DistributedFusedAdam`` / ``DistributedFusedLAMB``), and
+``gpu_direct_storage`` (``GDSFile`` over the host IO engine).
 
 ``optimizers`` imports eagerly, the others at first attribute access,
 as in the JAX package."""

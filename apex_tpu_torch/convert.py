@@ -46,6 +46,13 @@ state dict of ``contrib.bottleneck.Bottleneck``; ``fused_adam_state_from_jax``
 carries a pytree ``FusedAdamState`` (the legacy contrib Adam's too). The
 groupbn ``(params, state)`` dicts and the RNN models' parameter trees
 (dicts and lists) go through :func:`params_from_jax` as they are.
+
+The multi-rank parts: ``spatial_bottleneck_state_from_jax`` does for
+the flax ``SpatialBottleneck`` what ``bottleneck_state_from_jax`` does
+for ``Bottleneck``; ``distributed_fused_adam_state_from_jax`` cuts a JAX
+ZeRO state (Adam's or LAMB's, global ``(padded,)`` buffers) into one
+rank's shards; ``tp_serving_params_from_jax`` cuts a full GPT tree for
+one rank of a tensor-parallel serving engine.
 """
 from __future__ import annotations
 
@@ -315,3 +322,65 @@ def fused_adam_state_from_jax(state: Any, device="cpu"):
         exp_avg_sq=params_from_jax(state.exp_avg_sq, device, torch.float32),
         master_params=(None if masters is None
                        else params_from_jax(masters, device, torch.float32)))
+
+
+def spatial_bottleneck_state_from_jax(params: Any, batch_stats: Any = None,
+                                      device="cpu") -> dict:
+    """The flax ``SpatialBottleneck``'s ``params`` (and ``batch_stats``)
+    as a state dict of the port's ``contrib.bottleneck.SpatialBottleneck``:
+    the module-level ``conv2_kernel`` and each ``conv*.kernel`` HWIO ->
+    ``[out, in, kh, kw]``, the sync BatchNorms' ``scale`` / ``bias`` and
+    ``mean`` / ``var``. Without ``batch_stats`` only the parameters (load
+    with ``strict=False``)."""
+    top = {k: v for k, v in params.items() if not isinstance(v, Mapping)}
+    out = bottleneck_state_from_jax(
+        {k: v for k, v in params.items() if isinstance(v, Mapping)},
+        batch_stats, device)
+    for name, a in top.items():
+        out[name] = conv_kernel_from_jax(a, device)
+    return out
+
+
+def distributed_fused_adam_state_from_jax(state: Any, rank: int, world: int,
+                                          device="cpu"):
+    """A JAX ``DistributedFusedAdamState`` or ``DistributedFusedLAMBState``
+    (its global ``(padded,)`` buffers as numpy arrays, or anything
+    ``np.asarray`` takes) as the state rank ``rank`` of a group of
+    ``world`` holds in the port: its ``(padded / world,)`` slice of each
+    buffer, the step replicated."""
+    from .contrib.optimizers import (
+        DistributedFusedAdamState,
+        DistributedFusedLAMBState,
+    )
+
+    def cut(a, dtype):
+        if a is None:
+            return None
+        flat = np.asarray(a).reshape(-1)
+        if flat.shape[0] % world:
+            raise ValueError(f"buffer of {flat.shape[0]} elements does not "
+                             f"split into {world} shards")
+        n = flat.shape[0] // world
+        return _tensor(flat[rank * n:(rank + 1) * n], dtype, device)
+
+    fields = dict(
+        step=_tensor(state.step, torch.int32, device),
+        exp_avg=cut(state.exp_avg, torch.float32),
+        exp_avg_sq=cut(state.exp_avg_sq, torch.float32),
+        param_shard=cut(state.param_shard, torch.float32))
+    if hasattr(state, "segment_ids"):
+        return DistributedFusedLAMBState(
+            **fields, segment_ids=cut(state.segment_ids, torch.int32))
+    return DistributedFusedAdamState(**fields)
+
+
+def tp_serving_params_from_jax(params: Any, rank: int, tp: int,
+                               device="cpu", dtype=None) -> Any:
+    """A full ``init_gpt_params`` tree of the JAX package (numpy leaves)
+    cut for rank ``rank`` of a tensor-parallel serving engine of ``tp``
+    ranks (``serving.engine.tp_rank_params``: QKV and fc1 column-parallel
+    by whole heads, proj and fc2 row-parallel, everything else, the word
+    embedding included, replicated)."""
+    from .serving.engine import tp_rank_params
+
+    return tp_rank_params(params_from_jax(params, device, dtype), tp, rank)

@@ -287,13 +287,16 @@ class PackSpec:
         return mask
 
 
-def layout_findings(spec: PackSpec) -> List[Tuple[str, str]]:
+def layout_findings(spec: PackSpec, shard_count: Optional[int] = None
+                    ) -> List[Tuple[str, str]]:
     """``(code, message)`` for each invariant of ``spec``'s layout that
     fails (none for a spec this module built): ROW and chunk alignment,
     no overlap between leaves, bucket bounds on chunk boundaries covering
     ``[0, total)``, and bucket leaf ranges partitioning the leaves in
-    order, each leaf inside its bucket. The checks and their codes are
-    those of the JAX package's ``analysis.check_pack_spec``."""
+    order, each leaf inside its bucket; with ``shard_count``, the flat
+    buffer cut into that many equal ROW-aligned shards. The checks and
+    their codes are those of the JAX package's
+    ``analysis.check_pack_spec``."""
     out = []
 
     def err(code, msg):
@@ -363,4 +366,14 @@ def layout_findings(spec: PackSpec) -> List[Tuple[str, str]]:
     if expect != spec.n_leaves:
         err("bucket_leaves_not_partition", f"bucket leaf ranges end at "
             f"{expect}, expected {spec.n_leaves}")
+    if shard_count:
+        if spec.total % shard_count:
+            err("shard_unaligned_total", f"total {spec.total} not divisible "
+                f"by shard_count {shard_count} — the sharded-packed layout "
+                "needs equal per-shard extents")
+        elif (spec.total // shard_count) % ROW:
+            err("shard_not_row_aligned", f"shard size "
+                f"{spec.total // shard_count} is not ROW-aligned ({ROW}) — "
+                "shard boundaries split rows and shard-local segment "
+                "reductions mix leaves")
     return out

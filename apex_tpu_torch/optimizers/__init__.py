@@ -2,8 +2,8 @@
 FusedLAMB, FusedSGD and FusedNovoGrad, each with its pytree path and its
 packed flat-buffer path, and FusedAdagrad (pytree only, as in the JAX
 package): every optimizer of ``apex_tpu/optimizers``. The legacy
-contrib optimizers are ``contrib.optimizers``; the distributed ones wait
-for queue A6.6 (ROADMAP.md)."""
+contrib optimizers and the ZeRO-2 ``DistributedFusedAdam`` /
+``DistributedFusedLAMB`` are ``contrib.optimizers``."""
 from ._common import FusedOptimizer  # noqa: F401
 from ._packed import PackedState  # noqa: F401
 from .fused_adagrad import FusedAdagrad, FusedAdagradState  # noqa: F401

@@ -23,6 +23,17 @@ slots. The pool is updated in place (``kv_cache.write_*_kv``).
 Dtypes follow training: LayerNorm in fp32 on a copy cast back, GEMMs in
 ``cfg.compute_dtype``, logits fp32 from fp32 accumulation
 (``standalone_transformer_lm.lm_head``).
+
+With ``tp_axis`` (a ``tp.TPComm``, a ``parallel_state`` axis name or a
+``ProcessGroup``) each function is one rank's share of the tensor-
+parallel engine's program: ``spec`` is the rank's head-sharded spec,
+``params`` carry its column-parallel QKV / fc1 slices (whole heads) and
+row-parallel proj / fc2 slices (``engine.tp_rank_params``), each layer
+runs on ``n / tp`` heads and closes each sublayer with ONE ``all_reduce``
+of the partial GEMM in the compute dtype, before the bias (the JAX
+``_psum_tail``), and :func:`lm_logits` contracts the rank's ``vocab /
+tp`` rows of the replicated word embedding, returning its slice of the
+logits.
 """
 from __future__ import annotations
 
@@ -44,15 +55,31 @@ from .kv_cache import (
     write_chunk_kv,
     write_token_kv,
 )
+from .tp import TPComm
 
 Params = Dict[str, Any]
 
+#: the collectives a layer issues under tensor parallelism, by site: one
+#: ``all_reduce`` SUM a sublayer tail (a program's record counts the
+#: layer loop's body once)
+TP_SITES = {"attn_tail": "all_reduce_sum", "mlp_tail": "all_reduce_sum"}
+
+
+def _row_linear(x, w, b, comm: Optional[TPComm], site: str):
+    """A row-parallel sublayer tail: the partial GEMM all-reduced over
+    the tensor group, then the (replicated) bias; the plain ``linear``
+    without ``comm``."""
+    if comm is None:
+        return linear(x, w, b)
+    return comm.psum(linear(x, w, None), site) + b.to(x.dtype)
+
 
 def _layer(cfg, lp, h, pages, l, write, q_rows, page_tables, kv_lens,
-           n, d, scale):
+           n, d, scale, comm: Optional[TPComm] = None):
     """One pre-LN layer over ``h [..., hidden]``: K/V written by
     ``write(k, v)`` before attention, single-query attention over the
-    pool for the ``q_rows``-row flattening of the queries."""
+    pool for the ``q_rows``-row flattening of the queries; ``n`` is the
+    rank's head count under ``comm``."""
     dt = h.dtype
     eps = cfg.layernorm_epsilon
     lead = h.shape[:-1]
@@ -63,21 +90,25 @@ def _layer(cfg, lp, h, pages, l, write, q_rows, page_tables, kv_lens,
     ctx = flash_decode(q.reshape(q_rows, n, d), pages[l, 0], pages[l, 1],
                        page_tables, kv_lens, scale=scale)
     ctx = ctx.to(dt).reshape(*lead, n * d)
-    h = (h + linear(ctx, lp["proj_w"], lp["proj_b"])).to(dt)
+    h = (h + _row_linear(ctx, lp["proj_w"], lp["proj_b"], comm,
+                         "attn_tail")).to(dt)
     ln2 = ln_fp32(h, lp["post_ln_w"], lp["post_ln_b"], eps).to(dt)
     inter = F.gelu(linear(ln2, lp["fc1_w"], lp["fc1_b"]), approximate="tanh")
-    return (h + linear(inter, lp["fc2_w"], lp["fc2_b"])).to(dt)
+    return (h + _row_linear(inter, lp["fc2_w"], lp["fc2_b"], comm,
+                            "mlp_tail")).to(dt)
 
 
 def decode_tokens(cfg, params: Params, spec: PagedKVSpec, kv: KVCacheState,
                   tokens: torch.Tensor, positions: torch.Tensor,
-                  active: torch.Tensor, page_tables: torch.Tensor
-                  ) -> Tuple[torch.Tensor, KVCacheState]:
+                  active: torch.Tensor, page_tables: torch.Tensor, *,
+                  tp_axis=None) -> Tuple[torch.Tensor, KVCacheState]:
     """One decode step: embed each slot's token, run every layer against
     the paged cache (writing this token's K/V in place), return fp32
-    logits ``[B, vocab]`` and the (same, updated) cache. Inactive slots
-    are gated to token/position 0, the garbage page and zero attention;
-    their logits are garbage and the caller masks them."""
+    logits ``[B, vocab]`` (``[B, vocab / tp]`` under ``tp_axis``) and the
+    (same, updated) cache. Inactive slots are gated to token/position 0,
+    the garbage page and zero attention; their logits are garbage and
+    the caller masks them."""
+    comm = TPComm.of(tp_axis)
     n, d, ps = spec.num_heads, spec.head_dim, spec.page_size
     B = tokens.shape[0]
     tok = torch.where(active, tokens, 0).long()
@@ -97,18 +128,19 @@ def decode_tokens(cfg, params: Params, spec: PagedKVSpec, kv: KVCacheState,
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
         h = _layer(cfg, lp, h, kv.pages, l, write, B, pt, kv_lens, n, d,
-                   scale)
-    return lm_logits(cfg, params, h), kv
+                   scale, comm)
+    return lm_logits(cfg, params, h, tp_axis=comm), kv
 
 
 def chunk_hidden(cfg, params: Params, spec: PagedKVSpec, kv: KVCacheState,
                  tok: torch.Tensor, pclamp: torch.Tensor,
-                 valid: torch.Tensor, page_tables: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 valid: torch.Tensor, page_tables: torch.Tensor, *,
+                 tp_axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunk-shaped transformer body: embed a ``[B, C]`` token grid,
     write each valid column's K/V before attention, attend with
     per-column ``kv_lens = pos + 1``. Returns the final hidden states
     ``[B, C, hidden]`` (before the final LN) and the pool."""
+    comm = TPComm.of(tp_axis)
     n, d, ps = spec.num_heads, spec.head_dim, spec.page_size
     B, C = tok.shape
     mp = page_tables.shape[1]
@@ -131,22 +163,33 @@ def chunk_hidden(cfg, params: Params, spec: PagedKVSpec, kv: KVCacheState,
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
         h = _layer(cfg, lp, h, kv.pages, l, write, B * C, pt_rep, flat_lens,
-                   n, d, scale)
+                   n, d, scale, comm)
     return h, kv.pages
 
 
-def lm_logits(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
-    """Final LN + tied-embedding head: fp32 logits ``[..., vocab]``."""
+def lm_logits(cfg, params: Params, h: torch.Tensor, *,
+              tp_axis=None) -> torch.Tensor:
+    """Final LN + tied-embedding head: fp32 logits ``[..., vocab]``.
+    Under ``tp_axis`` the head is vocab-parallel: the rank contracts its
+    ``vocab / tp`` rows of the replicated word embedding and returns
+    ``[..., vocab / tp]`` (each logit an independent dot product, so the
+    slice is the replicated head's; no collective here)."""
+    comm = TPComm.of(tp_axis)
     h = ln_fp32(h, params["final_ln_w"], params["final_ln_b"],
                 cfg.layernorm_epsilon).to(cfg.compute_dtype)
-    return lm_head(h, params["embedding"]["word"])
+    word = params["embedding"]["word"]
+    if comm is not None:
+        vl = word.shape[0] // comm.size
+        word = word[comm.rank * vl:(comm.rank + 1) * vl]
+    return lm_head(h, word)
 
 
 def prefill_chunk_tokens(cfg, params: Params, spec: PagedKVSpec,
                          kv: KVCacheState, tokens: torch.Tensor,
                          positions: torch.Tensor, active: torch.Tensor,
                          prompt_buf: torch.Tensor, prompt_lens: torch.Tensor,
-                         page_tables: torch.Tensor, *, chunk: int
+                         page_tables: torch.Tensor, *, chunk: int,
+                         tp_axis=None
                          ) -> Tuple[torch.Tensor, KVCacheState,
                                     torch.Tensor]:
     """One CHUNKED step: each prefilling slot consumes ``min(chunk,
@@ -170,13 +213,14 @@ def prefill_chunk_tokens(cfg, params: Params, spec: PagedKVSpec,
     tok = torch.where(p < plen[:, None], prompt_tok, tokens[:, None])
     tok = torch.where(valid, tok, 0).to(torch.int32)
     pclamp = torch.where(valid, p, 0)
+    comm = TPComm.of(tp_axis)
     h, _ = chunk_hidden(cfg, params, spec, kv, tok, pclamp, valid,
-                        page_tables)
+                        page_tables, tp_axis=comm)
     # only the LAST consumed column's logits matter: select it before
     # the vocab GEMM (one [B, vocab] head instead of C of them)
     last = (take - 1).clamp(min=0).long()
     h_last = h.gather(1, last[:, None, None].expand(-1, 1, h.shape[-1]))
-    return lm_logits(cfg, params, h_last[:, 0]), kv, take
+    return lm_logits(cfg, params, h_last[:, 0], tp_axis=comm), kv, take
 
 
 def reference_decode(cfg, params: Params, prompt, max_new_tokens: int,

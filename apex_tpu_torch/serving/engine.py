@@ -45,9 +45,34 @@ replay path (:meth:`ServingEngine.recover_from`). ``chaos=`` takes a
 request spans and the latency-attribution ledger (``telemetry.spans``)
 through ``sink`` with no extra clock read.
 
-Left out of this engine for now, and refused if asked for: tensor
-parallelism (``tp``). Not here either: the fleet and CUDA-graph capture
-of the steps.
+Tensor parallelism (``tp > 1``): the JAX engine is one controller over
+a ``(tensor,)`` submesh under ``shard_map``; here each of ``tp`` ranks
+(processes of a ``torch.distributed`` world, ``parallel_state.
+tp_submesh``'s ranks) builds the same engine and makes the same calls
+(``generate``, ``submit``, ``cancel``, ...) with the same requests. A
+rank holds ``heads / tp`` heads of every page of the pool
+(``PagedKVSpec.shard``, the page size from the local head count), its
+column-parallel QKV / fc1 and row-parallel proj / fc2 slices
+(:func:`tp_rank_params`; everything else, the word embedding included,
+replicated), runs the device step on them with one ``all_reduce`` a
+sublayer tail and the vocab-parallel sampler (``sampling.
+sample_tokens_tp``), so every rank computes the same emitted tokens.
+Every rank also runs the host half (scheduler, admission, deadlines,
+prefix cache): its inputs are the requests, the emitted tokens and the
+clock, and the clock is the group's first rank's — each clock reading
+is broadcast from it (``tp.TPComm.broadcast_host``), so a rank whose
+clock runs apart still takes the first rank's admission, deadline and
+degradation decisions and issues the same collectives. The chaos
+injector acts by step number, alike on every rank. The watchdog arms
+each rank's own fetch, and its verdict is the group's: after the fetch
+every rank reduces its "tripped" flag with MAX (``tp.TPComm.any_host``),
+so a hang on one rank raises ``HangError`` on every rank at the same
+step and none is left waiting in the next step's collectives.
+``program_comm_volume`` / ``program_psum_counts`` report each program's
+collectives: the sites the serving modules declare (``TP_SITES``), with
+the bytes of the live steps' record (``tp.TPComm.recording``).
+
+Not here: the fleet and CUDA-graph capture of the steps.
 
 Weights are cast once at construction
 (``amp.cast_params_for_inference``): bf16 serving reuses the training
@@ -55,6 +80,7 @@ stack's mixed-precision rules with no master copies.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -65,9 +91,10 @@ import torch
 from .. import telemetry
 from .._device import resolve_device
 from ..amp import cast_params_for_inference
-from ..multi_tensor_apply.packing import is_row_aligned
+from ..multi_tensor_apply.packing import is_row_aligned, layout_findings
 from ..ops.flash_decode import flash_decode_available
 from ..resilience.watchdog import HangError
+from . import decode_model, sampling
 from .decode_model import decode_tokens, prefill_chunk_tokens
 from .kv_cache import PagedKVSpec
 from .robustness import (
@@ -84,12 +111,19 @@ from .robustness import (
     recover_requests,
     request_expired,
 )
-from .sampling import i32_wrap, resolve, sample_tokens
+from .sampling import (
+    TOP_FILTER_WIDTH,
+    i32_wrap,
+    resolve,
+    sample_tokens,
+    sample_tokens_tp,
+)
 from .scheduler import Request, Scheduler, SchedulerError
 from .spec_decode import NO_TOKEN, POISONED, run_spec_step
+from .tp import TPComm
 
 __all__ = ["NO_TOKEN", "POISONED", "ServingEngine", "SlotState",
-           "default_page_size"]
+           "default_page_size", "tp_rank_params"]
 
 
 @dataclasses.dataclass
@@ -138,6 +172,97 @@ def default_page_size(num_heads: int, head_dim: int) -> int:
         f"{head_dim} dim pages to whole packed rows")
 
 
+#: the serving sharding map (the JAX engine's ``_tp_param_pspecs``): the
+#: column-parallel leaves split along their output dim (whole heads for
+#: QKV), the row-parallel ones along their input dim
+_TP_SPLIT = {"qkv_w": 1, "qkv_b": 1, "fc1_w": 1, "fc1_b": 1,
+             "proj_w": 2, "fc2_w": 2}
+
+
+def tp_rank_params(params, tp: int, rank: int):
+    """A GPT parameter tree cut for rank ``rank`` of a tensor-parallel
+    serving engine of ``tp`` ranks: ``layers``' ``qkv_w`` / ``qkv_b`` /
+    ``fc1_w`` / ``fc1_b`` split along their output dim (QKV's per-head
+    ``[n, 3d]`` layout, so whole heads), ``proj_w`` / ``fc2_w`` along
+    their input dim, everything else (norms, row-parallel biases, both
+    embeddings) replicated. This is not the training map of
+    ``shard_gpt_params``, whose word embedding is vocab-parallel. A tree
+    already cut for ``tp`` is returned as it is."""
+    if tp == 1:
+        return params
+    layers = params["layers"]
+    hidden = params["embedding"]["word"].shape[1]
+    qkv_rows = layers["qkv_w"].shape[1]
+    if qkv_rows == 3 * hidden // tp:
+        return params  # already this engine's cut
+    if qkv_rows != 3 * hidden:
+        raise ValueError(f"qkv_w has {qkv_rows} rows: neither the full "
+                         f"3 x {hidden} nor a cut for tp={tp}")
+    cut = dict(layers)
+    for name, dim in _TP_SPLIT.items():
+        w = layers[name]
+        size = w.shape[dim] // tp
+        cut[name] = w.narrow(dim, rank * size, size).contiguous()
+    return {**params, "layers": cut}
+
+
+#: the process groups of tensor-parallel engines, by their ranks
+_TP_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def _tp_comm(tp: int, devices) -> TPComm:
+    """The tensor group of a ``tp``-rank engine on this process. Its
+    ranks: ``devices`` (global ranks) when given; else this rank's
+    ``parallel_state`` tensor group when model parallelism is
+    initialised with a tensor axis of ``tp``; else
+    ``parallel_state.tp_submesh``'s (ranks ``0 .. tp - 1``). The group:
+    the default one when the ranks are the whole world, the
+    ``parallel_state`` tensor group when they are it, else a new group
+    over them (created once, by its members alone)."""
+    import torch.distributed as dist
+
+    from ..transformer import parallel_state as ps
+
+    if (devices is None and ps.model_parallel_is_initialized()
+            and ps.get_tensor_model_parallel_world_size() == tp):
+        ranks = tuple(ps.get_group_ranks(ps.TENSOR_AXIS))
+    else:
+        ranks = tuple(int(r) for r in ps.tp_submesh(
+            tp, devices=devices).devices.reshape(-1))
+    world = dist.get_world_size()
+    me = dist.get_rank()
+    if me not in ranks:
+        raise ValueError(f"rank {me} is not one of the engine's tensor-"
+                         f"parallel ranks {list(ranks)}")
+    if ranks == tuple(range(world)):
+        group = None
+    elif (ps.model_parallel_is_initialized()
+          and tuple(ps.get_group_ranks(ps.TENSOR_AXIS)) == ranks):
+        group = ps.get_group(ps.TENSOR_AXIS)
+    else:
+        if ranks not in _TP_GROUPS:
+            _TP_GROUPS[ranks] = dist.new_group(
+                list(ranks), use_local_synchronization=True)
+        group = _TP_GROUPS[ranks]
+    return TPComm(group, tp, ranks.index(me), True)
+
+
+class _LeaderClock:
+    """The engine's clock under tensor parallelism: every rank reads its
+    own clock (a ``VirtualClock`` counts the read) and takes the group's
+    first rank's reading, broadcast, so every host decision taken from
+    the clock is the first rank's on every rank."""
+
+    def __init__(self, clock: Callable[[], float], comm: TPComm):
+        self.clock = clock
+        self.comm = comm
+
+    def __call__(self) -> float:
+        t = torch.tensor([self.clock()], dtype=torch.float64)
+        self.comm.broadcast_host(t, 0)
+        return float(t[0])
+
+
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``. To the card through pinned memory and
     a non-blocking copy: a pageable copy would synchronise the stream."""
@@ -155,6 +280,10 @@ class ServingEngine:
     to completion under continuous batching and returns ``{rid:
     [token, ...]}``. ``device=None`` is the card (and raises when there
     is none); pass ``device="cpu"`` for the plain PyTorch path.
+    ``tp > 1`` runs this rank's share of a tensor-parallel engine over
+    ``tp`` ranks (``devices``: their global ranks; default
+    ``parallel_state.tp_submesh``'s), given the full or the rank's cut
+    parameter tree; see the module docstring.
     """
 
     def __init__(self, cfg, params, *, n_slots: int = 4,
@@ -172,11 +301,8 @@ class ServingEngine:
                  clock: Optional[Callable[[], float]] = None,
                  prefill_chunk: int = 1, prefix_cache: bool = True,
                  spec_k: int = 0, spec_ngram: int = 3, trace: bool = True,
-                 tp: int = 1, device=None):
-        if tp != 1:
-            raise NotImplementedError(
-                f"ServingEngine(tp={tp!r}) is not ported yet: tensor-"
-                "parallel serving waits for parallel_state (see ROADMAP.md)")
+                 tp: int = 1, devices: Optional[Sequence[int]] = None,
+                 device=None):
         self.device = resolve_device(device)
         # recovery (recover_from / rebuild_like) builds an engine with
         # the same geometry, policies and device: capture the kwargs
@@ -188,17 +314,45 @@ class ServingEngine:
             degradation=degradation, watchdog=watchdog,
             step_timeout_s=step_timeout_s, chaos=chaos, clock=clock,
             prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-            spec_k=spec_k, spec_ngram=spec_ngram, trace=trace,
-            device=self.device)
+            spec_k=spec_k, spec_ngram=spec_ngram, trace=trace, tp=tp,
+            devices=devices, device=self.device)
         self.cfg = cfg
         n, d = cfg.num_attention_heads, cfg.kv_channels
-        ps = page_size or default_page_size(n, d)
+        #: tensor-parallel degree: tp > 1 head-shards the pool and
+        #: column / row-shards the GEMMs over the ranks of ``self.comm``
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if n % self.tp:
+            raise ValueError(
+                f"num_attention_heads {n} not divisible by tp={self.tp}")
+        self._vocab = int(params["embedding"]["word"].shape[0])
+        if self._vocab % self.tp:
+            raise ValueError(
+                f"vocab {self._vocab} not divisible by tp={self.tp} "
+                "(lm_logits is vocab-parallel)")
+        self.comm: Optional[TPComm] = (_tp_comm(self.tp, devices)
+                                       if self.tp > 1 else None)
+        # each rank's K/V page must be ROW-aligned for its n / tp heads
+        ps = page_size or default_page_size(n // self.tp, d)
         max_seq = cfg.max_position_embeddings
         mp = pages_per_seq or -(-max_seq // ps)
         num_pages = num_pages or (n_slots * mp + 1)
         self.spec = PagedKVSpec(
             cfg.num_layers, n, d, page_size=ps, num_pages=num_pages,
             pages_per_seq=mp, dtype=kv_dtype or cfg.compute_dtype)
+        #: the spec of this rank's share of the pool (``self.spec`` at
+        #: tp=1); the host keeps the global spec's page geometry
+        self.spec_local = self.spec.shard(self.tp)
+        if self.tp > 1:
+            findings = layout_findings(self.spec.pack_spec,
+                                       shard_count=self.tp)
+            if findings:
+                raise ValueError("KV pool layout is not tp-shardable: "
+                                 + "; ".join(f"{c}: {m}"
+                                             for c, m in findings))
+        #: each program's live record of its collective sites (tp > 1)
+        self._sites: Dict[str, Dict[str, Any]] = {}
         if self.device.type == "cuda" and not flash_decode_available(ps, d):
             raise ValueError(
                 f"flash_decode kernel cannot take page_size={ps}, "
@@ -227,8 +381,7 @@ class ServingEngine:
             raise ValueError(
                 f"spec_k {spec_k} exceeds the sequence buffer "
                 f"({self._buf_len} tokens)")
-        params = _to_device(params, self.device)
-        self.params = cast_params_for_inference(params, cfg.compute_dtype)
+        self.params = self._rank_params(params)
         self.sink = sink if sink is not None else telemetry.NullRecorder()
         self.telemetry_every = int(telemetry_every)
         self.record_every = int(record_every)
@@ -251,6 +404,8 @@ class ServingEngine:
         self.watchdog = watchdog
         self._step_timeout_s = step_timeout_s
         self._clock = clock if clock is not None else time.perf_counter
+        if self.comm is not None:
+            self._clock = _LeaderClock(self._clock, self.comm)
         #: end-to-end tracing (telemetry.spans): span records through
         #: this engine's sink + the bounded flight-recorder ring dumped
         #: as a black box on hangs and recovery. Span timestamps only
@@ -259,7 +414,7 @@ class ServingEngine:
         #: reads) and traced runs stay deterministic.
         self.tracer = (telemetry.Tracer(sink=self.sink, clock=self._clock)
                        if trace else None)
-        self.kv = self.spec.init_cache(self.device)
+        self.kv = self.spec_local.init_cache(self.device)
         self.slots = SlotState.zeros(self.n_slots, self._buf_len,
                                      self.device)
         self.metrics = telemetry.init_metrics(self.device)
@@ -269,6 +424,57 @@ class ServingEngine:
         self.steps_run = 0
         self.last_stats: Dict[str, Any] = {}
         self._accum = self._fresh_accum()
+
+    def _rank_params(self, params):
+        """On the device, cut for this rank (under tensor parallelism)
+        BEFORE the one-shot inference cast, then cast."""
+        params = _to_device(params, self.device)
+        if self.comm is not None:
+            params = tp_rank_params(params, self.tp, self.comm.rank)
+        return cast_params_for_inference(params, self.cfg.compute_dtype)
+
+    # -- tensor parallelism ------------------------------------------------
+    #: the collective sites of every serving program: its layers' tails
+    #: and the sampler's (the JAX walker's count of one program)
+    _PROGRAM_SITES = {**decode_model.TP_SITES, **sampling.TP_SITES}
+
+    def _programs(self) -> List[str]:
+        """The enabled serving programs: ``decode``; ``chunk_prefill``
+        with ``prefill_chunk > 1``; ``spec_verify`` with ``spec_k > 0``."""
+        return (["decode"] + (["chunk_prefill"] if self.prefill_chunk > 1
+                              else [])
+                + (["spec_verify"] if self.spec_k > 0 else []))
+
+    def _recording(self, program: str):
+        """The live record of ``program``'s collective sites around one
+        of its steps (a no-op context at tp=1)."""
+        if self.comm is None:
+            return contextlib.nullcontext()
+        return self.comm.recording(self._sites.setdefault(program, {}))
+
+    def program_comm_volume(self) -> Optional[Dict[str, Dict]]:
+        """``{program: {collective: {count, bytes, axes}}}`` over every
+        enabled serving program (:meth:`_programs`): each declared
+        collective site of the program once (the layer loop's tails count
+        once, as the JAX walker counts a loop body), its output bytes
+        from the program's live steps (None for a site those steps have
+        not issued yet: a program that has not run, or the draw's two
+        before a sampled row). None at tp=1: there are no collectives."""
+        if self.comm is None:
+            return None
+        return {name: self.comm.volume(self._PROGRAM_SITES,
+                                       self._sites.get(name, {}))
+                for name in self._programs()}
+
+    def program_psum_counts(self) -> Optional[Dict[str, int]]:
+        """The ``psum`` (``all_reduce`` SUM) sites of each enabled
+        program: the two sublayer tails plus the sampler's one fused
+        reduction, 3 (None at tp=1)."""
+        vols = self.program_comm_volume()
+        if vols is None:
+            return None
+        return {name: int(v.get("psum", {}).get("count", 0))
+                for name, v in vols.items()}
 
     def begin_run(self) -> None:
         """Reset the per-run accounting (``generate`` calls it)."""
@@ -309,6 +515,16 @@ class ServingEngine:
             return RejectionReason(
                 RejectionCode.BAD_MAX_NEW,
                 f"request {req.rid}: max_new_tokens < 1")
+        if self.tp > 1:
+            sp = resolve(req.sampling)
+            # the TP sampler's thresholds come from the gathered top-64
+            # candidates: a deeper top_k cannot be honoured exactly
+            if sp.top_k > TOP_FILTER_WIDTH:
+                return RejectionReason(
+                    RejectionCode.UNSUPPORTED_SAMPLING,
+                    f"request {req.rid}: top_k {sp.top_k} exceeds the "
+                    f"tensor-parallel filter width {TOP_FILTER_WIDTH} "
+                    f"(tp={self.tp} has no full-vocab sort fallback)")
         return None
 
     def probe(self, req: Request
@@ -645,27 +861,41 @@ class ServingEngine:
                      chunked: bool, any_sampled: bool) -> torch.Tensor:
         """One eager plain step; returns the emitted ``[B]`` int32 tokens
         (``NO_TOKEN`` / ``POISONED`` sentinels) on the device."""
+        with self._recording("chunk_prefill" if chunked else "decode"):
+            return self._plain_step(page_tables, poison, chunked,
+                                    any_sampled)
+
+    def _plain_step(self, page_tables: torch.Tensor, poison: torch.Tensor,
+                    chunked: bool, any_sampled: bool) -> torch.Tensor:
         s = self.slots
         if chunked:
             logits, self.kv, take = prefill_chunk_tokens(
-                self.cfg, self.params, self.spec, self.kv, s.tokens,
+                self.cfg, self.params, self.spec_local, self.kv, s.tokens,
                 s.positions, s.active, s.prompt_buf, s.prompt_lens,
-                page_tables, chunk=self.prefill_chunk)
+                page_tables, chunk=self.prefill_chunk, tp_axis=self.comm)
             next_pos = s.positions + take
         else:
             logits, self.kv = decode_tokens(
-                self.cfg, self.params, self.spec, self.kv, s.tokens,
-                s.positions, s.active, page_tables)
+                self.cfg, self.params, self.spec_local, self.kv, s.tokens,
+                s.positions, s.active, page_tables, tp_axis=self.comm)
             next_pos = s.positions + 1
         # chaos seam: the poison mask turns a slot's logits non-finite
         # in the step (the shape of a corrupted activation)
         logits = torch.where(poison[:, None], float("nan"), logits)
-        # fault isolation rides the same logits the sampler reads
-        bad = s.active & ~torch.isfinite(logits).all(dim=-1)
         # the emitted token OCCUPIES position next_pos: its PRNG key
-        sampled = sample_tokens(logits, s.temps, s.top_ks, s.top_ps,
-                                s.seeds, s.rids, next_pos,
-                                any_sampled=any_sampled)
+        if self.comm is None:
+            # fault isolation rides the same logits the sampler reads
+            bad = s.active & ~torch.isfinite(logits).all(dim=-1)
+            sampled = sample_tokens(logits, s.temps, s.top_ks, s.top_ps,
+                                    s.seeds, s.rids, next_pos,
+                                    any_sampled=any_sampled)
+        else:
+            # the poison flag rides the TP sampler's fused reduction
+            sampled, nonfin = sample_tokens_tp(
+                logits, s.temps, s.top_ks, s.top_ps, s.seeds, s.rids,
+                next_pos, axis_name=self.comm, vocab_size=self._vocab,
+                any_sampled=any_sampled)
+            bad = s.active & nonfin
         still_prefill = next_pos < s.prompt_lens
         prompt_next = s.prompt_buf.gather(
             1, next_pos.clamp(max=self._buf_len - 1).long()[:, None])[:, 0]
@@ -683,11 +913,12 @@ class ServingEngine:
                           any_sampled: bool) -> torch.Tensor:
         """The speculative step; returns the ``[B, C + 1]`` emitted
         matrix on the device."""
-        self.kv, self.slots, emitted = run_spec_step(
-            self.cfg, self.params, self.spec, self.kv, self.slots,
-            page_tables, poison, caps, spec_k=self.spec_k,
-            ngram=self.spec_ngram, prefill_chunk=self.prefill_chunk,
-            any_sampled=any_sampled)
+        with self._recording("spec_verify"):
+            self.kv, self.slots, emitted = run_spec_step(
+                self.cfg, self.params, self.spec_local, self.kv, self.slots,
+                page_tables, poison, caps, spec_k=self.spec_k,
+                ngram=self.spec_ngram, prefill_chunk=self.prefill_chunk,
+                any_sampled=any_sampled, tp_axis=self.comm)
         return emitted
 
     def _observe_metrics(self, emitted: torch.Tensor) -> None:
@@ -716,19 +947,34 @@ class ServingEngine:
 
         if self.watchdog is None:
             return fetch()
+        hang = None
         try:
             with self.watchdog.armed("serving_step_host_sync",
                                      timeout_s=self._step_timeout_s,
                                      context={"step": step_no}):
-                return fetch()
+                em = fetch()
         except HangError as e:
-            # the post-mortem black box: the flight ring merged with the
-            # hang's all-thread stacks, through the same sink
-            if self.tracer is not None:
-                self.tracer.dump_blackbox(
-                    reason="hang", sink=self.sink, stacks=e.stacks,
-                    what=e.what, step=step_no)
-            raise
+            hang = e
+        # under tensor parallelism the verdict is the group's (outside
+        # the armed window: a rank that did not trip waits here for the
+        # one that did, no longer than its deadline)
+        if self.comm is not None and self.comm.any_host(hang is not None) \
+                and hang is None:
+            timeout = (self.watchdog.timeout_s if self._step_timeout_s
+                       is None else self._step_timeout_s)
+            hang = HangError("serving_step_host_sync", timeout,
+                             "(this rank's fetch completed; another rank "
+                             "of the tensor-parallel group tripped its "
+                             "watchdog at this step)")
+        if hang is None:
+            return em
+        # the post-mortem black box: the flight ring merged with the
+        # hang's all-thread stacks, through the same sink
+        if self.tracer is not None:
+            self.tracer.dump_blackbox(
+                reason="hang", sink=self.sink, stacks=hang.stacks,
+                what=hang.what, step=step_no)
+        raise hang
 
     def run_step(self) -> np.ndarray:
         """One scheduling boundary + one device step; returns the fetched
@@ -1131,6 +1377,12 @@ class ServingEngine:
             "prefix_cache": self.prefix_cache_run_stats(),
             "prefill_step_time_s": a["prefill_step_time_s"],
             "decode_step_time_s": a["decode_step_time_s"],
+            # tensor parallelism: the pool bytes a rank holds (heads / tp
+            # of every page) and each program's collectives (None at 1)
+            "tp": self.tp,
+            "kv_bytes_per_shard": self.spec_local.cache_bytes(),
+            "psum_per_program": self.program_psum_counts(),
+            "comm_volume": self.program_comm_volume(),
             # latency attribution (telemetry.spans); None with tracing off
             "attribution": telemetry.attribution_summary(
                 reqs, violators=[r for r in reqs
@@ -1172,12 +1424,11 @@ class ServingEngine:
 
     # -- weight swap -------------------------------------------------------
     def swap_params(self, params) -> None:
-        """Replace the serving weights in place (through the same
-        one-shot inference cast the constructor runs) AND flush the
-        prefix cache: cached K/V was computed under the OLD weights."""
-        params = _to_device(params, self.device)
-        self.params = cast_params_for_inference(params,
-                                                self.cfg.compute_dtype)
+        """Replace the serving weights in place (cut for this rank under
+        tensor parallelism, then the same one-shot inference cast the
+        constructor runs) AND flush the prefix cache: cached K/V was
+        computed under the OLD weights."""
+        self.params = self._rank_params(params)
         if self.prefix_cache is not None:
             flushed = self.prefix_cache.flush()
             self.sink.record({"event": "prefix_cache_flush",

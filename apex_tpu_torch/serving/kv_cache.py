@@ -33,7 +33,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ..multi_tensor_apply.packing import ROW, is_row_aligned
+from ..multi_tensor_apply.packing import ROW, PackSpec, is_row_aligned
 
 
 class KVCacheState(NamedTuple):
@@ -91,6 +91,44 @@ class PagedKVSpec:
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens``."""
         return -(-int(n_tokens) // self.page_size)
+
+    def page_bytes(self) -> int:
+        return self.page_elems * self.dtype.itemsize
+
+    def cache_bytes(self) -> int:
+        """The pool's bytes: every layer's K and V, every page."""
+        return (self.num_layers * 2 * self.num_pages * self.page_elems
+                * self.dtype.itemsize)
+
+    @property
+    def pack_spec(self) -> PackSpec:
+        """The pool as a ``PackSpec`` (the JAX spec's ``pack_spec``):
+        per-layer K and V leaves, one page a chunk. ``layout_findings``
+        on it, with ``shard_count``, is the layout gate of a
+        head-sharded pool."""
+        leaf = torch.empty(self.pool_leaf_shape, dtype=self.dtype,
+                           device="meta")
+        template = {f"layer{l:03d}": {"k": leaf, "v": leaf}
+                    for l in range(self.num_layers)}
+        return PackSpec(template, align=ROW, chunk_size=self.page_elems)
+
+    def shard(self, tp: int) -> "PagedKVSpec":
+        """The spec one rank of a head-sharded pool holds: ``num_heads /
+        tp`` heads, the page geometry unchanged. Its constructor checks
+        that the local page (``heads / tp * page * dim`` elements) is
+        still ROW-aligned, so a tensor-parallel engine picks its page
+        size from the local head count."""
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if self.num_heads % tp:
+            raise ValueError(
+                f"num_heads={self.num_heads} not divisible by tp={tp}")
+        if tp == 1:
+            return self
+        return PagedKVSpec(
+            self.num_layers, self.num_heads // tp, self.head_dim,
+            page_size=self.page_size, num_pages=self.num_pages,
+            pages_per_seq=self.pages_per_seq, dtype=self.dtype)
 
     def init_cache(self, device) -> KVCacheState:
         return KVCacheState(pages=torch.zeros(

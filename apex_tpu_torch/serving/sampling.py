@@ -83,6 +83,12 @@ def uniform_from_hash(seeds, rids, positions, idx) -> torch.Tensor:
 #: width of the top-k prefilter the filter thresholds resolve from
 TOP_FILTER_WIDTH = 64
 
+#: the collectives of :func:`sample_tokens_tp`, by site (the draw's two
+#: only on a step where a row samples)
+TP_SITES = {"sampler_candidates": "all_gather",
+            "sampler_sum": "all_reduce_sum",
+            "draw_max": "all_reduce_max", "draw_min": "all_reduce_min"}
+
 _NEG_INF = float("-inf")
 
 
@@ -160,3 +166,111 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
     gumbel = -torch.log(-torch.log(u))
     sampled = (allowed + gumbel).argmax(dim=-1).to(torch.int32)
     return torch.where(temps <= 0.0, greedy_tok, sampled)
+
+
+_I32_MAX = 2 ** 31 - 1
+
+
+def sample_tokens_tp(logits: torch.Tensor, temps: torch.Tensor,
+                     top_ks: torch.Tensor, top_ps: torch.Tensor,
+                     seeds: torch.Tensor, rids: torch.Tensor,
+                     positions: torch.Tensor, *, axis_name, vocab_size: int,
+                     any_sampled: Optional[bool] = None):
+    """Vocab-parallel :func:`sample_tokens`: this rank holds the ``[R,
+    V / tp]`` logits of global ids ``[rank * V / tp, (rank + 1) * V /
+    tp)``, and the full vocab is on no rank. ``axis_name`` is the
+    tensor group (a ``tp.TPComm``, an axis name or a ``ProcessGroup``).
+
+    Returns ``(tokens [R] int32, nonfinite [R] bool)``; the tokens are
+    the replicated sampler's, bit for bit:
+
+    - candidates: the rank's top-``TOP_FILTER_WIDTH`` of its raw slice
+      with their global ids, gathered shard-major in ONE
+      ``all_gather_into_tensor`` (the values' bits beside the ids). The
+      greedy token is the largest candidate, the lowest id among equals
+      (``argmax``'s rule);
+    - thresholds: the top-``W`` of the gathered candidates divided by
+      the temperature (``x / t``, as the replicated sampler divides) is
+      the replicated prefix, so :func:`_thresholds`' math runs on it; the
+      one sum over the whole vocab, the softmax denominator, is the
+      rank's partial in ONE fused ``all_reduce`` that also carries the
+      row's count of non-finite logits;
+    - the draw: Gumbel noise keyed by the global vocab id through
+      :func:`uniform_from_hash`, the rank's best and its id, then an
+      ``all_reduce`` MAX of the best and a MIN over the ids that hold it.
+
+    A step where no row samples (``any_sampled`` False, from the
+    engine's host mirrors) issues the gather and the fused reduction
+    only. There is no deep-``top_k`` fallback: the engine refuses
+    ``top_k > TOP_FILTER_WIDTH`` at submit."""
+    from .tp import TPComm
+
+    comm = TPComm.of(axis_name)
+    logits = logits.float()
+    R, Vl = logits.shape
+    V = int(vocab_size)
+    base = comm.rank * Vl
+    dev = logits.device
+
+    # the rank's candidates: raw top-W of the local slice, global ids
+    Wl = min(TOP_FILTER_WIDTH, Vl)
+    lvals, lidx = torch.topk(logits, Wl, dim=-1)
+    gids = (lidx + base).to(torch.int32)
+    # values moved as their int32 bits beside the ids: one exact gather
+    both = comm.all_gather(torch.cat([lvals.view(torch.int32), gids], -1),
+                           "sampler_candidates").view(R, comm.size, 2, Wl)
+    gvals = both[:, :, 0].contiguous().view(torch.float32).reshape(
+        R, comm.size * Wl)
+    ggids = both[:, :, 1].reshape(R, comm.size * Wl)
+    best = gvals.max(dim=-1, keepdim=True).values
+    greedy_tok = torch.where(gvals == best, ggids, _I32_MAX).min(
+        dim=-1).values.clamp(max=V - 1).to(torch.int32)
+
+    if any_sampled is None:
+        any_sampled = bool((temps > 0.0).any())
+    nonfin_l = (~torch.isfinite(logits)).sum(dim=-1).float()
+    if not any_sampled:
+        tot = comm.psum(torch.stack([torch.zeros_like(nonfin_l), nonfin_l],
+                                    dim=-1), "sampler_sum")
+        return greedy_tok, tot[:, 1] > 0.0
+
+    # thresholds from the whole gathered candidate prefix (tp * W deep),
+    # the temperature DIVIDED as the replicated sampler divides
+    t = temps.clamp(min=1e-6)
+    scaled = logits / t[:, None]
+    W = gvals.shape[1]
+    vals_desc = torch.topk(gvals / t[:, None], W, dim=-1).values
+    k_idx = top_ks.clamp(1, W).long() - 1
+    kth = vals_desc.gather(1, k_idx[:, None])[:, 0]
+    k_all = (top_ks <= 0) | (top_ks >= V)
+    kth = torch.where(k_all, _NEG_INF, kth)
+    m = vals_desc[:, 0]
+
+    # the sampler's ONE sum: the softmax denominator's partials over the
+    # sharded vocab, fused with the non-finite count (the poison flag)
+    part = torch.where(scaled >= kth[:, None],
+                       torch.exp(scaled - m[:, None]), 0.0).sum(dim=-1)
+    tot = comm.psum(torch.stack([part, nonfin_l], dim=-1), "sampler_sum")
+    denom, nonfin_ct = tot[:, 0], tot[:, 1]
+
+    ms = torch.where(vals_desc >= kth[:, None], vals_desc, _NEG_INF)
+    probs = torch.exp(ms - m[:, None]) / denom[:, None]
+    cum = torch.cumsum(probs, dim=-1)
+    n_keep = ((cum - probs) < top_ps[:, None]).sum(dim=-1)
+    thresh = ms.gather(1, (n_keep - 1).clamp(min=0)[:, None])[:, 0]
+    thresh = torch.where(top_ps >= 1.0, _NEG_INF, thresh)
+
+    # the distributed Gumbel-max over the local slice, keyed by global id
+    keep = (scaled >= kth[:, None]) & (scaled >= thresh[:, None])
+    allowed = torch.where(keep, scaled, _NEG_INF)
+    vi = torch.arange(Vl, dtype=torch.int32, device=dev)[None, :] + base
+    u = uniform_from_hash(seeds[:, None], rids[:, None], positions[:, None],
+                          vi)
+    y = allowed + (-torch.log(-torch.log(u)))
+    lbest, larg = y.max(dim=-1)
+    larg = larg.to(torch.int32) + base
+    wbest = comm.pmax(lbest, "draw_max")
+    warg = comm.pmin(torch.where(lbest == wbest, larg, _I32_MAX), "draw_min")
+    sampled = warg.clamp(max=V - 1)  # all-NaN rows are poisoned anyway
+    tok = torch.where(temps <= 0.0, greedy_tok, sampled).to(torch.int32)
+    return tok, nonfin_ct > 0.0

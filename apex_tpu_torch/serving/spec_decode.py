@@ -51,7 +51,8 @@ import torch.nn.functional as F
 
 from .decode_model import chunk_hidden, lm_logits
 from .kv_cache import KVCacheState, PagedKVSpec
-from .sampling import sample_tokens
+from .sampling import sample_tokens, sample_tokens_tp
+from .tp import TPComm
 
 #: emitted-token sentinels (the JAX package's values): no token in this
 #: column / the slot's logits were non-finite (column 0 only)
@@ -111,7 +112,8 @@ def ngram_propose(hist: torch.Tensor, lens: torch.Tensor, *, k: int,
 def run_spec_step(cfg, params, spec: PagedKVSpec, kv: KVCacheState, slots,
                   page_tables: torch.Tensor, poison: torch.Tensor,
                   draft_caps: torch.Tensor, *, spec_k: int, ngram: int,
-                  prefill_chunk: int, any_sampled: Optional[bool] = None):
+                  prefill_chunk: int, any_sampled: Optional[bool] = None,
+                  tp_axis=None):
     """One unified draft→verify→accept step over every slot.
 
     ``slots`` is the engine's ``SlotState`` (sampling rows and ``hist``
@@ -120,7 +122,11 @@ def run_spec_step(cfg, params, spec: PagedKVSpec, kv: KVCacheState, slots,
     draft length to what the host paged for it (``Scheduler.draft_cap``)
     — the device must never write K/V beyond the slot's page table,
     because an accepted token whose K/V landed on the garbage page would
-    be silently lost. ``any_sampled`` as in ``sample_tokens``.
+    be silently lost. ``any_sampled`` as in ``sample_tokens``. Under
+    ``tp_axis`` it is one rank's share of the tensor-parallel step
+    (``decode_model``): vocab-parallel logits, drawn by
+    ``sample_tokens_tp``, whose fused reduction carries the poison
+    flag.
 
     Returns ``(kv, slots, emitted_ex)``: the pool and ``slots.hist`` are
     updated in place, the other slot fields are new tensors;
@@ -188,9 +194,10 @@ def run_spec_step(cfg, params, spec: PagedKVSpec, kv: KVCacheState, slots,
     hist.index_put_((rows[:, None].expand(B, C), destc.long()), tok)
 
     # 5. ONE chunk-shaped target pass verifies all C positions
+    comm = TPComm.of(tp_axis)
     h, pages = chunk_hidden(cfg, params, spec, kv, tok, pclamp, valid,
-                            page_tables)
-    logits = lm_logits(cfg, params, h)                   # [B, C, V] f32
+                            page_tables, tp_axis=comm)
+    logits = lm_logits(cfg, params, h, tp_axis=comm)     # [B, C, V] f32
     logits = torch.where(poison[:, None, None], float("nan"), logits)
 
     # 6. the position-keyed deterministic draw at every column — the
@@ -200,11 +207,17 @@ def run_spec_step(cfg, params, spec: PagedKVSpec, kv: KVCacheState, slots,
     def rep(a):
         return a[:, None].expand(B, C).reshape(B * C)
 
-    e = sample_tokens(
-        logits.reshape(B * C, V), rep(slots.temps), rep(slots.top_ks),
-        rep(slots.top_ps), rep(slots.seeds), rep(slots.rids),
-        (pclamp + 1).reshape(B * C), any_sampled=any_sampled).reshape(B, C)
-    nonfin = ~torch.isfinite(logits).all(dim=-1)         # [B, C]
+    rows_in = (logits.reshape(B * C, V), rep(slots.temps),
+               rep(slots.top_ks), rep(slots.top_ps), rep(slots.seeds),
+               rep(slots.rids), (pclamp + 1).reshape(B * C))
+    if comm is None:
+        e = sample_tokens(*rows_in, any_sampled=any_sampled).reshape(B, C)
+        nonfin = ~torch.isfinite(logits).all(dim=-1)     # [B, C]
+    else:
+        e, nf = sample_tokens_tp(*rows_in, axis_name=comm,
+                                 vocab_size=V * comm.size,
+                                 any_sampled=any_sampled)
+        e, nonfin = e.reshape(B, C), nf.reshape(B, C)
 
     # 7. accept: draft j survives iff it equals position pos+j's own
     # carried draw AND every earlier draft survived

@@ -288,7 +288,32 @@ any failure exits non-zero and prints no result line:
    ``main_grad`` against the one-batch gradient; (e) the ``fp8_training``
    and ``dcgan`` examples' CLIs, 20 steps each; a ``{"phase14": [...]}``
    line of the legs;
-15. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
+15. (phase 16) the rest of A6 (``a6_phase``): (a) ZeRO
+   ``DistributedFusedAdam(distributed_size=1)`` on NCCL at world 1, the
+   345M unfused step (6 of 24 layers) 3 steps against pytree
+   ``FusedAdam(master_weights=True)``; then two gloo worlds of processes
+   sharing the card, side by side: a world of 4 runs (b) ZeRO-2 on the
+   345M (6 layers, batch 2 a rank, 2 + 3 steps: the loss equal on every
+   rank and falling, the first step's reduced gradient shard against
+   (a)'s dense gradient leaf by leaf, with two planted faults that must
+   fail the same limit, the optimizer state a rank 1/4 of the dense one,
+   p50, peaks, the reduce-scatter's and all-gather's bytes), (d)
+   ``SpatialBottleneck`` at ResNet-50's conv2_x (batch 32, 56 x 56, bf16,
+   14 rows a rank) forward against the dense ``Bottleneck``, the
+   gradients in fp64 and, by norm, at the timed dtype (with lost halos
+   as the planted fault), with the four exchangers' halos, and (e) the
+   345M's width at 2 layers served at TP 4 over phase 3's trace, plain
+   and with ``spec_k=4`` and sampled rows; a world of 2 runs (c)
+   BERT-large (6 layers) with ``DistributedFusedLAMB`` (3 steps against
+   pytree ``FusedLAMB`` over the same gradient) and (e) at TP 2.
+   (e) holds every rank's tokens equal, and each request's against the TP
+   1 engine's: equal, or first apart at a near-tie (``P16_TIE_GAP``);
+   ``psum_per_program`` all 3s, 2L + 1 all-reduce sums a step, a rank's
+   pool 1/tp of TP 1's, the launches a step a rank, rank 0's profiled
+   decode step; #1 at the shard shapes (8 and 4 heads) against its plain
+   version twice bit for bit, timed against its bound; a
+   ``{"phase16": [...]}`` line of the legs;
+16. a ``{"kernels": [...]}`` line (25 kernels, the decode kernel's and
    the LayerNorm forward's launches counted over the serving runs of
    phases 3-3c; every one launched on a
    main path (flash attention's also over phase 8's legs, the norms',
@@ -297,7 +322,8 @@ any failure exits non-zero and prints no result line:
    14's fused steps, bias-GeLU's also over ``fused_dense_gelu_dense``, packed Adam's,
    the row statistics', the row reduce's and the flat scale's and axpby's
    also over phase 12's applier, the row reduce's and the flat scale's
-   over phase 13's clipped DDP step, packed SGD's over phase 13's (c))
+   over phase 13's clipped DDP step, packed SGD's over phase 13's (c);
+   phases 15 and 16 add their main paths' launches on every rank)
    except the RMSNorm pair, which no model
    of the JAX package runs: their launches are the norm modules' of
    phase 7), the card line, and last ``{"ok": true, "device":
@@ -307,6 +333,7 @@ Exits non-zero when no CUDA device is present.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -319,6 +346,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 import numpy as np
 import torch
@@ -7754,11 +7782,11 @@ P14_FUSED_KERNELS = TRAIN_KERNELS + FUSED_KERNELS
 
 
 def p14_cfg(**kw) -> GPTConfig:
-    return GPTConfig(num_layers=P14_LAYERS, hidden_size=HIDDEN,
-                     num_attention_heads=N_HEADS, vocab_size=P14_VOCAB,
-                     max_position_embeddings=P14_SEQ, hidden_dropout=0.0,
-                     attention_dropout=0.0, compute_dtype=torch.bfloat16,
-                     **kw)
+    base = dict(num_layers=P14_LAYERS, hidden_size=HIDDEN,
+                num_attention_heads=N_HEADS, vocab_size=P14_VOCAB,
+                max_position_embeddings=P14_SEQ, hidden_dropout=0.0,
+                attention_dropout=0.0, compute_dtype=torch.bfloat16)
+    return GPTConfig(**{**base, **kw})
 
 
 def p14_model(cfg, dev, batch):
@@ -8879,9 +8907,10 @@ def _p15_cp_runs(res, spec, dev, rank, out):
 
 
 def _rel_gap(got, want) -> float:
-    """The worst gap over the largest entry of ``want``."""
-    return float((got.float() - want.float()).abs().max()
-                 / want.float().abs().max().clamp_min(1e-30))
+    """The worst gap over the largest entry of ``want`` (in fp64)."""
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
 
 
 def p15_worker(rank: int, world: int, store: str, out: str, spec: str):
@@ -9173,10 +9202,12 @@ def ring_chunk_checks(dev):
     log(f"  (d) ring chunks on the card against their plain versions, "
         f"global o and lse: forward worst {fwd_err:.3e} (o and lse), "
         f"backward worst {bwd_err:.3e}, each of the largest entry")
+    def ms(v):  # a trace now and then records no device activity
+        return "not measured" if v is None else f"{v:.4f} ms"
     for label, t in timing.items():
-        log(f"  (d) {label}: forward {t['fwd_ms']:.4f} ms (bound "
+        log(f"  (d) {label}: forward {ms(t['fwd_ms'])} (bound "
             f"{t['fwd_bound'][0]:.4f}, {t['fwd_bound'][1]}), backward "
-            f"{t['bwd_ms']:.4f} ms (bound {t['bwd_bound'][0]:.4f}, "
+            f"{ms(t['bwd_ms'])} (bound {t['bwd_bound'][0]:.4f}, "
             f"{t['bwd_bound'][1]})")
     if fwd_err > tol[0] or bwd_err > tol[0]:
         raise AssertionError(f"ring chunks differ from their plain versions: "
@@ -9329,6 +9360,999 @@ def pp_cp_phase(dev):
     log(f"  phase 15 parts (s): {parts}")
     print(json.dumps({"phase15": rows}), flush=True)
     return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of A6 — ZeRO-2 (DistributedFusedAdam at NCCL world 1
+# and in a gloo world of 4, DistributedFusedLAMB on BERT-large in a world of
+# 2), SpatialBottleneck over the halo exchangers (a world of 4), and
+# tensor-parallel serving (worlds of 2 and 4), every gloo rank on the card
+# ---------------------------------------------------------------------------
+
+#: the 345M ZeRO legs: phase 5's global batch and leg (b)'s world
+P16_BATCH, P16_ZERO_WORLD = 8, 4
+#: leg (b): warm-up steps, then timed ones
+P16_ZERO_WARM, P16_ZERO_TIMED = 2, 3
+#: the ZeRO legs' learning rate: Adam's first steps move every one of the
+#: 345M's parameters by about the rate, and at 1e-4 the random model's
+#: third loss rose above its first (both optimizers alike, on an H100);
+#: at 1e-5 the loss falls step by step
+P16_ZERO_LR = 1e-5
+#: the depth of the ZeRO legs (a), (b) and of (c)'s BERT-large: 6 of the
+#: 24 layers. A cut: phase 16 within what the script's 1200 s limit
+#: leaves after phases 1-15 (at 24 layers (b) took 37.3 s on an H100 80GB
+#: HBM3 at 700 W, at 12 layers 20.8 s)
+P16_ZERO_LAYERS = P16_BERT_LAYERS = 6
+#: the ZeRO legs sync the bf16 gradients and gather the bf16 params in
+#: bf16 (the reference's common setting; fp32 would double the bytes)
+P16_SYNC = dict(grad_sync_dtype=torch.bfloat16,
+                param_sync_dtype=torch.bfloat16)
+#: leg (c): BERT-large at config #3's batch of 16 over a world of 2
+P16_BERT_BATCH, P16_LAMB_WORLD, P16_LAMB_STEPS = 16, 2, 3
+#: leg (d): ResNet-50's conv2_x block (256 -> 64 -> 256, stride 1) on a
+#: [batch, H, W, C] bf16 input, H split over a world of 4 (14 rows a rank)
+P16_SPATIAL_X, P16_SPATIAL_BLOCK, P16_SPATIAL_WORLD = \
+    (32, 56, 56, 256), (256, 64, 256), 4
+#: leg (d)'s limits: the forward in fp32 (bf16 input promoted, as flax
+#: promotes it) over the largest entry; the gradients of fp64 copies of
+#: both blocks over the largest entry; and the gradients at the timed
+#: dtype by the norm of the difference over the norm of the dense one.
+#: In fp32 the two forwards part by ~1e-6, enough to flip a ReLU whose
+#: input lies that close to zero, and a flip moves a gradient entry by a
+#: whole cotangent, so the worst entry is no measure there; a few flipped
+#: entries move the norm little, a halo lost moves whole rows (the
+#: planted fault, read beside it). On an H100 80GB HBM3 at 700 W the
+#: sound gradients read up to 1.10e-3 of the norm (bn2's bias) and the
+#: lost halos 0.258 at least (bn3's bias): the limit sits between
+P16_SPATIAL_TOL = (1e-5, CONTRIB_TOL[torch.float64], 1e-2)
+#: leg (e): phase 3's trace at TP 2 and TP 4; the second run speculates
+#: (spec_k 4) and samples every other request
+P16_TP = (2, 4)
+#: the gloo worlds of the phase, side by side: (size, legs). TP 4 in a
+#: world of its own beside them took as long (65.3 s against 65.0 for
+#: the worlds, on an H100 80GB HBM3 at 700 W): the processes share one
+#: card and 8 host cores
+P16_WORLDS = ((4, ("zero", "spatial", "tp")), (2, ("lamb", "tp")))
+#: leg (e)'s depth: the 345M's width at 2 of its 24 layers. A cut: at 24
+#: layers a TP 4 world's 49 all-reduces a step through the host took
+#: ~0.3-0.5 s a step, 208 s for the leg; 55 s at 8 layers, 47 s at 4 and
+#: 32 s at 2 (an H100 80GB HBM3 at 700 W), within what the script's time
+#: limit leaves after phases 1-15
+P16_TP_LAYERS = 2
+P16_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95, seed=7)
+#: leg (e)'s near-tie rule: where a TP engine's tokens first part from
+#: the TP 1 engine's, the two engines' logits at that prefix (serving
+#: forward) differ by at most this share of the largest (bf16 rounding of
+#: the row-parallel sums), and that gap accounts for
+#: the two choices (``tp_serving_check``)
+P16_TIE_GAP = 0.05
+
+
+def p16_serving_cfg() -> GPTConfig:
+    """Leg (e)'s model: the 345M (bf16, phase 3's positions) at
+    ``P16_TP_LAYERS`` layers."""
+    return dataclasses.replace(gpt345m(torch.bfloat16),
+                               num_layers=P16_TP_LAYERS)
+
+
+def _p16_requests(vocab: int, sampled: bool):
+    """Phase 3's trace (the same draws: its warm-up prompt first), rids
+    fixed so the sampled rows' draws match across processes."""
+    from apex_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(0)
+    rng.integers(0, vocab, 16)  # phase 3's warm-up prompt
+    return [Request(prompt=[int(t) for t in rng.integers(0, vocab,
+                                                         size=128)],
+                    max_new_tokens=64, arrival_step=i * 4, rid=9000 + i,
+                    sampling=(SamplingParams(**P16_SAMPLING)
+                              if sampled and i % 2 else None))
+            for i in range(16)]
+
+
+def _zero_steps(cfg, params, tokens, labels, opt, n, group_size=1,
+                probe=None):
+    """``n`` steps of ``gpt_loss`` with ``opt``: the global losses (the
+    ranks' mean), step ms and collectives of each step; the params and
+    state after the last. ``probe(grads)``, when given, runs on the first
+    step's gradients after that step, outside its timing; its result is
+    ``out["probe"]``."""
+    state = opt.init(params)
+    out = {"losses": [], "step_ms": [], "collectives": []}
+    for i in range(n):
+        counts = {}
+        with counted_collectives(counts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(
+                lambda p: gpt_loss(cfg, p, tokens, labels), params)
+            params, state = opt.step(grads, state, params)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        loss = loss.detach().float().reshape(1)
+        if group_size > 1:
+            torch.distributed.all_reduce(loss)
+        out["losses"].append(float(loss) / group_size)
+        out["collectives"].append(counts)
+        if i == 0 and probe is not None:
+            out["probe"] = probe(grads)
+        del grads
+    return out, params, state
+
+
+def zero_world1_leg(dev, rows, launches, tmp):
+    """(a) ``DistributedFusedAdam(distributed_size=1)`` on NCCL at world 1:
+    the 345M unfused step (batch 8, bf16 over fp32 masters, lr
+    ``P16_ZERO_LR``) 3 steps from the seeded weights, against pytree
+    ``FusedAdam(master_weights=True)``
+    3 steps from the same weights: each step's loss within phase 5's bf16
+    parity; the p50 and the collectives a step. Saves the dense step's
+    first gradients (batch 8, bf16) for leg (b)."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+    dist = torch.distributed
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store16",
+                            world_size=1, rank=0)
+    try:
+        cfg = p14_cfg(num_layers=P16_ZERO_LAYERS)
+        params, tokens, labels = p14_model(cfg, dev, P16_BATCH)
+        dense, _, _ = _zero_steps(
+            cfg, params, tokens, labels,
+            FusedAdam(lr=P16_ZERO_LR, master_weights=True), 3,
+            probe=lambda g: torch.save(
+                tree_map(lambda x: x.detach().cpu(), g),
+                os.path.join(tmp, "zero_a_grads.pt")))
+        _device.reset_launch_counts()
+        zero, _, state = _zero_steps(
+            cfg, params, tokens, labels,
+            DistributedFusedAdam(lr=P16_ZERO_LR, distributed_size=1,
+                                 **P16_SYNC), 3)
+        got = _device.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    for k, c in got.items():
+        launches[k] = launches.get(k, 0) + c
+    tol = PARITY_TOL[torch.bfloat16][0]
+    rels = [abs(a - b) / abs(b) for a, b in zip(zero["losses"],
+                                                 dense["losses"])]
+    p50 = float(np.median(zero["step_ms"]))
+    log(f"  (a) ZeRO at NCCL world 1, 345M unfused at {P16_ZERO_LAYERS} "
+        f"layers, batch {P16_BATCH}: "
+        f"losses {zero['losses']} against pytree FusedAdam's "
+        f"{dense['losses']} (rel {max(rels):.2e}, limit {tol}); step p50 "
+        f"{p50:.1f} ms (FusedAdam {np.median(dense['step_ms']):.1f} ms); "
+        f"collectives a step {zero['collectives'][-1]}; launches "
+        f"{({k: v for k, v in got.items() if v})}")
+    if max(rels) > tol or not all(np.isfinite(zero["losses"])):
+        raise AssertionError(f"(a) ZeRO at world 1: {zero['losses']} "
+                             f"against {dense['losses']}")
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
+                 "flash_attn_bwd"):
+        if got.get(name, 0) <= 0:
+            raise AssertionError(f"(a) {name} did not launch")
+    rows.append({"leg": "a zero world 1", "losses": zero["losses"],
+                 "dense_losses": dense["losses"], "rel": max(rels),
+                 "step_ms": zero["step_ms"], "p50_ms": p50,
+                 "dense_p50_ms": float(np.median(dense["step_ms"])),
+                 "collectives": zero["collectives"][-1],
+                 "state_bytes": sum(t.numel() * t.element_size() for t in
+                                    (state.exp_avg, state.exp_avg_sq,
+                                     state.param_shard))})
+
+
+def _leaf_paths(tree, prefix=""):
+    """The ``a/b`` paths of a dict tree's leaves in ``tree_flatten``'s
+    order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _zero_grad_probe(opt, grads, dense_path, rank, world):
+    """(b)'s gradient check on this rank's shard of the first step: the
+    reduced fp32 shard (``_reduce_grads``, the step's own reduce-scatter
+    and averaging) against the same range of leg (a)'s dense batch-8
+    gradient, and two planted faults read the same way: the gradient of
+    half the batch (the second half's ranks reduce zeros, the result
+    doubled) and this rank's shard held against the next rank's range (a
+    shard in the wrong place). Each leaf's worst gap, taken with MAX over
+    the group, and its largest dense entry."""
+    layout = opt._layout
+    lo, hi = layout.shard_bounds(rank)
+    dev = tree_flatten(grads)[0][0].device
+    want_flat = layout.flatten(tree_map(lambda x: x.to(dev),
+                                        torch.load(dense_path)),
+                               torch.float32)
+    want = want_flat[lo:hi]
+    nlo, nhi = layout.shard_bounds((rank + 1) % world)
+    want_next = want_flat[nlo:nhi]
+    got = opt._reduce_grads(grads, layout, 1.0)
+    half = opt._reduce_grads(
+        tree_map(lambda g: g * (rank < world // 2), grads), layout,
+        1.0) * 2.0
+    n = layout.n_leaves
+    table = torch.zeros((4, n), dtype=torch.float64)
+    for i in range(n):
+        a, b = max(lo, layout.offsets[i]), min(hi, layout.offsets[i + 1])
+        if a >= b:
+            continue
+        part = slice(a - lo, b - lo)
+        w = want[part].double()
+        for row, (g, ref) in enumerate(((got, w), (half, w),
+                                        (got, want_next[part].double()))):
+            table[row, i] = float((g[part].double() - ref).abs().max())
+        table[3, i] = float(w.abs().max())
+    torch.distributed.all_reduce(table, op=torch.distributed.ReduceOp.MAX)
+    scale = table[3].clamp_min(1e-30)
+    names = _leaf_paths(grads)
+    return {name: {"sound": float(table[0, i] / scale[i]),
+                   "half_batch": float(table[1, i] / scale[i]),
+                   "misplaced": float(table[2, i] / scale[i])}
+            for i, name in enumerate(names)}
+
+
+def _p16_zero_run(res, spec, dev, rank, world, out):
+    """(b) one rank of ZeRO-2 on the 345M: its ``P16_BATCH / world`` rows
+    of the batch, DistributedFusedAdam over the world, warm-up then timed
+    steps; the first step's reduced gradient shard held against leg
+    (a)'s dense gradient (``_zero_grad_probe``)."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+
+    cfg = p14_cfg(num_layers=P16_ZERO_LAYERS)
+    params, tokens, labels = p14_model(cfg, dev, P16_BATCH)
+    b = P16_BATCH // world
+    tokens, labels = tokens[rank * b:(rank + 1) * b], labels[
+        rank * b:(rank + 1) * b]
+    opt = DistributedFusedAdam(lr=P16_ZERO_LR, distributed_size=world,
+                               **P16_SYNC)
+    warm, params, state = _zero_steps(
+        cfg, params, tokens, labels, opt, P16_ZERO_WARM, world,
+        probe=lambda g: _zero_grad_probe(opt, g, spec["zero_dense"], rank,
+                                         world))
+    torch.cuda.empty_cache()
+    # the peak of the steady steps (the probe's buffers left out)
+    torch.cuda.reset_peak_memory_stats()
+    _device.reset_launch_counts()
+    timed = {"losses": [], "step_ms": [], "collectives": []}
+    for _ in range(P16_ZERO_TIMED):
+        counts = {}
+        with counted_collectives(counts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(
+                lambda p: gpt_loss(cfg, p, tokens, labels), params)
+            params, state = opt.step(grads, state, params)
+            torch.cuda.synchronize()
+            timed["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        loss = loss.detach().float().reshape(1)
+        torch.distributed.all_reduce(loss)
+        timed["losses"].append(float(loss) / world)
+        timed["collectives"].append(counts)
+    layout = opt._layout
+    res["runs"]["zero"] = {
+        "grad_gaps": warm["probe"],
+        "losses": warm["losses"] + timed["losses"],
+        "step_ms": timed["step_ms"], "warm_ms": warm["step_ms"],
+        "collectives": timed["collectives"][-1],
+        "launches": {k: v for k, v in _device.launch_counts().items() if v},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "state_bytes": sum(t.numel() * t.element_size() for t in
+                           (state.exp_avg, state.exp_avg_sq,
+                            state.param_shard)),
+        "dense_state_bytes": 3 * 4 * layout.total,
+        "reduce_scatter_bytes": layout.padded * 2,
+        "all_gather_bytes": layout.padded * 2,
+        "shard_size": layout.shard_size, "padded": layout.padded}
+
+
+def zero_world4_check(rows, launches, recs):
+    """(b)'s verdicts from its ranks' records."""
+    runs = [rec["runs"]["zero"] for rec in recs]
+    losses = runs[0]["losses"]
+    if any(r["losses"] != losses for r in runs):
+        raise AssertionError(f"(b) losses differ by rank: "
+                             f"{[r['losses'] for r in runs]}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"(b) the loss does not fall: {losses}")
+    # the first step's reduced gradient against the dense batch-8 one, a
+    # leaf's worst gap over its largest entry, within phase 5's bf16
+    # gradient parity (phase 14 (b)'s check); each planted fault must
+    # break the same limit, or the check could not see it
+    grad_tol = PARITY_TOL[torch.bfloat16][1]
+    gaps = runs[0]["grad_gaps"]
+    worst = {kind: max(g[kind] for g in gaps.values())
+             for kind in ("sound", "half_batch", "misplaced")}
+    ratios = [r["state_bytes"] / r["dense_state_bytes"] for r in runs]
+    p50 = float(np.median(runs[0]["step_ms"]))
+    sound = {k: f"{gaps[k]['sound']:.2e}" for k in P14_GRAD_LEAVES}
+    log(f"  (b) ZeRO-2 in a gloo world of {len(recs)} on the card, 345M at "
+        f"{P16_ZERO_LAYERS} layers, "
+        f"batch {P16_BATCH // len(recs)} a rank: losses {losses} (equal on "
+        f"every rank); step 1's reduced gradient against (a)'s dense one, "
+        f"a leaf's worst gap of its largest entry "
+        f"{sound}, "
+        f"worst over all {len(gaps)} leaves: sound {worst['sound']:.3e}, "
+        f"planted faults: half the batch {worst['half_batch']:.3e}, a "
+        f"shard misplaced {worst['misplaced']:.3e} (limit {grad_tol}); "
+        f"optimizer "
+        f"state a rank {runs[0]['state_bytes']} B "
+        f"= {ratios[0]:.6f} of the dense {runs[0]['dense_state_bytes']} B; "
+        f"step p50 {p50:.1f} ms; peaks "
+        f"{[round(r['peak_gib'], 2) for r in runs]} GiB; a step moves "
+        f"{runs[0]['reduce_scatter_bytes']} B through the reduce-scatter "
+        f"and {runs[0]['all_gather_bytes']} B through the all-gather "
+        f"(collectives {runs[0]['collectives']})")
+    if worst["sound"] > grad_tol:
+        raise AssertionError(f"(b) the reduced gradient apart from the "
+                             f"dense one: {gaps}")
+    if min(worst["half_batch"], worst["misplaced"]) <= grad_tol:
+        raise AssertionError(f"(b) a planted fault passes the gradient "
+                             f"check: {worst}")
+    if any(abs(x - 1 / len(recs)) > 1e-4 for x in ratios):
+        raise AssertionError(f"(b) state a rank is not 1/{len(recs)}: "
+                             f"{ratios}")
+    if runs[0]["collectives"].get("reduce_scatter_tensor") != 1 or \
+            runs[0]["collectives"].get("all_gather_into_tensor") != 1:
+        raise AssertionError(f"(b) collectives {runs[0]['collectives']}")
+    for rec in recs:
+        for k, c in rec["runs"]["zero"]["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    rows.append({"leg": "b zero-2 world 4", "losses": losses,
+                 "grad_gaps": {k: gaps[k] for k in P14_GRAD_LEAVES},
+                 "grad_worst": worst, "grad_limit": grad_tol,
+                 "state_ratio": ratios,
+                 "step_ms": runs[0]["step_ms"], "p50_ms": p50,
+                 "peaks_gib": [r["peak_gib"] for r in runs],
+                 "reduce_scatter_bytes": runs[0]["reduce_scatter_bytes"],
+                 "all_gather_bytes": runs[0]["all_gather_bytes"],
+                 "collectives": runs[0]["collectives"]})
+
+
+def _p16_bert(dev):
+    """BERT-large as config #3 (1024 wide, vocab 30592, seq 512, bf16
+    compute over fp32 params, dropout 0, no recompute) at
+    ``P16_BERT_LAYERS`` layers, seeded weights and the padded batch of
+    16."""
+    cfg = GPTConfig(num_layers=P16_BERT_LAYERS, hidden_size=HIDDEN,
+                    num_attention_heads=N_HEADS, vocab_size=BERT_VOCAB,
+                    max_position_embeddings=512, hidden_dropout=0.0,
+                    attention_dropout=0.0, compute_dtype=torch.bfloat16)
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = bert_batch([torch.Generator(device=dev).manual_seed(i)
+                        for i in (1, 2, 3)], P16_BERT_BATCH, 512,
+                       cfg.vocab_size, dev)
+    return cfg, params, batch
+
+
+def _lamb_steps(cfg, params, batch, opt, n, world=1, split=1):
+    """``n`` LAMB steps of BERT's loss on ``batch``: the losses (the
+    world's mean) and step ms. ``split``: the gradient is the mean of the
+    gradients of ``split`` equal parts of the batch, as a world of
+    ``split`` ranks reduces them (the fp32 sum, then the division)."""
+    state = opt.init(params)
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = batch[0].shape[0] // split
+        parts = [value_and_grad(lambda p: bert_mlm_loss(
+            cfg, p, *(t[i * b:(i + 1) * b] for t in batch)), params)
+            for i in range(split)]
+        loss = sum(l for l, _ in parts) / split
+        grads = tree_map(lambda *g: sum(g) / split, *[g for _, g in parts])
+        params, state = opt.step(grads, state, params)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        loss = loss.detach().float().reshape(1)
+        if world > 1:
+            torch.distributed.all_reduce(loss)
+        losses.append(float(loss) / world)
+    return losses, ms
+
+
+def _p16_lamb_run(res, spec, dev, rank, world, out):
+    """(c) one rank: its half of config #3's batch, DistributedFusedLAMB
+    over the world."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+
+    cfg, params, batch = _p16_bert(dev)
+    b = P16_BERT_BATCH // world
+    batch = tuple(t[rank * b:(rank + 1) * b] for t in batch)
+    _device.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = _lamb_steps(cfg, params, batch,
+                             DistributedFusedLAMB(lr=1e-3,
+                                                  distributed_size=world),
+                             P16_LAMB_STEPS, world)
+    res["runs"]["lamb"] = {
+        "losses": losses, "step_ms": ms,
+        "launches": {k: v for k, v in _device.launch_counts().items() if v},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _p16_shard_case(g, dev, heads, lens):
+    """Pools of ``heads`` heads (the TP engine's page size, 8) and a page
+    table over ``lens``, as ``_page_case`` builds them."""
+    B = len(lens)
+    pools = [(torch.randn(POOL_PAGES, heads, PAGE, HEAD_DIM, generator=g,
+                          device=dev).bfloat16(),
+              torch.randn(POOL_PAGES, heads, PAGE, HEAD_DIM, generator=g,
+                          device=dev).bfloat16()) for _ in range(8)]
+    q = torch.randn(B, heads, HEAD_DIM, generator=g, device=dev).bfloat16()
+    perm = torch.randperm(POOL_PAGES - 1, generator=g, device=dev) + 1
+    pt = torch.zeros(B, MP, dtype=torch.int32, device=dev)
+    for b, L in enumerate(lens):
+        pt[b, :-(-L // PAGE)] = perm[b * MP:b * MP + (-(-L // PAGE))]
+    return q, pools, pt, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def tp_shard_kernel_checks(dev, rows):
+    """#1 at the TP engine's shard shapes: 8 slots of 8 and of 4 heads
+    (TP 2, TP 4; page size 8, the local head count's), the decode lengths
+    of phase 2, against its plain version and twice bit for bit; its
+    device time against the bound at each shape. Returns the worst
+    error and the timings."""
+    from apex_tpu_torch.serving import default_page_size
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    lens = [0, 1, 7, 8, 64, 129, 191, 192]
+    worst, out = 0.0, {}
+    for heads in (N_HEADS // tp for tp in P16_TP):
+        if default_page_size(heads, HEAD_DIM) != PAGE:
+            raise AssertionError(f"{heads} heads: page size "
+                                 f"{default_page_size(heads, HEAD_DIM)}")
+        q, pools, pt, kl = _p16_shard_case(g, dev, heads, lens)
+        k, v = pools[0]
+        got = flash_decode(q, k, v, pt, kl)
+        again = flash_decode(q, k, v, pt, kl)
+        want = paged_decode_reference(q, k, v, pt, kl)
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_decode at {heads} heads: two "
+                                 "launches differ")
+        err = check_close(f"flash_decode {heads} heads", got, want, q.dtype)
+        worst = max(worst, err)
+        t = _decode_timing(dev, q, pools, pt, kl,
+                           f"decode bf16 [8,{heads},64] (TP {N_HEADS // heads}"
+                           " shard)")
+        out[heads] = {"max_abs_err": err, **t}
+        rows.append({"leg": f"flash_decode shard {heads} heads",
+                     "max_abs_err": err, **t})
+    return worst, out
+
+
+@torch.no_grad()
+def _serving_logits(cfg, spec0, params, prompt, dev, heads=None, comm=None):
+    """The serving forward's fp32 logits at ``prompt``'s last position:
+    one chunk over a fresh pool of ``spec0``'s page geometry with
+    ``heads`` heads (a TP rank's share under ``comm``: its vocab slice)."""
+    from apex_tpu_torch.serving import PagedKVSpec, prefill_chunk_tokens
+
+    spec = PagedKVSpec(spec0.num_layers, heads or spec0.num_heads,
+                       spec0.head_dim, page_size=spec0.page_size,
+                       num_pages=spec0.pages_per_seq + 1,
+                       pages_per_seq=spec0.pages_per_seq, dtype=spec0.dtype)
+    n = len(prompt)
+    pt = torch.zeros((1, spec.pages_per_seq), dtype=torch.int32, device=dev)
+    pt[0, :-(-n // spec.page_size)] = torch.arange(
+        1, -(-n // spec.page_size) + 1)
+    z = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return prefill_chunk_tokens(
+        cfg, params, spec, spec.init_cache(dev), z, z,
+        torch.ones((1,), dtype=torch.bool, device=dev),
+        torch.tensor([prompt], dtype=torch.int32, device=dev),
+        torch.tensor([n], dtype=torch.int32, device=dev), pt, chunk=n,
+        tp_axis=comm)[0][0]
+
+
+def _at_filter_boundary(logits, tok: int, sp, tol: float) -> bool:
+    """Whether ``tok`` sits at a sampling filter's boundary under
+    ``logits`` within ``tol`` (in scaled logits): its scaled logit within
+    ``tol`` of the k-th largest, or the probability mass before it within
+    ``2 tol`` (relative; a perturbation of ``tol`` moves a softmax mass by
+    about that) of ``top_p``."""
+    scaled = logits.float() / sp.temperature
+    vals, order = torch.sort(scaled, descending=True)
+    r = int((order == tok).nonzero()[0, 0])
+    if sp.top_k and abs(float(vals[r] - vals[sp.top_k - 1])) <= tol:
+        return True
+    if sp.top_p < 1.0:
+        kth = vals[sp.top_k - 1] if sp.top_k else vals[-1]
+        probs = torch.where(vals >= kth, torch.exp(vals - vals[0]), 0.0)
+        probs = probs / probs.sum()
+        before = float(torch.cumsum(probs, 0)[r] - probs[r])
+        return abs(before - sp.top_p) <= 2 * tol * sp.top_p
+    return False
+
+
+def _p16_divergence(cfg, eng, params, req, got, ref, dev):
+    """Where this TP engine's tokens first part from the TP 1 engine's
+    (every rank calls it): at that prefix, the TP engine's logits (its
+    vocab slices, gathered) and the TP 1 model's, both through the
+    serving forward; their largest gap; the replicated sampler's choice
+    on each; and the margin by which the TP 1 logits prefer the TP 1
+    token over the TP token (Gumbel-perturbed and scaled for a sampled
+    row, the same draw keys on both sides). None where the tokens are
+    equal."""
+    from apex_tpu_torch.amp import cast_params_for_inference
+
+    if got == ref:
+        return None
+    j = next((i for i, (x, y) in enumerate(zip(got, ref)) if x != y),
+             min(len(got), len(ref)))
+    if j >= min(len(got), len(ref)):
+        return {"rid": req.rid, "j": j, "lengths": [len(got), len(ref)]}
+    prefix = list(req.prompt) + ref[:j]
+    part = _serving_logits(cfg, eng.spec, eng.params, prefix, dev,
+                           eng.spec_local.num_heads, eng.comm)
+    tp = eng.comm.all_gather(part[None].contiguous(), "divergence")[0]
+    one = _serving_logits(cfg, eng.spec, cast_params_for_inference(
+        params, cfg.compute_dtype), prefix, dev)
+    sp = sampling.resolve(req.sampling)
+    rows = [torch.full((1,), v, dtype=dt, device=dev) for v, dt in (
+        (sp.temperature, torch.float32), (sp.top_k, torch.int32),
+        (sp.top_p, torch.float32), (sampling.i32_wrap(sp.seed), torch.int32),
+        (sampling.i32_wrap(req.rid), torch.int32),
+        (len(prefix), torch.int32))]
+    picks = [int(sampling.sample_tokens(lg[None], *rows)[0])
+             for lg in (tp, one)]
+    a, b = got[j], ref[j]
+    scores = one
+    if not sp.is_greedy:
+        vi = torch.arange(one.numel(), dtype=torch.int32, device=dev)
+        u = sampling.uniform_from_hash(rows[3], rows[4], rows[5], vi)
+        scores = one / sp.temperature - torch.log(-torch.log(u))
+    gap = float((tp - one).abs().max())
+    tol = 2 * gap / (1.0 if sp.is_greedy else sp.temperature)
+    boundary = (not sp.is_greedy) and any(
+        _at_filter_boundary(lg, t, sp, tol) for lg in (tp, one)
+        for t in (a, b))
+    return {"rid": req.rid, "j": j, "tp_token": a, "tp1_token": b,
+            "gap": gap, "filter_boundary": boundary,
+            "gap_rel": float((tp - one).abs().max() / one.abs().max()),
+            "picks": picks, "both_picked": sorted(picks) == sorted([a, b]),
+            "margin": float(scores[b] - scores[a]),
+            "scale": 1.0 if sp.is_greedy else 1.0 / sp.temperature}
+
+
+def _p16_profile_step(eng, cfg, rank, world):
+    """One decode step of 8 slots at 128 + 4 tokens, profiled on rank 0
+    (every rank runs the same steps): wall and busy ms, and #1's device
+    time a launch."""
+    rng = np.random.default_rng(3)
+    for i in range(SLOTS):
+        eng.submit(Request(prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab_size, size=128)], max_new_tokens=8, rid=9100 + i))
+    while any(r.prefilling for _, r in eng.scheduler.running()) or \
+            eng.scheduler.waiting:
+        eng.run_step()
+    for _ in range(2):
+        eng.run_step()
+    out = None
+    if rank == 0:
+        prof = profiled(eng.run_step, f"TP {world} rank 0 decode step", 8)
+        fd = [(ms, n) for ms, n, key in prof["rows"] if "flash_decode" in key]
+        out = {"wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+               "flash_decode_launches": sum(n for _, n in fd),
+               "flash_decode_ms_a_launch":
+                   sum(m for m, _ in fd) / max(1, sum(n for _, n in fd))}
+    else:
+        eng.run_step()
+    while not eng.scheduler.idle:
+        eng.run_step()
+    return out
+
+
+def _p16_tp_run(res, spec, dev, rank, world, out):
+    """(e) one rank of a TP ``world`` engine over phase 3's trace: plain
+    (prefill_chunk 8), then spec_k 4 with every other request sampled;
+    the launches, the collectives issued and the step times of each; the
+    logit gap of the near-tie rule; rank 0's profiled short trace."""
+    cfg = p16_serving_cfg()
+    params = init_gpt_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    runs = {}
+    for label, kw in (("plain", {}), ("spec_sampled", {"spec_k": 4})):
+        eng = ServingEngine(cfg, params, n_slots=SLOTS, prefill_chunk=8,
+                            tp=world, device=dev, **kw)
+        warm = np.random.default_rng(0).integers(0, cfg.vocab_size, 16)
+        eng.generate([Request(prompt=[int(t) for t in warm],
+                              max_new_tokens=4, rid=8999)])
+        reqs = _p16_requests(cfg.vocab_size, label != "plain")
+        torch.cuda.synchronize()
+        _device.reset_launch_counts()
+        eng.comm.reset_issued()
+        got = eng.generate(reqs)
+        torch.cuda.synchronize()
+        st = eng.last_stats
+        runs[label] = {
+            "tokens": [got[r.rid] for r in reqs],
+            "launches": {k: v for k, v in _device.launch_counts().items()
+                         if v},
+            "issued": dict(eng.comm.issued),
+            "issued_bytes": dict(eng.comm.issued_bytes),
+            **{k: st[k] for k in ("steps", "step_ms", "tokens_per_sec",
+                                  "wall_s", "generated_tokens",
+                                  "psum_per_program", "kv_bytes_per_shard",
+                                  "comm_volume", "completed",
+                                  "accepted_tokens", "drafted_tokens")},
+            "global_bytes": eng.spec.cache_bytes()}
+        runs[label]["divergences"] = [
+            d for d in (_p16_divergence(cfg, eng, params, rq, toks, ref, dev)
+                        for rq, toks, ref in zip(
+                            reqs, runs[label]["tokens"], spec["refs"][label]))
+            if d is not None]
+        if label == "plain":
+            runs["profile"] = _p16_profile_step(eng, cfg, rank, world)
+        del eng
+        torch.cuda.empty_cache()
+    res["runs"]["tp"] = runs
+
+
+def tp_serving_check(rows, launches, recs, world, refs, cfg_params, dev):
+    """(e)'s verdicts for a world: every rank emits rank 0's tokens; those
+    are the TP 1 engine's, or first apart at a near-tie within twice the
+    measured TP-against-TP 1 logit gap; the pool a rank holds is 1/tp of
+    the whole; psum_per_program all 3s; 2L + 1 all-reduce sums a step."""
+    cfg = cfg_params[0]
+    runs = [rec["runs"]["tp"] for rec in recs]
+    for label in ("plain", "spec_sampled"):
+        got = runs[0][label]
+        for r, run in enumerate(runs):
+            if run[label]["tokens"] != got["tokens"]:
+                raise AssertionError(f"(e) TP {world} {label}: rank {r} "
+                                     "emits other tokens than rank 0")
+        divs = got["divergences"]
+        for d in divs:
+            log(f"  (e) TP {world} {label}: {d}")
+            # a near-tie: the two engines' logits at that prefix differ by
+            # a bf16 rounding's worth, and that gap accounts for the two
+            # choices: the sampler picks the two tokens from the two
+            # sides' logits (in either order), or the TP 1 logits prefer
+            # the TP 1 token by no more than twice the gap (scaled as the
+            # draw scales it), or one of the tokens lies within twice the
+            # gap of a top-k / top-p filter's boundary (sampled rows)
+            if ("margin" not in d or d["gap_rel"] > P16_TIE_GAP
+                    or not (d["both_picked"] or d["filter_boundary"]
+                            or d["margin"] <= 2 * d["gap"] * d["scale"])):
+                raise AssertionError(f"(e) TP {world} {label}: rid "
+                                     f"{d['rid']} diverges beyond a "
+                                     f"near-tie: {d}")
+        near = len(divs)
+        steps = got["steps"]
+        sums = got["issued"].get("all_reduce_sum", 0)
+        per = {k: v / steps for k, v in got["launches"].items()}
+        log(f"  (e) TP {world} {label}: {got['generated_tokens']} tokens, "
+            f"{steps} steps, step p50 {got['step_ms']['p50']:.2f} ms, "
+            f"{got['tokens_per_sec']:.1f} tokens/s; every rank rank 0's "
+            f"tokens; against TP 1: {16 - near} of 16 identical, {near} "
+            f"first apart at a near-tie; psum_per_program "
+            f"{got['psum_per_program']}; "
+            f"all-reduce sums a step {sums / steps:.2f} (2L + 1 = "
+            f"{2 * cfg.num_layers + 1}); issued {got['issued']}; launches a "
+            f"step a rank {({k: round(v, 2) for k, v in per.items()})}; "
+            f"kv bytes a rank {got['kv_bytes_per_shard']} x {world} = "
+            f"{got['kv_bytes_per_shard'] * world} (TP 1 pool "
+            f"{refs['pool_bytes']})")
+        if any(v != 3 for v in got["psum_per_program"].values()):
+            raise AssertionError(f"(e) psum_per_program "
+                                 f"{got['psum_per_program']}")
+        if sums != steps * (2 * cfg.num_layers + 1):
+            raise AssertionError(f"(e) {sums} all-reduce sums over {steps} "
+                                 "steps")
+        if got["kv_bytes_per_shard"] * world != refs["pool_bytes"]:
+            raise AssertionError("(e) a rank's pool is not 1/tp of TP 1's")
+        if got["completed"] != 16:
+            raise AssertionError(f"(e) {got['completed']} of 16 completed")
+        for name in SERVING_KERNELS:
+            if got["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"(e) {name} did not launch")
+        for run in runs:
+            for k, c in run[label]["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+        rows.append({"leg": f"e tp{world} {label}", "near_ties": near,
+                     "divergences": divs, "steps": steps,
+                     "step_ms": got["step_ms"],
+                     "tokens_per_sec": got["tokens_per_sec"],
+                     "psum_per_program": got["psum_per_program"],
+                     "all_reduce_sums_a_step": sums / steps,
+                     "issued_bytes": got["issued_bytes"],
+                     "launches_a_step": per,
+                     "kv_bytes_per_shard": got["kv_bytes_per_shard"],
+                     "accepted_tokens": got["accepted_tokens"],
+                     "drafted_tokens": got["drafted_tokens"]})
+    prof = runs[0]["profile"]
+    log(f"  (e) TP {world} rank 0 profiled decode step: wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.2f} ms; "
+        f"flash_decode {prof['flash_decode_launches']} launches, "
+        f"{prof['flash_decode_ms_a_launch']:.5f} ms device a launch, bound "
+        f"at the shard shape {refs['shard'][N_HEADS // world]['bound_ms']:.5f}"
+        f" ms")
+    rows.append({"leg": f"e tp{world} profile", **prof,
+                 "shard_bound_ms":
+                     refs["shard"][N_HEADS // world]["bound_ms"]})
+
+
+def _p16_spatial_run(res, spec, dev, rank, world, out):
+    """(d) one rank of SpatialBottleneck: its 14-row slab of the seeded
+    conv2_x input; forward and backward against the dense Bottleneck on
+    the whole image (the same weights, computed on every rank), the
+    parameter gradients summed over the ranks; the four exchangers'
+    halos held against the neighbouring slabs' rows."""
+    from apex_tpu_torch.contrib import bottleneck as bn
+
+    torch.backends.cudnn.allow_tf32 = False
+    n, hh, ww, c = P16_SPATIAL_X
+    cin, mid, cout = P16_SPATIAL_BLOCK
+    hl = hh // world
+    g = torch.Generator(device=dev).manual_seed(61)
+    x = torch.randn(P16_SPATIAL_X, generator=g, device=dev).bfloat16()
+    cot = torch.randn((n, hh, ww, cout), generator=g, device=dev)
+    sl = slice(rank * hl, (rank + 1) * hl)
+    sp = bn.SpatialBottleneck(cin, mid, cout, axis_name="spatial",
+                              device=dev, generator=torch.Generator(
+                                  device=dev).manual_seed(62))
+    dense = bn.Bottleneck(cin, mid, cout, device=dev)
+    with torch.no_grad():
+        for name in ("conv1", "conv3"):
+            getattr(dense, name).kernel.copy_(getattr(sp, name).kernel)
+        dense.conv2.kernel.copy_(sp.conv2_kernel)
+    xs = x[:, sl].contiguous().requires_grad_()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs.grad = None
+        sp.zero_grad()
+        y = sp(xs)
+        (y * cot[:, sl]).sum().backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    xd = x.detach().requires_grad_()
+    dense_times = []
+    for i in range(2):  # the first call warms cuDNN's algorithm choice
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xd.grad = None
+        dense.zero_grad()
+        yd = dense(xd)
+        (yd * cot).sum().backward()
+        torch.cuda.synchronize()
+        dense_times.append((time.perf_counter() - t0) * 1e3)
+    gaps = {"out": _rel_gap(y, yd[:, sl])}
+    # the gradients at the timed dtype (see P16_SPATIAL_TOL), and the
+    # same reading with the halos never exchanged (NoComm in place of
+    # SendRecv for one call): the fault the check must see
+    dense_params = dict(dense.named_parameters())
+    names = {"conv2_kernel": "conv2.kernel"}
+
+    def norm_gaps(block):
+        out = {"dx": _norm_gap(xs.grad, xd.grad[:, sl])}
+        for k, p in block.named_parameters():
+            g = p.grad.clone()
+            torch.distributed.all_reduce(g)
+            out[k] = _norm_gap(g, dense_params[names.get(k, k)].grad)
+        return out
+
+    norm = norm_gaps(sp)
+    with unittest.mock.patch.object(bn.bottleneck, "HaloExchangerSendRecv",
+                                    bn.HaloExchangerNoComm):
+        xs.grad = None
+        sp.zero_grad()
+        (sp(xs) * cot[:, sl]).sum().backward()
+    planted = norm_gaps(sp)
+    # the gradients in fp64, on copies of both blocks (see P16_SPATIAL_TOL)
+    sp64, dense64 = copy.deepcopy(sp).double(), copy.deepcopy(dense).double()
+    xs64 = x[:, sl].double().requires_grad_()
+    xd64 = x.double().requires_grad_()
+    (sp64(xs64) * cot[:, sl].double()).sum().backward()
+    (dense64(xd64) * cot.double()).sum().backward()
+    gaps["dx"] = _rel_gap(xs64.grad, xd64.grad[:, sl])
+    dense64_params = dict(dense64.named_parameters())
+    for k, p in sp64.named_parameters():
+        g = p.grad.clone()
+        torch.distributed.all_reduce(g)
+        gaps[k] = _rel_gap(g, dense64_params[names.get(k, k)].grad)
+    # the exchangers: a rank's halos are its neighbours' boundary rows
+    semantics = {}
+    zero = torch.zeros_like(x[:, 0:1])
+    want_l = x[:, rank * hl - 1:rank * hl] if rank else zero
+    want_r = x[:, (rank + 1) * hl:(rank + 1) * hl + 1] \
+        if rank < world - 1 else zero
+    mine = x[:, sl]
+    for name in ("SendRecv", "AllGather", "Peer", "NoComm"):
+        ex = getattr(bn, "HaloExchanger" + name)("spatial")
+        li, ri = ex.left_right_halo_exchange(mine[:, :1], mine[:, -1:])
+        if name == "NoComm":
+            ok = torch.equal(li, mine[:, -1:]) and torch.equal(ri, mine[:, :1])
+        else:
+            ok = torch.equal(li, want_l) and torch.equal(ri, want_r)
+        semantics[name] = bool(ok)
+    res["runs"]["spatial"] = {"gaps": gaps, "norm_gaps": norm,
+                              "planted_norm_gaps": planted, "ms": times,
+                              "dense_ms": dense_times, "semantics": semantics,
+                              "shape": list(y.shape), "dtype": str(y.dtype)}
+
+
+def spatial_check(rows, recs):
+    runs = [rec["runs"]["spatial"] for rec in recs]
+    fwd_tol, grad_tol, norm_tol = P16_SPATIAL_TOL
+    worst = {k: max(r["gaps"][k] for r in runs) for k in runs[0]["gaps"]}
+    norm = {k: max(r["norm_gaps"][k] for r in runs)
+            for k in runs[0]["norm_gaps"]}
+    planted = {k: max(r["planted_norm_gaps"][k] for r in runs)
+               for k in runs[0]["planted_norm_gaps"]}
+    p50 = float(np.median([t for r in runs for t in r["ms"][1:]]))
+    dense_ms = runs[0]["dense_ms"][-1]
+    log(f"  (d) SpatialBottleneck {P16_SPATIAL_BLOCK} over "
+        f"{list(P16_SPATIAL_X)} bf16, H over a gloo world of {len(recs)} "
+        f"({runs[0]['shape']} {runs[0]['dtype']} a rank): gaps against the "
+        f"dense Bottleneck (the output in fp32, the gradients in fp64, of "
+        f"the largest entry) {({k: f'{v:.2e}' for k, v in worst.items()})}"
+        f"; the gradients at the timed dtype, norm of the difference over "
+        f"the dense norm {({k: f'{v:.2e}' for k, v in norm.items()})} "
+        f"(limit {norm_tol}; with the halos never exchanged "
+        f"{({k: f'{v:.2e}' for k, v in planted.items()})}); "
+        f"fwd+bwd a rank p50 {p50:.2f} ms (dense on the whole image, warm, "
+        f"{dense_ms:.2f} ms; cold {runs[0]['dense_ms'][0]:.2f} ms); "
+        f"exchangers {[r['semantics'] for r in runs]}")
+    if worst["out"] > fwd_tol or max(v for k, v in worst.items()
+                                     if k != "out") > grad_tol:
+        raise AssertionError(f"(d) SpatialBottleneck apart from the dense "
+                             f"block: {worst}")
+    if max(norm.values()) > norm_tol:
+        raise AssertionError(f"(d) SpatialBottleneck's gradients apart from "
+                             f"the dense block's: {norm}")
+    if max(planted.values()) <= norm_tol:
+        raise AssertionError(f"(d) the gradient check does not see lost "
+                             f"halos: {planted}")
+    if not all(all(r["semantics"].values()) for r in runs):
+        raise AssertionError(f"(d) exchangers: "
+                             f"{[r['semantics'] for r in runs]}")
+    rows.append({"leg": "d spatial bottleneck world 4", "gaps": worst,
+                 "norm_gaps": norm, "planted_norm_gaps": planted,
+                 "norm_limit": norm_tol,
+                 "p50_ms": p50, "dense_ms": dense_ms,
+                 "semantics": runs[0]["semantics"]})
+
+
+_P16_RUNS = {"zero": _p16_zero_run, "lamb": _p16_lamb_run,
+             "spatial": _p16_spatial_run, "tp": _p16_tp_run}
+
+
+def a6_worker(rank: int, world: int, store: str, out: str, spec: str):
+    """One rank of a phase-16 gloo world on the card: the legs of
+    ``spec["legs"]`` in turn; writes ``rank<r>.json`` into ``out``."""
+    spec = json.loads(spec)
+    dist = torch.distributed
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    res = {"rank": rank, "runs": {}}
+    try:
+        _build.kernels()
+        for leg in spec["legs"]:
+            t0 = time.perf_counter()
+            _P16_RUNS[leg](res, spec, dev, rank, world, out)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            res.setdefault("seconds", {})[leg] = round(
+                time.perf_counter() - t0, 1)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def p16_references(dev, rows):
+    """The single-process references of (c) and (e): pytree FusedLAMB's
+    losses on config #3's batch, and the TP 1 engine's tokens of the
+    trace (plain from phase 3 when it ran, and the spec_k 4 run with the
+    sampled rows) and its pool bytes."""
+    cfg, params, batch = _p16_bert(dev)
+    # the reference takes the world's gradient: the two halves' mean
+    lamb, lamb_ms = _lamb_steps(cfg, params, batch, FusedLAMB(lr=1e-3),
+                                P16_LAMB_STEPS, split=P16_LAMB_WORLD)
+    del params
+    torch.cuda.empty_cache()
+    scfg = p16_serving_cfg()
+    sparams = init_gpt_params(
+        scfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    refs = {"lamb": lamb, "lamb_ms": lamb_ms}
+    for label, kw in (("plain", {}), ("spec_sampled", {"spec_k": 4})):
+        eng = ServingEngine(scfg, sparams, n_slots=SLOTS, prefill_chunk=8,
+                            device=dev, **kw)
+        reqs = _p16_requests(scfg.vocab_size, label != "plain")
+        got = eng.generate(reqs)
+        refs[label] = [got[r.rid] for r in reqs]
+        refs["pool_bytes"] = eng.spec.cache_bytes()
+        log(f"  TP 1 reference {label}: {eng.last_stats['steps']} steps, "
+            f"step p50 {eng.last_stats['step_ms']['p50']:.2f} ms, "
+            f"{eng.last_stats['tokens_per_sec']:.1f} tokens/s")
+        del eng
+    return refs, (scfg, sparams)
+
+
+def lamb_check(rows, launches, recs, world, refs):
+    """(c)'s verdicts: the loss equal on both ranks, falling, and each
+    step's within phase 5's bf16 loss parity of pytree FusedLAMB's over
+    the same gradient."""
+    runs = [rec["runs"]["lamb"] for rec in recs]
+    losses = runs[0]["losses"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, refs["lamb"])]
+    log(f"  (c) BERT-large at {P16_BERT_LAYERS} layers, "
+        f"DistributedFusedLAMB, gloo world of {world}, batch "
+        f"{P16_BERT_BATCH // world} a rank: losses {losses} (equal on both "
+        f"ranks) against pytree FusedLAMB's {refs['lamb']} over the same "
+        f"two halves' mean gradient (rel {max(rels):.2e}); step ms "
+        f"{runs[0]['step_ms']} (FusedLAMB {refs['lamb_ms']}); peaks "
+        f"{[round(r['peak_gib'], 2) for r in runs]} GiB")
+    if any(r["losses"] != losses for r in runs) or \
+            max(rels) > PARITY_TOL[torch.bfloat16][0] or \
+            losses[-1] >= losses[0]:
+        raise AssertionError(f"(c) LAMB: {losses} against {refs['lamb']}")
+    for rec in recs:
+        for k, n in rec["runs"]["lamb"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    rows.append({"leg": "c lamb world 2", "losses": losses,
+                 "dense_losses": refs["lamb"], "rel": max(rels),
+                 "step_ms": runs[0]["step_ms"],
+                 "peaks_gib": [r["peak_gib"] for r in runs]})
+
+
+def a6_phase(dev):
+    """Phase 16: the rest of A6. (a) ZeRO at NCCL world 1; (b) ZeRO-2, (d)
+    the spatial bottleneck and (e) TP 4 serving in one gloo world of 4,
+    and beside it (c) DistributedFusedLAMB on BERT-large and (e) TP 2
+    serving in a gloo world of 2, every rank a process on the one card
+    (collectives through host memory: step times are the host's, not
+    NVLink's, and the two worlds' share it); #1
+    checked at the shard shapes. Prints a ``{"phase16": [...]}`` line;
+    returns the main paths' launches and #1's worst error."""
+    rows, launches, parts = [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        zero_world1_leg(dev, rows, launches, tmp)
+        parts["a"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        fd_err, shard = tp_shard_kernel_checks(dev, rows)
+        refs, cfg_params = p16_references(dev, rows)
+        refs["shard"] = shard
+        parts["refs"] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        # the worlds run side by side (a world's ranks wait on the host
+        # most of a step): their legs' times are taken with the other
+        # worlds' processes on the same card and host
+        spec = {"device": str(dev),
+                "zero_dense": os.path.join(tmp, "zero_a_grads.pt"),
+                "refs": {k: refs[k] for k in ("plain", "spec_sampled")}}
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(P16_WORLDS)) as pool:
+            futures = [pool.submit(
+                _spawn_p14, tmp, world, {**spec, "legs": list(legs)},
+                timeout=600, worker="a6_worker", name=f"p16w{i}")
+                for i, (world, legs) in enumerate(P16_WORLDS)]
+            done = [f.result() for f in futures]
+        parts["worlds"] = round(time.perf_counter() - t0, 1)
+        for (world, legs), (recs, out) in zip(P16_WORLDS, done):
+            log(f"  world of {world} {legs}: seconds on rank 0 "
+                f"{recs[0]['seconds']}")
+            if "zero" in legs:
+                zero_world4_check(rows, launches, recs)
+            if "spatial" in legs:
+                spatial_check(rows, recs)
+            if "lamb" in legs:
+                lamb_check(rows, launches, recs, world, refs)
+            if "tp" in legs:
+                tp_serving_check(rows, launches, recs, world, refs,
+                                 cfg_params, dev)
+    log(f"  phase 16 parts (s): {parts}")
+    print(json.dumps({"phase16": rows}), flush=True)
+    return launches, fd_err
 
 
 def main() -> int:
@@ -9523,22 +10547,32 @@ def main() -> int:
         dev)
     fa_fwd["max_abs_err"] = max(fa_fwd["max_abs_err"], ring_fwd_err)
     fa_bwd["max_abs_err"] = max(fa_bwd["max_abs_err"], ring_bwd_err)
+    p16, fd_shard_err = phase(
+        "phase 16: the rest of A6 (A6.6, A6.7): ZeRO DistributedFusedAdam "
+        "at NCCL world 1 and ZeRO-2 on the 345M in a gloo world of 4, "
+        "DistributedFusedLAMB on BERT-large in a world of 2, "
+        "SpatialBottleneck over the halo exchangers in a world of 4, and "
+        "the 345M served at TP 2 and TP 4", a6_phase, dev)
+    fd["max_abs_err"] = max(fd["max_abs_err"], fd_shard_err)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
-    fd["launches"] = sum(c["flash_decode"] for c in served)
+    fd["launches"] = (sum(c["flash_decode"] for c in served)
+                      + p16.get("flash_decode", 0))
     # launches on the main paths: the serving runs, the eight GPT legs, the
     # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense,
     # phase 12's applier calls and 345M steps, phase 13's DDP steps, and
-    # phase 14's tensor-parallel steps on every rank and its examples, and
-    # phase 15's pipelined and context-parallel steps on every rank
+    # phase 14's tensor-parallel steps on every rank and its examples,
+    # phase 15's pipelined and context-parallel steps on every rank, and
+    # phase 16's ZeRO steps and tensor-parallel serving on every rank
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
                       + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
                       + fp8_launches["layer_norm_fwd"]
                       + p12.get("layer_norm_fwd", 0)
                       + p13.get("layer_norm_fwd", 0)
                       + p14.get("layer_norm_fwd", 0)
-                      + p15.get("layer_norm_fwd", 0))
+                      + p15.get("layer_norm_fwd", 0)
+                      + p16.get("layer_norm_fwd", 0))
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -9554,7 +10588,8 @@ def main() -> int:
                           + p12.get(kr["name"], 0)
                           + p13.get(kr["name"], 0)
                           + p14.get(kr["name"], 0)
-                          + p15.get(kr["name"], 0))
+                          + p15.get(kr["name"], 0)
+                          + p16.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

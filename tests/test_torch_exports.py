@@ -41,7 +41,7 @@ REPO = Path(__file__).resolve().parents[1]
 J = importlib.import_module("apex_tpu.ops.packed_optimizer")
 
 #: queue items that an allow-list entry may name (ROADMAP.md)
-QUEUES = {"A6.2", "A6.3", "A6.4", "A6.5", "A6.6", "A6.7", "A7", "A8"}
+QUEUES = {"A7", "A8"}
 
 #: whole JAX modules the port does not mirror yet
 MODULES_NOT_PORTED = {
@@ -79,12 +79,6 @@ _A7_TELEMETRY = (
 #: (JAX module, name) -> the queue item that brings it to the port
 NOT_PORTED = {
     ("apex_tpu", "analysis"): "A8",
-    **{("apex_tpu.contrib.bottleneck", n): "A6.6" for n in (
-        "HaloExchanger", "HaloExchangerAllGather", "HaloExchangerNoComm",
-        "HaloExchangerPeer", "HaloExchangerSendRecv", "SpatialBottleneck",
-        "halo_pad_1d", "spatial_conv3x3")},
-    ("apex_tpu.contrib.optimizers", "DistributedFusedAdamState"): "A6.6",
-    ("apex_tpu.contrib.optimizers", "DistributedFusedLAMBState"): "A6.6",
     **{("apex_tpu.resilience", n): "A7" for n in _A7_RESILIENCE},
     **{("apex_tpu.serving", n): "A7" for n in _A7_SERVING},
     **{("apex_tpu.telemetry", n): "A7" for n in _A7_TELEMETRY},

@@ -9,7 +9,7 @@ combined-scale clip from ``grad_norms`` of the scaled gradients against
 gradients over a small tree, from the same params; a mid-run Adam state
 carried across with ``convert.fused_adam_state_from_jax``; the exports
 (``FusedLAMB``, ``FP16_Optimizer``) and the ``DistributedFused*``
-refusals naming A6.6.
+ZeRO optimizers at world 1.
 
 Tolerances: the params, moments and output copies within 1e-5 of each
 leaf's largest entry over the 3-step trajectory (the same fp32
@@ -154,6 +154,16 @@ def test_exports_and_distributed_refusals():
     assert set(tco.__all__) >= {"FusedAdam", "FusedSGD", "FusedLAMB",
                                 "FP16_Optimizer", "DistributedFusedAdam",
                                 "DistributedFusedLAMB"}
+    # the ZeRO optimizers construct and step at world 1 (no process
+    # group: every collective is the identity; test_torch_distributed_
+    # optimizers.py holds them in a world of 4)
+    params = {"w": torch.ones(3, 2), "b": torch.zeros(2)}
+    grads = {"w": torch.full((3, 2), 0.5), "b": torch.ones(2)}
     for cls in (tco.DistributedFusedAdam, tco.DistributedFusedLAMB):
-        with pytest.raises(NotImplementedError, match="A6.6"):
-            cls(lr=1e-3)
+        opt = cls(lr=1e-3, distributed_size=1)
+        state = opt.init(params)
+        new, state = opt.step(grads, state, params)
+        assert int(state.step) == 1 and state.exp_avg.shape == (8,)
+        assert not torch.equal(new["w"], params["w"])
+        with pytest.raises(ValueError, match="distributed_size is 2"):
+            cls(lr=1e-3, distributed_size=2).init(params)

@@ -299,15 +299,19 @@ def test_engine_summary_fields(engine_runs):
 
 
 def test_engine_refuses_left_out_features(models):
-    """Tensor parallelism is the one feature of the JAX engine still
-    refused; the rest are accepted."""
+    """Every feature of the JAX engine is accepted; tensor parallelism
+    needs a world of ``tp`` ranks (``test_torch_serving_tp.py`` runs it):
+    outside one, ``tp=2`` names the world size, and a head count ``tp``
+    does not divide is refused first."""
     _, _, tcfg, tparams = models
     tserving.ServingEngine(tcfg, tparams, device="cpu", spec_k=2,
                            admission=tserving.AdmissionConfig(),
                            degradation=tserving.DegradationPolicy(),
                            trace=True, telemetry_every=4)
-    with pytest.raises(NotImplementedError, match="tp"):
+    with pytest.raises(ValueError, match="world has 1"):
         tserving.ServingEngine(tcfg, tparams, device="cpu", tp=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        tserving.ServingEngine(tcfg, tparams, device="cpu", tp=3)
     with pytest.raises(TypeError, match="bogus"):
         tserving.ServingEngine(tcfg, tparams, device="cpu", bogus=1)
     eng = tserving.ServingEngine(tcfg, tparams, device="cpu", tp=1)

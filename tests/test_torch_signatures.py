@@ -58,19 +58,10 @@ TPU_ONLY = {
 
 #: (module, name) -> {parameter: the ROADMAP.md queue item that brings
 #: it, or why the port takes it elsewhere}
-_TP_SERVING = "A6.7: tensor-parallel serving"
-NOT_YET = {
-    ("apex_tpu.serving", "ServingEngine"): {"devices": _TP_SERVING},
-    **{("apex_tpu.serving", n): {"tp_axis": _TP_SERVING} for n in (
-        "chunk_hidden", "decode_tokens", "prefill_chunk_tokens",
-        "run_spec_step")},
-}
+NOT_YET = {}
 
 #: whole names whose port waits for a queue item
-SKIPPED = {
-    ("apex_tpu.contrib.optimizers", "DistributedFusedAdam"): "A6.6",
-    ("apex_tpu.contrib.optimizers", "DistributedFusedLAMB"): "A6.6",
-}
+SKIPPED = {}
 
 
 def _signature(obj):
