@@ -323,14 +323,17 @@ def _target_leaves(node, target, out: list) -> list:
 # save and load
 # ---------------------------------------------------------------------------
 
-def _write_tree(dirpath: str, index: dict, leaves: list) -> None:
+def _write_tree(dirpath: str, index: dict, leaves: list,
+                threads: Optional[int] = None) -> None:
     os.makedirs(dirpath, exist_ok=True)
     offsets, total = hostio.layout(leaves)
     data = os.path.join(dirpath, ARRAYS)
     with open(data, "wb"):
         pass  # an empty tree still has its (empty) arrays file
     if leaves:
-        hostio.write_arrays(data, leaves, offsets)
+        hostio.write_arrays(data, leaves, offsets,
+                            **({} if threads is None else
+                               {"threads": threads}))
     for node, off in zip(_tensor_nodes(index["tree"], []), offsets):
         node["offset"] = off
     index["nbytes"] = total
@@ -339,7 +342,8 @@ def _write_tree(dirpath: str, index: dict, leaves: list) -> None:
 
 
 def save_checkpoint(path: str, state: Tree, *, overwrite: bool = True,
-                    staged: bool = True) -> None:
+                    staged: bool = True,
+                    threads: Optional[int] = None) -> None:
     """Write a tree of tensors and scalars to the directory ``path``.
 
     Staged (the default): the tree lands in ``<path>.tmp-<pid>``, is
@@ -348,7 +352,8 @@ def save_checkpoint(path: str, state: Tree, *, overwrite: bool = True,
     ``overwrite=False`` raises ``FileExistsError`` before anything is
     written when ``path`` exists. ``staged=False`` writes straight into
     ``path``, for callers whose ``path`` already lies inside their own
-    uncommitted staging directory."""
+    uncommitted staging directory. ``threads``: the host IO engine's
+    writer threads (its default when None)."""
     path = os.path.abspath(path)
     if not overwrite and os.path.exists(path):
         # fail before staging the (possibly many-GB) write
@@ -361,7 +366,7 @@ def save_checkpoint(path: str, state: Tree, *, overwrite: bool = True,
     if not staged:
         if os.path.exists(path):
             shutil.rmtree(path)
-        _write_tree(path, index, leaves)
+        _write_tree(path, index, leaves, threads)
         fsync_tree(path)
         return
     tmp = f"{path}.tmp-{os.getpid()}"
@@ -371,7 +376,7 @@ def save_checkpoint(path: str, state: Tree, *, overwrite: bool = True,
         if m is not None and stale_writer(int(m.group(1))):
             shutil.rmtree(stale, ignore_errors=True)
     try:
-        _write_tree(tmp, index, leaves)
+        _write_tree(tmp, index, leaves, threads)
         fsync_tree(tmp)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -91,24 +91,53 @@ def layout(arrays, align: int = 64) -> Tuple[List[int], int]:
     return offsets, off
 
 
-def _to_host(tensors) -> List[torch.Tensor]:
+class PinnedStage:
+    """A pinned host buffer that a caller keeps across :func:`to_host`
+    calls: grown to the largest request and reused, so repeated copies
+    of one state pin its bytes once."""
+
+    def __init__(self):
+        self._buf: Optional[torch.Tensor] = None
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = None  # free the smaller buffer before pinning anew
+            self._buf = torch.empty(nbytes, dtype=torch.uint8,
+                                    pin_memory=True)
+        return self._buf
+
+
+def to_host(tensors, *, stage: Optional[PinnedStage] = None,
+            ready=None) -> List[torch.Tensor]:
     """Contiguous CPU tensors with the inputs' bytes: CPU inputs as they
-    are (made contiguous), card inputs staged through one pinned
-    buffer with one synchronisation for all of them."""
-    tensors = [t.contiguous() for t in tensors]
+    are (made contiguous), card inputs staged through one pinned buffer
+    (``stage``'s, or a new one) with one synchronisation for all of
+    them. ``ready``: a CUDA event the copies wait on; they then run on a
+    stream of their own, behind nothing queued on the current stream
+    after the event, and only that stream is waited for. The inputs stay
+    referenced until their copies are done."""
+    host = [t.contiguous() if t.device.type == "cpu" else t
+            for t in tensors]
     card = [i for i, t in enumerate(tensors) if t.device.type != "cpu"]
     if not card:
-        return tensors
+        return host
+    devs = {tensors[i].device for i in card}
+    streams = {d: torch.cuda.Stream(d) if ready is not None
+               else torch.cuda.current_stream(d) for d in devs}
+    if ready is not None:
+        for s in streams.values():
+            s.wait_event(ready)
     offsets, total = layout([tensors[i] for i in card])
-    stage = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-    host = list(tensors)
+    buf = (stage.take(total) if stage is not None
+           else torch.empty(total, dtype=torch.uint8, pin_memory=True))
     for i, off in zip(card, offsets):
         t = tensors[i]
-        dst = stage[off:off + _nbytes(t)]
-        dst.copy_(_bytes_view(t), non_blocking=True)
+        dst = buf[off:off + _nbytes(t)]
+        with torch.cuda.stream(streams[t.device]):
+            dst.copy_(_bytes_view(t.contiguous()), non_blocking=True)
         host[i] = dst.view(t.dtype).view(t.shape)
-    for dev in {tensors[i].device for i in card}:
-        torch.cuda.synchronize(dev)
+    for s in streams.values():
+        s.synchronize()
     return host
 
 
@@ -119,7 +148,7 @@ def write_arrays(path, arrays, offsets: Optional[Sequence[int]] = None,
     back-to-back :func:`layout`); returns the offsets used. ``path`` is a
     path, or an open writable file descriptor (to amortise the open over
     many calls). The file is created if needed and never truncated."""
-    host = _to_host(arrays)
+    host = to_host(arrays)
     if offsets is None:
         offsets, _ = layout(host)
     _check_counts(offsets, len(host), "write_arrays")

@@ -1,7 +1,27 @@
-"""Fault injection for the serving engine: break it on purpose, prove it
-survives (counterpart of the serving half of
-``apex_tpu/resilience/chaos.py``; host code, copied).
+"""Fault injection: break the stack on purpose, prove it survives
+(counterpart of ``apex_tpu/resilience/chaos.py``).
 
+- **Poisoned data** — :meth:`ChaosMonkey.poison_batches` marks a window
+  of batch indices; the loop asks :meth:`ChaosMonkey.should_poison` per
+  batch and :func:`poison_grads` turns it into NaN gradients on the
+  device (the flag may be a host bool or a device tensor: no host
+  read). Keyed by batch index, not step — after a rewind advances the
+  iterator past the window, the poison is gone, exactly like a corrupt
+  data shard.
+- **Checkpoint write faults** — :meth:`ChaosMonkey.fail_write_at` /
+  :meth:`ChaosMonkey.fail_commit_at` make the manager's write raise
+  before the array write or between write and commit (the atomicity
+  window); :func:`corrupt_checkpoint` truncates a committed step's files
+  post-hoc (the bit-rot / partial-delete case the restore fallback must
+  survive).
+- **Preemption** — :func:`send_preemption` delivers a real SIGTERM to
+  the current process, driving the manager's emergency-flush handler.
+- **Stalls** — :class:`StallingSink` blocks inside a recorder callback
+  (the shape of a wedged host callback / storage write) so the watchdog
+  has something real to catch.
+- **Host kills** — :class:`ChaosHost` SIGKILLs a supervised fake host of
+  the elastic service at a step boundary, mid-``.part`` write or
+  mid-barrier, and wedges its heartbeat.
 - :class:`ServingChaos` reaches into the serving engine's seams
   (``apex_tpu_torch.serving``): logit poisoning of one request inside
   the step (the fault-isolation quarantine proof), a wedged step sync
@@ -15,19 +35,20 @@ survives (counterpart of the serving half of
 - :func:`request_storm` builds malformed-request batches (every
   refusal path fires with a typed reason).
 
-The training and checkpoint faults of the JAX module (``ChaosMonkey``,
-``poison_grads``, ``corrupt_checkpoint``, ``ChaosHost``,
-``StallingSink``) come with the port of the training-side resilience
-services.
 """
 from __future__ import annotations
 
 import os
+import pathlib
 import signal
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, Iterable, List, Optional, Sequence, Set
 
 import numpy as np
+import torch
+
+from .._tree import tree_map
 
 #: a wedge sleeps in slices this long, so an interrupt the hang watchdog
 #: raises in the main thread lands within a slice rather than at the end
@@ -37,6 +58,130 @@ _WEDGE_SLICE_S = 0.01
 
 class ChaosError(RuntimeError):
     """An injected fault (never raised by production code paths)."""
+
+
+class ChaosMonkey:
+    """Injection flags consulted by the resilience seams.
+
+    Pass an instance as ``CheckpointManager(chaos=...)``; checkpoint
+    faults arm per step and fire once.
+    """
+
+    def __init__(self):
+        self._fail_write: Set[int] = set()
+        self._fail_commit: Set[int] = set()
+        self._poison: Set[int] = set()
+        self.faults_fired: list = []
+
+    # -- checkpoint seams (called by CheckpointManager._write) -------------
+    def fail_write_at(self, *steps: int) -> "ChaosMonkey":
+        """Fail the save BEFORE the array tree is written."""
+        self._fail_write.update(int(s) for s in steps)
+        return self
+
+    def fail_commit_at(self, *steps: int) -> "ChaosMonkey":
+        """Fail AFTER the tmp tree is fully written, BEFORE the rename —
+        the exact window atomicity must cover."""
+        self._fail_commit.update(int(s) for s in steps)
+        return self
+
+    def before_write(self, step: int) -> None:
+        if int(step) in self._fail_write:
+            self._fail_write.discard(int(step))
+            self.faults_fired.append(("write", int(step)))
+            raise ChaosError(f"injected write failure at step {step}")
+
+    def before_commit(self, step: int) -> None:
+        if int(step) in self._fail_commit:
+            self._fail_commit.discard(int(step))
+            self.faults_fired.append(("commit", int(step)))
+            raise ChaosError(f"injected commit failure at step {step}")
+
+    # -- data poisoning ----------------------------------------------------
+    def poison_batches(self, batches: Iterable[int]) -> "ChaosMonkey":
+        """Mark batch indices whose gradients go NaN (a corrupt shard)."""
+        self._poison.update(int(b) for b in batches)
+        return self
+
+    def should_poison(self, batch_index: int) -> bool:
+        return int(batch_index) in self._poison
+
+
+def poison_grads(grads, poison):
+    """NaN injection on the device: multiply every gradient leaf by NaN
+    when ``poison`` (a host bool — the loop feeds
+    ``chaos.should_poison(i)`` — or a bool tensor, read on the device:
+    one step function serves both arms with no host read)."""
+
+    def bad(g):
+        flag = torch.as_tensor(poison, dtype=torch.bool, device=g.device)
+        mult = torch.where(flag, torch.tensor(float("nan"), device=g.device),
+                           torch.tensor(1.0, device=g.device))
+        return g * mult.to(g.dtype)
+
+    return tree_map(bad, grads)
+
+
+def corrupt_checkpoint(step_dir: str, *, truncate_to: int = 4,
+                       only_largest: bool = False) -> list:
+    """Truncate the storage files of a COMMITTED checkpoint — post-hoc
+    bit-rot the restore fallback must detect and skip.
+
+    Default damages every file (the unambiguous total-rot case: the
+    index and the arrays file alike). ``only_largest=True`` clips just
+    the biggest file (the single-bad-sector case). Returns the damaged
+    paths."""
+    root = pathlib.Path(step_dir)
+    files = [f for f in root.rglob("*") if f.is_file()]
+    if not files:
+        raise FileNotFoundError(f"no files under {step_dir}")
+    if only_largest:
+        files = [max(files, key=lambda f: f.stat().st_size)]
+    for victim in files:
+        with open(victim, "r+b") as f:
+            f.truncate(truncate_to)
+    return [str(f) for f in files]
+
+
+def send_preemption(sig: int = signal.SIGTERM) -> None:
+    """Deliver a real preemption notice to this process (the cloud
+    SIGTERM), driving any installed emergency-flush handler."""
+    os.kill(os.getpid(), sig)
+
+
+class StallingSink:
+    """A recorder whose ``record`` blocks — the wedged-callback fault.
+
+    ``stall_s`` bounds the stall (so an un-watched test cannot hang
+    forever); ``release`` frees it early. ``forward`` optionally passes
+    records through to a real sink after the stall.
+    """
+
+    def __init__(self, stall_s: float = 30.0, *, forward=None):
+        self.stall_s = float(stall_s)
+        self.forward = forward
+        self.stalled = threading.Event()   # set while a record is stuck
+        self._release = threading.Event()
+        self.records: list = []
+
+    def record(self, rec: dict) -> None:
+        self.stalled.set()
+        self._release.wait(self.stall_s)
+        self.records.append(dict(rec))
+        if self.forward is not None:
+            self.forward.record(rec)
+
+    def add_scalar(self, name, value, step) -> None:
+        self.record({"event": "scalar", "name": name, "value": value,
+                     "step": step})
+
+    def release(self) -> None:
+        self._release.set()
+
+
+def stall(seconds: float) -> None:
+    """A plain host stall (for wrapping into callbacks under test)."""
+    time.sleep(float(seconds))
 
 
 class ServingChaos:
@@ -242,6 +387,150 @@ class ServingChaos:
         if n:
             self.faults_fired.append(("cache_evict", n))
         return n
+
+
+class ChaosHost:
+    """Host-process faults for the elastic service's supervised fake
+    hosts — where :class:`ChaosMonkey` raises exceptions a single
+    process survives, this one **kills the process** (SIGKILL: no
+    cleanup, no flush, exactly a preempted host) at the seams the
+    two-phase commit must cover:
+
+    - :meth:`kill_at_step` — SIGKILL at a step boundary (mid-step from
+      the world's point of view: peers are between collectives).
+    - :meth:`kill_in_shard_write_at` — SIGKILL mid-``.part`` write:
+      the shard's arrays are on disk, its meta/rename are not — a torn
+      shard that must read as garbage, never as data.
+    - :meth:`kill_in_barrier_at` — SIGKILL while waiting in the commit
+      barrier: this host's shard landed, the COMMIT marker never will —
+      the markerless-step-is-garbage case.
+    - :meth:`wedge_heartbeat_at` — stop heartbeating for ``stall_s``
+      (the silent-hang fault); the supervisor's staleness detector must
+      declare the host hung and restart the world.
+
+    Faults fire once (crossing the armed step also fires, so a world
+    that restarts *past* the armed step does not dodge its fault, and a
+    restarted host re-running the same steps does not re-die). The
+    hooks double as the manager's chaos seams: ``before_write`` (step
+    boundary alias), ``mid_part_write``, ``before_commit`` /
+    ``in_barrier`` (barrier window). Armed sets serialize through
+    :meth:`to_spec` / :meth:`parse` (``"kill@7,kill_write@6,`` ``kill_
+    barrier@5,wedge@9:30"``) so a supervisor can arm a child host
+    through its environment/argv.
+    """
+
+    def __init__(self):
+        self._kill_step: Optional[int] = None
+        self._kill_write: Optional[int] = None
+        self._kill_barrier: Optional[int] = None
+        self._wedge: Optional[tuple] = None  # (step, stall_s)
+        self.faults_fired: list = []
+
+    # -- arming ------------------------------------------------------------
+    def kill_at_step(self, step: int) -> "ChaosHost":
+        self._kill_step = int(step)
+        return self
+
+    def kill_in_shard_write_at(self, step: int) -> "ChaosHost":
+        self._kill_write = int(step)
+        return self
+
+    def kill_in_barrier_at(self, step: int) -> "ChaosHost":
+        self._kill_barrier = int(step)
+        return self
+
+    def wedge_heartbeat_at(self, step: int,
+                           stall_s: float = 3600.0) -> "ChaosHost":
+        self._wedge = (int(step), float(stall_s))
+        return self
+
+    # -- spec round-trip (supervisor -> child host) ------------------------
+    def to_spec(self) -> str:
+        parts = []
+        if self._kill_step is not None:
+            parts.append(f"kill@{self._kill_step}")
+        if self._kill_write is not None:
+            parts.append(f"kill_write@{self._kill_write}")
+        if self._kill_barrier is not None:
+            parts.append(f"kill_barrier@{self._kill_barrier}")
+        if self._wedge is not None:
+            parts.append(f"wedge@{self._wedge[0]}:{self._wedge[1]}")
+        return ",".join(parts)
+
+    @classmethod
+    def parse(cls, spec: str) -> "ChaosHost":
+        out = cls()
+        for part in (spec or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            kind, _, arg = part.partition("@")
+            if kind == "kill":
+                out.kill_at_step(int(arg))
+            elif kind == "kill_write":
+                out.kill_in_shard_write_at(int(arg))
+            elif kind == "kill_barrier":
+                out.kill_in_barrier_at(int(arg))
+            elif kind == "wedge":
+                step, _, stall = arg.partition(":")
+                out.wedge_heartbeat_at(int(step),
+                                       float(stall) if stall else 3600.0)
+            else:
+                raise ValueError(f"unknown chaos fault {part!r} "
+                                 f"(spec {spec!r})")
+        return out
+
+    # -- the kill itself ---------------------------------------------------
+    @staticmethod
+    def _die() -> None:
+        # SIGKILL self: no handlers, no atexit, threads gone mid-write
+        os.kill(os.getpid(), signal.SIGKILL)
+        time.sleep(60)  # unreachable; belt for exotic platforms
+
+    def _take(self, attr: str, step: int) -> bool:
+        armed = getattr(self, attr)
+        if armed is not None and int(step) >= armed:
+            setattr(self, attr, None)
+            return True
+        return False
+
+    # -- hooks (host loop + ElasticCheckpointManager seams) ----------------
+    def at_step_boundary(self, step: int) -> None:
+        if self._take("_kill_step", step):
+            self.faults_fired.append(("kill", int(step)))
+            self._die()
+
+    def before_write(self, step: int) -> None:
+        """Manager seam; step-boundary kills also honored here so a
+        save-driven loop without an explicit boundary call still dies."""
+        if self._take("_kill_step", step):
+            self.faults_fired.append(("kill", int(step)))
+            self._die()
+
+    def mid_part_write(self, step: int) -> None:
+        if self._take("_kill_write", step):
+            self.faults_fired.append(("kill_write", int(step)))
+            self._die()
+
+    def before_commit(self, step: int) -> None:
+        if self._take("_kill_barrier", step):
+            self.faults_fired.append(("kill_barrier", int(step)))
+            self._die()
+
+    def in_barrier(self, step: int) -> None:
+        if self._take("_kill_barrier", step):
+            self.faults_fired.append(("kill_barrier", int(step)))
+            self._die()
+
+    def take_wedge(self, step: int) -> Optional[float]:
+        """Stall seconds to sleep WITHOUT heartbeating at this step (the
+        host loop consults it each boundary), or None."""
+        if self._wedge is not None and int(step) >= self._wedge[0]:
+            _, stall = self._wedge
+            self._wedge = None
+            self.faults_fired.append(("wedge", int(step)))
+            return stall
+        return None
 
 
 class WorkerChaos:

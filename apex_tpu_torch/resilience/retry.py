@@ -9,13 +9,14 @@ into telemetry (``{"event": "retry", ...}`` through any recorder sink),
 so flaky infrastructure shows up in the run's JSONL instead of only on
 stderr.
 
-Consumer here: the serving engine's request-level retry
-(``ServingEngine.generate(retry_failed=...)``).
+Consumers here: the serving engine's request-level retry
+(``ServingEngine.generate(retry_failed=...)``), the checkpoint managers'
+IO (``CHECKPOINT_IO_POLICY``) and the elastic commit barrier
+(:data:`ELASTIC_BARRIER_POLICY`).
 
-Left out: the JAX package's compile-transport filter and the policy
-built on it (a remote TPU compiler's flakes; a CUDA build has no such
-transport), and the elastic-barrier and fleet-transport policies, which
-come with the elastic service and the process fleet.
+The JAX package's ``TRANSIENT_COMPILE_POLICY`` has no counterpart: it
+retries a remote TPU compiler's transport flakes, and this package
+compiles its kernels with a local ``nvcc``.
 
 Usage::
 
@@ -90,6 +91,50 @@ class RetryPolicy:
             return 0.0
         cap = min(self.max_delay, self.base_delay * (2.0 ** (attempt - 1)))
         return self.rng.uniform(0.0, cap)
+
+
+class BarrierNotReady(RuntimeError):
+    """A filesystem rendezvous poll found peers still missing.
+
+    The elastic commit barrier (``resilience.elastic``) raises this per
+    attempt so :func:`retry_call` owns the pacing: each re-poll is a
+    jittered-backoff "attempt", every one mirrored into telemetry as a
+    ``retry`` event — slow peers show up in the run's JSONL the same way
+    flaky storage does. The final attempt's :class:`BarrierNotReady`
+    surfaces as the barrier timeout."""
+
+
+#: The elastic multi-host commit barrier: many short re-polls of the
+#: shared checkpoint directory with bounded jittered backoff. Peers
+#: normally land within a step time; the generous attempt budget is for
+#: a peer still starting up on its first save. Pair with ``deadline=``
+#: (the manager derives it from ``barrier_timeout_s``) so the wall-clock
+#: bound — not the attempt count — is the contract.
+ELASTIC_BARRIER_POLICY = RetryPolicy(
+    attempts=10_000,
+    retry_on=(BarrierNotReady,),
+    base_delay=0.02,
+    max_delay=0.5,
+    emit_every=25,
+)
+
+
+#: Router->worker transport I/O for a real-process serving fleet: every
+#: connect/reconnect and framed RPC routes through this policy, so a
+#: worker restart mid-request reads as ONE slow RPC, not an exception.
+#: ``retry_on=(OSError,)`` covers the whole transport failure surface
+#: (broken pipes, connection resets); full-jitter backoff avoids
+#: re-stampeding a restarting worker, and the wall-clock ``deadline`` —
+#: not the attempt count — is the contract. ``emit_every`` keeps a
+#: normal restart from flooding the event stream.
+TRANSPORT_POLICY = RetryPolicy(
+    attempts=10_000,
+    retry_on=(OSError,),
+    base_delay=0.05,
+    max_delay=1.0,
+    deadline=30.0,
+    emit_every=5,
+)
 
 
 def retry_call(

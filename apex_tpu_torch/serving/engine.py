@@ -263,6 +263,22 @@ class _LeaderClock:
         return float(t[0])
 
 
+class _LeaderRandom:
+    """A retry policy's jitter under tensor parallelism: every rank draws
+    from its own generator and takes the group's first rank's draw,
+    broadcast, so every rank sleeps, and decides against the deadline,
+    with the same backoff."""
+
+    def __init__(self, rng, comm: TPComm):
+        self.rng = rng
+        self.comm = comm
+
+    def uniform(self, a: float, b: float) -> float:
+        t = torch.tensor([self.rng.uniform(a, b)], dtype=torch.float64)
+        self.comm.broadcast_host(t, 0)
+        return float(t[0])
+
+
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``. To the card through pinned memory and
     a non-blocking copy: a pageable copy would synchronise the stream."""
@@ -1289,9 +1305,17 @@ class ServingEngine:
         eff = dataclasses.replace(policy,
                                   retry_on=(TransientRequestFailure,),
                                   message_filter=None)
+        kw = {}
+        if self.comm is not None:
+            # every rank of a TP engine decides alike: the deadline reads
+            # the first rank's clock and the backoff is its draw; at TP 1
+            # the policy's own clock and jitter, as the JAX engine's
+            eff = dataclasses.replace(
+                eff, rng=_LeaderRandom(policy.rng, self.comm))
+            kw["clock"] = self._clock
         try:
             retry_call(attempt, policy=eff, tag="serving request retry",
-                       sink=self.sink)
+                       sink=self.sink, **kw)
         except TransientRequestFailure:
             pass  # policy exhausted: they stay FAILED, summary shows it
         except SchedulerError as e:

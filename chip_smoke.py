@@ -462,11 +462,23 @@ from apex_tpu_torch.parallel import (
 )
 from apex_tpu_torch.resilience import (
     ChaosError,
+    ChaosMonkey,
+    CheckpointManager,
+    ElasticCheckpointManager,
     HangError,
     HangWatchdog,
+    IndexedBatches,
     RetryPolicy,
+    RewindController,
     ServingChaos,
+    Supervisor,
+    grad_buckets_for_world,
+    poison_grads,
 )
+from apex_tpu_torch.resilience import capture as rcapture
+from apex_tpu_torch.resilience import resume_or_init as rresume_or_init
+from apex_tpu_torch.resilience import state as rstate
+from apex_tpu_torch.resilience.state import tree_leaves as res_tree_leaves
 from apex_tpu_torch.serving import sampling
 from apex_tpu_torch.serving import (
     AdmissionConfig,
@@ -3788,7 +3800,8 @@ def check_overflow_skip(step, params, state, poison, label):
     poison["on"] = True
     params, state, _ = step(params, state)
     poison["on"] = False
-    torch.cuda.synchronize()
+    if masters.is_cuda:  # the parity worker sees no card
+        torch.cuda.synchronize()
     ostate, ss2 = state[:2]
     if not (torch.equal(ostate.master_params, masters)
             and all(torch.equal(a, b)
@@ -4345,6 +4358,14 @@ def bert_parity(dev, label: str, kernels, make_opt=None, absent=(),
                  make_opt or (lambda: FusedLAMB(lr=1e-3)), absent=absent)
 
 
+#: phase 7's parity legs across two processes (A7.0): ``mode`` None runs
+#: both halves of a leg here; "card" runs the card half here and takes the
+#: CPU half from the worker (:func:`parity_worker`), whose results land in
+#: ``dir`` one file a leg and are checked by :func:`parity_drain`; "cpu"
+#: is the worker: the CPU halves alone
+_PARITY = {"mode": None, "dir": None, "pending": [], "n": 0}
+
+
 def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
                  absent=(), scaled=False, reference="cpu"):
     """Loss, gradients and 3 optimizer steps of ``loss_of(params,
@@ -4359,18 +4380,73 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
     run is on the card too, every kernel wrapper taking its plain version
     (:func:`plain_kernels`), for dtypes whose CPU GEMMs are too slow to
     serve as the reference (fp16: 0.4 GFLOP/s on the card's host,
-    measured beside 533 fp32)."""
-    dt = cfg.compute_dtype
-    loss_tol, grad_tol, upd_tol = PARITY_TOL[dt]
+    measured beside 533 fp32).
+
+    Under :data:`_PARITY` mode "card" a CPU reference is the worker's: the
+    card half runs here and its check waits in ``_PARITY["pending"]``;
+    under mode "cpu" (the worker) only the CPU half runs, the assertion
+    that it launched nothing is made here, on this process's counts, and
+    the run is written for the card's process."""
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(7))
-    runs = {}
-    for where in ("cpu", "cuda"):
-        d = torch.device("cpu") if where == "cpu" else dev
-        plain = where == "cpu" and reference == "plain"
-        if plain:
-            d = dev
-        route = plain_kernels() if plain else contextlib.nullcontext()
-        route.__enter__()
+    check = functools.partial(_parity_check, label, kernels, absent,
+                              cfg.compute_dtype, reference,
+                              PackSpec(cpu_params).leaf_names())
+
+    def run(where):
+        return _parity_run(dev, label, where, cfg, loss_of, make_opt,
+                           cpu_params, scaled, reference)
+
+    if reference != "cpu":  # both halves on the card, in its process
+        if _PARITY["mode"] != "cpu":
+            check(run("cpu"), run("cuda"))
+        return
+
+    def cpu_run():
+        c = run("cpu")
+        if any(c["counts"].values()):  # this process's own counts
+            raise AssertionError(f"{label}: kernels launched on the CPU "
+                                 f"run: {c['counts']}")
+        return c
+
+    _parity_split(label, cpu_run, lambda: run("cuda"), check)
+
+
+def _parity_split(label, cpu_run, card_run, check):
+    """One card-against-CPU check, ``check(cpu result, card result)``,
+    across :data:`_PARITY`'s processes: mode None runs both here; the
+    worker ("cpu") runs ``cpu_run`` alone and writes its result for the
+    card's process; the card's process ("card") runs ``card_run`` and
+    leaves the check pending until :func:`parity_drain` finds the
+    worker's result. Each call takes the next index in both processes."""
+    mode = _PARITY["mode"]
+    index = _PARITY["n"]
+    _PARITY["n"] += 1
+    t0 = time.perf_counter()
+    if mode == "cpu":
+        c = cpu_run()
+        path = os.path.join(_PARITY["dir"], f"{index:02d}.pt")
+        torch.save({"label": label, "run": c}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        log(f"  {label}: CPU half {time.perf_counter() - t0:.1f} s")
+    elif mode == "card":
+        g = card_run()
+        log(f"  {label}: card half {time.perf_counter() - t0:.1f} s (its "
+            f"CPU half in the worker)")
+        _PARITY["pending"].append((index, label, g, check))
+    else:
+        check(cpu_run(), card_run())
+
+
+def _parity_run(dev, label, where, cfg, loss_of, make_opt, cpu_params,
+                scaled, reference):
+    """One side of :func:`train_parity`: the loss, gradients, 3 steps
+    (and the forced overflow when ``scaled``) on the CPU or the card."""
+    d = torch.device("cpu") if where == "cpu" else dev
+    plain = where == "cpu" and reference == "plain"
+    if plain:
+        d = dev
+    route = plain_kernels() if plain else contextlib.nullcontext()
+    with route:
         params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
         opt = make_opt()
         state = opt.init(params)
@@ -4393,12 +4469,15 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
         if scaled:
             check_overflow_skip(step, params, state, poison,
                                 f"{label} ({where})")
-        runs[where] = dict(loss=float(loss0), losses=losses,
-                           grads=tree_map(lambda g: g.float().cpu(), grads),
-                           update=(_flat(params) - start).cpu(),
-                           counts=counts)
-        route.__exit__(None, None, None)
-    c, g = runs["cpu"], runs["cuda"]
+        return dict(loss=float(loss0), losses=losses,
+                    grads=tree_map(lambda g: g.float().cpu(), grads),
+                    update=(_flat(params) - start).cpu(), counts=counts)
+
+
+def _parity_check(label, kernels, absent, dt, reference, names, c, g):
+    """:func:`train_parity`'s gates: the CPU (or card plain) run ``c``
+    against the card run ``g``."""
+    loss_tol, grad_tol, upd_tol = PARITY_TOL[dt]
     if any(c["counts"].values()):
         raise AssertionError(f"kernels launched on the CPU run: "
                              f"{c['counts']}")
@@ -4410,8 +4489,7 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
             raise AssertionError(f"{name} launched on the card run")
     rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
     worst = 0.0
-    for (name, gc), gg in zip(zip(PackSpec(cpu_params).leaf_names(),
-                                  tree_leaves(c["grads"])),
+    for (name, gc), gg in zip(zip(names, tree_leaves(c["grads"])),
                               tree_leaves(g["grads"])):
         err = float((gg - gc).abs().max() / gc.abs().max().clamp_min(1e-30))
         worst = max(worst, err)
@@ -4437,6 +4515,187 @@ def train_parity(dev, label: str, kernels, cfg, loss_of, make_opt,
                              "the CPU's")
 
 
+def parity_legs(dev):
+    """Phase 7's training-parity legs, in order. In the parity worker the
+    legs that do not go through :func:`train_parity` return at once: they
+    hold the card against the CPU in the card's process."""
+    return [
+        lambda: gpt_parity(dev, "unfused", TRAIN_KERNELS[:4]),
+        lambda: gpt_parity(dev, "fused, selective_elementwise",
+                           TRAIN_KERNELS[:4] + FUSED_KERNELS,
+                           fused_block=True,
+                           recompute_granularity="selective_elementwise"),
+        lambda: gpt_parity(dev, "GPT non-flash, causal",
+                           ("softmax_fwd", "softmax_bwd",
+                            "layer_norm_fwd", "layer_norm_bwd"),
+                           compute_dtype=torch.bfloat16,
+                           use_flash_attention=False),
+        lambda: bert_parity(dev, "BERT non-flash, padding mask",
+                            ("softmax_masked_fwd", "softmax_bwd",
+                             "layer_norm_fwd", "layer_norm_bwd"),
+                            compute_dtype=torch.bfloat16,
+                            use_flash_attention=False),
+        lambda: gpt_parity(dev, "unfused, packed FusedSGD",
+                           TRAIN_KERNELS[:4] + ("packed_sgd",),
+                           make_opt=packed_sgd),
+        lambda: bert_parity(dev, "BERT non-flash fp32, packed LAMB",
+                            ("layer_norm_fwd", "layer_norm_bwd")
+                            + LAMB_KERNELS, make_opt=packed_lamb,
+                            use_flash_attention=False),
+        lambda: bert_parity(dev, "BERT non-flash, padding mask, packed "
+                            "LAMB",
+                            ("softmax_masked_fwd", "softmax_bwd",
+                             "layer_norm_fwd", "layer_norm_bwd")
+                            + LAMB_KERNELS, make_opt=packed_lamb,
+                            compute_dtype=torch.bfloat16,
+                            use_flash_attention=False),
+        lambda: lamb_packed_against_pytree(dev),
+        lambda: gpt_parity(dev, "unfused, loss-scaled, clipped",
+                           TRAIN_KERNELS[:4] + ("packed_adam",
+                                                "scale_flat",
+                                                "packed_row_reduce"),
+                           scaled=True),
+        lambda: bert_parity(dev, "BERT non-flash fp32, packed NovoGrad",
+                            ("layer_norm_fwd", "layer_norm_bwd")
+                            + NOVOGRAD_KERNELS,
+                            make_opt=packed_novograd,
+                            use_flash_attention=False),
+        lambda: bert_parity(dev, "BERT non-flash fp32, packed NovoGrad "
+                            "inf norm",
+                            ("layer_norm_fwd", "layer_norm_bwd")
+                            + NOVOGRAD_KERNELS,
+                            make_opt=lambda: FusedNovoGrad(
+                                lr=NOVOGRAD_LR, norm_type=0, packed=True),
+                            use_flash_attention=False),
+        lambda: bert_parity(dev, "BERT non-flash, padding mask, packed "
+                            "NovoGrad",
+                            ("softmax_masked_fwd", "softmax_bwd",
+                             "layer_norm_fwd", "layer_norm_bwd")
+                            + NOVOGRAD_KERNELS,
+                            make_opt=packed_novograd,
+                            compute_dtype=torch.bfloat16,
+                            use_flash_attention=False),
+        lambda: gpt_parity(dev, "head dim 128 (8 heads), flash by default",
+                           TRAIN_KERNELS[:4], num_attention_heads=8),
+        lambda: fused_width_parity(dev),
+        lambda: gpt_parity(dev, "head dim 80 (hidden 1280), flash "
+                           "padded to head dim 96",
+                           TRAIN_KERNELS[:4],
+                           absent=("softmax_fwd", "softmax_bwd"),
+                           hidden_size=1280,
+                           compute_dtype=torch.bfloat16),
+        lambda: gpt_parity(dev, "head dim 320 (hidden 1280, 4 heads), "
+                           "past flash's 256: fused softmax",
+                           ("softmax_fwd", "softmax_bwd",
+                            "layer_norm_fwd", "layer_norm_bwd"),
+                           absent=("flash_attn_fwd", "flash_attn_bwd"),
+                           hidden_size=1280, num_attention_heads=4,
+                           compute_dtype=torch.bfloat16),
+        lambda: gpt_parity(dev, "fp16 GPT, fused, flash (reference: the "
+                           "plain versions on the card)",
+                           TRAIN_KERNELS + FUSED_KERNELS,
+                           reference="plain", compute_dtype=torch.float16,
+                           fused_block=True,
+                           apply_query_key_layer_scaling=False,
+                           use_flash_attention=True),
+    ]
+
+
+#: the parity worker's CPU threads: the card's host has 8 cores; the
+#: card's process keeps its own threads for phases 7-13's CPU references
+PARITY_THREADS = 4
+#: the longest the card's process waits for the worker at the join
+PARITY_JOIN_S = 900
+
+
+def parity_worker(out_dir: str, threads: int) -> None:
+    """The CPU halves of phase 7's activation watch and parity legs (the
+    legs of :func:`parity_legs` whose reference is the CPU) and of phase
+    9's ResNet-50 parity, in the card process's order, in a process of
+    their own beside the card's, each written to ``out_dir`` as it
+    ends."""
+    torch.set_num_threads(threads)
+    _PARITY.update(mode="cpu", dir=out_dir, n=0)
+    log(f"parity worker: {torch.get_num_threads()} threads, pid "
+        f"{os.getpid()}")
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    for leg in ([lambda: watch_parity(cpu)] + parity_legs(cpu)
+                + [lambda: resnet_parity(cpu)]):
+        leg()
+    log(f"parity worker: all CPU halves in {time.perf_counter() - t0:.1f} s")
+
+
+def parity_start(tmp: str):
+    """Start :func:`parity_worker` in a process that sees no card, its
+    results and its log under ``tmp``; the card's process then runs the
+    card halves (mode "card")."""
+    out = os.path.join(tmp, "parity")
+    os.makedirs(out, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS=str(PARITY_THREADS),
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    logf = open(os.path.join(out, "worker.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke."
+         "parity_worker(sys.argv[1], int(sys.argv[2]))", out,
+         str(PARITY_THREADS)], env=env, cwd=here, stdout=logf,
+        stderr=subprocess.STDOUT)
+    _PARITY.update(mode="card", dir=out, pending=[], n=0, proc=proc,
+                   log=logf, t0=time.perf_counter())
+    log(f"  parity worker started (pid {proc.pid}, {PARITY_THREADS} "
+        f"threads, no card)")
+
+
+def parity_drain(block: bool = False) -> None:
+    """Check every pending leg whose CPU half the worker has written, in
+    order (each file removed once read); with ``block``, wait for the
+    worker to end (at most ``PARITY_JOIN_S``), check the rest, and fail
+    if it failed or a leg is missing."""
+    pending = _PARITY["pending"]
+    proc = _PARITY.get("proc")
+    if proc is None:
+        return
+    deadline = time.monotonic() + PARITY_JOIN_S
+    while pending:
+        index, label, g, check = pending[0]
+        path = os.path.join(_PARITY["dir"], f"{index:02d}.pt")
+        if not os.path.exists(path):
+            if not block:
+                return
+            if proc.poll() is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+            continue
+        got = torch.load(path)
+        os.remove(path)
+        if got["label"] != label:
+            raise AssertionError(f"parity worker wrote {got['label']!r} "
+                                 f"where {label!r} was expected")
+        check(got["run"], g)
+        pending.pop(0)
+    if not block:
+        return
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at the join's time limit"
+    _PARITY["log"].close()
+    with open(os.path.join(_PARITY["dir"], "worker.log")) as f:
+        for line in f.read().splitlines():
+            log(f"  | {line}")
+    log(f"  parity worker joined {time.perf_counter() - _PARITY['t0']:.1f} "
+        f"s after its start")
+    _PARITY.update(mode=None, proc=None)
+    if rc != 0 or pending:
+        raise AssertionError(f"parity worker ended {rc} with "
+                             f"{[p[1] for p in pending]} unchecked")
+
+
 def fused_width_parity(dev):
     """``fused_block=True`` at the widths the tails used to refuse: a
     1-layer fp32 GPT at hidden 5120 (40 heads) and 8192 (64 heads), head
@@ -4444,6 +4703,8 @@ def fused_width_parity(dev):
     card (the fused tails at those widths, flash at head dim 128)
     against the CPU, within ``PARITY_TOL``'s fp32 loss and gradient
     limits. No optimizer step: the point is the tails' path."""
+    if _PARITY["mode"] == "cpu":
+        return  # both halves run in the card's process
     loss_tol, grad_tol, _ = PARITY_TOL[torch.float32]
     kernels = FUSED_KERNELS + ("flash_attn_fwd", "flash_attn_bwd")
     rng = np.random.default_rng(11)
@@ -4495,10 +4756,8 @@ def watch_parity(dev):
                                            (PARITY_BATCH, PARITY_SEQ)))
     labels = torch.roll(tokens, -1, dims=1)
     cpu_params = init_gpt_params(cfg, torch.Generator().manual_seed(12))
-    tol = PARITY_TOL[torch.float32][1]
-    runs = {}
-    for where in ("cpu", "cuda"):
-        d = torch.device("cpu") if where == "cpu" else dev
+
+    def run(d):
         params = tree_map(lambda p: p.to(d, copy=True), cpu_params)
         opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
         state = opt.init(params)
@@ -4510,8 +4769,18 @@ def watch_parity(dev):
             tree_leaves(grads)[3].view(-1)[17] = float("inf")
             opt.step(grads, state, params)
         telemetry.flush()
-        runs[where] = (list(ring.records), _device.launch_counts())
-    (crec, ccount), (grec, gcount) = runs["cpu"], runs["cuda"]
+        return list(ring.records), _device.launch_counts()
+
+    _parity_split("activation watch", lambda: run(torch.device("cpu")),
+                  lambda: run(dev), functools.partial(
+                      _watch_check, PackSpec(cpu_params).leaf_names()[3]))
+
+
+def _watch_check(leaf, cpu_run, card_run):
+    """:func:`watch_parity`'s gates: the CPU's tap records against the
+    card's."""
+    (crec, ccount), (grec, gcount) = cpu_run, card_run
+    tol = PARITY_TOL[torch.float32][1]
     if any(ccount.values()) or gcount["packed_row_stats"] != 1:
         raise AssertionError(f"watch launches: card {gcount}, cpu {ccount}")
     if [(r["name"], r.get("layer")) for r in crec] != [
@@ -4525,7 +4794,6 @@ def watch_parity(dev):
             worst = max(worst, abs(g[k] - c[k]) / abs(c[k]))
     if worst > tol:
         raise AssertionError(f"tap statistics {worst:.3e} apart")
-    leaf = PackSpec(cpu_params).leaf_names()[3]
     named = [[entry["name"] for entry in r["leaves"]] for r in (crec[4],
                                                                  grec[4])]
     if named != [[leaf], [leaf]]:
@@ -4617,6 +4885,8 @@ def lamb_packed_against_pytree(dev):
     same fp32 params of the 2-layer BERT-large-width model and the same
     3 sets of gradients (seeded): each leaf's update, packed against
     pytree, within ``PACKED_LAMB_TOL`` of its largest entry."""
+    if _PARITY["mode"] == "cpu":
+        return  # the card's process runs it
     cfg = parity_cfg(BERT_VOCAB)
     params = init_gpt_params(cfg, torch.Generator(device=dev).manual_seed(9),
                              device=dev)
@@ -5141,17 +5411,24 @@ def resnet_parity(dev):
         "resnet50", torch.Generator().manual_seed(3),
         num_classes=RESNET_CLASSES)
     x, y = _resnet_batch("cpu", RESNET_PARITY_BATCH, seed=4)
-    runs = {}
-    t0 = time.perf_counter()
-    with tf32_off():
-        for key, level, half, cmt in (
-                ("f64", "O0", torch.float64, torch.float64),
-                ("f32", "O0", torch.float32, None),
-                ("bf16", "O2", torch.bfloat16, None)):
-            runs[key] = tuple(_resnet_grads(d, level, half, params, bstats,
-                                            x, y, cmt)
-                              for d in (dev, "cpu"))
-    log(f"  parity runs: {time.perf_counter() - t0:.1f} s")
+
+    def run(d):
+        with tf32_off():
+            return {key: _resnet_grads(d, level, half, params, bstats, x, y,
+                                       cmt)
+                    for key, level, half, cmt in (
+                        ("f64", "O0", torch.float64, torch.float64),
+                        ("f32", "O0", torch.float32, None),
+                        ("bf16", "O2", torch.bfloat16, None))}
+
+    _parity_split("ResNet-50 parity", lambda: run("cpu"), lambda: run(dev),
+                  _resnet_parity_check)
+
+
+def _resnet_parity_check(cpu, card):
+    """:func:`resnet_parity`'s gates: each level's CPU run against the
+    card's."""
+    runs = {key: (card[key], cpu[key]) for key in card}
     summary = {}
     ref = runs["f64"][0]
     for key, loss_tol in (("f64", 1e-12), ("f32", 1e-4)):
@@ -8316,6 +8593,29 @@ def examples_leg(dev, rows, launches):
     rows.append({"leg": "e examples", **out})
 
 
+def _side_by_side(fns, dev, rows, launches, *rest):
+    """Run legs at once, each in a thread of its own with rows and
+    launches of its own (merged after, in the legs' order): legs whose
+    work is a gloo world of processes on the card (the main process only
+    starts them, waits, and reads their records), so that one world's
+    start-up and host-bound steps overlap the other's. Their step times
+    are taken with the other world's processes on the same card and
+    host."""
+    parts = [([], {}) for _ in fns]
+    if len(fns) == 1:
+        outs = [fns[0](dev, *parts[0], *rest)]
+    else:
+        with concurrent.futures.ThreadPoolExecutor(len(fns)) as pool:
+            futures = [pool.submit(fn, dev, *part, *rest)
+                       for fn, part in zip(fns, parts)]
+            outs = [f.result() for f in futures]
+    for leg_rows, leg_launches in parts:
+        rows.extend(leg_rows)
+        for k, n in leg_launches.items():
+            launches[k] = launches.get(k, 0) + n
+    return outs
+
+
 def tp_phase(dev):
     """Phase 14: tensor and sequence parallelism on one card, on two
     transports. (a) NCCL at world 1 over a ``file://`` store: the
@@ -8328,12 +8628,12 @@ def tp_phase(dev):
     launches."""
     rows, launches, parts = [], {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for key, fn, args in (("a", tp1_leg, (rows, launches, tmp)),
-                              ("b", tp2_leg, (rows, launches, tmp)),
-                              ("c", tp8_leg, (rows, launches, tmp)),
-                              ("e", examples_leg, (rows, launches))):
+        for key, fns, args in (("a", (tp1_leg,), (rows, launches, tmp)),
+                               ("b+c", (tp2_leg, tp8_leg),
+                                (rows, launches, tmp)),
+                               ("e", (examples_leg,), (rows, launches))):
             t0 = time.perf_counter()
-            fn(dev, *args)
+            _side_by_side(fns, dev, *args)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             parts[key] = round(time.perf_counter() - t0, 1)
@@ -9303,26 +9603,22 @@ def cp_leg(dev, rows, launches, tmp):
 def long_context_leg(dev, rows, launches):
     """(e) The long-context example's CLI on the card: 5 steps at --seq
     8192 on one rank, then --world 4 (a gloo world of 4 processes on the
-    card); every loss finite, the last below the first."""
-    import io
-
+    card); every loss finite, the last below the first. It runs alone:
+    beside (b) and (c)'s worlds the card ran out of memory (an H100
+    80GB HBM3)."""
     from apex_tpu_torch.examples.long_context import train_long_context
 
     out = {}
     for name, argv in (("one rank", ["--seq", "8192", "--steps", "5"]),
                        ("world 4", ["--world", "4", "--seq", "8192",
                                     "--steps", "5"])):
-        buf = io.StringIO()
         _device.reset_launch_counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            printed = train_long_context.main(argv)
+        printed = train_long_context.main(argv)  # prints its own rows
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         for k, c in _device.launch_counts().items():
             launches[k] = launches.get(k, 0) + c
-        for line in buf.getvalue().splitlines():
-            log(f"  | {line}")
         losses = [l for _, l, _, _ in printed]
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"long context {name}: {losses}")
@@ -9345,15 +9641,15 @@ def pp_cp_phase(dev):
     rows, launches, parts = [], {}, {}
     errs = (0.0, 0.0)
     with tempfile.TemporaryDirectory() as tmp:
-        for key, fn, args in (("a", nopipe_leg, (rows, launches, tmp)),
-                              ("b", pp_leg, (rows, launches, tmp)),
-                              ("c", c5_leg, (rows, launches, tmp)),
-                              ("d", cp_leg, (rows, launches, tmp)),
-                              ("e", long_context_leg, (rows, launches))):
+        for key, fns, args in (("a", (nopipe_leg,), (rows, launches, tmp)),
+                               ("b+c", (pp_leg, c5_leg),
+                                (rows, launches, tmp)),
+                               ("d", (cp_leg,), (rows, launches, tmp)),
+                               ("e", (long_context_leg,), (rows, launches))):
             t0 = time.perf_counter()
-            got = fn(dev, *args)
+            got = _side_by_side(fns, dev, *args)
             if key == "d":
-                errs = got
+                errs = got[0]
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             parts[key] = round(time.perf_counter() - t0, 1)
@@ -10355,6 +10651,710 @@ def a6_phase(dev):
     return launches, fd_err
 
 
+# ---------------------------------------------------------------------------
+# phase 17: resilience and the elastic service (A7.1, A7.2)
+# ---------------------------------------------------------------------------
+
+#: (a): the 345M loss-scaled, clipped unfused step (phase 5's leg, 24
+#: layers, seq 1024, batch 8), 8 steps, saves every 3, every tensor
+#: dropped after step 6 and restored
+P17_STEPS, P17_SAVE_EVERY, P17_DROP_AT = 8, 3, 6
+#: (b), (c): the 345M's width at 2 of its 24 layers (time), hidden
+#: dropout 0.1 from a card generator; (b) runs 9 steps and dies after 7,
+#: past the save at step 6, which barriers the one at step 3: at least
+#: step 3 is committed when it dies, so the resume must restore
+P17_CRASH_LAYERS, P17_CRASH_STEPS, P17_DIE_AT = 2, 9, 7
+#: (c): batches 4-6 poisoned, 3 skipped steps in a row against a budget of 2
+P17_POISON, P17_SKIP_BUDGET, P17_REWIND_STEPS = (4, 5, 6), 2, 10
+#: (d): a chunk no two of worlds 4, 2, 1 round alike (8192, 6144, 5120
+#: elements), so the layouts differ and the restore re-flattens
+P17_RESHARD_CHUNK = 5 * 1024
+#: (e): the fake hosts' steps, the kill (incarnation, host, spec) and
+#: the world of each incarnation: host 1 of a world of 2 killed at step 8
+#: of 12, the world restarted reshaped to 4
+P17_HOST_STEPS = 12
+P17_HOST_CHAOS = {(0, 1): "kill@8"}
+P17_HOST_WORLDS = (2, 4)
+P17_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_attn_fwd",
+               "flash_attn_bwd", "packed_adam", "packed_row_reduce",
+               "scale_flat")
+
+
+def p17_cfg(layers: int, dropout: float = 0.0) -> GPTConfig:
+    return GPTConfig(num_layers=layers, hidden_size=HIDDEN,
+                     num_attention_heads=N_HEADS, vocab_size=P12_VOCAB,
+                     max_position_embeddings=P12_SEQ, hidden_dropout=dropout,
+                     attention_dropout=0.0, compute_dtype=torch.bfloat16,
+                     ce_save_logits=True)
+
+
+def p17_batch(i: int, dev, batch: int = P12_BATCH):
+    """Step ``i``'s tokens and labels, numpy-seeded by the index: the same
+    batch for a step in every run and process."""
+    tokens = torch.from_numpy(np.random.default_rng([17, int(i)]).integers(
+        0, P12_VOCAB, (batch, P12_SEQ))).to(dev)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+def p17_params(cfg, dev):
+    """The bf16 params of ``cfg`` from seed 0, on the card."""
+    params = init_gpt_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    return tree_map(lambda p: p.to(torch.bfloat16), params)
+
+
+def p17_step_fn(cfg, opt, scaler, clip=True):
+    """Phase 5's loss-scaled step: the scaled loss's gradients (optionally
+    NaN, :func:`resilience.poison_grads`), packed, unscaled into fp32 in
+    one sweep (#24), clipped to norm 1 (#22) unless ``clip`` is off, the
+    packed Adam (#17) with the scaler's ``found_inf``, the scale's update.
+    Returns ``(params, opt state, scaler state, unscaled loss)``; the
+    loss stays on the card. ``gen``: hidden dropout's generator."""
+    def step(params, ostate, ss, batch, gen=None, poison=False):
+        tokens, labels = batch
+        kw = ({"generator": gen, "deterministic": False} if gen is not None
+              else {})
+        loss, grads = value_and_grad(lambda p: scaler.scale_loss(
+            ss, gpt_loss(cfg, p, tokens, labels, **kw)), params)
+        if poison:
+            grads = poison_grads(grads, True)
+        flat = ostate.spec.pack(grads)
+        flat, ss2 = scaler.unscale_flat(ss, flat, out_dtype=torch.float32)
+        if clip:
+            flat, _ = clip_grad_norm_flat(flat, 1.0)
+        params, ostate = opt.step(flat, ostate, params,
+                                  found_inf=ss2.found_inf)
+        return params, ostate, scaler.update_scale(ss2), loss / ss.loss_scale
+    return step
+
+
+def _state_bits(label, got, want):
+    """Every tensor leaf of two train states (params, packed state,
+    scaler, rng) bit for bit."""
+    _same_bits(label, [x for x in res_tree_leaves(rstate.device_part(got))
+                       if isinstance(x, torch.Tensor)],
+               [x for x in res_tree_leaves(rstate.device_part(want))
+                if isinstance(x, torch.Tensor)])
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def p17_checkpoint_leg(dev, rows, launches, tmp):
+    """(a) The 345M step under ``CheckpointManager(async_save=True,
+    save_every=3, keep_n=2)`` for 6 steps, every tensor dropped, the
+    state restored through ``resume_or_init`` into fresh card tensors and
+    run to step 8: the losses, params and packed state equal an
+    uninterrupted run's bit for bit. Times the armed manager's steps
+    against the plain run's (one process), the saves and the restore,
+    counts the bytes written and the peak memory with a save in flight."""
+    cfg = p17_cfg(P12_LAYERS)
+
+    def fresh():
+        params = p17_params(cfg, dev)
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+        sc = LossScaler("dynamic")
+        return rcapture(0, params, opt.init(params), scaler=sc.init_state(dev),
+                        data={"position": 0}), opt, sc
+
+    def run(st, opt, sc, upto, mgr=None):
+        step = p17_step_fn(cfg, opt, sc)
+        it = IndexedBatches(lambda i: p17_batch(i, dev),
+                            position=st.data["position"])
+        params, ostate, ss = st.params, st.opt_state, st.scaler
+        losses, times = [], []
+        for k in range(st.step, upto):
+            t0 = time.perf_counter()
+            params, ostate, ss, loss = step(params, ostate, ss, next(it))
+            if mgr is not None:
+                mgr.maybe_save(rcapture(k + 1, params, ostate, scaler=ss,
+                                        data=it.state()))
+            losses.append(float(loss).hex())  # the step's one sync
+            times.append((time.perf_counter() - t0) * 1e3)
+        return rcapture(upto, params, ostate, scaler=ss,
+                        data=it.state()), losses, times
+
+    st, opt, sc = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_losses, plain_ms = run(st, opt, sc, P17_STEPS)
+    peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    ring = telemetry.RingBufferRecorder()
+    root = os.path.join(tmp, "p17a")
+    mgr = CheckpointManager(root, keep_n=2, async_save=True,
+                            save_every=P17_SAVE_EVERY, sink=ring)
+    st, opt, sc = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    _device.reset_launch_counts()
+    head, losses, armed_ms = run(st, opt, sc, P17_DROP_AT, mgr)
+    peak_armed = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    mgr.wait_until_finished()
+    barrier_s = time.perf_counter() - t0
+    saves = ring.events("checkpoint_saved")
+    if [e["step"] for e in saves] != [3, 6] or mgr.all_steps() != [3, 6]:
+        raise AssertionError(f"saves {[e['step'] for e in saves]}, "
+                             f"retained {mgr.all_steps()}")
+    nbytes = _dir_bytes(os.path.join(root, "step_00000006"))
+    del head, st, opt, sc, mgr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(root, keep_n=2, async_save=True,
+                            save_every=P17_SAVE_EVERY, sink=ring)
+    box = {}
+
+    def init():
+        box["st"], box["opt"], box["sc"] = fresh()
+        return box["st"]
+
+    back, resumed = rresume_or_init(mgr, init)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not resumed or back.step != P17_DROP_AT or \
+            back.data != {"position": P17_DROP_AT}:
+        raise AssertionError(f"resumed {resumed} at {back.step}, "
+                             f"{back.data}")
+    tail, tail_losses, _ = run(back, box["opt"], box["sc"], P17_STEPS, mgr)
+    mgr.close()
+    counts = _device.launch_counts()
+    if losses + tail_losses != ref_losses:
+        raise AssertionError(f"losses after the restore {tail_losses} "
+                             f"differ from the uninterrupted run's "
+                             f"{ref_losses[P17_DROP_AT:]}")
+    _state_bits("(a) the state after the restore's steps", tail, ref)
+    for k in P17_KERNELS:
+        launches[k] = launches.get(k, 0) + counts.get(k, 0)
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"(a): {k} did not launch")
+    save_s = [e["duration_s"] for e in saves]
+    r = {"leg": "a checkpoint manager", "plain_p50_ms": _p50(plain_ms[1:]),
+         "armed_p50_ms": _p50(armed_ms[1:]), "armed_ms": armed_ms,
+         "save_s": save_s, "barrier_s": barrier_s, "restore_s": restore_s,
+         "bytes": nbytes, "peak_gib_plain": peak_plain,
+         "peak_gib_armed": peak_armed, "held_gib_after_drop": held}
+    rows.append(r)
+    log(f"  (a) 345M scaled step x{P17_STEPS}: p50 {r['plain_p50_ms']:.2f} ms "
+        f"plain, {r['armed_p50_ms']:.2f} ms under the async manager (steps "
+        f"{[round(t, 2) for t in armed_ms]} ms; saves at 3 and 6); writes "
+        f"{[round(s, 3) for s in save_s]} s in the background, "
+        f"{nbytes:,} B a step; barrier {barrier_s:.3f} s; peak "
+        f"{peak_armed:.2f} GiB with saves in flight against "
+        f"{peak_plain:.2f}; {held:.2f} GiB held after the drop; restore "
+        f"into fresh card tensors {restore_s:.3f} s (warm page cache); "
+        f"losses, params and packed state equal the uninterrupted run's "
+        f"bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _p50(ms) -> float:
+    return float(np.percentile(np.asarray(ms, np.float64), 50))
+
+
+def p17_crash_worker(argv=None) -> int:
+    """(b)'s process: the 2-layer 345M-width step with hidden dropout
+    from a card generator, under ``CheckpointManager(save_every=3)``,
+    appending ``S <step> <loss hex>`` a step; resumes from the newest
+    checkpoint. ``--die-at K``: ``os._exit(13)`` after step K;
+    ``--preemptable``: the SIGTERM flush, exit 17. Writes its launch
+    counts to ``--launches`` when it reaches ``--steps``."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--losses", required=True)
+    ap.add_argument("--steps", type=int, default=P17_CRASH_STEPS)
+    ap.add_argument("--die-at", type=int, default=None)
+    ap.add_argument("--preemptable", action="store_true")
+    ap.add_argument("--step-sleep", type=float, default=0.0)
+    ap.add_argument("--launches", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-checkpoint", action="store_true",
+                    help="the uninterrupted run: no manager")
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        _build.kernels()
+    cfg = p17_cfg(P17_CRASH_LAYERS, dropout=0.1)
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    sc = LossScaler("dynamic")
+    step = p17_step_fn(cfg, opt, sc)
+
+    def init():
+        params = p17_params(cfg, dev)
+        return rcapture(0, params, opt.init(params), scaler=sc.init_state(dev),
+                        rng=torch.Generator(device=dev).manual_seed(5)
+                        .get_state(), data={"position": 0})
+
+    if args.no_checkpoint:
+        mgr, st = None, init()
+    else:
+        mgr = CheckpointManager(args.root, keep_n=2, async_save=True,
+                                save_every=3)
+        st, _ = rresume_or_init(mgr, init)
+    it = IndexedBatches(lambda i: p17_batch(i, dev),
+                        position=st.data["position"])
+    params, ostate, ss, done = st.params, st.opt_state, st.scaler, st.step
+    gen = torch.Generator(device=dev)
+    gen.set_state(st.rng)
+
+    def settled():
+        # a copy no later step touches (the packed step updates its
+        # buffers in place): what SIGTERM flushes, whenever it lands
+        return rstate.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+            rcapture(done, params, ostate, scaler=ss, rng=gen.get_state(),
+                     data=it.state()))
+
+    latest = {"st": settled()}
+    if args.preemptable and mgr is not None:
+        mgr.install_preemption_handler(lambda: latest["st"])
+    _device.reset_launch_counts()
+    with open(args.losses, "a") as f:
+        while done < args.steps:
+            params, ostate, ss, loss = step(params, ostate, ss, next(it),
+                                            gen=gen)
+            done += 1
+            f.write(f"S {done - 1} {float(loss).hex()}\n")
+            f.flush()
+            if mgr is None:
+                continue
+            latest["st"] = settled()
+            mgr.maybe_save(latest["st"])
+            if args.die_at is not None and done == args.die_at:
+                os._exit(13)
+            if mgr.preempted:
+                return 17
+            if args.step_sleep:
+                time.sleep(args.step_sleep)
+    if mgr is not None:
+        mgr.close()
+    if args.launches:
+        with open(args.launches, "w") as f:
+            json.dump(_device.launch_counts(), f)
+    return 0
+
+
+def _p17_records(path):
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("S "):
+                _, s, hexval = line.split()
+                if int(s) in out and out[int(s)] != hexval:
+                    raise AssertionError(f"{path}: replayed step {s} "
+                                         f"differs")
+                out[int(s)] = hexval
+    return out
+
+
+def _p17_committed(ck):
+    """{step: meta} of the committed step directories under ``ck``."""
+    out = {}
+    for name in sorted(os.listdir(ck)):
+        if name.startswith("step_") and ".tmp-" not in name:
+            with open(os.path.join(ck, name, "meta.json")) as f:
+                meta = json.load(f)
+            out[meta["step"]] = meta
+    return out
+
+
+def p17_crash_leg(dev, rows, launches, tmp):
+    """(b) Real crashes at the 345M's width (2 layers): an uninterrupted
+    process, one that ``os._exit``s after step 7 and one preempted by
+    SIGTERM (its emergency flush, exit 17) run side by side on the card;
+    each interrupted run is resumed in a fresh process writing records
+    of its own. Each resume must start at the newest step its crashed
+    run committed, above 0 and at most the step the crash reached, and the
+    records of both processes together equal the uninterrupted run's
+    byte for byte."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    d = os.path.join(tmp, "p17b")
+    os.makedirs(d, exist_ok=True)
+
+    def start(name, *extra, losses=None):
+        return subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.p17_crash_worker(sys.argv[1:]))",
+             "--root", os.path.join(d, name + "_ck"),
+             "--losses", os.path.join(d, (losses or name) + ".txt"),
+             "--device", dev.type, *extra],
+            env=env, cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def finish(p, want_rc, label):
+        try:
+            text, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise AssertionError(f"(b) {label}: no exit within 300 s")
+        if p.returncode != want_rc:
+            raise AssertionError(f"(b) {label} exited {p.returncode}, not "
+                                 f"{want_rc}:\n{text[-3000:]}")
+
+    t0 = time.perf_counter()
+    ref = start("ref", "--no-checkpoint", "--launches",
+                os.path.join(d, "ref.json"))
+    crash = start("crash", "--die-at", str(P17_DIE_AT))
+    pre = start("pre", "--preemptable", "--steps", "100000",
+                "--step-sleep", "0.2")
+    pre_lines = os.path.join(d, "pre.txt")
+    deadline = time.monotonic() + 240
+    while time.monotonic() < deadline and pre.poll() is None:
+        if os.path.exists(pre_lines) and \
+                len(open(pre_lines).read().splitlines()) >= 4:
+            break
+        time.sleep(0.1)
+    pre.send_signal(15)
+    finish(pre, 17, "the preempted run")
+    finish(crash, 13, "the crashed run")
+    # what each killed process left committed: its resume must start at
+    # the newest of it (its writer threads died with it)
+    crash_ck = _p17_committed(os.path.join(d, "crash_ck"))
+    pre_ck = _p17_committed(os.path.join(d, "pre_ck"))
+    emergency = [s for s, m in pre_ck.items() if m["emergency"]]
+    if not emergency:
+        raise AssertionError("(b) no emergency checkpoint after SIGTERM")
+    flush_step = max(emergency)
+    resume = start("crash", "--launches", os.path.join(d, "resume.json"),
+                   losses="resume")
+    pre_resume = start("pre", losses="pre_resume")
+    finish(ref, 0, "the uninterrupted run")
+    finish(resume, 0, "the resumed run")
+    finish(pre_resume, 0, "the run resumed after the preemption")
+    ref_recs = _p17_records(os.path.join(d, "ref.txt"))
+    if sorted(ref_recs) != list(range(P17_CRASH_STEPS)):
+        raise AssertionError(f"(b) the uninterrupted run recorded "
+                             f"{sorted(ref_recs)}")
+
+    def joined(label, before_path, after_path, committed, reached):
+        before = _p17_records(before_path)
+        after = _p17_records(after_path)
+        first = min(after, default=None)
+        newest = max(committed, default=None)
+        if sorted(before)[:reached] != list(range(reached)):
+            raise AssertionError(f"(b) {label}: the killed run recorded "
+                                 f"{sorted(before)}, not steps 0-"
+                                 f"{reached - 1}")
+        if first is None or first != newest or not 0 < first <= reached:
+            raise AssertionError(
+                f"(b) {label}: the resume started at step {first}; the "
+                f"newest committed step is {newest}, and it must lie in "
+                f"(0, {reached}]")
+        if sorted(after) != list(range(first, P17_CRASH_STEPS)):
+            raise AssertionError(f"(b) {label}: the resume recorded "
+                                 f"{sorted(after)}")
+        for s in set(before) & set(after):
+            if before[s] != after[s]:
+                raise AssertionError(f"(b) {label}: replayed step {s} "
+                                     f"differs")
+        return {**{s: v for s, v in before.items()
+                   if s < P17_CRASH_STEPS}, **after}, first
+
+    crashed, crash_from = joined(
+        "os._exit", os.path.join(d, "crash.txt"),
+        os.path.join(d, "resume.txt"), crash_ck, P17_DIE_AT)
+    if flush_step >= P17_CRASH_STEPS:
+        raise AssertionError(f"(b) the emergency flush came at step "
+                             f"{flush_step}, past the {P17_CRASH_STEPS} "
+                             f"steps the resume is held to")
+    pre_recs, pre_from = joined(
+        "SIGTERM", pre_lines, os.path.join(d, "pre_resume.txt"), pre_ck,
+        flush_step)
+    if pre_from != flush_step:
+        raise AssertionError(f"(b) the preempted run resumed at step "
+                             f"{pre_from}, not its flush at {flush_step}")
+    if crashed != ref_recs or pre_recs != ref_recs:
+        bad = sorted(s for s in ref_recs if crashed.get(s) != ref_recs[s]
+                     or pre_recs.get(s) != ref_recs[s])
+        raise AssertionError(f"(b) resumed records differ from the "
+                             f"uninterrupted run's at steps {bad}")
+    for name in ("ref", "resume"):
+        with open(os.path.join(d, name + ".json")) as f:
+            for k, v in json.load(f).items():
+                launches[k] = launches.get(k, 0) + v
+    rows.append({"leg": "b crash", "seconds": time.perf_counter() - t0,
+                 "flush_step": flush_step, "crash_resumed_at": crash_from})
+    log(f"  (b) 2-layer 345M-width processes: os._exit after step "
+        f"{P17_DIE_AT} and a resume from step {crash_from} (committed "
+        f"{sorted(crash_ck)}), SIGTERM (emergency checkpoint at step "
+        f"{flush_step}, exit 17) and a resume from step {pre_from}: "
+        f"{P17_CRASH_STEPS} loss records "
+        f"each equal the uninterrupted process's byte for byte "
+        f"({time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def p17_rewind_leg(dev, rows, launches):
+    """(c) ``poison_grads`` on batches 4-6 of (b)'s model: three skipped
+    steps in a row against ``skip_budget=2`` trigger the rewind, which
+    restores the ring's snapshot bit for bit and emits one ``rewind``
+    record; the run finishes with finite losses."""
+    cfg = p17_cfg(P17_CRASH_LAYERS, dropout=0.1)
+    opt = FusedAdam(lr=1e-4, master_weights=True, packed=True)
+    sc = LossScaler("dynamic")
+    step = p17_step_fn(cfg, opt, sc)
+    chaos = ChaosMonkey().poison_batches(P17_POISON)
+    ring = telemetry.RingBufferRecorder()
+    ctl = RewindController(keep=2, skip_budget=P17_SKIP_BUDGET,
+                           snapshot_every=1, recorder=ring)
+    params = p17_params(cfg, dev)
+    ostate, ss = opt.init(params), sc.init_state(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    it = IndexedBatches(lambda i: p17_batch(i, dev))
+    losses, skipped, done = [], [], 0
+    _device.reset_launch_counts()
+    t0 = time.perf_counter()
+    while done < P17_REWIND_STEPS:
+        poison = chaos.should_poison(it.position)
+        params, ostate, ss, loss = step(params, ostate, ss, next(it),
+                                        gen=gen, poison=poison)
+        done += 1
+        losses.append(float(loss))
+        skipped.append(bool(ss.consecutive_skips > 0))
+        ctl.offer(rcapture(done, params, ostate, scaler=ss,
+                           rng=gen.get_state(), data=it.state()),
+                  consecutive_skips=ss.consecutive_skips)
+        if ctl.rewind_pending:
+            snap = ctl._ring[-1]
+            back = ctl.rewind(data_iter=it, current_step=done, device=dev)
+            _state_bits("(c) the rewind against the ring's snapshot",
+                        rstate.to_device(back, "cpu"), snap.state)
+            params, ostate, ss = back.params, back.opt_state, back.scaler
+            gen.set_state(back.rng)
+            done = back.step
+    counts = _device.launch_counts()
+    events = ring.events("rewind")
+    if len(events) != 1 or events[0]["to_step"] != P17_POISON[0]:
+        raise AssertionError(f"(c) rewind records {events}")
+    finite = all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(p.float()).all()) for p in tree_leaves(params))
+    if not finite:
+        raise AssertionError(f"(c) losses {losses} or params not finite")
+    for k in P17_KERNELS:
+        launches[k] = launches.get(k, 0) + counts.get(k, 0)
+    rows.append({"leg": "c rewind", "losses": losses, "skipped": skipped,
+                 "event": events[0]})
+    log(f"  (c) batches {list(P17_POISON)} poisoned, skip budget "
+        f"{P17_SKIP_BUDGET}: skipped {skipped}; one rewind to step "
+        f"{events[0]['to_step']} (trigger {events[0]['trigger']!r}, the "
+        f"ring's snapshot bit for bit); {len(losses)} finite losses "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def p17_reshard_leg(dev, rows, launches, tmp):
+    """(d) The 345M's packed Adam state (#17's buffers over a bucketed
+    layout of world 4) saved by ``ElasticCheckpointManager`` as 4 host
+    shards, restored onto worlds 2 and 1 (layouts of their own:
+    ``reflatten_flat`` on the card); every leaf equals the source's bit
+    for bit, and one step from each equals one step from the source."""
+    cfg = p17_cfg(P12_LAYERS)
+    sc = LossScaler("dynamic")
+
+    def state_for(world):
+        params = p17_params(cfg, dev)
+        b = grad_buckets_for_world(params, world, bucket_cap_mb=25.0,
+                                   chunk_size=P17_RESHARD_CHUNK)
+        opt = FusedAdam(lr=1e-4, master_weights=True, packed=True,
+                        packed_spec=b.spec)
+        return rcapture(0, params, opt.init(params),
+                        scaler=sc.init_state(dev), data={"position": 0}), opt
+
+    src, opt4 = state_for(4)
+    step4 = p17_step_fn(cfg, opt4, sc, clip=False)
+    params, ostate, ss = src.params, src.opt_state, src.scaler
+    _device.reset_launch_counts()
+    for k in range(2):
+        params, ostate, ss, _ = step4(params, ostate, ss, p17_batch(k, dev))
+    src = rcapture(2, params, ostate, scaler=ss, data={"position": 2})
+    root = os.path.join(tmp, "p17d")
+    ring = telemetry.RingBufferRecorder()
+    t0 = time.perf_counter()
+    mgrs = [ElasticCheckpointManager(root, host=h, world=4, sink=ring,
+                                     barrier_timeout_s=300.0)
+            for h in range(4)]
+    for m in mgrs[1:]:
+        m.save(src, blocking=False)
+    mgrs[0].save(src, blocking=True)
+    for m in mgrs[1:]:
+        m.wait_until_finished()
+    save_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(os.path.join(root, "step_00000002"))
+    spec4 = src.opt_state.spec
+
+    def leaves_by_leaf(st):
+        sp = st.opt_state.spec
+        out = [*tree_leaves(st.params), st.opt_state.step, *tree_leaves(
+            st.scaler)]
+        for name in ("exp_avg", "exp_avg_sq", "master_params"):
+            out += tree_leaves(sp.unpack(getattr(st.opt_state, name),
+                                         cast=False))
+        return out
+
+    def one_step(st, opt):
+        c = rstate.tree_map(lambda t: t.clone() if isinstance(
+            t, torch.Tensor) else t, st)
+        p, o, s, loss = p17_step_fn(cfg, opt, sc, clip=False)(
+            c.params, c.opt_state, c.scaler, p17_batch(2, dev))
+        return [loss, *leaves_by_leaf(rcapture(3, p, o, scaler=s))]
+
+    want_leaves = leaves_by_leaf(src)
+    want_step = one_step(src, opt4)
+    restore_s = {}
+    for world in (2, 1):
+        template, opt = state_for(world)
+        if template.opt_state.spec == spec4:
+            raise AssertionError(f"world {world} lays out like world 4")
+        t0 = time.perf_counter()
+        back = ElasticCheckpointManager(root, host=0, world=world,
+                                        sink=ring).restore(template)
+        torch.cuda.synchronize()
+        restore_s[world] = time.perf_counter() - t0
+        if back.step != 2 or back.opt_state.exp_avg.device.type != dev.type:
+            raise AssertionError(f"(d) world {world}: step {back.step} on "
+                                 f"{back.opt_state.exp_avg.device}")
+        _same_bits(f"(d) the state on world {world}", leaves_by_leaf(back),
+                   want_leaves)
+        _same_bits(f"(d) one step on world {world}", one_step(back, opt),
+                   want_step)
+        del back, template
+    counts = _device.launch_counts()
+    reshards = ring.events("checkpoint_reshard")
+    if [(e["saved_world"], e["world"]) for e in reshards] != [(4, 2), (4, 1)]:
+        raise AssertionError(f"(d) reshard records {reshards}")
+    for k in ("packed_adam", "scale_flat"):
+        launches[k] = launches.get(k, 0) + counts.get(k, 0)
+    rows.append({"leg": "d reshard", "save_s": save_s, "bytes": nbytes,
+                 "restore_s": restore_s, "totals": {
+                     4: spec4.total, **{e["world"]: e["total"]
+                                        for e in reshards}}})
+    log(f"  (d) the 345M packed Adam state ({spec4.total:,} elements a "
+        f"buffer at world 4) saved as 4 host shards in {save_s:.2f} s "
+        f"({nbytes:,} B), restored onto world 2 in {restore_s[2]:.2f} s and "
+        f"world 1 in {restore_s[1]:.2f} s (re-flattened on the card to "
+        f"{[e['total'] for e in reshards]} elements): every leaf and one "
+        f"step from each equal the source's bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def p17_supervised_leg(dev, rows, launches, tmp):
+    """(e) The port's fake hosts (``resilience/_elastic_host.py``) on the
+    card under ``Supervisor``: a world of 2, host 1 SIGKILLed at step 8 of
+    12, then the world restarted reshaped to 4; the loss records equal
+    the uninterrupted in-process run's byte for byte. Reports the
+    incident's MTTR (detection to the restarted world's first heartbeat)
+    and its relaunch-to-first-heartbeat time."""
+    from apex_tpu_torch.resilience import _elastic_host as eh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = os.path.join(tmp, "p17e")
+    os.makedirs(run, exist_ok=True)
+    losses = os.path.join(run, "losses.txt")
+    program = os.path.join(here, "apex_tpu_torch", "resilience",
+                           "_elastic_host.py")
+
+    def build_cmd(host, world, incarnation):
+        return [sys.executable, program, "--host", str(host), "--world",
+                str(world), "--steps", str(P17_HOST_STEPS), "--root",
+                os.path.join(run, "ckpt"), "--losses", losses,
+                "--heartbeat-dir", os.path.join(run, "hb"),
+                "--save-every", "2", "--barrier-timeout", "120",
+                "--step-sleep", "0.05", "--events",
+                os.path.join(run, "events.jsonl"), "--launches",
+                os.path.join(run, f"launches-{host}.json"), "--device",
+                dev.type]
+
+    def host_env(host, world, incarnation):
+        spec = P17_HOST_CHAOS.get((incarnation, host))
+        return {"APEX_TPU_ELASTIC_CHAOS": spec} if spec else None
+
+    ring = telemetry.RingBufferRecorder()
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    sup = Supervisor(
+        build_cmd, P17_HOST_WORLDS[0], heartbeat_dir=os.path.join(run, "hb"),
+        heartbeat_timeout_s=60.0, startup_timeout_s=240.0, poll_s=0.05,
+        max_restarts=len(P17_HOST_WORLDS), sink=ring, env=env,
+        host_env=host_env,
+        on_restart=lambda inc, world: P17_HOST_WORLDS[inc + 1])
+    t0 = time.perf_counter()
+    summary = sup.run()
+    wall = time.perf_counter() - t0
+    want, _ = eh.reference_records(2, P17_HOST_STEPS, device=dev)
+    got = _p17_records(losses)
+    if got != want:
+        raise AssertionError(f"(e) supervised records differ from the "
+                             f"reference at steps "
+                             f"{sorted(s for s in want if got.get(s) != want[s])}")
+    if summary["world_history"] != list(P17_HOST_WORLDS) or \
+            [i["kind"] for i in summary["incidents"]] != \
+            ["host_death"] * len(P17_HOST_CHAOS):
+        raise AssertionError(f"(e) supervisor summary {summary}")
+    mttr = [i["recovery_s"] for i in summary["incidents"]]
+    first_beat = [round(e["t_end"] - e["t_start"], 3)
+                  for e in ring.events("span") if e["name"] == "restore"
+                  and not e.get("blackbox_replay")]
+    for h in range(P17_HOST_WORLDS[-1]):
+        with open(os.path.join(run, f"launches-{h}.json")) as f:
+            for k, v in json.load(f).items():
+                launches[k] = launches.get(k, 0) + v
+    rows.append({"leg": "e supervised", "mttr_s": mttr,
+                 "first_heartbeat_s": first_beat, "wall_s": wall,
+                 "world_history": summary["world_history"]})
+    log(f"  (e) fake hosts on the card, worlds {summary['world_history']}, "
+        f"SIGKILL {P17_HOST_CHAOS}: {P17_HOST_STEPS} loss records equal the "
+        f"reference's byte for byte; MTTR (detection to first heartbeat) "
+        f"{mttr} s, relaunch to first heartbeat {first_beat} s; "
+        f"{wall:.1f} s in all")
+    shutil.rmtree(run, ignore_errors=True)
+
+
+def resilience_phase(dev):
+    """Phase 17 (A7.1, A7.2): (a) the checkpoint manager on the 345M
+    step (alone: it is timed); then (b)'s crash processes, started from
+    a thread, run beside (c) the rewind and (d) the reshard in this
+    process; then (e) the supervised world (alone: its MTTR is timed).
+    Returns the launches of the kernels on these paths."""
+    rows, launches = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p17_")
+    parts = {}
+    try:
+        t0 = time.perf_counter()
+        p17_checkpoint_leg(dev, rows, launches, tmp)
+        parts["a"] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        crash_rows, crash_launches = [], {}
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            crash = pool.submit(p17_crash_leg, dev, crash_rows,
+                                crash_launches, tmp)
+            p17_rewind_leg(dev, rows, launches)
+            p17_reshard_leg(dev, rows, launches, tmp)
+            crash.result()
+        rows.extend(crash_rows)
+        for k, n in crash_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        parts["b+c+d"] = round(time.perf_counter() - t0, 1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p17_supervised_leg(dev, rows, launches, tmp)
+        parts["e"] = round(time.perf_counter() - t0, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 17 parts (s): {parts}")
+    log(f"  p17_json {json.dumps(rows)}")
+    log(f"  phase 17 launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -10379,6 +11379,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         log(f"  ({time.perf_counter() - tp:.1f} s)")
+        parity_drain()  # phase 7's legs whose CPU halves have landed
         return out
 
     (fd, ln, ln_bwd, ln_wide_errs, rms, tier_errs, fwd_branch_errs,
@@ -10427,88 +11428,14 @@ def main() -> int:
     bert = phase("phase 6: BERT-large bf16: non-flash and flash legs with "
                  "FusedLAMB, then pytree and packed LAMB and packed "
                  "NovoGrad without recompute", train_bert_large, dev)
+    tmp7 = tempfile.mkdtemp(prefix="chip_smoke_p7_")
+    parity_start(tmp7)
     norms = phase("phase 7: the norm modules and the activation watch, card "
                   "against CPU", lambda: (norm_module_parity(dev),
                                           watch_parity(dev)))[0]
-    phase("phase 7: training parity, card against CPU",
-          lambda: (gpt_parity(dev, "unfused", TRAIN_KERNELS[:4]),
-                   gpt_parity(dev, "fused, selective_elementwise",
-                              TRAIN_KERNELS[:4] + FUSED_KERNELS,
-                              fused_block=True,
-                              recompute_granularity="selective_elementwise"),
-                   gpt_parity(dev, "GPT non-flash, causal",
-                              ("softmax_fwd", "softmax_bwd",
-                               "layer_norm_fwd", "layer_norm_bwd"),
-                              compute_dtype=torch.bfloat16,
-                              use_flash_attention=False),
-                   bert_parity(dev, "BERT non-flash, padding mask",
-                               ("softmax_masked_fwd", "softmax_bwd",
-                                "layer_norm_fwd", "layer_norm_bwd"),
-                               compute_dtype=torch.bfloat16,
-                               use_flash_attention=False),
-                   gpt_parity(dev, "unfused, packed FusedSGD",
-                              TRAIN_KERNELS[:4] + ("packed_sgd",),
-                              make_opt=packed_sgd),
-                   bert_parity(dev, "BERT non-flash fp32, packed LAMB",
-                               ("layer_norm_fwd", "layer_norm_bwd")
-                               + LAMB_KERNELS, make_opt=packed_lamb,
-                               use_flash_attention=False),
-                   bert_parity(dev, "BERT non-flash, padding mask, packed "
-                               "LAMB",
-                               ("softmax_masked_fwd", "softmax_bwd",
-                                "layer_norm_fwd", "layer_norm_bwd")
-                               + LAMB_KERNELS, make_opt=packed_lamb,
-                               compute_dtype=torch.bfloat16,
-                               use_flash_attention=False),
-                   lamb_packed_against_pytree(dev),
-                   gpt_parity(dev, "unfused, loss-scaled, clipped",
-                              TRAIN_KERNELS[:4] + ("packed_adam",
-                                                   "scale_flat",
-                                                   "packed_row_reduce"),
-                              scaled=True),
-                   bert_parity(dev, "BERT non-flash fp32, packed NovoGrad",
-                               ("layer_norm_fwd", "layer_norm_bwd")
-                               + NOVOGRAD_KERNELS,
-                               make_opt=packed_novograd,
-                               use_flash_attention=False),
-                   bert_parity(dev, "BERT non-flash fp32, packed NovoGrad "
-                               "inf norm",
-                               ("layer_norm_fwd", "layer_norm_bwd")
-                               + NOVOGRAD_KERNELS,
-                               make_opt=lambda: FusedNovoGrad(
-                                   lr=NOVOGRAD_LR, norm_type=0, packed=True),
-                               use_flash_attention=False),
-                   bert_parity(dev, "BERT non-flash, padding mask, packed "
-                               "NovoGrad",
-                               ("softmax_masked_fwd", "softmax_bwd",
-                                "layer_norm_fwd", "layer_norm_bwd")
-                               + NOVOGRAD_KERNELS,
-                               make_opt=packed_novograd,
-                               compute_dtype=torch.bfloat16,
-                               use_flash_attention=False),
-                   gpt_parity(dev, "head dim 128 (8 heads), flash by default",
-                              TRAIN_KERNELS[:4], num_attention_heads=8),
-                   fused_width_parity(dev),
-                   gpt_parity(dev, "head dim 80 (hidden 1280), flash "
-                              "padded to head dim 96",
-                              TRAIN_KERNELS[:4],
-                              absent=("softmax_fwd", "softmax_bwd"),
-                              hidden_size=1280,
-                              compute_dtype=torch.bfloat16),
-                   gpt_parity(dev, "head dim 320 (hidden 1280, 4 heads), "
-                              "past flash's 256: fused softmax",
-                              ("softmax_fwd", "softmax_bwd",
-                               "layer_norm_fwd", "layer_norm_bwd"),
-                              absent=("flash_attn_fwd", "flash_attn_bwd"),
-                              hidden_size=1280, num_attention_heads=4,
-                              compute_dtype=torch.bfloat16),
-                   gpt_parity(dev, "fp16 GPT, fused, flash (reference: the "
-                              "plain versions on the card)",
-                              TRAIN_KERNELS + FUSED_KERNELS,
-                              reference="plain", compute_dtype=torch.float16,
-                              fused_block=True,
-                              apply_query_key_layer_scaling=False,
-                              use_flash_attention=True)))
+    phase("phase 7: training parity, card against CPU (the card halves; "
+          "the CPU halves in the parity worker, checked as they land)",
+          lambda: [leg() for leg in parity_legs(dev)])
     contrib = phase("phase 8: the attention contribs (fmha, multihead_attn, "
                     "openfold) at full width, kernels against plain "
                     "versions", attention_contribs, dev)
@@ -10535,6 +11462,9 @@ def main() -> int:
                 "FusedSGD(packed_spec), ResNet-50 DDP + SyncBatchNorm + "
                 "FusedAdam (BASELINE config #2), LARC, the simple DDP "
                 "example", ddp_phase, dev, o2["p50_ms"])
+    phase("phase 7, joined: the parity worker's remaining CPU halves "
+          "against their card halves", parity_drain, True)
+    shutil.rmtree(tmp7, ignore_errors=True)
     p14 = phase("phase 14: tensor and sequence parallelism (A6.4): the 345M "
                 "at TP 1 on NCCL world 1, at TP 2 and TP 8 (BASELINE config "
                 "#4) in gloo worlds on the card, the microbatch calculator, "
@@ -10554,6 +11484,12 @@ def main() -> int:
         "SpatialBottleneck over the halo exchangers in a world of 4, and "
         "the 345M served at TP 2 and TP 4", a6_phase, dev)
     fd["max_abs_err"] = max(fd["max_abs_err"], fd_shard_err)
+    p17 = phase("phase 17: resilience and the elastic service (A7.1, "
+                "A7.2): the 345M step under the async checkpoint manager, "
+                "dropped and restored; crashes and a preemption in "
+                "processes; a rewind; the packed Adam state resharded 4 -> "
+                "2 -> 1; the supervised fake hosts on the card",
+                resilience_phase, dev)
     # the serving runs: phase 3, the overload storm and both sides of the
     # speculative A/B
     served = [serving, overload, *spec_launches.values()]
@@ -10563,8 +11499,9 @@ def main() -> int:
     # five BERT legs, phase 10's fp8 step and fused_dense_gelu_dense,
     # phase 12's applier calls and 345M steps, phase 13's DDP steps, and
     # phase 14's tensor-parallel steps on every rank and its examples,
-    # phase 15's pipelined and context-parallel steps on every rank, and
-    # phase 16's ZeRO steps and tensor-parallel serving on every rank
+    # phase 15's pipelined and context-parallel steps on every rank,
+    # phase 16's ZeRO steps and tensor-parallel serving on every rank, and
+    # phase 17's resilience legs (the fake hosts' launches too)
     ln["launches"] = (sum(c["layer_norm_fwd"] for c in served)
                       + train["layer_norm_fwd"] + bert["layer_norm_fwd"]
                       + fp8_launches["layer_norm_fwd"]
@@ -10572,7 +11509,8 @@ def main() -> int:
                       + p13.get("layer_norm_fwd", 0)
                       + p14.get("layer_norm_fwd", 0)
                       + p15.get("layer_norm_fwd", 0)
-                      + p16.get("layer_norm_fwd", 0))
+                      + p16.get("layer_norm_fwd", 0)
+                      + p17.get("layer_norm_fwd", 0))
     log(f"  flash_decode at the spec step's 64 query rows: "
         f"{json.dumps(spec_fd)}")
     kernels = (fd, ln, ln_bwd, *rms, fa_fwd, fa_bwd, adam, *fused,
@@ -10589,7 +11527,8 @@ def main() -> int:
                           + p13.get(kr["name"], 0)
                           + p14.get(kr["name"], 0)
                           + p15.get(kr["name"], 0)
-                          + p16.get(kr["name"], 0))
+                          + p16.get(kr["name"], 0)
+                          + p17.get(kr["name"], 0))
     # no model of the JAX package normalises with RMSNorm: its kernels'
     # launches are those of the norm-module parity runs of phase 7
     for kr in rms:

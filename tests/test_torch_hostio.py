@@ -84,8 +84,18 @@ def test_files_are_byte_identical_to_jax(tmp_path):
     assert toff == joff
     assert (tmp_path / "port.bin").read_bytes() == \
         (tmp_path / "jax.bin").read_bytes()
-    # and at the same explicit offsets, out of order and with gaps
-    offs = [4096, 0, 2048, 8000, 9000]
+    # and at the same explicit offsets, out of order and with gaps: the
+    # arrays laid out in the order 2, 0, 4, 1, 3 with 64-byte aligned
+    # gaps between them, so that no two byte ranges overlap (neither
+    # package promises an order for overlapping writes)
+    offs, cursor = [0] * len(arrs), 0
+    for i in (2, 0, 4, 1, 3):
+        cursor = -(-(cursor + 100) // 64) * 64
+        offs[i] = cursor
+        cursor += arrs[i].nbytes
+    ranges = sorted((o, o + a.nbytes) for o, a in zip(offs, arrs))
+    assert all(hi <= lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    assert offs != sorted(offs)
     jhostio.write_arrays(str(tmp_path / "jax2.bin"), arrs, offsets=offs)
     hostio.write_arrays(str(tmp_path / "port2.bin"), ts, offsets=offs)
     assert (tmp_path / "port2.bin").read_bytes() == \

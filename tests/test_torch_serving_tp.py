@@ -47,6 +47,11 @@ TRACE = dict(n_slots=2, num_pages=6, max_prompt_len=16, prefill_chunk=3,
 ROWS = ((14, None), (11, (0.9, 12, 0.9, 17)), (13, (1.4, 0, 1.0, 23)),
         (9, None), (12, (0.8, 0, 0.8, 29)))
 SKEW = {0: (1.0, 0.0), 1: (7.0, 500.0)}  # rank: (dt, start) a clock read
+#: the retry run's clocks and deadline: a retry pass reads rank 0's clock
+#: far fewer than 1000 times and rank 1's at least once, so the deadline
+#: of 1 s falls between them
+RETRY_SKEW = {0: (1e-3, 0.0), 1: (10.0, 500.0)}
+RETRY_DEADLINE = 1.0
 
 
 def _prompts(vocab):
@@ -235,11 +240,55 @@ def overload(clock, tp):
         t=[(r.t_arrival, r.t_first_token, r.t_done) for r in reqs],
         leaked=e.scheduler.allocator.used_count))
 
+# request-level retry under a deadline that falls between the skewed
+# clocks: rid 500 is poisoned at step 6 and again in the first retry pass
+from apex_tpu_torch import resilience as res_mod
+
+class PoisonTwice(res_mod.ServingChaos):
+    def poison_mask(self, occupants, step):
+        mask = super().poison_mask(occupants, step)
+        if mask is not None and len(self.faults_fired) == 1:
+            self.poison_request(500)
+        return mask
+
+def retry_run(clock, tp, seed):
+    import random
+    rng = np.random.default_rng(21)
+    reqs = [sv.Request(prompt=rng.integers(0, cfg.vocab_size,
+                                           size=L).tolist(),
+                       max_new_tokens=6, rid=500 + i)
+            for i, L in enumerate((5, 8))]
+    ring = tel.RingBufferRecorder()
+    chaos = PoisonTwice().poison_request(500, at_step=6)
+    e = sv.ServingEngine(cfg, params, device="cpu", n_slots=2, num_pages=12,
+                         max_prompt_len=16, clock=clock, sink=ring, tp=tp,
+                         chaos=chaos)
+    t0 = clock.t
+    e.generate(list(reqs), max_steps=2000, retry_failed=res_mod.RetryPolicy(
+        attempts=3, retry_on=(Exception,), base_delay=0.01, max_delay=0.01,
+        deadline=spec["retry_deadline"], rng=random.Random(seed)))
+    e.scheduler.check_invariants()
+    span = clock.t - t0
+    retries = [{k: v for k, v in ev.items() if k != "t_wall"}
+               for ev in ring.records
+               if ev.get("event") in ("retry", "retry_deadline")]
+    return json.dumps(dict(
+        outcome=[(r.rid, r.status.value, list(r.out_tokens), r.retries)
+                 for r in reqs],
+        by_status=e.last_stats["by_status"], retries=retries,
+        fired=[list(f) for f in chaos.faults_fired],
+        leaked=e.scheduler.allocator.used_count)), span
+
 if rank < 2:
     dt, start = spec["skew"][str(rank)]
     res["skew/tp2"] = np.array(overload(sv.VirtualClock(dt=dt, start=start),
                                         2))
     res["skew/tp1"] = np.array(overload(sv.VirtualClock(dt=1.0), 1))
+    dt, start = spec["retry_skew"][str(rank)]
+    got, span = retry_run(sv.VirtualClock(dt=dt, start=start), 2, rank)
+    res["retry/tp2"], res["retry/own_span"] = np.array(got), np.array(span)
+    res["retry/tp1"] = np.array(retry_run(
+        sv.VirtualClock(dt=spec["retry_skew"]["0"][0]), 1, 0)[0])
 ps.destroy_model_parallel()
 dist.destroy_process_group()
 np.savez(f"{out}/rank{rank}.npz", **res)
@@ -270,7 +319,8 @@ def world(tmp_path_factory, model):
                         vocab_size=cfg.vocab_size,
                         max_position_embeddings=cfg.max_position_embeddings),
             "trace": TRACE, "prompts": _prompts(cfg.vocab_size),
-            "rows": [list(r) for r in ROWS], "skew": SKEW}
+            "rows": [list(r) for r in ROWS], "skew": SKEW,
+            "retry_skew": RETRY_SKEW, "retry_deadline": RETRY_DEADLINE}
     return spawn_world(tmp_path_factory.mktemp("gloo_serving_tp"), _WORKER,
                        inputs, spec, world=WORLD)
 
@@ -401,6 +451,30 @@ def test_skewed_clocks_take_the_first_ranks_decisions(world):
     # and the trace exercised the clock: deadlines and admission acted
     statuses = {s for _, s, _ in a["outcome"]}
     assert len(statuses) > 1, statuses
+
+
+def test_skewed_clocks_retry_failed_decides_alike(world):
+    """Request-level retry (``generate(retry_failed=)``) under a deadline
+    that falls between the two ranks' clocks: the poisoned request fails
+    again in the first retry pass, and both ranks of the TP 2 engine
+    resubmit it (rank 0's clock is under the deadline, rank 1's far over
+    it), with the first rank's backoff draws, and finish alike, as the
+    TP 1 engine does on rank 0's clock. Over the run rank 1's own clock
+    moved past the deadline and rank 0's did not: decided apart, rank 1
+    would have given up while rank 0 resubmitted, and then waited in the
+    next step's all-reduce for ever."""
+    import json
+
+    a = json.loads(str(world[0]["retry/tp2"]))
+    b = json.loads(str(world[1]["retry/tp2"]))
+    one = json.loads(str(world[0]["retry/tp1"]))
+    assert a == b == one
+    assert a["leaked"] == 0
+    assert [r[3] for r in a["outcome"]] == [2, 0]
+    assert a["by_status"]["completed"] == 2
+    assert [e["event"] for e in a["retries"]] == ["retry"]
+    assert (float(world[0]["retry/own_span"]) < RETRY_DEADLINE
+            < float(world[1]["retry/own_span"]))
 
 
 @pytest.mark.parametrize("tp", [2, 4])
